@@ -1,0 +1,164 @@
+"""ViTEss eval forward: an image pair -> the SE(3) relative pose.
+
+Counterpart of ``rel_pose_tpu/models/vitess.py:124-344`` for the flagship
+configuration (fusion transformer, Essential Matrix Module, quadratic
+positional encoding), eval mode only:
+
+  uint8 or float (B, 2, 3, H, W) raw BGR images, (B, 2, 4) intrinsics
+  -> nearest resize to 224, mean subtraction (1/std folded into conv1)
+  -> ResNet-18 trunk through layer2 -> k=5 extractor block: 576 tokens x 192
+  -> depth-1 self-attention blocks (``ops.vit_stack``, hand kernels on CUDA)
+  -> essential cross block (``ops.essential``, hand kernels on CUDA)
+  -> LayerNorm -> fp32 pose regressor -> ``normalize_preds`` -> (B, 2, 7)
+
+Attribute names reproduce the reference state-dict keys
+(``rel_pose_tpu/utils/convert.py:95-164``).  The module is built without
+initializing its parameters; load a state dict (``utils.convert`` or
+``nn.init.seeded_state_dict``) before use.  ``cfg.compute_dtype`` picks
+fp32 or bf16 activations over fp32 master weights.  ``kernels=False`` runs
+the plain PyTorch versions of the two kernel-backed stages on any device,
+the oracle the kernels are held against.
+"""
+
+import torch
+from torch import nn
+
+from ..nn.extractor import ResidualBlock
+from ..nn.layers import layernorm, linear, mlp
+from ..nn.resnet import ResNetTrunk
+from ..nn.transformer import Block, Mlp
+from ..ops.essential import essential_cross_attention_pair
+from ..ops.essential_block import (essential_block_pair_reference,
+                                   fused_essential_block_pair)
+from ..ops.image import (nearest_resize, normalization_constants,
+                         scale_intrinsics)
+from ..ops.posenc import quadratic_positional_encoding
+from ..ops.vit_stack import (fused_vit_stack, stack_block_params,
+                             vit_stack_reference)
+
+# ModelConfig fields and the only values the port implements so far
+_SLICE = {"fusion_transformer": True, "noess": False,
+          "no_pos_encoding": False, "cross_features": False,
+          "use_single_softmax": False, "l1_pos_encoding": False}
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, dim, num_heads):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj_fundamental = nn.Linear(dim + 6 * num_heads, dim)
+
+
+class CrossBlock(nn.Module):
+    def __init__(self, dim, num_heads):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.cross_attn = CrossAttention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, 4 * dim)
+
+
+class FusionTransformer(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        C = cfg.total_num_features
+        self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, C))
+        self.blocks = nn.ModuleList(
+            [Block(C) for _ in range(cfg.transformer_depth - 1)]
+            + [CrossBlock(C, cfg.num_heads)])
+        self.norm = nn.LayerNorm(C, eps=1e-6)
+
+
+def normalize_preds(Gs, pose_preds):
+    """Re-normalize the quaternion block with floor max(|q|, 0.01) and pin
+    pose 0 to the input ``Gs`` (``models/vitess.py:270-278``)."""
+    q = pose_preds[..., 3:]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True).clamp_min(0.01)
+    normed = torch.cat([pose_preds[..., :3], q], dim=-1)
+    return torch.cat([Gs[:, :1], normed[:, 1:]], dim=1)
+
+
+class ViTEss(nn.Module):
+    def __init__(self, cfg, device="cpu", kernels=True):
+        super().__init__()
+        bad = {k: getattr(cfg, k) for k, v in _SLICE.items()
+               if getattr(cfg, k) != v}
+        if bad or cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise NotImplementedError(
+                f"the PyTorch port implements the flagship eval path only; "
+                f"unsupported settings: {bad or cfg.compute_dtype}")
+        self.cfg = cfg
+        self.kernels = kernels
+        C = cfg.total_num_features
+        with torch.device("meta"):
+            self.resnet = ResNetTrunk()
+            self.extractor_final_conv = ResidualBlock(
+                128, C, 28 - cfg.feature_height + 1)
+            self.fusion_transformer = FusionTransformer(cfg)
+            H, H2 = cfg.regressor_input_dim, cfg.fc_hidden_size
+            self.pose_regressor = nn.Sequential(
+                nn.Linear(H, H2), nn.ReLU(), nn.Linear(H2, H2), nn.ReLU(),
+                nn.Linear(H2, cfg.num_images * cfg.pose_size))
+        self.to_empty(device=device)
+        self.eval()
+
+    @property
+    def compute_dtype(self):
+        return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
+                else torch.float32)
+
+    def _tokens(self, images):
+        """(B, 2, 3, H, W) -> (2B, N, C) tokens in the compute dtype."""
+        dt = self.compute_dtype
+        x = images.reshape((-1,) + images.shape[2:])
+        x = nearest_resize(x, 224).to(dt)
+        mean, inv_std = normalization_constants(dt, x.device)
+        x = x - mean
+        stem_w = self.resnet.conv1.weight.flip(1) * inv_std
+        x = self.resnet(x, stem_weight=stem_w)
+        x = self.extractor_final_conv(x)                  # (2B, C, 24, 24)
+        x = x.reshape(x.shape[0], x.shape[1], -1)
+        return x.transpose(1, 2).contiguous()
+
+    @torch.no_grad()
+    def forward(self, images, intrinsics):
+        """``images (B, 2, 3, H, W)`` uint8 or float raw BGR 0-255,
+        ``intrinsics (B, 2, 4)`` [fx, fy, cx, cy] at H x W ->
+        ``(B, 2, 7)`` fp32 poses (tx ty tz qx qy qz qw), pose 0 the
+        identity."""
+        cfg = self.cfg
+        B = images.shape[0]
+        N, C, heads = cfg.num_patches, cfg.total_num_features, cfg.num_heads
+        ft = self.fusion_transformer
+        intr = scale_intrinsics(intrinsics.float(), images.shape,
+                                cfg.feature_resolution)
+        x = self._tokens(images)
+
+        stacked = stack_block_params(ft.blocks[:-1], self.compute_dtype)
+        vit = fused_vit_stack if self.kernels else vit_stack_reference
+        x = vit(x, stacked, heads, pos=ft.pos_embed)
+
+        cb = ft.blocks[-1]
+        positional = quadratic_positional_encoding(N, intr)
+        f1, f2 = essential_cross_attention_pair(
+            x.reshape(B, 2, N, C), (cb.norm1.weight, cb.norm1.bias),
+            (cb.cross_attn.qkv.weight, cb.cross_attn.qkv.bias),
+            (cb.cross_attn.proj_fundamental.weight,
+             cb.cross_attn.proj_fundamental.bias),
+            positional, heads,
+            block=(fused_essential_block_pair if self.kernels
+                   else essential_block_pair_reference))
+        fund = torch.stack([f1, f2], dim=1).reshape(2 * B, -1, C)
+        fund = fund + mlp(layernorm(fund, cb.norm2.weight, cb.norm2.bias),
+                          cb.mlp.fc1, cb.mlp.fc2)
+        features = layernorm(fund, ft.norm.weight, ft.norm.bias)
+
+        y = features.reshape(B, -1).float()
+        pr = self.pose_regressor
+        y = torch.relu(linear(y, pr[0].weight, pr[0].bias))
+        y = torch.relu(linear(y, pr[2].weight, pr[2].bias))
+        y = linear(y, pr[4].weight, pr[4].bias)
+        pose_preds = y.reshape(B, cfg.num_images, cfg.pose_size)
+        identity = torch.zeros_like(pose_preds)
+        identity[..., 6] = 1.0
+        return normalize_preds(identity, pose_preds)
