@@ -10,6 +10,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   2. build the hand-written CUDA kernels from ``rel_pose_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version on the card, fp32 and
      bf16 (ViT stack at G=16 sequences, essential block at B=8 pairs);
+  3b. the training kernels the same way: the ViT stack's stash against the
+     plain block inputs, the ViT stack backward (dx and the 12 weight
+     gradients, G=16) and the essential block backward (dq, dk, dv, dpos,
+     B=8) against their plain backward versions, and each backward twice
+     for identical bits;
   4. the slice: ``PosePredictor`` over the flagship ``ViTEss`` (depth 6,
      seeded random weights) answers InteriorNet-style 256x256 requests of
      1, 5 and 8 pairs and a Matterport-style 480x640 request resized to
@@ -17,16 +22,36 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (B, 2, 7), pose 0 the identity, unit quaternions (or the 0.01-floor
      case), agree with the plain path on the card, and every kernel's launch
      counter must have risen during this phase;
-  5. times (CUDA events, after warm-up): each kernel and its plain version
-     at the eval shapes of batch 256 in bf16, and the eval forward in
-     pairs/s at batch 256, 256x256 uint8, bf16, preprocessing included.
+  4b. the training slice: the flagship ViTEss (depth 6, seeded weights)
+     takes 3 ``train_step``s (geodesic loss, backward, clip 2.5, Adam,
+     OneCycle) on Matterport-style 384x512 uint8 batches of 4 pairs with
+     random unit-quaternion poses, in fp32 and bf16, with the kernels and on
+     the plain path (``kernels=False``, autograd through the plain
+     versions).  Losses finite; the step-1 loss and every parameter's
+     step-1 gradient (cosine, norm ratio) agree with the plain path;
+     BatchNorm running statistics moved and counted 3 batches; all four
+     kernels' launch counters rose; a checkpoint saved after step 2 and
+     resumed into a fresh model reproduces step 3 bit for bit;
+  5. times (CUDA events, after warm-up): each forward kernel and its plain
+     version at the eval shapes of batch 256 in bf16, and the eval forward
+     in pairs/s at batch 256, 256x256 uint8, bf16, preprocessing included;
+  5b. each backward kernel and its plain version at the training shapes of
+     batch 60 in bf16; ``F.scaled_dot_product_attention`` forward (eval
+     shapes) and backward (training shapes) as the yardstick of the
+     attention parts, timed only; and the training step in pairs/s at batch
+     60, 384x512 uint8 (bench.py's train protocol), fp32 and bf16, kernels
+     and plain path.
 
 The line before the last is the card's name and power limit; the last is
-``{"ok": true, "device": {...}}``.  The run needs no network and starts no
-process besides ``nvidia-smi`` and ``nvcc``, which it waits for.
+``{"ok": true, "device": {...}}``.  Checkpoints go to ``output/`` beside
+this file.  The run needs no network and starts no process besides
+``nvidia-smi`` and ``nvcc``, which it waits for.
 """
 
 import json
+import os
+import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -36,6 +61,13 @@ import torch
 
 SEED = 0
 EVAL_BATCH = 256        # bench.py's eval protocol
+TRAIN_BATCH = 60        # bench.py's train protocol: 384x512 uint8 pairs
+SLICE_TRAIN_BATCH = 4   # the training slice's check batches
+OUTPUT_DIR = pathlib.Path(__file__).resolve().parent / "output"
+# One H100 SXM (NVIDIA data sheet): dense bf16 tensor-core and
+# fp32 non-tensor-core peaks, and the HBM rate, for the kernels' bounds.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+HBM_BYTES_PER_S = 3.35e12
 NVSMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]
 # (fp32, bf16) tolerances, each against the plain PyTorch version on the
@@ -50,6 +82,27 @@ TOKEN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (3e-2, 2e-2)}
 F_RTOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 POSE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 DTYPES = (torch.float32, torch.bfloat16)
+# Backward outputs against the plain backward on the card, ||err|| / ||ref||:
+# fp32 1e-4 -- the same fp32 arithmetic summed in another order (the weight
+# gradients add 9,216 rows in 2,048-row chunks, the plain version in one
+# cuBLAS reduction); bf16 3e-2 -- both round every product operand to bf16
+# at the same points, but a sum-order difference flips a rounding by one ulp
+# (2^-8 relative), and the residual cotangent carries such flips back
+# through 5 blocks.
+GRAD_NORMREL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# Training slice, kernels against the plain path (autograd through the
+# plain versions, which round bf16 elsewhere: it differentiates the rounded
+# forward, the kernels follow the Pallas backward).  Step-1 loss relative:
+# fp32 1e-4 (one depth-6 model summed in another order), bf16 5e-2 (the
+# bf16 forward flips, as POSE_ATOL).  Per-parameter step-1 gradient, as
+# rel_pose_tpu/utils/gradcheck.py measures it: cosine >= LEAF_COS and
+# |norm ratio - 1| <= LEAF_RATIO, the cosine skipped for leaves below 1e-4
+# of the largest gradient norm; fp32 differs by sum order only, bf16 by the
+# rounding points above, amplified by training BatchNorm's division by
+# batch deviations.
+LOSS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+LEAF_COS = {torch.float32: 0.9999, torch.bfloat16: 0.98}
+LEAF_RATIO = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 
 
 def log(*args):
@@ -183,7 +236,90 @@ def phase_kernels(device):
         raise SystemExit(f"kernel checks failed: {failures}")
 
 
+def normrel(out, ref):
+    """||out - ref|| / ||ref|| in fp64 (the gradient checks' metric)."""
+    ref = ref.double()
+    return ((out.double() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def check_grad(name, out, ref, dtype, failures):
+    """A backward output against its plain version: ||err|| / ||ref|| <=
+    GRAD_NORMREL[dtype]; max |err| reported beside it."""
+    rel = normrel(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = bool(np.isfinite(rel)) and rel <= GRAD_NORMREL[dtype]
+    log(f"[check] {name} {str(dtype)[6:]}: normrel={rel:.3e} "
+        f"max_abs_err={err:.3e} max|ref|={ref.float().abs().max().item():.3e}"
+        f" tol={GRAD_NORMREL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{name} {dtype}")
+    return err
+
+
+def phase_kernels_bwd(device):
+    """(3b) the stash and both backward kernels against their plain
+    versions on the card, fp32 and bf16, and bitwise repeatability."""
+    from rel_pose_tpu_torch.ops import essential_block as te
+    from rel_pose_tpu_torch.ops import vit_stack as tv
+    from rel_pose_tpu_torch.nn.layers import layernorm
+    failures = []
+    errs = {}
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 3)
+        x, stacked, pos = vit_inputs(rng, 16, dtype, device)
+        out, xs = tv._launch_forward(x, stacked, 3, pos, stash=True)
+        plain_xs = []
+        ref = tv.vit_stack_reference(x, stacked, 3, pos, stash=plain_xs)
+        nostash = tv.fused_vit_stack(x, stacked, 3, pos)
+        torch.cuda.synchronize()
+        if not torch.equal(out, nostash):
+            failures.append(f"stash changed the output {dtype}")
+        check_tokens("vit_stack(stash) out G=16", out, ref, dtype, failures)
+        for i, want in enumerate(plain_xs):
+            check_tokens(f"vit_stack stash[{i}] G=16", xs[i], want, dtype,
+                         failures)
+        g = torch.from_numpy(rng.standard_normal(x.shape).astype(
+            np.float32)).to(device, dtype)
+        dx, grads = tv.fused_vit_stack_bwd(xs, g, stacked, 3)
+        dx2, grads2 = tv.fused_vit_stack_bwd(xs, g, stacked, 3)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, dx2) and all(
+                torch.equal(grads[k], grads2[k]) for k in grads)):
+            failures.append(f"vit_stack_bwd not bitwise repeatable {dtype}")
+        rdx, rgrads = tv.vit_stack_bwd_reference(xs, g, stacked, 3)
+        e = [check_grad("vit_stack_bwd dx G=16", dx, rdx, dtype, failures)]
+        for k in grads:
+            e.append(check_grad(f"vit_stack_bwd d{k} G=16", grads[k],
+                                rgrads[k], dtype, failures))
+        errs["vit_stack_bwd", dtype] = max(e)
+        del x, stacked, pos, out, xs, g, dx, dx2, grads, grads2, rgrads
+
+        xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
+        qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
+        df = torch.from_numpy((0.1 * rng.standard_normal(
+            (8, 2, 3, 70, 70))).astype(np.float32)).to(device)
+        dq, dp = te.fused_essential_block_bwd(qkv, positional, df, 3)
+        dq2, dp2 = te.fused_essential_block_bwd(qkv, positional, df, 3)
+        torch.cuda.synchronize()
+        if not (torch.equal(dq, dq2) and torch.equal(dp, dp2)):
+            failures.append(
+                f"essential_block_bwd not bitwise repeatable {dtype}")
+        rq, rp = te.essential_block_bwd_reference(qkv, positional, df, 3)
+        C = 192
+        e = [check_grad(f"essential_block_bwd {part} B=8",
+                        dq[..., sl], rq[..., sl], dtype, failures)
+             for part, sl in (("dq", slice(0, C)), ("dk", slice(C, 2 * C)),
+                              ("dv", slice(2 * C, 3 * C)))]
+        e.append(check_grad("essential_block_bwd dpos B=8", dp, rp, dtype,
+                            failures))
+        errs["essential_block_bwd", dtype] = max(e)
+    if failures:
+        raise SystemExit(f"backward kernel checks failed: {failures}")
+    return errs
+
+
 def make_models(device):
+    """The eval models (dtype, kernels) and their seeded state dict."""
     from rel_pose_tpu_torch.config import ModelConfig
     from rel_pose_tpu_torch.models.vitess import ViTEss
     from rel_pose_tpu_torch.nn.init import seeded_state_dict
@@ -197,7 +333,7 @@ def make_models(device):
                 sd = seeded_state_dict(m, SEED)
             m.load_state_dict(sd)
             models[dtype, kernels] = m
-    return models
+    return models, sd
 
 
 def requests(rng):
@@ -260,7 +396,7 @@ def phase_slice(device, models):
     got = serve(kernels=True)
     torch.cuda.synchronize()
     launches = {"vit_stack": fused_vit_stack.launches,
-                "essential_block": fused_essential_block_pair.launches}
+                "essential_block_pair": fused_essential_block_pair.launches}
     log(f"[slice] kernel launches during the slice: {launches}")
     plain = serve(kernels=False)
     failures = [f"{k} never launched" for k, v in launches.items()
@@ -271,6 +407,59 @@ def phase_slice(device, models):
     if failures:
         raise SystemExit(f"slice checks failed: {failures}")
     return launches
+
+
+def bound(flops, nbytes, dtype):
+    """(ms, "operations" or "bytes"): the least time one H100 needs for
+    ``flops`` at its peak for ``dtype`` and ``nbytes`` at its HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def vit_flops(G, N, C, hidden, depth):
+    """Products of the stack's forward: 4 Linears (2 M C (3C + C + 2
+    hidden)) and the two attention products (2 * 2 N^2 C per sequence)."""
+    M = G * N
+    return depth * (2 * M * C * (4 * C + 2 * hidden) + 4 * G * N * N * C)
+
+
+def essential_fwd_flops(B, N, C, heads, d=64, e=70):
+    """qkv Linear of 2B images, then per (pair, direction, head) the scores
+    (2 N^2 d), P . vb (2 N^2 e) and va^T av (2 N e^2)."""
+    return (2 * 2 * B * N * 3 * C * C
+            + 2 * B * heads * (2 * N * N * d + 2 * N * N * e + 2 * N * e * e))
+
+
+def essential_bwd_flops(B, N, heads, d=64, e=70):
+    """Per combo: the scores (2 N^2 d), dva, dvb, dA (3 x 2 N^2 e), dq, dk
+    (2 x 2 N^2 d) and vb dF^T, va dF (2 x 2 N e^2)."""
+    return 2 * B * heads * (3 * 2 * N * N * d + 3 * 2 * N * N * e
+                            + 2 * 2 * N * e * e)
+
+
+def sdpa_ms(G, dtype, device, backward):
+    """One ``F.scaled_dot_product_attention`` call at (G, 3, 576, 64):
+    the forward, or the backward of a kept forward -- the yardstick of the
+    kernels' attention parts, never called by the port."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = (torch.randn((G, 3, 576, 64), generator=gen, device=device,
+                           dtype=dtype, requires_grad=backward)
+               for _ in range(3))
+    if not backward:
+        with torch.no_grad():
+            return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v), 3)
+    out = F.scaled_dot_product_attention(q, k, v)
+    g = torch.randn_like(out)
+    return cuda_time_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), g, retain_graph=True), 3)
 
 
 def phase_times(device, models, card):
@@ -293,34 +482,272 @@ def phase_times(device, models, card):
     ms = cuda_time_ms(lambda: fused_vit_stack(x, stacked, 3, pos), 3)
     plain_ms = cuda_time_ms(lambda: vit_stack_reference(x, stacked, 3, pos),
                             3)
-    rows["vit_stack"] = (err, ms, plain_ms)
+    lib_ms = sdpa_ms(2 * B, dtype, device, backward=False)
+    b = bound(vit_flops(2 * B, 576, 192, 768, 5),
+              2 * nbytes(x) + nbytes(pos, *stacked.values()), dtype)
+    rows["vit_stack"] = (err, ms, plain_ms, lib_ms, b)
     del x, stacked, pos
 
     args = essential_inputs(rng, B, dtype, device)
     f = fused_essential_block_pair(*args, 3)
     err = check_f(f"essential_block B={B}", f,
                   essential_block_pair_reference(*args, 3), dtype, failures)
-    del f
     ms = cuda_time_ms(lambda: fused_essential_block_pair(*args, 3), 3)
     plain_ms = cuda_time_ms(
         lambda: essential_block_pair_reference(*args, 3), 3)
-    rows["essential_block"] = (err, ms, plain_ms)
-    del args
+    xpair, ln, qkvp, positional = args
+    small = sum(t.numel() for t in (*ln, *qkvp, positional))
+    b = bound(essential_fwd_flops(B, 576, 192, 3),
+              nbytes(xpair, f) + 2 * small, dtype)   # weights, pos as bf16
+    rows["essential_block_pair"] = (err, ms, plain_ms, None, b)
+    del args, f, xpair, positional
     if failures:
         raise SystemExit(f"batch-256 kernel checks failed: {failures}")
-    for name, (err, ms, plain_ms) in rows.items():
+    for name, (err, ms, plain_ms, lib_ms, b) in rows.items():
         log(f"[time] {name} bf16 batch {B}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms ({card})")
+            f"{plain_ms:.3f} ms, library {lib_ms} ms, bound {b[0]:.3f} ms "
+            f"({b[1]}) ({card})")
 
     images = torch.from_numpy(rng.integers(
         0, 256, (B, 2, 3, 256, 256), dtype=np.uint8)).to(device)
     intr = torch.full((B, 2, 4), 128.0, device=device)
     for kernels in (True, False):
         model = models[dtype, kernels]
-        ms = cuda_time_ms(lambda: model(images, intr), 3)
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: model(images, intr), 3)
         log(f"[time] eval forward bf16 batch {B} 256x256 uint8 "
             f"({'kernels' if kernels else 'plain path'}): {ms:.3f} ms, "
             f"{B / ms * 1e3:.2f} pairs/s ({card})")
+    return rows
+
+
+# ------------------------------------------------------- training slice --
+
+def random_poses(rng, B):
+    """(B, 2, 7): pose 0 the identity, pose 1 a random unit quaternion
+    (W last, rotations below ~60 degrees) and a translation of ~0.5."""
+    poses = np.zeros((B, 2, 7), np.float32)
+    poses[..., 6] = 1.0
+    q = rng.standard_normal((B, 4))
+    q[:, 3] = np.abs(q[:, 3]) + 2.0
+    poses[:, 1, 3:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    poses[:, 1, :3] = 0.3 * rng.standard_normal((B, 3))
+    return poses
+
+
+def train_batch(rng, B, device):
+    """Matterport-style (images 384x512 uint8, poses, intrinsics) on the
+    card."""
+    from rel_pose_tpu_torch.infer import MATTERPORT_INTRINSICS
+    images = rng.integers(0, 256, (B, 2, 3, 384, 512), dtype=np.uint8)
+    intr = np.tile(MATTERPORT_INTRINSICS, (B, 2, 1))
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (images, random_poses(rng, B), intr))
+
+
+def train_model(dtype, sd, device, kernels):
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    from rel_pose_tpu_torch.train.optim import make_optimizer
+    model = ViTEss(ModelConfig(compute_dtype=str(dtype)[6:]), device=device,
+                   kernels=kernels)
+    model.load_state_dict(sd)
+    opt, sched = make_optimizer(model, lr=5e-4, steps=1000, warmup=100)
+    return model, opt, sched
+
+
+def kernel_counters():
+    from rel_pose_tpu_torch.ops import essential_block as te
+    from rel_pose_tpu_torch.ops import vit_stack as tv
+    return {"vit_stack": tv.fused_vit_stack,
+            "vit_stack_bwd": tv.fused_vit_stack_bwd,
+            "essential_block_pair": te.fused_essential_block_pair,
+            "essential_block_bwd": te.fused_essential_block_bwd}
+
+
+def compare_leaves(dtype, grads, plain, failures):
+    """Per-parameter cosine and norm ratio of the kernel path's step-1
+    gradient against the plain path's."""
+    scale = max(g.norm().item() for g in plain.values())
+    worst_cos, worst_ratio, bad = 1.0, 0.0, []
+    for name, g in grads.items():
+        ref = plain[name].double()
+        gn, rn = g.double().norm().item(), ref.norm().item()
+        ratio = abs(gn / rn - 1) if rn > 0 else abs(gn)
+        cos = ((g.double() * ref).sum().item() / (gn * rn)
+               if gn * rn > 0 else 1.0)
+        if rn >= 1e-4 * scale:
+            worst_cos = min(worst_cos, cos)
+            worst_ratio = max(worst_ratio, ratio)
+            if cos < LEAF_COS[dtype] or ratio > LEAF_RATIO[dtype]:
+                bad.append(f"{name} cos {cos:.6f} ratio {gn / rn:.4f}")
+    log(f"[train] {str(dtype)[6:]} step-1 gradients, {len(grads)} leaves: "
+        f"min cosine {worst_cos:.6f} (>= {LEAF_COS[dtype]}), max |norm "
+        f"ratio - 1| {worst_ratio:.3e} (<= {LEAF_RATIO[dtype]}) "
+        f"{'ok' if not bad else 'FAIL ' + '; '.join(bad[:5])}")
+    if bad:
+        failures.append(f"step-1 gradients {dtype}")
+
+
+def phase_train(device, sd):
+    """(4b) three train steps per dtype, kernels and plain path; see the
+    module docstring.  Deterministic algorithms on (cuDNN and the rest), so
+    that a resumed step can be compared bit for bit."""
+    from rel_pose_tpu_torch.train import checkpoint
+    from rel_pose_tpu_torch.train.step import train_step
+    counters = kernel_counters()
+    ckpt_dir = OUTPUT_DIR / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    failures = []
+    for c in counters.values():
+        c.launches = 0
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 4)
+        batches = [train_batch(rng, SLICE_TRAIN_BATCH, device)
+                   for _ in range(3)]
+        runs = {}
+        for kernels in (True, False):
+            model, opt, sched = train_model(dtype, sd, device, kernels)
+            bn0 = {k: v.clone() for k, v in model.state_dict().items()
+                   if "running" in k}
+            losses, grads1 = [], None
+            name = f"run_{str(dtype)[6:]}"
+            for step, batch in enumerate(batches):
+                if kernels and step == 2:
+                    checkpoint.save_checkpoint(
+                        checkpoint.checkpoint_path(name, 2, str(ckpt_dir)),
+                        model, opt, sched)
+                metrics, poses = train_step(model, opt, sched, *batch)
+                losses.append(metrics["loss"].item())
+                if step == 0:
+                    grads1 = {n: p.grad.detach().clone()
+                              for n, p in model.named_parameters()}
+            runs[kernels] = (losses, grads1)
+            log(f"[train] {str(dtype)[6:]} "
+                f"{'kernels' if kernels else 'plain path'}: losses "
+                f"{[round(v, 6) for v in losses]}")
+            sdict = model.state_dict()
+            moved = all(not torch.equal(sdict[k], v) for k, v in bn0.items()
+                        if k.endswith("running_mean"))
+            counts = {int(v) for k, v in sdict.items()
+                      if k.endswith("num_batches_tracked")}
+            if not (moved and counts == {3}):
+                failures.append(f"BatchNorm state {dtype} {kernels}: moved "
+                                f"{moved}, counts {counts}")
+            if not all(np.isfinite(losses)) or poses.shape != (
+                    SLICE_TRAIN_BATCH, 2, 7):
+                failures.append(f"losses / poses {dtype} {kernels}")
+            if kernels:
+                fresh, opt2, sched2 = train_model(dtype, sd, device, True)
+                start = checkpoint.resume(name, fresh, opt2, sched2,
+                                          str(ckpt_dir))
+                m3, _ = train_step(fresh, opt2, sched2, *batches[2])
+                same = start == 2 and m3["loss"].item() == losses[2] and all(
+                    torch.equal(a, b) for a, b in zip(
+                        fresh.state_dict().values(), sdict.values()))
+                log(f"[train] {str(dtype)[6:]} resume from step {start}: "
+                    f"step 3 {'bit for bit' if same else 'DIFFERS'}")
+                if not same:
+                    failures.append(f"resume {dtype}")
+                del fresh, opt2, sched2
+            del model, opt, sched
+        (lk, gk), (lp, gp) = runs[True], runs[False]
+        rel = abs(lk[0] - lp[0]) / abs(lp[0])
+        ok = rel <= LOSS_RTOL[dtype]
+        log(f"[train] {str(dtype)[6:]} step-1 loss kernels {lk[0]:.6f} plain "
+            f"{lp[0]:.6f} rel {rel:.3e} (<= {LOSS_RTOL[dtype]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"step-1 loss {dtype}")
+        compare_leaves(dtype, gk, gp, failures)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"[train] kernel launches during the training slice: {launches}")
+    failures += [f"{k} never launched" for k, v in launches.items()
+                 if v <= 0]
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if failures:
+        raise SystemExit(f"training slice checks failed: {failures}")
+    return launches
+
+
+def phase_times_train(device, sd, card):
+    """(5b) the backward kernels at the training shapes of batch 60 (bf16)
+    and the training step in pairs/s."""
+    from rel_pose_tpu_torch.nn.layers import layernorm
+    from rel_pose_tpu_torch.ops import essential_block as te
+    from rel_pose_tpu_torch.ops import vit_stack as tv
+    from rel_pose_tpu_torch.train.step import train_step
+    B, G = TRAIN_BATCH, 2 * TRAIN_BATCH
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(SEED + 5)
+    rows, failures = {}, []
+
+    x, stacked, pos = vit_inputs(rng, G, dtype, device)
+    _, xs = tv._launch_forward(x, stacked, 3, pos, stash=True)
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(
+        np.float32)).to(device, dtype)
+    dx, grads = tv.fused_vit_stack_bwd(xs, g, stacked, 3)
+    rdx, rgrads = tv.vit_stack_bwd_reference(xs, g, stacked, 3)
+    err = max([check_grad(f"vit_stack_bwd dx G={G}", dx, rdx, dtype,
+                          failures)]
+              + [check_grad(f"vit_stack_bwd d{k} G={G}", grads[k],
+                            rgrads[k], dtype, failures) for k in grads])
+    del dx, grads, rdx, rgrads
+    ms = cuda_time_ms(lambda: tv.fused_vit_stack_bwd(xs, g, stacked, 3), 3)
+    plain_ms = cuda_time_ms(
+        lambda: tv.vit_stack_bwd_reference(xs, g, stacked, 3), 2)
+    lib_ms = sdpa_ms(G, dtype, device, backward=True)
+    n_params = sum(v.numel() for v in stacked.values())
+    b = bound(2 * vit_flops(G, 576, 192, 768, 5),
+              nbytes(xs) + 2 * nbytes(g) + nbytes(*stacked.values())
+              + 4 * n_params, dtype)
+    rows["vit_stack_bwd"] = (err, ms, plain_ms, lib_ms, b)
+    del x, stacked, pos, xs, g
+
+    xpair, ln, qkvp, positional = essential_inputs(rng, B, dtype, device)
+    qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
+    pos = positional.to(dtype)
+    df = torch.from_numpy((0.1 * rng.standard_normal(
+        (B, 2, 3, 70, 70))).astype(np.float32)).to(device)
+    dq, dp = te.fused_essential_block_bwd(qkv, pos, df, 3)
+    rq, rp = te.essential_block_bwd_reference(qkv, pos, df, 3)
+    err = max(check_grad(f"essential_block_bwd dqkv B={B}", dq, rq, dtype,
+                         failures),
+              check_grad(f"essential_block_bwd dpos B={B}", dp, rp, dtype,
+                         failures))
+    del rq, rp
+    ms = cuda_time_ms(lambda: te.fused_essential_block_bwd(qkv, pos, df, 3),
+                      3)
+    plain_ms = cuda_time_ms(
+        lambda: te.essential_block_bwd_reference(qkv, pos, df, 3), 2)
+    b = bound(essential_bwd_flops(B, 576, 3),
+              2 * nbytes(qkv) + nbytes(pos, df, dp), dtype)
+    rows["essential_block_bwd"] = (err, ms, plain_ms, None, b)
+    del xpair, qkv, pos, df, dq, dp
+    if failures:
+        raise SystemExit(f"batch-60 backward checks failed: {failures}")
+    for name, (err, ms, plain_ms, lib_ms, b) in rows.items():
+        log(f"[time] {name} bf16 batch {B}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, library {lib_ms} ms, bound {b[0]:.3f} ms "
+            f"({b[1]}) ({card})")
+
+    batch = train_batch(rng, B, device)
+    for dtype in DTYPES:
+        for kernels in (True, False):
+            model, opt, sched = train_model(dtype, sd, device, kernels)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_time_ms(lambda: train_step(model, opt, sched, *batch),
+                              3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"[time] train step {str(dtype)[6:]} batch {B} 384x512 uint8 "
+                f"({'kernels' if kernels else 'plain path'}): {ms:.3f} ms, "
+                f"{B / ms * 1e3:.2f} pairs/s, peak {peak:.2f} GiB ({card})")
+            del model, opt, sched
     return rows
 
 
@@ -328,24 +755,43 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    # deterministic cuBLAS for the training slice's bitwise resume check
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = torch.device("cuda:0")
     card = phase_device()
     phase_build()
     phase_kernels(device)
-    models = make_models(device)
-    launches = phase_slice(device, models)
+    bwd_errs = phase_kernels_bwd(device)
+    models, sd = make_models(device)
+    eval_launches = phase_slice(device, models)
+    launches = phase_train(device, sd)
     rows = phase_times(device, models, card)
+    del models
+    rows.update(phase_times_train(device, sd, card))
+    log(f"[check] backward kernels at G=16 / B=8, max |err|: "
+        f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
+    log(f"[slice] eval launches {eval_launches}, training launches "
+        f"{launches}")
     sources = {
         "vit_stack": ("rel_pose_tpu_torch/csrc/vit_stack.cu",
                       "rel_pose_tpu/ops/pallas_vit.py:94"),
-        "essential_block": ("rel_pose_tpu_torch/csrc/essential_block.cu",
-                            "rel_pose_tpu/ops/pallas_essential_block.py:225"),
+        "vit_stack_bwd": ("rel_pose_tpu_torch/csrc/vit_stack.cu",
+                          "rel_pose_tpu/ops/pallas_vit_bwd.py:149"),
+        "essential_block_pair": (
+            "rel_pose_tpu_torch/csrc/essential_block.cu",
+            "rel_pose_tpu/ops/pallas_essential_block.py:225"),
+        "essential_block_bwd": (
+            "rel_pose_tpu_torch/csrc/essential_block_bwd.cu",
+            "rel_pose_tpu/ops/pallas_essential_block_bwd.py:35"),
     }
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": rows[name][0], "ms": rows[name][1],
-                "plain_ms": rows[name][2]}
-               for name, (src, rep) in sources.items()]
+    kernels = []
+    for name, (src, rep) in sources.items():
+        err, ms, plain_ms, lib_ms, (b_ms, b_by) = rows[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,17 +1,22 @@
 """rel_pose_tpu_torch -- the PyTorch + CUDA (Hopper) port of rel_pose_tpu.
 
-A second package beside the JAX one, which stays the reference.  This slice
-is the flagship eval forward served by ``PosePredictor`` on one GPU; it
-imports ``torch`` and never ``jax``, nor anything of the JAX package
-(``config.ModelConfig`` is a pinned copy of the JAX one).
+A second package beside the JAX one, which stays the reference.  It holds
+the flagship eval forward served by ``PosePredictor`` and its single-GPU
+training step; it imports ``torch`` and never ``jax``, nor anything of the
+JAX package (``config.ModelConfig`` is a pinned copy of the JAX one).
 
 Layer map (bottom-up), each module named after its JAX counterpart:
   config    ModelConfig
-  csrc/     hand-written CUDA kernels for sm_90a (ViT stack, essential block)
-  nn/       eval-mode layers, ResNet-18 trunk, extractor block, ViT block
+  csrc/     hand-written CUDA kernels for sm_90a (ViT stack and essential
+            block, forward and backward)
+  geom/     SE(3) compose / inverse / log and the geodesic loss
+  nn/       layers (eval-folded and training BatchNorm), ResNet-18 trunk,
+            extractor block, ViT block
   ops/      image preprocessing, positional encoding, the kernel wrappers
-            with their plain PyTorch versions, and the nvcc build
+            (autograd Functions) with their plain PyTorch versions, and the
+            nvcc build
   models/   ViTEss: image pair -> (B, 2, 7) poses
+  train/    train_step / eval_step, Adam + OneCycle, .pth checkpoints
   utils/    weights from the JAX package or a reference .pth
   infer     PosePredictor, the serving entry point
 """

@@ -254,8 +254,8 @@ static cudaError_t essential_block_pair(const T* xpair, const float* lns,
                                         int C, int heads, cudaStream_t st) {
   if (C != heads * kEbHeadDim) return cudaErrorInvalidValue;
   const int M = 2 * B * N;
-  cudaError_t err = launch_layernorm<T>(xpair, nullptr, nullptr, lns, lnb, y,
-                                        M, N, C, st);
+  cudaError_t err = launch_layernorm<T>(xpair, nullptr, nullptr, nullptr,
+                                        lns, lnb, y, nullptr, M, N, C, st);
   if (err != cudaSuccess) return err;
   err = launch_gemm<T, kRounded>(y, w, bias, nullptr, qkv, M, 3 * C, C, st);
   if (err != cudaSuccess) return err;

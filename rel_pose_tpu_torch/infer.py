@@ -83,8 +83,9 @@ class PosePredictor:
                               else np.asarray(intrinsics, np.float32))
 
     @classmethod
-    def from_checkpoint(cls, path, cfg=None, *, device="cpu", **kwargs):
-        """Build from a reference ``.pth`` checkpoint."""
+    def from_checkpoint(cls, path, cfg=None, *, device="cuda", **kwargs):
+        """Build from a reference ``.pth`` checkpoint (a ``{"model", ...}``
+        dict, as ``train.checkpoint`` writes, or a bare state dict)."""
         if not str(path).endswith(".pth"):
             raise NotImplementedError(
                 "the PyTorch port loads reference .pth checkpoints only")

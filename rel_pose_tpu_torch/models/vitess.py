@@ -1,8 +1,8 @@
-"""ViTEss eval forward: an image pair -> the SE(3) relative pose.
+"""ViTEss forward: an image pair -> the SE(3) relative pose.
 
 Counterpart of ``rel_pose_tpu/models/vitess.py:124-344`` for the flagship
 configuration (fusion transformer, Essential Matrix Module, quadratic
-positional encoding), eval mode only:
+positional encoding):
 
   uint8 or float (B, 2, 3, H, W) raw BGR images, (B, 2, 4) intrinsics
   -> nearest resize to 224, mean subtraction (1/std folded into conv1)
@@ -17,7 +17,14 @@ initializing its parameters; load a state dict (``utils.convert`` or
 ``nn.init.seeded_state_dict``) before use.  ``cfg.compute_dtype`` picks
 fp32 or bf16 activations over fp32 master weights.  ``kernels=False`` runs
 the plain PyTorch versions of the two kernel-backed stages on any device,
-the oracle the kernels are held against.
+differentiated by autograd: the oracle the kernels are held against.
+
+The model is built in eval mode.  In training mode (``model.train()``) the
+BatchNorms run on batch statistics and move their running statistics, and
+a forward under autograd reaches the two stages' ``autograd.Function``s
+(``ops.vit_stack``, ``ops.essential_block``).  Eval callers run it under
+``torch.no_grad()`` or ``torch.inference_mode()``, where neither stage
+keeps anything for a backward.
 """
 
 import torch
@@ -79,13 +86,13 @@ def normalize_preds(Gs, pose_preds):
 
 
 class ViTEss(nn.Module):
-    def __init__(self, cfg, device="cpu", kernels=True):
+    def __init__(self, cfg, device="cuda", kernels=True):
         super().__init__()
         bad = {k: getattr(cfg, k) for k, v in _SLICE.items()
                if getattr(cfg, k) != v}
         if bad or cfg.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                f"the PyTorch port implements the flagship eval path only; "
+                f"the PyTorch port implements the flagship path only; "
                 f"unsupported settings: {bad or cfg.compute_dtype}")
         self.cfg = cfg
         self.kernels = kernels
@@ -120,12 +127,11 @@ class ViTEss(nn.Module):
         x = x.reshape(x.shape[0], x.shape[1], -1)
         return x.transpose(1, 2).contiguous()
 
-    @torch.no_grad()
-    def forward(self, images, intrinsics):
+    def forward(self, images, intrinsics, Gs=None):
         """``images (B, 2, 3, H, W)`` uint8 or float raw BGR 0-255,
         ``intrinsics (B, 2, 4)`` [fx, fy, cx, cy] at H x W ->
-        ``(B, 2, 7)`` fp32 poses (tx ty tz qx qy qz qw), pose 0 the
-        identity."""
+        ``(B, 2, 7)`` fp32 poses (tx ty tz qx qy qz qw).  Pose 0 is taken
+        from ``Gs (B, 2, 7)``, the identity by default."""
         cfg = self.cfg
         B = images.shape[0]
         N, C, heads = cfg.num_patches, cfg.total_num_features, cfg.num_heads
@@ -159,6 +165,7 @@ class ViTEss(nn.Module):
         y = torch.relu(linear(y, pr[2].weight, pr[2].bias))
         y = linear(y, pr[4].weight, pr[4].bias)
         pose_preds = y.reshape(B, cfg.num_images, cfg.pose_size)
-        identity = torch.zeros_like(pose_preds)
-        identity[..., 6] = 1.0
-        return normalize_preds(identity, pose_preds)
+        if Gs is None:
+            Gs = torch.zeros_like(pose_preds)
+            Gs[..., 6] = 1.0
+        return normalize_preds(Gs, pose_preds)

@@ -1,7 +1,8 @@
 """Residual conv block from the ResNet trunk to the transformer tokens.
 
 Counterpart of ``rel_pose_tpu/nn/extractor.py:40-55`` (the reference's
-``ResidualBlock(128, 192, 'batch', kernel_size=5)``), eval mode:
+``ResidualBlock(128, 192, 'batch', kernel_size=5)``), BN folded in eval
+mode and on batch statistics in training mode (``nn.layers.conv_bn``):
 
   y = relu(BN(conv3x3 pad1 (in->out)))
   y = relu(BN(conv kxk no-pad (out->out)))
@@ -17,7 +18,7 @@ map and the duplicate is dropped on load.
 import torch
 from torch import nn
 
-from .layers import conv_bn_eval
+from .layers import conv_bn
 
 
 class ResidualBlock(nn.Module):
@@ -32,7 +33,8 @@ class ResidualBlock(nn.Module):
         self.norm3 = nn.BatchNorm2d(out_ch)
 
     def forward(self, x):
-        y = torch.relu(conv_bn_eval(x, self.conv1, self.norm1))
-        y = torch.relu(conv_bn_eval(y, self.conv2, self.norm2))
-        x = conv_bn_eval(x, self.downsample[0], self.norm3)
+        t = self.training
+        y = torch.relu(conv_bn(x, self.conv1, self.norm1, t))
+        y = torch.relu(conv_bn(y, self.conv2, self.norm2, t))
+        x = conv_bn(x, self.downsample[0], self.norm3, t)
         return torch.relu(x + y)

@@ -1,4 +1,4 @@
-"""Eval-mode NN primitives on tensors, with the JAX package's numerics.
+"""NN primitives on tensors, with the JAX package's numerics.
 
 Counterpart of ``rel_pose_tpu/nn/layers.py``.  Weights are in PyTorch's
 layouts (Linear ``(out, in)``, Conv2d OIHW) and stay fp32; each function
@@ -8,7 +8,8 @@ casts them to the activation dtype where the JAX package does:
     added in that dtype (``nn/layers.py:46-50``);
   * ``layernorm``: eps 1e-6, fp32 statistics (``:59-68``);
   * ``conv_bn_eval``: eval BatchNorm folded into the conv in fp32
-    (``:146-168``);
+    (``:146-168``); ``conv_bn`` picks it or, in training, the explicit
+    conv and ``batchnorm_train`` (``:82-111``);
   * ``max_pool_2d``: torch semantics, -inf padding (``:173-194``);
   * ``gelu``: exact erf in fp32, the tanh form in bf16 (``:199-209``),
     evaluated in fp32 and rounded to the input dtype.
@@ -46,6 +47,41 @@ def conv_bn_eval(x, conv, bn, weight=None):
         b = b + conv.bias * g
     y = F.conv2d(x, w.to(x.dtype), None, conv.stride, conv.padding)
     return y + b.to(x.dtype)[:, None, None]
+
+
+def batchnorm_train(x, bn):
+    """Training-mode BatchNorm over NCHW with the JAX formula
+    (``nn/layers.py:93-111``): fp32 batch statistics with
+    var = E[x^2] - mean^2, normalized in fp32 and cast to x.dtype.  The
+    running statistics of ``bn`` move in place, outside autograd, with
+    momentum 0.1 and the unbiased variance; ``num_batches_tracked`` += 1."""
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = xf.square().mean((0, 2, 3)) - mean.square()
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var
+                             + m * (var * (n / max(n - 1, 1))))
+        bn.num_batches_tracked += 1
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * inv[:, None, None] \
+        + bn.bias[:, None, None]
+    return y.to(x.dtype)
+
+
+def conv_bn(x, conv, bn, training, weight=None):
+    """``conv`` then ``bn``: folded (:func:`conv_bn_eval`) in eval mode,
+    an explicit conv and :func:`batchnorm_train` in training mode, as
+    ``conv_bn_apply`` (``nn/layers.py:146-168``) does."""
+    if not training:
+        return conv_bn_eval(x, conv, bn, weight)
+    w = conv.weight if weight is None else weight
+    y = F.conv2d(x, w.to(x.dtype), None, conv.stride, conv.padding)
+    if conv.bias is not None:
+        y = y + conv.bias.to(x.dtype)[:, None, None]
+    return batchnorm_train(y, bn)
 
 
 def max_pool_2d(x, window=3, stride=2, padding=1):

@@ -1,4 +1,4 @@
-"""ResNet-18 trunk through layer2, eval mode.
+"""ResNet-18 trunk through layer2.
 
 Counterpart of ``rel_pose_tpu/nn/resnet.py:97-154`` with the plain 7x7/s2
 stem (the JAX eval path's space-to-depth stem is a TPU rewrite of the same
@@ -10,14 +10,16 @@ as they are.
   layer1: 2x BasicBlock(64->64, stride 1)
   layer2: BasicBlock(64->128, stride 2, 1x1 downsample) + BasicBlock(128)
 
-(N, 3, 224, 224) -> (N, 128, 28, 28).  The conv trunk runs on cuDNN on the
-GPU; it holds no hand kernel.
+(N, 3, 224, 224) -> (N, 128, 28, 28).  In eval mode each BN folds into its
+conv; in training mode (``self.training``) BN runs on batch statistics and
+updates its running statistics (``nn.layers.conv_bn``).  The conv trunk runs
+on cuDNN on the GPU; it holds no hand kernel.
 """
 
 import torch
 from torch import nn
 
-from .layers import conv_bn_eval, max_pool_2d
+from .layers import conv_bn, max_pool_2d
 
 
 class BasicBlock(nn.Module):
@@ -34,10 +36,11 @@ class BasicBlock(nn.Module):
                 nn.BatchNorm2d(out_ch))
 
     def forward(self, x):
-        y = torch.relu(conv_bn_eval(x, self.conv1, self.bn1))
-        y = conv_bn_eval(y, self.conv2, self.bn2)
+        t = self.training
+        y = torch.relu(conv_bn(x, self.conv1, self.bn1, t))
+        y = conv_bn(y, self.conv2, self.bn2, t)
         if self.downsample is not None:
-            x = conv_bn_eval(x, self.downsample[0], self.downsample[1])
+            x = conv_bn(x, self.downsample[0], self.downsample[1], t)
         return torch.relu(x + y)
 
 
@@ -54,6 +57,7 @@ class ResNetTrunk(nn.Module):
     def forward(self, x, stem_weight=None):
         """``stem_weight`` replaces conv1's weight (the model folds the
         input normalization into it)."""
-        y = torch.relu(conv_bn_eval(x, self.conv1, self.bn1, stem_weight))
+        y = torch.relu(conv_bn(x, self.conv1, self.bn1, self.training,
+                               stem_weight))
         y = max_pool_2d(y)
         return self.layer2(self.layer1(y))

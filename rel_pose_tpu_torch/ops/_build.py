@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
 ``nvcc`` compiles every ``rel_pose_tpu_torch/csrc/*.cu`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface (no PyTorch
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface (no PyTorch
 headers, so the build takes seconds).  The library lands in
 ``rel_pose_tpu_torch/_build/`` under a name carrying the hash of the sources
 and flags: it is built at first use and rebuilt whenever a source changes.
@@ -26,20 +27,30 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # C signatures of the entry points (csrc/*.cu)
 SIGNATURES = {
     "rp_set_device": ([I], ctypes.c_int),
     "rp_error_string": ([I], ctypes.c_char_p),
-    # x, pos, out, 12 stacked parameters, 4 scratch buffers;
+    # x, pos, out, stash (or NULL), 12 stacked parameters, 4 scratch
+    # buffers; G, N, C, heads, hidden, depth, bf16; stream
+    "rp_vit_stack": ([P] * 20 + [I] * 7 + [P], ctypes.c_int),
+    # G, N, C, heads, hidden, bf16 -> workspace bytes of rp_vit_stack_bwd
+    "rp_vit_stack_bwd_workspace": ([I] * 6, L),
+    # xs, g, 12 stacked parameters, dx, 12 fp32 gradients, workspace;
     # G, N, C, heads, hidden, depth, bf16; stream
-    "rp_vit_stack": ([P] * 19 + [I] * 7 + [P], ctypes.c_int),
+    "rp_vit_stack_bwd": ([P] * 28 + [I] * 7 + [P], ctypes.c_int),
     # xpair, ln scale, ln bias, w, b, pos, F, 2 scratch buffers;
     # B, N, C, heads, bf16; stream
     "rp_essential_block_pair": ([P] * 9 + [I] * 5 + [P], ctypes.c_int),
+    # B, N, heads -> workspace bytes of rp_essential_block_bwd
+    "rp_essential_block_bwd_workspace": ([I] * 3, L),
+    # qkv, pos, dF, dqkv, dpos partials, workspace; B, N, C, heads, bf16;
+    # stream
+    "rp_essential_block_bwd": ([P] * 6 + [I] * 5 + [P], ctypes.c_int),
 }
 
 
@@ -76,14 +87,33 @@ def build():
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources() if p.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stderr}")
-    so.with_suffix(".log").write_text(res.stderr)
+    tag = f"{so.stem}.{os.getpid()}"
+    cus = [p for p in sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for p, o in zip(cus, objs)]
+    logs, failed = [], []
+    for p, proc in zip(cus, procs):
+        out, err = proc.communicate()
+        logs.append(f"== {p.name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{p.name} (exit {proc.returncode}):\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = so.with_name(f"{tag}.so.tmp")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {res.returncode}):"
+                               f"\n{res.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, so)   # atomic: a concurrent loader never sees a partial
     return so
 

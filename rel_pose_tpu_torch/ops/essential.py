@@ -1,4 +1,4 @@
-"""Essential Matrix Module cross attention (the paper's core op), eval path.
+"""Essential Matrix Module cross attention (the paper's core op).
 
 Counterpart of ``rel_pose_tpu/ops/essential.py:100-124``: the pair block
 (``ops.essential_block``) gives per direction and head a (d+6) x (d+6)

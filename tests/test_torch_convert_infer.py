@@ -59,7 +59,7 @@ def test_state_dict_from_jax_matches_export(depth):
 
 @pytest.fixture(scope="module")
 def model():
-    m = ViTEss(CFG)
+    m = ViTEss(CFG, device="cpu")
     m.load_state_dict(seeded_state_dict(m, seed=1))
     return m
 
@@ -80,7 +80,7 @@ def _reference_style(sd):
 
 def test_reference_state_dict_loads(model):
     sd = model.state_dict()
-    fresh = ViTEss(CFG)
+    fresh = ViTEss(CFG, device="cpu")
     fresh.load_state_dict(load_reference_state_dict(_reference_style(sd)))
     for k, v in fresh.state_dict().items():
         torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
@@ -91,7 +91,8 @@ def test_from_checkpoint_pth(model, tmp_path):
     torch.save({"model": _reference_style(model.state_dict()),
                 "optimizer": {"state": {}, "param_groups": []}}, path)
     pred = tinfer.PosePredictor.from_checkpoint(
-        path, CFG, intrinsics=tinfer.INTERIORNET_STREETLEARN_INTRINSICS)
+        path, CFG, device="cpu",
+        intrinsics=tinfer.INTERIORNET_STREETLEARN_INTRINSICS)
     direct = tinfer.PosePredictor(
         model, intrinsics=tinfer.INTERIORNET_STREETLEARN_INTRINSICS)
     images = RNG.integers(0, 256, (2, 2, 3, 256, 256), dtype=np.uint8)
@@ -101,7 +102,8 @@ def test_from_checkpoint_pth(model, tmp_path):
 
 def test_from_checkpoint_rejects_native_ckpt(tmp_path):
     with pytest.raises(NotImplementedError):
-        tinfer.PosePredictor.from_checkpoint(tmp_path / "x.ckpt", CFG)
+        tinfer.PosePredictor.from_checkpoint(tmp_path / "x.ckpt", CFG,
+                                             device="cpu")
 
 
 def test_chunking_and_padding(model):

@@ -123,14 +123,15 @@ def test_cpu_tensor_dispatches_to_plain_version():
 
 
 def test_launch_checks():
-    """The CUDA route's argument checks, exercised on CPU tensors."""
+    """The CUDA route's argument checks, exercised on CPU tensors.  Inputs
+    that require grad are accepted (the block is an autograd Function); the
+    shape, dtype and head_dim checks still raise."""
     Bc, Nc, Cc = 2, 8, 192
     xp = torch.zeros(Bc, 2, Nc, Cc)
     params = (torch.ones(Cc), torch.zeros(Cc), torch.zeros(3 * Cc, Cc),
               torch.zeros(3 * Cc), torch.zeros(Bc, Nc, 6))
     te._check_inputs(xp, params, 3)                        # accepted
-    with pytest.raises(RuntimeError, match="eval-only"):
-        te._check_inputs(xp.clone().requires_grad_(), params, 3)
+    te._check_inputs(xp.clone().requires_grad_(), params, 3)
     with pytest.raises(TypeError):
         te._check_inputs(xp.double(), params, 3)
     with pytest.raises(ValueError, match="head_dim 64"):
@@ -142,3 +143,7 @@ def test_launch_checks():
     with pytest.raises(ValueError, match="no kernel"):
         te.fused_essential_block_pair(xp.to("meta"), params[:2], params[2:4],
                                       params[4], 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        te.fused_essential_block_bwd(
+            torch.zeros(Bc, 2, Nc, 3 * Cc, device="meta"), params[4],
+            torch.zeros(Bc, 2, 3, 70, 70), 3)

@@ -54,7 +54,8 @@ def _jax_cfg(cfg):
 
 
 def _port(sd, dtype):
-    model = ViTEss(ModelConfig(transformer_depth=2, compute_dtype=dtype))
+    model = ViTEss(ModelConfig(transformer_depth=2, compute_dtype=dtype),
+                   device="cpu")
     model.load_state_dict(sd)
     return model
 
@@ -76,7 +77,8 @@ def test_eval_forward_matches_jax(weights, monkeypatch, hw, intr, dtype,
     want, _ = vitess_forward(params, state, _jax_cfg(cfg),
                              jnp.asarray(images), jnp.asarray(K),
                              training=False)
-    got = _port(sd, dtype)(torch.from_numpy(images), torch.from_numpy(K))
+    with torch.no_grad():
+        got = _port(sd, dtype)(torch.from_numpy(images), torch.from_numpy(K))
     assert got.dtype == torch.float32 and got.shape == (2, 2, 7)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=atol)
@@ -89,10 +91,12 @@ def test_plain_and_kernel_routes_agree_on_cpu(weights):
     images = torch.from_numpy(
         RNG.integers(0, 256, (1, 2, 3, 256, 256), dtype=np.uint8))
     K = torch.tensor(INTERIORNET).repeat(1, 2, 1)
-    plain = ViTEss(ModelConfig(transformer_depth=2), kernels=False)
+    plain = ViTEss(ModelConfig(transformer_depth=2), device="cpu",
+                   kernels=False)
     plain.load_state_dict(sd)
-    torch.testing.assert_close(_port(sd, "float32")(images, K),
-                               plain(images, K), rtol=0, atol=0)
+    with torch.no_grad():
+        torch.testing.assert_close(_port(sd, "float32")(images, K),
+                                   plain(images, K), rtol=0, atol=0)
 
 
 def test_normalize_preds_matches_jax():

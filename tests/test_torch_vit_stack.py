@@ -119,7 +119,7 @@ def test_stack_block_params_layout():
         w = np.asarray(want[name])
         if w.ndim == 3:
             w = np.swapaxes(w, 1, 2)
-        np.testing.assert_array_equal(fp32[name].numpy(), w)
+        np.testing.assert_array_equal(fp32[name].detach().numpy(), w)
 
 
 def test_cpu_tensor_dispatches_to_plain_version():
@@ -142,23 +142,27 @@ def test_other_device_raises():
 
 
 def test_launch_checks():
-    """The CUDA route's argument checks, exercised on CPU tensors."""
+    """The CUDA route's argument checks, exercised on CPU tensors.  Inputs
+    that require grad are accepted (the stack is an autograd Function); the
+    shape, dtype and head_dim checks still raise."""
     C = 192
     st = {k: v.contiguous() for k, v in
           _to_torch(_stacked_np(1, C, 4 * C), torch.float32).items()}
     x = torch.zeros(2, 8, C)
-    pos = torch.zeros(8, C)
-    tv._check_inputs(x, pos, st, 3)                        # accepted
-    with pytest.raises(RuntimeError, match="eval-only"):
-        tv._check_inputs(x.clone().requires_grad_(), pos, st, 3)
+    tv._check_inputs(x, st, 3)                             # accepted
+    tv._check_inputs(x.clone().requires_grad_(), st, 3)    # autograd route
     with pytest.raises(TypeError):
-        tv._check_inputs(x.half(), pos, st, 3)
+        tv._check_inputs(x.half(), st, 3)
     with pytest.raises(ValueError, match="head_dim 64"):
-        tv._check_inputs(x, pos, st, 4)
+        tv._check_inputs(x, st, 4)
     with pytest.raises(ValueError, match="contiguous"):
-        tv._check_inputs(x.transpose(0, 1), pos, st, 3)
+        tv._check_inputs(x.transpose(0, 1), st, 3)
     bad = dict(st, proj_w=st["proj_w"][:, :, :8])
     with pytest.raises(ValueError, match="proj_w"):
-        tv._check_inputs(x, pos, bad, 3)
+        tv._check_inputs(x, bad, 3)
     with pytest.raises(TypeError, match="fc1_w"):
-        tv._check_inputs(x, pos, dict(st, fc1_w=st["fc1_w"].double()), 3)
+        tv._check_inputs(x, dict(st, fc1_w=st["fc1_w"].double()), 3)
+    xg = torch.zeros(1, 8, C, requires_grad=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        tv.fused_vit_stack_bwd(xg.detach().to("meta")[None], xg.to("meta"),
+                               st, 3)
