@@ -42,6 +42,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      60, 384x512 uint8 (bench.py's train protocol), fp32 and bf16, kernels
      and plain path.
 
+The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
+cross block's plain attention, in place of the essential block):
+
+  3c. kernel #7 (``csrc/mhsa.cu``) against its plain versions at G = 24
+     heads of N = 576, fp32 and bf16: the forward against
+     ``mhsa_reference``, dq, dk, dv against ``mhsa_bwd_reference``; a second
+     call gives the same bits; both launch counters rose;
+  4c. the noess slice at depth 6 with seeded weights, kernels against the
+     plain path, fp32 and bf16: ``PosePredictor`` answers the requests of
+     phase 4; 3 train steps of 4 pairs as phase 4b (step-1 loss and
+     per-leaf gradients against the plain path, losses finite); the
+     ``pool_attn`` BatchNorm state moves; the ViT stack's and #7's counters
+     rose in each run;
+  5c. #7's forward at the eval shapes (G = 1,536) and forward and backward
+     at the training shapes (G = 360), bf16: kernel, plain version and
+     ``F.scaled_dot_product_attention`` (the yardstick, timed only); the
+     noess eval forward at batch 256 (bf16) and train step at batch 60
+     (fp32, bf16), kernels and plain path.
+
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Checkpoints go to ``output/`` beside
 this file.  The run needs no network and starts no process besides
@@ -101,6 +120,14 @@ GRAD_NORMREL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # rounding points above, amplified by training BatchNorm's division by
 # batch deviations.
 LOSS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# Kernel #7's forward against mhsa_reference, ||err|| / ||ref||: fp32 1e-5
+# (exp2 and the division after the product against exp and a normalized
+# softmax; 5e-7 measured on the CPU against the Pallas kernel); bf16 2e-2
+# (the plain version rounds the scores to bf16 before the softmax, the
+# kernel keeps them fp32, as #7 does; 5e-3 measured on the CPU).  Its
+# backward is held to mhsa_bwd_reference at GRAD_NORMREL.
+MHSA_FWD_NORMREL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+MHSA_SCALE = 64 ** -0.5
 LEAF_COS = {torch.float32: 0.9999, torch.bfloat16: 0.98}
 LEAF_RATIO = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 
@@ -242,15 +269,17 @@ def normrel(out, ref):
     return ((out.double() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
-def check_grad(name, out, ref, dtype, failures):
-    """A backward output against its plain version: ||err|| / ||ref|| <=
-    GRAD_NORMREL[dtype]; max |err| reported beside it."""
+def check_grad(name, out, ref, dtype, failures, tol=None):
+    """An output against its plain version: ||err|| / ||ref|| <= tol,
+    GRAD_NORMREL[dtype] by default (the backward outputs); returns max
+    |err|."""
+    tol = GRAD_NORMREL[dtype] if tol is None else tol
     rel = normrel(out, ref)
     err = (out.float() - ref.float()).abs().max().item()
-    ok = bool(np.isfinite(rel)) and rel <= GRAD_NORMREL[dtype]
+    ok = bool(np.isfinite(rel)) and rel <= tol
     log(f"[check] {name} {str(dtype)[6:]}: normrel={rel:.3e} "
         f"max_abs_err={err:.3e} max|ref|={ref.float().abs().max().item():.3e}"
-        f" tol={GRAD_NORMREL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+        f" tol={tol:.0e} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"{name} {dtype}")
     return err
@@ -318,7 +347,55 @@ def phase_kernels_bwd(device):
     return errs
 
 
-def make_models(device):
+def heads(rng, G, dtype, device, n):
+    """``n`` (G, 576, 64) tensors of unit normal entries, the scale of the
+    cross block's q, k, v (a Linear of LayerNormed tokens)."""
+    return [torch.from_numpy(rng.standard_normal((G, 576, 64)).astype(
+        np.float32)).to(device, dtype) for _ in range(n)]
+
+
+def check_mhsa(G, dtype, device, failures, seed=SEED + 6):
+    """Kernel #7 forward and backward at G heads against the plain
+    versions -> (max |err| forward, max |err| backward)."""
+    from rel_pose_tpu_torch.ops import attention as ta
+    q, k, v, do = heads(np.random.default_rng(seed), G, dtype, device, 4)
+    o = ta.fused_mhsa(q, k, v, MHSA_SCALE)
+    grads = ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE)
+    torch.cuda.synchronize()
+    e_fwd = check_grad(f"mhsa_fwd G={G}", o,
+                       ta.mhsa_reference(q, k, v, MHSA_SCALE), dtype,
+                       failures, MHSA_FWD_NORMREL[dtype])
+    ref = ta.mhsa_bwd_reference(q, k, v, do, MHSA_SCALE)
+    e_bwd = max(check_grad(f"mhsa_bwd {name} G={G}", g, r, dtype, failures)
+                for name, g, r in zip(("dq", "dk", "dv"), grads, ref))
+    return e_fwd, e_bwd
+
+
+def phase_kernels_mhsa(device):
+    """(3c) kernel #7 against its plain versions, fp32 and bf16, G = 24;
+    each kernel twice for identical bits; both counters rose."""
+    from rel_pose_tpu_torch.ops import attention as ta
+    failures = []
+    ta.fused_mhsa.launches = ta.fused_mhsa_bwd.launches = 0
+    for dtype in DTYPES:
+        check_mhsa(24, dtype, device, failures)
+        q, k, v, do = heads(np.random.default_rng(SEED + 7), 24, dtype,
+                            device, 4)
+        outs = [(ta.fused_mhsa(q, k, v, MHSA_SCALE),
+                 *ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            failures.append(f"mhsa not bitwise repeatable {dtype}")
+    launches = (ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches)
+    log(f"[check] mhsa launches (fwd, bwd): {launches}")
+    if min(launches) < 2 * len(DTYPES):
+        failures.append(f"mhsa launch counters {launches}")
+    if failures:
+        raise SystemExit(f"mhsa kernel checks failed: {failures}")
+
+
+def make_models(device, noess=False):
     """The eval models (dtype, kernels) and their seeded state dict."""
     from rel_pose_tpu_torch.config import ModelConfig
     from rel_pose_tpu_torch.models.vitess import ViTEss
@@ -326,7 +403,8 @@ def make_models(device):
     models = {}
     sd = None
     for dtype in DTYPES:
-        cfg = ModelConfig(compute_dtype=str(dtype)[6:])   # depth 6
+        cfg = ModelConfig(noess=noess,
+                          compute_dtype=str(dtype)[6:])   # depth 6
         for kernels in (True, False):
             m = ViTEss(cfg, device=device, kernels=kernels)
             if sd is None:
@@ -545,12 +623,12 @@ def train_batch(rng, B, device):
                  for a in (images, random_poses(rng, B), intr))
 
 
-def train_model(dtype, sd, device, kernels):
+def train_model(dtype, sd, device, kernels, noess=False):
     from rel_pose_tpu_torch.config import ModelConfig
     from rel_pose_tpu_torch.models.vitess import ViTEss
     from rel_pose_tpu_torch.train.optim import make_optimizer
-    model = ViTEss(ModelConfig(compute_dtype=str(dtype)[6:]), device=device,
-                   kernels=kernels)
+    model = ViTEss(ModelConfig(noess=noess, compute_dtype=str(dtype)[6:]),
+                   device=device, kernels=kernels)
     model.load_state_dict(sd)
     opt, sched = make_optimizer(model, lr=5e-4, steps=1000, warmup=100)
     return model, opt, sched
@@ -751,6 +829,174 @@ def phase_times_train(device, sd, card):
     return rows
 
 
+# ------------------------------------------------------------ --noess --
+
+def noess_counters():
+    from rel_pose_tpu_torch.ops import attention as ta
+    from rel_pose_tpu_torch.ops import vit_stack as tv
+    return {"vit_stack": tv.fused_vit_stack,
+            "vit_stack_bwd": tv.fused_vit_stack_bwd,
+            "mhsa_fwd": ta.fused_mhsa, "mhsa_bwd": ta.fused_mhsa_bwd}
+
+
+def phase_noess(device, models, sd):
+    """(4c) the noess slice: ``PosePredictor`` over the depth-6 noess
+    ViTEss answers phase 4's requests, then 3 train steps per dtype, each
+    with the kernels and on the plain path; returns the launch counts of
+    (serving, training)."""
+    from rel_pose_tpu_torch.infer import PosePredictor
+    from rel_pose_tpu_torch.train.step import train_step
+    counters = noess_counters()
+    reqs = requests(np.random.default_rng(SEED + 1))
+    failures = []
+
+    def serve(kernels):
+        return {(name, dtype): PosePredictor(
+                    models[dtype, kernels], intrinsics=intr, batch_size=8,
+                    image_size=size).predict_batch(images)
+                for dtype in DTYPES for name, images, intr, size in reqs}
+
+    for c in counters.values():
+        c.launches = 0
+    got = serve(kernels=True)
+    torch.cuda.synchronize()
+    eval_launches = {k: counters[k].launches for k in ("vit_stack",
+                                                       "mhsa_fwd")}
+    log(f"[noess] kernel launches while serving: {eval_launches}")
+    failures += [f"{k} never launched while serving"
+                 for k, v in eval_launches.items() if v <= 0]
+    plain = serve(kernels=False)
+    for (name, dtype), poses in got.items():
+        n = next(len(r[1]) for r in reqs if r[0] == name)
+        check_poses(f"noess {name}", dtype, poses, plain[name, dtype], n,
+                    failures)
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for c in counters.values():
+        c.launches = 0
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 4)
+        batches = [train_batch(rng, SLICE_TRAIN_BATCH, device)
+                   for _ in range(3)]
+        runs = {}
+        for kernels in (True, False):
+            model, opt, sched = train_model(dtype, sd, device, kernels,
+                                            noess=True)
+            bn0 = {k: v.clone() for k, v in model.state_dict().items()
+                   if k.startswith("pool_attn.") and "running" in k}
+            losses, grads1 = [], None
+            for step, batch in enumerate(batches):
+                metrics, poses = train_step(model, opt, sched, *batch)
+                losses.append(metrics["loss"].item())
+                if step == 0:
+                    grads1 = {n: p.grad.detach().clone()
+                              for n, p in model.named_parameters()}
+            runs[kernels] = (losses, grads1)
+            log(f"[noess] train {str(dtype)[6:]} "
+                f"{'kernels' if kernels else 'plain path'}: losses "
+                f"{[round(v, 6) for v in losses]}")
+            sdict = model.state_dict()
+            moved = all(not torch.equal(sdict[k], v) for k, v in bn0.items())
+            counts = {int(sdict[f"pool_attn.{i}.num_batches_tracked"])
+                      for i in (1, 4)}
+            if not (moved and len(bn0) == 4 and counts == {3}):
+                failures.append(f"pool_attn BatchNorm state {dtype} "
+                                f"{kernels}: moved {moved}, counts {counts}")
+            if not all(np.isfinite(losses)) or poses.shape != (
+                    SLICE_TRAIN_BATCH, 2, 7):
+                failures.append(f"noess losses / poses {dtype} {kernels}")
+            del model, opt, sched
+        (lk, gk), (lp, gp) = runs[True], runs[False]
+        rel = abs(lk[0] - lp[0]) / abs(lp[0])
+        ok = rel <= LOSS_RTOL[dtype]
+        log(f"[noess] train {str(dtype)[6:]} step-1 loss kernels {lk[0]:.6f}"
+            f" plain {lp[0]:.6f} rel {rel:.3e} (<= {LOSS_RTOL[dtype]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"noess step-1 loss {dtype}")
+        compare_leaves(dtype, gk, gp, failures)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"[noess] kernel launches during training: {launches}")
+    failures += [f"{k} never launched in training"
+                 for k, v in launches.items() if v <= 0]
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    if failures:
+        raise SystemExit(f"noess slice checks failed: {failures}")
+    return eval_launches, launches
+
+
+def phase_times_noess(device, models, sd, card):
+    """(5c) kernel #7 at the eval and training shapes, bf16, and the noess
+    eval forward and train step."""
+    from rel_pose_tpu_torch.ops import attention as ta
+    from rel_pose_tpu_torch.train.step import train_step
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(SEED + 8)
+    failures, rows = [], {}
+    G_eval, G_train = 2 * EVAL_BATCH * 3, 2 * TRAIN_BATCH * 3
+    err_fwd, _ = check_mhsa(G_eval, dtype, device, failures, SEED + 8)
+    _, err_bwd = check_mhsa(G_train, dtype, device, failures, SEED + 9)
+    if failures:
+        raise SystemExit(f"mhsa checks at the model's shapes failed: "
+                         f"{failures}")
+    N, d = 576, 64
+    q, k, v = heads(rng, G_eval, dtype, device, 3)
+    ms = cuda_time_ms(lambda: ta.fused_mhsa(q, k, v, MHSA_SCALE), 5)
+    plain_ms = cuda_time_ms(lambda: ta.mhsa_reference(q, k, v, MHSA_SCALE),
+                            3)
+    lib_ms = sdpa_ms(G_eval // 3, dtype, device, backward=False)
+    b = bound(4 * G_eval * N * N * d, 4 * nbytes(q), dtype)
+    rows["mhsa_fwd"] = (err_fwd, ms, plain_ms, lib_ms, b)
+    del q, k, v
+    q, k, v, do = heads(rng, G_train, dtype, device, 4)
+    ms = cuda_time_ms(lambda: ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE), 5)
+    plain_ms = cuda_time_ms(
+        lambda: ta.mhsa_bwd_reference(q, k, v, do, MHSA_SCALE), 3)
+    lib_ms = sdpa_ms(G_train // 3, dtype, device, backward=True)
+    b = bound(10 * G_train * N * N * d, 7 * nbytes(q), dtype)
+    rows["mhsa_bwd"] = (err_bwd, ms, plain_ms, lib_ms, b)
+    fwd_train_ms = cuda_time_ms(lambda: ta.fused_mhsa(q, k, v, MHSA_SCALE), 5)
+    del q, k, v, do
+    log(f"[time] mhsa_fwd bf16 G={G_train} (training shapes): kernel "
+        f"{fwd_train_ms:.3f} ms ({card})")
+    for name, G in (("mhsa_fwd", G_eval), ("mhsa_bwd", G_train)):
+        err, ms, plain_ms, lib_ms, (b_ms, b_by) = rows[name]
+        log(f"[time] {name} bf16 G={G}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.3f} "
+            f"ms ({b_by}) ({card})")
+
+    B = EVAL_BATCH
+    images = torch.from_numpy(rng.integers(
+        0, 256, (B, 2, 3, 256, 256), dtype=np.uint8)).to(device)
+    intr = torch.full((B, 2, 4), 128.0, device=device)
+    for kernels in (True, False):
+        model = models[dtype, kernels]
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: model(images, intr), 3)
+        log(f"[time] noess eval forward bf16 batch {B} 256x256 uint8 "
+            f"({'kernels' if kernels else 'plain path'}): {ms:.3f} ms, "
+            f"{B / ms * 1e3:.2f} pairs/s ({card})")
+    del images
+    batch = train_batch(rng, TRAIN_BATCH, device)
+    for dt in DTYPES:
+        for kernels in (True, False):
+            model, opt, sched = train_model(dt, sd, device, kernels,
+                                            noess=True)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_time_ms(lambda: train_step(model, opt, sched, *batch),
+                              3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"[time] noess train step {str(dt)[6:]} batch {TRAIN_BATCH} "
+                f"384x512 uint8 ({'kernels' if kernels else 'plain path'}): "
+                f"{ms:.3f} ms, {TRAIN_BATCH / ms * 1e3:.2f} pairs/s, peak "
+                f"{peak:.2f} GiB ({card})")
+            del model, opt, sched
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -762,16 +1008,24 @@ def main():
     phase_build()
     phase_kernels(device)
     bwd_errs = phase_kernels_bwd(device)
+    phase_kernels_mhsa(device)
     models, sd = make_models(device)
     eval_launches = phase_slice(device, models)
     launches = phase_train(device, sd)
     rows = phase_times(device, models, card)
     del models
     rows.update(phase_times_train(device, sd, card))
+    models, sd = make_models(device, noess=True)
+    noess_eval, noess_train = phase_noess(device, models, sd)
+    rows.update(phase_times_noess(device, models, sd, card))
+    del models
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
     log(f"[slice] eval launches {eval_launches}, training launches "
         f"{launches}")
+    log(f"[noess] eval launches {noess_eval}, training launches "
+        f"{noess_train}")
+    launches.update({k: noess_train[k] for k in ("mhsa_fwd", "mhsa_bwd")})
     sources = {
         "vit_stack": ("rel_pose_tpu_torch/csrc/vit_stack.cu",
                       "rel_pose_tpu/ops/pallas_vit.py:94"),
@@ -783,6 +1037,10 @@ def main():
         "essential_block_bwd": (
             "rel_pose_tpu_torch/csrc/essential_block_bwd.cu",
             "rel_pose_tpu/ops/pallas_essential_block_bwd.py:35"),
+        "mhsa_fwd": ("rel_pose_tpu_torch/csrc/mhsa.cu",
+                     "rel_pose_tpu/ops/pallas_attention.py:53"),
+        "mhsa_bwd": ("rel_pose_tpu_torch/csrc/mhsa.cu",
+                     "rel_pose_tpu/ops/pallas_attention.py:69"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -1,14 +1,14 @@
 """rel_pose_tpu_torch -- the PyTorch + CUDA (Hopper) port of rel_pose_tpu.
 
 A second package beside the JAX one, which stays the reference.  It holds
-the flagship eval forward served by ``PosePredictor`` and its single-GPU
-training step; it imports ``torch`` and never ``jax``, nor anything of the
+the eval forward served by ``PosePredictor`` and the single-GPU training
+step of the flagship and the --noess configurations; it imports ``torch`` and never ``jax``, nor anything of the
 JAX package (``config.ModelConfig`` is a pinned copy of the JAX one).
 
 Layer map (bottom-up), each module named after its JAX counterpart:
   config    ModelConfig
-  csrc/     hand-written CUDA kernels for sm_90a (ViT stack and essential
-            block, forward and backward)
+  csrc/     hand-written CUDA kernels for sm_90a (ViT stack, essential
+            block and the --noess attention, forward and backward)
   geom/     SE(3) compose / inverse / log and the geodesic loss
   nn/       layers (eval-folded and training BatchNorm), ResNet-18 trunk,
             extractor block, ViT block

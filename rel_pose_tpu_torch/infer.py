@@ -17,6 +17,9 @@ Example::
         "model.pth", device="cuda", intrinsics=MATTERPORT_INTRINSICS,
         image_size=(384, 512), batch_size=256)
     poses = pred.predict_batch(images)        # (B, 2, 3, H, W) -> (B, 2, 7)
+
+A --noess checkpoint: ``PosePredictor.from_checkpoint("noess.pth",
+ModelConfig(noess=True), ...)``.
 """
 
 import numpy as np
@@ -85,7 +88,9 @@ class PosePredictor:
     @classmethod
     def from_checkpoint(cls, path, cfg=None, *, device="cuda", **kwargs):
         """Build from a reference ``.pth`` checkpoint (a ``{"model", ...}``
-        dict, as ``train.checkpoint`` writes, or a bare state dict)."""
+        dict, as ``train.checkpoint`` writes, or a bare state dict) of the
+        model ``cfg`` describes: the flagship by default,
+        ``ModelConfig(noess=True)`` for a --noess checkpoint."""
         if not str(path).endswith(".pth"):
             raise NotImplementedError(
                 "the PyTorch port loads reference .pth checkpoints only")

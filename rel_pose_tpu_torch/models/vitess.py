@@ -2,39 +2,45 @@
 
 Counterpart of ``rel_pose_tpu/models/vitess.py:124-344`` for the flagship
 configuration (fusion transformer, Essential Matrix Module, quadratic
-positional encoding):
+positional encoding) and its --noess ablation (``ModelConfig(noess=True)``):
 
   uint8 or float (B, 2, 3, H, W) raw BGR images, (B, 2, 4) intrinsics
   -> nearest resize to 224, mean subtraction (1/std folded into conv1)
   -> ResNet-18 trunk through layer2 -> k=5 extractor block: 576 tokens x 192
   -> depth-1 self-attention blocks (``ops.vit_stack``, hand kernels on CUDA)
-  -> essential cross block (``ops.essential``, hand kernels on CUDA)
-  -> LayerNorm -> fp32 pose regressor -> ``normalize_preds`` -> (B, 2, 7)
+  -> flagship: essential cross block (``ops.essential``, hand kernels on
+     CUDA) -> LayerNorm -> (B, 2 x 3 x 70 x 64)
+  -> --noess: cross block x + attn(LN(x)) (``ops.attention``, hand kernels
+     on CUDA), x + MLP(LN(x)) -> LayerNorm -> (B, 24, 24, 2 x 192)
+     row-major -> ``pool_attn`` 1x1 conv head 384 -> 96 -> 43 -> (B, 24,768)
+  -> fp32 pose regressor -> ``normalize_preds`` -> (B, 2, 7)
 
 Attribute names reproduce the reference state-dict keys
 (``rel_pose_tpu/utils/convert.py:95-164``).  The module is built without
 initializing its parameters; load a state dict (``utils.convert`` or
 ``nn.init.seeded_state_dict``) before use.  ``cfg.compute_dtype`` picks
 fp32 or bf16 activations over fp32 master weights.  ``kernels=False`` runs
-the plain PyTorch versions of the two kernel-backed stages on any device,
+the plain PyTorch versions of the kernel-backed stages on any device,
 differentiated by autograd: the oracle the kernels are held against.
 
 The model is built in eval mode.  In training mode (``model.train()``) the
 BatchNorms run on batch statistics and move their running statistics, and
-a forward under autograd reaches the two stages' ``autograd.Function``s
-(``ops.vit_stack``, ``ops.essential_block``).  Eval callers run it under
-``torch.no_grad()`` or ``torch.inference_mode()``, where neither stage
-keeps anything for a backward.
+a forward under autograd reaches the stages' ``autograd.Function``s
+(``ops.vit_stack``, ``ops.essential_block`` or ``ops.attention``).  Eval
+callers run it under ``torch.no_grad()`` or ``torch.inference_mode()``,
+where no stage keeps anything for a backward.
 """
 
 import torch
 from torch import nn
 
 from ..nn.extractor import ResidualBlock
-from ..nn.layers import layernorm, linear, mlp
+from ..nn.layers import conv_bn, layernorm, linear, mlp
 from ..nn.resnet import ResNetTrunk
 from ..nn.transformer import Block, Mlp
-from ..ops.essential import essential_cross_attention_pair
+from ..ops.attention import fused_mhsa, mhsa_reference
+from ..ops.essential import (essential_cross_attention_pair,
+                             noess_cross_attention)
 from ..ops.essential_block import (essential_block_pair_reference,
                                    fused_essential_block_pair)
 from ..ops.image import (nearest_resize, normalization_constants,
@@ -44,23 +50,26 @@ from ..ops.vit_stack import (fused_vit_stack, stack_block_params,
                              vit_stack_reference)
 
 # ModelConfig fields and the only values the port implements so far
-_SLICE = {"fusion_transformer": True, "noess": False,
-          "no_pos_encoding": False, "cross_features": False,
-          "use_single_softmax": False, "l1_pos_encoding": False}
+_SLICE = {"fusion_transformer": True, "no_pos_encoding": False,
+          "cross_features": False, "use_single_softmax": False,
+          "l1_pos_encoding": False}
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, dim, num_heads):
+    def __init__(self, dim, num_heads, noess):
         super().__init__()
         self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj_fundamental = nn.Linear(dim + 6 * num_heads, dim)
+        if noess:
+            self.proj = nn.Linear(dim, dim)
+        else:
+            self.proj_fundamental = nn.Linear(dim + 6 * num_heads, dim)
 
 
 class CrossBlock(nn.Module):
-    def __init__(self, dim, num_heads):
+    def __init__(self, dim, num_heads, noess):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.cross_attn = CrossAttention(dim, num_heads)
+        self.cross_attn = CrossAttention(dim, num_heads, noess)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, 4 * dim)
 
@@ -72,7 +81,7 @@ class FusionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, C))
         self.blocks = nn.ModuleList(
             [Block(C) for _ in range(cfg.transformer_depth - 1)]
-            + [CrossBlock(C, cfg.num_heads)])
+            + [CrossBlock(C, cfg.num_heads, cfg.noess)])
         self.norm = nn.LayerNorm(C, eps=1e-6)
 
 
@@ -92,8 +101,9 @@ class ViTEss(nn.Module):
                if getattr(cfg, k) != v}
         if bad or cfg.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                f"the PyTorch port implements the flagship path only; "
-                f"unsupported settings: {bad or cfg.compute_dtype}")
+                "the PyTorch port implements the flagship and --noess "
+                f"paths only; unsupported settings: "
+                f"{bad or cfg.compute_dtype}")
         self.cfg = cfg
         self.kernels = kernels
         C = cfg.total_num_features
@@ -102,6 +112,12 @@ class ViTEss(nn.Module):
             self.extractor_final_conv = ResidualBlock(
                 128, C, 28 - cfg.feature_height + 1)
             self.fusion_transformer = FusionTransformer(cfg)
+            if cfg.noess:
+                # src/model.py:72-81: 1x1 convs 2C -> pool_feat1 -> 43
+                self.pool_attn = nn.Sequential(
+                    nn.Conv2d(2 * C, cfg.pool_feat1, 1),
+                    nn.BatchNorm2d(cfg.pool_feat1), nn.ReLU(),
+                    nn.Conv2d(cfg.pool_feat1, 43, 1), nn.BatchNorm2d(43))
             H, H2 = cfg.regressor_input_dim, cfg.fc_hidden_size
             self.pose_regressor = nn.Sequential(
                 nn.Linear(H, H2), nn.ReLU(), nn.Linear(H2, H2), nn.ReLU(),
@@ -145,21 +161,24 @@ class ViTEss(nn.Module):
         x = vit(x, stacked, heads, pos=ft.pos_embed)
 
         cb = ft.blocks[-1]
-        positional = quadratic_positional_encoding(N, intr)
-        f1, f2 = essential_cross_attention_pair(
-            x.reshape(B, 2, N, C), (cb.norm1.weight, cb.norm1.bias),
-            (cb.cross_attn.qkv.weight, cb.cross_attn.qkv.bias),
-            (cb.cross_attn.proj_fundamental.weight,
-             cb.cross_attn.proj_fundamental.bias),
-            positional, heads,
-            block=(fused_essential_block_pair if self.kernels
-                   else essential_block_pair_reference))
-        fund = torch.stack([f1, f2], dim=1).reshape(2 * B, -1, C)
-        fund = fund + mlp(layernorm(fund, cb.norm2.weight, cb.norm2.bias),
-                          cb.mlp.fc1, cb.mlp.fc2)
-        features = layernorm(fund, ft.norm.weight, ft.norm.bias)
+        if cfg.noess:
+            y = self._noess_head(x, cb)
+        else:
+            positional = quadratic_positional_encoding(N, intr)
+            f1, f2 = essential_cross_attention_pair(
+                x.reshape(B, 2, N, C), (cb.norm1.weight, cb.norm1.bias),
+                (cb.cross_attn.qkv.weight, cb.cross_attn.qkv.bias),
+                (cb.cross_attn.proj_fundamental.weight,
+                 cb.cross_attn.proj_fundamental.bias),
+                positional, heads,
+                block=(fused_essential_block_pair if self.kernels
+                       else essential_block_pair_reference))
+            fund = torch.stack([f1, f2], dim=1).reshape(2 * B, -1, C)
+            fund = fund + mlp(layernorm(fund, cb.norm2.weight, cb.norm2.bias),
+                              cb.mlp.fc1, cb.mlp.fc2)
+            y = layernorm(fund, ft.norm.weight, ft.norm.bias)
 
-        y = features.reshape(B, -1).float()
+        y = y.reshape(B, -1).float()
         pr = self.pose_regressor
         y = torch.relu(linear(y, pr[0].weight, pr[0].bias))
         y = torch.relu(linear(y, pr[2].weight, pr[2].bias))
@@ -169,3 +188,28 @@ class ViTEss(nn.Module):
             Gs = torch.zeros_like(pose_preds)
             Gs[..., 6] = 1.0
         return normalize_preds(Gs, pose_preds)
+
+    def _noess_head(self, x, cb):
+        """The --noess cross block, final norm and ``pool_attn``
+        (``rel_pose_tpu/models/vitess.py:247-255,325-332``): ``x (2B, N,
+        C)`` -> ``(B, 43, 24, 24)``."""
+        cfg, ft = self.cfg, self.fusion_transformer
+        two_b, N, C = x.shape
+        xp = x.reshape(-1, 2, N, C)
+        ln1 = (cb.norm1.weight, cb.norm1.bias)
+        y1, y2 = noess_cross_attention(
+            layernorm(xp[:, 0], *ln1), layernorm(xp[:, 1], *ln1),
+            (cb.cross_attn.qkv.weight, cb.cross_attn.qkv.bias),
+            (cb.cross_attn.proj.weight, cb.cross_attn.proj.bias),
+            cfg.num_heads,
+            attention=fused_mhsa if self.kernels else mhsa_reference)
+        x = x + torch.stack([y1, y2], dim=1).reshape(two_b, N, C)
+        x = x + mlp(layernorm(x, cb.norm2.weight, cb.norm2.bias),
+                    cb.mlp.fc1, cb.mlp.fc2)
+        f = layernorm(x, ft.norm.weight, ft.norm.bias)
+        # (2B, N, C) -> (B, 24, 24, 2C) row-major, as the JAX package
+        f = f.reshape(two_b // 2, cfg.feature_height, cfg.feature_width, -1)
+        f = f.permute(0, 3, 1, 2)
+        pa, t = self.pool_attn, self.training
+        return conv_bn(torch.relu(conv_bn(f, pa[0], pa[1], t)), pa[3], pa[4],
+                       t)

@@ -11,7 +11,8 @@ A failed build raises with nvcc's stderr.  The ``ptxas -v`` report
 ``<name>.log``.
 
 The wrappers pass tensor pointers and the current stream as
-``ctypes.c_void_p`` and sizes as ``ctypes.c_int``; every entry point returns
+``ctypes.c_void_p``, sizes as ``ctypes.c_int`` and a softmax scale as
+``ctypes.c_float``; every entry point returns
 a ``cudaError_t`` which :func:`check` turns into an exception.
 """
 
@@ -29,7 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # C signatures of the entry points (csrc/*.cu)
 SIGNATURES = {
@@ -51,6 +52,10 @@ SIGNATURES = {
     # qkv, pos, dF, dqkv, dpos partials, workspace; B, N, C, heads, bf16;
     # stream
     "rp_essential_block_bwd": ([P] * 6 + [I] * 5 + [P], ctypes.c_int),
+    # q, k, v, o; G, N, d, scale, bf16; stream
+    "rp_mhsa_fwd": ([P] * 4 + [I] * 3 + [F, I, P], ctypes.c_int),
+    # q, k, v, do, dq, dk, dv, stats scratch; G, N, d, scale, bf16; stream
+    "rp_mhsa_bwd": ([P] * 8 + [I] * 3 + [F, I, P], ctypes.c_int),
 }
 
 

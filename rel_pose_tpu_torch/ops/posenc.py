@@ -30,7 +30,7 @@ def quadratic_positional_encoding(num_patches, intrinsics):
     """``intrinsics (B, 2, 4)`` grid-scaled [fx, fy, cx, cy] -> (B, N, 6)."""
     n = _grid_side(num_patches)
     intr = intrinsics.float()
-    ys = torch.linspace(-1.0, 1.0, n, device=intr.device)
+    ys = torch.linspace(-1.0, 1.0, n, dtype=intr.dtype, device=intr.device)
     xs = ys
     fx, fy, cx, cy = intr[:, 0].unbind(-1)
     wpix, hpix = cx * 2.0, cy * 2.0

@@ -1,6 +1,7 @@
 """Weights into the port's ``ViTEss``.
 
-Counterpart of ``rel_pose_tpu/utils/convert.py``, for the flagship slice:
+Counterpart of ``rel_pose_tpu/utils/convert.py``, for the flagship and
+--noess configurations:
 
   * ``state_dict_from_jax`` turns the JAX package's ``(params, state)``
     pytrees, as numpy arrays, into the port's state dict.  The key names
@@ -44,7 +45,7 @@ def _ln(jax_path, key):
 
 
 def key_map(cfg):
-    """[(JAX tree path, port state-dict key, transpose)] for the slice."""
+    """[(JAX tree path, port state-dict key, transpose)] for ``cfg``."""
     m = _conv(("resnet", "conv1"), "resnet.conv1", bias=False)
     m += _bn(("resnet", "bn1"), "resnet.bn1")
     for layer in (1, 2):
@@ -78,12 +79,18 @@ def key_map(cfg):
     jp, tk = ("cross_block",), f"{ft}.blocks.{cfg.transformer_depth - 1}"
     m += _ln(jp + ("norm1",), f"{tk}.norm1")
     m += _linear(jp + ("cross_attn", "qkv"), f"{tk}.cross_attn.qkv")
-    m += _linear(jp + ("cross_attn", "proj_fundamental"),
-                 f"{tk}.cross_attn.proj_fundamental")
+    proj = "proj" if cfg.noess else "proj_fundamental"
+    m += _linear(jp + ("cross_attn", proj), f"{tk}.cross_attn.{proj}")
     m += _ln(jp + ("norm2",), f"{tk}.norm2")
     m += _linear(jp + ("mlp", "fc1"), f"{tk}.mlp.fc1")
     m += _linear(jp + ("mlp", "fc2"), f"{tk}.mlp.fc2")
     m += _ln(("norm",), f"{ft}.norm")
+    if cfg.noess:   # nn.Sequential(conv, BN, ReLU, conv, BN)
+        jp = ("pool_attn",)
+        m += _conv(jp + ("conv1",), "pool_attn.0") + _bn(jp + ("bn1",),
+                                                         "pool_attn.1")
+        m += _conv(jp + ("conv2",), "pool_attn.3") + _bn(jp + ("bn2",),
+                                                         "pool_attn.4")
     for j, idx in (("fc1", 0), ("fc2", 2), ("fc3", 4)):
         m += _linear(("pose_regressor", j), f"pose_regressor.{idx}")
     return m

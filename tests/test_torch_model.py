@@ -131,6 +131,16 @@ def test_model_config_mirrors_jax(overrides):
                                   "cross_features", "use_single_softmax",
                                   "l1_pos_encoding"])
 def test_ablation_flags_not_implemented(flag):
+    """--noess is ported (its own parity tests: test_torch_noess.py) and
+    builds its ``pool_attn`` head and ``cross_attn.proj``; the other
+    ablations still raise."""
+    if flag == "noess":
+        model = ViTEss(ModelConfig(noess=True), device="meta")
+        keys = set(model.state_dict())
+        assert "pool_attn.4.running_var" in keys
+        assert "fusion_transformer.blocks.5.cross_attn.proj.weight" in keys
+        assert model.pose_regressor[0].in_features == 43 * 576
+        return
     with pytest.raises(NotImplementedError):
         ViTEss(ModelConfig(**{flag: True}), device="meta")
 

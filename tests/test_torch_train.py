@@ -12,11 +12,22 @@ Tolerances, with their reasons:
 
   * loss: rtol 1e-5 -- fp32, a ResNet trunk and two blocks summed in
     another order;
-  * gradients, per leaf: ||g_port - g_jax|| <= 2e-3 ||g_jax|| (plus 1e-6
-    of the largest leaf norm for leaves that are nearly zero) -- training
-    BatchNorm divides by batch standard deviations and cancels large
-    terms, so fp32 sum-order differences grow to ~1e-4 relative on its
-    leaves; the ViT and essential leaves agree to ~1e-6;
+  * gradients, per leaf: ||g_port - g_jax|| <= 5e-3 ||g_jax|| (plus 1e-6
+    of the largest leaf norm for leaves that are nearly zero) -- fp32
+    rounding, not a different computation (the float64 test below): the
+    leaves up to the extractor's first BatchNorm differ by 1.2e-3 - 3.1e-3
+    relative (measured; 2.1e-3 - 2.3e-3 on resnet.conv1 and the 3x3 convs
+    of layer1 and layer2), and each package's fp32 gradient is itself
+    1e-3 - 5e-3 from the float64 one there: training BatchNorm's
+    var = E[x^2] - mean^2 cancels large terms, and the trunk's divisions by
+    batch deviations amplify the rounding.  The bound is 1.6x the largest
+    measured gap.  The later leaves agree to 2e-5, the ViT and regressor
+    leaves to 7e-6;
+  * the same gradients in float64 (every fp32 cast of both packages made
+    float64, in a child process): ||g_port - g_jax|| <= 1e-9 ||g_jax||
+    (plus 1e-12 of the largest leaf norm), measured below 1e-13 on every
+    leaf but the three conv biases that a BatchNorm follows, whose exact
+    gradient is 0 (|g| ~ 1e-14);
   * BatchNorm running statistics: 1e-5 relative, counts exact;
   * 3 train steps: the loss of every step rtol 1e-4; the parameters'
     updates elementwise within 2 sum(lr) of the JAX ones, per leaf within
@@ -27,6 +38,11 @@ Tolerances, with their reasons:
 """
 
 import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import jax
@@ -76,6 +92,10 @@ def random_poses(rng, B):
 
 @pytest.fixture(scope="module")
 def setup():
+    return _make_setup()
+
+
+def _make_setup():
     sd = seeded_state_dict(ViTEss(CFG, device="meta"), seed=7)
     params, state = convert_torch_state_dict(sd, _jax_cfg(CFG))
     to_np = lambda tree: jax.tree.map(np.asarray, tree)
@@ -156,9 +176,83 @@ def test_one_step_gradients_match_jax(jax_one_step, port_one_step):
     bad = []
     for key, got, want in pairs:
         err = np.linalg.norm(got - want)
-        if not err <= 2e-3 * np.linalg.norm(want) + 1e-6 * scale:
+        if not err <= 5e-3 * np.linalg.norm(want) + 1e-6 * scale:
             bad.append(f"{key}: {err:.3e} vs |g| {np.linalg.norm(want):.3e}")
     assert not bad, bad
+
+
+def test_one_step_gradients_match_jax_float64():
+    """The one-step gradients of both packages in float64 agree to 1e-9:
+    the fp32 gap above is rounding."""
+    assert_float64_gradients_agree(float64_gradient_errors("flagship"), 75)
+
+
+def float64_gradient_errors(which):
+    """{key: (||g_port - g_jax||, ||g_jax||)} of the one-step gradients of
+    ``which`` ("flagship": this file's setup, "noess":
+    tests/test_torch_noess.py's) in float64, computed by this file run as a
+    script in a child process, so that x64 and the casts stay out of this
+    one."""
+    env = dict(os.environ, RELPOSE_NO_PALLAS="1", JAX_PLATFORMS="cpu")
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
+    res = subprocess.run([sys.executable, __file__, which], env=env,
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def assert_float64_gradients_agree(errs, n_leaves):
+    """Every leaf within 1e-9 relative, plus 1e-12 of the largest leaf
+    norm for the leaves whose exact gradient is 0."""
+    assert len(errs) == n_leaves
+    scale = max(norm for _, norm in errs.values())
+    bad = [f"{k}: {err:.3e} vs |g| {norm:.3e}" for k, (err, norm)
+           in errs.items() if not err <= 1e-9 * norm + 1e-12 * scale]
+    assert not bad, bad
+
+
+def _float64_one_step_gradients(cfg, setup):
+    """The child of :func:`float64_gradient_errors`: it sets JAX's x64 flag
+    and makes every fp32 cast of both packages float64 (``jnp.float32``,
+    ``torch.float32``, ``Tensor.float`` and the port's compute dtype), then
+    takes one loss gradient of each on ``setup``'s first batch."""
+    import rel_pose_tpu_torch.models.vitess as tvitess
+    jax.config.update("jax_enable_x64", True)
+    jnp.float32 = jnp.float64
+    torch.float32 = torch.float64
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    tvitess.ViTEss.compute_dtype = property(lambda self: torch.float64)
+
+    params, state, sd, batches = setup
+    f64 = lambda tree: jax.tree.map(
+        lambda a: jnp.asarray(a, jnp.float64
+                              if np.asarray(a).dtype == np.float32
+                              else None), tree)
+    images, poses, intr = (batches[0][0], batches[0][1].astype(np.float64),
+                           batches[0][2].astype(np.float64))
+    fn = make_loss_fn(_jax_cfg(cfg), 10.0, 10.0, "train")
+    (_, _), grads = jax.value_and_grad(fn, has_aux=True)(
+        f64(params), f64(state), jnp.asarray(images), jnp.asarray(poses),
+        jnp.asarray(intr), True)
+
+    model = ViTEss(cfg, device="cpu")
+    model.load_state_dict(sd)
+    model.double().train()
+    loss, _, _ = loss_fn(model, torch.from_numpy(images),
+                         torch.from_numpy(poses), torch.from_numpy(intr))
+    loss.backward()
+    named = dict(model.named_parameters())
+    out = {}
+    for path, key, transpose in key_map(cfg):
+        if path[0] == "params":
+            want = _lookup(grads, path[1:])
+            want = want.T if transpose else want
+            out[key] = (float(np.linalg.norm(named[key].grad.numpy() - want)),
+                        float(np.linalg.norm(want)))
+    return out
 
 
 def test_one_step_bn_state_matches_jax(jax_one_step, port_one_step):
@@ -313,3 +407,12 @@ def test_checkpoint_roundtrip_and_resume(setup, tmp_path):
 
 def _param_index(model, key):
     return [k for k, _ in model.named_parameters()].index(key)
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "noess":
+        import test_torch_noess
+        args = test_torch_noess.CFG, test_torch_noess.make_setup()
+    else:
+        args = CFG, _make_setup()
+    print(json.dumps(_float64_one_step_gradients(*args)))
