@@ -61,6 +61,28 @@ cross block's plain attention, in place of the essential block):
      noess eval forward at batch 256 (bf16) and train step at batch 60
      (fp32, bf16), kernels and plain path.
 
+The ablations of the Essential Matrix Module (``ModelConfig`` with
+``use_single_softmax``, ``cross_features``, ``no_pos_encoding`` or
+``l1_pos_encoding``: variants of kernels #2 and #6, and #3, #4):
+
+  3d. #2 and #6 for every combination of {positions, none} x {dual,
+     single softmax} x {va = v_self, cross features}, and #3
+     (``fused_essential_block_x``) and #4 (``fused_essential_block``) for
+     the flagship flags and one ablated combination, against their plain
+     versions at B = 8, fp32 and bf16; each backward twice for the same
+     bits; the four counters rose;
+  4d. #3 and #4 through their public ops (``essential_cross_attention``,
+     ``fused_essential_block``) under autograd, forward and backward
+     against the plain versions, their counters set to 0 just before and
+     read just after; then for each flag the depth-6 model with seeded
+     weights: phase 4's serving and phase 4b's three training steps, fp32
+     and bf16, kernels against the plain path, #1, #2, #5 and #6 launched;
+  5d. bf16 times of the #2 variants (batch 256) and the #6 variants
+     (batch 60) for the single softmax, no positions and cross features,
+     of #3 and #4 (batch 256), with plain times and bounds; each
+     ablation's eval forward (batch 256) and bf16 train step (batch 60),
+     kernels and plain path.
+
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Checkpoints go to ``output/`` beside
 this file.  The run needs no network and starts no process besides
@@ -395,16 +417,16 @@ def phase_kernels_mhsa(device):
         raise SystemExit(f"mhsa kernel checks failed: {failures}")
 
 
-def make_models(device, noess=False):
-    """The eval models (dtype, kernels) and their seeded state dict."""
+def make_models(device, **flags):
+    """The eval models (dtype, kernels) of ``ModelConfig(**flags)`` and
+    their seeded state dict."""
     from rel_pose_tpu_torch.config import ModelConfig
     from rel_pose_tpu_torch.models.vitess import ViTEss
     from rel_pose_tpu_torch.nn.init import seeded_state_dict
     models = {}
     sd = None
     for dtype in DTYPES:
-        cfg = ModelConfig(noess=noess,
-                          compute_dtype=str(dtype)[6:])   # depth 6
+        cfg = ModelConfig(compute_dtype=str(dtype)[6:], **flags)  # depth 6
         for kernels in (True, False):
             m = ViTEss(cfg, device=device, kernels=kernels)
             if sd is None:
@@ -427,7 +449,7 @@ def requests(rng):
     return out
 
 
-def check_poses(name, dtype, poses, plain, n, failures):
+def check_poses(name, dtype, poses, plain, n, failures, label="slice"):
     problems = []
     if poses.shape != (n, 2, 7):
         problems.append(f"shape {poses.shape}")
@@ -445,7 +467,7 @@ def check_poses(name, dtype, poses, plain, n, failures):
     err = float(np.abs(poses - plain).max())
     if not err <= POSE_ATOL[dtype]:
         problems.append(f"vs plain {err:.3e} > {POSE_ATOL[dtype]:.0e}")
-    log(f"[slice] {name} {str(dtype)[6:]}: shape {poses.shape} "
+    log(f"[{label}] {name} {str(dtype)[6:]}: shape {poses.shape} "
         f"|q| in [{qn.min():.6f}, {qn.max():.6f}] "
         f"max_abs_err_vs_plain={err:.3e} "
         f"{'ok' if not problems else 'FAIL ' + '; '.join(problems)}")
@@ -453,7 +475,7 @@ def check_poses(name, dtype, poses, plain, n, failures):
         failures.append(f"{name} {dtype}")
 
 
-def phase_slice(device, models):
+def phase_slice(device, models, label="slice"):
     from rel_pose_tpu_torch.infer import PosePredictor
     from rel_pose_tpu_torch.ops.essential_block import \
         fused_essential_block_pair
@@ -475,15 +497,16 @@ def phase_slice(device, models):
     torch.cuda.synchronize()
     launches = {"vit_stack": fused_vit_stack.launches,
                 "essential_block_pair": fused_essential_block_pair.launches}
-    log(f"[slice] kernel launches during the slice: {launches}")
+    log(f"[{label}] kernel launches during the slice: {launches}")
     plain = serve(kernels=False)
     failures = [f"{k} never launched" for k, v in launches.items()
                 if v <= 0]
     for (name, dtype), poses in got.items():
         n = next(len(r[1]) for r in reqs if r[0] == name)
-        check_poses(name, dtype, poses, plain[name, dtype], n, failures)
+        check_poses(name, dtype, poses, plain[name, dtype], n, failures,
+                    label)
     if failures:
-        raise SystemExit(f"slice checks failed: {failures}")
+        raise SystemExit(f"{label} checks failed: {failures}")
     return launches
 
 
@@ -507,11 +530,15 @@ def vit_flops(G, N, C, hidden, depth):
     return depth * (2 * M * C * (4 * C + 2 * hidden) + 4 * G * N * N * C)
 
 
+def moments_fwd_flops(B, N, heads, d=64, e=70):
+    """Per (pair, direction, head) the scores (2 N^2 d), P . vb (2 N^2 e)
+    and va^T av (2 N e^2): #4's products."""
+    return 2 * B * heads * (2 * N * N * d + 2 * N * N * e + 2 * N * e * e)
+
+
 def essential_fwd_flops(B, N, C, heads, d=64, e=70):
-    """qkv Linear of 2B images, then per (pair, direction, head) the scores
-    (2 N^2 d), P . vb (2 N^2 e) and va^T av (2 N e^2)."""
-    return (2 * 2 * B * N * 3 * C * C
-            + 2 * B * heads * (2 * N * N * d + 2 * N * N * e + 2 * N * e * e))
+    """The qkv Linear of 2B images, then the moments (#2, #3)."""
+    return 2 * 2 * B * N * 3 * C * C + moments_fwd_flops(B, N, heads, d, e)
 
 
 def essential_bwd_flops(B, N, heads, d=64, e=70):
@@ -623,11 +650,13 @@ def train_batch(rng, B, device):
                  for a in (images, random_poses(rng, B), intr))
 
 
-def train_model(dtype, sd, device, kernels, noess=False):
+def train_model(dtype, sd, device, kernels, **flags):
+    """A depth-6 ``ModelConfig(**flags)`` model loaded from ``sd``, with its
+    Adam and OneCycle."""
     from rel_pose_tpu_torch.config import ModelConfig
     from rel_pose_tpu_torch.models.vitess import ViTEss
     from rel_pose_tpu_torch.train.optim import make_optimizer
-    model = ViTEss(ModelConfig(noess=noess, compute_dtype=str(dtype)[6:]),
+    model = ViTEss(ModelConfig(compute_dtype=str(dtype)[6:], **flags),
                    device=device, kernels=kernels)
     model.load_state_dict(sd)
     opt, sched = make_optimizer(model, lr=5e-4, steps=1000, warmup=100)
@@ -643,7 +672,7 @@ def kernel_counters():
             "essential_block_bwd": te.fused_essential_block_bwd}
 
 
-def compare_leaves(dtype, grads, plain, failures):
+def compare_leaves(dtype, grads, plain, failures, label="train"):
     """Per-parameter cosine and norm ratio of the kernel path's step-1
     gradient against the plain path's."""
     scale = max(g.norm().item() for g in plain.values())
@@ -659,18 +688,19 @@ def compare_leaves(dtype, grads, plain, failures):
             worst_ratio = max(worst_ratio, ratio)
             if cos < LEAF_COS[dtype] or ratio > LEAF_RATIO[dtype]:
                 bad.append(f"{name} cos {cos:.6f} ratio {gn / rn:.4f}")
-    log(f"[train] {str(dtype)[6:]} step-1 gradients, {len(grads)} leaves: "
-        f"min cosine {worst_cos:.6f} (>= {LEAF_COS[dtype]}), max |norm "
-        f"ratio - 1| {worst_ratio:.3e} (<= {LEAF_RATIO[dtype]}) "
+    log(f"[{label}] {str(dtype)[6:]} step-1 gradients, {len(grads)} "
+        f"leaves: min cosine {worst_cos:.6f} (>= {LEAF_COS[dtype]}), max "
+        f"|norm ratio - 1| {worst_ratio:.3e} (<= {LEAF_RATIO[dtype]}) "
         f"{'ok' if not bad else 'FAIL ' + '; '.join(bad[:5])}")
     if bad:
         failures.append(f"step-1 gradients {dtype}")
 
 
-def phase_train(device, sd):
-    """(4b) three train steps per dtype, kernels and plain path; see the
-    module docstring.  Deterministic algorithms on (cuDNN and the rest), so
-    that a resumed step can be compared bit for bit."""
+def phase_train(device, sd, label="train", **flags):
+    """(4b) three train steps per dtype of ``ModelConfig(**flags)``,
+    kernels and plain path; see the module docstring.  Deterministic
+    algorithms on (cuDNN and the rest), so that a resumed step can be
+    compared bit for bit."""
     from rel_pose_tpu_torch.train import checkpoint
     from rel_pose_tpu_torch.train.step import train_step
     counters = kernel_counters()
@@ -687,7 +717,8 @@ def phase_train(device, sd):
                    for _ in range(3)]
         runs = {}
         for kernels in (True, False):
-            model, opt, sched = train_model(dtype, sd, device, kernels)
+            model, opt, sched = train_model(dtype, sd, device, kernels,
+                                            **flags)
             bn0 = {k: v.clone() for k, v in model.state_dict().items()
                    if "running" in k}
             losses, grads1 = [], None
@@ -703,7 +734,7 @@ def phase_train(device, sd):
                     grads1 = {n: p.grad.detach().clone()
                               for n, p in model.named_parameters()}
             runs[kernels] = (losses, grads1)
-            log(f"[train] {str(dtype)[6:]} "
+            log(f"[{label}] {str(dtype)[6:]} "
                 f"{'kernels' if kernels else 'plain path'}: losses "
                 f"{[round(v, 6) for v in losses]}")
             sdict = model.state_dict()
@@ -718,14 +749,15 @@ def phase_train(device, sd):
                     SLICE_TRAIN_BATCH, 2, 7):
                 failures.append(f"losses / poses {dtype} {kernels}")
             if kernels:
-                fresh, opt2, sched2 = train_model(dtype, sd, device, True)
+                fresh, opt2, sched2 = train_model(dtype, sd, device, True,
+                                                  **flags)
                 start = checkpoint.resume(name, fresh, opt2, sched2,
                                           str(ckpt_dir))
                 m3, _ = train_step(fresh, opt2, sched2, *batches[2])
                 same = start == 2 and m3["loss"].item() == losses[2] and all(
                     torch.equal(a, b) for a, b in zip(
                         fresh.state_dict().values(), sdict.values()))
-                log(f"[train] {str(dtype)[6:]} resume from step {start}: "
+                log(f"[{label}] {str(dtype)[6:]} resume from step {start}: "
                     f"step 3 {'bit for bit' if same else 'DIFFERS'}")
                 if not same:
                     failures.append(f"resume {dtype}")
@@ -734,22 +766,22 @@ def phase_train(device, sd):
         (lk, gk), (lp, gp) = runs[True], runs[False]
         rel = abs(lk[0] - lp[0]) / abs(lp[0])
         ok = rel <= LOSS_RTOL[dtype]
-        log(f"[train] {str(dtype)[6:]} step-1 loss kernels {lk[0]:.6f} plain "
-            f"{lp[0]:.6f} rel {rel:.3e} (<= {LOSS_RTOL[dtype]}) "
+        log(f"[{label}] {str(dtype)[6:]} step-1 loss kernels {lk[0]:.6f} "
+            f"plain {lp[0]:.6f} rel {rel:.3e} (<= {LOSS_RTOL[dtype]}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"step-1 loss {dtype}")
-        compare_leaves(dtype, gk, gp, failures)
+        compare_leaves(dtype, gk, gp, failures, label)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
-    log(f"[train] kernel launches during the training slice: {launches}")
+    log(f"[{label}] kernel launches during the training slice: {launches}")
     failures += [f"{k} never launched" for k, v in launches.items()
                  if v <= 0]
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     if failures:
-        raise SystemExit(f"training slice checks failed: {failures}")
+        raise SystemExit(f"{label} checks failed: {failures}")
     return launches
 
 
@@ -996,6 +1028,323 @@ def phase_times_noess(device, models, sd, card):
             del model, opt, sched
     return rows
 
+# ------------------------------------ the Essential Matrix Module's ablations --
+
+ABLATIONS = ("use_single_softmax", "cross_features", "no_pos_encoding",
+             "l1_pos_encoding")
+# (has_pos, cross_features, use_single_softmax): the variants of #2 and #6
+VARIANTS = [(p, x, s) for p in (True, False) for x in (False, True)
+            for s in (False, True)]
+
+
+def variant_name(has_pos, cross, single):
+    return (f"{'pos' if has_pos else 'nopos'}-{'cross' if cross else 'self'}"
+            f"-{'single' if single else 'dual'}")
+
+
+def variant_kw(cross, single):
+    return {"cross_features": cross, "use_single_softmax": single}
+
+
+def essential_counters():
+    from rel_pose_tpu_torch.ops import essential_block as te
+    return {"essential_block_pair": te.fused_essential_block_pair,
+            "essential_block_x": te.fused_essential_block_x,
+            "essential_block": te.fused_essential_block,
+            "essential_block_bwd": te.fused_essential_block_bwd}
+
+
+def check_moments_bwd(name, te, qkv, pos, df, kw, dtype, failures):
+    """#6 twice (the same bits) and against its plain version: dq, dk, dv
+    and, with a positional table, dpos -> max |err|."""
+    (dq, dp), (dq2, dp2) = (te.fused_essential_block_bwd(qkv, pos, df, 3,
+                                                         **kw)
+                            for _ in range(2))
+    torch.cuda.synchronize()
+    if not (torch.equal(dq, dq2) and (dp is None or torch.equal(dp, dp2))):
+        failures.append(f"{name} not bitwise repeatable {dtype}")
+    rq, rp = te.essential_block_bwd_reference(qkv, pos, df, 3, **kw)
+    C = qkv.shape[-1] // 3
+    errs = [check_grad(f"{name} {part}", dq[..., sl], rq[..., sl], dtype,
+                       failures)
+            for part, sl in (("dq", slice(0, C)), ("dk", slice(C, 2 * C)),
+                             ("dv", slice(2 * C, 3 * C)))]
+    if pos is not None:
+        errs.append(check_grad(f"{name} dpos", dp, rp, dtype, failures))
+    elif dp is not None:
+        failures.append(f"{name}: a positional cotangent without positions")
+    return max(errs)
+
+
+def split_pair(xpair, ln, qkvp):
+    """(x1, x2): the pre-normed tokens of #3; (q1, q2): the rounded qkv of
+    #4; the pair's qkv (B, 2, N, 3C) of #6."""
+    from rel_pose_tpu_torch.nn.layers import layernorm
+    from rel_pose_tpu_torch.ops.essential_block import linear_rounded
+    y = layernorm(xpair, *ln)
+    qkv = linear_rounded(y, *qkvp)
+    return ((y[:, 0].contiguous(), y[:, 1].contiguous()),
+            (qkv[:, 0].contiguous(), qkv[:, 1].contiguous()), qkv)
+
+
+def phase_kernels_variants(device):
+    """(3d) #2 and #6 for every combination of {pos, no pos} x {dual,
+    single} x {va = v_self, cross}, and #3, #4 for the flagship flags and
+    one ablated combination, against their plain versions at B = 8, fp32
+    and bf16; each backward twice for the same bits; the four counters
+    rose."""
+    from rel_pose_tpu_torch.ops import essential_block as te
+    counters = essential_counters()
+    for c in counters.values():
+        c.launches = 0
+    failures = []
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 10)
+        xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
+        (x1, x2), (q1, q2), qkv = split_pair(xpair, ln, qkvp)
+        for has_pos, cross, single in VARIANTS:
+            name, kw = variant_name(has_pos, cross, single), variant_kw(
+                cross, single)
+            pos = positional if has_pos else None
+            f = te.fused_essential_block_pair(xpair, ln, qkvp, pos, 3, **kw)
+            torch.cuda.synchronize()
+            check_f(f"essential_block_pair {name} B=8", f,
+                    te.essential_block_pair_reference(xpair, ln, qkvp, pos,
+                                                      3, **kw),
+                    dtype, failures)
+            e = 64 + 6 * has_pos
+            df = torch.from_numpy((0.1 * rng.standard_normal(
+                (8, 2, 3, e, e))).astype(np.float32)).to(device)
+            check_moments_bwd(f"essential_block_bwd {name} B=8", te, qkv,
+                              None if pos is None else pos.to(dtype), df,
+                              kw, dtype, failures)
+        for has_pos, cross, single in ((True, False, False),
+                                       (False, True, True)):
+            name, kw = variant_name(has_pos, cross, single), variant_kw(
+                cross, single)
+            pos = positional if has_pos else None
+            f = te.fused_essential_block_x(x1, x2, qkvp, pos, 3, **kw)
+            g = te.fused_essential_block(q1, q2, pos, 3, **kw)
+            torch.cuda.synchronize()
+            check_f(f"essential_block_x {name} B=8", f,
+                    te.essential_block_x_reference(x1, x2, qkvp, pos, 3,
+                                                   **kw), dtype, failures)
+            check_f(f"essential_block {name} B=8", g,
+                    te.essential_block_reference(q1, q2, pos, 3, **kw),
+                    dtype, failures)
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"[check] essential variants' launches: {launches}")
+    failures += [f"{k} never launched" for k, v in launches.items()
+                 if v <= 0]
+    if failures:
+        raise SystemExit(f"essential variant checks failed: {failures}")
+
+
+def phase_entry_points(device):
+    """(4d) #3 and #4 through their public ops, as a caller runs them:
+    ``ops.essential.essential_cross_attention`` (#3, then the projection)
+    and ``fused_essential_block`` (#4) at B = 8, forward and backward under
+    autograd (the backward is #6), fp32 and bf16, with the counters set to
+    0 just before and read just after.  Outputs against the plain versions;
+    fp32 gradients against autograd through the plain versions (bf16:
+    finite).  Returns the launch counts."""
+    from rel_pose_tpu_torch.ops import essential_block as te
+    from rel_pose_tpu_torch.ops.essential import essential_cross_attention
+    counters = essential_counters()
+    failures, runs = [], []
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 11)
+        xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
+        (x1, x2), (q1, q2), _ = split_pair(xpair, ln, qkvp)
+        proj = (torch.from_numpy((rng.standard_normal((192, 210)) * 0.05)
+                                 .astype(np.float32)).to(device),
+                torch.zeros(192, device=device))
+
+        def x_call(a, b, w, block, bias=qkvp[1], pos=positional, proj=proj):
+            return torch.stack(essential_cross_attention(
+                a, b, (w, bias), proj, pos, 3, block=block), 1)
+
+        def block_call(a, b, p, block):
+            return block(a, b, p, 3)
+
+        runs.append((dtype, "essential_cross_attention (#3)", x_call,
+                     (x1, x2, qkvp[0]), te.fused_essential_block_x,
+                     te.essential_block_x_reference))
+        runs.append((dtype, "fused_essential_block (#4)", block_call,
+                     (q1, q2, positional), te.fused_essential_block,
+                     te.essential_block_reference))
+
+    def grads(fn, inputs, block):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves, block)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        cot = torch.randn(out.shape, generator=gen, device=device)
+        (out.float() * cot).sum().backward()
+        return out.detach(), [t.grad for t in leaves]
+
+    for c in counters.values():
+        c.launches = 0
+    outs = [grads(fn, inputs, fused) for _, _, fn, inputs, fused, _ in runs]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"[entry] kernel launches through the public ops: {launches}")
+    failures += [f"{k} never launched" for k in (
+        "essential_block_x", "essential_block", "essential_block_bwd")
+        if launches[k] <= 0]
+    for (dtype, name, fn, inputs, _, plain), (out, gk) in zip(runs, outs):
+        ref, gp = grads(fn, inputs, plain)
+        if name.endswith("(#3)"):
+            check_tokens(f"{name} out", out, ref, dtype, failures)
+        else:
+            check_f(f"{name} F", out, ref, dtype, failures)
+        for i, (a, b) in enumerate(zip(gk, gp)):
+            if dtype == torch.float32:
+                check_grad(f"{name} grad {i}", a, b, dtype, failures)
+            elif not torch.isfinite(a).all():
+                failures.append(f"{name} grad {i} {dtype} not finite")
+    if failures:
+        raise SystemExit(f"entry-point checks failed: {failures}")
+    return launches
+
+
+def phase_ablations(device):
+    """(4d) for each ablation flag, the depth-6 ``ModelConfig(<flag>=True)``
+    with seeded weights: phase 4's serving and phase 4b's training checks,
+    kernels against the plain path; returns the launches per flag."""
+    out = {}
+    for flag in ABLATIONS:
+        models, sd = make_models(device, **{flag: True})
+        serve = phase_slice(device, models, label=f"ablation {flag}")
+        del models
+        train = phase_train(device, sd, label=f"ablation {flag}",
+                            **{flag: True})
+        out[flag] = (serve, train)
+    return out
+
+
+def phase_times_variants(device, card):
+    """(5d) bf16 CUDA-event times of the #2 and #6 variants (single
+    softmax; no positions; cross features) at the eval shapes of batch 256
+    (#2) and the training shapes of batch 60 (#6), of #3 and #4 at batch
+    256 with the flagship flags, then the eval forward (batch 256) and the
+    bf16 train step (batch 60) of each ablation's model, kernels and plain
+    path.  Returns the kernels-line rows of #3 and #4."""
+    from rel_pose_tpu_torch.ops import essential_block as te
+    from rel_pose_tpu_torch.train.step import train_step
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(SEED + 12)
+    failures, rows = [], {}
+    timed = (("single", (True, False, True)), ("nopos", (False, False, False)),
+             ("cross", (True, True, False)))
+    B = EVAL_BATCH
+    xpair, ln, qkvp, positional = essential_inputs(rng, B, dtype, device)
+    small = sum(t.numel() for t in (*ln, *qkvp))
+    for tag, (has_pos, cross, single) in timed:
+        kw = variant_kw(cross, single)
+        pos = positional if has_pos else None
+        e = 64 + 6 * has_pos
+        f = te.fused_essential_block_pair(xpair, ln, qkvp, pos, 3, **kw)
+        err = check_f(f"essential_block_pair {tag} B={B}", f,
+                      te.essential_block_pair_reference(xpair, ln, qkvp,
+                                                        pos, 3, **kw),
+                      dtype, failures)
+        ms = cuda_time_ms(lambda: te.fused_essential_block_pair(
+            xpair, ln, qkvp, pos, 3, **kw), 3)
+        plain_ms = cuda_time_ms(lambda: te.essential_block_pair_reference(
+            xpair, ln, qkvp, pos, 3, **kw), 3)
+        b = bound(essential_fwd_flops(B, 576, 192, 3, e=e),
+                  nbytes(xpair, f) + 2 * (small + (pos is not None)
+                                          * positional.numel()), dtype)
+        log(f"[time] essential_block_pair {tag} bf16 batch {B}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms "
+            f"({b[1]}), max_abs_err {err:.3e} ({card})")
+        del f
+
+    (x1, x2), (q1, q2), _ = split_pair(xpair, ln, qkvp)
+    pos = positional.to(dtype)
+    f = te.fused_essential_block(q1, q2, pos, 3)
+    err = check_f(f"essential_block B={B}", f,
+                  te.essential_block_reference(q1, q2, pos, 3), dtype,
+                  failures)
+    ms = cuda_time_ms(lambda: te.fused_essential_block(q1, q2, pos, 3), 3)
+    plain_ms = cuda_time_ms(
+        lambda: te.essential_block_reference(q1, q2, pos, 3), 3)
+    b = bound(moments_fwd_flops(B, 576, 3), nbytes(q1, q2, pos, f), dtype)
+    rows["essential_block"] = (err, ms, plain_ms, None, b)
+    f = te.fused_essential_block_x(x1, x2, qkvp, pos, 3)
+    err = check_f(f"essential_block_x B={B}", f,
+                  te.essential_block_x_reference(x1, x2, qkvp, pos, 3),
+                  dtype, failures)
+    ms = cuda_time_ms(
+        lambda: te.fused_essential_block_x(x1, x2, qkvp, pos, 3), 3)
+    plain_ms = cuda_time_ms(
+        lambda: te.essential_block_x_reference(x1, x2, qkvp, pos, 3), 3)
+    b = bound(essential_fwd_flops(B, 576, 192, 3),
+              nbytes(x1, x2, pos, f) + 2 * small, dtype)
+    rows["essential_block_x"] = (err, ms, plain_ms, None, b)
+    del xpair, x1, x2, q1, q2, f, pos, positional
+
+    B = TRAIN_BATCH
+    xpair, ln, qkvp, positional = essential_inputs(rng, B, dtype, device)
+    _, _, qkv = split_pair(xpair, ln, qkvp)
+    del xpair
+    for tag, (has_pos, cross, single) in timed:
+        kw = variant_kw(cross, single)
+        pos = positional.to(dtype) if has_pos else None
+        e = 64 + 6 * has_pos
+        df = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, 2, 3, e, e))).astype(np.float32)).to(device)
+        err = check_moments_bwd(f"essential_block_bwd {tag} B={B}", te, qkv,
+                                pos, df, kw, dtype, failures)
+        ms = cuda_time_ms(lambda: te.fused_essential_block_bwd(
+            qkv, pos, df, 3, **kw), 3)
+        plain_ms = cuda_time_ms(lambda: te.essential_block_bwd_reference(
+            qkv, pos, df, 3, **kw), 2)
+        nb = 2 * nbytes(qkv) + nbytes(df)
+        if pos is not None:
+            nb += nbytes(pos) + 2 * 3 * pos.numel() * 4   # dpos partials
+        b = bound(essential_bwd_flops(B, 576, 3, e=e), nb, dtype)
+        log(f"[time] essential_block_bwd {tag} bf16 batch {B}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms "
+            f"({b[1]}), max_abs_err {err:.3e} ({card})")
+    del qkv, positional
+    if failures:
+        raise SystemExit(f"variant timing checks failed: {failures}")
+    for name, (err, ms, plain_ms, _, b) in rows.items():
+        log(f"[time] {name} bf16 batch {EVAL_BATCH}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) "
+            f"({card})")
+
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    from rel_pose_tpu_torch.nn.init import seeded_state_dict
+    images = torch.from_numpy(rng.integers(
+        0, 256, (EVAL_BATCH, 2, 3, 256, 256), dtype=np.uint8)).to(device)
+    intr = torch.full((EVAL_BATCH, 2, 4), 128.0, device=device)
+    batch = train_batch(rng, TRAIN_BATCH, device)
+    for flag in ABLATIONS:
+        sd = seeded_state_dict(ViTEss(ModelConfig(**{flag: True}),
+                                      device="meta"), SEED)
+        for kernels in (True, False):
+            mode = "kernels" if kernels else "plain path"
+            model, opt, sched = train_model(dtype, sd, device, kernels,
+                                            **{flag: True})
+            with torch.inference_mode():
+                ms = cuda_time_ms(lambda: model(images, intr), 3)
+            log(f"[time] {flag} eval forward bf16 batch {EVAL_BATCH} "
+                f"256x256 uint8 ({mode}): {ms:.3f} ms, "
+                f"{EVAL_BATCH / ms * 1e3:.2f} pairs/s ({card})")
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_time_ms(lambda: train_step(model, opt, sched, *batch),
+                              3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"[time] {flag} train step bf16 batch {TRAIN_BATCH} 384x512 "
+                f"uint8 ({mode}): {ms:.3f} ms, "
+                f"{TRAIN_BATCH / ms * 1e3:.2f} pairs/s, peak {peak:.2f} GiB "
+                f"({card})")
+            del model, opt, sched
+    return rows
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1009,6 +1358,7 @@ def main():
     phase_kernels(device)
     bwd_errs = phase_kernels_bwd(device)
     phase_kernels_mhsa(device)
+    phase_kernels_variants(device)
     models, sd = make_models(device)
     eval_launches = phase_slice(device, models)
     launches = phase_train(device, sd)
@@ -1019,13 +1369,21 @@ def main():
     noess_eval, noess_train = phase_noess(device, models, sd)
     rows.update(phase_times_noess(device, models, sd, card))
     del models
+    entry_launches = phase_entry_points(device)
+    ablations = phase_ablations(device)
+    rows.update(phase_times_variants(device, card))
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
     log(f"[slice] eval launches {eval_launches}, training launches "
         f"{launches}")
     log(f"[noess] eval launches {noess_eval}, training launches "
         f"{noess_train}")
+    for flag, (serve, train) in ablations.items():
+        log(f"[ablation {flag}] eval launches {serve}, training launches "
+            f"{train}")
     launches.update({k: noess_train[k] for k in ("mhsa_fwd", "mhsa_bwd")})
+    launches.update({k: entry_launches[k] for k in ("essential_block",
+                                                    "essential_block_x")})
     sources = {
         "vit_stack": ("rel_pose_tpu_torch/csrc/vit_stack.cu",
                       "rel_pose_tpu/ops/pallas_vit.py:94"),
@@ -1041,6 +1399,11 @@ def main():
                      "rel_pose_tpu/ops/pallas_attention.py:53"),
         "mhsa_bwd": ("rel_pose_tpu_torch/csrc/mhsa.cu",
                      "rel_pose_tpu/ops/pallas_attention.py:69"),
+        "essential_block": ("rel_pose_tpu_torch/csrc/essential_block.cu",
+                            "rel_pose_tpu/ops/pallas_essential_block.py:213"),
+        "essential_block_x": (
+            "rel_pose_tpu_torch/csrc/essential_block.cu",
+            "rel_pose_tpu/ops/pallas_essential_block.py:257"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

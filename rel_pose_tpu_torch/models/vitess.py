@@ -1,15 +1,19 @@
 """ViTEss forward: an image pair -> the SE(3) relative pose.
 
-Counterpart of ``rel_pose_tpu/models/vitess.py:124-344`` for the flagship
-configuration (fusion transformer, Essential Matrix Module, quadratic
-positional encoding) and its --noess ablation (``ModelConfig(noess=True)``):
+Counterpart of ``rel_pose_tpu/models/vitess.py:124-344`` for the fusion
+transformer configurations: the flagship (Essential Matrix Module, quadratic
+positional encoding), the paper's ablations of the Essential Matrix Module
+(``ModelConfig`` flags ``use_single_softmax``, ``cross_features``,
+``no_pos_encoding``, ``l1_pos_encoding``) and --noess
+(``ModelConfig(noess=True)``, where those four flags have no effect):
 
-  uint8 or float (B, 2, 3, H, W) raw BGR images, (B, 2, 4) intrinsics
+  uint8 or float (B, 2, 3, H, W) raw BGR images, (B, 2, 4) intrinsics or
+  None (the reference's initial positional tables)
   -> nearest resize to 224, mean subtraction (1/std folded into conv1)
   -> ResNet-18 trunk through layer2 -> k=5 extractor block: 576 tokens x 192
   -> depth-1 self-attention blocks (``ops.vit_stack``, hand kernels on CUDA)
-  -> flagship: essential cross block (``ops.essential``, hand kernels on
-     CUDA) -> LayerNorm -> (B, 2 x 3 x 70 x 64)
+  -> essential cross block (``ops.essential``, hand kernels on CUDA) ->
+     LayerNorm -> (B, 2 x 3 x e x 64), e = 70, or 64 without positions
   -> --noess: cross block x + attn(LN(x)) (``ops.attention``, hand kernels
      on CUDA), x + MLP(LN(x)) -> LayerNorm -> (B, 24, 24, 2 x 192)
      row-major -> ``pool_attn`` 1x1 conv head 384 -> 96 -> 43 -> (B, 24,768)
@@ -45,31 +49,32 @@ from ..ops.essential_block import (essential_block_pair_reference,
                                    fused_essential_block_pair)
 from ..ops.image import (nearest_resize, normalization_constants,
                          scale_intrinsics)
-from ..ops.posenc import quadratic_positional_encoding
+from ..ops.posenc import (l1_positional_encoding,
+                          quadratic_positional_encoding)
 from ..ops.vit_stack import (fused_vit_stack, stack_block_params,
                              vit_stack_reference)
 
-# ModelConfig fields and the only values the port implements so far
-_SLICE = {"fusion_transformer": True, "no_pos_encoding": False,
-          "cross_features": False, "use_single_softmax": False,
-          "l1_pos_encoding": False}
-
 
 class CrossAttention(nn.Module):
-    def __init__(self, dim, num_heads, noess):
+    def __init__(self, cfg):
         super().__init__()
+        dim = cfg.total_num_features
         self.qkv = nn.Linear(dim, 3 * dim)
-        if noess:
+        if cfg.noess:
             self.proj = nn.Linear(dim, dim)
         else:
-            self.proj_fundamental = nn.Linear(dim + 6 * num_heads, dim)
+            # h (d + 6) -> C, or h d -> C without positions
+            # (rel_pose_tpu/ops/essential.py:39-41)
+            pos = 0 if cfg.no_pos_encoding else 6 * cfg.num_heads
+            self.proj_fundamental = nn.Linear(dim + pos, dim)
 
 
 class CrossBlock(nn.Module):
-    def __init__(self, dim, num_heads, noess):
+    def __init__(self, cfg):
         super().__init__()
+        dim = cfg.total_num_features
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.cross_attn = CrossAttention(dim, num_heads, noess)
+        self.cross_attn = CrossAttention(cfg)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, 4 * dim)
 
@@ -81,7 +86,7 @@ class FusionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, C))
         self.blocks = nn.ModuleList(
             [Block(C) for _ in range(cfg.transformer_depth - 1)]
-            + [CrossBlock(C, cfg.num_heads, cfg.noess)])
+            + [CrossBlock(cfg)])
         self.norm = nn.LayerNorm(C, eps=1e-6)
 
 
@@ -97,13 +102,13 @@ def normalize_preds(Gs, pose_preds):
 class ViTEss(nn.Module):
     def __init__(self, cfg, device="cuda", kernels=True):
         super().__init__()
-        bad = {k: getattr(cfg, k) for k, v in _SLICE.items()
-               if getattr(cfg, k) != v}
-        if bad or cfg.compute_dtype not in ("float32", "bfloat16"):
+        if not cfg.fusion_transformer:
             raise NotImplementedError(
-                "the PyTorch port implements the flagship and --noess "
-                f"paths only; unsupported settings: "
-                f"{bad or cfg.compute_dtype}")
+                "the PyTorch port implements the fusion transformer paths "
+                "only (fusion_transformer=False is not ported)")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise NotImplementedError(
+                f"compute_dtype {cfg.compute_dtype!r}: float32 or bfloat16")
         self.cfg = cfg
         self.kernels = kernels
         C = cfg.total_num_features
@@ -143,17 +148,17 @@ class ViTEss(nn.Module):
         x = x.reshape(x.shape[0], x.shape[1], -1)
         return x.transpose(1, 2).contiguous()
 
-    def forward(self, images, intrinsics, Gs=None):
+    def forward(self, images, intrinsics=None, Gs=None):
         """``images (B, 2, 3, H, W)`` uint8 or float raw BGR 0-255,
-        ``intrinsics (B, 2, 4)`` [fx, fy, cx, cy] at H x W ->
+        ``intrinsics (B, 2, 4)`` [fx, fy, cx, cy] at H x W, or None ->
         ``(B, 2, 7)`` fp32 poses (tx ty tz qx qy qz qw).  Pose 0 is taken
         from ``Gs (B, 2, 7)``, the identity by default."""
         cfg = self.cfg
         B = images.shape[0]
         N, C, heads = cfg.num_patches, cfg.total_num_features, cfg.num_heads
         ft = self.fusion_transformer
-        intr = scale_intrinsics(intrinsics.float(), images.shape,
-                                cfg.feature_resolution)
+        intr = (None if intrinsics is None else scale_intrinsics(
+            intrinsics.float(), images.shape, cfg.feature_resolution))
         x = self._tokens(images)
 
         stacked = stack_block_params(ft.blocks[:-1], self.compute_dtype)
@@ -164,13 +169,14 @@ class ViTEss(nn.Module):
         if cfg.noess:
             y = self._noess_head(x, cb)
         else:
-            positional = quadratic_positional_encoding(N, intr)
             f1, f2 = essential_cross_attention_pair(
                 x.reshape(B, 2, N, C), (cb.norm1.weight, cb.norm1.bias),
                 (cb.cross_attn.qkv.weight, cb.cross_attn.qkv.bias),
                 (cb.cross_attn.proj_fundamental.weight,
                  cb.cross_attn.proj_fundamental.bias),
-                positional, heads,
+                self._positional(intr, B, x.device), heads,
+                cross_features=cfg.cross_features,
+                use_single_softmax=cfg.use_single_softmax,
                 block=(fused_essential_block_pair if self.kernels
                        else essential_block_pair_reference))
             fund = torch.stack([f1, f2], dim=1).reshape(2 * B, -1, C)
@@ -188,6 +194,18 @@ class ViTEss(nn.Module):
             Gs = torch.zeros_like(pose_preds)
             Gs[..., 6] = 1.0
         return normalize_preds(Gs, pose_preds)
+
+    def _positional(self, intr, batch, device):
+        """The positional table of ``_positional``
+        (``rel_pose_tpu/models/vitess.py:205-210``): None under
+        ``no_pos_encoding`` (which wins over ``l1_pos_encoding``), else the
+        L1 or the quadratic table, ``(B, N, 6)``."""
+        cfg = self.cfg
+        if cfg.no_pos_encoding:
+            return None
+        fn = (l1_positional_encoding if cfg.l1_pos_encoding
+              else quadratic_positional_encoding)
+        return fn(cfg.num_patches, intr, batch=batch, device=device)
 
     def _noess_head(self, x, cb):
         """The --noess cross block, final norm and ``pool_attn``

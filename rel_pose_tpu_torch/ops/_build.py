@@ -44,14 +44,22 @@ SIGNATURES = {
     # xs, g, 12 stacked parameters, dx, 12 fp32 gradients, workspace;
     # G, N, C, heads, hidden, depth, bf16; stream
     "rp_vit_stack_bwd": ([P] * 28 + [I] * 7 + [P], ctypes.c_int),
+    # The essential block's entry points take the flags has_pos, single,
+    # cross after the sizes; pos (and the positional outputs) NULL without
+    # positions.
     # xpair, ln scale, ln bias, w, b, pos, F, 2 scratch buffers;
-    # B, N, C, heads, bf16; stream
-    "rp_essential_block_pair": ([P] * 9 + [I] * 5 + [P], ctypes.c_int),
-    # B, N, heads -> workspace bytes of rp_essential_block_bwd
-    "rp_essential_block_bwd_workspace": ([I] * 3, L),
-    # qkv, pos, dF, dqkv, dpos partials, workspace; B, N, C, heads, bf16;
+    # B, N, C, heads, 3 flags, bf16; stream
+    "rp_essential_block_pair": ([P] * 9 + [I] * 8 + [P], ctypes.c_int),
+    # x1, x2, w, b, pos, F, qkv scratch; B, N, C, heads, 3 flags, bf16;
     # stream
-    "rp_essential_block_bwd": ([P] * 6 + [I] * 5 + [P], ctypes.c_int),
+    "rp_essential_block_x": ([P] * 7 + [I] * 8 + [P], ctypes.c_int),
+    # qkv1, qkv2, pos, F; B, N, C, heads, 3 flags, bf16; stream
+    "rp_essential_block": ([P] * 4 + [I] * 8 + [P], ctypes.c_int),
+    # B, N, heads, has_pos -> workspace bytes of rp_essential_block_bwd
+    "rp_essential_block_bwd_workspace": ([I] * 4, L),
+    # qkv, pos, dF, dqkv, dva (cross), dpos partials, workspace; B, N, C,
+    # heads, 3 flags, bf16; stream
+    "rp_essential_block_bwd": ([P] * 7 + [I] * 8 + [P], ctypes.c_int),
     # q, k, v, o; G, N, d, scale, bf16; stream
     "rp_mhsa_fwd": ([P] * 4 + [I] * 3 + [F, I, P], ctypes.c_int),
     # q, k, v, do, dq, dk, dv, stats scratch; G, N, d, scale, bf16; stream

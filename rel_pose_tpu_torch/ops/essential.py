@@ -1,42 +1,69 @@
 """The cross block's attention: the Essential Matrix Module (the paper's
 core op) and its --noess ablation.
 
-Counterpart of ``rel_pose_tpu/ops/essential.py:100-153``:
+Counterpart of ``rel_pose_tpu/ops/essential.py:61-153``:
 
   * ``essential_cross_attention_pair``: the pair block
-    (``ops.essential_block``) gives per direction and head a (d+6) x (d+6)
-    moment matrix F; this reshapes them head-major, projects with
-    ``proj_fundamental`` (h(d+6) -> C) and applies the reference's ViLBERT
-    flip;
+    (``ops.essential_block``, #2) gives per direction and head an e x e
+    moment matrix F (e = d + 6, or d without a positional table); this
+    reshapes them head-major, projects with ``proj_fundamental`` (h e -> C)
+    and applies the reference's ViLBERT flip;
+  * ``essential_cross_attention``: the same from the pre-normed token sets
+    ``x1, x2`` through #3 (``fused_essential_block_x``);
   * ``noess_cross_attention``: plain softmax cross attention between the two
     images' tokens (``ops.attention``), both directions in one launch, then
     ``proj`` and the same flip.
+
+``cross_features`` and ``use_single_softmax`` are the ablation flags of
+``ModelConfig``; ``positional`` is None under ``no_pos_encoding``.
 """
 
 import torch
 
 from ..nn.layers import linear
 from .attention import fused_mhsa
-from .essential_block import fused_essential_block_pair
+from .essential_block import fused_essential_block_pair, \
+    fused_essential_block_x
+
+
+def _project(f, proj_params, dtype):
+    """``F (B, 2, h, e, e)`` -> (out1, out2), each ``(B, e, C)``: head-major
+    reshape, ``proj_fundamental`` and the flip (out1 from direction 2)."""
+    f = f.to(dtype)
+    B, _, heads, e, _ = f.shape
+    fund_1 = f[:, 0].reshape(B, heads * e, e).transpose(-1, -2)
+    fund_2 = f[:, 1].reshape(B, heads * e, e).transpose(-1, -2)
+    fund_2 = linear(fund_2, *proj_params)
+    fund_1 = linear(fund_1, *proj_params)
+    return fund_2, fund_1
 
 
 def essential_cross_attention_pair(xp, ln_params, qkv_params, proj_params,
                                    positional, num_heads,
+                                   cross_features=False,
+                                   use_single_softmax=False,
                                    block=fused_essential_block_pair):
     """Raw pair tokens ``xp (B, 2, N, C)`` -> ``(out1, out2)``, each
-    ``(B, d+6, C)``, out1 derived from direction 2 (the flip).
-    ``block`` is the pair-block function: the kernel wrapper, or
-    ``essential_block_pair_reference`` to run the plain version on any
-    device."""
-    B = xp.shape[0]
-    f = block(xp, ln_params, qkv_params, positional,
-              num_heads).to(xp.dtype)                 # (B, 2, h, e, e)
-    e = f.shape[-1]
-    fund_1 = f[:, 0].reshape(B, num_heads * e, e).transpose(-1, -2)
-    fund_2 = f[:, 1].reshape(B, num_heads * e, e).transpose(-1, -2)
-    fund_2 = linear(fund_2, *proj_params)
-    fund_1 = linear(fund_1, *proj_params)
-    return fund_2, fund_1
+    ``(B, e, C)``.  ``block`` is the pair-block function: the kernel
+    wrapper, or ``essential_block_pair_reference`` to run the plain version
+    on any device."""
+    f = block(xp, ln_params, qkv_params, positional, num_heads,
+              cross_features=cross_features,
+              use_single_softmax=use_single_softmax)
+    return _project(f, proj_params, xp.dtype)
+
+
+def essential_cross_attention(x1, x2, qkv_params, proj_params, positional,
+                              num_heads, cross_features=False,
+                              use_single_softmax=False,
+                              block=fused_essential_block_x):
+    """``rel_pose_tpu/ops/essential.py:61-97``: pre-normed ``x1, x2 (B, N,
+    C)`` -> ``(out1, out2)``, each ``(B, e, C)``.  ``block`` is #3's
+    wrapper, or ``essential_block_x_reference``."""
+    f = block(x1, x2, qkv_params, positional, num_heads,
+              cross_features=cross_features,
+              use_single_softmax=use_single_softmax)
+    return _project(f, proj_params, x1.dtype)
 
 
 def noess_cross_attention(x1, x2, qkv_params, proj_params, num_heads,

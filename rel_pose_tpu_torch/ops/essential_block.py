@@ -1,30 +1,41 @@
-"""The Essential Matrix Module's pair block: norm1 LN + shared qkv Linear +
-2 directions x heads of dual-softmax bilinear moments.
+"""The Essential Matrix Module's moments: 2 directions x heads of dual (or
+single) softmax bilinear moments of an image pair.
 
-Counterpart of ``rel_pose_tpu/ops/pallas_essential_block.py``.
-``fused_essential_block_pair`` takes the interleaved raw pair tokens
-``xpair (B, 2, N, C)`` and returns ``F (B, 2, h, e, e)`` in fp32, e = d + 6:
+Counterpart of ``rel_pose_tpu/ops/pallas_essential_block.py``, whose three
+Pallas kernels share one core (``_eb_combos``) behind three prologues; each
+has a public op here, with the same arguments and result ``F (B, 2, h, e,
+e)`` in fp32, e = d + 6 with a positional table and e = d without:
 
-  * on a CPU tensor it is the plain PyTorch version,
-    :func:`essential_block_pair_reference`;
-  * on a CUDA tensor it launches the hand kernels of
-    ``csrc/essential_block.cu`` (which replace the Pallas
-    ``_essential_block_pair_kernel``) or raises.
+  * ``fused_essential_block_pair`` (#2, the model's path): the interleaved
+    raw pair tokens ``xpair (B, 2, N, C)``, norm1 LayerNorm, the shared qkv
+    Linear;
+  * ``fused_essential_block_x`` (#3): pre-normed ``x1, x2 (B, N, C)`` and
+    the qkv Linear (no LayerNorm);
+  * ``fused_essential_block`` (#4): precomputed ``qkv1, qkv2 (B, N, 3C)``.
+
+Each takes ``positional`` (``(B, N, 6)`` or None) and the flags
+``cross_features`` and ``use_single_softmax`` of ``ModelConfig``.  On a CPU
+tensor it is its plain PyTorch version (``essential_block_pair_reference``,
+``essential_block_x_reference``, ``essential_block_reference``); on a CUDA
+tensor it launches the hand kernels of ``csrc/essential_block.cu`` or
+raises.
 
 Per direction and head: s = q k^T / sqrt(d), A = softmax_row(s) *
-softmax_col(s) in fp32, F = va^T A vb with va = vb = v ++ positional.
-Direction 0 takes q from image 2 and k, v from image 1.  The rounding is
-the Pallas kernel's (``_eb_combos``): P = T(exp2(s - mr) * exp2(s - mc)),
+softmax_col(s) in fp32 (softmax_row(s) alone with ``use_single_softmax``),
+F = va^T A vb with vb = v ++ positional of the attended image and va = vb,
+or with ``cross_features`` va = v ++ positional of the query image.
+Direction 0 takes q from image 2 and k, v from image 1.  The rounding is the
+Pallas kernel's (``_eb_combos``): P = T(exp2(s - mr) * exp2(s - mc)),
 vb_n = T(vb / lc), av = T((P . vb_n) / lr), F = va^T . av accumulated in
-fp32, with T = xpair.dtype.  Only the slice's configuration is here:
-positions on, dual softmax, no cross features.
+fp32, with T the tokens' dtype; with a single softmax P = T(exp2(s - mr))
+and vb_n = vb.
 
-Under autograd the pair block is a ``torch.autograd.Function`` after
-``_ebp_bwd`` (``pallas_essential_block.py:577-614``): the backward
-recomputes the LayerNorm and ``linear_rounded`` in PyTorch, runs
-:func:`fused_essential_block_bwd` for dqkv and the positional cotangent --
-the plain :func:`essential_block_bwd_reference` on CPU tensors, the kernel
-of ``csrc/essential_block_bwd.cu`` (which replaces
+Under autograd each op is a ``torch.autograd.Function`` after the Pallas
+package's VJPs (``_ebp_bwd``, ``_ebx_bwd``, ``_eb_bwd``): the backward
+recomputes the LayerNorm and ``linear_rounded`` in PyTorch where the op has
+them, runs :func:`fused_essential_block_bwd` for dqkv and the positional
+cotangent -- the plain :func:`essential_block_bwd_reference` on CPU
+tensors, the kernel of ``csrc/essential_block_bwd.cu`` (which replaces
 ``_essential_block_bwd_kernel``) on CUDA tensors -- and chains through the
 Linear and the LayerNorm VJP in PyTorch.
 """
@@ -35,6 +46,9 @@ from ..nn.layers import layernorm
 from ..nn.transformer import LOG2E
 from . import _build
 
+HEAD_DIM = 64          # the kernels' head width
+POS_COLS = 6
+
 
 def linear_rounded(x, weight, bias):
     """``_linear_rounded``: the fp32-accumulated product rounded to x.dtype,
@@ -43,64 +57,135 @@ def linear_rounded(x, weight, bias):
     return y + bias.to(x.dtype)
 
 
-def essential_block_pair_reference(xpair, ln_params, qkv_params, positional,
-                                   num_heads):
-    """Plain version.  ``ln_params`` = (scale, bias) of norm1,
-    ``qkv_params`` = (weight (3C, C), bias (3C,)), ``positional`` the
-    ``(B, N, 6)`` table."""
-    cdt = xpair.dtype
-    B, _, N, C = xpair.shape
-    d = C // num_heads
-    y = layernorm(xpair, *ln_params)
-    qkv = linear_rounded(y, *qkv_params).float()          # (B, 2, N, 3C)
-    q, k, v = qkv.view(B, 2, N, 3, num_heads, d).permute(3, 0, 1, 4, 2, 5)
-    pos = positional.to(cdt).float()[:, None, None]       # (B, 1, 1, N, 6)
-    v = torch.cat([v, pos.expand(B, 2, num_heads, N, 6)], -1)
+def _split(qkv, positional, num_heads):
+    """``qkv (B, 2, N, 3C)`` -> fp32 q, k, v ``(B, img, h, N, d)``, v with
+    the positional columns (rounded to qkv.dtype) appended."""
+    B, _, N, C3 = qkv.shape
+    q, k, v = qkv.float().view(B, 2, N, 3, num_heads, C3 // 3 // num_heads) \
+        .permute(3, 0, 1, 4, 2, 5)
+    if positional is not None:
+        pos = positional.to(qkv.dtype).float()[:, None, None]
+        v = torch.cat([v, pos.expand(B, 2, num_heads, N, POS_COLS)], -1)
+    return q, k, v
+
+
+def _moments_reference(qkv, positional, num_heads, cross_features,
+                       use_single_softmax):
+    """The plain ``_eb_combos`` on the pair's rounded ``qkv (B, 2, N,
+    3C)``."""
+    cdt = qkv.dtype
+    d = qkv.shape[-1] // 3 // num_heads
+    q, k, v = _split(qkv, positional, num_heads)
     q = q.flip(1)              # direction 0: q of image 2 against image 1
     s = torch.matmul(q, k.transpose(-1, -2)) * (d ** -0.5 * LOG2E)
     er = torch.exp2(s - s.amax(-1, keepdim=True))
-    ec = torch.exp2(s - s.amax(-2, keepdim=True))
     lr = er.sum(-1, keepdim=True)                         # (..., N, 1)
-    lc = ec.sum(-2, keepdim=True)                         # (..., 1, N)
-    p = (er * ec).to(cdt).float()
-    vb_n = (v * (1.0 / lc).transpose(-1, -2)).to(cdt).float()
+    if use_single_softmax:
+        p = er.to(cdt).float()
+        vb_n = v
+    else:
+        ec = torch.exp2(s - s.amax(-2, keepdim=True))
+        lc = ec.sum(-2, keepdim=True)                     # (..., 1, N)
+        p = (er * ec).to(cdt).float()
+        vb_n = (v * (1.0 / lc).transpose(-1, -2)).to(cdt).float()
     av = (torch.matmul(p, vb_n) * (1.0 / lr)).to(cdt).float()
-    return torch.matmul(v.transpose(-1, -2), av)          # (B, 2, h, e, e)
+    va = v.flip(1) if cross_features else v
+    return torch.matmul(va.transpose(-1, -2), av)         # (B, 2, h, e, e)
 
+
+def essential_block_pair_reference(xpair, ln_params, qkv_params, positional,
+                                   num_heads, cross_features=False,
+                                   use_single_softmax=False):
+    """Plain version of #2.  ``ln_params`` = (scale, bias) of norm1,
+    ``qkv_params`` = (weight (3C, C), bias (3C,)), ``positional`` the
+    ``(B, N, 6)`` table or None."""
+    qkv = linear_rounded(layernorm(xpair, *ln_params), *qkv_params)
+    return _moments_reference(qkv, positional, num_heads, cross_features,
+                              use_single_softmax)
+
+
+def essential_block_x_reference(x1, x2, qkv_params, positional, num_heads,
+                                cross_features=False,
+                                use_single_softmax=False):
+    """Plain version of #3: pre-normed ``x1, x2 (B, N, C)``."""
+    qkv = linear_rounded(torch.stack([x1, x2], 1), *qkv_params)
+    return _moments_reference(qkv, positional, num_heads, cross_features,
+                              use_single_softmax)
+
+
+def essential_block_reference(qkv1, qkv2, positional, num_heads,
+                              cross_features=False, use_single_softmax=False):
+    """Plain version of #4: ``qkv1, qkv2 (B, N, 3C)``."""
+    return _moments_reference(torch.stack([qkv1, qkv2], 1), positional,
+                              num_heads, cross_features, use_single_softmax)
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _on_card(name, x):
+    """True for a CUDA tensor; False for a CPU tensor (the plain version);
+    a raise for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    return True
+
+
+def _flags(positional, cross_features, use_single_softmax):
+    return (int(positional is not None), int(bool(use_single_softmax)),
+            int(bool(cross_features)))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _f_out(B, num_heads, positional, device):
+    e = HEAD_DIM + (POS_COLS if positional is not None else 0)
+    return torch.empty((B, 2, num_heads, e, e), dtype=torch.float32,
+                       device=device)
+
+
+# ------------------------------------------------------------- #2, pair --
 
 def fused_essential_block_pair(xpair, ln_params, qkv_params, positional,
-                               num_heads):
-    """See the module docstring for the dispatch."""
+                               num_heads, cross_features=False,
+                               use_single_softmax=False):
+    """#2; see the module docstring for the dispatch."""
     args = (xpair, *ln_params, *qkv_params, positional)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _EssentialBlockPair.apply(*args, num_heads)
-    return _forward(*args, num_heads)
+    flags = (num_heads, cross_features, use_single_softmax)
+    if _needs_grad(*args):
+        return _EssentialBlockPair.apply(*args, *flags)
+    return _pair_forward(*args, *flags)
 
 
-def _forward(xpair, lns, lnb, w, b, positional, num_heads):
-    if xpair.device.type == "cpu":
-        return essential_block_pair_reference(xpair, (lns, lnb), (w, b),
-                                              positional, num_heads)
-    if xpair.device.type != "cuda":
-        raise ValueError(f"fused_essential_block_pair: no kernel for "
-                         f"{xpair.device}")
+def _pair_forward(xpair, lns, lnb, w, b, positional, num_heads,
+                  cross_features, use_single_softmax):
+    if not _on_card("fused_essential_block_pair", xpair):
+        return essential_block_pair_reference(
+            xpair, (lns, lnb), (w, b), positional, num_heads,
+            cross_features, use_single_softmax)
     cdt = xpair.dtype
     B, _, N, C = xpair.shape
     lns, lnb = (t.float().contiguous() for t in (lns, lnb))
     w = w.to(cdt).contiguous()
     b = b.float().contiguous()
-    pos = positional.to(cdt).contiguous()
+    pos = None if positional is None else positional.to(cdt).contiguous()
     _check_inputs(xpair, (lns, lnb, w, b, pos), num_heads)
-    f = torch.empty((B, 2, num_heads, 70, 70), dtype=torch.float32,
-                    device=xpair.device)
+    f = _f_out(B, num_heads, positional, xpair.device)
     y = torch.empty((2 * B * N, C), dtype=cdt, device=xpair.device)
     qkv = torch.empty((2 * B * N, 3 * C), dtype=cdt, device=xpair.device)
     stream = _build.prepare_launch(xpair.device)
     err = _build.library().rp_essential_block_pair(
         xpair.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
-        b.data_ptr(), pos.data_ptr(), f.data_ptr(), y.data_ptr(),
-        qkv.data_ptr(), B, N, C, num_heads, int(cdt == torch.bfloat16),
-        stream)
+        b.data_ptr(), _ptr(pos), f.data_ptr(), y.data_ptr(), qkv.data_ptr(),
+        B, N, C, num_heads,
+        *_flags(positional, cross_features, use_single_softmax),
+        int(cdt == torch.bfloat16), stream)
     _build.check(err, "rp_essential_block_pair")
     fused_essential_block_pair.launches += 1
     return f
@@ -111,28 +196,44 @@ fused_essential_block_pair.launches = 0
 
 class _EssentialBlockPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xpair, lns, lnb, w, b, positional, num_heads):
+    def forward(ctx, xpair, lns, lnb, w, b, positional, num_heads,
+                cross_features, use_single_softmax):
         ctx.save_for_backward(xpair, lns, lnb, w, b, positional)
-        ctx.num_heads = num_heads
-        return _forward(xpair, lns, lnb, w, b, positional, num_heads)
+        ctx.flags = (num_heads, cross_features, use_single_softmax)
+        return _pair_forward(xpair, lns, lnb, w, b, positional, *ctx.flags)
 
     @staticmethod
     def backward(ctx, g):
         xpair, lns, lnb, w, b, positional = ctx.saved_tensors
-        cdt = xpair.dtype
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (xpair, lns, lnb)]
             y = layernorm(*leaves)                          # (B, 2, N, C)
         qkv = linear_rounded(y.detach(), w, b)
-        dqkv, dpos_part = fused_essential_block_bwd(
-            qkv, positional.to(cdt), g.float().contiguous(), ctx.num_heads)
-        dqkv = dqkv.float()
-        dy = torch.matmul(dqkv, w.to(cdt).float()).to(cdt)
+        dqkv, dpos = _moments_bwd(qkv, positional, g, *ctx.flags)
+        dy = torch.matmul(dqkv, w.to(xpair.dtype).float()).to(xpair.dtype)
         dxpair, dlns, dlnb = torch.autograd.grad(y, leaves, dy)
-        dw = torch.einsum("binq,binc->qc", dqkv, y.detach().float())
-        db = dqkv.sum((0, 1, 2))
-        return (dxpair, dlns, dlnb, dw.to(w.dtype), db.to(b.dtype),
-                sum_dpos(dpos_part).to(positional.dtype), None)
+        dw, db = _linear_grads(dqkv, y.detach(), w, b)
+        return dxpair, dlns, dlnb, dw, db, dpos, None, None, None
+
+
+def _moments_bwd(qkv, positional, g, num_heads, cross_features,
+                 use_single_softmax):
+    """dqkv (fp32) and the positional cotangent (None without a table) of
+    the moments, through :func:`fused_essential_block_bwd`."""
+    pos = None if positional is None else positional.to(qkv.dtype)
+    dqkv, dpos_part = fused_essential_block_bwd(
+        qkv, pos, g.float().contiguous(), num_heads, cross_features,
+        use_single_softmax)
+    dpos = (None if positional is None
+            else sum_dpos(dpos_part).to(positional.dtype))
+    return dqkv.float(), dpos
+
+
+def _linear_grads(dqkv, x, w, b):
+    """The qkv Linear's weight and bias gradients from fp32 ``dqkv (B, 2,
+    N, 3C)`` and its input ``x (B, 2, N, C)``."""
+    dw = torch.einsum("binq,binc->qc", dqkv, x.float())
+    return dw.to(w.dtype), dqkv.sum((0, 1, 2)).to(b.dtype)
 
 
 def sum_dpos(dpos_part):
@@ -145,93 +246,248 @@ def sum_dpos(dpos_part):
     return out
 
 
-def essential_block_bwd_reference(qkv, positional, df, num_heads):
-    """Plain backward of the dual-softmax moments from the pair's rounded
-    ``qkv (B, 2, N, 3C)``, ``positional (B, N, 6)`` and ``df (B, 2, h, e,
-    e)`` fp32 -> ``(dqkv (B, 2, N, 3C) in qkv.dtype, dpos_part (B, 2, h, N,
-    6) fp32)``.  It repeats ``_essential_block_bwd_kernel``
-    (``pallas_essential_block_bwd.py:39-144``) for the slice's case
-    (positions on, dual softmax, no cross features), with its T roundings
-    of A, dF, va dF and ds: s = q k^T d^-1/2 log2e, R and Cmat the
-    normalized row and column softmaxes, A = R Cmat,
-    dva = A T(vb dF^T), dvb = A^T T(va dF), dA = T(va dF) vb^T,
-    ds = R (dR - rowsum(dR R)) + Cmat (dC - colsum(dC Cmat)) with
-    dR = dA Cmat, dC = dA R, dq = T(ds d^-1/2) k, dk = T(ds d^-1/2)^T q."""
+# ------------------------------------------------- #3, qkv Linear inside --
+
+def fused_essential_block_x(x1, x2, qkv_params, positional, num_heads,
+                            cross_features=False, use_single_softmax=False):
+    """#3: pre-normed ``x1, x2 (B, N, C)`` and the qkv Linear ``(weight
+    (3C, C), bias (3C,))``; see the module docstring for the dispatch."""
+    args = (x1, x2, *qkv_params, positional)
+    flags = (num_heads, cross_features, use_single_softmax)
+    if _needs_grad(*args):
+        return _EssentialBlockX.apply(*args, *flags)
+    return _x_forward(*args, *flags)
+
+
+def _x_forward(x1, x2, w, b, positional, num_heads, cross_features,
+               use_single_softmax):
+    if not _on_card("fused_essential_block_x", x1):
+        return essential_block_x_reference(
+            x1, x2, (w, b), positional, num_heads, cross_features,
+            use_single_softmax)
+    cdt = x1.dtype
+    B, N, C = x1.shape
+    w = w.to(cdt).contiguous()
+    b = b.float().contiguous()
+    pos = None if positional is None else positional.to(cdt).contiguous()
+    _check_pair(x1, x2, pos, C, num_heads)
+    want = ((w, (3 * C, C)), (b, (3 * C,)))
+    for t, shape in want:
+        if tuple(t.shape) != shape or t.device != x1.device:
+            raise ValueError(f"fused_essential_block_x: got a "
+                             f"{tuple(t.shape)} tensor on {t.device}, "
+                             f"expected {shape} on {x1.device}")
+    f = _f_out(B, num_heads, positional, x1.device)
+    qkv = torch.empty((2, B, N, 3 * C), dtype=cdt, device=x1.device)
+    stream = _build.prepare_launch(x1.device)
+    err = _build.library().rp_essential_block_x(
+        x1.data_ptr(), x2.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(pos),
+        f.data_ptr(), qkv.data_ptr(), B, N, C, num_heads,
+        *_flags(positional, cross_features, use_single_softmax),
+        int(cdt == torch.bfloat16), stream)
+    _build.check(err, "rp_essential_block_x")
+    fused_essential_block_x.launches += 1
+    return f
+
+
+fused_essential_block_x.launches = 0
+
+
+class _EssentialBlockX(torch.autograd.Function):
+    """After ``_ebx_bwd`` (``pallas_essential_block.py:524-553``)."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, w, b, positional, num_heads, cross_features,
+                use_single_softmax):
+        ctx.save_for_backward(x1, x2, w, b, positional)
+        ctx.flags = (num_heads, cross_features, use_single_softmax)
+        return _x_forward(x1, x2, w, b, positional, *ctx.flags)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, w, b, positional = ctx.saved_tensors
+        x = torch.stack([x1, x2], 1)                        # (B, 2, N, C)
+        qkv = linear_rounded(x, w, b)
+        dqkv, dpos = _moments_bwd(qkv, positional, g, *ctx.flags)
+        dx = torch.matmul(dqkv, w.to(x.dtype).float()).to(x.dtype)
+        dw, db = _linear_grads(dqkv, x, w, b)
+        return dx[:, 0], dx[:, 1], dw, db, dpos, None, None, None
+
+
+# ------------------------------------------------- #4, precomputed qkv --
+
+def fused_essential_block(qkv1, qkv2, positional, num_heads,
+                          cross_features=False, use_single_softmax=False):
+    """#4: precomputed ``qkv1, qkv2 (B, N, 3C)``; see the module docstring
+    for the dispatch."""
+    args = (qkv1, qkv2, positional)
+    flags = (num_heads, cross_features, use_single_softmax)
+    if _needs_grad(*args):
+        return _EssentialBlock.apply(*args, *flags)
+    return _block_forward(*args, *flags)
+
+
+def _block_forward(qkv1, qkv2, positional, num_heads, cross_features,
+                   use_single_softmax):
+    if not _on_card("fused_essential_block", qkv1):
+        return essential_block_reference(qkv1, qkv2, positional, num_heads,
+                                         cross_features, use_single_softmax)
+    cdt = qkv1.dtype
+    B, N, C3 = qkv1.shape
+    pos = None if positional is None else positional.to(cdt).contiguous()
+    _check_pair(qkv1, qkv2, pos, C3 // 3, num_heads)
+    f = _f_out(B, num_heads, positional, qkv1.device)
+    stream = _build.prepare_launch(qkv1.device)
+    err = _build.library().rp_essential_block(
+        qkv1.data_ptr(), qkv2.data_ptr(), _ptr(pos), f.data_ptr(), B, N,
+        C3 // 3, num_heads,
+        *_flags(positional, cross_features, use_single_softmax),
+        int(cdt == torch.bfloat16), stream)
+    _build.check(err, "rp_essential_block")
+    fused_essential_block.launches += 1
+    return f
+
+
+fused_essential_block.launches = 0
+
+
+class _EssentialBlock(torch.autograd.Function):
+    """After ``_eb_bwd`` (``pallas_essential_block.py:461-473``)."""
+
+    @staticmethod
+    def forward(ctx, qkv1, qkv2, positional, num_heads, cross_features,
+                use_single_softmax):
+        ctx.save_for_backward(qkv1, qkv2, positional)
+        ctx.flags = (num_heads, cross_features, use_single_softmax)
+        return _block_forward(qkv1, qkv2, positional, *ctx.flags)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv1, qkv2, positional = ctx.saved_tensors
+        dqkv, dpos = _moments_bwd(torch.stack([qkv1, qkv2], 1), positional,
+                                  g, *ctx.flags)
+        return (dqkv[:, 0].to(qkv1.dtype), dqkv[:, 1].to(qkv2.dtype), dpos,
+                None, None, None)
+
+
+# ------------------------------------------------------------ backward --
+
+def essential_block_bwd_reference(qkv, positional, df, num_heads,
+                                  cross_features=False,
+                                  use_single_softmax=False):
+    """Plain backward of the moments from the pair's rounded ``qkv (B, 2,
+    N, 3C)``, ``positional (B, N, 6)`` or None and ``df (B, 2, h, e, e)``
+    fp32 -> ``(dqkv (B, 2, N, 3C) in qkv.dtype, dpos_part (B, 2, h, N, 6)
+    fp32, or None without a table)``.  It repeats
+    ``_essential_block_bwd_kernel`` (``pallas_essential_block_bwd.py:
+    39-144``) with its T roundings of A, dF, vb dF^T, va dF and ds: s = q k^T
+    d^-1/2 log2e, R and Cmat the normalized row and column softmaxes, A = R
+    Cmat (R with a single softmax), dva = A T(vb dF^T), dvb = A^T T(va dF),
+    dA = T(va dF) vb^T, ds = R (dR - rowsum(dR R)) + Cmat (dC - colsum(dC
+    Cmat)) with dR = dA Cmat, dC = dA R (ds = R (dA - rowsum(dA R)) with a
+    single softmax), dq = T(ds d^-1/2) k, dk = T(ds d^-1/2)^T q.  dvb goes
+    to the attended image's v slot; dva too, summed in fp32 (dv = T(dvb +
+    dva)), or with cross features to the query image's v slot, added in T
+    as the Pallas kernel does: image 1's v = T(T(dvb_0) + T(dva_1)).  The
+    positional columns of dvb and dva stay per combo."""
     cdt = qkv.dtype
-    B, _, N, C3 = qkv.shape
-    C = C3 // 3
+    C = qkv.shape[-1] // 3
     d = C // num_heads
     rnd = lambda t: t.to(cdt).float()
-    q, k, v = qkv.float().view(B, 2, N, 3, num_heads, d) \
-        .permute(3, 0, 1, 4, 2, 5)                       # (B, img, h, N, d)
-    pos = positional.to(cdt).float()[:, None, None]
-    vs = torch.cat([v, pos.expand(B, 2, num_heads, N, 6)], -1)
+    q, k, vs = _split(qkv, positional, num_heads)        # (B, img, h, N, .)
     q = q.flip(1)               # direction 0: q of image 2 against image 1
+    va = vs.flip(1) if cross_features else vs
     s = torch.matmul(q, k.transpose(-1, -2)) * (d ** -0.5 * LOG2E)
     er = torch.exp2(s - s.amax(-1, keepdim=True))
     R = er / er.sum(-1, keepdim=True)
-    ec = torch.exp2(s - s.amax(-2, keepdim=True))
-    Cm = ec / ec.sum(-2, keepdim=True)
-    Ab = rnd(R * Cm)
+    if use_single_softmax:
+        Ab = rnd(R)
+    else:
+        ec = torch.exp2(s - s.amax(-2, keepdim=True))
+        Cm = ec / ec.sum(-2, keepdim=True)
+        Ab = rnd(R * Cm)
     dfb = rnd(df)
     dva = torch.matmul(Ab, rnd(torch.matmul(vs, dfb.transpose(-1, -2))))
-    vadf_b = rnd(torch.matmul(vs, dfb))
+    vadf_b = rnd(torch.matmul(va, dfb))
     dvb = torch.matmul(Ab.transpose(-1, -2), vadf_b)
     dA = torch.matmul(vadf_b, vs.transpose(-1, -2))
-    dR = dA * Cm
-    dC = dA * R
-    ds = (R * (dR - (dR * R).sum(-1, keepdim=True))
-          + Cm * (dC - (dC * Cm).sum(-2, keepdim=True)))
+    if use_single_softmax:
+        ds = R * (dA - (dA * R).sum(-1, keepdim=True))
+    else:
+        dR = dA * Cm
+        dC = dA * R
+        ds = (R * (dR - (dR * R).sum(-1, keepdim=True))
+              + Cm * (dC - (dC * Cm).sum(-2, keepdim=True)))
     dsb = rnd(ds * d ** -0.5)
     dq = torch.matmul(dsb, k).flip(1)                 # back to image order
     dk = torch.matmul(dsb.transpose(-1, -2), q)
-    dv = dvb + dva
-    dqkv = torch.stack([dq, dk, dv[..., :d]], 2).permute(0, 1, 4, 2, 3, 5)
-    return dqkv.reshape(B, 2, N, C3).to(cdt), dv[..., d:]
-
-
-def fused_essential_block_bwd(qkv, positional, df, num_heads):
-    """Backward of the dual-softmax moments; see
-    :func:`essential_block_bwd_reference` for the arguments.  CPU tensors
-    take that plain version, CUDA tensors the kernel (or a raise)."""
-    if qkv.device.type == "cpu":
-        return essential_block_bwd_reference(qkv, positional, df, num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_essential_block_bwd: no kernel for "
-                         f"{qkv.device}")
+    if cross_features:
+        dv = rnd(rnd(dvb[..., :d]) + rnd(dva.flip(1)[..., :d]))
+        dpos_part = dvb[..., d:] + dva[..., d:]
+    else:
+        dv = dvb + dva
+        dv, dpos_part = dv[..., :d], dv[..., d:]
     B, _, N, C3 = qkv.shape
-    e = C3 // 3 // num_heads + 6
-    pos = positional.to(qkv.dtype).contiguous()
+    dqkv = torch.stack([dq, dk, dv], 2).permute(0, 1, 4, 2, 3, 5)
+    return (dqkv.reshape(B, 2, N, C3).to(cdt),
+            None if positional is None else dpos_part)
+
+
+def fused_essential_block_bwd(qkv, positional, df, num_heads,
+                              cross_features=False, use_single_softmax=False):
+    """Backward of the moments; see :func:`essential_block_bwd_reference`
+    for the arguments.  CPU tensors take that plain version, CUDA tensors
+    the kernel (or a raise)."""
+    if not _on_card("fused_essential_block_bwd", qkv):
+        return essential_block_bwd_reference(
+            qkv, positional, df, num_heads, cross_features,
+            use_single_softmax)
+    B, _, N, C3 = qkv.shape
+    C = C3 // 3
+    has_pos = positional is not None
+    e = HEAD_DIM + (POS_COLS if has_pos else 0)
+    pos = positional.to(qkv.dtype).contiguous() if has_pos else None
     if (qkv.dtype not in (torch.float32, torch.bfloat16)
-            or not qkv.is_contiguous() or C3 != 3 * 64 * num_heads
-            or tuple(pos.shape) != (B, N, 6)
+            or not qkv.is_contiguous() or C != HEAD_DIM * num_heads
+            or (has_pos and tuple(pos.shape) != (B, N, POS_COLS))
             or tuple(df.shape) != (B, 2, num_heads, e, e)
             or df.dtype != torch.float32 or not df.is_contiguous()):
         raise ValueError(
             "fused_essential_block_bwd: needs a contiguous fp32/bf16 qkv "
-            f"(B, 2, N, 3*64*heads), pos (B, N, 6) and fp32 dF (B, 2, h, "
-            f"70, 70); got {tuple(qkv.shape)} {qkv.dtype}, "
-            f"{tuple(pos.shape)}, {tuple(df.shape)} {df.dtype}")
+            f"(B, 2, N, 3*64*heads), pos (B, N, 6) or None and fp32 dF (B, "
+            f"2, h, {e}, {e}); got {tuple(qkv.shape)} {qkv.dtype}, "
+            f"{None if pos is None else tuple(pos.shape)}, "
+            f"{tuple(df.shape)} {df.dtype}")
     lib = _build.library()
     dqkv = torch.empty_like(qkv)
-    dpos_part = torch.empty((B, 2, num_heads, N, 6), dtype=torch.float32,
-                            device=qkv.device)
-    ws = torch.empty(lib.rp_essential_block_bwd_workspace(B, N, num_heads),
-                     dtype=torch.uint8, device=qkv.device)
+    dpos_part = (torch.empty((B, 2, num_heads, N, POS_COLS),
+                             dtype=torch.float32, device=qkv.device)
+                 if has_pos else None)
+    dva = (torch.empty((B, 2, N, C), dtype=qkv.dtype, device=qkv.device)
+           if cross_features else None)
+    ws = torch.empty(lib.rp_essential_block_bwd_workspace(
+        B, N, num_heads, int(has_pos)), dtype=torch.uint8, device=qkv.device)
     stream = _build.prepare_launch(qkv.device)
     err = lib.rp_essential_block_bwd(
-        qkv.data_ptr(), pos.data_ptr(), df.data_ptr(), dqkv.data_ptr(),
-        dpos_part.data_ptr(), ws.data_ptr(), B, N, C3 // 3,
-        num_heads, int(qkv.dtype == torch.bfloat16), stream)
+        qkv.data_ptr(), _ptr(pos), df.data_ptr(), dqkv.data_ptr(),
+        _ptr(dva), _ptr(dpos_part), ws.data_ptr(), B, N, C, num_heads,
+        *_flags(positional, cross_features, use_single_softmax),
+        int(qkv.dtype == torch.bfloat16), stream)
     _build.check(err, "rp_essential_block_bwd")
     fused_essential_block_bwd.launches += 1
+    if cross_features:       # each image's v: T(T(dvb) + T(dva)), in T
+        dqkv[..., 2 * C:] += dva
     return dqkv, dpos_part
 
 
 fused_essential_block_bwd.launches = 0
 
 
+# -------------------------------------------------------------- checks --
+
 def _check_inputs(xpair, params, num_heads):
+    """#2's launch checks; ``params`` = (ln scale, ln bias, w, b, pos or
+    None)."""
     lns, lnb, w, b, pos = params
     if xpair.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_essential_block_pair: dtype {xpair.dtype} "
@@ -242,13 +498,34 @@ def _check_inputs(xpair, params, num_heads):
                          "contiguous (B, 2, N, C) tensor, got "
                          f"{tuple(xpair.shape)}")
     B, _, N, C = xpair.shape
-    if C != 64 * num_heads:
+    if C != HEAD_DIM * num_heads:
         raise ValueError("fused_essential_block_pair: the kernel needs "
                          f"head_dim 64, got C={C} with {num_heads} heads")
-    want = ((lns, (C,)), (lnb, (C,)), (w, (3 * C, C)), (b, (3 * C,)),
-            (pos, (B, N, 6)))
+    want = [(lns, (C,)), (lnb, (C,)), (w, (3 * C, C)), (b, (3 * C,))]
+    if pos is not None:
+        want.append((pos, (B, N, POS_COLS)))
     for t, shape in want:
         if tuple(t.shape) != shape or t.device != xpair.device:
             raise ValueError(f"fused_essential_block_pair: got a "
                              f"{tuple(t.shape)} tensor on {t.device}, "
                              f"expected {shape} on {xpair.device}")
+
+
+def _check_pair(a, b, pos, C, num_heads):
+    """#3's and #4's launch checks: two contiguous (B, N, width) tensors of
+    one fp32 / bf16 dtype and device, head_dim 64, pos (B, N, 6) or None."""
+    if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
+        raise TypeError(f"essential block: dtypes {a.dtype}, {b.dtype} "
+                        "(both fp32 or both bf16)")
+    if (a.dim() != 3 or a.shape != b.shape or not a.is_contiguous()
+            or not b.is_contiguous() or b.device != a.device):
+        raise ValueError("essential block: needs two contiguous (B, N, "
+                         f"width) tensors, got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if C != HEAD_DIM * num_heads:
+        raise ValueError("essential block: the kernel needs head_dim 64, "
+                         f"got C={C} with {num_heads} heads")
+    if pos is not None and (tuple(pos.shape) != a.shape[:2] + (POS_COLS,)
+                            or pos.device != a.device):
+        raise ValueError(f"essential block: pos {tuple(pos.shape)} on "
+                         f"{pos.device}, expected {a.shape[:2] + (6,)}")

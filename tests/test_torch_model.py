@@ -131,18 +131,29 @@ def test_model_config_mirrors_jax(overrides):
                                   "cross_features", "use_single_softmax",
                                   "l1_pos_encoding"])
 def test_ablation_flags_not_implemented(flag):
-    """--noess is ported (its own parity tests: test_torch_noess.py) and
-    builds its ``pool_attn`` head and ``cross_attn.proj``; the other
-    ablations still raise."""
+    """Every ablation flag builds (parity tests: test_torch_noess.py,
+    test_torch_ablations*.py): --noess its ``pool_attn`` head and
+    ``cross_attn.proj``; the Essential Matrix Module's four flags the
+    flagship's keys, with ``proj_fundamental`` h(d + 6) -> C, or h d -> C
+    and a 24,576-wide regressor without positions."""
+    model = ViTEss(ModelConfig(**{flag: True}), device="meta")
+    keys = set(model.state_dict())
+    flagship = set(ViTEss(ModelConfig(), device="meta").state_dict())
+    cross = "fusion_transformer.blocks.5.cross_attn"
     if flag == "noess":
-        model = ViTEss(ModelConfig(noess=True), device="meta")
-        keys = set(model.state_dict())
         assert "pool_attn.4.running_var" in keys
-        assert "fusion_transformer.blocks.5.cross_attn.proj.weight" in keys
+        assert f"{cross}.proj.weight" in keys
+        assert f"{cross}.proj_fundamental.weight" not in keys
         assert model.pose_regressor[0].in_features == 43 * 576
         return
-    with pytest.raises(NotImplementedError):
-        ViTEss(ModelConfig(**{flag: True}), device="meta")
+    assert keys == flagship
+    assert not any(k.startswith("pool_attn.") for k in keys)
+    proj = model.fusion_transformer.blocks[-1].cross_attn.proj_fundamental
+    no_pos = flag == "no_pos_encoding"
+    assert (proj.in_features, proj.out_features) == (192 if no_pos else 210,
+                                                     192)
+    assert model.pose_regressor[0].in_features == (
+        2 * 3 * 64 * 64 if no_pos else 26_880)
 
 
 def test_no_fusion_not_implemented():

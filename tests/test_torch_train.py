@@ -190,8 +190,9 @@ def test_one_step_gradients_match_jax_float64():
 def float64_gradient_errors(which):
     """{key: (||g_port - g_jax||, ||g_jax||)} of the one-step gradients of
     ``which`` ("flagship": this file's setup, "noess":
-    tests/test_torch_noess.py's) in float64, computed by this file run as a
-    script in a child process, so that x64 and the casts stay out of this
+    tests/test_torch_noess.py's, an ablation flag: that of
+    tests/test_torch_ablations.py) in float64, computed by this file run as
+    a script in a child process, so that x64 and the casts stay out of this
     one."""
     env = dict(os.environ, RELPOSE_NO_PALLAS="1", JAX_PLATFORMS="cpu")
     root = pathlib.Path(__file__).resolve().parent.parent
@@ -413,6 +414,9 @@ if __name__ == "__main__":
     if sys.argv[1] == "noess":
         import test_torch_noess
         args = test_torch_noess.CFG, test_torch_noess.make_setup()
-    else:
+    elif sys.argv[1] == "flagship":
         args = CFG, _make_setup()
+    else:   # an ablation flag of tests/test_torch_ablations*.py
+        import test_torch_ablations
+        args = test_torch_ablations.float64_case(sys.argv[1])
     print(json.dumps(_float64_one_step_gradients(*args)))
