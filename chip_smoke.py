@@ -83,10 +83,34 @@ The ablations of the Essential Matrix Module (``ModelConfig`` with
      ablation's eval forward (batch 256) and bf16 train step (batch 60),
      kernels and plain path.
 
+The last two Pallas kernels: #8, the per-head bilinear op of
+``rel_pose_tpu/ops/pallas_essential.py`` (``ops/bilinear.py``,
+``csrc/bilinear.cu``, ``csrc/bilinear_bwd.cu``), whose public route is
+``essential_block_head_stacked``, and #9, the microbenchmark variants of
+``scripts/bench_cross.py`` (``ops/cross_variants.py``,
+``csrc/cross_variants.cu``), driven by ``scripts/bench_cross_torch.py``:
+
+  3e. #8's forward and backward against their plain versions at G = 24
+     slices of N = 576, e in {70, 64}, dual and single softmax, va is vb and
+     va != vb, fp32 and bf16, each backward twice for the same bits; then
+     ``essential_block_head_stacked`` under autograd against #4 + #6 at
+     B = 8 for the 8 flag combinations, fp32 and bf16 (F, dqkv1, dqkv2,
+     dpos), #8's counters set to 0 just before that route and read just
+     after;
+  3f. ``essential_block_s`` (S = 2, 4) against #4 at B = 8, fp32 and bf16,
+     equal bits reported; ``essential_block_variant`` (mxu_sums, bf16_mul)
+     against its plain version at B = 8, bf16; both counters rose;
+  5e. bf16 times: #8's forward at G = 1,536 (e = 70) and backward at G =
+     360 against their plain versions; the head-stacked forward + backward
+     against #4 + #6 at batch 60; the microbenchmark script's cases at
+     batch 256 (#9's counters set to 0 just before and read just after),
+     with the plain times of s2 and mxu_sums; each with its bound.
+
 The line before the last is the card's name and power limit; the last is
-``{"ok": true, "device": {...}}``.  Checkpoints go to ``output/`` beside
-this file.  The run needs no network and starts no process besides
-``nvidia-smi`` and ``nvcc``, which it waits for.
+``{"ok": true, "device": {...}}``; the one before the card's line is the
+``{"kernels": [...]}`` line of all twelve kernels.  Checkpoints go to
+``output/`` beside this file.  The run needs no network and starts no
+process besides ``nvidia-smi`` and ``nvcc``, which it waits for.
 """
 
 import json
@@ -152,6 +176,15 @@ MHSA_FWD_NORMREL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 MHSA_SCALE = 64 ** -0.5
 LEAF_COS = {torch.float32: 0.9999, torch.bfloat16: 0.98}
 LEAF_RATIO = {torch.float32: 1e-3, torch.bfloat16: 0.1}
+# The head-stacked route (#8's forward and backward under autograd) against
+# #4 + #6 on the same inputs, gradients ||err|| / ||ref||: fp32 1e-4, the
+# same fp32 arithmetic summed in another order; bf16 3e-2 as GRAD_NORMREL,
+# but for other roundings than #6 against its plain version: #6 sums each
+# v's dva and dvb in fp32 and rounds once, dv = T(dvb + dva), and sums the
+# positional cotangent of the 2 x heads combos in fp32, where the
+# head-stacked route rounds dva and dvb to T on their own and autograd adds
+# them, and the heads' positional columns, in T.
+HEAD_STACKED_NORMREL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
 def log(*args):
@@ -1346,6 +1379,256 @@ def phase_times_variants(device, card):
     return rows
 
 
+# ------------------------------------------ kernels #8 and #9 (the last) --
+
+def bilinear_inputs(rng, G, e, dtype, device, same):
+    """q, k (G, 576, 64), va, vb (G, 576, e) of unit normal entries (va is
+    vb with ``same``) and a dF (G, e, e) of 0.1 x unit normal, fp32."""
+    def t(shape, scale=1.0, dt=dtype):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(device, dt)
+    q, k, vb = t((G, 576, 64)), t((G, 576, 64)), t((G, 576, e))
+    va = vb if same else t((G, 576, e))
+    return q, k, va, vb, t((G, e, e), 0.1, torch.float32)
+
+
+def moments_grads(fn, q1, q2, pos, kw, cot):
+    """F and the gradients of (qkv1, qkv2, pos) of ``fn`` under autograd for
+    the cotangent ``cot``."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q1, q2, pos)
+              if t is not None]
+    f = fn(leaves[0], leaves[1], leaves[2] if pos is not None else None, 3,
+           **kw)
+    f.backward(cot)
+    return f.detach(), [t.grad for t in leaves]
+
+
+def phase_kernels_bilinear(device):
+    """(3e) #8 against its plain versions at G = 24 slices (4 pairs x 2
+    directions x 3 heads), N = 576, e in {70, 64}, dual and single softmax,
+    va is vb and va != vb, fp32 and bf16; each backward twice for the same
+    bits.  Then #8's public route, ``essential_block_head_stacked`` under
+    autograd, against #4 + #6 (``fused_essential_block`` under autograd) at
+    B = 8 for the 8 flag combinations, fp32 and bf16, #8's counters set to
+    0 just before that route and read just after.  Returns (max |err| of
+    the forward, of the backward, the route's launches)."""
+    from rel_pose_tpu_torch.ops import bilinear as tb
+    from rel_pose_tpu_torch.ops import essential_block as te
+    failures, e_fwd, e_bwd = [], [], []
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 13)
+        for e in (70, 64):
+            for single in (False, True):
+                for same in (True, False):
+                    name = (f"bilinear e={e} {'single' if single else 'dual'}"
+                            f" {'va=vb' if same else 'va!=vb'} G=24")
+                    q, k, va, vb, df = bilinear_inputs(rng, 24, e, dtype,
+                                                       device, same)
+                    f = tb.fused_bilinear_attention(q, k, va, vb, 0.125,
+                                                    single)
+                    grads, again = (tb.fused_bilinear_attention_bwd(
+                        q, k, va, vb, df, 0.125, single) for _ in range(2))
+                    torch.cuda.synchronize()
+                    e_fwd.append(check_f(f"{name} F", f,
+                                         tb.bilinear_attention_reference(
+                                             q, k, va, vb, 0.125, single),
+                                         dtype, failures))
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(grads, again)):
+                        failures.append(f"{name} bwd not bitwise "
+                                        f"repeatable {dtype}")
+                    ref = tb.bilinear_attention_bwd_reference(
+                        q, k, va, vb, df, 0.125, single)
+                    e_bwd += [check_grad(f"{name} {part}", g, r, dtype,
+                                         failures)
+                              for part, g, r in zip(("dq", "dk", "dva",
+                                                     "dvb"), grads, ref)]
+    counters = (tb.fused_bilinear_attention, tb.fused_bilinear_attention_bwd)
+    runs = []
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 14)
+        xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
+        _, (q1, q2), _ = split_pair(xpair, ln, qkvp)
+        for has_pos, cross, single in VARIANTS:
+            e = 64 + 6 * has_pos
+            cot = torch.from_numpy(rng.standard_normal(
+                (8, 2, 3, e, e)).astype(np.float32)).to(device)
+            runs.append((dtype, variant_name(has_pos, cross, single),
+                         (q1, q2, positional if has_pos else None,
+                          variant_kw(cross, single), cot)))
+    for c in counters:
+        c.launches = 0
+    stacked = [moments_grads(te.essential_block_head_stacked, *args)
+               for _, _, args in runs]
+    torch.cuda.synchronize()
+    launches = {"bilinear_fwd": counters[0].launches,
+                "bilinear_bwd": counters[1].launches}
+    log(f"[check] head-stacked route (#8) launches: {launches}")
+    failures += [f"{k} never launched" for k, v in launches.items() if v <= 0]
+    same_bits = []
+    for (dtype, name, args), (f, grads) in zip(runs, stacked):
+        ref_f, ref_grads = moments_grads(te.fused_essential_block, *args)
+        same_bits.append(torch.equal(f, ref_f))
+        check_f(f"head-stacked {name} F vs #4 B=8", f, ref_f, dtype,
+                failures)
+        for part, g, r in zip(("dqkv1", "dqkv2", "dpos"), grads, ref_grads):
+            check_grad(f"head-stacked {name} {part} vs #6 B=8", g, r, dtype,
+                       failures, HEAD_STACKED_NORMREL[dtype])
+    log(f"[check] head-stacked F equal to #4's bits in "
+        f"{sum(same_bits)} of {len(same_bits)} runs")
+    if failures:
+        raise SystemExit(f"#8 checks failed: {failures}")
+    return max(e_fwd), max(e_bwd), launches
+
+
+def phase_kernels_cross_variants(device):
+    """(3f) #9: ``essential_block_s`` for S in {2, 4} against #4 at B = 8,
+    fp32 and bf16 (equal bits reported, F_RTOL held), and both modes of
+    ``essential_block_variant`` against their plain version at B = 8 in
+    bf16; both counters rose.  Returns max |err| of (S, variants)."""
+    from rel_pose_tpu_torch.ops import cross_variants as cv
+    from rel_pose_tpu_torch.ops import essential_block as te
+    failures, e_s, e_v = [], [], []
+    cv.essential_block_s.launches = cv.essential_block_variant.launches = 0
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 15)
+        xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
+        _, (q1, q2), _ = split_pair(xpair, ln, qkvp)
+        f4 = te.fused_essential_block(q1, q2, positional, 3)
+        for S in (2, 4):
+            f = cv.essential_block_s(q1, q2, positional, S)
+            torch.cuda.synchronize()
+            log(f"[check] essential_block_s S={S} {str(dtype)[6:]}: F "
+                f"{'equal to' if torch.equal(f, f4) else 'DIFFERS from'} "
+                f"#4's bits")
+            e_s.append(check_f(f"essential_block_s S={S} vs #4 B=8", f, f4,
+                               dtype, failures))
+        if dtype == torch.bfloat16:
+            for mode in cv.MODES:
+                f = cv.essential_block_variant(q1, q2, positional, mode)
+                torch.cuda.synchronize()
+                e_v.append(check_f(
+                    f"essential_block_variant {mode} B=8", f,
+                    cv.essential_block_variant_reference(q1, q2, positional,
+                                                         mode),
+                    dtype, failures))
+    launches = (cv.essential_block_s.launches,
+                cv.essential_block_variant.launches)
+    log(f"[check] #9 launches (s, variant): {launches}")
+    if min(launches) <= 0:
+        failures.append(f"#9 launch counters {launches}")
+    if failures:
+        raise SystemExit(f"#9 checks failed: {failures}")
+    return max(e_s), max(e_v)
+
+
+def phase_times_bilinear(device, card, errs):
+    """(5e) bf16 CUDA-event times: #8's forward at the eval shapes (G =
+    1,536, e = 70) and backward at the training shapes (G = 360), each
+    against its plain version; the head-stacked forward + backward against
+    #4 + #6 at B = 60; then the microbenchmark script
+    (``scripts/bench_cross_torch.py``, every case) at B = 256 with #9's
+    counters set to 0 just before and read just after -- the launches of
+    #9's path -- and the plain versions of s2 and mxu_sums beside it.
+    Returns the kernels-line rows of #8 and #9 and #9's launches."""
+    import importlib
+    from rel_pose_tpu_torch.ops import bilinear as tb
+    from rel_pose_tpu_torch.ops import cross_variants as cv
+    from rel_pose_tpu_torch.ops import essential_block as te
+    bench = importlib.import_module("scripts.bench_cross_torch")
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(SEED + 16)
+    rows, failures = {}, []
+    (fwd_err, bwd_err), (s_err, v_err) = errs
+
+    G = 2 * EVAL_BATCH * 3
+    q, k, va, vb, _ = bilinear_inputs(rng, G, 70, dtype, device, True)
+    f = tb.fused_bilinear_attention(q, k, va, vb, 0.125)
+    err = check_f(f"bilinear G={G} F", f, tb.bilinear_attention_reference(
+        q, k, va, vb, 0.125), dtype, failures)
+    ms = cuda_time_ms(lambda: tb.fused_bilinear_attention(
+        q, k, va, vb, 0.125), 3)
+    plain_ms = cuda_time_ms(lambda: tb.bilinear_attention_reference(
+        q, k, va, vb, 0.125), 3)
+    b = bound(moments_fwd_flops(EVAL_BATCH, 576, 3), nbytes(q, k, vb, f),
+              dtype)
+    rows["bilinear_fwd"] = (max(err, fwd_err), ms, plain_ms, None, b)
+    del q, k, va, vb, f
+
+    G = 2 * TRAIN_BATCH * 3
+    q, k, va, vb, df = bilinear_inputs(rng, G, 70, dtype, device, True)
+    grads = tb.fused_bilinear_attention_bwd(q, k, va, vb, df, 0.125)
+    ref = tb.bilinear_attention_bwd_reference(q, k, va, vb, df, 0.125)
+    err = max(check_grad(f"bilinear_bwd {part} G={G}", g, r, dtype, failures)
+              for part, g, r in zip(("dq", "dk", "dva", "dvb"), grads, ref))
+    del ref
+    ms = cuda_time_ms(lambda: tb.fused_bilinear_attention_bwd(
+        q, k, va, vb, df, 0.125), 3)
+    plain_ms = cuda_time_ms(lambda: tb.bilinear_attention_bwd_reference(
+        q, k, va, vb, df, 0.125), 2)
+    b = bound(essential_bwd_flops(TRAIN_BATCH, 576, 3),
+              2 * nbytes(q, k, vb) + nbytes(df, *grads), dtype)
+    rows["bilinear_bwd"] = (max(err, bwd_err), ms, plain_ms, None, b)
+    del q, k, va, vb, df, grads
+
+    B = TRAIN_BATCH
+    xpair, ln, qkvp, positional = essential_inputs(rng, B, dtype, device)
+    _, (q1, q2), _ = split_pair(xpair, ln, qkvp)
+    del xpair
+    pos = positional.to(dtype)
+    cot = torch.from_numpy(rng.standard_normal((B, 2, 3, 70, 70)).astype(
+        np.float32)).to(device)
+    route_ms = {}
+    for name, fn in (("head-stacked #8", te.essential_block_head_stacked),
+                     ("#4 + #6", te.fused_essential_block)):
+        route_ms[name] = cuda_time_ms(lambda: moments_grads(
+            fn, q1, q2, pos, {}, cot), 3)
+    b = bound(moments_fwd_flops(B, 576, 3) + essential_bwd_flops(B, 576, 3),
+              3 * nbytes(q1, q2, pos) + nbytes(cot), dtype)
+    log(f"[time] essential block forward + backward bf16 batch {B}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in route_ms.items())
+        + f", bound {b[0]:.3f} ms ({b[1]}) ({card})")
+    del q1, q2, pos, positional, cot
+
+    B = EVAL_BATCH
+    inputs = bench.make_inputs(B, device, SEED + 17)
+    cv.essential_block_s.launches = cv.essential_block_variant.launches = 0
+    times = bench.time_cases(inputs, 5, include_all=True)
+    torch.cuda.synchronize()
+    launches = {"essential_block_s": cv.essential_block_s.launches,
+                "essential_block_variant":
+                    cv.essential_block_variant.launches}
+    log(f"[time] bench_cross_torch bf16 batch {B}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+        + f" ({card}); #9 launches {launches}")
+    failures += [f"{k} never launched" for k, v in launches.items()
+                 if v <= 0]
+    a, b_, p = inputs
+    f = cv.essential_block_s(a, b_, p, 2)
+    err = check_f(f"essential_block_s S=2 B={B}", f,
+                  te.essential_block_reference(a, b_, p, 3), dtype, failures)
+    plain_ms = cuda_time_ms(
+        lambda: te.essential_block_reference(a, b_, p, 3), 3)
+    bb = bound(moments_fwd_flops(B, 576, 3), nbytes(a, b_, p, f), dtype)
+    rows["essential_block_s"] = (max(err, s_err), times["s2"], plain_ms,
+                                 None, bb)
+    f = cv.essential_block_variant(a, b_, p, "mxu_sums")
+    err = check_f(f"essential_block_variant mxu_sums B={B}", f,
+                  cv.essential_block_variant_reference(a, b_, p, "mxu_sums"),
+                  dtype, failures)
+    plain_ms = cuda_time_ms(lambda: cv.essential_block_variant_reference(
+        a, b_, p, "mxu_sums"), 3)
+    rows["essential_block_variant"] = (max(err, v_err), times["mxu_sums"],
+                                       plain_ms, None, bb)
+    del inputs, a, b_, p, f
+    if failures:
+        raise SystemExit(f"#8 / #9 timing checks failed: {failures}")
+    for name, (err, ms, plain_ms, _, (b_ms, b_by)) in rows.items():
+        log(f"[time] {name} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {b_ms:.3f} ms ({b_by}) ({card})")
+    return rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1359,6 +1642,8 @@ def main():
     bwd_errs = phase_kernels_bwd(device)
     phase_kernels_mhsa(device)
     phase_kernels_variants(device)
+    *bilinear_errs, bilinear_launches = phase_kernels_bilinear(device)
+    variant_errs = phase_kernels_cross_variants(device)
     models, sd = make_models(device)
     eval_launches = phase_slice(device, models)
     launches = phase_train(device, sd)
@@ -1372,6 +1657,9 @@ def main():
     entry_launches = phase_entry_points(device)
     ablations = phase_ablations(device)
     rows.update(phase_times_variants(device, card))
+    bench_rows, bench_launches = phase_times_bilinear(
+        device, card, (bilinear_errs, variant_errs))
+    rows.update(bench_rows)
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
     log(f"[slice] eval launches {eval_launches}, training launches "
@@ -1384,6 +1672,8 @@ def main():
     launches.update({k: noess_train[k] for k in ("mhsa_fwd", "mhsa_bwd")})
     launches.update({k: entry_launches[k] for k in ("essential_block",
                                                     "essential_block_x")})
+    launches.update(bilinear_launches)
+    launches.update(bench_launches)
     sources = {
         "vit_stack": ("rel_pose_tpu_torch/csrc/vit_stack.cu",
                       "rel_pose_tpu/ops/pallas_vit.py:94"),
@@ -1404,6 +1694,15 @@ def main():
         "essential_block_x": (
             "rel_pose_tpu_torch/csrc/essential_block.cu",
             "rel_pose_tpu/ops/pallas_essential_block.py:257"),
+        "bilinear_fwd": ("rel_pose_tpu_torch/csrc/bilinear.cu",
+                         "rel_pose_tpu/ops/pallas_essential.py:72"),
+        "bilinear_bwd": ("rel_pose_tpu_torch/csrc/bilinear_bwd.cu",
+                         "rel_pose_tpu/ops/pallas_essential.py:100"),
+        "essential_block_s": ("rel_pose_tpu_torch/csrc/cross_variants.cu",
+                              "scripts/bench_cross.py:88"),
+        "essential_block_variant": (
+            "rel_pose_tpu_torch/csrc/cross_variants.cu",
+            "scripts/bench_cross.py:35"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

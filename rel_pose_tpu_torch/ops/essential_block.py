@@ -11,7 +11,11 @@ e)`` in fp32, e = d + 6 with a positional table and e = d without:
     Linear;
   * ``fused_essential_block_x`` (#3): pre-normed ``x1, x2 (B, N, C)`` and
     the qkv Linear (no LayerNorm);
-  * ``fused_essential_block`` (#4): precomputed ``qkv1, qkv2 (B, N, 3C)``.
+  * ``fused_essential_block`` (#4): precomputed ``qkv1, qkv2 (B, N, 3C)``;
+  * ``essential_block_head_stacked``: #4's function and arguments composed
+    from the per-head bilinear op #8 (``ops/bilinear.py``) over the 2 B
+    heads (direction, pair, head) slices, as the JAX package's
+    ``_head_stacked_impl``; its backward is #8's, by autograd.
 
 Each takes ``positional`` (``(B, N, 6)`` or None) and the flags
 ``cross_features`` and ``use_single_softmax`` of ``ModelConfig``.  On a CPU
@@ -45,6 +49,7 @@ import torch
 from ..nn.layers import layernorm
 from ..nn.transformer import LOG2E
 from . import _build
+from .bilinear import fused_bilinear_attention
 
 HEAD_DIM = 64          # the kernels' head width
 POS_COLS = 6
@@ -368,6 +373,44 @@ class _EssentialBlock(torch.autograd.Function):
                                   g, *ctx.flags)
         return (dqkv[:, 0].to(qkv1.dtype), dqkv[:, 1].to(qkv2.dtype), dpos,
                 None, None, None)
+
+
+# ------------------------------------------- #4 as 2 B heads slices of #8 --
+
+def essential_block_head_stacked(qkv1, qkv2, positional, num_heads,
+                                 cross_features=False,
+                                 use_single_softmax=False):
+    """#4's function composed from one per-head bilinear op over the
+    ``G = 2 B heads`` (direction, pair, head) slices, as
+    ``_head_stacked_impl`` (``pallas_essential_block.py:420-458``) does:
+    the heads split, the positional table broadcast to ``(B, h, N, 6)`` and
+    appended to v, the directions stacked (q = [q2; q1], k = [k1; k2], vb =
+    [v1; v2], va = [v2; v1] with ``cross_features``, else vb), one
+    :func:`~rel_pose_tpu_torch.ops.bilinear.fused_bilinear_attention` (#8)
+    and ``(2, B, h, e, e)`` back to ``(B, 2, h, e, e)``.  Differentiable in
+    qkv1, qkv2 and positional by autograd through #8's Function: a second
+    route to the moments' forward and backward, beside #4 and #6."""
+    B, N, C3 = qkv1.shape
+    d = C3 // 3 // num_heads
+
+    def heads(qkv):                                  # 3 x (B, h, N, d)
+        return qkv.reshape(B, N, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+
+    q1, k1, v1 = heads(qkv1)
+    q2, k2, v2 = heads(qkv2)
+    if positional is not None:
+        pos = positional.to(v1.dtype)[:, None].expand(B, num_heads, N,
+                                                      POS_COLS)
+        v1, v2 = torch.cat([v1, pos], -1), torch.cat([v2, pos], -1)
+    e = v1.shape[-1]
+    stack = lambda a, b, w: torch.stack([a, b]).reshape(2 * B * num_heads,
+                                                        N, w)
+    vb = stack(v1, v2, e)
+    f = fused_bilinear_attention(
+        stack(q2, q1, d), stack(k1, k2, d),
+        stack(v2, v1, e) if cross_features else vb, vb, d ** -0.5,
+        use_single_softmax)
+    return f.view(2, B, num_heads, e, e).transpose(0, 1)
 
 
 # ------------------------------------------------------------ backward --

@@ -5,8 +5,10 @@ The whole slice: ``ModelConfig(transformer_depth=2)``, B = 2 pairs of
 256x256 uint8 images, fp32, the same numpy-seeded weights in both packages
 (carried as in tests/test_torch_model.py).  JAX runs its unfused path
 (``RELPOSE_NO_PALLAS=1``, pinned to the fused one by
-tests/test_grad_triangulation.py); the port runs on the CPU, where its two
-kernel-backed stages take their plain forward and backward versions.
+tests/test_grad_triangulation.py), its loss and gradients under one
+``jax.jit`` as ``make_train_step`` takes them; the port runs on the CPU,
+where its two kernel-backed stages take their plain forward and backward
+versions.
 
 Tolerances, with their reasons:
 
@@ -14,17 +16,19 @@ Tolerances, with their reasons:
     another order;
   * gradients, per leaf: ||g_port - g_jax|| <= 5e-3 ||g_jax|| (plus 1e-6
     of the largest leaf norm for leaves that are nearly zero) -- fp32
-    rounding, not a different computation (the float64 test below): the
-    leaves up to the extractor's first BatchNorm differ by 1.2e-3 - 3.1e-3
-    relative (measured; 2.1e-3 - 2.3e-3 on resnet.conv1 and the 3x3 convs
-    of layer1 and layer2), and each package's fp32 gradient is itself
-    1e-3 - 5e-3 from the float64 one there: training BatchNorm's
-    var = E[x^2] - mean^2 cancels large terms, and the trunk's divisions by
-    batch deviations amplify the rounding.  The bound is 1.6x the largest
-    measured gap.  The later leaves agree to 2e-5, the ViT and regressor
-    leaves to 7e-6;
+    rounding, not a different computation (the float64 check of
+    tests/test_torch_train_f64.py): the trunk's leaves up to the
+    extractor's BatchNorms differ by up to 3.9e-3 relative (measured, on
+    resnet.layer2.0.bn1.bias; 3.1e-3 on resnet.bn1.weight), and each
+    package's fp32 gradient is itself 1e-3 - 5e-3 from the float64 one
+    there: training BatchNorm's var = E[x^2] - mean^2 cancels large terms,
+    and the trunk's divisions by batch deviations amplify the rounding.  The
+    bound is 1.3x the largest measured gap.  The ViT and regressor leaves
+    agree to 6e-6;
   * the same gradients in float64 (every fp32 cast of both packages made
-    float64, in a child process): ||g_port - g_jax|| <= 1e-9 ||g_jax||
+    float64, in a child process that runs this file as a script; the tests
+    are tests/test_torch_train_f64.py, tests/test_torch_noess_f64.py and
+    tests/test_torch_ablations_f64.py): ||g_port - g_jax|| <= 1e-9 ||g_jax||
     (plus 1e-12 of the largest leaf norm), measured below 1e-13 on every
     leaf but the three conv biases that a BatchNorm follows, whose exact
     gradient is 0 (|g| ~ 1e-14);
@@ -68,6 +72,15 @@ from rel_pose_tpu_torch.train import checkpoint as tckpt
 from rel_pose_tpu_torch.train.optim import make_optimizer
 from rel_pose_tpu_torch.train.step import eval_step, loss_fn, train_step
 from rel_pose_tpu_torch.utils.convert import key_map, state_dict_from_jax
+
+# Two CPU threads for torch in every process that collects this file: the
+# tier-1 run puts 6 test workers (each of which collects every test file)
+# on an 8-core host, where torch's default of one OpenMP thread per core
+# oversubscribes the cores and its spinning threads starve the others: the
+# port's test files took 515 s of wall time and 2,189 s of summed test time
+# with the default, 217 s and 770 s with 2 threads (one 8-core host, the
+# tier-1 flags).
+torch.set_num_threads(2)
 
 RNG = np.random.default_rng(29)
 CFG = ModelConfig(transformer_depth=2)
@@ -124,12 +137,22 @@ def _lookup(tree, path):
     return np.asarray(tree)
 
 
+def jax_value_and_grad(loss_fn):
+    """``jax.value_and_grad`` of a ``make_loss_fn`` loss under one
+    ``jax.jit`` (its training flag static), as ``make_train_step``'s jitted
+    step takes it: one XLA compile of the whole forward and backward, where
+    op-by-op dispatch compiles every primitive on its own (13 s against
+    about 90 s for this file's setup on an 8-core CPU)."""
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True),
+                   static_argnums=5)
+
+
 @pytest.fixture(scope="module")
 def jax_one_step(setup, monkeypatch_module):
     params, state, _, batches = setup
     images, poses, intr = batches[0]
     fn = make_loss_fn(_jax_cfg(CFG), 10.0, 10.0, "train")
-    (loss, (new_bn, _, _)), grads = jax.value_and_grad(fn, has_aux=True)(
+    (loss, (new_bn, _, _)), grads = jax_value_and_grad(fn)(
         params, state, jnp.asarray(images), jnp.asarray(poses),
         jnp.asarray(intr), True)
     return float(loss), grads, new_bn
@@ -181,12 +204,6 @@ def test_one_step_gradients_match_jax(jax_one_step, port_one_step):
     assert not bad, bad
 
 
-def test_one_step_gradients_match_jax_float64():
-    """The one-step gradients of both packages in float64 agree to 1e-9:
-    the fp32 gap above is rounding."""
-    assert_float64_gradients_agree(float64_gradient_errors("flagship"), 75)
-
-
 def float64_gradient_errors(which):
     """{key: (||g_port - g_jax||, ||g_jax||)} of the one-step gradients of
     ``which`` ("flagship": this file's setup, "noess":
@@ -235,7 +252,7 @@ def _float64_one_step_gradients(cfg, setup):
     images, poses, intr = (batches[0][0], batches[0][1].astype(np.float64),
                            batches[0][2].astype(np.float64))
     fn = make_loss_fn(_jax_cfg(cfg), 10.0, 10.0, "train")
-    (_, _), grads = jax.value_and_grad(fn, has_aux=True)(
+    (_, _), grads = jax_value_and_grad(fn)(
         f64(params), f64(state), jnp.asarray(images), jnp.asarray(poses),
         jnp.asarray(intr), True)
 
