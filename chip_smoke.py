@@ -6,15 +6,20 @@
 Phases (any failure exits non-zero; there is no CPU fallback):
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-     TF32 off for matmuls and cuDNN convs, so fp32 means fp32;
+     the port's precision knob at its default (``RELPOSE_MATMUL_PRECISION``
+     = ``highest``: TF32 off for matmuls and cuDNN convs), checked;
   2. build the hand-written CUDA kernels from ``rel_pose_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version on the card, fp32 and
-     bf16 (ViT stack at G=16 sequences, essential block at B=8 pairs);
+     bf16 (ViT stack -- the tensor-core kernels for bf16, SIMT for fp32 --
+     at G=16 and at G=3 sequences, whose 1,728 rows leave a ragged GEMM
+     tile, and at G=3 of width 64, off the 192-column tiles; essential
+     block at B=8 pairs); the sha256 of the fp32 outputs is printed
+     (``scripts/vit_stack_bits.py`` compares two trees' bits);
   3b. the training kernels the same way: the ViT stack's stash against the
      plain block inputs, the ViT stack backward (dx and the 12 weight
-     gradients, G=16) and the essential block backward (dq, dk, dv, dpos,
-     B=8) against their plain backward versions, and each backward twice
-     for identical bits;
+     gradients, the same three shapes) and the essential block backward
+     (dq, dk, dv, dpos, B=8) against their plain backward versions, and
+     each backward twice for identical bits;
   4. the slice: ``PosePredictor`` over the flagship ``ViTEss`` (depth 6,
      seeded random weights) answers InteriorNet-style 256x256 requests of
      1, 5 and 8 pairs and a Matterport-style 480x640 request resized to
@@ -33,14 +38,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      kernels' launch counters rose; a checkpoint saved after step 2 and
      resumed into a fresh model reproduces step 3 bit for bit;
   5. times (CUDA events, after warm-up): each forward kernel and its plain
-     version at the eval shapes of batch 256 in bf16, and the eval forward
-     in pairs/s at batch 256, 256x256 uint8, bf16, preprocessing included;
+     version at the eval shapes of batch 256 in bf16 (the ViT stack checked
+     at that size against the plain version first; its GEMM and attention
+     parts from ``torch.profiler``), and the eval
+     forward in pairs/s at batch 256, 256x256 uint8, bf16, preprocessing
+     included;
   5b. each backward kernel and its plain version at the training shapes of
-     batch 60 in bf16; ``F.scaled_dot_product_attention`` forward (eval
-     shapes) and backward (training shapes) as the yardstick of the
-     attention parts, timed only; and the training step in pairs/s at batch
-     60, 384x512 uint8 (bench.py's train protocol), fp32 and bf16, kernels
-     and plain path.
+     batch 60 in bf16 (the ViT stack's also by part); as the yardstick of #1 and #5, timed only, the same 5-block
+     stack from library calls (``F.layer_norm``, cuBLAS ``F.linear``,
+     ``F.scaled_dot_product_attention``, ``F.gelu``), forward (eval shapes)
+     and backward of a kept forward (training shapes), and one SDPA call
+     each way; and the training step in pairs/s at batch 60, 384x512 uint8
+     (bench.py's train protocol), fp32 and bf16, kernels and plain path.
 
 The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
@@ -250,10 +259,15 @@ def phase_device():
     log(f"[device] nvidia-smi: {card}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log(f"[device] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    # the port's precision knob at its default: full fp32, no TF32
+    from rel_pose_tpu_torch.utils.precision import apply_matmul_precision
+    value = apply_matmul_precision()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    log(f"[device] RELPOSE_MATMUL_PRECISION={value}: cudnn.allow_tf32="
+        f"{flags[0]} cuda.matmul.allow_tf32={flags[1]}")
+    if value != "highest" or any(flags):
+        raise SystemExit(f"precision default: {value}, TF32 flags {flags}")
     return card
 
 
@@ -303,12 +317,20 @@ def phase_kernels(device):
     failures = []
     for dtype in DTYPES:
         rng = np.random.default_rng(SEED)
-        x, stacked, pos = vit_inputs(rng, 16, dtype, device)
-        out = fused_vit_stack(x, stacked, 3, pos)
-        torch.cuda.synchronize()
-        check_tokens("vit_stack G=16 depth=5", out,
-                     vit_stack_reference(x, stacked, 3, pos), dtype,
-                     failures)
+        # G = 16; G = 3, whose 1,728 rows leave a ragged 128-row GEMM tile;
+        # and C = 64, one head, MLP 256: widths off the 192-column tiles,
+        # which take the bf16 kernels' 64-column ones
+        for G, C, hidden in ((16, 192, 768), (3, 192, 768), (3, 64, 256)):
+            x, stacked, pos = vit_inputs(rng, G, dtype, device, C=C,
+                                         hidden=hidden)
+            out = fused_vit_stack(x, stacked, C // 64, pos)
+            torch.cuda.synchronize()
+            check_tokens(f"vit_stack G={G} C={C} depth=5", out,
+                         vit_stack_reference(x, stacked, C // 64, pos),
+                         dtype, failures)
+            if dtype == torch.float32:
+                log(f"[check] vit_stack fp32 G={G} C={C} sha256 "
+                    f"{digest(out)}")
         args = essential_inputs(rng, 8, dtype, device)
         f = fused_essential_block_pair(*args, 3)
         torch.cuda.synchronize()
@@ -316,6 +338,17 @@ def phase_kernels(device):
                 essential_block_pair_reference(*args, 3), dtype, failures)
     if failures:
         raise SystemExit(f"kernel checks failed: {failures}")
+
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes, the first 16 hex digits: two runs of a
+    deterministic kernel on one card give the same digest."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
 
 
 def normrel(out, ref):
@@ -340,6 +373,47 @@ def check_grad(name, out, ref, dtype, failures, tol=None):
     return err
 
 
+def check_vit_bwd(G, dtype, rng, device, failures, C=192, hidden=768):
+    """#1's stash and #5 at G sequences of width C against the plain
+    versions; the backward twice for the same bits; fp32's digest printed.
+    Returns the largest max |err|."""
+    from rel_pose_tpu_torch.ops import vit_stack as tv
+    heads, name = C // 64, f"G={G} C={C}"
+    x, stacked, pos = vit_inputs(rng, G, dtype, device, C=C, hidden=hidden)
+    out, xs = tv._launch_forward(x, stacked, heads, pos, stash=True)
+    plain_xs = []
+    ref = tv.vit_stack_reference(x, stacked, heads, pos, stash=plain_xs)
+    nostash = tv.fused_vit_stack(x, stacked, heads, pos)
+    torch.cuda.synchronize()
+    if not torch.equal(out, nostash):
+        failures.append(f"stash changed the output {dtype} {name}")
+    check_tokens(f"vit_stack(stash) out {name}", out, ref, dtype, failures)
+    for i, want in enumerate(plain_xs):
+        check_tokens(f"vit_stack stash[{i}] {name}", xs[i], want, dtype,
+                     failures)
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(
+        np.float32)).to(device, dtype)
+    dx, grads = tv.fused_vit_stack_bwd(xs, g, stacked, heads)
+    dx2, grads2 = tv.fused_vit_stack_bwd(xs, g, stacked, heads)
+    torch.cuda.synchronize()
+    same = torch.equal(dx, dx2) and all(
+        torch.equal(grads[k], grads2[k]) for k in grads)
+    log(f"[check] vit_stack_bwd {name} {str(dtype)[6:]}: two calls "
+        f"{'bit for bit' if same else 'DIFFER'}")
+    if not same:
+        failures.append(f"vit_stack_bwd not bitwise repeatable {dtype} "
+                        f"{name}")
+    if dtype == torch.float32:
+        log(f"[check] vit_stack_bwd fp32 {name} sha256 "
+            f"{digest(dx, *grads.values())}")
+    rdx, rgrads = tv.vit_stack_bwd_reference(xs, g, stacked, heads)
+    e = [check_grad(f"vit_stack_bwd dx {name}", dx, rdx, dtype, failures)]
+    for k in grads:
+        e.append(check_grad(f"vit_stack_bwd d{k} {name}", grads[k],
+                            rgrads[k], dtype, failures))
+    return max(e)
+
+
 def phase_kernels_bwd(device):
     """(3b) the stash and both backward kernels against their plain
     versions on the card, fp32 and bf16, and bitwise repeatability."""
@@ -350,33 +424,12 @@ def phase_kernels_bwd(device):
     errs = {}
     for dtype in DTYPES:
         rng = np.random.default_rng(SEED + 3)
-        x, stacked, pos = vit_inputs(rng, 16, dtype, device)
-        out, xs = tv._launch_forward(x, stacked, 3, pos, stash=True)
-        plain_xs = []
-        ref = tv.vit_stack_reference(x, stacked, 3, pos, stash=plain_xs)
-        nostash = tv.fused_vit_stack(x, stacked, 3, pos)
-        torch.cuda.synchronize()
-        if not torch.equal(out, nostash):
-            failures.append(f"stash changed the output {dtype}")
-        check_tokens("vit_stack(stash) out G=16", out, ref, dtype, failures)
-        for i, want in enumerate(plain_xs):
-            check_tokens(f"vit_stack stash[{i}] G=16", xs[i], want, dtype,
-                         failures)
-        g = torch.from_numpy(rng.standard_normal(x.shape).astype(
-            np.float32)).to(device, dtype)
-        dx, grads = tv.fused_vit_stack_bwd(xs, g, stacked, 3)
-        dx2, grads2 = tv.fused_vit_stack_bwd(xs, g, stacked, 3)
-        torch.cuda.synchronize()
-        if not (torch.equal(dx, dx2) and all(
-                torch.equal(grads[k], grads2[k]) for k in grads)):
-            failures.append(f"vit_stack_bwd not bitwise repeatable {dtype}")
-        rdx, rgrads = tv.vit_stack_bwd_reference(xs, g, stacked, 3)
-        e = [check_grad("vit_stack_bwd dx G=16", dx, rdx, dtype, failures)]
-        for k in grads:
-            e.append(check_grad(f"vit_stack_bwd d{k} G=16", grads[k],
-                                rgrads[k], dtype, failures))
-        errs["vit_stack_bwd", dtype] = max(e)
-        del x, stacked, pos, out, xs, g, dx, dx2, grads, grads2, rgrads
+        # G = 16 and G = 3 (ragged row tiles and dW chunks) at the model's
+        # widths, and C = 64 (the bf16 kernels' 64-column tiles)
+        e = [check_vit_bwd(G, dtype, rng, device, failures, C, hidden)
+             for G, C, hidden in ((16, 192, 768), (3, 192, 768),
+                                  (3, 64, 256))]
+        errs["vit_stack_bwd", dtype] = e[0]
 
         xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
         qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
@@ -600,6 +653,92 @@ def sdpa_ms(G, dtype, device, backward):
         out, (q, k, v), g, retain_graph=True), 3)
 
 
+def library_vit_stack(x, stacked, heads, pos):
+    """The stack's function from library calls -- ``F.layer_norm``,
+    cuBLAS ``F.linear``, ``F.scaled_dot_product_attention``, ``F.gelu`` --
+    in the activation dtype: the yardstick of #1 and #5, timed only and
+    never called by the port."""
+    import torch.nn.functional as F
+    G, N, C = x.shape
+    x = x + pos
+    for i in range(stacked["qkv_w"].shape[0]):
+        p = {k: v[i] for k, v in stacked.items()}
+        y = F.layer_norm(x, (C,), p["ln1_scale"], p["ln1_bias"], 1e-6)
+        q, k, v = F.linear(y, p["qkv_w"], p["qkv_b"]).view(
+            G, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v)
+        x = x + F.linear(a.transpose(1, 2).reshape(G, N, C), p["proj_w"],
+                         p["proj_b"])
+        y = F.layer_norm(x, (C,), p["ln2_scale"], p["ln2_bias"], 1e-6)
+        h = F.gelu(F.linear(y, p["fc1_w"], p["fc1_b"]), approximate="tanh")
+        x = x + F.linear(h, p["fc2_w"], p["fc2_b"])
+    return x
+
+
+def library_stack_ms(x, stacked, pos, backward):
+    """(ms, max |err| against the plain version) of
+    :func:`library_vit_stack`: its forward, or the backward (dx and every
+    stacked gradient) of a kept forward."""
+    from rel_pose_tpu_torch.ops.vit_stack import vit_stack_reference
+    if not backward:
+        with torch.no_grad():
+            out = library_vit_stack(x, stacked, 3, pos)
+            err = (out.float() - vit_stack_reference(
+                x, stacked, 3, pos).float()).abs().max().item()
+            return cuda_time_ms(
+                lambda: library_vit_stack(x, stacked, 3, pos), 3), err
+    leaves = [x.detach().requires_grad_()] + [
+        v.detach().requires_grad_() for v in stacked.values()]
+    out = library_vit_stack(leaves[0], dict(zip(stacked, leaves[1:])), 3,
+                            pos)
+    g = torch.randn_like(out)
+    ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                  retain_graph=True), 3)
+    return ms, None
+
+
+def kernel_parts_ms(fn):
+    """Device time of one ``fn()`` by part, from ``torch.profiler``: the
+    tensor-core attention kernels (``rp::tc::attn_*``), the tensor-core
+    GEMMs (``rp::tc::gemm_*``) and the rest.  Empty when the profiler
+    recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for ev in prof.key_averages():
+        t = ev.self_device_time_total
+        if ev.device_type != torch.autograd.DeviceType.CUDA or t <= 0:
+            continue
+        part = ("attention" if "tc::attn_" in ev.key else
+                "gemm" if "tc::gemm_" in ev.key else "other")
+        parts[part] = parts.get(part, 0.0) + t / 1e3
+    return parts
+
+
+def vit_attention_flops(G, N, C, depth, passes):
+    """Products of the stack's attention: ``passes`` N x N x C products per
+    sequence and block (2 in the forward's function)."""
+    return depth * passes * 2 * G * N * N * C
+
+
+def log_parts(name, parts, gemm_flops, attn_flops, card):
+    if not parts:
+        log(f"[time] {name} parts: not measured (no device time in the "
+            f"profile)")
+        return
+    for part, flops in (("gemm", gemm_flops), ("attention", attn_flops)):
+        ms = parts.get(part, 0.0)
+        rate = f"{flops / ms / 1e9:.2f} TFLOP/s" if ms > 0 else "n/a"
+        log(f"[time] {name} {part} part: {ms:.3f} ms, {rate} of the "
+            f"function's products ({card})")
+    log(f"[time] {name} other kernels: {parts.get('other', 0.0):.3f} ms "
+        f"({card})")
+
+
 def phase_times(device, models, card):
     from rel_pose_tpu_torch.ops.essential_block import (
         essential_block_pair_reference, fused_essential_block_pair)
@@ -620,10 +759,20 @@ def phase_times(device, models, card):
     ms = cuda_time_ms(lambda: fused_vit_stack(x, stacked, 3, pos), 3)
     plain_ms = cuda_time_ms(lambda: vit_stack_reference(x, stacked, 3, pos),
                             3)
-    lib_ms = sdpa_ms(2 * B, dtype, device, backward=False)
-    b = bound(vit_flops(2 * B, 576, 192, 768, 5),
+    lib_ms, lib_err = library_stack_ms(x, stacked, pos, backward=False)
+    sdpa = sdpa_ms(2 * B, dtype, device, backward=False)
+    G = 2 * B
+    b = bound(vit_flops(G, 576, 192, 768, 5),
               2 * nbytes(x) + nbytes(pos, *stacked.values()), dtype)
     rows["vit_stack"] = (err, ms, plain_ms, lib_ms, b)
+    log(f"[time] vit_stack bf16 G={G}: kernel {ms:.3f} ms, library "
+        f"stack {lib_ms:.3f} ms (max |err| "
+        f"{lib_err:.3e} against the plain version), one SDPA call "
+        f"{sdpa:.3f} ms ({card})")
+    attn = vit_attention_flops(G, 576, 192, 5, 2)
+    log_parts(f"vit_stack G={G}", kernel_parts_ms(
+        lambda: fused_vit_stack(x, stacked, 3, pos)),
+        vit_flops(G, 576, 192, 768, 5) - attn, attn, card)
     del x, stacked, pos
 
     args = essential_inputs(rng, B, dtype, device)
@@ -844,12 +993,25 @@ def phase_times_train(device, sd, card):
     ms = cuda_time_ms(lambda: tv.fused_vit_stack_bwd(xs, g, stacked, 3), 3)
     plain_ms = cuda_time_ms(
         lambda: tv.vit_stack_bwd_reference(xs, g, stacked, 3), 2)
-    lib_ms = sdpa_ms(G, dtype, device, backward=True)
+    lib_ms, _ = library_stack_ms(x, stacked, pos, backward=True)
+    sdpa = sdpa_ms(G, dtype, device, backward=True)
     n_params = sum(v.numel() for v in stacked.values())
     b = bound(2 * vit_flops(G, 576, 192, 768, 5),
               nbytes(xs) + 2 * nbytes(g) + nbytes(*stacked.values())
               + 4 * n_params, dtype)
     rows["vit_stack_bwd"] = (err, ms, plain_ms, lib_ms, b)
+    log(f"[time] vit_stack_bwd bf16 G={G}: kernel {ms:.3f} ms, library "
+        f"stack backward {lib_ms:.3f} ms, "
+        f"one SDPA backward {sdpa:.3f} ms ({card})")
+    # the backward's products: each Linear's recompute, dX and dW (3 x the
+    # forward's), and 6 N x N x C attention products: the recompute's 2 and
+    # the backward's 4 (dv, dp, dq, dk)
+    fwd = vit_flops(G, 576, 192, 768, 5)
+    attn_fwd = vit_attention_flops(G, 576, 192, 5, 2)
+    gemm = 3 * (fwd - attn_fwd)
+    log_parts(f"vit_stack_bwd G={G}", kernel_parts_ms(
+        lambda: tv.fused_vit_stack_bwd(xs, g, stacked, 3)), gemm,
+        vit_attention_flops(G, 576, 192, 5, 6), card)
     del x, stacked, pos, xs, g
 
     xpair, ln, qkvp, positional = essential_inputs(rng, B, dtype, device)

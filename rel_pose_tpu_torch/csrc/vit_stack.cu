@@ -22,8 +22,14 @@
 //
 // Attention: attention.cuh, with q, k, v read from the qkv GEMM's (G, N, 3C)
 // output (InterleavedQkv).
+//
+// That is the fp32 route (SIMT: the tensor cores have no fp32 product).
+// bf16 takes the tensor cores: the same chain with the GEMMs of
+// gemm_tc.cuh and the attention of attention_tc.cuh (mma.sync m16n8k16,
+// fp32 sums, the same rounding points), rp::tc below.
 
 #include "attention.cuh"
+#include "attention_tc.cuh"
 
 namespace rp {
 
@@ -87,6 +93,55 @@ static cudaError_t vit_stack(const T* x, const T* pos, T* out, T* stash,
   return cudaSuccess;
 }
 
+// The bf16 stack on the tensor cores: vit_stack's chain, launch for launch
+namespace tc {
+
+static cudaError_t vit_stack(const bf16* x, const bf16* pos, bf16* out,
+                             bf16* stash, const float* ln1s,
+                             const float* ln1b, const bf16* qkvw,
+                             const float* qkvb, const bf16* projw,
+                             const float* projb, const float* ln2s,
+                             const float* ln2b, const bf16* fc1w,
+                             const float* fc1b, const bf16* fc2w,
+                             const float* fc2b, bf16* y, bf16* qkv, bf16* attn,
+                             bf16* hid, int G, int N, int C, int heads,
+                             int hidden, int depth, cudaStream_t st) {
+  if (C != heads * kHeadDim) return cudaErrorInvalidValue;
+  const int M = G * N;
+  const float scale = 0.125f * 1.4426950408889634f;  // 64^-1/2 * log2(e)
+  cudaError_t err;
+#define RP_CHECK(call)                 \
+  if ((err = (call)) != cudaSuccess) { \
+    return err;                        \
+  }
+  for (int i = 0; i < depth; ++i) {
+    const size_t cc = (size_t)C * C;
+    bf16* xcopy = stash ? stash + (size_t)i * M * C : nullptr;
+    RP_CHECK(i == 0 ? launch_layernorm<bf16>(x, pos, out, xcopy, ln1s, ln1b,
+                                             y, nullptr, M, N, C, st)
+                    : launch_layernorm<bf16>(out, nullptr, nullptr, xcopy,
+                                             ln1s + i * C, ln1b + i * C, y,
+                                             nullptr, M, N, C, st));
+    RP_CHECK(launch_gemm<kBias>(y, qkvw + i * 3 * cc, qkvb + i * 3 * C,
+                                nullptr, qkv, M, 3 * C, C, st));
+    RP_CHECK(launch_attention(qkv, attn, nullptr, G, N, C, heads, scale, st));
+    RP_CHECK(launch_gemm<kBiasResid>(attn, projw + i * cc, projb + i * C, out,
+                                     out, M, C, C, st));
+    RP_CHECK(launch_layernorm<bf16>(out, nullptr, nullptr, nullptr,
+                                    ln2s + i * C, ln2b + i * C, y, nullptr, M,
+                                    N, C, st));
+    RP_CHECK(launch_gemm<kBiasGelu>(y, fc1w + (size_t)i * hidden * C,
+                                    fc1b + (size_t)i * hidden, nullptr, hid, M,
+                                    hidden, C, st));
+    RP_CHECK(launch_gemm<kBiasResid>(hid, fc2w + (size_t)i * C * hidden,
+                                     fc2b + i * C, out, out, M, C, hidden,
+                                     st));
+  }
+#undef RP_CHECK
+  return cudaSuccess;
+}
+
+}  // namespace tc
 }  // namespace rp
 
 extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
@@ -102,11 +157,11 @@ extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
     using T = __nv_bfloat16;
-    return rp::vit_stack<T>(
+    return rp::tc::vit_stack(
         (const T*)x, (const T*)pos, (T*)out, (T*)stash, ln1s, ln1b,
-        (const T*)qkvw, qkvb, (const T*)projw, projb, ln2s, ln2b, (const T*)fc1w, fc1b,
-        (const T*)fc2w, fc2b, (T*)y, (T*)qkv, (T*)attn, (T*)hid, G, N, C,
-        heads, hidden, depth, st);
+        (const T*)qkvw, qkvb, (const T*)projw, projb, ln2s, ln2b,
+        (const T*)fc1w, fc1b, (const T*)fc2w, fc2b, (T*)y, (T*)qkv,
+        (T*)attn, (T*)hid, G, N, C, heads, hidden, depth, st);
   }
   return rp::vit_stack<float>(
       (const float*)x, (const float*)pos, (float*)out, (float*)stash, ln1s,
@@ -163,6 +218,7 @@ struct VitBwdBufs {
   void *y1, *qkv, *attn, *xa, *y2, *hg;             // T
   float *stats1, *stats2, *astat, *dxo, *dxa, *dtmp, *dqkv, *h1, *wpart,
       *bpart, *lnpart;                               // fp32
+  void *dyb, *dqkvb;  // bf16 only (rp::tc): T(dxo) or T(dxa), T(dqkv)
 };
 
 // total bytes; with `base` given, also the buffers' addresses
@@ -189,10 +245,14 @@ static size_t vit_bwd_carve(char* base, int G, int N, int C, int heads,
   b->dtmp = (float*)take(M * C * f);
   b->dqkv = (float*)take(M * 3 * C * f);
   b->h1 = (float*)take(M * hidden * f);
-  const size_t S = dw_chunks((int)M);
+  // the dW chunks of common.cuh (fp32) or of gemm_tc.cuh (bf16)
+  const size_t S =
+      tsize == 2 ? tc::dw_chunks_tc((int)M) : dw_chunks((int)M);
   b->wpart = (float*)take(S * (size_t)C * (hidden > 3 * C ? hidden : 3 * C) * f);
   b->bpart = (float*)take(S * (size_t)(hidden > 3 * C ? hidden : 3 * C) * f);
   b->lnpart = (float*)take((size_t)lnb_blocks((int)M) * 2 * C * f);
+  b->dyb = tsize == 2 ? take(M * C * tsize) : nullptr;
+  b->dqkvb = tsize == 2 ? take(M * 3 * C * tsize) : nullptr;
   return off;
 }
 
@@ -276,6 +336,109 @@ static cudaError_t vit_stack_bwd(const T* xs, const T* g, const float* ln1s,
   return cudaGetLastError();
 }
 
+namespace tc {
+
+// T(in) of n values into out
+static cudaError_t cast_bf16(const float* in, bf16* out, size_t n,
+                             cudaStream_t st) {
+  from_f32_kernel<bf16><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(in, out,
+                                                                      n);
+  return cudaGetLastError();
+}
+
+// The bf16 backward on the tensor cores: rp::vit_stack_bwd's chain with
+// the GEMMs and attention of gemm_tc.cuh / attention_tc.cuh.  A fp32
+// cotangent enters the products as its bf16 copy: T(dxo) and T(dxa) cast
+// into dyb, T(dh1) written by the fc2 dX epilogue into hg (free once fc2's
+// dW has read it), T(dqkv) by the attention backward into dqkvb.
+static cudaError_t vit_stack_bwd(const bf16* xs, const bf16* g,
+                                 const float* ln1s, const float* ln1b,
+                                 const bf16* qkvw, const float* qkvb,
+                                 const bf16* projw, const float* projb,
+                                 const float* ln2s, const float* ln2b,
+                                 const bf16* fc1w, const float* fc1b,
+                                 const bf16* fc2w, const float* fc2b,
+                                 bf16* dx, float* const* gr, void* ws, int G,
+                                 int N, int C, int heads, int hidden,
+                                 int depth, cudaStream_t st) {
+  if (C != heads * kHeadDim) return cudaErrorInvalidValue;
+  const int M = G * N;
+  const float scale = 0.125f * 1.4426950408889634f;  // 64^-1/2 * log2(e)
+  VitBwdBufs b;
+  vit_bwd_carve((char*)ws, G, N, C, heads, hidden, sizeof(bf16), &b);
+  bf16 *y1 = (bf16*)b.y1, *qkv = (bf16*)b.qkv, *attn = (bf16*)b.attn,
+       *xa = (bf16*)b.xa, *y2 = (bf16*)b.y2, *hg = (bf16*)b.hg,
+       *dyb = (bf16*)b.dyb, *dqkvb = (bf16*)b.dqkvb;
+  float *dln1s = gr[0], *dln1b = gr[1], *dqkvw = gr[2], *dqkvbias = gr[3],
+        *dprojw = gr[4], *dprojb = gr[5], *dln2s = gr[6], *dln2b = gr[7],
+        *dfc1w = gr[8], *dfc1b = gr[9], *dfc2w = gr[10], *dfc2b = gr[11];
+  const size_t nMC = (size_t)M * C;
+  cudaError_t err;
+#define RP_CHECK(call)                 \
+  if ((err = (call)) != cudaSuccess) { \
+    return err;                        \
+  }
+  to_f32_kernel<bf16><<<(unsigned)((nMC + 255) / 256), 256, 0, st>>>(
+      g, b.dxo, nMC);
+  RP_CHECK(cudaGetLastError());
+  for (int i = depth - 1; i >= 0; --i) {
+    const bf16* xin = xs + (size_t)i * nMC;
+    const size_t cc = (size_t)C * C, hc = (size_t)hidden * C;
+    // recompute block i's forward pieces
+    RP_CHECK(launch_layernorm<bf16>(xin, nullptr, nullptr, nullptr,
+                                    ln1s + i * C, ln1b + i * C, y1, b.stats1,
+                                    M, N, C, st));
+    RP_CHECK(launch_gemm<kBias>(y1, qkvw + i * 3 * cc, qkvb + i * 3 * C,
+                                nullptr, qkv, M, 3 * C, C, st));
+    RP_CHECK(launch_attention(qkv, attn, b.astat, G, N, C, heads, scale, st));
+    RP_CHECK(launch_gemm<kBiasResid>(attn, projw + i * cc, projb + i * C, xin,
+                                     xa, M, C, C, st));
+    RP_CHECK(launch_layernorm<bf16>(xa, nullptr, nullptr, nullptr,
+                                    ln2s + i * C, ln2b + i * C, y2, b.stats2,
+                                    M, N, C, st));
+    RP_CHECK(launch_gemm<kBiasGeluSplit>(y2, fc1w + i * hc,
+                                         fc1b + (size_t)i * hidden, nullptr,
+                                         hg, M, hidden, C, st, b.h1));
+    // MLP: x_out = xa + fc2(gelu(fc1(LN2(xa))))
+    RP_CHECK(cast_bf16(b.dxo, dyb, nMC, st));
+    RP_CHECK(weight_grad(dyb, b.dxo, hg, dfc2w + i * hc, dfc2b + i * C,
+                         b.wpart, b.bpart, M, C, hidden, st));
+    RP_CHECK(launch_gemm_dx<kDxGeluGrad>(dyb, fc2w + i * hc, b.h1, b.h1, hg,
+                                         M, hidden, C, st));  // dh1, T(dh1)
+    RP_CHECK(weight_grad(hg, b.h1, y2, dfc1w + i * hc,
+                         dfc1b + (size_t)i * hidden, b.wpart, b.bpart, M,
+                         hidden, C, st));
+    RP_CHECK(launch_gemm_dx<kDxPlain>(hg, fc1w + i * hc, nullptr, b.dtmp,
+                                      nullptr, M, C, hidden, st));
+    RP_CHECK(layernorm_grad<bf16>(b.dtmp, xa, b.stats2, ln2s + i * C, b.dxo,
+                                  b.dxa, dln2s + i * C, dln2b + i * C,
+                                  b.lnpart, M, C, st));
+    // attention: xa = x_in + proj(attention(qkv(LN1(x_in))))
+    RP_CHECK(cast_bf16(b.dxa, dyb, nMC, st));
+    RP_CHECK(weight_grad(dyb, b.dxa, attn, dprojw + i * cc, dprojb + i * C,
+                         b.wpart, b.bpart, M, C, C, st));
+    RP_CHECK(launch_gemm_dx<kDxPlain>(dyb, projw + i * cc, nullptr, b.dtmp,
+                                      nullptr, M, C, C, st));  // dattn
+    // T(do) and T(do / l) into dyb and attn, both read for the last time
+    // by proj's dW and dX above
+    RP_CHECK(launch_attention_bwd(qkv, b.dtmp, b.astat, b.dqkv, dqkvb, dyb,
+                                  attn, G, N, C, heads, scale, st));
+    RP_CHECK(weight_grad(dqkvb, b.dqkv, y1, dqkvw + i * 3 * cc,
+                         dqkvbias + i * 3 * C, b.wpart, b.bpart, M, 3 * C, C,
+                         st));
+    RP_CHECK(launch_gemm_dx<kDxPlain>(dqkvb, qkvw + i * 3 * cc, nullptr,
+                                      b.dtmp, nullptr, M, C, 3 * C, st));
+    RP_CHECK(layernorm_grad<bf16>(b.dtmp, xin, b.stats1, ln1s + i * C, b.dxa,
+                                  b.dxo, dln1s + i * C, dln1b + i * C,
+                                  b.lnpart, M, C, st));
+  }
+  from_f32_kernel<bf16><<<(unsigned)((nMC + 255) / 256), 256, 0, st>>>(
+      b.dxo, dx, nMC);
+#undef RP_CHECK
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 }  // namespace rp
 
 extern "C" long long rp_vit_stack_bwd_workspace(int G, int N, int C,
@@ -302,7 +465,7 @@ extern "C" int rp_vit_stack_bwd(
                          dln2s, dln2b, dfc1w, dfc1b, dfc2w, dfc2b};
   if (bf16) {
     using T = __nv_bfloat16;
-    return rp::vit_stack_bwd<T>(
+    return rp::tc::vit_stack_bwd(
         (const T*)xs, (const T*)g, ln1s, ln1b, (const T*)qkvw, qkvb,
         (const T*)projw, projb, ln2s, ln2b, (const T*)fc1w, fc1b,
         (const T*)fc2w, fc2b, (T*)dx, gr, ws, G, N, C, heads, hidden, depth,

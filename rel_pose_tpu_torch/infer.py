@@ -28,7 +28,8 @@ import torch
 from .config import ModelConfig
 from .models.vitess import ViTEss
 from .ops.image import nearest_resize
-from .utils.convert import load_reference_state_dict
+from .utils.convert import load_pth, load_reference_state_dict
+from .utils.precision import apply_matmul_precision
 
 # Camera intrinsics (fx, fy, cx, cy) of the reference CLIs: Matterport, and
 # the InteriorNet / StreetLearn 256x256 crops.
@@ -73,10 +74,14 @@ class PosePredictor:
         other.
     batch_size : fixed model batch; ``None`` runs each request as it comes.
     image_size : optional (H, W) nearest pre-resize.
+
+    Construction applies the fp32 precision knob
+    (``utils.precision.apply_matmul_precision``).
     """
 
     def __init__(self, model, *, intrinsics=None, batch_size=None,
                  image_size=None):
+        apply_matmul_precision()
         self.model = model.eval()
         self.cfg = model.cfg
         self.device = next(model.parameters()).device
@@ -94,7 +99,7 @@ class PosePredictor:
         if not str(path).endswith(".pth"):
             raise NotImplementedError(
                 "the PyTorch port loads reference .pth checkpoints only")
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        ckpt = load_pth(path)
         sd = ckpt["model"] if "model" in ckpt else ckpt
         model = ViTEss(cfg if cfg is not None else ModelConfig(),
                        device=device)

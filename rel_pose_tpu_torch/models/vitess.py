@@ -26,6 +26,8 @@ initializing its parameters; load a state dict (``utils.convert`` or
 fp32 or bf16 activations over fp32 master weights.  ``kernels=False`` runs
 the plain PyTorch versions of the kernel-backed stages on any device,
 differentiated by autograd: the oracle the kernels are held against.
+Construction applies the fp32 precision knob (``utils.precision``:
+``$RELPOSE_MATMUL_PRECISION``, full fp32 by default).
 
 The model is built in eval mode.  In training mode (``model.train()``) the
 BatchNorms run on batch statistics and move their running statistics, and
@@ -53,6 +55,7 @@ from ..ops.posenc import (l1_positional_encoding,
                           quadratic_positional_encoding)
 from ..ops.vit_stack import (fused_vit_stack, stack_block_params,
                              vit_stack_reference)
+from ..utils.precision import apply_matmul_precision
 
 
 class CrossAttention(nn.Module):
@@ -111,6 +114,7 @@ class ViTEss(nn.Module):
                 f"compute_dtype {cfg.compute_dtype!r}: float32 or bfloat16")
         self.cfg = cfg
         self.kernels = kernels
+        apply_matmul_precision()
         C = cfg.total_num_features
         with torch.device("meta"):
             self.resnet = ResNetTrunk()

@@ -9,6 +9,11 @@ add fused into block 0:
   * on a CUDA tensor it launches the hand kernels of ``csrc/vit_stack.cu``
     (which replace the Pallas ``_vit_stack_kernel``) or raises.
 
+The dtype picks the kernels: bf16 runs on the tensor cores
+(``csrc/gemm_tc.cuh``, ``csrc/attention_tc.cuh``), fp32 on the SIMT
+kernels of ``csrc/common.cuh`` and ``csrc/attention.cuh`` (the tensor cores
+have no fp32 product, and TF32 would change fp32 results).
+
 Under autograd (grad enabled and an input that requires grad) the stack is
 a ``torch.autograd.Function``, as the Pallas op is a ``custom_vjp``
 (``pallas_vit.py:417-458``): the forward also writes the stash ``xs``, every
@@ -116,9 +121,12 @@ class _VitStack(torch.autograd.Function):
                 *(grads[n].to(v.dtype) for n, v in zip(_NAMES, values)))
 
 
+_KERNEL_DEVICE = "cuda"   # the device type the kernels launch on
+
+
 def _launch_forward(x, stacked, num_heads, pos, stash):
     """``rp_vit_stack`` on CUDA tensors -> (out, xs or None)."""
-    if x.device.type != "cuda":
+    if x.device.type != _KERNEL_DEVICE:
         raise ValueError(f"fused_vit_stack: no kernel for {x.device}")
     G, N, C = x.shape
     depth, hidden = stacked["fc1_w"].shape[:2]
@@ -277,7 +285,12 @@ def fused_vit_stack_bwd(xs, g, stacked, num_heads):
     raise).  Returns ``(dx, grads)`` with fp32 ``grads``."""
     if xs.device.type == "cpu":
         return vit_stack_bwd_reference(xs, g, stacked, num_heads)
-    if xs.device.type != "cuda":
+    return _launch_backward(xs, g, stacked, num_heads)
+
+
+def _launch_backward(xs, g, stacked, num_heads):
+    """``rp_vit_stack_bwd`` on CUDA tensors -> (dx, grads)."""
+    if xs.device.type != _KERNEL_DEVICE:
         raise ValueError(f"fused_vit_stack_bwd: no kernel for {xs.device}")
     depth, G, N, C = xs.shape
     hidden = stacked["fc1_w"].shape[1]
@@ -310,6 +323,12 @@ def fused_vit_stack_bwd(xs, g, stacked, num_heads):
 fused_vit_stack_bwd.launches = 0
 
 
+# The tensor-core kernels' tiles: GEMM outputs in 64-column tiles, GEMM
+# rows in 128-row tiles on the grid's second axis (at most 65,535), one
+# attention block per (tile, head, sequence) with sequences on the third.
+_TC_ROW_TILE, _TC_MAX_GRID = 128, 65535
+
+
 def _check_inputs(x, args, num_heads):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_vit_stack: dtype {x.dtype} (fp32 or bf16)")
@@ -337,3 +356,10 @@ def _check_inputs(x, args, num_heads):
             raise TypeError(f"fused_vit_stack: {name} is {t.dtype}, x is "
                             f"{x.dtype} (stack_block_params(blocks, "
                             "x.dtype))")
+    if x.dtype == torch.bfloat16:   # the tensor-core kernels
+        if hidden % 64:
+            raise ValueError(f"fused_vit_stack: bf16 needs the MLP width to "
+                             f"be a multiple of 64, got {hidden}")
+        if -(-G * N // _TC_ROW_TILE) > _TC_MAX_GRID or G > _TC_MAX_GRID:
+            raise ValueError(f"fused_vit_stack: {G} sequences of {N} tokens "
+                             "exceed the bf16 kernels' grid")

@@ -8,6 +8,12 @@ taken.  A write goes through a temporary file and ``os.replace``, so a
 reader never sees half a file.  On start, :func:`resume` loads the newest
 checkpoint (``most_recent_ckpt.pth`` first, else the highest number).
 ``infer.PosePredictor.from_checkpoint`` reads the same files.
+
+A reference training checkpoint loads too: ``utils.convert.load_pth``
+reads it although its scheduler state holds a pickled function, and its
+Adam state, whose group also lists the frozen ``resnet.layer3/4`` and
+``fc`` that the port does not hold, is remapped by parameter name
+(``utils.convert.remap_reference_adam_state``).
 """
 
 import os
@@ -15,7 +21,8 @@ import re
 
 import torch
 
-from ..utils.convert import load_reference_state_dict
+from ..utils.convert import (load_pth, load_reference_state_dict,
+                             remap_reference_adam_state)
 
 SUFFIX = ".pth"
 
@@ -52,11 +59,13 @@ def find_resume_checkpoint(name, output_dir="output"):
 
 def load_checkpoint(path, model, opt=None, sched=None):
     """Load ``path`` into the model (and the optimizer and scheduler, when
-    given); a reference checkpoint's ``module.`` keys are accepted."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    given); a reference checkpoint's ``module.`` keys, frozen parameters
+    and pickled scheduler function are accepted."""
+    ckpt = load_pth(path)
     model.load_state_dict(load_reference_state_dict(ckpt["model"]))
     if opt is not None:
-        opt.load_state_dict(ckpt["optimizer"])
+        opt.load_state_dict(remap_reference_adam_state(
+            ckpt["optimizer"], ckpt["model"], model, opt))
     if sched is not None:
         sched.load_state_dict(ckpt["scheduler"])
     return ckpt

@@ -12,6 +12,7 @@ tensors on the model's device; callers ``.item()`` them.
 import torch
 
 from ..geom.losses import geodesic_loss
+from ..utils.precision import apply_matmul_precision
 
 
 def loss_fn(model, images, poses_gt, intrinsics, w_tr=10.0, w_rot=10.0,
@@ -31,7 +32,9 @@ def train_step(model, opt, sched, images, poses_gt, intrinsics, w_tr=10.0,
     """One optimizer step on a batch: ``images (B, 2, 3, H, W)``,
     ``poses_gt (B, 2, 7)`` fp32, ``intrinsics (B, 2, 4)`` on the model's
     device.  Returns ``(metrics, poses_est)``: ``train_geo_loss_tr``,
-    ``train_geo_loss_rot`` and ``loss``, and the detached predictions."""
+    ``train_geo_loss_rot`` and ``loss``, and the detached predictions.
+    Applies the fp32 precision knob (``utils.precision``) first."""
+    apply_matmul_precision()
     model.train()
     opt.zero_grad(set_to_none=True)
     loss, metrics, poses_est = loss_fn(model, images, poses_gt, intrinsics,

@@ -11,7 +11,15 @@ Counterpart of ``rel_pose_tpu/utils/convert.py``, for the flagship and
     dict: it strips the DDP ``module.`` prefix and drops what the port does
     not hold (``resnet.layer3/4/fc``, never run by the reference forward,
     and the extractor's ``downsample.1`` alias of ``norm3``).
+  * ``load_pth`` reads a ``.pth`` file, also one whose ``"scheduler"``
+    holds a pickled function (the reference's OneCycleLR ``anneal_func``).
+  * ``remap_reference_adam_state`` turns the reference's Adam state into
+    the port optimizer's, by parameter name (``convert_torch_adam_state``,
+    ``rel_pose_tpu/utils/convert.py:308-383``, for the JAX package).
 """
+
+import pickle
+import types
 
 import numpy as np
 import torch
@@ -125,3 +133,149 @@ def load_reference_state_dict(sd):
             continue
         out[k] = v
     return out
+
+
+# ------------------------------------------------------------ .pth files --
+
+class _Stub:
+    """Stands in for a global of a ``.pth`` file that holds neither weights
+    nor optimizer state, such as the OneCycleLR ``anneal_func`` that
+    PyTorch 1.8 pickled into the scheduler state (and whatever that
+    function's pickle brings along)."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+# the globals a tensor, a parameter or a state dict's containers need
+_ALLOWED = {
+    ("collections", "OrderedDict"), ("collections", "defaultdict"),
+    ("torch._utils", "_rebuild_tensor_v2"),
+    ("torch._utils", "_rebuild_parameter"),
+    ("torch._utils", "_rebuild_parameter_with_state"),
+    ("torch._tensor", "_rebuild_from_type_v2"),
+    ("torch.nn.parameter", "Parameter"), ("torch", "Tensor"),
+    ("torch", "Size"), ("torch", "device"), ("_codecs", "encode"),
+}
+
+
+class _StubUnpickler(pickle.Unpickler):
+    """Resolves the globals of :data:`_ALLOWED` and torch's dtypes, and
+    replaces any other by :class:`_Stub`: nothing of the file runs."""
+
+    def find_class(self, module, name):
+        if (module, name) in _ALLOWED or (
+                module == "torch"
+                and isinstance(getattr(torch, name, None), torch.dtype)):
+            return super().find_class(module, name)
+        return _Stub
+
+
+_stub_pickle = types.ModuleType("rel_pose_tpu_torch_stub_pickle")
+_stub_pickle.Unpickler = _StubUnpickler
+_stub_pickle.load = pickle.load
+_stub_pickle.__name__ = "rel_pose_tpu_torch_stub_pickle"
+
+
+def _has_stub(obj):
+    if isinstance(obj, _Stub):
+        return True
+    if isinstance(obj, dict):
+        return any(_has_stub(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return any(_has_stub(v) for v in obj)
+    return False
+
+
+def load_pth(path):
+    """A ``.pth`` checkpoint on the CPU.  Files that hold only tensors and
+    containers load with ``weights_only=True``.  A reference training
+    checkpoint fails that: its ``"scheduler"`` holds OneCycleLR's pickled
+    ``anneal_func``.  It is read again with an unpickler that runs nothing
+    and stubs every other global; scheduler entries that held one are
+    dropped (the port's own OneCycleLR anneals by ``_anneal_func_type``).
+    Raises ``ValueError`` if ``"model"`` or ``"optimizer"`` held one."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        pass
+    ckpt = torch.load(path, map_location="cpu", weights_only=False,
+                      pickle_module=_stub_pickle)
+    if not isinstance(ckpt, dict) or "model" not in ckpt:
+        raise ValueError(f"{path}: neither a state dict nor a checkpoint "
+                         "with a 'model' entry")
+    for key in ("model", "optimizer"):
+        if _has_stub(ckpt.get(key)):
+            raise ValueError(f"{path}: {key!r} holds objects other than "
+                             "tensors and containers")
+    if isinstance(ckpt.get("scheduler"), dict):
+        ckpt["scheduler"] = {k: v for k, v in ckpt["scheduler"].items()
+                             if not _has_stub(v)}
+    return ckpt
+
+
+# ------------------------------------------------------ the Adam state --
+
+_BUFFER_SUFFIXES = (".running_mean", ".running_var", ".num_batches_tracked")
+
+
+def reference_param_names(model_sd):
+    """The parameter names of a reference ``model`` state dict, in the
+    order of ``model.parameters()`` (the ids of its Adam state), with the
+    ``module.`` prefix stripped: buffers and the extractor's
+    ``downsample.1`` alias of ``norm3`` (one module registered twice, which
+    ``parameters()`` lists once) left out."""
+    names = []
+    for k in model_sd:
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if not k.endswith(_BUFFER_SUFFIXES) and not k.startswith(
+                "extractor_final_conv.downsample.1."):
+            names.append(k)
+    return names
+
+
+def remap_reference_adam_state(opt_sd, model_sd, model, opt):
+    """The reference's Adam ``state_dict`` -> one that ``opt`` (an
+    optimizer over ``model``'s parameters) loads.
+
+    The reference's single group lists every parameter of its model,
+    including the frozen ``resnet.layer3/4`` and ``fc`` that the port does
+    not hold, so the ids are matched by name: id i of the reference is the
+    i-th name of :func:`reference_param_names` ``(model_sd)``.  Each port
+    parameter takes its state by name; one without state starts from zero
+    moments at the largest step of the file, as the JAX package's single
+    Adam count does.  The groups' hyperparameters (lr and the OneCycle
+    entries) come from the file."""
+    names = reference_param_names(model_sd)
+    ids = [pid for g in opt_sd["param_groups"] for pid in g["params"]]
+    if len(ids) != len(names):
+        raise ValueError(
+            f"the optimizer state lists {len(ids)} parameters, the model "
+            f"state dict {len(names)}: they are not of one checkpoint")
+    if len(opt_sd["param_groups"]) != len(opt.param_groups):
+        raise ValueError(
+            f"the optimizer state has {len(opt_sd['param_groups'])} groups, "
+            f"the optimizer {len(opt.param_groups)}")
+    by_name = {names[pos]: opt_sd["state"][pid]
+               for pos, pid in enumerate(ids) if pid in opt_sd["state"]}
+    step = max((float(s["step"]) for s in by_name.values()), default=0.0)
+    param_name = {id(p): n for n, p in model.named_parameters()}
+    state, groups = {}, []
+    for ref_group, group in zip(opt_sd["param_groups"], opt.param_groups):
+        idx = []
+        for p in group["params"]:
+            s = by_name.get(param_name[id(p)])
+            if s is None:
+                s = {"step": torch.tensor(step),
+                     "exp_avg": torch.zeros_like(p, device="cpu"),
+                     "exp_avg_sq": torch.zeros_like(p, device="cpu")}
+            idx.append(len(state))
+            state[len(state)] = s
+        hyper = {k: v for k, v in group.items() if k != "params"}
+        hyper.update({k: v for k, v in ref_group.items() if k != "params"})
+        groups.append({**hyper, "params": idx})
+    return {"state": state, "param_groups": groups}
