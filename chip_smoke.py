@@ -54,10 +54,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
 
-  3c. kernel #7 (``csrc/mhsa.cu``) against its plain versions at G = 24
-     heads of N = 576, fp32 and bf16: the forward against
-     ``mhsa_reference``, dq, dk, dv against ``mhsa_bwd_reference``; a second
-     call gives the same bits; both launch counters rose;
+  3c. kernel #7 (``csrc/mhsa.cu``: bf16 on the tensor cores of
+     ``csrc/attention_tc.cuh``, fp32 on the SIMT ``attention.cuh``) against
+     its plain versions at G = 24 heads of N = 64, 100 (a ragged last tile)
+     and 576, fp32 and bf16: the forward against ``mhsa_reference``, dq,
+     dk, dv against ``mhsa_bwd_reference``; a second call gives the same
+     bits; in bf16 the row statistics the forward keeps against
+     ``mhsa_stats_reference``, the backward under autograd (the forward's
+     statistics) equal bit for bit to ``fused_mhsa_bwd`` without them (its
+     stats pass), and the forward equal with and without statistics; the
+     fp32 outputs' sha256 printed; both launch counters rose;
   4c. the noess slice at depth 6 with seeded weights, kernels against the
      plain path, fp32 and bf16: ``PosePredictor`` answers the requests of
      phase 4; 3 train steps of 4 pairs as phase 4b (step-1 loss and
@@ -65,10 +71,12 @@ cross block's plain attention, in place of the essential block):
      ``pool_attn`` BatchNorm state moves; the ViT stack's and #7's counters
      rose in each run;
   5c. #7's forward at the eval shapes (G = 1,536) and forward and backward
-     at the training shapes (G = 360), bf16: kernel, plain version and
-     ``F.scaled_dot_product_attention`` (the yardstick, timed only); the
-     noess eval forward at batch 256 (bf16) and train step at batch 60
-     (fp32, bf16), kernels and plain path.
+     at the training shapes (G = 360), bf16: kernel (with the TFLOP/s of
+     the function's products, 4 N^2 d a head forward and 10 backward; the
+     backward also with the forward's statistics, as a train step runs
+     it), plain version and ``F.scaled_dot_product_attention`` (the
+     yardstick, timed only); the noess eval forward at batch 256 (bf16) and
+     train step at batch 60 (fp32, bf16), kernels and plain path.
 
 The ablations of the Essential Matrix Module (``ModelConfig`` with
 ``use_single_softmax``, ``cross_features``, ``no_pos_encoding`` or
@@ -182,6 +190,11 @@ LOSS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # kernel keeps them fp32, as #7 does; 5e-3 measured on the CPU).  Its
 # backward is held to mhsa_bwd_reference at GRAD_NORMREL.
 MHSA_FWD_NORMREL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# The row statistics (m, l) that #7's bf16 forward keeps, against
+# mhsa_stats_reference, ||err|| / ||ref|| per statistic: 1e-5 -- fp32 sums
+# of the same exact bf16 products in another order, and exp2 on both sides
+# (3e-7 measured on the CPU between the plain version and JAX).
+MHSA_STATS_NORMREL = 1e-5
 MHSA_SCALE = 64 ** -0.5
 LEAF_COS = {torch.float32: 0.9999, torch.bfloat16: 0.98}
 LEAF_RATIO = {torch.float32: 1e-3, torch.bfloat16: 0.1}
@@ -455,49 +468,83 @@ def phase_kernels_bwd(device):
     return errs
 
 
-def heads(rng, G, dtype, device, n):
-    """``n`` (G, 576, 64) tensors of unit normal entries, the scale of the
+def heads(rng, G, dtype, device, n, N=576):
+    """``n`` (G, N, 64) tensors of unit normal entries, the scale of the
     cross block's q, k, v (a Linear of LayerNormed tokens)."""
-    return [torch.from_numpy(rng.standard_normal((G, 576, 64)).astype(
+    return [torch.from_numpy(rng.standard_normal((G, N, 64)).astype(
         np.float32)).to(device, dtype) for _ in range(n)]
 
 
-def check_mhsa(G, dtype, device, failures, seed=SEED + 6):
-    """Kernel #7 forward and backward at G heads against the plain
+def check_mhsa(G, dtype, device, failures, seed=SEED + 6, N=576):
+    """Kernel #7 forward and backward at G heads of N against the plain
     versions -> (max |err| forward, max |err| backward)."""
     from rel_pose_tpu_torch.ops import attention as ta
-    q, k, v, do = heads(np.random.default_rng(seed), G, dtype, device, 4)
+    q, k, v, do = heads(np.random.default_rng(seed), G, dtype, device, 4, N)
     o = ta.fused_mhsa(q, k, v, MHSA_SCALE)
     grads = ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE)
     torch.cuda.synchronize()
-    e_fwd = check_grad(f"mhsa_fwd G={G}", o,
+    e_fwd = check_grad(f"mhsa_fwd G={G} N={N}", o,
                        ta.mhsa_reference(q, k, v, MHSA_SCALE), dtype,
                        failures, MHSA_FWD_NORMREL[dtype])
     ref = ta.mhsa_bwd_reference(q, k, v, do, MHSA_SCALE)
-    e_bwd = max(check_grad(f"mhsa_bwd {name} G={G}", g, r, dtype, failures)
+    e_bwd = max(check_grad(f"mhsa_bwd {name} G={G} N={N}", g, r, dtype,
+                           failures)
                 for name, g, r in zip(("dq", "dk", "dv"), grads, ref))
     return e_fwd, e_bwd
 
 
+def check_mhsa_routes(q, k, v, do, failures, label):
+    """bf16: the forward's kept (m, l) against mhsa_stats_reference; the
+    forward with and without them, and the backward from them (autograd)
+    and from the stats pass, bit for bit."""
+    from rel_pose_tpu_torch.ops import attention as ta
+    o, stats = ta._launch_fwd(q, k, v, MHSA_SCALE, stats=True)
+    ref = ta.mhsa_stats_reference(q, k, MHSA_SCALE)
+    for i, name in enumerate(("m", "l")):
+        check_grad(f"mhsa_fwd stats {name} {label}", stats[..., i],
+                   ref[..., i], q.dtype, failures, MHSA_STATS_NORMREL)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_grad = ta.fused_mhsa(*leaves, MHSA_SCALE)
+    saved = torch.autograd.grad(o_grad, leaves, do)
+    passed = ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE)
+    torch.cuda.synchronize()
+    same_fwd = torch.equal(o, ta.fused_mhsa(q, k, v, MHSA_SCALE)) and \
+        torch.equal(o, o_grad.detach())
+    same_bwd = all(torch.equal(a, b) for a, b in zip(saved, passed))
+    log(f"[check] mhsa {label} bf16: forward with / without stats "
+        f"{'bit for bit' if same_fwd else 'DIFFER'}; backward from the "
+        f"forward's stats / the stats pass "
+        f"{'bit for bit' if same_bwd else 'DIFFER'}")
+    if not (same_fwd and same_bwd):
+        failures.append(f"mhsa routes differ {label}")
+
+
 def phase_kernels_mhsa(device):
-    """(3c) kernel #7 against its plain versions, fp32 and bf16, G = 24;
-    each kernel twice for identical bits; both counters rose."""
+    """(3c) kernel #7 against its plain versions, fp32 and bf16, G = 24
+    heads of N = 64, 100, 576; each kernel twice for identical bits; bf16's
+    statistics and both backward routes; both counters rose."""
     from rel_pose_tpu_torch.ops import attention as ta
     failures = []
     ta.fused_mhsa.launches = ta.fused_mhsa_bwd.launches = 0
     for dtype in DTYPES:
-        check_mhsa(24, dtype, device, failures)
-        q, k, v, do = heads(np.random.default_rng(SEED + 7), 24, dtype,
-                            device, 4)
-        outs = [(ta.fused_mhsa(q, k, v, MHSA_SCALE),
-                 *ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE))
-                for _ in range(2)]
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(*outs)):
-            failures.append(f"mhsa not bitwise repeatable {dtype}")
+        for N in (64, 100, 576):
+            check_mhsa(24, dtype, device, failures, N=N)
+            q, k, v, do = heads(np.random.default_rng(SEED + 7), 24, dtype,
+                                device, 4, N)
+            outs = [(ta.fused_mhsa(q, k, v, MHSA_SCALE),
+                     *ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE))
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                failures.append(f"mhsa not bitwise repeatable {dtype} N={N}")
+            if dtype == torch.float32:
+                log(f"[check] mhsa fp32 G=24 N={N} sha256 "
+                    f"{digest(*outs[0])}")
+            else:
+                check_mhsa_routes(q, k, v, do, failures, f"G=24 N={N}")
     launches = (ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches)
     log(f"[check] mhsa launches (fwd, bwd): {launches}")
-    if min(launches) < 2 * len(DTYPES):
+    if min(launches) < 6 * len(DTYPES):
         failures.append(f"mhsa launch counters {launches}")
     if failures:
         raise SystemExit(f"mhsa kernel checks failed: {failures}")
@@ -1186,14 +1233,21 @@ def phase_times_noess(device, models, sd, card):
     b = bound(10 * G_train * N * N * d, 7 * nbytes(q), dtype)
     rows["mhsa_bwd"] = (err_bwd, ms, plain_ms, lib_ms, b)
     fwd_train_ms = cuda_time_ms(lambda: ta.fused_mhsa(q, k, v, MHSA_SCALE), 5)
-    del q, k, v, do
+    _, stats = ta._launch_fwd(q, k, v, MHSA_SCALE, stats=True)
+    saved_ms = cuda_time_ms(
+        lambda: ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE, stats), 5)
+    del q, k, v, do, stats
     log(f"[time] mhsa_fwd bf16 G={G_train} (training shapes): kernel "
-        f"{fwd_train_ms:.3f} ms ({card})")
-    for name, G in (("mhsa_fwd", G_eval), ("mhsa_bwd", G_train)):
+        f"{fwd_train_ms:.3f} ms; mhsa_bwd from the forward's stats "
+        f"{saved_ms:.3f} ms, {10 * G_train * N * N * d / saved_ms / 1e9:.1f}"
+        f" TFLOP/s ({card})")
+    for name, G, per_head in (("mhsa_fwd", G_eval, 4),
+                              ("mhsa_bwd", G_train, 10)):
         err, ms, plain_ms, lib_ms, (b_ms, b_by) = rows[name]
-        log(f"[time] {name} bf16 G={G}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {b_ms:.3f} "
-            f"ms ({b_by}) ({card})")
+        log(f"[time] {name} bf16 G={G}: kernel {ms:.3f} ms "
+            f"({per_head * G * N * N * d / ms / 1e9:.1f} TFLOP/s of the "
+            f"function's products), plain {plain_ms:.3f} ms, library "
+            f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) ({card})")
 
     B = EVAL_BATCH
     images = torch.from_numpy(rng.integers(
@@ -1847,9 +1901,9 @@ def main():
         "essential_block_bwd": (
             "rel_pose_tpu_torch/csrc/essential_block_bwd.cu",
             "rel_pose_tpu/ops/pallas_essential_block_bwd.py:35"),
-        "mhsa_fwd": ("rel_pose_tpu_torch/csrc/mhsa.cu",
+        "mhsa_fwd": ("rel_pose_tpu_torch/csrc/attention_tc.cuh",
                      "rel_pose_tpu/ops/pallas_attention.py:53"),
-        "mhsa_bwd": ("rel_pose_tpu_torch/csrc/mhsa.cu",
+        "mhsa_bwd": ("rel_pose_tpu_torch/csrc/attention_tc.cuh",
                      "rel_pose_tpu/ops/pallas_attention.py:69"),
         "essential_block": ("rel_pose_tpu_torch/csrc/essential_block.cu",
                             "rel_pose_tpu/ops/pallas_essential_block.py:213"),

@@ -1,9 +1,11 @@
-// Softmax attention over 64-wide heads, forward and backward, shared by
-// vit_stack.cu (the ViT blocks' self-attention: q, k, v interleaved in one
-// (G, N, 3C) tensor) and mhsa.cu (the --noess cross attention: separate
-// (G, N, 64) q, k, v).  Each kernel is templated on a layout, which says
-// where one (sequence, head)'s rows are read and written, in which dtype,
-// and the two places where the two Pallas kernels round differently.
+// Softmax attention over 64-wide heads, forward and backward, on SIMT fp32
+// FMAs: the fp32 route of vit_stack.cu (the ViT blocks' self-attention: q,
+// k, v interleaved in one (G, N, 3C) tensor) and of mhsa.cu (the --noess
+// cross attention: separate (G, N, 64) q, k, v).  bf16 runs the
+// tensor-core kernels of attention_tc.cuh.  Each kernel is templated on a
+// layout, which says where one (sequence, head)'s rows are read and
+// written, in which dtype, and the two places where the two Pallas kernels
+// round differently.
 //
 // Design: the N x N fp32 score matrix of one head (1.33 MB at N = 576) does
 // not fit in shared memory, so each CUDA block takes 32 query rows and

@@ -1,11 +1,20 @@
-// The ViT stack's bf16 self-attention on the tensor cores, forward and
-// backward (kernels #1 and #5).
+// Softmax attention over 64-wide heads on the tensor cores, bf16, forward
+// and backward: the ViT stack's self-attention (kernels #1 and #5) and the
+// --noess cross attention (kernel #7).
 //
 // Replaces, for bf16 only, attention.cuh's SIMT kernels inside
-// rel_pose_tpu/ops/pallas_vit.py:_vit_stack_kernel (forward, with the row
-// statistics the backward reads) and pallas_vit_bwd.py:_attn_bwd_heads
-// (dq, dk, dv).  q, k, v are read from the qkv GEMM's (G, N, 3C) output,
-// head h at columns h*64, C + h*64, 2C + h*64; fp32 stays on attention.cuh.
+//   - rel_pose_tpu/ops/pallas_vit.py:_vit_stack_kernel (forward, with the
+//     row statistics the backward reads) and pallas_vit_bwd.py:
+//     _attn_bwd_heads (dq, dk, dv), layout Interleaved: q, k, v read from
+//     the qkv GEMM's (G, N, 3C) output, head h at columns h*64, C + h*64,
+//     2C + h*64 (vit_stack.cu);
+//   - rel_pose_tpu/ops/pallas_attention.py:_fwd_kernel and _bwd_kernel,
+//     layout Separate: (G, N, 64) q, k, v, o, do, dq, dk, dv, one head per
+//     sequence (mhsa.cu).
+// fp32 stays on attention.cuh.  The kernels take base pointers and row
+// strides, and are templates on a layout type, which says in which dtype
+// the cotangent arrives and the gradients leave, and the two rounding
+// points in which the two Pallas kernels differ.
 //
 // What bounds them on the H100: the products, 2 N^2 d multiply-adds a head
 // for the forward's two (QK^T, PV), which at N = 576 and d = 64 is 64
@@ -22,21 +31,24 @@
 //   forward: a first pass over the key tiles takes the exact row max m of
 //     s = (q . k) * scale (scale = d^-1/2 log2 e, the product rounded on
 //     its own); a second recomputes s, e = exp2(s - m), the fp32 row sum l,
-//     P = T(e) and P . v; o = T((P . v) * (1 / l)).  That is 3 N^2 d
-//     multiply-adds instead of 2, the price of exact statistics without
-//     147 KB of score rows in shared memory.  With `stats`, (m, l) per row.
-//   dq (per query tile): a first pass forms e and dp = T(do) . v^T and
-//     c = sum(dp e) / l; a second recomputes them, ds = T(e ((dp - c) / l)
-//     ln2 scale) and dq = ds . k.  c goes to stats, and T(do), T(do / l)
-//     to bf16 scratch, for the dk / dv kernel.
+//     P = T(e) and P . v; o = T(layout's normalize(P . v, l)).  That is
+//     3 N^2 d multiply-adds instead of 2, the price of exact statistics
+//     without 147 KB of score rows in shared memory.  With `stats`, (m, l)
+//     per row.  Without its values (P . v) the same kernel is #7's stats
+//     pass: the same (m, l) bits for a backward whose forward kept none.
+//   dq (per query tile, (m, l) from stats): a first pass forms e and
+//     dp = T(do) . v^T and c = sum(dp e) / l; a second recomputes them,
+//     ds = T(layout's ds(e, dp, c, l)) and dq = ds . k.  c goes to stats,
+//     and T(do / l) to bf16 scratch (and, for the ViT's fp32 cotangent,
+//     T(do)), for the dk / dv kernel.
 //   dk, dv (per key tile, walking the query tiles): s^T = k . q^T and
 //     dp^T = v . T(do)^T, with each query's (m, l, c) from stats;
 //     dv += T(e)^T . T(do / l), dk += T(ds)^T . q.
+// Rows >= N load as zeros and keys >= N are masked out of every sum.
 // Tiles stream through 2-stage cp.async rings: the next step's tiles load
 // while this step's products run.
 // Every sum runs in a fixed order and nothing uses atomics: two calls give
-// the same bits.  dq, dk, dv are written in fp32 and, for the qkv Linear's
-// dW and dX products, rounded to bf16 beside them.
+// the same bits.
 
 #pragma once
 
@@ -151,24 +163,82 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
+// -------------------------------------------------------------- layouts --
+// Both layouts address a (sequence g, head h)'s rows alike: q, k, v and
+// dq, dk, dv at their base + g N ld + h 64, row stride ld; o, the cotangent
+// do and the T(do / l) scratch at + g N ldo + h 64, row stride ldo.  The
+// ViT stack: q, k, v = qkv, qkv + C, qkv + 2C of the qkv GEMM's (G, N, 3C)
+// output (ld = 3C), o (G, N, C) (ldo = C), one block row per head.  Kernel
+// #7: separate (G, N, 64) tensors (ld = ldo = 64), one head per sequence
+// (gridDim.y = 1).  The layout type says the rest: the cotangent's dtype,
+// whether dq, dk, dv also go out in fp32, and the two rounding points in
+// which the two Pallas kernels differ.  The addresses are plain kernel
+// parameters: read from a struct parameter instead, the base offsets were
+// recomputed in vector registers at every key step, and the ViT forward
+// ran 4% slower (H100, 700 W).
+
+// The ViT stack: the cotangent arrives in fp32 and the dq kernel rounds it
+// into the scratch dob, the dk / dv kernel's operand; dq, dk, dv are
+// written in fp32 and, for the qkv Linear's dW and dX products, rounded to
+// bf16 beside them.
+struct Interleaved {
+  using Dout = float;
+  static constexpr bool kF32Grads = true;
+  // o = (P . v) * (1 / l)
+  __device__ static float normalize(float o, float l) { return o * (1.f / l); }
+  // d s for s = q.k * scale: e ((dp - c) / l) ln2 scale
+  __device__ static float ds(float e, float dp, float c, float l, float scale,
+                             float) {
+    return e * ((dp - c) / l) * kLn2 * scale;
+  }
+};
+
+// Kernel #7: the cotangent arrives in bf16 and the kernels read it as it
+// is; dq, dk, dv go out in bf16 only.
+struct Separate {
+  using Dout = bf16;
+  static constexpr bool kF32Grads = false;
+  // o / l (pallas_attention.py:66)
+  __device__ static float normalize(float o, float l) { return o / l; }
+  // e ((dp - c) (d^-1/2 / l)) (pallas_attention.py:93)
+  __device__ static float ds(float e, float dp, float c, float l, float,
+                             float sm_scale) {
+    return e * ((dp - c) * (sm_scale / l));
+  }
+};
+
+// two adjacent columns of dq, dk or dv at element o: in fp32 to f where the
+// layout keeps it, in bf16 to b
+template <typename L>
+__device__ __forceinline__ void put_grad(float* f, bf16* b, size_t o,
+                                         float x, float y) {
+  if constexpr (L::kF32Grads)
+    *reinterpret_cast<float2*>(f + o) = make_float2(x, y);
+  *reinterpret_cast<__nv_bfloat162*>(b + o) = __floats2bfloat162_rn(x, y);
+}
+
 // ------------------------------------------------------------ forward --
 // o for 64 query rows of (sequence g, head h) = (blockIdx.z, blockIdx.y).
 // The key tiles are walked twice (the max pass, then the P . v pass) as
 // one sequence of 2 nk steps through a 2-stage cp.async ring: the next
 // step's k (and, in the second pass, v) tile loads while this one's
-// products run.
-__global__ void __launch_bounds__(kAThreads)
-attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                float* __restrict__ stats, int N, int C, float scale) {
+// products run.  Without kValues only (m, l) are formed and written.
+// Four blocks an SM: at most 128 registers a thread.
+template <typename L, bool kValues>
+__global__ void __launch_bounds__(kAThreads, 4)
+attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                float* __restrict__ stats, int N, int ld, int ldo,
+                float scale) {
   __shared__ __align__(128) bf16 Qs[kATileElems];
   __shared__ __align__(128) bf16 Ks[2][kATileElems];
   __shared__ __align__(128) bf16 Vs[2][kATileElems];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
-  const size_t ld = 3 * (size_t)C;
-  const bf16* qb = qkv + (size_t)g * N * ld + h * kHeadDim;
-  const bf16* kb = qb + C;
-  const bf16* vb = qb + 2 * C;
+  const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
+  const bf16* qb = q + in0;
+  const bf16* kb = k + in0;
+  const bf16* vb = v + in0;
   const int nk = (N + kAT - 1) / kAT;
 
   load_tile(Qs, qb, ld, q0, N);
@@ -185,7 +255,7 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     if (tn < 2 * nk) {
       const int kn = (tn % nk) * kAT;
       load_tile(Ks[tn & 1], kb, ld, kn, N);
-      if (tn >= nk) load_tile(Vs[tn & 1], vb, ld, kn, N);
+      if (kValues && tn >= nk) load_tile(Vs[tn & 1], vb, ld, kn, N);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -217,25 +287,28 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
         l[e >> 1] += ev;
         s[ni][e] = ev;
       }
-    unsigned pf[4][4];
-    to_afrag(pf, s);  // P = T(e)
-    mma_ab(o, pf, Vs[t & 1]);
+    if constexpr (kValues) {
+      unsigned pf[4][4];
+      to_afrag(pf, s);  // P = T(e)
+      mma_ab(o, pf, Vs[t & 1]);
+    }
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
 
-  bf16* ob = out + (size_t)g * N * C + h * kHeadDim;
+  bf16* ob = out + (size_t)g * N * ldo + h * kHeadDim;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + warp * 16 + (lane >> 2) + half * 8;
     if (row >= N) continue;
-    const float inv = 1.f / l[half];
+    if constexpr (kValues) {
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * C +
-                                         acc_col(ni, 0)) =
-          __floats2bfloat162_rn(o[ni][2 * half] * inv,
-                                o[ni][2 * half + 1] * inv);
+      for (int ni = 0; ni < 8; ++ni)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * ldo +
+                                           acc_col(ni, 0)) =
+            __floats2bfloat162_rn(L::normalize(o[ni][2 * half], l[half]),
+                                  L::normalize(o[ni][2 * half + 1], l[half]));
+    }
     if (stats && (lane & 3) == 0) {
       float* st = stats + (((size_t)g * gridDim.y + h) * N + row) * 3;
       st[0] = mx[half];
@@ -246,16 +319,21 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 
 // ------------------------------------------------------------------ dq --
 // dq for 64 query rows of (g, h); reads (m, l) from stats, writes c there.
-// Also writes T(do) and T(do / l) of its rows to dob and dnb ((G, N, C)
-// bf16, the layout of dout), the dk / dv kernel's operands.  Two passes
-// over the key tiles (c, then dq) through a 2-stage ring of k and v tiles.
+// Also writes T(do / l) of its rows to dnb (and, for an fp32 cotangent,
+// T(do) to dob), in the layout of do, the dk / dv kernel's operands.  Two
+// passes over the key tiles (c, then dq) through a 2-stage ring of k and v
+// tiles.  dq goes to fq (fp32, where the layout keeps it) and gq.
 constexpr size_t kDqSmemBytes = 6 * kATileElems * sizeof(bf16);
 
+template <typename L>
 __global__ void __launch_bounds__(kAThreads)
-attn_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
-               float* __restrict__ stats, float* __restrict__ dqkv,
-               bf16* __restrict__ dqkvb, bf16* __restrict__ dob,
-               bf16* __restrict__ dnb, int N, int C, float scale) {
+attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v,
+               const typename L::Dout* __restrict__ dout,
+               float* __restrict__ stats, bf16* __restrict__ dob,
+               bf16* __restrict__ dnb, float* __restrict__ fq,
+               bf16* __restrict__ gq, int N, int ld, int ldo, float scale,
+               float sm_scale) {
   extern __shared__ __align__(128) bf16 sm[];
   bf16* Qs = sm;
   bf16* DOs = sm + kATileElems;
@@ -263,19 +341,19 @@ attn_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
   bf16* Vs[2] = {sm + 4 * kATileElems, sm + 5 * kATileElems};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
-  const size_t ld = 3 * (size_t)C;
-  const bf16* qb = qkv + (size_t)g * N * ld + h * kHeadDim;
-  const bf16* kb = qb + C;
-  const bf16* vb = qb + 2 * C;
+  const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
+  const bf16* qb = q + in0;
+  const bf16* kb = k + in0;
+  const bf16* vb = v + in0;
   float* st = stats + ((size_t)g * gridDim.y + h) * N * 3;
-  const size_t obase = (size_t)g * N * C + h * kHeadDim;
+  const size_t obase = (size_t)g * N * ldo + h * kHeadDim;
   const int nk = (N + kAT - 1) / kAT;
 
   load_tile(Qs, qb, ld, q0, N);
   load_tile(Ks[0], kb, ld, 0, N);
   load_tile(Vs[0], vb, ld, 0, N);
   cp_async_commit();
-  // T(do) into the tile and to dob, T(do / l) to dnb
+  // T(do) into the tile, T(do / l) to dnb
 #pragma unroll
   for (int u = 0; u < kAT * kHeadDim / 4 / kAThreads; ++u) {
     const int c = tid + u * kAThreads, r = c >> 4, cc = (c & 15) * 4;
@@ -284,14 +362,25 @@ attn_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
       *reinterpret_cast<uint2*>(DOs + r * kALd + cc) = make_uint2(0u, 0u);
       continue;
     }
-    const size_t o = obase + (size_t)row * C + cc;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(dout + o));
+    const size_t o = obase + (size_t)row * ldo + cc;
+    float4 x;
+    uint2 d;
+    if constexpr (L::kF32Grads) {
+      x = __ldg(reinterpret_cast<const float4*>(dout + o));
+      d = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+      *reinterpret_cast<uint2*>(dob + o) = d;
+    } else {
+      d = __ldg(reinterpret_cast<const uint2*>(dout + o));
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&d.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&d.y));
+      x = make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
     const float li = st[(size_t)row * 3 + 1];
-    const uint2 d = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
     *reinterpret_cast<uint2*>(DOs + r * kALd + cc) = d;
-    *reinterpret_cast<uint2*>(dob + o) = d;
     *reinterpret_cast<uint2*>(dnb + o) = make_uint2(
-        pack_bf16(v.x / li, v.y / li), pack_bf16(v.z / li, v.w / li));
+        pack_bf16(x.x / li, x.y / li), pack_bf16(x.z / li, x.w / li));
   }
   float m[2], l[2];
 #pragma unroll
@@ -350,41 +439,42 @@ attn_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        dp[ni][e] = s[ni][e] * ((dp[ni][e] - c[r]) / l[r]) * kLn2 * scale;
+        dp[ni][e] = L::ds(s[ni][e], dp[ni][e], c[r], l[r], scale, sm_scale);
       }
     unsigned dsf[4][4];
     to_afrag(dsf, dp);  // T(ds)
     mma_ab(dq, dsf, Ks[t & 1]);
   }
 
-  const size_t base = (size_t)g * N * ld + h * kHeadDim;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + warp * 16 + (lane >> 2) + half * 8;
     if (row >= N) continue;
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const size_t o = base + (size_t)row * ld + acc_col(ni, 0);
-      const float a = dq[ni][2 * half], b = dq[ni][2 * half + 1];
-      *reinterpret_cast<float2*>(dqkv + o) = make_float2(a, b);
-      *reinterpret_cast<__nv_bfloat162*>(dqkvb + o) =
-          __floats2bfloat162_rn(a, b);
-    }
+    for (int ni = 0; ni < 8; ++ni)
+      put_grad<L>(fq, gq, in0 + (size_t)row * ld + acc_col(ni, 0),
+                  dq[ni][2 * half], dq[ni][2 * half + 1]);
   }
 }
 
 // ------------------------------------------------------------- dk, dv --
 // dk and dv for 64 keys of (g, h), walking every query tile through a
-// 2-stage cp.async ring of (q, T(do), T(do / l), (m, l, c)) tiles
+// 2-stage cp.async ring of (q, T(do), T(do / l), (m, l, c)) tiles; dob is
+// T(do) in the layout of do (the cotangent itself for kernel #7).  dk and
+// dv go to fk, fv (fp32, where the layout keeps them) and gk, gv.
 constexpr int kDkvStats = 3 * kAT;  // (m, l, c) of a query tile
 constexpr size_t kDkvSmemBytes =
     (8 * kATileElems) * sizeof(bf16) + 2 * kDkvStats * sizeof(float);
 
+template <typename L>
 __global__ void __launch_bounds__(kAThreads)
-attn_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
-                const bf16* __restrict__ dnb, const float* __restrict__ stats,
-                float* __restrict__ dqkv, bf16* __restrict__ dqkvb, int N,
-                int C, float scale) {
+attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dob,
+                const bf16* __restrict__ dnb,
+                const float* __restrict__ stats, float* __restrict__ fk,
+                float* __restrict__ fv, bf16* __restrict__ gk,
+                bf16* __restrict__ gv, int N, int ld, int ldo, float scale,
+                float sm_scale) {
   extern __shared__ __align__(128) bf16 sm[];
   bf16* Ks = sm;
   bf16* Vs = sm + kATileElems;
@@ -394,23 +484,23 @@ attn_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
   float* Ss = reinterpret_cast<float*>(sm + 8 * kATileElems);  // [2][192]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
-  const size_t ld = 3 * (size_t)C;
-  const bf16* qb = qkv + (size_t)g * N * ld + h * kHeadDim;
-  const size_t obase = (size_t)g * N * C + h * kHeadDim;
+  const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
+  const bf16* qb = q + in0;
+  const size_t obase = (size_t)g * N * ldo + h * kHeadDim;
   const float* st = stats + ((size_t)g * gridDim.y + h) * N * 3;
   const int nq = (N + kAT - 1) / kAT;
 
   auto prefetch = [&](int q0, int stage) {
     load_tile(Qs[stage], qb, ld, q0, N);
-    load_tile(DOs[stage], dob + obase, C, q0, N);
-    load_tile(DNs[stage], dnb + obase, C, q0, N);
+    load_tile(DOs[stage], dob + obase, ldo, q0, N);
+    load_tile(DNs[stage], dnb + obase, ldo, q0, N);
     const int valid = 3 * min(kAT, N - q0);
     for (int i = tid; i < kDkvStats; i += kAThreads)
       cp_async4(Ss + stage * kDkvStats + i,
                 st + (size_t)q0 * 3 + (i < valid ? i : 0), i < valid);
   };
-  load_tile(Ks, qb + C, ld, k0, N);
-  load_tile(Vs, qb + 2 * C, ld, k0, N);
+  load_tile(Ks, k + in0, ld, k0, N);
+  load_tile(Vs, v + in0, ld, k0, N);
   prefetch(0, 0);
   cp_async_commit();
 
@@ -440,7 +530,7 @@ attn_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
         const float mj = sr[3 * j], lj = sr[3 * j + 1], cj = sr[3 * j + 2];
         const float ev = exp2f(__fmul_rn(s[ni][e], scale) - mj);
         s[ni][e] = ok ? ev : 0.f;
-        dp[ni][e] = ok ? ev * ((dp[ni][e] - cj) / lj) * kLn2 * scale : 0.f;
+        dp[ni][e] = ok ? L::ds(ev, dp[ni][e], cj, lj, scale, sm_scale) : 0.f;
       }
     unsigned pf[4][4], dsf[4][4];
     to_afrag(pf, s);    // T(e)^T
@@ -449,64 +539,73 @@ attn_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
     mma_ab(dk, dsf, Qs[b]);
   }
 
-  const size_t base = (size_t)g * N * ld + h * kHeadDim;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = k0 + warp * 16 + (lane >> 2) + half * 8;
     if (row >= N) continue;
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni) {
-      const size_t o = base + (size_t)row * ld + acc_col(ni, 0);
-      *reinterpret_cast<float2*>(dqkv + o + C) =
-          make_float2(dk[ni][2 * half], dk[ni][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dqkvb + o + C) =
-          __floats2bfloat162_rn(dk[ni][2 * half], dk[ni][2 * half + 1]);
-      *reinterpret_cast<float2*>(dqkv + o + 2 * C) =
-          make_float2(dv[ni][2 * half], dv[ni][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dqkvb + o + 2 * C) =
-          __floats2bfloat162_rn(dv[ni][2 * half], dv[ni][2 * half + 1]);
+      const size_t o = in0 + (size_t)row * ld + acc_col(ni, 0);
+      put_grad<L>(fk, gk, o, dk[ni][2 * half], dk[ni][2 * half + 1]);
+      put_grad<L>(fv, gv, o, dv[ni][2 * half], dv[ni][2 * half + 1]);
     }
   }
 }
 
-// the forward over G sequences x heads; with `stats`, (m, l) per row at
-// stats[((g * heads + h) * N + row) * 3]
-static cudaError_t launch_attention(const bf16* qkv, bf16* out, float* stats,
-                                    int G, int N, int C, int heads,
-                                    float scale, cudaStream_t stream) {
-  if (C != heads * kHeadDim || heads > 65535 || G > 65535)
-    return cudaErrorInvalidValue;
-  attn_fwd_kernel<<<dim3((N + kAT - 1) / kAT, heads, G), kAThreads, 0,
-                    stream>>>(qkv, out, stats, N, C, scale);
+// ------------------------------------------------------------ launchers --
+// The grid is (query or key tiles, heads, G): G and heads at most 65,535.
+// scale = d^-1/2 log2(e) multiplies the scores; sm_scale = d^-1/2 is #7's
+// factor of ds.
+
+// the forward (or, without kValues, its (m, l) alone) over G sequences x
+// heads; with `stats`, (m, l) per row at stats[((g * heads + h) * N + row)
+// * 3]
+template <typename L, bool kValues = true>
+static cudaError_t attention_fwd(const bf16* q, const bf16* k, const bf16* v,
+                                 bf16* out, float* stats, int G, int heads,
+                                 int N, int ld, int ldo, float scale,
+                                 cudaStream_t stream) {
+  if (heads > 65535 || G > 65535) return cudaErrorInvalidValue;
+  attn_fwd_kernel<L, kValues>
+      <<<dim3((N + kAT - 1) / kAT, heads, G), kAThreads, 0, stream>>>(
+          q, k, v, out, stats, N, ld, ldo, scale);
   return cudaGetLastError();
 }
 
-// dq, dk, dv into dqkv (fp32) and dqkvb (bf16), both (G, N, 3C), from qkv,
-// the fp32 cotangent dout (G, N, C) of the attention output and the
-// forward's stats (c is written into their third slot); dob and dnb are
-// (G, N, C) bf16 scratch for T(do) and T(do / l)
-static cudaError_t launch_attention_bwd(const bf16* qkv, const float* dout,
-                                        float* stats, float* dqkv,
-                                        bf16* dqkvb, bf16* dob, bf16* dnb,
-                                        int G, int N, int C, int heads,
-                                        float scale, cudaStream_t stream) {
-  if (C != heads * kHeadDim || heads > 65535 || G > 65535)
-    return cudaErrorInvalidValue;
+// dq, dk, dv (to f* in fp32 where the layout keeps them, and g* in bf16)
+// from the cotangent dout and the forward's (m, l) in stats (c is written
+// into their third slot); dob (the ViT's T(do)) and dnb (T(do / l)) are
+// bf16 scratch in the layout of do
+template <typename L>
+static cudaError_t attention_bwd(const bf16* q, const bf16* k, const bf16* v,
+                                 const typename L::Dout* dout, float* stats,
+                                 bf16* dob, bf16* dnb, float* fq, float* fk,
+                                 float* fv, bf16* gq, bf16* gk, bf16* gv,
+                                 int G, int heads, int N, int ld, int ldo,
+                                 float scale, float sm_scale,
+                                 cudaStream_t stream) {
+  if (heads > 65535 || G > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_dq_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kDqSmemBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_dkv_kernel,
+  err = cudaFuncSetAttribute(attn_dkv_kernel<L>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kDkvSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kAT - 1) / kAT, heads, G);
-  attn_dq_kernel<<<grid, kAThreads, kDqSmemBytes, stream>>>(
-      qkv, dout, stats, dqkv, dqkvb, dob, dnb, N, C, scale);
+  attn_dq_kernel<L><<<grid, kAThreads, kDqSmemBytes, stream>>>(
+      q, k, v, dout, stats, dob, dnb, fq, gq, N, ld, ldo, scale, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_dkv_kernel<<<grid, kAThreads, kDkvSmemBytes, stream>>>(
-      qkv, dob, dnb, stats, dqkv, dqkvb, N, C, scale);
+  const bf16* dkv_do;
+  if constexpr (L::kF32Grads)
+    dkv_do = dob;
+  else
+    dkv_do = dout;
+  attn_dkv_kernel<L><<<grid, kAThreads, kDkvSmemBytes, stream>>>(
+      q, k, v, dkv_do, dnb, stats, fk, fv, gk, gv, N, ld, ldo, scale,
+      sm_scale);
   return cudaGetLastError();
 }
 

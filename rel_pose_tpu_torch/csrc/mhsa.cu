@@ -1,73 +1,95 @@
 // Hand kernels for the plain softmax attention of the --noess cross block.
 //
-// Replaces: rel_pose_tpu/ops/pallas_attention.py:_fwd_kernel (rp_mhsa_fwd)
-// and _bwd_kernel (rp_mhsa_bwd), Pallas kernel #7.  The Pallas kernel takes
-// one whole (N, d) head per grid step, its N x N fp32 scores resident in
-// VMEM; here the kernels of attention.cuh, which keep 32 full score rows
-// per CUDA block, read the separate (G, N, 64) q, k, v (SeparateQkv) and
-// round as #7 does:
+// Replaces: rel_pose_tpu/ops/pallas_attention.py:_fwd_kernel (rp_mhsa_fwd,
+// and its row statistics alone, rp_mhsa_stats) and _bwd_kernel
+// (rp_mhsa_bwd), Pallas kernel #7.  The Pallas kernel takes one whole
+// (N, d) head per grid step, its N x N fp32 scores resident in VMEM.  Here
+// bf16 runs the tensor-core kernels of attention_tc.cuh (layout Separate)
+// and fp32 the SIMT kernels of attention.cuh (SeparateQkv; the port's fp32
+// has no TF32, so no tensor-core route), both over separate (G, N, 64) q,
+// k, v and both rounding as #7 does:
 //   forward: s = (q . k) * scale * log2(e) in fp32, e = exp2(s - max),
 //     o = (T(e) . v) / l with l the fp32 row sum of e, rounded to T;
-//   backward: e and l recomputed, do_n = T(do / l), dv = T(e)^T . do_n,
-//     dp = do . v^T, c = rowsum(dp * e) / l, ds = T(e ((dp - c) (scale /
-//     l))), dq = ds . k, dk = ds^T . q, each rounded to T.
+//   backward: e and l as the forward forms them, do_n = T(do / l),
+//     dv = T(e)^T . do_n, dp = do . v^T, c = rowsum(dp * e) / l,
+//     ds = T(e ((dp - c) (scale / l))), dq = ds . k, dk = ds^T . q, each
+//     rounded to T.
+// The Pallas backward recomputes the row max m and sum l.  The bf16
+// backward reads them from stats: written by its forward (kept under
+// autograd) or by rp_mhsa_stats, the forward's max and sum passes without
+// P . v -- the same arithmetic, so the same bits.  The fp32 dq kernel
+// recomputes them itself.
 //
-// What bounds it on the H100: the four N x N x 64 products of the forward
-// and ten of the backward, as SIMT fp32 FMAs (attention.cuh); the bytes
-// (q, k, v, o: 4 x G x N x 64 values) are a small fraction of that time.
+// What bounds it on the H100: the function's products, 4 N^2 d operations
+// a head forward on 8 N d bytes (288 a byte at N = 576: the bf16 forward
+// sits at the ridge where HBM and the tensor cores bound it alike), 10
+// N^2 d backward.  The bf16 kernels execute 3 N^2 d multiply-adds forward
+// (the exact max pass), 9 backward (dq 5, dk / dv 4) and 2 more for the
+// stats pass, on mma.sync, whose rate and the exp2 of every score decide;
+// fp32 runs SIMT FMAs fed from shared memory.
 
-#include "attention.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
 constexpr double kLog2e = 1.4426950408889634;
+constexpr int kD = rp::kHeadDim;
 
-template <typename T>
-cudaError_t mhsa_fwd(const void* q, const void* k, const void* v, void* o,
-                     int G, int N, float scale, cudaStream_t st) {
-  // q, k, v, o, dout, dq, dk, dv, N, scale
-  const rp::SeparateQkv<T> lay{(const T*)q, (const T*)k, (const T*)v, (T*)o,
-                               nullptr, nullptr, nullptr, nullptr, N, scale};
-  return rp::launch_attention(lay, nullptr, G, 1, N,
-                              (float)(scale * kLog2e), st);
-}
-
-template <typename T>
-cudaError_t mhsa_bwd(const void* q, const void* k, const void* v,
-                     const void* dout, void* dq, void* dk, void* dv,
-                     float* stats, int G, int N, float scale,
-                     cudaStream_t st) {
-  const rp::SeparateQkv<T> lay{(const T*)q, (const T*)k,    (const T*)v,
-                               nullptr,    (const T*)dout, (T*)dq,
-                               (T*)dk,     (T*)dv,         N,
-                               scale};
-  return rp::launch_attention_bwd(lay, stats, G, 1, N,
-                                  (float)(scale * kLog2e), st);
-}
+using T = __nv_bfloat16;
 
 }  // namespace
 
 // o = softmax(q k^T scale) v over (G, N, d) q, k, v, o (d = 64), in fp32
-// or (bf16 != 0) bf16
+// or (bf16 != 0) bf16; with stats (3 G N fp32), each row's (m, l) in its
+// first two slots
 extern "C" int rp_mhsa_fwd(const void* q, const void* k, const void* v,
-                           void* o, int G, int N, int d, float scale,
-                           int bf16, void* stream) {
-  if (d != rp::kHeadDim || G <= 0 || N <= 0) return cudaErrorInvalidValue;
+                           void* o, float* stats, int G, int N, int d,
+                           float scale, int bf16, void* stream) {
+  if (d != kD || G <= 0 || N <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? mhsa_fwd<__nv_bfloat16>(q, k, v, o, G, N, scale, st)
-              : mhsa_fwd<float>(q, k, v, o, G, N, scale, st);
+  const float s2 = (float)(scale * kLog2e);
+  if (bf16)
+    return rp::tc::attention_fwd<rp::tc::Separate>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, stats, G, 1, N, kD, kD,
+        s2, st);
+  // q, k, v, o, dout, dq, dk, dv, N, scale
+  const rp::SeparateQkv<float> lay{(const float*)q, (const float*)k,
+                                   (const float*)v, (float*)o, nullptr,
+                                   nullptr, nullptr, nullptr, N, scale};
+  return rp::launch_attention(lay, stats, G, 1, N, s2, st);
+}
+
+// rp_mhsa_fwd's (m, l) alone, bf16: the statistics of a backward whose
+// forward kept none
+extern "C" int rp_mhsa_stats(const void* q, const void* k, float* stats,
+                             int G, int N, int d, float scale, void* stream) {
+  if (d != kD || G <= 0 || N <= 0) return cudaErrorInvalidValue;
+  return rp::tc::attention_fwd<rp::tc::Separate, false>(
+      (const T*)q, (const T*)k, nullptr, nullptr, stats, G, 1, N, kD, kD,
+      (float)(scale * kLog2e), (cudaStream_t)stream);
 }
 
 // dq, dk, dv of rp_mhsa_fwd from q, k, v and the cotangent dout, all
-// (G, N, d) in the same dtype; stats is fp32 scratch of 3 G N values
+// (G, N, d) in the same dtype.  stats (3 G N fp32): for bf16 the forward's
+// (m, l), c written into the third slot; for fp32 scratch.  dnb: (G, N, d)
+// bf16 scratch for T(do / l), bf16 only.
 extern "C" int rp_mhsa_bwd(const void* q, const void* k, const void* v,
                            const void* dout, void* dq, void* dk, void* dv,
-                           float* stats, int G, int N, int d, float scale,
-                           int bf16, void* stream) {
-  if (d != rp::kHeadDim || G <= 0 || N <= 0) return cudaErrorInvalidValue;
+                           float* stats, void* dnb, int G, int N, int d,
+                           float scale, int bf16, void* stream) {
+  if (d != kD || G <= 0 || N <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? mhsa_bwd<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, stats, G,
-                                        N, scale, st)
-              : mhsa_bwd<float>(q, k, v, dout, dq, dk, dv, stats, G, N,
-                                scale, st);
+  const float s2 = (float)(scale * kLog2e);
+  if (bf16) {
+    if (!dnb) return cudaErrorInvalidValue;
+    return rp::tc::attention_bwd<rp::tc::Separate>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, nullptr,
+        (T*)dnb, nullptr, nullptr, nullptr, (T*)dq, (T*)dk, (T*)dv, G, 1, N,
+        kD, kD, s2, scale, st);
+  }
+  const rp::SeparateQkv<float> lay{
+      (const float*)q,    (const float*)k, (const float*)v, nullptr,
+      (const float*)dout, (float*)dq,      (float*)dk,      (float*)dv,
+      N,                  scale};
+  return rp::launch_attention_bwd(lay, stats, G, 1, N, s2, st);
 }

@@ -96,6 +96,32 @@ static cudaError_t vit_stack(const T* x, const T* pos, T* out, T* stash,
 // The bf16 stack on the tensor cores: vit_stack's chain, launch for launch
 namespace tc {
 
+// attention_tc.cuh's forward over the heads of qkv (G, N, 3C) into out
+// (G, N, C); with `stats`, (m, l) per row
+static cudaError_t launch_attention(const bf16* qkv, bf16* out, float* stats,
+                                    int G, int N, int C, int heads,
+                                    float scale, cudaStream_t stream) {
+  if (C != heads * kHeadDim) return cudaErrorInvalidValue;
+  return attention_fwd<Interleaved>(qkv, qkv + C, qkv + 2 * C, out, stats, G,
+                                    heads, N, 3 * C, C, scale, stream);
+}
+
+// dq, dk, dv into dqkv (fp32) and dqkvb (bf16), both (G, N, 3C), from qkv,
+// the fp32 cotangent dout (G, N, C) of the attention output and the
+// forward's stats (c is written into their third slot); dob and dnb are
+// (G, N, C) bf16 scratch for T(do) and T(do / l)
+static cudaError_t launch_attention_bwd(const bf16* qkv, const float* dout,
+                                        float* stats, float* dqkv,
+                                        bf16* dqkvb, bf16* dob, bf16* dnb,
+                                        int G, int N, int C, int heads,
+                                        float scale, cudaStream_t stream) {
+  if (C != heads * kHeadDim) return cudaErrorInvalidValue;
+  return attention_bwd<Interleaved>(
+      qkv, qkv + C, qkv + 2 * C, dout, stats, dob, dnb, dqkv, dqkv + C,
+      dqkv + 2 * C, dqkvb, dqkvb + C, dqkvb + 2 * C, G, heads, N, 3 * C, C,
+      scale, 0.f, stream);
+}
+
 static cudaError_t vit_stack(const bf16* x, const bf16* pos, bf16* out,
                              bf16* stash, const float* ln1s,
                              const float* ln1b, const bf16* qkvw,

@@ -60,10 +60,13 @@ SIGNATURES = {
     # qkv, pos, dF, dqkv, dva (cross), dpos partials, workspace; B, N, C,
     # heads, 3 flags, bf16; stream
     "rp_essential_block_bwd": ([P] * 7 + [I] * 8 + [P], ctypes.c_int),
-    # q, k, v, o; G, N, d, scale, bf16; stream
-    "rp_mhsa_fwd": ([P] * 4 + [I] * 3 + [F, I, P], ctypes.c_int),
-    # q, k, v, do, dq, dk, dv, stats scratch; G, N, d, scale, bf16; stream
-    "rp_mhsa_bwd": ([P] * 8 + [I] * 3 + [F, I, P], ctypes.c_int),
+    # q, k, v, o, stats (or NULL); G, N, d, scale, bf16; stream
+    "rp_mhsa_fwd": ([P] * 5 + [I] * 3 + [F, I, P], ctypes.c_int),
+    # q, k, stats (bf16 only); G, N, d, scale; stream
+    "rp_mhsa_stats": ([P] * 3 + [I] * 3 + [F, P], ctypes.c_int),
+    # q, k, v, do, dq, dk, dv, stats, T(do / l) scratch (bf16; else NULL);
+    # G, N, d, scale, bf16; stream
+    "rp_mhsa_bwd": ([P] * 9 + [I] * 3 + [F, I, P], ctypes.c_int),
     # q, k, va, vb, F; G, N, e, single, scale * log2e, bf16; stream
     "rp_bilinear_fwd": ([P] * 5 + [I] * 4 + [F, I, P], ctypes.c_int),
     # G, N, e -> workspace bytes of rp_bilinear_bwd

@@ -1,0 +1,31 @@
+#!/usr/bin/env bash
+# Compare this tree with another (its parent) on one GPU, in turns:
+# chip_smoke.py in the other tree, this one, this one, the other, each log
+# in output/ab/<n>_<parent|change>.log, then scripts/vit_stack_bits.py
+# on both trees (the digests that must not move).  Prints each run's exit
+# code and its [time] lines.
+#
+#   git archive <parent> | tar -x -C output/parent
+#   bash scripts/ab_chip_smoke.sh output/parent
+set -uo pipefail
+cd "$(dirname "$0")/.."
+other=${1:?usage: ab_chip_smoke.sh OTHER_TREE}
+mkdir -p output/ab
+rc=0
+n=0
+for tree in "$other" . . "$other"; do
+  n=$((n + 1))
+  name=$([ "$tree" = . ] && echo change || echo parent)
+  log="output/ab/${n}_${name}.log"
+  (cd "$tree" && python3 chip_smoke.py) > "$log" 2>&1
+  run=$?
+  echo "[ab] run $n ($name): exit $run"
+  [ "$run" -eq 0 ] || rc=1
+  grep -E '^\[time\] (mhsa|noess|vit_stack |vit_stack_bwd |eval|train)' \
+    "$log" | cut -c1-160
+done
+for tree in "$other" .; do
+  echo "[ab] bits of $tree"
+  python3 scripts/vit_stack_bits.py --tree "$tree" || rc=1
+done
+exit $rc

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_train.py [--batch 60] [--steps 3]
     python3 scripts/profile_torch_train.py --eval [--batch 256]
+    python3 scripts/profile_torch_train.py --noess [--eval] ...
 
 The flagship ``ViTEss`` (depth 6, seeded weights) with the hand kernels
 takes ``--steps`` ``train_step``s on Matterport-style 384x512 uint8 batches
@@ -15,7 +16,9 @@ time per step.  It writes each trace to
 eval forward instead (``--steps`` forwards of 256x256 uint8 pairs under
 ``torch.inference_mode``, as ``chip_smoke.py`` phase 5 times it; trace
 ``output/profile_eval_bfloat16.json``).  fp32 runs at the port's default
-precision (``RELPOSE_MATMUL_PRECISION``, full fp32).  Needs a CUDA device.
+precision (``RELPOSE_MATMUL_PRECISION``, full fp32).  With ``--noess`` the
+model is the --noess ablation (kernel #7 in place of the Essential Matrix
+Module; traces ``output/profile_noess_*.json``).  Needs a CUDA device.
 """
 
 import argparse
@@ -30,7 +33,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 
-def profile(dtype, B, steps, device, out_dir, evaluate=False):
+def profile(dtype, B, steps, device, out_dir, evaluate=False, noess=False):
     from torch.profiler import ProfilerActivity
     from chip_smoke import train_batch
     from rel_pose_tpu_torch.config import ModelConfig
@@ -38,7 +41,8 @@ def profile(dtype, B, steps, device, out_dir, evaluate=False):
     from rel_pose_tpu_torch.nn.init import seeded_state_dict
     from rel_pose_tpu_torch.train.optim import make_optimizer
     from rel_pose_tpu_torch.train.step import train_step
-    model = ViTEss(ModelConfig(compute_dtype=dtype), device=device)
+    model = ViTEss(ModelConfig(compute_dtype=dtype, noess=noess),
+                   device=device)
     model.load_state_dict(seeded_state_dict(model, 0))
     if evaluate:
         rng = np.random.default_rng(0)
@@ -55,6 +59,8 @@ def profile(dtype, B, steps, device, out_dir, evaluate=False):
         opt, sched = make_optimizer(model, lr=5e-4, steps=1000, warmup=100)
         data = train_batch(np.random.default_rng(0), B, device)
         what = "train"
+    if noess:
+        what = f"noess_{what}"
     for _ in range(2):
         train_step(model, opt, sched, *data)
     torch.cuda.synchronize()
@@ -91,6 +97,8 @@ def main():
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--eval", action="store_true",
                     help="profile the bf16 eval forward")
+    ap.add_argument("--noess", action="store_true",
+                    help="profile the --noess model")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -101,11 +109,12 @@ def main():
     print(f"[profile] {card}", flush=True)
     if args.eval:
         profile("bfloat16", args.batch or 256, args.steps,
-                torch.device("cuda:0"), REPO / "output", evaluate=True)
+                torch.device("cuda:0"), REPO / "output", evaluate=True,
+                noess=args.noess)
         return 0
     for dtype in ("float32", "bfloat16"):
         profile(dtype, args.batch or 60, args.steps, torch.device("cuda:0"),
-                REPO / "output")
+                REPO / "output", noess=args.noess)
     return 0
 
 

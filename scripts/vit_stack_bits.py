@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Digests of the ViT stack kernels' outputs, to compare two trees' bits.
+"""Digests of the ViT stack kernels' outputs, and of kernel #7's in fp32,
+to compare two trees' bits.
 
     python3 scripts/vit_stack_bits.py [--tree DIR]
 
@@ -7,10 +8,11 @@ Imports ``rel_pose_tpu_torch`` from ``DIR`` (this checkout by default), runs
 kernel #1 (``_launch_forward``, with and without the stash) and #5
 (``fused_vit_stack_bwd``) on seeded inputs at the model's widths (G = 16
 sequences of 576 tokens, C = 192, 3 heads, depth 5) on one GPU, in fp32 and
-bf16, and prints one line per (dtype, output) with the sha256 of the
-output's bytes.  Where two trees run the same kernels (fp32's SIMT kernels
-since the port began), they print the same digests on one card.  Needs a
-CUDA device.
+bf16, and kernel #7 (``fused_mhsa``, ``fused_mhsa_bwd``) in fp32 at G = 24
+heads of N = 100 and 576, and prints one line per (dtype, output) with the
+sha256 of the output's bytes.  Where two trees run the same kernels (fp32's
+SIMT kernels since the port began), they print the same digests on one
+card.  Needs a CUDA device.
 """
 
 import argparse
@@ -75,6 +77,16 @@ def main():
         print(f"[bits] {name} forward {digest(out)}")
         print(f"[bits] {name} forward+stash {digest(out2, xs)}")
         print(f"[bits] {name} backward {digest(dx, *grads.values())}")
+    from rel_pose_tpu_torch.ops import attention as ta
+    for n in (100, 576):
+        rng = np.random.default_rng(1)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (24, n, 64)).astype(np.float32)).to(device) for _ in range(4))
+        o = ta.fused_mhsa(q, k, v, 0.125)
+        grads = ta.fused_mhsa_bwd(q, k, v, do, 0.125)
+        torch.cuda.synchronize()
+        print(f"[bits] float32 mhsa N={n} forward {digest(o)} backward "
+              f"{digest(*grads)}")
     return 0
 
 

@@ -3,8 +3,11 @@
 The same numpy-seeded ``(G, N, 64)`` q, k, v and cotangent go through the
 Pallas ``_fwd_call`` / ``_bwd_call`` in interpret mode (as
 tests/test_pallas.py runs them) and the port's plain versions, in fp32 and
-bf16, G = 4, N in {64, 576}.  On the CPU ``fused_mhsa`` takes those plain
-versions; ``csrc/mhsa.cu`` is held to them on the card by chip_smoke.py.
+bf16, G = 4, N in {64, 100, 576} (100: a ragged last tile of 64 rows for
+the kernels).  On the CPU ``fused_mhsa`` takes those plain versions;
+``csrc/mhsa.cu`` is held to them on the card by chip_smoke.py.
+``mhsa_stats_reference``, the row statistics the bf16 kernels keep for the
+backward, is held to the same lines of ``_fwd_kernel`` written out in JAX.
 
 Tolerances, ||port - pallas|| / ||pallas||, with their reasons (measured
 values in brackets):
@@ -22,20 +25,22 @@ values in brackets):
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from rel_pose_tpu.ops.pallas_attention import _bwd_call, _fwd_call
+from rel_pose_tpu.ops.pallas_attention import _LOG2E, _bwd_call, _fwd_call
 from rel_pose_tpu_torch.ops.attention import (fused_mhsa, fused_mhsa_bwd,
                                               mhsa_bwd_reference,
-                                              mhsa_reference)
+                                              mhsa_reference,
+                                              mhsa_stats_reference)
 
 RNG = np.random.default_rng(41)
 SCALE = 64 ** -0.5
 FWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
-CASES = [(n, dt) for n in (64, 576) for dt in ("float32", "bfloat16")]
+CASES = [(n, dt) for n in (64, 100, 576) for dt in ("float32", "bfloat16")]
 
 
 def _inputs(N, dtype, n=4):
@@ -71,6 +76,31 @@ def test_backward_matches_pallas(N, dtype):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == getattr(torch, dtype), name
         assert _normrel(g.float(), w) <= BWD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("N,dtype", CASES)
+def test_stats_match_fwd_kernel_lines(N, dtype):
+    """(m, l) against ``_fwd_kernel``'s own lines (``pallas_attention.py:
+    58-62``) run in JAX on the same inputs, per head: 1e-6 relative
+    [3.0e-7], fp32 sums of the same products in another order."""
+    (q, k), tq = _inputs(N, dtype, 2)
+
+    def stats(qh, kh):
+        s = jax.lax.dot_general(
+            qh, kh, (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32) * (SCALE * _LOG2E)
+        m = jnp.max(s, axis=1, keepdims=True)
+        l = jnp.sum(jnp.exp2(s - m), axis=1, keepdims=True)
+        return jnp.concatenate([m, l], axis=1)
+
+    want = np.asarray(jax.vmap(stats)(q, k), np.float64)
+    got = mhsa_stats_reference(*tq, SCALE)
+    assert got.dtype == torch.float32 and got.shape == (4, N, 2)
+    got = got.double().numpy()
+    for i, name in enumerate(("m", "l")):
+        rel = (np.linalg.norm(got[..., i] - want[..., i])
+               / np.linalg.norm(want[..., i]))
+        assert rel <= 1e-6, (name, rel)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
