@@ -40,11 +40,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
   5. times (CUDA events, after warm-up): each forward kernel and its plain
      version at the eval shapes of batch 256 in bf16 (the ViT stack checked
      at that size against the plain version first; its GEMM and attention
-     parts from ``torch.profiler``), and the eval
+     parts from ``torch.profiler``; #2's parts too -- key statistics, vb_n,
+     moments, F-partial sum, qkv GEMM, LayerNorm -- each with the TFLOP/s
+     of its executed products and its exp2 count over 3.9 T/s), and the eval
      forward in pairs/s at batch 256, 256x256 uint8, bf16, preprocessing
      included;
   5b. each backward kernel and its plain version at the training shapes of
-     batch 60 in bf16 (the ViT stack's also by part); as the yardstick of #1 and #5, timed only, the same 5-block
+     batch 60 in bf16 (the ViT stack's and #6's also by part: #6's
+     statistics, prologue, rho / gamma passes and its two gradient passes);
+     as the yardstick of #1 and #5, timed only, the same 5-block
      stack from library calls (``F.layer_norm``, cuBLAS ``F.linear``,
      ``F.scaled_dot_product_attention``, ``F.gelu``), forward (eval shapes)
      and backward of a kept forward (training shapes), and one SDPA call
@@ -82,12 +86,16 @@ The ablations of the Essential Matrix Module (``ModelConfig`` with
 ``use_single_softmax``, ``cross_features``, ``no_pos_encoding`` or
 ``l1_pos_encoding``: variants of kernels #2 and #6, and #3, #4):
 
-  3d. #2 and #6 for every combination of {positions, none} x {dual,
-     single softmax} x {va = v_self, cross features}, and #3
-     (``fused_essential_block_x``) and #4 (``fused_essential_block``) for
-     the flagship flags and one ablated combination, against their plain
-     versions at B = 8, fp32 and bf16; each backward twice for the same
-     bits; the four counters rose;
+  3d. #2, #4 (``fused_essential_block``) and #6 for every combination of
+     {positions, none} x {dual, single softmax} x {va = v_self, cross
+     features} against their plain versions at B = 8 pairs of N = 576, and
+     #4 and #6 again at B = 4 of a ragged N = 100, fp32 and bf16 (bf16: the
+     tensor-core kernels of ``csrc/essential_tc.cuh`` and
+     ``essential_tc_bwd.cuh``); #2 and each backward twice for the same
+     bits; the fp32 outputs' sha256 printed (``scripts/vit_stack_bits.py``
+     prints them for another tree); #3 (``fused_essential_block_x``) for
+     the flagship flags and one ablated combination; the four counters
+     rose;
   4d. #3 and #4 through their public ops (``essential_cross_attention``,
      ``fused_essential_block``) under autograd, forward and backward
      against the plain versions, their counters set to 0 just before and
@@ -133,6 +141,7 @@ process besides ``nvidia-smi`` and ``nvcc``, which it waits for.
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -251,15 +260,15 @@ def vit_inputs(rng, G, dtype, device, depth=5, C=192, hidden=768):
     return x, {k: v.to(dtype) for k, v in stacked.items()}, pos
 
 
-def essential_inputs(rng, B, dtype, device, C=192):
+def essential_inputs(rng, B, dtype, device, C=192, N=576):
     def t(shape, scale):
         return torch.from_numpy(
             (rng.standard_normal(shape) * scale).astype(np.float32)
         ).to(device)
-    xpair = t((B, 2, 576, C), 1.0).to(dtype)
+    xpair = t((B, 2, N, C), 1.0).to(dtype)
     ln = (1 + t((C,), 0.1), t((C,), 0.1))
     qkv = (t((3 * C, C), C ** -0.5), t((3 * C,), 0.1))
-    positional = t((B, 576, 6), 1.0)
+    positional = t((B, N, 6), 1.0)
     return xpair, ln, qkv, positional
 
 
@@ -745,10 +754,44 @@ def library_stack_ms(x, stacked, pos, backward):
 
 
 def kernel_parts_ms(fn):
-    """Device time of one ``fn()`` by part, from ``torch.profiler``: the
-    tensor-core attention kernels (``rp::tc::attn_*``), the tensor-core
-    GEMMs (``rp::tc::gemm_*``) and the rest.  Empty when the profiler
-    recorded no device time."""
+    """Device time of one ``fn()`` by part: the tensor-core attention
+    kernels (``rp::tc::attn_*``), the tensor-core GEMMs (``rp::tc::gemm_*``)
+    and the rest."""
+    return profile_parts_ms(fn, lambda key: (
+        "attention" if "tc::attn_" in key else
+        "gemm" if "tc::gemm_" in key else "other"))
+
+
+# The special-function units' exp2 rate of one H100 SXM, ~3.9 T/s (the
+# FlashAttention-3 paper): the essential block's floor beside its
+# tensor-core bound, since every score takes one to three exp2.
+EXP2_PER_S = 3.9e12
+
+
+def essential_part(key):
+    """The part of the essential block's tensor-core path a profiled kernel
+    belongs to, from its (demangled) name."""
+    m = re.search(r"eb_bwd_pass_kernel<\d+, (true|false), (true|false)", key)
+    if m:
+        return {("false", "false"): "gamma pass", ("true", "false"):
+                "rho pass", ("true", "true"): "dq/dva pass",
+                ("false", "true"): "dk/dvb pass"}[m.groups()]
+    for sub, part in (("eb_stats_kernel<true>", "key statistics"),
+                      ("eb_stats_kernel<false>", "query statistics"),
+                      ("eb_vbn_kernel", "vb_n"),
+                      ("eb_moments_kernel", "moments"),
+                      ("sum_partials", "F-partial sum"),
+                      ("gemm_fwd_kernel", "qkv GEMM"),
+                      ("layernorm", "LayerNorm"),
+                      ("eb_bwd_prologue", "prologue")):
+        if sub in key:
+            return part
+    return "other"
+
+
+def profile_parts_ms(fn, part_of):
+    """Device time of one ``fn()`` by part (``part_of(kernel name)``), from
+    ``torch.profiler``; empty when it recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -760,10 +803,56 @@ def kernel_parts_ms(fn):
         t = ev.self_device_time_total
         if ev.device_type != torch.autograd.DeviceType.CUDA or t <= 0:
             continue
-        part = ("attention" if "tc::attn_" in ev.key else
-                "gemm" if "tc::gemm_" in ev.key else "other")
+        part = part_of(ev.key)
         parts[part] = parts.get(part, 0.0) + t / 1e3
     return parts
+
+
+def essential_executed(B, N, e, single, backward, C=192, heads=3):
+    """{part: (executed products' FLOPs, exp2 count)} of the bf16
+    tensor-core path at B pairs (padded widths: 72 columns for an e-wide
+    product with e = 70, 80 as the k depth over e)."""
+    G = 2 * B * heads
+    wn, wk = 8 * -(-e // 8), 16 * -(-e // 16)
+    score, n2 = 2 * N * N * 64 * G, N * N * G
+    if not backward:
+        out = {"moments": (2 * score + 2 * N * N * wn * G
+                           + 2 * N * wk * wn * G, n2 * (1 if single else 2)),
+               "qkv GEMM": (2 * 2 * B * N * 3 * C * C, 0)}
+        if not single:
+            out["key statistics"] = (score, n2)
+        return out
+    pa = score + 2 * N * N * wk * G                 # s and dA of one pass
+    grad = pa + score + 2 * N * N * wn * G          # + out1, out2
+    x = 1 if single else 2
+    out = {"query statistics": (score, n2),
+           "prologue": (2 * 2 * N * wk * wn * G, 0),
+           "rho pass": (pa, x * n2), "dq/dva pass": (grad, x * n2),
+           "dk/dvb pass": (grad, x * n2)}
+    if not single:
+        out["key statistics"] = (score, n2)
+        out["gamma pass"] = (pa, 2 * n2)
+    return out
+
+
+def log_essential_parts(name, parts, executed, card):
+    """Each part's time; the TFLOP/s of its executed products and its exp2
+    count over EXP2_PER_S, where it has them."""
+    if not parts:
+        log(f"[time] {name} parts: not measured (no device time in the "
+            f"profile)")
+        return
+    n_exp = sum(x for _, x in executed.values())
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        flops, exps = executed.get(part, (0, 0))
+        rate = (f", {flops / ms / 1e9:.2f} TFLOP/s of its executed products"
+                if flops and ms > 0 else "")
+        floor = (f", exp2 floor {exps / EXP2_PER_S * 1e3:.3f} ms"
+                 if exps else "")
+        log(f"[time] {name} {part} part: {ms:.3f} ms{rate}{floor} ({card})")
+    log(f"[time] {name} exp2 count {n_exp / 1e9:.3f} G, floor "
+        f"{n_exp / EXP2_PER_S * 1e3:.3f} ms at {EXP2_PER_S / 1e12:.1f} T/s "
+        f"({card})")
 
 
 def vit_attention_flops(G, N, C, depth, passes):
@@ -834,6 +923,9 @@ def phase_times(device, models, card):
     b = bound(essential_fwd_flops(B, 576, 192, 3),
               nbytes(xpair, f) + 2 * small, dtype)   # weights, pos as bf16
     rows["essential_block_pair"] = (err, ms, plain_ms, None, b)
+    log_essential_parts(f"essential_block_pair B={B}", profile_parts_ms(
+        lambda: fused_essential_block_pair(*args, 3), essential_part),
+        essential_executed(B, 576, 70, False, False), card)
     del args, f, xpair, positional
     if failures:
         raise SystemExit(f"batch-256 kernel checks failed: {failures}")
@@ -1080,6 +1172,9 @@ def phase_times_train(device, sd, card):
     b = bound(essential_bwd_flops(B, 576, 3),
               2 * nbytes(qkv) + nbytes(pos, df, dp), dtype)
     rows["essential_block_bwd"] = (err, ms, plain_ms, None, b)
+    log_essential_parts(f"essential_block_bwd B={B}", profile_parts_ms(
+        lambda: te.fused_essential_block_bwd(qkv, pos, df, 3),
+        essential_part), essential_executed(B, 576, 70, False, True), card)
     del xpair, qkv, pos, df, dq, dp
     if failures:
         raise SystemExit(f"batch-60 backward checks failed: {failures}")
@@ -1305,7 +1400,7 @@ def essential_counters():
 
 def check_moments_bwd(name, te, qkv, pos, df, kw, dtype, failures):
     """#6 twice (the same bits) and against its plain version: dq, dk, dv
-    and, with a positional table, dpos -> max |err|."""
+    and, with a positional table, dpos -> (max |err|, (dqkv, dpos))."""
     (dq, dp), (dq2, dp2) = (te.fused_essential_block_bwd(qkv, pos, df, 3,
                                                          **kw)
                             for _ in range(2))
@@ -1322,7 +1417,7 @@ def check_moments_bwd(name, te, qkv, pos, df, kw, dtype, failures):
         errs.append(check_grad(f"{name} dpos", dp, rp, dtype, failures))
     elif dp is not None:
         failures.append(f"{name}: a positional cotangent without positions")
-    return max(errs)
+    return max(errs), (dq, dp)
 
 
 def split_pair(xpair, ln, qkvp):
@@ -1338,9 +1433,12 @@ def split_pair(xpair, ln, qkvp):
 
 def phase_kernels_variants(device):
     """(3d) #2 and #6 for every combination of {pos, no pos} x {dual,
-    single} x {va = v_self, cross}, and #3, #4 for the flagship flags and
-    one ablated combination, against their plain versions at B = 8, fp32
-    and bf16; each backward twice for the same bits; the four counters
+    single} x {va = v_self, cross}, and #4 for each too, against their
+    plain versions at B = 8 pairs of N = 576 tokens, and #4 and #6 again at
+    a ragged N = 100 (a 36-row last tile), fp32 and bf16; #2 and each
+    backward twice for the same bits, the fp32 outputs' sha256 printed
+    (``scripts/vit_stack_bits.py`` prints them for another tree); #3 for
+    the flagship flags and one ablated combination; the four counters
     rose."""
     from rel_pose_tpu_torch.ops import essential_block as te
     counters = essential_counters()
@@ -1355,32 +1453,60 @@ def phase_kernels_variants(device):
             name, kw = variant_name(has_pos, cross, single), variant_kw(
                 cross, single)
             pos = positional if has_pos else None
-            f = te.fused_essential_block_pair(xpair, ln, qkvp, pos, 3, **kw)
+            f, f2 = (te.fused_essential_block_pair(xpair, ln, qkvp, pos, 3,
+                                                   **kw) for _ in range(2))
+            g = te.fused_essential_block(q1, q2, pos, 3, **kw)
             torch.cuda.synchronize()
+            if not torch.equal(f, f2):
+                failures.append(f"essential_block_pair {name} not bitwise "
+                                f"repeatable {dtype}")
             check_f(f"essential_block_pair {name} B=8", f,
                     te.essential_block_pair_reference(xpair, ln, qkvp, pos,
                                                       3, **kw),
                     dtype, failures)
+            check_f(f"essential_block {name} B=8", g,
+                    te.essential_block_reference(q1, q2, pos, 3, **kw),
+                    dtype, failures)
             e = 64 + 6 * has_pos
             df = torch.from_numpy((0.1 * rng.standard_normal(
                 (8, 2, 3, e, e))).astype(np.float32)).to(device)
-            check_moments_bwd(f"essential_block_bwd {name} B=8", te, qkv,
-                              None if pos is None else pos.to(dtype), df,
-                              kw, dtype, failures)
+            dq, dp = check_moments_bwd(
+                f"essential_block_bwd {name} B=8", te, qkv,
+                None if pos is None else pos.to(dtype), df, kw, dtype,
+                failures)[1]
+            if dtype == torch.float32:
+                grads = [dq] if dp is None else [dq, dp]
+                log(f"[check] essential fp32 {name} sha256 pair "
+                    f"{digest(f)} bwd {digest(*grads)}")
         for has_pos, cross, single in ((True, False, False),
                                        (False, True, True)):
             name, kw = variant_name(has_pos, cross, single), variant_kw(
                 cross, single)
             pos = positional if has_pos else None
             f = te.fused_essential_block_x(x1, x2, qkvp, pos, 3, **kw)
-            g = te.fused_essential_block(q1, q2, pos, 3, **kw)
             torch.cuda.synchronize()
             check_f(f"essential_block_x {name} B=8", f,
                     te.essential_block_x_reference(x1, x2, qkvp, pos, 3,
                                                    **kw), dtype, failures)
-            check_f(f"essential_block {name} B=8", g,
+        # a ragged N: rows past N load as zeros, keys past N are masked
+        xpair, ln, qkvp, positional = essential_inputs(rng, 4, dtype, device,
+                                                       N=100)
+        _, (q1, q2), qkv = split_pair(xpair, ln, qkvp)
+        for has_pos, cross, single in VARIANTS:
+            name, kw = variant_name(has_pos, cross, single), variant_kw(
+                cross, single)
+            pos = positional if has_pos else None
+            g = te.fused_essential_block(q1, q2, pos, 3, **kw)
+            torch.cuda.synchronize()
+            check_f(f"essential_block {name} B=4 N=100", g,
                     te.essential_block_reference(q1, q2, pos, 3, **kw),
                     dtype, failures)
+            e = 64 + 6 * has_pos
+            df = torch.from_numpy((0.1 * rng.standard_normal(
+                (4, 2, 3, e, e))).astype(np.float32)).to(device)
+            check_moments_bwd(f"essential_block_bwd {name} B=4 N=100", te,
+                              qkv, None if pos is None else pos.to(dtype),
+                              df, kw, dtype, failures)
     launches = {k: c.launches for k, c in counters.items()}
     log(f"[check] essential variants' launches: {launches}")
     failures += [f"{k} never launched" for k, v in launches.items()
@@ -1544,7 +1670,7 @@ def phase_times_variants(device, card):
         df = torch.from_numpy((0.1 * rng.standard_normal(
             (B, 2, 3, e, e))).astype(np.float32)).to(device)
         err = check_moments_bwd(f"essential_block_bwd {tag} B={B}", te, qkv,
-                                pos, df, kw, dtype, failures)
+                                pos, df, kw, dtype, failures)[0]
         ms = cuda_time_ms(lambda: te.fused_essential_block_bwd(
             qkv, pos, df, 3, **kw), 3)
         plain_ms = cuda_time_ms(lambda: te.essential_block_bwd_reference(

@@ -1,6 +1,6 @@
 // Entry points of the Essential Matrix Module's forward: the Pallas kernels
 // #2, #3 and #4 of rel_pose_tpu/ops/pallas_essential_block.py, each the
-// moments kernel of essential_block.cuh behind its own prologue.
+// moments kernel behind its own prologue.
 //
 //   rp_essential_block_pair (#2 _essential_block_pair_kernel): raw pair
 //     tokens xpair (B, 2, N, C) -> norm1 LayerNorm -> the shared qkv Linear
@@ -9,136 +9,190 @@
 //     (B, N, C) -> the qkv Linear on each image -> moments (no LayerNorm);
 //   rp_essential_block (#4 _essential_block_kernel): precomputed qkv1, qkv2
 //     (B, N, 3C) -> moments.
-// The LayerNorm and the GEMM are those of common.cuh.  Each entry point
-// takes the flags of _eb_combos (has_pos, single, cross) and picks the
-// kernel variant; the e = 70 variants are instantiated here, the e = 64
-// ones in essential_block_e64.cu, so that nvcc builds the two halves in
-// parallel.
+// bf16 runs the qkv Linear on the tensor cores (gemm_tc.cuh, epilogue
+// kRounded) and the moments of essential_tc.cuh; fp32 the SIMT GEMM of
+// common.cuh and dual_softmax_kernel of essential_block.cuh, as before.
+// The LayerNorm is common.cuh's for both.  Each entry point takes the flags
+// of _eb_combos (has_pos, single, cross) and picks the kernel variant; the
+// e = 70 variants are instantiated in essential_block.cu / essential_tc.cu,
+// the e = 64 ones in essential_block_e64.cu / essential_tc_e64.cu, so that
+// nvcc builds them in parallel.  bf16 needs the scratch that
+// rp_essential_block_workspace sizes (fp32 none).
+
+#include <type_traits>
 
 #include "essential_block.cuh"
+#include "essential_tc.cuh"
 
 namespace rp {
 
 RP_EB_VARIANTS(RP_EB_FWD_EXTERN, kEbHeadDim)
+namespace tc {
+RP_EB_TC_VARIANTS(RP_EB_TC_EXTERN, kHeadDim + kEbPos)
+RP_EB_TC_VARIANTS(RP_EB_TC_EXTERN, kHeadDim)
+}  // namespace tc
 
-template <typename T, int E>
-static cudaError_t moments_e(const EbArgs<T>& a, bool single, bool cross,
+template <int E>
+static cudaError_t moments_e(const EbArgs<float>& a, bool single, bool cross,
                              cudaStream_t st) {
   if (single)
-    return cross ? launch_dual_softmax<T, E, true, true>(a, st)
-                 : launch_dual_softmax<T, E, true, false>(a, st);
-  return cross ? launch_dual_softmax<T, E, false, true>(a, st)
-               : launch_dual_softmax<T, E, false, false>(a, st);
+    return cross ? launch_dual_softmax<float, E, true, true>(a, st)
+                 : launch_dual_softmax<float, E, true, false>(a, st);
+  return cross ? launch_dual_softmax<float, E, false, true>(a, st)
+               : launch_dual_softmax<float, E, false, false>(a, st);
 }
 
+template <int E>
+static cudaError_t moments_tc_e(const tc::EbTcArgs& a, bool single,
+                                bool cross, cudaStream_t st) {
+  if (single)
+    return cross ? tc::launch_moments_tc<E, true, true>(a, st)
+                 : tc::launch_moments_tc<E, true, false>(a, st);
+  return cross ? tc::launch_moments_tc<E, false, true>(a, st)
+               : tc::launch_moments_tc<E, false, false>(a, st);
+}
+
+// The moments of both images' (N, 3C) qkv rows at img1 / img2 + b bstride,
+// in T; ws: bf16's scratch
 template <typename T>
-static cudaError_t moments(const EbArgs<T>& a, int has_pos, int single,
+static cudaError_t moments(const T* img1, const T* img2, size_t bstride,
+                           const T* pos, float* F, void* ws, int B, int N,
+                           int C, int heads, int has_pos, int single,
                            int cross, cudaStream_t st) {
-  if (a.C != a.heads * kEbHeadDim || (has_pos && a.pos == nullptr))
+  if (C != heads * kEbHeadDim || (has_pos && pos == nullptr))
     return cudaErrorInvalidValue;
-  return has_pos ? moments_e<T, kEbHeadDim + kPosCols>(a, single, cross, st)
-                 : moments_e<T, kEbHeadDim>(a, single, cross, st);
+  if constexpr (std::is_same<T, float>::value) {
+    const EbArgs<float> a{img1, img2, bstride, pos, F, B, N, C, heads};
+    return has_pos ? moments_e<kEbHeadDim + kPosCols>(a, single, cross, st)
+                   : moments_e<kEbHeadDim>(a, single, cross, st);
+  } else {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    const tc::EbTcArgs a{img1, img2, bstride, pos, F, ws, B, N, C, heads};
+    return has_pos ? moments_tc_e<kEbHeadDim + kPosCols>(a, single, cross, st)
+                   : moments_tc_e<kEbHeadDim>(a, single, cross, st);
+  }
+}
+
+// the qkv Linear out = T(T(x w^T) + T(b)) over M rows
+template <typename T>
+static cudaError_t qkv_linear(const T* x, const T* w, const float* bias,
+                             T* out, int M, int C, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch_gemm<float, kRounded>(x, w, bias, nullptr, out, M, 3 * C,
+                                        C, st);
+  else
+    return tc::launch_gemm<kRounded>(x, w, bias, nullptr, out, M, 3 * C, C,
+                                     st);
 }
 
 template <typename T>
 static cudaError_t essential_block_pair(const T* xpair, const float* lns,
                                         const float* lnb, const T* w,
                                         const float* bias, const T* pos,
-                                        float* F, T* y, T* qkv, int B, int N,
-                                        int C, int heads, int has_pos,
-                                        int single, int cross,
+                                        float* F, T* y, T* qkv, void* ws,
+                                        int B, int N, int C, int heads,
+                                        int has_pos, int single, int cross,
                                         cudaStream_t st) {
   const int M = 2 * B * N;
   cudaError_t err = launch_layernorm<T>(xpair, nullptr, nullptr, nullptr,
                                         lns, lnb, y, nullptr, M, N, C, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm<T, kRounded>(y, w, bias, nullptr, qkv, M, 3 * C, C, st);
+  err = qkv_linear<T>(y, w, bias, qkv, M, C, st);
   if (err != cudaSuccess) return err;
   // the qkv rows are interleaved as the tokens: (B, 2, N, 3C)
   const size_t img = (size_t)N * 3 * C;
-  return moments<T>({qkv, qkv + img, 2 * img, pos, F, B, N, C, heads},
+  return moments<T>(qkv, qkv + img, 2 * img, pos, F, ws, B, N, C, heads,
                     has_pos, single, cross, st);
 }
 
 template <typename T>
 static cudaError_t essential_block_x(const T* x1, const T* x2, const T* w,
                                      const float* bias, const T* pos,
-                                     float* F, T* qkv, int B, int N, int C,
-                                     int heads, int has_pos, int single,
-                                     int cross, cudaStream_t st) {
+                                     float* F, T* qkv, void* ws, int B, int N,
+                                     int C, int heads, int has_pos,
+                                     int single, int cross, cudaStream_t st) {
   // qkv scratch (2, B, N, 3C): image 1's rows, then image 2's
   const int M = B * N;
   const size_t half = (size_t)M * 3 * C;
-  cudaError_t err =
-      launch_gemm<T, kRounded>(x1, w, bias, nullptr, qkv, M, 3 * C, C, st);
+  cudaError_t err = qkv_linear<T>(x1, w, bias, qkv, M, C, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemm<T, kRounded>(x2, w, bias, nullptr, qkv + half, M, 3 * C,
-                                 C, st);
+  err = qkv_linear<T>(x2, w, bias, qkv + half, M, C, st);
   if (err != cudaSuccess) return err;
-  return moments<T>({qkv, qkv + half, (size_t)N * 3 * C, pos, F, B, N, C,
-                     heads},
-                    has_pos, single, cross, st);
+  return moments<T>(qkv, qkv + half, (size_t)N * 3 * C, pos, F, ws, B, N, C,
+                    heads, has_pos, single, cross, st);
 }
 
 }  // namespace rp
 
+// bytes of scratch rp_essential_block_pair / _x / rp_essential_block need
+// (bf16: the tensor-core moments' statistics, vb_n and F partials; fp32:
+// none)
+extern "C" long long rp_essential_block_workspace(int B, int N, int heads,
+                                                  int has_pos, int bf16) {
+  if (!bf16) return 0;
+  const int e = rp::kEbHeadDim + (has_pos ? rp::kPosCols : 0);
+  return (long long)rp::tc::EbFwdWs(nullptr, 2 * B * heads, N, e).bytes;
+}
+
 // xpair (B, 2, N, C), w (3C, C) and pos (B, N, 6) in T (pos NULL without
 // positions); LN scale / bias and the qkv bias fp32; y (2BN, C) and qkv
-// (2BN, 3C) scratch in T -> F (B, 2, heads, e, e) fp32
+// (2BN, 3C) scratch in T; ws the workspace -> F (B, 2, heads, e, e) fp32
 extern "C" int rp_essential_block_pair(
     const void* xpair, const float* lns, const float* lnb, const void* w,
-    const float* bias, const void* pos, float* F, void* y, void* qkv, int B,
-    int N, int C, int heads, int has_pos, int single, int cross, int bf16,
-    void* stream) {
+    const float* bias, const void* pos, float* F, void* y, void* qkv,
+    void* ws, int B, int N, int C, int heads, int has_pos, int single,
+    int cross, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
     using T = __nv_bfloat16;
     return rp::essential_block_pair<T>(
         (const T*)xpair, lns, lnb, (const T*)w, bias, (const T*)pos, F,
-        (T*)y, (T*)qkv, B, N, C, heads, has_pos, single, cross, st);
+        (T*)y, (T*)qkv, ws, B, N, C, heads, has_pos, single, cross, st);
   }
   return rp::essential_block_pair<float>(
       (const float*)xpair, lns, lnb, (const float*)w, bias,
-      (const float*)pos, F, (float*)y, (float*)qkv, B, N, C, heads, has_pos,
-      single, cross, st);
+      (const float*)pos, F, (float*)y, (float*)qkv, ws, B, N, C, heads,
+      has_pos, single, cross, st);
 }
 
 // x1, x2 (B, N, C), w (3C, C), pos (B, N, 6) or NULL in T; qkv bias fp32;
-// qkv (2, B, N, 3C) scratch in T -> F (B, 2, heads, e, e) fp32
+// qkv (2, B, N, 3C) scratch in T; ws the workspace -> F (B, 2, heads, e, e)
+// fp32
 extern "C" int rp_essential_block_x(const void* x1, const void* x2,
                                     const void* w, const float* bias,
                                     const void* pos, float* F, void* qkv,
-                                    int B, int N, int C, int heads,
+                                    void* ws, int B, int N, int C, int heads,
                                     int has_pos, int single, int cross,
                                     int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
     using T = __nv_bfloat16;
     return rp::essential_block_x<T>((const T*)x1, (const T*)x2, (const T*)w,
-                                    bias, (const T*)pos, F, (T*)qkv, B, N, C,
-                                    heads, has_pos, single, cross, st);
+                                    bias, (const T*)pos, F, (T*)qkv, ws, B,
+                                    N, C, heads, has_pos, single, cross, st);
   }
   return rp::essential_block_x<float>(
       (const float*)x1, (const float*)x2, (const float*)w, bias,
-      (const float*)pos, F, (float*)qkv, B, N, C, heads, has_pos, single,
+      (const float*)pos, F, (float*)qkv, ws, B, N, C, heads, has_pos, single,
       cross, st);
 }
 
-// qkv1, qkv2 (B, N, 3C) and pos (B, N, 6) or NULL in T -> F (B, 2, heads,
-// e, e) fp32
+// qkv1, qkv2 (B, N, 3C) and pos (B, N, 6) or NULL in T; ws the workspace
+// -> F (B, 2, heads, e, e) fp32
 extern "C" int rp_essential_block(const void* qkv1, const void* qkv2,
-                                  const void* pos, float* F, int B, int N,
-                                  int C, int heads, int has_pos, int single,
-                                  int cross, int bf16, void* stream) {
+                                  const void* pos, float* F, void* ws, int B,
+                                  int N, int C, int heads, int has_pos,
+                                  int single, int cross, int bf16,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t bstride = (size_t)N * 3 * C;
   if (bf16) {
     using T = __nv_bfloat16;
-    return rp::moments<T>({(const T*)qkv1, (const T*)qkv2, bstride,
-                           (const T*)pos, F, B, N, C, heads},
-                          has_pos, single, cross, st);
+    return rp::moments<T>((const T*)qkv1, (const T*)qkv2, bstride,
+                          (const T*)pos, F, ws, B, N, C, heads, has_pos,
+                          single, cross, st);
   }
-  return rp::moments<float>({(const float*)qkv1, (const float*)qkv2, bstride,
-                             (const float*)pos, F, B, N, C, heads},
-                            has_pos, single, cross, st);
+  return rp::moments<float>((const float*)qkv1, (const float*)qkv2, bstride,
+                            (const float*)pos, F, ws, B, N, C, heads, has_pos,
+                            single, cross, st);
 }

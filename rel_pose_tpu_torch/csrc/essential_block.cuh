@@ -1,4 +1,5 @@
-// The dual / single softmax moments kernel of the Essential Matrix Module.
+// The dual / single softmax moments kernel of the Essential Matrix Module,
+// fp32 (bf16 runs the tensor-core kernels of essential_tc.cuh).
 //
 // Replaces the core _eb_combos of rel_pose_tpu/ops/pallas_essential_block.py
 // shared by the Pallas kernels #2 _essential_block_pair_kernel, #3
@@ -292,13 +293,12 @@ cudaError_t launch_dual_softmax(const EbArgs<T>& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// X(T, E, SINGLE, CROSS) for the 8 variants of one e: fp32 and bf16 x
-// {dual, single} x {va = v_self, cross}
+// X(T, E, SINGLE, CROSS) for the 4 fp32 variants of one e: {dual, single}
+// x {va = v_self, cross}.  bf16 runs the tensor-core kernels of
+// essential_tc.cuh and essential_tc_bwd.cuh.
 #define RP_EB_VARIANTS(X, E)                                             \
   X(float, E, false, false) X(float, E, false, true)                     \
-  X(float, E, true, false) X(float, E, true, true)                       \
-  X(__nv_bfloat16, E, false, false) X(__nv_bfloat16, E, false, true)     \
-  X(__nv_bfloat16, E, true, false) X(__nv_bfloat16, E, true, true)
+  X(float, E, true, false) X(float, E, true, true)
 
 #define RP_EB_FWD_EXTERN(T, E, S, X) \
   extern template cudaError_t launch_dual_softmax<T, E, S, X>(   \

@@ -1,4 +1,5 @@
-// The backward of the Essential Matrix Module's moments.
+// The backward of the Essential Matrix Module's moments, fp32 (bf16 runs
+// the tensor-core passes of essential_tc_bwd.cuh).
 //
 // Replaces: rel_pose_tpu/ops/pallas_essential_block_bwd.py:
 // _essential_block_bwd_kernel, with its flags has_pos (e = 70 or 64),

@@ -1,0 +1,556 @@
+// The Essential Matrix Module's moments on the tensor cores, bf16: the
+// moments body of the Pallas kernels #2 _essential_block_pair_kernel, #3
+// _essential_block_x_kernel and #4 _essential_block_kernel
+// (rel_pose_tpu/ops/pallas_essential_block.py, core _eb_combos :87), which
+// differ only in where the qkv rows come from (essential_block.cu).  fp32
+// keeps the SIMT dual_softmax_kernel of essential_block.cuh, bit for bit:
+// the tensor cores have no fp32 product, and TF32 would change the results.
+//
+// Per slice g = (pair b, direction, head h), with q, k (N x 64) and
+// vb = v_self ++ 6 positional columns (e = 70) or v_self (e = 64), va = vb
+// or, with CROSS, the query image's v ++ the same columns; T the rounding
+// to bf16.  The Pallas kernel's rounding points, sums in another order:
+//   s = T(q) T(k)^T d^-1/2 log2e (fp32); mr, mc the exact row and column
+//   maxima; er = exp2(s - mr), ec = exp2(s - mc), lr = sum_j er,
+//   lc = sum_i ec;  P = T(er ec), vb_n = T(vb (1/lc))  (SINGLE: P = T(er),
+//   vb_n = vb);  av = T((P vb_n) (1/lr));  F = va^T av, fp32.
+//
+// What bounds it on the H100: the products (3 N^2 d score products with
+// the two statistics passes below, N^2 e for P vb_n and N e^2 for va^T av
+// a slice, mma.sync m16n8k16) and the exp2 of every score, three a score
+// with the dual softmax (one for lc, two for P): at the eval shapes 1.53 G
+// exp2, about 0.39 ms at the special-function units' rate, above the
+// 0.21 ms tensor-core bound of the function's products.  Device memory:
+// one read of qkv, the small statistics and vb_n scratch, and the F
+// partials (E^2 fp32 per 64-query tile and slice).
+//
+// Design, in launch order (moments_tc):
+//   1. eb_stats_kernel (dual only), one block per (64-key tile, slice):
+//      walks every query tile on the transposed product s^T = k q^T, so a
+//      key's column max and sum are row statistics of that product, kept
+//      per thread and merged across the 4 lanes of a row at the end.  The
+//      sum is online (rescaled when the max grows), which is allowed: lc
+//      is fp32 and ends as sum_i exp2(s - mc) up to fp32 rounding.  Writes
+//      (mc, 1/lc) per key.
+//   2. eb_vbn_kernel: vb_n = T(vb (1/lc)) (SINGLE: vb) into bf16 scratch,
+//      rows of kW = 80 (70 used) or 64 columns, zero-padded, so that every
+//      later tile load is whole 16-byte rows.
+//   3. eb_moments_kernel, one block of 4 warps per (64-query tile, slice),
+//      16 query rows a warp: a first walk over the key tiles takes the
+//      exact row max (no exp2); a second recomputes s, forms er, ec, P and
+//      lr, and accumulates P vb_n in registers (16 x 72 fp32 a warp); then
+//      av = T(. (1/lr)) goes to shared memory and the tile's partial
+//      F = va^T av (mma with va read along its rows, ldmatrix.trans) to
+//      scratch.  Nothing rounded to bf16 is rescaled online.
+//   4. launch_sum_partials adds the query tiles' partials of each slice in
+//      order.
+// Rows >= N load as zeros and keys >= N are masked out of every max and
+// sum.  No atomics, sums in a fixed order: two calls give the same bits.
+
+#pragma once
+
+#include <cstdint>
+
+#include "attention_tc.cuh"
+
+namespace rp {
+namespace tc {
+
+constexpr int kEbPos = 6;  // positional columns appended to v
+
+// The e-wide operands: rows of kW bf16 (e = 70 padded to 80, the k16 depth
+// of the products that sum over e; 64 as it is), in shared memory with
+// rows of kLd (44 or 36 words: 8 ldmatrix rows fall in distinct banks);
+// kNT n8 tiles (72 or 64 columns) of an e-wide product, kKS k16 steps or
+// m16 tiles over e.
+template <int E>
+struct EbW {
+  static_assert(E == kHeadDim || E == kHeadDim + kEbPos, "e = d or d + 6");
+  static constexpr int kW = E == kHeadDim ? kHeadDim : 80;
+  static constexpr int kLd = kW + 8;
+  static constexpr int kNT = (E + 7) / 8;
+  static constexpr int kKS = kW / 16;
+  static constexpr int kTileElems = kAT * kLd;
+};
+
+// ----------------------------------------------------------- fragments --
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// rows [row0, row0 + 64) x W columns of a bf16 matrix with row stride ld
+// into a tile of row stride LD; rows >= N load as zeros
+template <int W, int LD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          size_t ld, int row0, int N) {
+  constexpr int CPR = W / 8;
+  static_assert(kAT * CPR % kAThreads == 0, "tile loads: whole steps");
+#pragma unroll
+  for (int u = 0; u < kAT * CPR / kAThreads; ++u) {
+    const int c = threadIdx.x + u * kAThreads, r = c / CPR,
+              cc = (c % CPR) * 8;
+    const bool ok = row0 + r < N;
+    cp_async16(dst + r * LD + cc, src + (size_t)(ok ? row0 + r : 0) * ld + cc,
+               ok);
+  }
+}
+
+// rows [row0, row0 + 64) of v ++ pos (columns 64 .. 69; 70 .. kW - 1 zero)
+// into a tile of row stride W::kLd: v through cp.async (row stride ld),
+// the positional columns by plain stores; rows >= N zero
+template <int E>
+__device__ __forceinline__ void load_vrows(bf16* dst, const bf16* v,
+                                           size_t ld, const bf16* pos,
+                                           int row0, int N) {
+  using W = EbW<E>;
+  load_rows<kHeadDim, W::kLd>(dst, v, ld, row0, N);
+  if constexpr (W::kW > kHeadDim) {
+    constexpr int X = W::kW - kHeadDim;
+    for (int i = threadIdx.x; i < kAT * X; i += kAThreads) {
+      const int r = i / X, c = i % X, row = row0 + r;
+      dst[r * W::kLd + kHeadDim + c] =
+          row < N && c < kEbPos ? pos[(size_t)row * kEbPos + c]
+                                : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// A fragments of this warp's 16 rows x 16 KS columns of a tile
+template <int KS, int LD>
+__device__ __forceinline__ void load_afrag_k(unsigned (&f)[KS][4],
+                                             const bf16* tile) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4(f[kk], tile + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                       (lane >> 4) * 8);
+}
+
+// c[16 x 8 NT] += a[16 x 16 KS] . B^T, B a tile of 8 NT rows (the columns
+// of c) x 16 KS, row stride LD
+template <int NT, int KS, int LD>
+__device__ __forceinline__ void mma_abt_acc(float (&c)[NT][4],
+                                            const unsigned (&a)[KS][4],
+                                            const bf16* B) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned r[4];
+      ldsm_x4(r, B + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                     kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(c[2 * np], a[kk], r[0], r[1]);
+      mma_bf16(c[2 * np + 1], a[kk], r[2], r[3]);
+    }
+    if constexpr (NT % 2) {
+      unsigned r[2];
+      ldsm_x2(r, B + ((NT - 1) * 8 + (lane & 7)) * LD + kk * 16 +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(c[NT - 1], a[kk], r[0], r[1]);
+    }
+  }
+}
+
+// c[16 x 8 NT] += a[16 x 16 KS] . B, B a tile of 16 KS rows (the sum
+// index) x 8 NT columns, row stride LD
+template <int NT, int KS, int LD>
+__device__ __forceinline__ void mma_ab_acc(float (&c)[NT][4],
+                                           const unsigned (&a)[KS][4],
+                                           const bf16* B) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const bf16* row = B + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD;
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned r[4];
+      ldsm_x4_t(r, row + np * 16 + (lane >> 4) * 8);
+      mma_bf16(c[2 * np], a[kk], r[0], r[1]);
+      mma_bf16(c[2 * np + 1], a[kk], r[2], r[3]);
+    }
+    if constexpr (NT % 2) {
+      unsigned r[2];
+      ldsm_x2_t(r, row + (NT - 1) * 8);
+      mma_bf16(c[NT - 1], a[kk], r[0], r[1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- slices --
+// Slice g = (b * 2 + direction) * heads + h of a pair's two images, whose
+// qkv rows (3C values) start at img1 + b bstride and img2 + b bstride.
+// Direction 0 takes q from image 2 and k, v_self from image 1.
+struct EbSlice {
+  const bf16* qimg;  // the query image's qkv rows
+  const bf16* kimg;  // the key image's
+  int b, dir, h;
+  __device__ EbSlice(const bf16* img1, const bf16* img2, size_t bstride,
+                     int g, int heads) {
+    h = g % heads;
+    dir = (g / heads) & 1;
+    b = g / (2 * heads);
+    qimg = (dir == 0 ? img2 : img1) + (size_t)b * bstride;
+    kimg = (dir == 0 ? img1 : img2) + (size_t)b * bstride;
+  }
+};
+
+// ------------------------------------------------------------ statistics --
+// Per row of the own side (keys with kKeyRows: the column statistics of s;
+// queries: its row statistics), the max m of its scores over every column
+// of the other side and 1 / sum exp2(s - m), to stats[(g N + row) * 3] and
+// [.. + 1] (slot 2 is the backward's).  One block per (64-row tile, slice)
+// walks the other side's tiles through a 2-stage cp.async ring.  Four
+// blocks an SM.
+template <bool kKeyRows>
+__global__ void __launch_bounds__(kAThreads, 4)
+eb_stats_kernel(const bf16* __restrict__ img1, const bf16* __restrict__ img2,
+                size_t bstride, float* __restrict__ stats, int N, int C,
+                int heads, float scale) {
+  __shared__ __align__(128) bf16 Xs[kATileElems];
+  __shared__ __align__(128) bf16 Os[2][kATileElems];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kAT, g = blockIdx.y;
+  const EbSlice sl(img1, img2, bstride, g, heads);
+  const size_t C3 = 3 * (size_t)C;
+  const bf16* qb = sl.qimg + sl.h * kHeadDim;
+  const bf16* kb = sl.kimg + C + sl.h * kHeadDim;
+  const bf16* own = kKeyRows ? kb : qb;
+  const bf16* other = kKeyRows ? qb : kb;
+  const int nt = (N + kAT - 1) / kAT;
+
+  load_tile(Xs, own, C3, r0, N);
+  load_tile(Os[0], other, C3, 0, N);
+  cp_async_commit();
+  unsigned xf[4][4];
+  float s[8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int t = 0; t < nt; ++t) {
+    __syncthreads();  // the stage loaded below was read at step t - 1
+    if (t + 1 < nt) load_tile(Os[(t + 1) & 1], other, C3, (t + 1) * kAT, N);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) load_afrag(xf, Xs);
+    const int c0 = t * kAT;
+    mma_abt(s, xf, Os[t & 1]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 2 * half; e < 2 * half + 2; ++e) {
+          s[ni][e] = c0 + acc_col(ni, e) < N ? __fmul_rn(s[ni][e], scale)
+                                             : -INFINITY;
+          mt = fmaxf(mt, s[ni][e]);
+        }
+      if (mt > m[half]) {  // online: rescale the sum to the new max
+        l[half] *= exp2f(m[half] - mt);
+        m[half] = mt;
+      }
+      if (m[half] == -INFINITY) continue;  // no column of this thread yet
+      float add = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 2 * half; e < 2 * half + 2; ++e)
+          add += exp2f(s[ni][e] - m[half]);  // masked: exp2(-inf) = 0
+      l[half] += add;
+    }
+  }
+  float* st = stats + (size_t)g * N * 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float M = quad_max(m[half]);
+    const float L = quad_sum(l[half] * exp2f(m[half] - M));
+    const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
+    if (row < N && (lane & 3) == 0) {
+      st[(size_t)row * 3] = M;
+      st[(size_t)row * 3 + 1] = 1.f / L;
+    }
+  }
+}
+
+// -------------------------------------------------------------- vb_n --
+// vbn[(g N + n) kW + c] = T(vb[n][c] (1/lc[n])) with kstats, vb[n][c]
+// without (SINGLE); columns >= e zero.  One thread per 8 columns.
+template <int E>
+__global__ void __launch_bounds__(256)
+eb_vbn_kernel(const bf16* __restrict__ img1, const bf16* __restrict__ img2,
+              size_t bstride, const bf16* __restrict__ pos,
+              const float* __restrict__ kstats, bf16* __restrict__ vbn, int N,
+              int C, int heads, int G) {
+  constexpr int CW = EbW<E>::kW / 8;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)G * N * CW) return;
+  const int c8 = (int)(i % CW);
+  const size_t gn = i / CW;
+  const int n = (int)(gn % N), g = (int)(gn / N);
+  const EbSlice sl(img1, img2, bstride, g, heads);
+  float x[8];
+  if (c8 < kHeadDim / 8) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+        sl.kimg + (size_t)n * 3 * C + 2 * C + sl.h * kHeadDim + c8 * 8));
+    unpack4_bf16(make_uint2(u.x, u.y), *reinterpret_cast<float(*)[4]>(x));
+    unpack4_bf16(make_uint2(u.z, u.w),
+                 *reinterpret_cast<float(*)[4]>(x + 4));
+  } else {
+    const bf16* p = pos + ((size_t)sl.b * N + n) * kEbPos;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      x[c] = c8 == kHeadDim / 8 && c < kEbPos ? __bfloat162float(p[c]) : 0.f;
+  }
+  if (kstats != nullptr) {
+    const float inv = kstats[gn * 3 + 1];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) x[c] *= inv;
+  }
+  *reinterpret_cast<uint4*>(vbn + i * 8) =
+      make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                 pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+}
+
+// ------------------------------------------------------------- moments --
+// The partial F = va^T av of 64 query rows of slice g = blockIdx.y to
+// fpart[(blockIdx.x G + g) E^2]: the key tiles are walked twice (the row
+// max, then P and P vb_n) as one sequence of 2 nk steps through a 2-stage
+// cp.async ring of k (and, in the second walk, vb_n and mc) tiles.  Three
+// blocks an SM.
+template <int E>
+constexpr size_t moments_smem_bytes() {
+  return (3 * kATileElems + 3 * EbW<E>::kTileElems) * sizeof(bf16) +
+         2 * kAT * sizeof(float);
+}
+
+template <int E, bool SINGLE, bool CROSS>
+__global__ void __launch_bounds__(kAThreads, 3)
+eb_moments_kernel(const bf16* __restrict__ img1,
+                  const bf16* __restrict__ img2, size_t bstride,
+                  const bf16* __restrict__ pos,
+                  const float* __restrict__ kstats,
+                  const bf16* __restrict__ vbn, float* __restrict__ fpart,
+                  int N, int C, int heads, float scale) {
+  using W = EbW<E>;
+  extern __shared__ __align__(128) bf16 sm[];
+  // stage st of the rings at K(st), V(st) (offsets, not arrays of
+  // pointers: those were indexed from the stack)
+  bf16* Qs = sm;
+  const auto K = [&](int st) { return sm + (1 + st) * kATileElems; };
+  const auto V = [&](int st) {
+    return sm + 3 * kATileElems + st * W::kTileElems;
+  };
+  bf16* VAs = sm + 3 * kATileElems + 2 * W::kTileElems;
+  float* MCs = reinterpret_cast<float*>(VAs + W::kTileElems);  // [2][64]
+  bf16* AVs = K(0);  // av, after the walks, over the k ring
+  static_assert(2 * kATileElems >= W::kTileElems, "av fits the k ring");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kAT, g = blockIdx.y;
+  const EbSlice sl(img1, img2, bstride, g, heads);
+  const size_t C3 = 3 * (size_t)C;
+  const bf16* qb = sl.qimg + sl.h * kHeadDim;
+  const bf16* kb = sl.kimg + C + sl.h * kHeadDim;
+  const bf16* vab = (CROSS ? sl.qimg : sl.kimg) + 2 * C + sl.h * kHeadDim;
+  const bf16* posb = pos == nullptr ? nullptr : pos + (size_t)sl.b * N * kEbPos;
+  const bf16* vnb = vbn + (size_t)g * N * W::kW;
+  const float* ks = kstats + (size_t)g * N * 3;
+  const int nk = (N + kAT - 1) / kAT;
+
+  load_tile(Qs, qb, C3, q0, N);
+  load_tile(K(0), kb, C3, 0, N);
+  load_vrows<E>(VAs, vab, C3, posb, q0, N);
+  cp_async_commit();
+  unsigned qf[4][4];
+  float mx[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[W::kNT][4] = {};
+  float s[8][4];
+  for (int t = 0; t < 2 * nk; ++t) {
+    __syncthreads();  // the stage loaded below was read at step t - 1
+    const int tn = t + 1;
+    if (tn < 2 * nk) {
+      const int kn = (tn % nk) * kAT, st = tn & 1;
+      load_tile(K(st), kb, C3, kn, N);
+      if (tn >= nk) {
+        load_rows<W::kW, W::kLd>(V(st), vnb, W::kW, kn, N);
+        if (!SINGLE && tid < kAT)
+          cp_async4(MCs + st * kAT + tid,
+                    ks + (size_t)(kn + tid < N ? kn + tid : 0) * 3,
+                    kn + tid < N);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) load_afrag(qf, Qs);
+    const int k0 = (t % nk) * kAT;
+    mma_abt(s, qf, K(t & 1));
+    if (t < nk) {
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + acc_col(ni, e) < N)
+            mx[e >> 1] = fmaxf(mx[e >> 1], __fmul_rn(s[ni][e], scale));
+      if (t == nk - 1) {
+        mx[0] = quad_max(mx[0]);
+        mx[1] = quad_max(mx[1]);
+      }
+      continue;
+    }
+    const float* mc = MCs + (t & 1) * kAT;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = acc_col(ni, e);
+        const float sv = __fmul_rn(s[ni][e], scale);
+        float p = 0.f;
+        if (k0 + j < N) {
+          const float er = exp2f(sv - mx[e >> 1]);
+          l[e >> 1] += er;
+          p = SINGLE ? er : er * exp2f(sv - mc[j]);
+        }
+        s[ni][e] = p;
+      }
+    unsigned pf[4][4];
+    to_afrag(pf, s);  // P = T(er ec)
+    mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the k ring: av goes there
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float inv = 1.f / quad_sum(l[half]);
+    const int r = warp * 16 + (lane >> 2) + half * 8;
+    const bool ok = q0 + r < N;
+#pragma unroll
+    for (int ni = 0; ni < W::kNT; ++ni)
+      *reinterpret_cast<__nv_bfloat162*>(AVs + r * W::kLd + acc_col(ni, 0)) =
+          __floats2bfloat162_rn(ok ? o[ni][2 * half] * inv : 0.f,
+                                ok ? o[ni][2 * half + 1] * inv : 0.f);
+  }
+  __syncthreads();
+  // F[e1][e2] = sum_i va[i][e1] av[i][e2]: va read along its rows (the
+  // M-major A operand), m16 tiles of e1 shared out over the warps
+  float* fp = fpart + ((size_t)blockIdx.x * gridDim.y + g) * E * E;
+  for (int mt = warp; mt < W::kKS; mt += kAThreads / 32) {
+    unsigned af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldsm_x4_t(af[kk], VAs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                  W::kLd +
+                            mt * 16 + ((lane >> 3) & 1) * 8);
+    float f[W::kNT][4] = {};
+    mma_ab_acc<W::kNT, 4, W::kLd>(f, af, AVs);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int e1 = mt * 16 + (lane >> 2) + half * 8;
+      if (e1 >= E) continue;
+#pragma unroll
+      for (int ni = 0; ni < W::kNT; ++ni) {
+        const int e2 = acc_col(ni, 0);
+        if (e2 < E)
+          *reinterpret_cast<float2*>(fp + e1 * E + e2) =
+              make_float2(f[ni][2 * half], f[ni][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------- workspace --
+// Scratch of the forward, in this order, each piece 256-byte aligned:
+// (mc, 1/lc, -) per key (G N x 3 fp32), vb_n (G N kW bf16), the F partials
+// (ceil(N / 64) G E^2 fp32).
+static inline size_t eb_align(size_t x) { return (x + 255) & ~(size_t)255; }
+
+struct EbFwdWs {
+  float* kstats;
+  bf16* vbn;
+  float* fpart;
+  size_t bytes;
+  EbFwdWs(void* base, int G, int N, int E) {
+    const int kW = E == kHeadDim ? kHeadDim : 80;
+    const int nt = (N + kAT - 1) / kAT;
+    const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+    size_t o = 0;
+    kstats = reinterpret_cast<float*>(p + o);
+    o += eb_align(sizeof(float) * (size_t)G * N * 3);
+    vbn = reinterpret_cast<bf16*>(p + o);
+    o += eb_align(sizeof(bf16) * (size_t)G * N * kW);
+    fpart = reinterpret_cast<float*>(p + o);
+    o += eb_align(sizeof(float) * (size_t)nt * G * E * E);
+    bytes = o;
+  }
+};
+
+// Host-side arguments: qkv rows of image i of pair b at img_i + b bstride.
+struct EbTcArgs {
+  const bf16* img1;
+  const bf16* img2;
+  size_t bstride;
+  const bf16* pos;  // (B, N, 6), or NULL with e = 64
+  float* F;         // (B, 2, heads, e, e)
+  void* ws;         // EbFwdWs bytes
+  int B, N, C, heads;
+};
+
+constexpr float kEbScale = 0.125f * 1.4426950408889634f;  // d^-1/2 log2(e)
+
+// G = 2 B heads slices: at most 65,535 (the grid's second dimension)
+template <int E, bool SINGLE, bool CROSS>
+cudaError_t launch_moments_tc(const EbTcArgs& a, cudaStream_t st) {
+  const int G = 2 * a.B * a.heads, N = a.N;
+  if (G > 65535 || N <= 0) return cudaErrorInvalidValue;
+  const EbFwdWs ws(a.ws, G, N, E);
+  const int nt = (N + kAT - 1) / kAT;
+  const dim3 grid(nt, G);
+  if constexpr (!SINGLE) {
+    eb_stats_kernel<true><<<grid, kAThreads, 0, st>>>(
+        a.img1, a.img2, a.bstride, ws.kstats, N, a.C, a.heads, kEbScale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const size_t chunks = (size_t)G * N * (EbW<E>::kW / 8);
+  eb_vbn_kernel<E><<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
+      a.img1, a.img2, a.bstride, a.pos, SINGLE ? nullptr : ws.kstats, ws.vbn,
+      N, a.C, a.heads, G);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = moments_smem_bytes<E>();
+  err = cudaFuncSetAttribute(eb_moments_kernel<E, SINGLE, CROSS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  eb_moments_kernel<E, SINGLE, CROSS><<<grid, kAThreads, smem, st>>>(
+      a.img1, a.img2, a.bstride, a.pos, ws.kstats, ws.vbn, ws.fpart, N, a.C,
+      a.heads, kEbScale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t L = (size_t)G * E * E;
+  return launch_sum_partials(ws.fpart, nt, L, L, a.F, st);
+}
+
+// X(E, SINGLE, CROSS) for the 4 bf16 variants of one e
+#define RP_EB_TC_VARIANTS(X, E) \
+  X(E, false, false) X(E, false, true) X(E, true, false) X(E, true, true)
+
+#define RP_EB_TC_EXTERN(E, S, X) \
+  extern template cudaError_t launch_moments_tc<E, S, X>(const EbTcArgs&, \
+                                                          cudaStream_t);
+#define RP_EB_TC_INSTANTIATE(E, S, X) \
+  template cudaError_t launch_moments_tc<E, S, X>(const EbTcArgs&,        \
+                                                   cudaStream_t);
+
+}  // namespace tc
+}  // namespace rp

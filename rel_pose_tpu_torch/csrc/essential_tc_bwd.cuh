@@ -1,0 +1,466 @@
+// The backward of the Essential Matrix Module's moments on the tensor
+// cores, bf16: replaces rel_pose_tpu/ops/pallas_essential_block_bwd.py:
+// _essential_block_bwd_kernel (#6) for bf16; fp32 keeps the SIMT
+// essential_block_bwd_kernel of essential_block_bwd.cuh, bit for bit.
+//
+// Per slice (essential_tc.cuh's notation; the Pallas kernel's rounding
+// points, :68-111, sums in another order):
+//   R = er / lr, Cm = ec / lc (the normalized row and column softmaxes),
+//   A = R Cm (SINGLE: R), Ab = T(A);
+//   vbdft = T(vb T(dF)^T), vadf = T(va T(dF));  dA = vadf vb^T (fp32);
+//   dva = Ab vbdft, dvb = Ab^T vadf;
+//   rho_i = sum_j dA Cm R, gamma_j = sum_i dA R Cm;
+//   ds = R (dA Cm - rho) + Cm (dA R - gamma)  (SINGLE: R (dA - rho));
+//   dsb = T(ds d^-1/2), dq = dsb k, dk = dsb^T q.
+// rho needs every key of its row, gamma every query of its column and ds
+// both, so the work runs as passes over 64 x 64 tiles of s, each pass one
+// launch (launch_essential_bwd_tc), one block of 4 warps per (64-row tile,
+// slice) walking the other side's tiles:
+//   a. eb_stats_kernel (essential_tc.cuh) for the queries (mr, 1/lr) and,
+//      with the dual softmax, for the keys (mc, 1/lc);
+//   b. eb_bwd_prologue_kernel: vb packed into kW-wide rows, vbdft and vadf
+//      (bf16 scratch, the same rows);
+//   c. eb_bwd_pass_kernel<rows = keys, REDUCE> (dual only): gamma;
+//   d. <rows = queries, REDUCE>: rho;
+//   e. <rows = queries, GRAD>: ds and A again; dq += dsb k, dva += Ab vbdft;
+//   f. <rows = keys, GRAD>: ds^T and A^T on the transposed products
+//      s^T = k q^T, dA^T = vb vadf^T; dk += dsb^T q, dvb += Ab^T vadf.
+// The passes are one template: with rows = keys the roles of (R, rho) and
+// (Cm, gamma) swap, and the formulas above are symmetric under that swap.
+// Every product is mma.sync m16n8k16 with ldmatrix (.trans where a product
+// reads a tile along its rows); the walked tiles stream through a 2-stage
+// cp.async ring.  rho and gamma are not replaced by an algebraic shortcut
+// (rho_i = vadf_i (A vb)_i), which would move a rounding point.
+//
+// The outputs keep essential_block_bwd.cuh's scatter: dq and dk go to the
+// q and k slots of dqkv, each written by one (direction, head); pass e
+// writes dva in fp32 to scratch, and pass f adds it to dvb (dv = T(dvb +
+// dva)) unless CROSS, where T(dva) goes to the (B, 2, N, C) dva buffer of
+// the query image (the wrapper adds it to dqkv in bf16) and only its
+// positional columns are added; the positional columns go to the per-slice
+// fp32 partials dpos_part (B, 2, heads, N, 6).  No atomics, sums in a
+// fixed order: two calls give the same bits.
+//
+// What bounds it on the H100: the products, executed 2 score products in
+// the statistics (one with SINGLE) and 4 score + 4 dA products in the
+// passes (3 + 3), plus dq, dk, dva, dvb: about 11 N^2 64 multiply-adds a
+// slice against the function's 5, at mma.sync's rate; and 10 exp2 a score
+// (4 with SINGLE).
+
+#pragma once
+
+#include "essential_tc.cuh"
+
+namespace rp {
+namespace tc {
+
+// ----------------------------------------------------------- prologue --
+// For 64 rows of slice g: vb packed to VB, vbdft = T(vb T(dF)^T) and
+// vadf = T(va T(dF)), rows of kW bf16 (columns >= e zero).  T(dF) sits in
+// shared memory as [e][f], zero-padded to kW x kW.
+template <int E>
+constexpr size_t prologue_smem_bytes() {
+  return 3 * EbW<E>::kTileElems * sizeof(bf16) +
+         EbW<E>::kW * EbW<E>::kLd * sizeof(bf16);
+}
+
+template <int E, bool CROSS>
+__global__ void __launch_bounds__(kAThreads)
+eb_bwd_prologue_kernel(const bf16* __restrict__ img1,
+                       const bf16* __restrict__ img2, size_t bstride,
+                       const bf16* __restrict__ pos,
+                       const float* __restrict__ dF, bf16* __restrict__ VB,
+                       bf16* __restrict__ VBDFT, bf16* __restrict__ VADF,
+                       int N, int C, int heads) {
+  using W = EbW<E>;
+  extern __shared__ __align__(128) bf16 sm[];
+  bf16* VBs = sm;
+  bf16* VAs = CROSS ? sm + W::kTileElems : VBs;
+  bf16* Os = sm + 2 * W::kTileElems;  // an output tile, staged
+  bf16* DF = sm + 3 * W::kTileElems;  // [kW][kLd]: T(dF)[e][f]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * kAT, g = blockIdx.y;
+  const EbSlice sl(img1, img2, bstride, g, heads);
+  const size_t C3 = 3 * (size_t)C;
+  const bf16* posb = pos == nullptr ? nullptr : pos + (size_t)sl.b * N * kEbPos;
+  load_vrows<E>(VBs, sl.kimg + 2 * C + sl.h * kHeadDim, C3, posb, r0, N);
+  if (CROSS)
+    load_vrows<E>(VAs, sl.qimg + 2 * C + sl.h * kHeadDim, C3, posb, r0, N);
+  cp_async_commit();
+  const float* df = dF + (size_t)g * E * E;
+  for (int i = tid; i < W::kW * W::kW; i += kAThreads) {
+    const int e = i / W::kW, f = i % W::kW;
+    DF[e * W::kLd + f] = __float2bfloat16(e < E && f < E ? df[e * E + f] : 0.f);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // one kW-wide output tile from the staging tile Os to rows r0.. of out
+  constexpr int CPR = W::kW / 8;
+  const size_t obase = ((size_t)g * N + r0) * W::kW;
+  auto store = [&](bf16* out) {
+    __syncthreads();
+    for (int c = tid; c < kAT * CPR; c += kAThreads) {
+      const int r = c / CPR, cc = (c % CPR) * 8;
+      if (r0 + r < N)
+        *reinterpret_cast<uint4*>(out + obase + (size_t)r * W::kW + cc) =
+            *reinterpret_cast<const uint4*>(Os + r * W::kLd + cc);
+    }
+    __syncthreads();
+  };
+  // an accumulator tile rounded into Os, the columns past 8 kNT zero
+  auto stage = [&](const float (&c)[W::kNT][4]) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + (lane >> 2) + half * 8;
+#pragma unroll
+      for (int ni = 0; ni < W::kNT; ++ni)
+        *reinterpret_cast<__nv_bfloat162*>(Os + r * W::kLd + acc_col(ni, 0)) =
+            __floats2bfloat162_rn(c[ni][2 * half], c[ni][2 * half + 1]);
+      for (int col = W::kNT * 8 + 2 * (lane & 3); col < W::kW; col += 8)
+        *reinterpret_cast<__nv_bfloat162*>(Os + r * W::kLd + col) =
+            __floats2bfloat162_rn(0.f, 0.f);
+    }
+  };
+
+  // vb itself, packed
+  for (int c = tid; c < kAT * CPR; c += kAThreads) {
+    const int r = c / CPR, cc = (c % CPR) * 8;
+    if (r0 + r < N)
+      *reinterpret_cast<uint4*>(VB + obase + (size_t)r * W::kW + cc) =
+          *reinterpret_cast<const uint4*>(VBs + r * W::kLd + cc);
+  }
+  unsigned af[W::kKS][4];
+  {
+    // vbdft[n][e] = sum_f vb[n][f] T(dF)[e][f]: DF's rows are the columns
+    float c[W::kNT][4] = {};
+    load_afrag_k<W::kKS, W::kLd>(af, VBs);
+    mma_abt_acc<W::kNT, W::kKS, W::kLd>(c, af, DF);
+    stage(c);
+    store(VBDFT);
+  }
+  {
+    // vadf[n][f] = sum_e va[n][e] T(dF)[e][f]: DF's rows are the sum index
+    float c[W::kNT][4] = {};
+    load_afrag_k<W::kKS, W::kLd>(af, VAs);
+    mma_ab_acc<W::kNT, W::kKS, W::kLd>(c, af, DF);
+    stage(c);
+    store(VADF);
+  }
+}
+
+// -------------------------------------------------------------- passes --
+// One pass over the (own 64-row tile, walked tile) pairs of slice g.  Own
+// rows are queries with kRows (X = q, Y = vadf; walked X = k, Y = vb, Z =
+// vbdft), keys without (X = k, Y = vb; walked X = q, Y = Z = vadf); the
+// statistics of a side are (m, 1/l, reduction) per row, at
+// [(g N + row) * 3].  Per tile: s = X Xw^T (scaled), d = Y Yw^T (dA or
+// dA^T), then REDUCE sums rho (queries) or gamma (keys) into the own side's
+// slot 2; GRAD forms T(ds d^-1/2) and T(A) and accumulates out1 += . Xw,
+// out2 += . Zw, and writes them (see the file's head).
+template <int E, bool kRows, bool kGrad>
+constexpr size_t pass_smem_bytes() {
+  constexpr int kZ = kRows && kGrad;  // a walked Z tile of its own
+  return (kATileElems + EbW<E>::kTileElems +
+          2 * (kATileElems + (1 + kZ) * EbW<E>::kTileElems)) *
+             sizeof(bf16) +
+         2 * 3 * kAT * sizeof(float);
+}
+
+template <int E, bool kRows, bool kGrad, bool SINGLE, bool CROSS>
+__global__ void __launch_bounds__(kAThreads, 2)
+eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
+                   float* __restrict__ qstats, float* __restrict__ kstats,
+                   const bf16* __restrict__ VB,
+                   const bf16* __restrict__ VBDFT,
+                   const bf16* __restrict__ VADF, float* __restrict__ DVA,
+                   bf16* __restrict__ dqkv, bf16* __restrict__ dva_out,
+                   float* __restrict__ dpos_part, int N, int C, int heads,
+                   float scale) {
+  using W = EbW<E>;
+  constexpr bool kZ = kRows && kGrad;
+  // with SINGLE only the query side has statistics
+  constexpr bool kOwnStats = !SINGLE || kRows;
+  constexpr bool kWalkStats = !SINGLE || !kRows;
+  extern __shared__ __align__(128) bf16 sm[];
+  // stage st of the walked ring: X, Y (and Z) tiles at WX(st) .. (offsets,
+  // not arrays of pointers: those were indexed from the stack)
+  constexpr int kStage = kATileElems + (1 + kZ) * W::kTileElems;
+  bf16* OXs = sm;
+  bf16* OYs = sm + kATileElems;
+  const auto WX = [&](int st) {
+    return OYs + W::kTileElems + st * kStage;
+  };
+  const auto WY = [&](int st) { return WX(st) + kATileElems; };
+  const auto WZ = [&](int st) { return WY(st) + kZ * W::kTileElems; };
+  float* WSs = reinterpret_cast<float*>(OYs + W::kTileElems + 2 * kStage);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * kAT, g = blockIdx.y;
+  const size_t C3 = 3 * (size_t)C, img = (size_t)N * C3;
+  const EbSlice sl(qkv, qkv + img, 2 * img, g, heads);
+  const bf16* qb = sl.qimg + sl.h * kHeadDim;
+  const bf16* kb = sl.kimg + C + sl.h * kHeadDim;
+  const size_t gN = (size_t)g * N;
+  const bf16* ownX = kRows ? qb : kb;
+  const bf16* walkX = kRows ? kb : qb;
+  const bf16* ownY = (kRows ? VADF : VB) + gN * W::kW;
+  const bf16* walkY = (kRows ? VB : VADF) + gN * W::kW;
+  const bf16* walkZ = VBDFT + gN * W::kW;
+  float* ost = (kRows ? qstats : kstats) + gN * 3;
+  const float* wst = (kRows ? kstats : qstats) + gN * 3;
+  const int nt = (N + kAT - 1) / kAT;
+
+  auto prefetch = [&](int w0, int st) {
+    load_tile(WX(st), walkX, C3, w0, N);
+    load_rows<W::kW, W::kLd>(WY(st), walkY, W::kW, w0, N);
+    if (kZ) load_rows<W::kW, W::kLd>(WZ(st), walkZ, W::kW, w0, N);
+    if (kWalkStats) {
+      const int valid = 3 * min(kAT, N - w0);
+      for (int i = tid; i < 3 * kAT; i += kAThreads)
+        cp_async4(WSs + st * 3 * kAT + i, wst + (size_t)w0 * 3 +
+                                              (i < valid ? i : 0),
+                  i < valid);
+    }
+  };
+  load_tile(OXs, ownX, C3, r0, N);
+  load_rows<W::kW, W::kLd>(OYs, ownY, W::kW, r0, N);
+  prefetch(0, 0);
+  cp_async_commit();
+
+  // the own rows' statistics (benign values past N)
+  float om[2] = {0.f, 0.f}, ol[2] = {1.f, 1.f}, ored[2] = {0.f, 0.f};
+  if (kOwnStats) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
+      if (row < N) {
+        om[half] = ost[(size_t)row * 3];
+        ol[half] = ost[(size_t)row * 3 + 1];
+        if (kGrad) ored[half] = ost[(size_t)row * 3 + 2];
+      }
+    }
+  }
+
+  unsigned xf[4][4];
+  float s[8][4], d[8][4];
+  float red[2] = {0.f, 0.f};
+  float out1[8][4] = {}, out2[W::kNT][4] = {};
+  for (int t = 0; t < nt; ++t) {
+    __syncthreads();  // the stage loaded below was read at step t - 1
+    if (t + 1 < nt) prefetch((t + 1) * kAT, (t + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) load_afrag(xf, OXs);
+    const int w0 = t * kAT, st = t & 1;
+    const float* ws = WSs + st * 3 * kAT;
+    mma_abt(s, xf, WX(st));
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[ni][e] = 0.f;
+    {
+      // reloaded each step: kept live, they pushed the gradient passes
+      // past 255 registers
+      unsigned yf[W::kKS][4];
+      load_afrag_k<W::kKS, W::kLd>(yf, OYs);
+      mma_abt_acc<8, W::kKS, W::kLd>(d, yf, WY(st));
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = acc_col(ni, e), r = e >> 1;
+        const float sv = __fmul_rn(s[ni][e], scale);
+        const float dA = d[ni][e];
+        float ds = 0.f, A = 0.f;
+        if (w0 + j < N) {
+          // own-side and walked-side normalized exps
+          const float Po = kOwnStats ? exp2f(sv - om[r]) * ol[r] : 0.f;
+          const float Pw =
+              kWalkStats ? exp2f(sv - ws[3 * j]) * ws[3 * j + 1] : 0.f;
+          const float R = kRows ? Po : Pw;
+          const float Cm = kRows ? Pw : Po;
+          if (!kGrad) {
+            if (SINGLE)
+              red[r] += dA * R;
+            else
+              red[r] += kRows ? (dA * Cm) * R : (dA * R) * Cm;
+          } else {
+            const float wred = kWalkStats ? ws[3 * j + 2] : 0.f;
+            const float rho = kRows ? ored[r] : wred;
+            if (SINGLE) {
+              ds = R * (dA - rho);
+              A = R;
+            } else {
+              const float gam = kRows ? wred : ored[r];
+              ds = R * (dA * Cm - rho) + Cm * (dA * R - gam);
+              A = R * Cm;
+            }
+          }
+        }
+        s[ni][e] = ds * 0.125f;  // d^-1/2
+        d[ni][e] = A;
+      }
+    if constexpr (kGrad) {
+      unsigned dsf[4][4], abf[4][4];
+      to_afrag(dsf, s);  // T(ds d^-1/2)
+      to_afrag(abf, d);  // T(A)
+      mma_ab(out1, dsf, WX(st));
+      mma_ab_acc<W::kNT, 4, W::kLd>(out2, abf, WZ(st));
+    }
+  }
+
+  if constexpr (!kGrad) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float t = quad_sum(red[half]);
+      const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
+      if (row < N && (lane & 3) == 0) ost[(size_t)row * 3 + 2] = t;
+    }
+    return;
+  }
+  // own rows' outputs; the image of the own rows in dqkv
+  bf16* out = dqkv + ((kRows ? sl.qimg : sl.kimg) - qkv);
+  float* dva = DVA + gN * E;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
+    if (row >= N) continue;
+    bf16* o1 = out + (size_t)row * C3 + (kRows ? 0 : C) + sl.h * kHeadDim;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + acc_col(ni, 0)) =
+          __floats2bfloat162_rn(out1[ni][2 * half], out1[ni][2 * half + 1]);
+#pragma unroll
+    for (int ni = 0; ni < W::kNT; ++ni) {
+      const int col = acc_col(ni, 0);
+      if (col >= E) continue;
+      float2 v = make_float2(out2[ni][2 * half], out2[ni][2 * half + 1]);
+      float* dvrow = dva + (size_t)row * E + col;
+      if (kRows) {  // dva
+        *reinterpret_cast<float2*>(dvrow) = v;
+        if (CROSS && col < kHeadDim)
+          *reinterpret_cast<__nv_bfloat162*>(
+              dva_out + ((sl.qimg - qkv) / C3 + row) * C +
+              sl.h * kHeadDim + col) = __floats2bfloat162_rn(v.x, v.y);
+        continue;
+      }
+      // dvb (+ dva, summed in fp32)
+      if (!CROSS || col >= kHeadDim) {
+        const float2 a = *reinterpret_cast<const float2*>(dvrow);
+        v.x += a.x;
+        v.y += a.y;
+      }
+      if (col < kHeadDim)
+        *reinterpret_cast<__nv_bfloat162*>(o1 + C + col) =
+            __floats2bfloat162_rn(v.x, v.y);
+      else
+        *reinterpret_cast<float2*>(dpos_part + (gN + row) * kEbPos + col -
+                                   kHeadDim) = v;
+    }
+  }
+}
+
+// ---------------------------------------------------------- workspace --
+// Scratch of the backward, in this order, each piece 256-byte aligned:
+// the query and key statistics (G N x 3 fp32 each), VB, VBDFT, VADF (G N kW
+// bf16 each), dva (G N e fp32).
+struct EbBwdWs {
+  float* qstats;
+  float* kstats;
+  bf16* vb;
+  bf16* vbdft;
+  bf16* vadf;
+  float* dva;
+  size_t bytes;
+  EbBwdWs(void* base, int G, int N, int E) {
+    const int kW = E == kHeadDim ? kHeadDim : 80;
+    const size_t st = eb_align(sizeof(float) * (size_t)G * N * 3);
+    const size_t rows = eb_align(sizeof(bf16) * (size_t)G * N * kW);
+    const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+    qstats = reinterpret_cast<float*>(p);
+    kstats = reinterpret_cast<float*>(p + st);
+    vb = reinterpret_cast<bf16*>(p + 2 * st);
+    vbdft = reinterpret_cast<bf16*>(p + 2 * st + rows);
+    vadf = reinterpret_cast<bf16*>(p + 2 * st + 2 * rows);
+    dva = reinterpret_cast<float*>(p + 2 * st + 3 * rows);
+    bytes = 2 * st + 3 * rows + eb_align(sizeof(float) * (size_t)G * N * E);
+  }
+};
+
+struct EbbTcArgs {
+  const bf16* qkv;    // (B, 2, N, 3C)
+  const bf16* pos;    // (B, N, 6), or NULL with e = 64
+  const float* dF;    // (B, 2, heads, e, e)
+  bf16* dqkv;         // (B, 2, N, 3C)
+  bf16* dva;          // (B, 2, N, C) with CROSS, else NULL
+  float* dpos_part;   // (B, 2, heads, N, 6), or NULL with e = 64
+  void* ws;           // EbBwdWs bytes
+  int B, N, C, heads;
+};
+
+template <int E, bool kRows, bool kGrad, bool SINGLE, bool CROSS>
+static cudaError_t launch_bwd_pass(const EbbTcArgs& a, const EbBwdWs& ws,
+                                   dim3 grid, cudaStream_t st) {
+  constexpr size_t smem = pass_smem_bytes<E, kRows, kGrad>();
+  auto kernel = eb_bwd_pass_kernel<E, kRows, kGrad, SINGLE, CROSS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kAThreads, smem, st>>>(
+      a.qkv, ws.qstats, ws.kstats, ws.vb, ws.vbdft, ws.vadf, ws.dva, a.dqkv,
+      a.dva, a.dpos_part, a.N, a.C, a.heads, kEbScale);
+  return cudaGetLastError();
+}
+
+// G = 2 B heads slices: at most 65,535 (the grid's second dimension)
+template <int E, bool SINGLE, bool CROSS>
+cudaError_t launch_essential_bwd_tc(const EbbTcArgs& a, cudaStream_t st) {
+  const int G = 2 * a.B * a.heads, N = a.N;
+  if (G > 65535 || N <= 0) return cudaErrorInvalidValue;
+  const EbBwdWs ws(a.ws, G, N, E);
+  const size_t img = (size_t)N * 3 * a.C;
+  const dim3 grid((N + kAT - 1) / kAT, G);
+  cudaError_t err;
+  eb_stats_kernel<false><<<grid, kAThreads, 0, st>>>(
+      a.qkv, a.qkv + img, 2 * img, ws.qstats, N, a.C, a.heads, kEbScale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if constexpr (!SINGLE) {
+    eb_stats_kernel<true><<<grid, kAThreads, 0, st>>>(
+        a.qkv, a.qkv + img, 2 * img, ws.kstats, N, a.C, a.heads, kEbScale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  constexpr size_t psmem = prologue_smem_bytes<E>();
+  err = cudaFuncSetAttribute(eb_bwd_prologue_kernel<E, CROSS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)psmem);
+  if (err != cudaSuccess) return err;
+  eb_bwd_prologue_kernel<E, CROSS><<<grid, kAThreads, psmem, st>>>(
+      a.qkv, a.qkv + img, 2 * img, a.pos, a.dF, ws.vb, ws.vbdft, ws.vadf, N,
+      a.C, a.heads);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if constexpr (!SINGLE) {  // gamma
+    err = launch_bwd_pass<E, false, false, SINGLE, CROSS>(a, ws, grid, st);
+    if (err != cudaSuccess) return err;
+  }
+  if ((err = launch_bwd_pass<E, true, false, SINGLE, CROSS>(a, ws, grid,
+                                                            st)) !=
+      cudaSuccess)
+    return err;
+  if ((err = launch_bwd_pass<E, true, true, SINGLE, CROSS>(a, ws, grid,
+                                                           st)) !=
+      cudaSuccess)
+    return err;
+  return launch_bwd_pass<E, false, true, SINGLE, CROSS>(a, ws, grid, st);
+}
+
+#define RP_EBB_TC_EXTERN(E, S, X) \
+  extern template cudaError_t launch_essential_bwd_tc<E, S, X>(          \
+      const EbbTcArgs&, cudaStream_t);
+#define RP_EBB_TC_INSTANTIATE(E, S, X) \
+  template cudaError_t launch_essential_bwd_tc<E, S, X>(const EbbTcArgs&, \
+                                                         cudaStream_t);
+
+}  // namespace tc
+}  // namespace rp

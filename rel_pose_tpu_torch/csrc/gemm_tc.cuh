@@ -4,7 +4,10 @@
 // Replaces, for bf16 only, the SIMT gemm_kernel / gemm_dx_kernel /
 // gemm_dw_kernel of common.cuh inside rel_pose_tpu/ops/pallas_vit.py:
 // _vit_stack_kernel (qkv, proj, fc1, fc2) and pallas_vit_bwd.py:
-// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears).
+// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears), and
+// the forward GEMM inside pallas_essential_block.py's
+// _essential_block_pair_kernel and _essential_block_x_kernel (the qkv
+// Linear, essential_block.cu).
 // The fp32 path keeps common.cuh's SIMT kernels, bit for bit: the tensor
 // cores have no fp32 product, and TF32 would change the results.
 //
@@ -313,8 +316,9 @@ __device__ __forceinline__ void unpack4_bf16(uint2 u, float (&v)[4]) {
 
 // ------------------------------------------------------- forward GEMM --
 // out[M, Nout] = epilogue(A[M, K] . W[Nout, K]^T) in bf16, common.cuh's
-// Epilogue values (kBias, kBiasGelu, kBiasResid, kBiasGeluSplit); resid
-// may alias out (each element is read, then written, by one thread).
+// Epilogue values (kBias, kBiasGelu, kBiasResid, kRounded -- the essential
+// block's qkv Linear -- and kBiasGeluSplit); resid may alias out (each
+// element is read, then written, by one thread).
 using FwdTile = Tile<128, 64, 2, 2, true, true>;
 
 template <int EPI, class Cfg = FwdTile>
@@ -348,6 +352,8 @@ gemm_fwd_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         v[j] = gelu_policy<bf16>(round_to<bf16>(a[j] + b[j]));
       } else if (EPI == kBiasResid) {
         v[j] = rs[j] + (a[j] + b[j]);
+      } else if (EPI == kRounded) {
+        v[j] = round_to<bf16>(a[j]) + round_to<bf16>(b[j]);
       } else {  // kBiasGeluSplit
         v[j] = gelu_policy<bf16>(a[j] + b[j]);
       }
@@ -370,7 +376,6 @@ static cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W,
                                    const float* bias, const bf16* resid,
                                    bf16* out, int M, int Nout, int K,
                                    cudaStream_t stream, float* aux) {
-  static_assert(EPI != kRounded, "kRounded stays on common.cuh");
   const int mt = (M + Cfg::BM - 1) / Cfg::BM;
   if (Nout % Cfg::BN || K % Cfg::BK || mt > 65535)
     return cudaErrorInvalidValue;

@@ -47,16 +47,19 @@ SIGNATURES = {
     # The essential block's entry points take the flags has_pos, single,
     # cross after the sizes; pos (and the positional outputs) NULL without
     # positions.
-    # xpair, ln scale, ln bias, w, b, pos, F, 2 scratch buffers;
+    # B, N, heads, has_pos, bf16 -> workspace bytes of the three forward
+    # entry points below (0 for fp32)
+    "rp_essential_block_workspace": ([I] * 5, L),
+    # xpair, ln scale, ln bias, w, b, pos, F, 2 scratch buffers, workspace;
     # B, N, C, heads, 3 flags, bf16; stream
-    "rp_essential_block_pair": ([P] * 9 + [I] * 8 + [P], ctypes.c_int),
-    # x1, x2, w, b, pos, F, qkv scratch; B, N, C, heads, 3 flags, bf16;
-    # stream
-    "rp_essential_block_x": ([P] * 7 + [I] * 8 + [P], ctypes.c_int),
-    # qkv1, qkv2, pos, F; B, N, C, heads, 3 flags, bf16; stream
-    "rp_essential_block": ([P] * 4 + [I] * 8 + [P], ctypes.c_int),
-    # B, N, heads, has_pos -> workspace bytes of rp_essential_block_bwd
-    "rp_essential_block_bwd_workspace": ([I] * 4, L),
+    "rp_essential_block_pair": ([P] * 10 + [I] * 8 + [P], ctypes.c_int),
+    # x1, x2, w, b, pos, F, qkv scratch, workspace; B, N, C, heads, 3 flags,
+    # bf16; stream
+    "rp_essential_block_x": ([P] * 8 + [I] * 8 + [P], ctypes.c_int),
+    # qkv1, qkv2, pos, F, workspace; B, N, C, heads, 3 flags, bf16; stream
+    "rp_essential_block": ([P] * 5 + [I] * 8 + [P], ctypes.c_int),
+    # B, N, heads, has_pos, bf16 -> workspace bytes of rp_essential_block_bwd
+    "rp_essential_block_bwd_workspace": ([I] * 5, L),
     # qkv, pos, dF, dqkv, dva (cross), dpos partials, workspace; B, N, C,
     # heads, 3 flags, bf16; stream
     "rp_essential_block_bwd": ([P] * 7 + [I] * 8 + [P], ctypes.c_int),

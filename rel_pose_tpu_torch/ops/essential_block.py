@@ -22,7 +22,12 @@ Each takes ``positional`` (``(B, N, 6)`` or None) and the flags
 tensor it is its plain PyTorch version (``essential_block_pair_reference``,
 ``essential_block_x_reference``, ``essential_block_reference``); on a CUDA
 tensor it launches the hand kernels of ``csrc/essential_block.cu`` or
-raises.
+raises: bf16 the tensor-core qkv GEMM (``csrc/gemm_tc.cuh``) and moments
+(``csrc/essential_tc.cuh``), with the scratch that
+``rp_essential_block_workspace`` sizes; fp32 the SIMT kernels.  The bf16
+kernels take at most 65,535 slices (2 B heads: 10,922 pairs of the
+flagship), the fp32 ones 65,535 pairs, and the qkv GEMM 65,535 row tiles
+(128 rows bf16, 64 fp32); a larger call raises before any launch.
 
 Per direction and head: s = q k^T / sqrt(d), A = softmax_row(s) *
 softmax_col(s) in fp32 (softmax_row(s) alone with ``use_single_softmax``),
@@ -40,7 +45,8 @@ recomputes the LayerNorm and ``linear_rounded`` in PyTorch where the op has
 them, runs :func:`fused_essential_block_bwd` for dqkv and the positional
 cotangent -- the plain :func:`essential_block_bwd_reference` on CPU
 tensors, the kernel of ``csrc/essential_block_bwd.cu`` (which replaces
-``_essential_block_bwd_kernel``) on CUDA tensors -- and chains through the
+``_essential_block_bwd_kernel``; bf16 on the tensor-core passes of
+``csrc/essential_tc_bwd.cuh``) on CUDA tensors -- and chains through the
 Linear and the LayerNorm VJP in PyTorch.
 """
 
@@ -53,6 +59,8 @@ from .bilinear import fused_bilinear_attention
 
 HEAD_DIM = 64          # the kernels' head width
 POS_COLS = 6
+MAX_GRID = 65535       # a launch grid's second and third dimensions
+_KERNEL_DEVICE = "cuda"   # the device type the kernels launch on
 
 
 def linear_rounded(x, weight, bias):
@@ -131,13 +139,46 @@ def _needs_grad(*tensors):
 
 
 def _on_card(name, x):
-    """True for a CUDA tensor; False for a CPU tensor (the plain version);
-    a raise for any other device."""
+    """True for a CUDA tensor (the kernels; CPU tensors too where the
+    launchers are pointed at the CPU, as the route tests do with a stand-in
+    kernel library, ``_KERNEL_DEVICE``); False for a CPU tensor (the plain
+    version); a raise for any other device."""
+    if x.device.type == _KERNEL_DEVICE:
+        return True
     if x.device.type == "cpu":
         return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {x.device}")
-    return True
+    raise ValueError(f"{name}: no kernel for {x.device}")
+
+
+def _check_grid(name, B, num_heads, bf16, gemm_rows=0):
+    """Raise unless the launch grids take ``B`` pairs: bf16 one block row
+    per slice (2 B heads), fp32 one per pair; the qkv GEMM over
+    ``gemm_rows`` rows one per 128 (bf16) or 64 (fp32) rows."""
+    slices = 2 * B * num_heads if bf16 else B
+    tiles = -(-gemm_rows // (128 if bf16 else 64))
+    if slices > MAX_GRID or tiles > MAX_GRID:
+        raise ValueError(
+            f"{name}: {B} pairs need {slices} "
+            f"{'slices' if bf16 else 'pair blocks'} and {tiles} GEMM row "
+            f"tiles; the launch grid takes at most {MAX_GRID} of each")
+
+
+def _check_aligned(name, *tensors):
+    """The bf16 kernels load 16-byte rows (cp.async): every operand must
+    start on a 16-byte boundary."""
+    for t in tensors:
+        if (t is not None and t.dtype == torch.bfloat16
+                and t.data_ptr() % 16):
+            raise ValueError(f"{name}: a bf16 operand at {t.data_ptr():#x} "
+                             "is not 16-byte aligned")
+
+
+def _workspace(query, B, N, num_heads, positional, bf16, device):
+    """The scratch that the entry point's workspace ``query`` asks for
+    (None when it needs none)."""
+    size = query(B, N, num_heads, int(positional is not None), int(bf16))
+    return (torch.empty(size, dtype=torch.uint8, device=device) if size
+            else None)
 
 
 def _flags(positional, cross_features, use_single_softmax):
@@ -181,16 +222,22 @@ def _pair_forward(xpair, lns, lnb, w, b, positional, num_heads,
     b = b.float().contiguous()
     pos = None if positional is None else positional.to(cdt).contiguous()
     _check_inputs(xpair, (lns, lnb, w, b, pos), num_heads)
+    bf16 = cdt == torch.bfloat16
+    _check_grid("fused_essential_block_pair", B, num_heads, bf16, 2 * B * N)
+    _check_aligned("fused_essential_block_pair", xpair, w)
+    lib = _build.library()
     f = _f_out(B, num_heads, positional, xpair.device)
     y = torch.empty((2 * B * N, C), dtype=cdt, device=xpair.device)
     qkv = torch.empty((2 * B * N, 3 * C), dtype=cdt, device=xpair.device)
+    ws = _workspace(lib.rp_essential_block_workspace, B, N, num_heads,
+                    positional, bf16, xpair.device)
     stream = _build.prepare_launch(xpair.device)
-    err = _build.library().rp_essential_block_pair(
+    err = lib.rp_essential_block_pair(
         xpair.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w.data_ptr(),
         b.data_ptr(), _ptr(pos), f.data_ptr(), y.data_ptr(), qkv.data_ptr(),
-        B, N, C, num_heads,
+        _ptr(ws), B, N, C, num_heads,
         *_flags(positional, cross_features, use_single_softmax),
-        int(cdt == torch.bfloat16), stream)
+        int(bf16), stream)
     _build.check(err, "rp_essential_block_pair")
     fused_essential_block_pair.launches += 1
     return f
@@ -282,14 +329,20 @@ def _x_forward(x1, x2, w, b, positional, num_heads, cross_features,
             raise ValueError(f"fused_essential_block_x: got a "
                              f"{tuple(t.shape)} tensor on {t.device}, "
                              f"expected {shape} on {x1.device}")
+    bf16 = cdt == torch.bfloat16
+    _check_grid("fused_essential_block_x", B, num_heads, bf16, B * N)
+    _check_aligned("fused_essential_block_x", x1, x2, w)
+    lib = _build.library()
     f = _f_out(B, num_heads, positional, x1.device)
     qkv = torch.empty((2, B, N, 3 * C), dtype=cdt, device=x1.device)
+    ws = _workspace(lib.rp_essential_block_workspace, B, N, num_heads,
+                    positional, bf16, x1.device)
     stream = _build.prepare_launch(x1.device)
-    err = _build.library().rp_essential_block_x(
+    err = lib.rp_essential_block_x(
         x1.data_ptr(), x2.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(pos),
-        f.data_ptr(), qkv.data_ptr(), B, N, C, num_heads,
+        f.data_ptr(), qkv.data_ptr(), _ptr(ws), B, N, C, num_heads,
         *_flags(positional, cross_features, use_single_softmax),
-        int(cdt == torch.bfloat16), stream)
+        int(bf16), stream)
     _build.check(err, "rp_essential_block_x")
     fused_essential_block_x.launches += 1
     return f
@@ -341,13 +394,19 @@ def _block_forward(qkv1, qkv2, positional, num_heads, cross_features,
     B, N, C3 = qkv1.shape
     pos = None if positional is None else positional.to(cdt).contiguous()
     _check_pair(qkv1, qkv2, pos, C3 // 3, num_heads)
+    bf16 = cdt == torch.bfloat16
+    _check_grid("fused_essential_block", B, num_heads, bf16)
+    _check_aligned("fused_essential_block", qkv1, qkv2)
+    lib = _build.library()
     f = _f_out(B, num_heads, positional, qkv1.device)
+    ws = _workspace(lib.rp_essential_block_workspace, B, N, num_heads,
+                    positional, bf16, qkv1.device)
     stream = _build.prepare_launch(qkv1.device)
-    err = _build.library().rp_essential_block(
-        qkv1.data_ptr(), qkv2.data_ptr(), _ptr(pos), f.data_ptr(), B, N,
-        C3 // 3, num_heads,
+    err = lib.rp_essential_block(
+        qkv1.data_ptr(), qkv2.data_ptr(), _ptr(pos), f.data_ptr(), _ptr(ws),
+        B, N, C3 // 3, num_heads,
         *_flags(positional, cross_features, use_single_softmax),
-        int(cdt == torch.bfloat16), stream)
+        int(bf16), stream)
     _build.check(err, "rp_essential_block")
     fused_essential_block.launches += 1
     return f
@@ -501,6 +560,9 @@ def fused_essential_block_bwd(qkv, positional, df, num_heads,
             f"2, h, {e}, {e}); got {tuple(qkv.shape)} {qkv.dtype}, "
             f"{None if pos is None else tuple(pos.shape)}, "
             f"{tuple(df.shape)} {df.dtype}")
+    bf16 = qkv.dtype == torch.bfloat16
+    _check_grid("fused_essential_block_bwd", B, num_heads, bf16)
+    _check_aligned("fused_essential_block_bwd", qkv)
     lib = _build.library()
     dqkv = torch.empty_like(qkv)
     dpos_part = (torch.empty((B, 2, num_heads, N, POS_COLS),
@@ -508,14 +570,14 @@ def fused_essential_block_bwd(qkv, positional, df, num_heads,
                  if has_pos else None)
     dva = (torch.empty((B, 2, N, C), dtype=qkv.dtype, device=qkv.device)
            if cross_features else None)
-    ws = torch.empty(lib.rp_essential_block_bwd_workspace(
-        B, N, num_heads, int(has_pos)), dtype=torch.uint8, device=qkv.device)
+    ws = _workspace(lib.rp_essential_block_bwd_workspace, B, N, num_heads,
+                    positional, bf16, qkv.device)
     stream = _build.prepare_launch(qkv.device)
     err = lib.rp_essential_block_bwd(
         qkv.data_ptr(), _ptr(pos), df.data_ptr(), dqkv.data_ptr(),
-        _ptr(dva), _ptr(dpos_part), ws.data_ptr(), B, N, C, num_heads,
-        *_flags(positional, cross_features, use_single_softmax),
-        int(qkv.dtype == torch.bfloat16), stream)
+        _ptr(dva), _ptr(dpos_part), _ptr(ws), B, N, C, num_heads,
+        *_flags(positional, cross_features, use_single_softmax), int(bf16),
+        stream)
     _build.check(err, "rp_essential_block_bwd")
     fused_essential_block_bwd.launches += 1
     if cross_features:       # each image's v: T(T(dvb) + T(dva)), in T

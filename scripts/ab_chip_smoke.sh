@@ -21,7 +21,7 @@ for tree in "$other" . . "$other"; do
   run=$?
   echo "[ab] run $n ($name): exit $run"
   [ "$run" -eq 0 ] || rc=1
-  grep -E '^\[time\] (mhsa|noess|vit_stack |vit_stack_bwd |eval|train)' \
+  grep -E '^\[time\] (mhsa|noess|vit_stack |vit_stack_bwd |essential|eval|train)' \
     "$log" | cut -c1-160
 done
 for tree in "$other" .; do

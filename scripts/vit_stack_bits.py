@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Digests of the ViT stack kernels' outputs, and of kernel #7's in fp32,
-to compare two trees' bits.
+"""Digests of the ViT stack kernels' outputs, and of kernels #7, #2 and #6's
+in fp32, to compare two trees' bits.
 
     python3 scripts/vit_stack_bits.py [--tree DIR]
 
@@ -8,9 +8,11 @@ Imports ``rel_pose_tpu_torch`` from ``DIR`` (this checkout by default), runs
 kernel #1 (``_launch_forward``, with and without the stash) and #5
 (``fused_vit_stack_bwd``) on seeded inputs at the model's widths (G = 16
 sequences of 576 tokens, C = 192, 3 heads, depth 5) on one GPU, in fp32 and
-bf16, and kernel #7 (``fused_mhsa``, ``fused_mhsa_bwd``) in fp32 at G = 24
-heads of N = 100 and 576, and prints one line per (dtype, output) with the
-sha256 of the output's bytes.  Where two trees run the same kernels (fp32's
+bf16, kernel #7 (``fused_mhsa``, ``fused_mhsa_bwd``) in fp32 at G = 24
+heads of N = 100 and 576, and the essential block's #2
+(``fused_essential_block_pair``) and #6 (``fused_essential_block_bwd``) in
+fp32 at B = 4 pairs of N = 576 for each of the 8 flag sets, and prints one
+line per (dtype, output) with the sha256 of the output's bytes.  Where two trees run the same kernels (fp32's
 SIMT kernels since the port began), they print the same digests on one
 card.  Needs a CUDA device.
 """
@@ -87,7 +89,39 @@ def main():
         torch.cuda.synchronize()
         print(f"[bits] float32 mhsa N={n} forward {digest(o)} backward "
               f"{digest(*grads)}")
+    essential_bits(device)
     return 0
+
+
+def essential_bits(device, B=4):
+    """fp32 #2 and #6 digests for every (positions, cross, single)."""
+    from rel_pose_tpu_torch.ops import essential_block as te
+    rng = np.random.default_rng(2)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(device)
+    xpair = t((B, 2, N, C))
+    ln = (1 + t((C,), 0.1), t((C,), 0.1))
+    qkvp = (t((3 * C, C), C ** -0.5), t((3 * C,), 0.1))
+    positional = t((B, N, 6))
+    qkv = t((B, 2, N, 3 * C))
+    for has_pos in (True, False):
+        e = 64 + 6 * has_pos
+        df = t((B, 2, HEADS, e, e), 0.1)
+        pos = positional if has_pos else None
+        for cross in (False, True):
+            for single in (False, True):
+                kw = {"cross_features": cross, "use_single_softmax": single}
+                f = te.fused_essential_block_pair(xpair, ln, qkvp, pos,
+                                                  HEADS, **kw)
+                dq, dp = te.fused_essential_block_bwd(qkv, pos, df, HEADS,
+                                                      **kw)
+                torch.cuda.synchronize()
+                grads = [dq] if dp is None else [dq, dp]
+                print(f"[bits] float32 essential pos={int(has_pos)} "
+                      f"cross={int(cross)} single={int(single)} pair "
+                      f"{digest(f)} backward {digest(*grads)}")
 
 
 if __name__ == "__main__":
