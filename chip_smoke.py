@@ -116,20 +116,27 @@ The last two Pallas kernels: #8, the per-head bilinear op of
 ``csrc/cross_variants.cu``), driven by ``scripts/bench_cross_torch.py``:
 
   3e. #8's forward and backward against their plain versions at G = 24
-     slices of N = 576, e in {70, 64}, dual and single softmax, va is vb and
-     va != vb, fp32 and bf16, each backward twice for the same bits; then
-     ``essential_block_head_stacked`` under autograd against #4 + #6 at
-     B = 8 for the 8 flag combinations, fp32 and bf16 (F, dqkv1, dqkv2,
-     dpos), #8's counters set to 0 just before that route and read just
-     after;
-  3f. ``essential_block_s`` (S = 2, 4) against #4 at B = 8, fp32 and bf16,
-     equal bits reported; ``essential_block_variant`` (mxu_sums, bf16_mul)
-     against its plain version at B = 8, bf16; both counters rose;
+     slices of N = 576 and of a ragged N = 100, e in {70, 64}, dual and
+     single softmax, va is vb and va != vb, fp32 (SIMT) and bf16 (the
+     tensor-core body of ``csrc/essential_tc.cuh`` /
+     ``essential_tc_bwd.cuh``), forward and backward each twice for the
+     same bits; then ``essential_block_head_stacked`` under autograd
+     against #4 + #6 at B = 8 for the 8 flag combinations, fp32 and bf16
+     (F, dqkv1, dqkv2, dpos), #8's counters set to 0 just before that route
+     and read just after;
+  3f. ``essential_block_s`` (S = 2, 4) against #4 at B = 8, fp32 and bf16:
+     bf16 must give #4's bits (fp32's equal bits reported);
+     ``essential_block_variant`` (mxu_sums, bf16_mul) against its plain
+     version at B = 8, bf16; every bf16 case twice for the same bits; both
+     counters rose;
   5e. bf16 times: #8's forward at G = 1,536 (e = 70) and backward at G =
-     360 against their plain versions; the head-stacked forward + backward
-     against #4 + #6 at batch 60; the microbenchmark script's cases at
-     batch 256 (#9's counters set to 0 just before and read just after),
-     with the plain times of s2 and mxu_sums; each with its bound.
+     360 against their plain versions, and by part (statistics, vb_n
+     packing, moments, F-partial sum; statistics, prologue, each pass) with
+     TFLOP/s and exp2 floors; the head-stacked forward + backward against
+     #4 + #6 and its plain version at batch 60; the microbenchmark script's
+     cases at batch 256 (#9's counters set to 0 just before and read just
+     after), with the plain times of s2, mxu_sums and bf16_mul; each with
+     its bound.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``; the one before the card's line is the
@@ -138,6 +145,7 @@ The line before the last is the card's name and power limit; the last is
 process besides ``nvidia-smi`` and ``nvcc``, which it waits for.
 """
 
+import itertools
 import json
 import os
 import pathlib
@@ -771,13 +779,14 @@ EXP2_PER_S = 3.9e12
 def essential_part(key):
     """The part of the essential block's tensor-core path a profiled kernel
     belongs to, from its (demangled) name."""
-    m = re.search(r"eb_bwd_pass_kernel<\d+, (true|false), (true|false)", key)
+    m = re.search(r"eb_bwd_pass_kernel<[\w:]+, \d+, (true|false), "
+                  r"(true|false)", key)
     if m:
         return {("false", "false"): "gamma pass", ("true", "false"):
                 "rho pass", ("true", "true"): "dq/dva pass",
                 ("false", "true"): "dk/dvb pass"}[m.groups()]
-    for sub, part in (("eb_stats_kernel<true>", "key statistics"),
-                      ("eb_stats_kernel<false>", "query statistics"),
+    for sub, part in (("eb_stats_kernel<true", "key statistics"),
+                      ("eb_stats_kernel<false", "query statistics"),
                       ("eb_vbn_kernel", "vb_n"),
                       ("eb_moments_kernel", "moments"),
                       ("sum_partials", "F-partial sum"),
@@ -789,22 +798,32 @@ def essential_part(key):
     return "other"
 
 
-def profile_parts_ms(fn, part_of):
-    """Device time of one ``fn()`` by part (``part_of(kernel name)``), from
-    ``torch.profiler``; empty when it recorded no device time."""
+def profile_parts_ms(fn, part_of, once=False):
+    """Device time of one ``fn()`` by part (``part_of(kernel name)``) over 3
+    calls, from ``torch.profiler``; empty when it recorded no device time.
+    Late in a long run (phase 5e, on an H100) the profiler lost the
+    records of the first kernels of a window, a call's worth or more, even
+    50 ms into it.  With ``once`` -- for an ``fn`` that launches each kernel
+    once -- a kernel counts its mean time per recorded launch, which a lost
+    record does not bias; else its total over the 3 calls, divided by 3."""
     from torch.profiler import ProfilerActivity, profile
+    reps = 3
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     parts = {}
     for ev in prof.key_averages():
         t = ev.self_device_time_total
         if ev.device_type != torch.autograd.DeviceType.CUDA or t <= 0:
             continue
         part = part_of(ev.key)
-        parts[part] = parts.get(part, 0.0) + t / 1e3
+        ms = t / 1e3 / (ev.count if once else reps)
+        parts[part] = parts.get(part, 0.0) + ms
     return parts
 
 
@@ -924,7 +943,8 @@ def phase_times(device, models, card):
               nbytes(xpair, f) + 2 * small, dtype)   # weights, pos as bf16
     rows["essential_block_pair"] = (err, ms, plain_ms, None, b)
     log_essential_parts(f"essential_block_pair B={B}", profile_parts_ms(
-        lambda: fused_essential_block_pair(*args, 3), essential_part),
+        lambda: fused_essential_block_pair(*args, 3), essential_part,
+        once=True),
         essential_executed(B, 576, 70, False, False), card)
     del args, f, xpair, positional
     if failures:
@@ -1174,7 +1194,8 @@ def phase_times_train(device, sd, card):
     rows["essential_block_bwd"] = (err, ms, plain_ms, None, b)
     log_essential_parts(f"essential_block_bwd B={B}", profile_parts_ms(
         lambda: te.fused_essential_block_bwd(qkv, pos, df, 3),
-        essential_part), essential_executed(B, 576, 70, False, True), card)
+        essential_part, once=True),
+        essential_executed(B, 576, 70, False, True), card)
     del xpair, qkv, pos, df, dq, dp
     if failures:
         raise SystemExit(f"batch-60 backward checks failed: {failures}")
@@ -1723,14 +1744,14 @@ def phase_times_variants(device, card):
 
 # ------------------------------------------ kernels #8 and #9 (the last) --
 
-def bilinear_inputs(rng, G, e, dtype, device, same):
-    """q, k (G, 576, 64), va, vb (G, 576, e) of unit normal entries (va is
-    vb with ``same``) and a dF (G, e, e) of 0.1 x unit normal, fp32."""
+def bilinear_inputs(rng, G, e, dtype, device, same, N=576):
+    """q, k (G, N, 64), va, vb (G, N, e) of unit normal entries (va is vb
+    with ``same``) and a dF (G, e, e) of 0.1 x unit normal, fp32."""
     def t(shape, scale=1.0, dt=dtype):
         return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
             np.float32)).to(device, dt)
-    q, k, vb = t((G, 576, 64)), t((G, 576, 64)), t((G, 576, e))
-    va = vb if same else t((G, 576, e))
+    q, k, vb = t((G, N, 64)), t((G, N, 64)), t((G, N, e))
+    va = vb if same else t((G, N, e))
     return q, k, va, vb, t((G, e, e), 0.1, torch.float32)
 
 
@@ -1747,44 +1768,47 @@ def moments_grads(fn, q1, q2, pos, kw, cot):
 
 def phase_kernels_bilinear(device):
     """(3e) #8 against its plain versions at G = 24 slices (4 pairs x 2
-    directions x 3 heads), N = 576, e in {70, 64}, dual and single softmax,
-    va is vb and va != vb, fp32 and bf16; each backward twice for the same
-    bits.  Then #8's public route, ``essential_block_head_stacked`` under
-    autograd, against #4 + #6 (``fused_essential_block`` under autograd) at
-    B = 8 for the 8 flag combinations, fp32 and bf16, #8's counters set to
-    0 just before that route and read just after.  Returns (max |err| of
-    the forward, of the backward, the route's launches)."""
+    directions x 3 heads) of N = 576 and of a ragged N = 100, e in {70,
+    64}, dual and single softmax, va is vb and va != vb, fp32 (SIMT) and
+    bf16 (the tensor-core body of essential_tc.cuh / essential_tc_bwd.cuh);
+    forward and backward each twice for the same bits.  Then #8's public
+    route, ``essential_block_head_stacked`` under autograd, against #4 + #6
+    (``fused_essential_block`` under autograd) at B = 8 for the 8 flag
+    combinations, fp32 and bf16, #8's counters set to 0 just before that
+    route and read just after.  Returns (max |err| of the forward, of the
+    backward, the route's launches)."""
     from rel_pose_tpu_torch.ops import bilinear as tb
     from rel_pose_tpu_torch.ops import essential_block as te
     failures, e_fwd, e_bwd = [], [], []
     for dtype in DTYPES:
         rng = np.random.default_rng(SEED + 13)
-        for e in (70, 64):
-            for single in (False, True):
-                for same in (True, False):
-                    name = (f"bilinear e={e} {'single' if single else 'dual'}"
-                            f" {'va=vb' if same else 'va!=vb'} G=24")
-                    q, k, va, vb, df = bilinear_inputs(rng, 24, e, dtype,
-                                                       device, same)
-                    f = tb.fused_bilinear_attention(q, k, va, vb, 0.125,
-                                                    single)
-                    grads, again = (tb.fused_bilinear_attention_bwd(
-                        q, k, va, vb, df, 0.125, single) for _ in range(2))
-                    torch.cuda.synchronize()
-                    e_fwd.append(check_f(f"{name} F", f,
-                                         tb.bilinear_attention_reference(
-                                             q, k, va, vb, 0.125, single),
-                                         dtype, failures))
-                    if not all(torch.equal(a, b)
-                               for a, b in zip(grads, again)):
-                        failures.append(f"{name} bwd not bitwise "
-                                        f"repeatable {dtype}")
-                    ref = tb.bilinear_attention_bwd_reference(
-                        q, k, va, vb, df, 0.125, single)
-                    e_bwd += [check_grad(f"{name} {part}", g, r, dtype,
-                                         failures)
-                              for part, g, r in zip(("dq", "dk", "dva",
-                                                     "dvb"), grads, ref)]
+        for n, e, single, same in itertools.product(
+                (576, 100), (70, 64), (False, True), (True, False)):
+            name = (f"bilinear N={n} e={e} "
+                    f"{'single' if single else 'dual'} "
+                    f"{'va=vb' if same else 'va!=vb'} G=24")
+            q, k, va, vb, df = bilinear_inputs(rng, 24, e, dtype, device,
+                                               same, n)
+            f, f_again = (tb.fused_bilinear_attention(q, k, va, vb, 0.125,
+                                                      single)
+                          for _ in range(2))
+            grads, again = (tb.fused_bilinear_attention_bwd(
+                q, k, va, vb, df, 0.125, single) for _ in range(2))
+            torch.cuda.synchronize()
+            e_fwd.append(check_f(f"{name} F", f,
+                                 tb.bilinear_attention_reference(
+                                     q, k, va, vb, 0.125, single),
+                                 dtype, failures))
+            if not torch.equal(f, f_again):
+                failures.append(f"{name} F not bitwise repeatable {dtype}")
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                failures.append(f"{name} bwd not bitwise repeatable "
+                                f"{dtype}")
+            ref = tb.bilinear_attention_bwd_reference(q, k, va, vb, df,
+                                                      0.125, single)
+            e_bwd += [check_grad(f"{name} {part}", g, r, dtype, failures)
+                      for part, g, r in zip(("dq", "dk", "dva", "dvb"),
+                                            grads, ref)]
     counters = (tb.fused_bilinear_attention, tb.fused_bilinear_attention_bwd)
     runs = []
     for dtype in DTYPES:
@@ -1825,9 +1849,10 @@ def phase_kernels_bilinear(device):
 
 def phase_kernels_cross_variants(device):
     """(3f) #9: ``essential_block_s`` for S in {2, 4} against #4 at B = 8,
-    fp32 and bf16 (equal bits reported, F_RTOL held), and both modes of
-    ``essential_block_variant`` against their plain version at B = 8 in
-    bf16; both counters rose.  Returns max |err| of (S, variants)."""
+    fp32 and bf16 (F_RTOL held; bf16 must give #4's bits, fp32's equal
+    bits reported), and both modes of ``essential_block_variant`` against
+    their plain version at B = 8 in bf16; every bf16 case twice for the
+    same bits; both counters rose.  Returns max |err| of (S, variants)."""
     from rel_pose_tpu_torch.ops import cross_variants as cv
     from rel_pose_tpu_torch.ops import essential_block as te
     failures, e_s, e_v = [], [], []
@@ -1837,18 +1862,31 @@ def phase_kernels_cross_variants(device):
         xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
         _, (q1, q2), _ = split_pair(xpair, ln, qkvp)
         f4 = te.fused_essential_block(q1, q2, positional, 3)
+        bf16 = dtype == torch.bfloat16
         for S in (2, 4):
-            f = cv.essential_block_s(q1, q2, positional, S)
+            f, again = (cv.essential_block_s(q1, q2, positional, S)
+                        for _ in range(2))
             torch.cuda.synchronize()
+            same = torch.equal(f, f4)
             log(f"[check] essential_block_s S={S} {str(dtype)[6:]}: F "
-                f"{'equal to' if torch.equal(f, f4) else 'DIFFERS from'} "
-                f"#4's bits")
+                f"{'equal to' if same else 'DIFFERS from'} #4's bits")
+            if bf16 and not same:
+                failures.append(f"essential_block_s S={S} bf16 F differs "
+                                f"from #4's bits")
+            if bf16 and not torch.equal(f, again):
+                failures.append(f"essential_block_s S={S} not bitwise "
+                                f"repeatable")
             e_s.append(check_f(f"essential_block_s S={S} vs #4 B=8", f, f4,
                                dtype, failures))
-        if dtype == torch.bfloat16:
+        if bf16:
             for mode in cv.MODES:
-                f = cv.essential_block_variant(q1, q2, positional, mode)
+                f, again = (cv.essential_block_variant(q1, q2, positional,
+                                                       mode)
+                            for _ in range(2))
                 torch.cuda.synchronize()
+                if not torch.equal(f, again):
+                    failures.append(f"essential_block_variant {mode} not "
+                                    f"bitwise repeatable")
                 e_v.append(check_f(
                     f"essential_block_variant {mode} B=8", f,
                     cv.essential_block_variant_reference(q1, q2, positional,
@@ -1864,15 +1902,32 @@ def phase_kernels_cross_variants(device):
     return max(e_s), max(e_v)
 
 
+def head_stacked_plain(*args, **kw):
+    """``essential_block_head_stacked`` with #8's plain forward in place of
+    the kernel, differentiated by autograd: the route's plain version, timed
+    only."""
+    from rel_pose_tpu_torch.ops import bilinear as tb
+    from rel_pose_tpu_torch.ops import essential_block as te
+    kernel = te.fused_bilinear_attention
+    te.fused_bilinear_attention = tb.bilinear_attention_reference
+    try:
+        return te.essential_block_head_stacked(*args, **kw)
+    finally:
+        te.fused_bilinear_attention = kernel
+
+
 def phase_times_bilinear(device, card, errs):
     """(5e) bf16 CUDA-event times: #8's forward at the eval shapes (G =
     1,536, e = 70) and backward at the training shapes (G = 360), each
-    against its plain version; the head-stacked forward + backward against
-    #4 + #6 at B = 60; then the microbenchmark script
+    against its plain version and by part (``torch.profiler``: statistics,
+    vb_n packing, moments, F-partial sum; statistics, prologue, each pass),
+    with the TFLOP/s of each part's executed products and its exp2 floor;
+    the head-stacked forward + backward against #4 + #6 and against its
+    plain version at B = 60; then the microbenchmark script
     (``scripts/bench_cross_torch.py``, every case) at B = 256 with #9's
     counters set to 0 just before and read just after -- the launches of
-    #9's path -- and the plain versions of s2 and mxu_sums beside it.
-    Returns the kernels-line rows of #8 and #9 and #9's launches."""
+    #9's path -- and the plain versions of s2, mxu_sums and bf16_mul beside
+    it.  Returns the kernels-line rows of #8 and #9 and #9's launches."""
     import importlib
     from rel_pose_tpu_torch.ops import bilinear as tb
     from rel_pose_tpu_torch.ops import cross_variants as cv
@@ -1895,6 +1950,11 @@ def phase_times_bilinear(device, card, errs):
     b = bound(moments_fwd_flops(EVAL_BATCH, 576, 3), nbytes(q, k, vb, f),
               dtype)
     rows["bilinear_fwd"] = (max(err, fwd_err), ms, plain_ms, None, b)
+    executed = essential_executed(EVAL_BATCH, 576, 70, False, False)
+    del executed["qkv GEMM"]
+    log_essential_parts(f"bilinear_fwd G={G}", profile_parts_ms(
+        lambda: tb.fused_bilinear_attention(q, k, va, vb, 0.125),
+        essential_part, once=True), executed, card)
     del q, k, va, vb, f
 
     G = 2 * TRAIN_BATCH * 3
@@ -1911,6 +1971,10 @@ def phase_times_bilinear(device, card, errs):
     b = bound(essential_bwd_flops(TRAIN_BATCH, 576, 3),
               2 * nbytes(q, k, vb) + nbytes(df, *grads), dtype)
     rows["bilinear_bwd"] = (max(err, bwd_err), ms, plain_ms, None, b)
+    log_essential_parts(f"bilinear_bwd G={G}", profile_parts_ms(
+        lambda: tb.fused_bilinear_attention_bwd(q, k, va, vb, df, 0.125),
+        essential_part, once=True),
+        essential_executed(TRAIN_BATCH, 576, 70, False, True), card)
     del q, k, va, vb, df, grads
 
     B = TRAIN_BATCH
@@ -1922,7 +1986,8 @@ def phase_times_bilinear(device, card, errs):
         np.float32)).to(device)
     route_ms = {}
     for name, fn in (("head-stacked #8", te.essential_block_head_stacked),
-                     ("#4 + #6", te.fused_essential_block)):
+                     ("#4 + #6", te.fused_essential_block),
+                     ("head-stacked plain", head_stacked_plain)):
         route_ms[name] = cuda_time_ms(lambda: moments_grads(
             fn, q1, q2, pos, {}, cot), 3)
     b = bound(moments_fwd_flops(B, 576, 3) + essential_bwd_flops(B, 576, 3),
@@ -1962,6 +2027,15 @@ def phase_times_bilinear(device, card, errs):
         a, b_, p, "mxu_sums"), 3)
     rows["essential_block_variant"] = (max(err, v_err), times["mxu_sums"],
                                        plain_ms, None, bb)
+    f = cv.essential_block_variant(a, b_, p, "bf16_mul")
+    check_f(f"essential_block_variant bf16_mul B={B}", f,
+            cv.essential_block_variant_reference(a, b_, p, "bf16_mul"),
+            dtype, failures)
+    plain_ms = cuda_time_ms(lambda: cv.essential_block_variant_reference(
+        a, b_, p, "bf16_mul"), 3)
+    log(f"[time] essential_block_variant bf16_mul bf16: kernel "
+        f"{times['bf16_mul']:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bb[0]:.3f} ms ({bb[1]}) ({card})")
     del inputs, a, b_, p, f
     if failures:
         raise SystemExit(f"#8 / #9 timing checks failed: {failures}")

@@ -1,8 +1,12 @@
 // Backward of the per-head bilinear attention op: Pallas kernel #8's VJP.
 //
-// Replaces: rel_pose_tpu/ops/pallas_essential.py:_bwd_kernel.  Per slice g
-// of q, k (G, N, 64), va, vb (G, N, e) and dF (G, e, e) fp32, with T the
-// inputs' dtype at _bwd_kernel's rounding points:
+// Replaces: rel_pose_tpu/ops/pallas_essential.py:_bwd_kernel.  bf16 runs
+// the essential block's tensor-core passes (essential_tc_bwd.cuh,
+// SliceLayout: statistics, prologue, the rho / gamma passes and the two
+// gradient passes, with the scratch that rp_bilinear_bwd_workspace sizes;
+// at most 65,535 slices); fp32 the SIMT kernel below, one block per slice.
+// Per slice g of q, k (G, N, 64), va, vb (G, N, e) and dF (G, e, e) fp32,
+// with T the inputs' dtype at _bwd_kernel's rounding points:
 //   s2 = q k^T scale log2e;  R, Cmat = the normalized row / column softmaxes
 //   (exp2);  A = R Cmat, or R alone with SINGLE;  Ab = T(A)
 //   dva = T(Ab T(vb T(dF)^T));   vadf = T(va T(dF));   dvb = T(Ab^T vadf)
@@ -16,8 +20,8 @@
 // autograd adds dva and dvb).  Each of dq, dk, dva, dvb has one writer, the
 // slice's block: no atomics, and two runs give the same bits.
 //
-// Design (#6's): one CUDA block per slice walks 32-row tiles of s, the
-// full 32 x N rows in shared memory, in passes:
+// Design of the fp32 kernel (#6's SIMT one): one CUDA block per slice walks
+// 32-row tiles of s, the full 32 x N rows in shared memory, in passes:
 //   0. T(vb T(dF)^T) for all N keys into the slice's scratch;
 //   1. column max / sum of exp2(s2), merged online (not with SINGLE);
 //   2. per row tile: exact row statistics, T(va T(dF)) for the tile, then
@@ -33,6 +37,7 @@
 // sees one read of the inputs and dF and one write of the four outputs.
 
 #include "bilinear.cuh"
+#include "essential_tc_bwd.cuh"
 
 namespace rp {
 
@@ -467,6 +472,7 @@ static cudaError_t launch_bwd(const BlbArgs<T>& a, int G, float scale2,
   return cudaGetLastError();
 }
 
+// fp32, the SIMT kernel
 template <typename T>
 static cudaError_t bilinear_bwd(const BlbArgs<T>& a, int G, int e,
                                 int single, float scale2, float dscale,
@@ -481,9 +487,33 @@ static cudaError_t bilinear_bwd(const BlbArgs<T>& a, int G, int e,
   return cudaErrorInvalidValue;
 }
 
+namespace tc {
+
+template <int E>
+static cudaError_t bilinear_bwd_tc_e(const EbBwdArgs& a, int single,
+                                     cudaStream_t st) {
+  return single ? launch_bwd<SliceLayout, E, true, false>(a, st)
+                : launch_bwd<SliceLayout, E, false, false>(a, st);
+}
+
+// bf16, the tensor-core passes
+static cudaError_t bilinear_bwd_tc(const EbBwdArgs& a, int e, int single,
+                                   cudaStream_t st) {
+  if (e == kHeadDim + kEbPos)
+    return bilinear_bwd_tc_e<kHeadDim + kEbPos>(a, single, st);
+  if (e == kHeadDim) return bilinear_bwd_tc_e<kHeadDim>(a, single, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tc
 }  // namespace rp
 
-extern "C" long long rp_bilinear_bwd_workspace(int G, int N, int e) {
+// bytes of scratch rp_bilinear_bwd needs: bf16 the tensor-core passes'
+// statistics and operand rows, fp32 the SIMT kernel's accumulators
+extern "C" long long rp_bilinear_bwd_workspace(int G, int N, int e,
+                                               int bf16) {
+  if (bf16)
+    return (long long)rp::tc::EbBwdWs(nullptr, G, N, e, false).bytes;
   return (long long)(sizeof(float) * (size_t)G *
                      rp::blb_scratch_floats(N, e));
 }
@@ -499,10 +529,11 @@ extern "C" int rp_bilinear_bwd(const void* q, const void* k, const void* va,
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
     using T = __nv_bfloat16;
-    return rp::bilinear_bwd<T>(
-        {(const T*)q, (const T*)k, (const T*)va, (const T*)vb, dF, (T*)dq,
-         (T*)dk, (T*)dva, (T*)dvb, (float*)ws, N},
-        G, e, single, scale2, dscale, st);
+    const rp::tc::EbBwdArgs a{
+        (const T*)q, (const T*)k, (const T*)va, (const T*)vb, 0, dF,
+        (T*)dq, (T*)dk, (T*)dva, (T*)dvb, nullptr, ws, G, N, rp::kBlD, 1,
+        scale2, dscale};
+    return rp::tc::bilinear_bwd_tc(a, e, single, st);
   }
   return rp::bilinear_bwd<float>(
       {(const float*)q, (const float*)k, (const float*)va, (const float*)vb,

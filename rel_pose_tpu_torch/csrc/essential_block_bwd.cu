@@ -61,7 +61,8 @@ extern "C" long long rp_essential_block_bwd_workspace(int B, int N,
                                                       int bf16) {
   const int e = rp::kEbbHeadDim + (has_pos ? rp::kEbbPos : 0);
   if (bf16)
-    return (long long)rp::tc::EbBwdWs(nullptr, 2 * B * heads, N, e).bytes;
+    return (long long)rp::tc::EbBwdWs(nullptr, 2 * B * heads, N, e, true)
+        .bytes;
   return (long long)(sizeof(float) * (size_t)B * 2 * heads *
                      rp::ebb_scratch_floats(N, e));
 }

@@ -1,51 +1,71 @@
-// The Essential Matrix Module's moments on the tensor cores, bf16: the
-// moments body of the Pallas kernels #2 _essential_block_pair_kernel, #3
-// _essential_block_x_kernel and #4 _essential_block_kernel
-// (rel_pose_tpu/ops/pallas_essential_block.py, core _eb_combos :87), which
-// differ only in where the qkv rows come from (essential_block.cu).  fp32
-// keeps the SIMT dual_softmax_kernel of essential_block.cuh, bit for bit:
-// the tensor cores have no fp32 product, and TF32 would change the results.
+// The Essential Matrix Module's moments on the tensor cores, bf16: one body
+// behind four Pallas kernels, which differ in where a slice's rows live
+// (the layout types below) and in a mode:
+//   - #2 _essential_block_pair_kernel, #3 _essential_block_x_kernel and #4
+//     _essential_block_kernel (rel_pose_tpu/ops/pallas_essential_block.py,
+//     core _eb_combos :87): PairLayout, the dual or the single softmax
+//     (essential_block.cu);
+//   - #8 _fwd_kernel (rel_pose_tpu/ops/pallas_essential.py:72): SliceLayout,
+//     separate (G, N, 64) q, k and (G, N, e) va, vb, any scale (bilinear.cu);
+//   - #9 _s_kernel and _variant_kernel (scripts/bench_cross.py:88, :35):
+//     PairLayout with S pairs' slices per block, and the modes kEbBf16Mul and
+//     kEbMxuSums (cross_variants.cu).
+// fp32 keeps the SIMT kernels (essential_block.cuh, bilinear.cuh), bit for
+// bit: the tensor cores have no fp32 product, and TF32 would change the
+// results.
 //
-// Per slice g = (pair b, direction, head h), with q, k (N x 64) and
-// vb = v_self ++ 6 positional columns (e = 70) or v_self (e = 64), va = vb
-// or, with CROSS, the query image's v ++ the same columns; T the rounding
-// to bf16.  The Pallas kernel's rounding points, sums in another order:
-//   s = T(q) T(k)^T d^-1/2 log2e (fp32); mr, mc the exact row and column
-//   maxima; er = exp2(s - mr), ec = exp2(s - mc), lr = sum_j er,
-//   lc = sum_i ec;  P = T(er ec), vb_n = T(vb (1/lc))  (SINGLE: P = T(er),
-//   vb_n = vb);  av = T((P vb_n) (1/lr));  F = va^T av, fp32.
+// Per slice g, with q, k (N x 64) and va, vb (N x e): PairLayout's slice is
+// (pair b, direction, head), vb = v_self ++ 6 positional columns (e = 70) or
+// v_self (e = 64), va = vb or, with CROSS, the query image's v ++ the same
+// columns; T the rounding to bf16.  The Pallas kernels' rounding points,
+// sums in another order:
+//   s = T(q) T(k)^T scale (fp32; scale = the softmax scale times log2e, d^-1/2
+//   log2e for #2-#4 and #9); mr, mc the exact row and column maxima;
+//   er = exp2(s - mr), ec = exp2(s - mc), lr = sum_j er, lc = sum_i ec;
+//   P = T(er ec), vb_n = T(vb (1/lc))  (kEbSingle: P = T(er), vb_n = vb);
+//   av = T((P vb_n) (1/lr));  F = va^T av, fp32.
+// #9's modes change P and the sums: kEbBf16Mul P = T(T(er) T(ec)), one bf16
+// product (__hmul2 on packed pairs); kEbMxuSums the same P with lr =
+// sum_j T(er) and lc = sum_i T(ec), summed in fp32 by mma.sync against a
+// ones operand, the column sums against each key's final max.
 //
 // What bounds it on the H100: the products (3 N^2 d score products with
 // the two statistics passes below, N^2 e for P vb_n and N e^2 for va^T av
 // a slice, mma.sync m16n8k16) and the exp2 of every score, three a score
-// with the dual softmax (one for lc, two for P): at the eval shapes 1.53 G
+// with the dual softmax (one for lc, two for P): at #2's eval shapes 1.53 G
 // exp2, about 0.39 ms at the special-function units' rate, above the
 // 0.21 ms tensor-core bound of the function's products.  Device memory:
-// one read of qkv, the small statistics and vb_n scratch, and the F
+// one read of the inputs, the small statistics and vb_n scratch, and the F
 // partials (E^2 fp32 per 64-query tile and slice).
 //
-// Design, in launch order (moments_tc):
-//   1. eb_stats_kernel (dual only), one block per (64-key tile, slice):
+// Design, in launch order (launch_moments):
+//   1. eb_stats_kernel (not kEbSingle), one block per (64-key tile, slice):
 //      walks every query tile on the transposed product s^T = k q^T, so a
 //      key's column max and sum are row statistics of that product, kept
 //      per thread and merged across the 4 lanes of a row at the end.  The
 //      sum is online (rescaled when the max grows), which is allowed: lc
-//      is fp32 and ends as sum_i exp2(s - mc) up to fp32 rounding.  Writes
-//      (mc, 1/lc) per key.
-//   2. eb_vbn_kernel: vb_n = T(vb (1/lc)) (SINGLE: vb) into bf16 scratch,
+//      is fp32 and ends as sum_i exp2(s - mc) up to fp32 rounding.
+//      kEbMxuSums rounds each ec to bf16 against the final max, so it walks
+//      twice: the max, then the sums on the tensor cores.  Writes (mc, 1/lc)
+//      per key.
+//   2. eb_vbn_kernel: vb_n = T(vb (1/lc)) (kEbSingle: vb) into bf16 scratch,
 //      rows of kW = 80 (70 used) or 64 columns, zero-padded, so that every
 //      later tile load is whole 16-byte rows.
-//   3. eb_moments_kernel, one block of 4 warps per (64-query tile, slice),
-//      16 query rows a warp: a first walk over the key tiles takes the
-//      exact row max (no exp2); a second recomputes s, forms er, ec, P and
-//      lr, and accumulates P vb_n in registers (16 x 72 fp32 a warp); then
-//      av = T(. (1/lr)) goes to shared memory and the tile's partial
-//      F = va^T av (mma with va read along its rows, ldmatrix.trans) to
-//      scratch.  Nothing rounded to bf16 is rescaled online.
+//   3. eb_moments_kernel, one block of 4 warps per (64-query tile, slice;
+//      #9's s: S slices in turn), 16 query rows a warp: a first walk over
+//      the key tiles takes the exact row max (no exp2); a second recomputes
+//      s, forms er, ec, P and lr, and accumulates P vb_n in registers (16 x
+//      72 fp32 a warp); then av = T(. (1/lr)) goes to shared memory and the
+//      tile's partial F = va^T av (mma with va read along its rows,
+//      ldmatrix.trans) to scratch.  Nothing rounded to bf16 is rescaled
+//      online.
 //   4. launch_sum_partials adds the query tiles' partials of each slice in
 //      order.
 // Rows >= N load as zeros and keys >= N are masked out of every max and
-// sum.  No atomics, sums in a fixed order: two calls give the same bits.
+// sum.  No atomics, sums in a fixed order: two calls give the same bits,
+// and a slice's F does not depend on the layout or on S.  va rows of e =
+// 70 in SliceLayout are 140 bytes, off the 16-byte grid: they load with
+// 4-byte cp.async (load_rows4) where PairLayout's load whole 16-byte rows.
 
 #pragma once
 
@@ -187,10 +207,60 @@ __device__ __forceinline__ void mma_ab_acc(float (&c)[NT][4],
   }
 }
 
-// ------------------------------------------------------------- slices --
-// Slice g = (b * 2 + direction) * heads + h of a pair's two images, whose
-// qkv rows (3C values) start at img1 + b bstride and img2 + b bstride.
-// Direction 0 takes q from image 2 and k, v_self from image 1.
+// rows [row0, row0 + 64) of an (N, E) bf16 matrix whose rows are 4-byte
+// but not 16-byte aligned (E = 70: 140 bytes) into a tile of W columns and
+// row stride LD, by 4-byte cp.async; columns >= E and rows >= N zero
+template <int E, int W, int LD>
+__device__ __forceinline__ void load_rows4(bf16* dst, const bf16* src,
+                                           int row0, int N) {
+  static_assert(E % 2 == 0 && W % 2 == 0 && E <= W, "whole 4-byte words");
+  constexpr int kSrcWords = E / 2, kDstWords = W / 2;
+  for (int i = threadIdx.x; i < kAT * kDstWords; i += kAThreads) {
+    const int r = i / kDstWords, w = i % kDstWords;
+    bf16* d = dst + r * LD + 2 * w;
+    if (w < kSrcWords) {
+      const bool ok = row0 + r < N;
+      cp_async4(d, src + (size_t)(ok ? row0 + r : 0) * E + 2 * w, ok);
+    } else {
+      *reinterpret_cast<unsigned*>(d) = 0u;
+    }
+  }
+}
+
+constexpr unsigned kBf16OnesX2 = 0x3F803F80u;  // two bf16 1.0
+
+// c[16 x 8] += a[16 x 64] . ones: every column of c holds the fp32 sums of
+// a's rows (c[0] row lane / 4, c[2] row lane / 4 + 8)
+__device__ __forceinline__ void mma_row_sums(float (&c)[4],
+                                             const unsigned (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_bf16(c, a[kk], kBf16OnesX2, kBf16OnesX2);
+}
+
+// the A fragment slot of columns (j, j + 1) of n8 tile ni, row half h
+// (to_afrag's order)
+__device__ __forceinline__ unsigned& afrag_at(unsigned (&f)[4][4], int ni,
+                                              int h) {
+  return f[ni >> 1][(ni & 1) * 2 + h];
+}
+
+// ------------------------------------------------------------- layouts --
+// Where the rows of slice g live.  The kernels take their inputs as plain
+// pointer parameters in0 .. in3 and a stride ld (in a struct parameter the
+// base offsets were recomputed at every key step: attention_tc.cuh) and
+// ask the layout once for the slice's view:
+//   PairLayout (#2-#4, #9): in0, in1 the qkv rows (3C values) of image 1
+//     and image 2 of pair 0, pair b's at + b ld; in2 the (B, N, 6)
+//     positional table or NULL (e = 64); in3 unused.  Slice g = (b * 2 +
+//     direction) * heads + h; direction 0 takes q from image 2 and k, v
+//     from image 1; va = vb or, with CROSS, the query image's v.
+//   SliceLayout (#8): in0, in1 the (G, N, 64) q, k; in2, in3 the (G, N, e)
+//     va, vb.  va is always read from in2, also when the caller passes one
+//     tensor for both (the non-cross wiring).
+
+// PairLayout's slice g = (b * 2 + direction) * heads + h of a pair's two
+// images, whose qkv rows (3C values) start at img1 + b bstride and img2 +
+// b bstride.  Direction 0 takes q from image 2 and k, v_self from image 1.
 struct EbSlice {
   const bf16* qimg;  // the query image's qkv rows
   const bf16* kimg;  // the key image's
@@ -205,45 +275,182 @@ struct EbSlice {
   }
 };
 
+struct EbView {
+  const bf16* q;    // 64-wide rows at stride ldqk
+  const bf16* k;
+  const bf16* va;   // PairLayout: v rows (64 columns) at stride ldqk, the
+  const bf16* vb;   // positional columns from pos; SliceLayout: e-wide rows
+  const bf16* pos;  // PairLayout: the pair's (N, 6) table or NULL
+  size_t ldqk;
+};
+
+struct PairLayout {
+  static constexpr bool kSlice = false;
+  template <int E, bool CROSS>
+  __device__ static EbView view(const bf16* in0, const bf16* in1,
+                                const bf16* in2, size_t ld, int N, int C,
+                                int heads, int g) {
+    const EbSlice sl(in0, in1, ld, g, heads);
+    const int off = sl.h * kHeadDim;
+    return {sl.qimg + off, sl.kimg + C + off,
+            (CROSS ? sl.qimg : sl.kimg) + 2 * C + off, sl.kimg + 2 * C + off,
+            in2 == nullptr ? nullptr : in2 + (size_t)sl.b * N * kEbPos,
+            3 * (size_t)C};
+  }
+  // the s-th of the S slices of block row y: one (direction, head) of S
+  // consecutive pairs
+  __device__ static int slice(int y, int s, int S, int heads) {
+    const int P = 2 * heads;
+    return (y / P * S + s) * P + y % P;
+  }
+  // rows [row0, row0 + 64) of v (va or vb of the view) ++ pos into a tile
+  template <int E>
+  __device__ static void load_v(bf16* dst, const bf16* v, const EbView& vw,
+                                int row0, int N) {
+    load_vrows<E>(dst, v, vw.ldqk, vw.pos, row0, N);
+  }
+  // columns 8 c8 .. 8 c8 + 7 of vb's row n (zero past e)
+  template <int E>
+  __device__ static void vb8(const EbView& vw, int n, int c8, float (&x)[8]) {
+    if (c8 < kHeadDim / 8) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+          vw.vb + (size_t)n * vw.ldqk + c8 * 8));
+      unpack4_bf16(make_uint2(u.x, u.y), *reinterpret_cast<float(*)[4]>(x));
+      unpack4_bf16(make_uint2(u.z, u.w),
+                   *reinterpret_cast<float(*)[4]>(x + 4));
+    } else {
+      const bf16* p = vw.pos + (size_t)n * kEbPos;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        x[c] = c8 == kHeadDim / 8 && c < kEbPos ? __bfloat162float(p[c])
+                                                : 0.f;
+    }
+  }
+};
+
+struct SliceLayout {
+  static constexpr bool kSlice = true;
+  template <int E, bool>
+  __device__ static EbView view(const bf16* in0, const bf16* in1,
+                                const bf16* in2, const bf16* in3, int N,
+                                int g) {
+    const size_t gN = (size_t)g * N;
+    return {in0 + gN * kHeadDim, in1 + gN * kHeadDim, in2 + gN * E,
+            in3 + gN * E, nullptr, kHeadDim};
+  }
+  __device__ static int slice(int y, int, int, int) { return y; }
+  template <int E>
+  __device__ static void load_v(bf16* dst, const bf16* v, const EbView&,
+                                int row0, int N) {
+    using W = EbW<E>;
+    if constexpr (E == kHeadDim)
+      load_rows<kHeadDim, W::kLd>(dst, v, kHeadDim, row0, N);
+    else
+      load_rows4<E, W::kW, W::kLd>(dst, v, row0, N);
+  }
+  template <int E>
+  __device__ static void vb8(const EbView& vw, int n, int c8, float (&x)[8]) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(
+        vw.vb + (size_t)n * E + c8 * 8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = c8 * 8 + 2 * j < E ? __bfloat1622float2(p[j])
+                                          : make_float2(0.f, 0.f);
+      x[2 * j] = v.x;
+      x[2 * j + 1] = v.y;
+    }
+  }
+};
+
+// the view of slice g under its layout
+template <class Layout, int E, bool CROSS>
+__device__ __forceinline__ EbView eb_view(const bf16* in0, const bf16* in1,
+                                          const bf16* in2, const bf16* in3,
+                                          size_t ld, int N, int C, int heads,
+                                          int g) {
+  if constexpr (Layout::kSlice)
+    return Layout::template view<E, CROSS>(in0, in1, in2, in3, N, g);
+  else
+    return Layout::template view<E, CROSS>(in0, in1, in2, ld, N, C, heads,
+                                           g);
+}
+
+// the moments' modes: #2-#4 and #8 take the dual or the single softmax, #9's
+// _variant_kernel the two others (see the file's head)
+enum EbMode { kEbDual, kEbSingle, kEbBf16Mul, kEbMxuSums };
+
 // ------------------------------------------------------------ statistics --
 // Per row of the own side (keys with kKeyRows: the column statistics of s;
 // queries: its row statistics), the max m of its scores over every column
 // of the other side and 1 / sum exp2(s - m), to stats[(g N + row) * 3] and
 // [.. + 1] (slot 2 is the backward's).  One block per (64-row tile, slice)
-// walks the other side's tiles through a 2-stage cp.async ring.  Four
-// blocks an SM.
-template <bool kKeyRows>
+// walks the other side's tiles through a 2-stage cp.async ring.  With
+// kExact the walk runs twice, the max and then sum T(exp2(s - m)) on the
+// tensor cores (kEbMxuSums).  Four blocks an SM.
+template <bool kKeyRows, class Layout, bool kExact = false>
 __global__ void __launch_bounds__(kAThreads, 4)
-eb_stats_kernel(const bf16* __restrict__ img1, const bf16* __restrict__ img2,
-                size_t bstride, float* __restrict__ stats, int N, int C,
+eb_stats_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
+                size_t ld, float* __restrict__ stats, int N, int C,
                 int heads, float scale) {
   __shared__ __align__(128) bf16 Xs[kATileElems];
   __shared__ __align__(128) bf16 Os[2][kATileElems];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = blockIdx.x * kAT, g = blockIdx.y;
-  const EbSlice sl(img1, img2, bstride, g, heads);
-  const size_t C3 = 3 * (size_t)C;
-  const bf16* qb = sl.qimg + sl.h * kHeadDim;
-  const bf16* kb = sl.kimg + C + sl.h * kHeadDim;
-  const bf16* own = kKeyRows ? kb : qb;
-  const bf16* other = kKeyRows ? qb : kb;
+  const EbView vw = eb_view<Layout, kHeadDim, false>(
+      in0, in1, nullptr, nullptr, ld, N, C, heads, g);
+  const bf16* own = kKeyRows ? vw.k : vw.q;
+  const bf16* other = kKeyRows ? vw.q : vw.k;
   const int nt = (N + kAT - 1) / kAT;
+  const int steps = kExact ? 2 * nt : nt;
 
-  load_tile(Xs, own, C3, r0, N);
-  load_tile(Os[0], other, C3, 0, N);
+  load_tile(Xs, own, vw.ldqk, r0, N);
+  load_tile(Os[0], other, vw.ldqk, 0, N);
   cp_async_commit();
   unsigned xf[4][4];
   float s[8][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int t = 0; t < nt; ++t) {
+  float lsum[4] = {};  // kExact: the sums from the tensor cores
+  for (int t = 0; t < steps; ++t) {
     __syncthreads();  // the stage loaded below was read at step t - 1
-    if (t + 1 < nt) load_tile(Os[(t + 1) & 1], other, C3, (t + 1) * kAT, N);
+    if (t + 1 < steps)
+      load_tile(Os[(t + 1) & 1], other, vw.ldqk,
+                (kExact && t + 1 >= nt ? t + 1 - nt : t + 1) * kAT, N);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     if (t == 0) load_afrag(xf, Xs);
-    const int c0 = t * kAT;
+    const int c0 = (kExact && t >= nt ? t - nt : t) * kAT;
     mma_abt(s, xf, Os[t & 1]);
+    if constexpr (kExact) {
+      if (t < nt) {  // the exact max
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c0 + acc_col(ni, e) < N)
+              m[e >> 1] = fmaxf(m[e >> 1], __fmul_rn(s[ni][e], scale));
+        if (t == nt - 1) {
+          m[0] = quad_max(m[0]);
+          m[1] = quad_max(m[1]);
+        }
+        continue;
+      }
+      unsigned ef[4][4];  // T(exp2(s - m)), masked columns 0
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = c0 + acc_col(ni, 2 * h);
+          const float e0 =
+              j < N ? exp2f(__fmul_rn(s[ni][2 * h], scale) - m[h]) : 0.f;
+          const float e1 =
+              j + 1 < N ? exp2f(__fmul_rn(s[ni][2 * h + 1], scale) - m[h])
+                        : 0.f;
+          afrag_at(ef, ni, h) = pack_bf16(e0, e1);
+        }
+      mma_row_sums(lsum, ef);
+      continue;
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float mt = -INFINITY;
@@ -272,8 +479,14 @@ eb_stats_kernel(const bf16* __restrict__ img1, const bf16* __restrict__ img2,
   float* st = stats + (size_t)g * N * 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const float M = quad_max(m[half]);
-    const float L = quad_sum(l[half] * exp2f(m[half] - M));
+    float M, L;
+    if constexpr (kExact) {
+      M = m[half];
+      L = lsum[2 * half];
+    } else {
+      M = quad_max(m[half]);
+      L = quad_sum(l[half] * exp2f(m[half] - M));
+    }
     const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
     if (row < N && (lane & 3) == 0) {
       st[(size_t)row * 3] = M;
@@ -284,33 +497,23 @@ eb_stats_kernel(const bf16* __restrict__ img1, const bf16* __restrict__ img2,
 
 // -------------------------------------------------------------- vb_n --
 // vbn[(g N + n) kW + c] = T(vb[n][c] (1/lc[n])) with kstats, vb[n][c]
-// without (SINGLE); columns >= e zero.  One thread per 8 columns.
-template <int E>
+// without (kEbSingle); columns >= e zero.  One thread per 8 columns.
+template <class Layout, int E>
 __global__ void __launch_bounds__(256)
-eb_vbn_kernel(const bf16* __restrict__ img1, const bf16* __restrict__ img2,
-              size_t bstride, const bf16* __restrict__ pos,
-              const float* __restrict__ kstats, bf16* __restrict__ vbn, int N,
-              int C, int heads, int G) {
+eb_vbn_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
+              const bf16* __restrict__ in2, const bf16* __restrict__ in3,
+              size_t ld, const float* __restrict__ kstats,
+              bf16* __restrict__ vbn, int N, int C, int heads, int G) {
   constexpr int CW = EbW<E>::kW / 8;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)G * N * CW) return;
   const int c8 = (int)(i % CW);
   const size_t gn = i / CW;
   const int n = (int)(gn % N), g = (int)(gn / N);
-  const EbSlice sl(img1, img2, bstride, g, heads);
+  const EbView vw =
+      eb_view<Layout, E, false>(in0, in1, in2, in3, ld, N, C, heads, g);
   float x[8];
-  if (c8 < kHeadDim / 8) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-        sl.kimg + (size_t)n * 3 * C + 2 * C + sl.h * kHeadDim + c8 * 8));
-    unpack4_bf16(make_uint2(u.x, u.y), *reinterpret_cast<float(*)[4]>(x));
-    unpack4_bf16(make_uint2(u.z, u.w),
-                 *reinterpret_cast<float(*)[4]>(x + 4));
-  } else {
-    const bf16* p = pos + ((size_t)sl.b * N + n) * kEbPos;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      x[c] = c8 == kHeadDim / 8 && c < kEbPos ? __bfloat162float(p[c]) : 0.f;
-  }
+  Layout::template vb8<E>(vw, n, c8, x);
   if (kstats != nullptr) {
     const float inv = kstats[gn * 3 + 1];
 #pragma unroll
@@ -322,26 +525,29 @@ eb_vbn_kernel(const bf16* __restrict__ img1, const bf16* __restrict__ img2,
 }
 
 // ------------------------------------------------------------- moments --
-// The partial F = va^T av of 64 query rows of slice g = blockIdx.y to
-// fpart[(blockIdx.x G + g) E^2]: the key tiles are walked twice (the row
-// max, then P and P vb_n) as one sequence of 2 nk steps through a 2-stage
-// cp.async ring of k (and, in the second walk, vb_n and mc) tiles.  Three
-// blocks an SM.
+// The partial F = va^T av of 64 query rows of slice g to fpart[(blockIdx.x
+// G + g) E^2]: the key tiles are walked twice (the row max, then P and
+// P vb_n) as one sequence of 2 nk steps through a 2-stage cp.async ring of
+// k (and, in the second walk, vb_n and mc) tiles.  Block row y takes slice
+// y, or with kGroup the S slices Layout::slice(y, 0 .. S - 1) in turn (#9's s).
+// Three blocks an SM.
 template <int E>
 constexpr size_t moments_smem_bytes() {
   return (3 * kATileElems + 3 * EbW<E>::kTileElems) * sizeof(bf16) +
          2 * kAT * sizeof(float);
 }
 
-template <int E, bool SINGLE, bool CROSS>
+template <class Layout, int E, int MODE, bool CROSS, bool kGroup>
 __global__ void __launch_bounds__(kAThreads, 3)
-eb_moments_kernel(const bf16* __restrict__ img1,
-                  const bf16* __restrict__ img2, size_t bstride,
-                  const bf16* __restrict__ pos,
-                  const float* __restrict__ kstats,
+eb_moments_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
+                  const bf16* __restrict__ in2, const bf16* __restrict__ in3,
+                  size_t ld, const float* __restrict__ kstats,
                   const bf16* __restrict__ vbn, float* __restrict__ fpart,
-                  int N, int C, int heads, float scale) {
+                  int N, int C, int heads, int S, float scale) {
   using W = EbW<E>;
+  constexpr bool SINGLE = MODE == kEbSingle;
+  constexpr bool HMUL = MODE == kEbBf16Mul || MODE == kEbMxuSums;
+  constexpr bool MXU = MODE == kEbMxuSums;
   extern __shared__ __align__(128) bf16 sm[];
   // stage st of the rings at K(st), V(st) (offsets, not arrays of
   // pointers: those were indexed from the stack)
@@ -355,114 +561,149 @@ eb_moments_kernel(const bf16* __restrict__ img1,
   bf16* AVs = K(0);  // av, after the walks, over the k ring
   static_assert(2 * kATileElems >= W::kTileElems, "av fits the k ring");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kAT, g = blockIdx.y;
-  const EbSlice sl(img1, img2, bstride, g, heads);
-  const size_t C3 = 3 * (size_t)C;
-  const bf16* qb = sl.qimg + sl.h * kHeadDim;
-  const bf16* kb = sl.kimg + C + sl.h * kHeadDim;
-  const bf16* vab = (CROSS ? sl.qimg : sl.kimg) + 2 * C + sl.h * kHeadDim;
-  const bf16* posb = pos == nullptr ? nullptr : pos + (size_t)sl.b * N * kEbPos;
-  const bf16* vnb = vbn + (size_t)g * N * W::kW;
-  const float* ks = kstats + (size_t)g * N * 3;
+  const int q0 = blockIdx.x * kAT;
   const int nk = (N + kAT - 1) / kAT;
+  const int per_block = kGroup ? S : 1;
+  const size_t G = (size_t)gridDim.y * per_block;
+#pragma unroll 1
+  for (int si = 0; si < per_block; ++si) {
+    if (si > 0) __syncthreads();  // the last slice's readers of AVs, VAs
+    const int g = kGroup ? Layout::slice(blockIdx.y, si, S, heads) : blockIdx.y;
+    const EbView vw =
+        eb_view<Layout, E, CROSS>(in0, in1, in2, in3, ld, N, C, heads, g);
+    const bf16* vnb = vbn + (size_t)g * N * W::kW;
+    const float* ks = kstats + (size_t)g * N * 3;
 
-  load_tile(Qs, qb, C3, q0, N);
-  load_tile(K(0), kb, C3, 0, N);
-  load_vrows<E>(VAs, vab, C3, posb, q0, N);
-  cp_async_commit();
-  unsigned qf[4][4];
-  float mx[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float o[W::kNT][4] = {};
-  float s[8][4];
-  for (int t = 0; t < 2 * nk; ++t) {
-    __syncthreads();  // the stage loaded below was read at step t - 1
-    const int tn = t + 1;
-    if (tn < 2 * nk) {
-      const int kn = (tn % nk) * kAT, st = tn & 1;
-      load_tile(K(st), kb, C3, kn, N);
-      if (tn >= nk) {
-        load_rows<W::kW, W::kLd>(V(st), vnb, W::kW, kn, N);
-        if (!SINGLE && tid < kAT)
-          cp_async4(MCs + st * kAT + tid,
-                    ks + (size_t)(kn + tid < N ? kn + tid : 0) * 3,
-                    kn + tid < N);
-      }
-    }
+    load_tile(Qs, vw.q, vw.ldqk, q0, N);
+    load_tile(K(0), vw.k, vw.ldqk, 0, N);
+    Layout::template load_v<E>(VAs, vw.va, vw, q0, N);
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (t == 0) load_afrag(qf, Qs);
-    const int k0 = (t % nk) * kAT;
-    mma_abt(s, qf, K(t & 1));
-    if (t < nk) {
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + acc_col(ni, e) < N)
-            mx[e >> 1] = fmaxf(mx[e >> 1], __fmul_rn(s[ni][e], scale));
-      if (t == nk - 1) {
-        mx[0] = quad_max(mx[0]);
-        mx[1] = quad_max(mx[1]);
-      }
-      continue;
-    }
-    const float* mc = MCs + (t & 1) * kAT;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = acc_col(ni, e);
-        const float sv = __fmul_rn(s[ni][e], scale);
-        float p = 0.f;
-        if (k0 + j < N) {
-          const float er = exp2f(sv - mx[e >> 1]);
-          l[e >> 1] += er;
-          p = SINGLE ? er : er * exp2f(sv - mc[j]);
+    unsigned qf[4][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float lsum[4] = {};  // MXU: the row sums from the tensor cores
+    float o[W::kNT][4] = {};
+    float s[8][4];
+    for (int t = 0; t < 2 * nk; ++t) {
+      __syncthreads();  // the stage loaded below was read at step t - 1
+      const int tn = t + 1;
+      if (tn < 2 * nk) {
+        const int kn = (tn % nk) * kAT, st = tn & 1;
+        load_tile(K(st), vw.k, vw.ldqk, kn, N);
+        if (tn >= nk) {
+          load_rows<W::kW, W::kLd>(V(st), vnb, W::kW, kn, N);
+          if (!SINGLE && tid < kAT)
+            cp_async4(MCs + st * kAT + tid,
+                      ks + (size_t)(kn + tid < N ? kn + tid : 0) * 3,
+                      kn + tid < N);
         }
-        s[ni][e] = p;
       }
-    unsigned pf[4][4];
-    to_afrag(pf, s);  // P = T(er ec)
-    mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the k ring: av goes there
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      if (t == 0) load_afrag(qf, Qs);
+      const int k0 = (t % nk) * kAT;
+      mma_abt(s, qf, K(t & 1));
+      if (t < nk) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const float inv = 1.f / quad_sum(l[half]);
-    const int r = warp * 16 + (lane >> 2) + half * 8;
-    const bool ok = q0 + r < N;
+        for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-    for (int ni = 0; ni < W::kNT; ++ni)
-      *reinterpret_cast<__nv_bfloat162*>(AVs + r * W::kLd + acc_col(ni, 0)) =
-          __floats2bfloat162_rn(ok ? o[ni][2 * half] * inv : 0.f,
-                                ok ? o[ni][2 * half + 1] * inv : 0.f);
-  }
-  __syncthreads();
-  // F[e1][e2] = sum_i va[i][e1] av[i][e2]: va read along its rows (the
-  // M-major A operand), m16 tiles of e1 shared out over the warps
-  float* fp = fpart + ((size_t)blockIdx.x * gridDim.y + g) * E * E;
-  for (int mt = warp; mt < W::kKS; mt += kAThreads / 32) {
-    unsigned af[4][4];
+          for (int e = 0; e < 4; ++e)
+            if (k0 + acc_col(ni, e) < N)
+              mx[e >> 1] = fmaxf(mx[e >> 1], __fmul_rn(s[ni][e], scale));
+        if (t == nk - 1) {
+          mx[0] = quad_max(mx[0]);
+          mx[1] = quad_max(mx[1]);
+        }
+        continue;
+      }
+      const float* mc = MCs + (t & 1) * kAT;
+      unsigned pf[4][4];
+      if constexpr (HMUL) {
+        // P = T(T(er) T(ec)), one bf16 product per packed pair of columns
+        unsigned ef[4][4];  // MXU: T(er), for the row sums
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      ldsm_x4_t(af[kk], VAs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
-                                  W::kLd +
-                            mt * 16 + ((lane >> 3) & 1) * 8);
-    float f[W::kNT][4] = {};
-    mma_ab_acc<W::kNT, 4, W::kLd>(f, af, AVs);
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = acc_col(ni, 2 * h);
+            const float s0 = __fmul_rn(s[ni][2 * h], scale);
+            const float s1 = __fmul_rn(s[ni][2 * h + 1], scale);
+            const bool ok0 = k0 + j < N, ok1 = k0 + j + 1 < N;
+            const float er0 = ok0 ? exp2f(s0 - mx[h]) : 0.f;
+            const float er1 = ok1 ? exp2f(s1 - mx[h]) : 0.f;
+            const float ec0 = ok0 ? exp2f(s0 - mc[j]) : 0.f;
+            const float ec1 = ok1 ? exp2f(s1 - mc[j + 1]) : 0.f;
+            if (!MXU) {
+              l[h] += er0;
+              l[h] += er1;
+            }
+            const unsigned erb = pack_bf16(er0, er1);
+            const unsigned ecb = pack_bf16(ec0, ec1);
+            const __nv_bfloat162 p =
+                __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&erb),
+                        *reinterpret_cast<const __nv_bfloat162*>(&ecb));
+            afrag_at(pf, ni, h) = *reinterpret_cast<const unsigned*>(&p);
+            if (MXU) afrag_at(ef, ni, h) = erb;
+          }
+        if (MXU) mma_row_sums(lsum, ef);
+      } else {
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = acc_col(ni, e);
+            const float sv = __fmul_rn(s[ni][e], scale);
+            float p = 0.f;
+            if (k0 + j < N) {
+              const float er = exp2f(sv - mx[e >> 1]);
+              l[e >> 1] += er;
+              p = SINGLE ? er : er * exp2f(sv - mc[j]);
+            }
+            s[ni][e] = p;
+          }
+        to_afrag(pf, s);  // P = T(er ec)
+      }
+      mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the k ring: av goes there
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int e1 = mt * 16 + (lane >> 2) + half * 8;
-      if (e1 >= E) continue;
+      const float inv = 1.f / (MXU ? lsum[2 * half] : quad_sum(l[half]));
+      const int r = warp * 16 + (lane >> 2) + half * 8;
+      const bool ok = q0 + r < N;
 #pragma unroll
-      for (int ni = 0; ni < W::kNT; ++ni) {
-        const int e2 = acc_col(ni, 0);
-        if (e2 < E)
-          *reinterpret_cast<float2*>(fp + e1 * E + e2) =
-              make_float2(f[ni][2 * half], f[ni][2 * half + 1]);
+      for (int ni = 0; ni < W::kNT; ++ni)
+        *reinterpret_cast<__nv_bfloat162*>(AVs + r * W::kLd +
+                                           acc_col(ni, 0)) =
+            __floats2bfloat162_rn(ok ? o[ni][2 * half] * inv : 0.f,
+                                  ok ? o[ni][2 * half + 1] * inv : 0.f);
+    }
+    __syncthreads();
+    // F[e1][e2] = sum_i va[i][e1] av[i][e2]: va read along its rows (the
+    // M-major A operand), m16 tiles of e1 shared out over the warps
+    float* fp = fpart + ((size_t)blockIdx.x * G + g) * E * E;
+    for (int mt = warp; mt < W::kKS; mt += kAThreads / 32) {
+      unsigned af[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldsm_x4_t(af[kk], VAs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                    W::kLd +
+                              mt * 16 + ((lane >> 3) & 1) * 8);
+      float f[W::kNT][4] = {};
+      mma_ab_acc<W::kNT, 4, W::kLd>(f, af, AVs);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int e1 = mt * 16 + (lane >> 2) + half * 8;
+        if (e1 >= E) continue;
+#pragma unroll
+        for (int ni = 0; ni < W::kNT; ++ni) {
+          const int e2 = acc_col(ni, 0);
+          if (e2 < E)
+            *reinterpret_cast<float2*>(fp + e1 * E + e2) =
+                make_float2(f[ni][2 * half], f[ni][2 * half + 1]);
+        }
       }
     }
   }
@@ -494,7 +735,58 @@ struct EbFwdWs {
   }
 };
 
-// Host-side arguments: qkv rows of image i of pair b at img_i + b bstride.
+// Host-side arguments of launch_moments: the layout's in0 .. in3 and ld
+// (see the layouts), F (G, e, e) fp32, the EbFwdWs bytes, G slices, S of
+// them per block with kGroup, and the scale (the softmax scale times
+// log2 e).
+struct EbFwdArgs {
+  const bf16* in0;
+  const bf16* in1;
+  const bf16* in2;
+  const bf16* in3;
+  size_t ld;
+  float* F;
+  void* ws;
+  int G, N, C, heads, S;
+  float scale;
+};
+
+// G slices: at most 65,535 (the grid's second dimension)
+template <class Layout, int E, int MODE, bool CROSS, bool kGroup>
+cudaError_t launch_moments(const EbFwdArgs& a, cudaStream_t st) {
+  const int G = a.G, N = a.N;
+  if (G > 65535 || N <= 0 || a.ws == nullptr ||
+      (kGroup && (a.S < 1 || G % (2 * a.heads * a.S) != 0)))
+    return cudaErrorInvalidValue;
+  const EbFwdWs ws(a.ws, G, N, E);
+  const int nt = (N + kAT - 1) / kAT;
+  const dim3 grid(nt, G);
+  cudaError_t err;
+  if constexpr (MODE != kEbSingle) {
+    eb_stats_kernel<true, Layout, MODE == kEbMxuSums>
+        <<<grid, kAThreads, 0, st>>>(a.in0, a.in1, a.ld, ws.kstats, N, a.C,
+                                     a.heads, a.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const size_t chunks = (size_t)G * N * (EbW<E>::kW / 8);
+  eb_vbn_kernel<Layout, E><<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
+      a.in0, a.in1, a.in2, a.in3, a.ld,
+      MODE == kEbSingle ? nullptr : ws.kstats, ws.vbn, N, a.C, a.heads, G);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  constexpr size_t smem = moments_smem_bytes<E>();
+  auto kernel = eb_moments_kernel<Layout, E, MODE, CROSS, kGroup>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(nt, kGroup ? G / a.S : G), kAThreads, smem, st>>>(
+      a.in0, a.in1, a.in2, a.in3, a.ld, ws.kstats, ws.vbn, ws.fpart, N, a.C,
+      a.heads, a.S, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t L = (size_t)G * E * E;
+  return launch_sum_partials(ws.fpart, nt, L, L, a.F, st);
+}
+
+// #2-#4's arguments: qkv rows of image i of pair b at img_i + b bstride.
 struct EbTcArgs {
   const bf16* img1;
   const bf16* img2;
@@ -507,38 +799,13 @@ struct EbTcArgs {
 
 constexpr float kEbScale = 0.125f * 1.4426950408889634f;  // d^-1/2 log2(e)
 
-// G = 2 B heads slices: at most 65,535 (the grid's second dimension)
+// #2-#4's moments: G = 2 B heads slices of PairLayout
 template <int E, bool SINGLE, bool CROSS>
 cudaError_t launch_moments_tc(const EbTcArgs& a, cudaStream_t st) {
-  const int G = 2 * a.B * a.heads, N = a.N;
-  if (G > 65535 || N <= 0) return cudaErrorInvalidValue;
-  const EbFwdWs ws(a.ws, G, N, E);
-  const int nt = (N + kAT - 1) / kAT;
-  const dim3 grid(nt, G);
-  if constexpr (!SINGLE) {
-    eb_stats_kernel<true><<<grid, kAThreads, 0, st>>>(
-        a.img1, a.img2, a.bstride, ws.kstats, N, a.C, a.heads, kEbScale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const size_t chunks = (size_t)G * N * (EbW<E>::kW / 8);
-  eb_vbn_kernel<E><<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
-      a.img1, a.img2, a.bstride, a.pos, SINGLE ? nullptr : ws.kstats, ws.vbn,
-      N, a.C, a.heads, G);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  constexpr size_t smem = moments_smem_bytes<E>();
-  err = cudaFuncSetAttribute(eb_moments_kernel<E, SINGLE, CROSS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  eb_moments_kernel<E, SINGLE, CROSS><<<grid, kAThreads, smem, st>>>(
-      a.img1, a.img2, a.bstride, a.pos, ws.kstats, ws.vbn, ws.fpart, N, a.C,
-      a.heads, kEbScale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t L = (size_t)G * E * E;
-  return launch_sum_partials(ws.fpart, nt, L, L, a.F, st);
+  const EbFwdArgs f{a.img1, a.img2, a.pos, nullptr, a.bstride, a.F, a.ws,
+                    2 * a.B * a.heads, a.N, a.C, a.heads, 1, kEbScale};
+  return launch_moments<PairLayout, E, SINGLE ? kEbSingle : kEbDual, CROSS,
+                        false>(f, st);
 }
 
 // X(E, SINGLE, CROSS) for the 4 bf16 variants of one e

@@ -1,17 +1,22 @@
 // The backward of the Essential Matrix Module's moments on the tensor
-// cores, bf16: replaces rel_pose_tpu/ops/pallas_essential_block_bwd.py:
-// _essential_block_bwd_kernel (#6) for bf16; fp32 keeps the SIMT
-// essential_block_bwd_kernel of essential_block_bwd.cuh, bit for bit.
+// cores, bf16, on essential_tc.cuh's layouts: replaces, for bf16,
+//   - rel_pose_tpu/ops/pallas_essential_block_bwd.py:
+//     _essential_block_bwd_kernel (#6), PairLayout (essential_block_bwd.cu);
+//   - rel_pose_tpu/ops/pallas_essential.py:_bwd_kernel (#8), SliceLayout
+//     (bilinear_bwd.cu).
+// fp32 keeps the SIMT kernels (essential_block_bwd.cuh, bilinear_bwd.cu),
+// bit for bit.
 //
-// Per slice (essential_tc.cuh's notation; the Pallas kernel's rounding
-// points, :68-111, sums in another order):
+// Per slice (essential_tc.cuh's notation, scale = the softmax scale sigma
+// times log2e; the Pallas kernels' rounding points, #6 :68-111 and #8
+// :100-141, sums in another order):
 //   R = er / lr, Cm = ec / lc (the normalized row and column softmaxes),
 //   A = R Cm (SINGLE: R), Ab = T(A);
 //   vbdft = T(vb T(dF)^T), vadf = T(va T(dF));  dA = vadf vb^T (fp32);
 //   dva = Ab vbdft, dvb = Ab^T vadf;
 //   rho_i = sum_j dA Cm R, gamma_j = sum_i dA R Cm;
 //   ds = R (dA Cm - rho) + Cm (dA R - gamma)  (SINGLE: R (dA - rho));
-//   dsb = T(ds d^-1/2), dq = dsb k, dk = dsb^T q.
+//   dsb = T(ds sigma), dq = dsb k, dk = dsb^T q.
 // rho needs every key of its row, gamma every query of its column and ds
 // both, so the work runs as passes over 64 x 64 tiles of s, each pass one
 // launch (launch_essential_bwd_tc), one block of 4 warps per (64-row tile,
@@ -32,14 +37,17 @@
 // cp.async ring.  rho and gamma are not replaced by an algebraic shortcut
 // (rho_i = vadf_i (A vb)_i), which would move a rounding point.
 //
-// The outputs keep essential_block_bwd.cuh's scatter: dq and dk go to the
-// q and k slots of dqkv, each written by one (direction, head); pass e
-// writes dva in fp32 to scratch, and pass f adds it to dvb (dv = T(dvb +
+// PairLayout's outputs keep essential_block_bwd.cuh's scatter: dq and dk go
+// to the q and k slots of dqkv, each written by one (direction, head); pass
+// e writes dva in fp32 to scratch, and pass f adds it to dvb (dv = T(dvb +
 // dva)) unless CROSS, where T(dva) goes to the (B, 2, N, C) dva buffer of
 // the query image (the wrapper adds it to dqkv in bf16) and only its
 // positional columns are added; the positional columns go to the per-slice
-// fp32 partials dpos_part (B, 2, heads, N, 6).  No atomics, sums in a
-// fixed order: two calls give the same bits.
+// fp32 partials dpos_part (B, 2, heads, N, 6).  SliceLayout's are simpler,
+// as _bwd_kernel's: dq, dk to (G, N, 64) and dva = T(Ab vbdft), dvb =
+// T(Ab^T vadf) to (G, N, e), each rounded by itself (no scratch; with va
+// and vb one tensor the caller's autograd adds the two).  No atomics, sums
+// in a fixed order: two calls give the same bits.
 //
 // What bounds it on the H100: the products, executed 2 score products in
 // the statistics (one with SINGLE) and 4 score + 4 dA products in the
@@ -64,28 +72,30 @@ constexpr size_t prologue_smem_bytes() {
          EbW<E>::kW * EbW<E>::kLd * sizeof(bf16);
 }
 
-template <int E, bool CROSS>
+template <class Layout, int E, bool CROSS>
 __global__ void __launch_bounds__(kAThreads)
-eb_bwd_prologue_kernel(const bf16* __restrict__ img1,
-                       const bf16* __restrict__ img2, size_t bstride,
-                       const bf16* __restrict__ pos,
+eb_bwd_prologue_kernel(const bf16* __restrict__ in0,
+                       const bf16* __restrict__ in1,
+                       const bf16* __restrict__ in2,
+                       const bf16* __restrict__ in3, size_t ld,
                        const float* __restrict__ dF, bf16* __restrict__ VB,
                        bf16* __restrict__ VBDFT, bf16* __restrict__ VADF,
                        int N, int C, int heads) {
   using W = EbW<E>;
+  // va in a tile of its own: a cross-features pair, or any slice (its va
+  // and vb may differ)
+  constexpr bool kOwnVa = CROSS || Layout::kSlice;
   extern __shared__ __align__(128) bf16 sm[];
   bf16* VBs = sm;
-  bf16* VAs = CROSS ? sm + W::kTileElems : VBs;
+  bf16* VAs = kOwnVa ? sm + W::kTileElems : VBs;
   bf16* Os = sm + 2 * W::kTileElems;  // an output tile, staged
   bf16* DF = sm + 3 * W::kTileElems;  // [kW][kLd]: T(dF)[e][f]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.x * kAT, g = blockIdx.y;
-  const EbSlice sl(img1, img2, bstride, g, heads);
-  const size_t C3 = 3 * (size_t)C;
-  const bf16* posb = pos == nullptr ? nullptr : pos + (size_t)sl.b * N * kEbPos;
-  load_vrows<E>(VBs, sl.kimg + 2 * C + sl.h * kHeadDim, C3, posb, r0, N);
-  if (CROSS)
-    load_vrows<E>(VAs, sl.qimg + 2 * C + sl.h * kHeadDim, C3, posb, r0, N);
+  const EbView vw =
+      eb_view<Layout, E, CROSS>(in0, in1, in2, in3, ld, N, C, heads, g);
+  Layout::template load_v<E>(VBs, vw.vb, vw, r0, N);
+  if (kOwnVa) Layout::template load_v<E>(VAs, vw.va, vw, r0, N);
   cp_async_commit();
   const float* df = dF + (size_t)g * E * E;
   for (int i = tid; i < W::kW * W::kW; i += kAThreads) {
@@ -156,8 +166,10 @@ eb_bwd_prologue_kernel(const bf16* __restrict__ img1,
 // statistics of a side are (m, 1/l, reduction) per row, at
 // [(g N + row) * 3].  Per tile: s = X Xw^T (scaled), d = Y Yw^T (dA or
 // dA^T), then REDUCE sums rho (queries) or gamma (keys) into the own side's
-// slot 2; GRAD forms T(ds d^-1/2) and T(A) and accumulates out1 += . Xw,
-// out2 += . Zw, and writes them (see the file's head).
+// slot 2; GRAD forms T(ds sigma) and T(A) and accumulates out1 += . Xw,
+// out2 += . Zw, and writes them: PairLayout to dst0 = dqkv, dst1 = the
+// cross features' dva (B, 2, N, C), DVA and dpos_part; SliceLayout to dst0
+// .. dst3 = dq, dk, dva, dvb (see the file's head).
 template <int E, bool kRows, bool kGrad>
 constexpr size_t pass_smem_bytes() {
   constexpr int kZ = kRows && kGrad;  // a walked Z tile of its own
@@ -167,16 +179,19 @@ constexpr size_t pass_smem_bytes() {
          2 * 3 * kAT * sizeof(float);
 }
 
-template <int E, bool kRows, bool kGrad, bool SINGLE, bool CROSS>
+template <class Layout, int E, bool kRows, bool kGrad, bool SINGLE,
+          bool CROSS>
 __global__ void __launch_bounds__(kAThreads, 2)
-eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
+eb_bwd_pass_kernel(const bf16* __restrict__ in0,
+                   const bf16* __restrict__ in1, size_t ld,
                    float* __restrict__ qstats, float* __restrict__ kstats,
                    const bf16* __restrict__ VB,
                    const bf16* __restrict__ VBDFT,
                    const bf16* __restrict__ VADF, float* __restrict__ DVA,
-                   bf16* __restrict__ dqkv, bf16* __restrict__ dva_out,
+                   bf16* __restrict__ dst0, bf16* __restrict__ dst1,
+                   bf16* __restrict__ dst2, bf16* __restrict__ dst3,
                    float* __restrict__ dpos_part, int N, int C, int heads,
-                   float scale) {
+                   float scale, float sigma) {
   using W = EbW<E>;
   constexpr bool kZ = kRows && kGrad;
   // with SINGLE only the query side has statistics
@@ -196,13 +211,11 @@ eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
   float* WSs = reinterpret_cast<float*>(OYs + W::kTileElems + 2 * kStage);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.x * kAT, g = blockIdx.y;
-  const size_t C3 = 3 * (size_t)C, img = (size_t)N * C3;
-  const EbSlice sl(qkv, qkv + img, 2 * img, g, heads);
-  const bf16* qb = sl.qimg + sl.h * kHeadDim;
-  const bf16* kb = sl.kimg + C + sl.h * kHeadDim;
+  const EbView vw = eb_view<Layout, E, CROSS>(in0, in1, nullptr, nullptr,
+                                              ld, N, C, heads, g);
   const size_t gN = (size_t)g * N;
-  const bf16* ownX = kRows ? qb : kb;
-  const bf16* walkX = kRows ? kb : qb;
+  const bf16* ownX = kRows ? vw.q : vw.k;
+  const bf16* walkX = kRows ? vw.k : vw.q;
   const bf16* ownY = (kRows ? VADF : VB) + gN * W::kW;
   const bf16* walkY = (kRows ? VB : VADF) + gN * W::kW;
   const bf16* walkZ = VBDFT + gN * W::kW;
@@ -211,7 +224,7 @@ eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
   const int nt = (N + kAT - 1) / kAT;
 
   auto prefetch = [&](int w0, int st) {
-    load_tile(WX(st), walkX, C3, w0, N);
+    load_tile(WX(st), walkX, vw.ldqk, w0, N);
     load_rows<W::kW, W::kLd>(WY(st), walkY, W::kW, w0, N);
     if (kZ) load_rows<W::kW, W::kLd>(WZ(st), walkZ, W::kW, w0, N);
     if (kWalkStats) {
@@ -222,7 +235,7 @@ eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
                   i < valid);
     }
   };
-  load_tile(OXs, ownX, C3, r0, N);
+  load_tile(OXs, ownX, vw.ldqk, r0, N);
   load_rows<W::kW, W::kLd>(OYs, ownY, W::kW, r0, N);
   prefetch(0, 0);
   cp_async_commit();
@@ -299,12 +312,12 @@ eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
             }
           }
         }
-        s[ni][e] = ds * 0.125f;  // d^-1/2
+        s[ni][e] = ds * sigma;
         d[ni][e] = A;
       }
     if constexpr (kGrad) {
       unsigned dsf[4][4], abf[4][4];
-      to_afrag(dsf, s);  // T(ds d^-1/2)
+      to_afrag(dsf, s);  // T(ds sigma)
       to_afrag(abf, d);  // T(A)
       mma_ab(out1, dsf, WX(st));
       mma_ab_acc<W::kNT, 4, W::kLd>(out2, abf, WZ(st));
@@ -320,8 +333,34 @@ eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
     }
     return;
   }
-  // own rows' outputs; the image of the own rows in dqkv
-  bf16* out = dqkv + ((kRows ? sl.qimg : sl.kimg) - qkv);
+  if constexpr (Layout::kSlice) {
+    // dq | dk and dva | dvb of the own rows, each rounded by itself
+    bf16* gx = (kRows ? dst0 : dst1) + gN * kHeadDim;
+    bf16* gv = (kRows ? dst2 : dst3) + gN * E;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
+      if (row >= N) continue;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        *reinterpret_cast<__nv_bfloat162*>(gx + (size_t)row * kHeadDim +
+                                           acc_col(ni, 0)) =
+            __floats2bfloat162_rn(out1[ni][2 * half], out1[ni][2 * half + 1]);
+#pragma unroll
+      for (int ni = 0; ni < W::kNT; ++ni) {
+        const int col = acc_col(ni, 0);
+        if (col < E)
+          *reinterpret_cast<__nv_bfloat162*>(gv + (size_t)row * E + col) =
+              __floats2bfloat162_rn(out2[ni][2 * half],
+                                    out2[ni][2 * half + 1]);
+      }
+    }
+    return;
+  }
+  // own rows' outputs; the image of the own rows in dqkv (dst0)
+  const EbSlice sl(in0, in1, ld, g, heads);
+  const size_t C3 = 3 * (size_t)C;
+  bf16* out = dst0 + ((kRows ? sl.qimg : sl.kimg) - in0);
   float* dva = DVA + gN * E;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -342,8 +381,8 @@ eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
         *reinterpret_cast<float2*>(dvrow) = v;
         if (CROSS && col < kHeadDim)
           *reinterpret_cast<__nv_bfloat162*>(
-              dva_out + ((sl.qimg - qkv) / C3 + row) * C +
-              sl.h * kHeadDim + col) = __floats2bfloat162_rn(v.x, v.y);
+              dst1 + ((sl.qimg - in0) / C3 + row) * C + sl.h * kHeadDim +
+              col) = __floats2bfloat162_rn(v.x, v.y);
         continue;
       }
       // dvb (+ dva, summed in fp32)
@@ -365,7 +404,7 @@ eb_bwd_pass_kernel(const bf16* __restrict__ qkv,
 // ---------------------------------------------------------- workspace --
 // Scratch of the backward, in this order, each piece 256-byte aligned:
 // the query and key statistics (G N x 3 fp32 each), VB, VBDFT, VADF (G N kW
-// bf16 each), dva (G N e fp32).
+// bf16 each) and, for PairLayout's dva (kDva), G N e fp32.
 struct EbBwdWs {
   float* qstats;
   float* kstats;
@@ -374,7 +413,7 @@ struct EbBwdWs {
   bf16* vadf;
   float* dva;
   size_t bytes;
-  EbBwdWs(void* base, int G, int N, int E) {
+  EbBwdWs(void* base, int G, int N, int E, bool kDva) {
     const int kW = E == kHeadDim ? kHeadDim : 80;
     const size_t st = eb_align(sizeof(float) * (size_t)G * N * 3);
     const size_t rows = eb_align(sizeof(bf16) * (size_t)G * N * kW);
@@ -384,11 +423,90 @@ struct EbBwdWs {
     vb = reinterpret_cast<bf16*>(p + 2 * st);
     vbdft = reinterpret_cast<bf16*>(p + 2 * st + rows);
     vadf = reinterpret_cast<bf16*>(p + 2 * st + 2 * rows);
-    dva = reinterpret_cast<float*>(p + 2 * st + 3 * rows);
-    bytes = 2 * st + 3 * rows + eb_align(sizeof(float) * (size_t)G * N * E);
+    dva = kDva ? reinterpret_cast<float*>(p + 2 * st + 3 * rows) : nullptr;
+    bytes = 2 * st + 3 * rows +
+            (kDva ? eb_align(sizeof(float) * (size_t)G * N * E) : 0);
   }
 };
 
+// Host-side arguments of launch_bwd: the layout's in0 .. in3 and ld (see
+// essential_tc.cuh), dF (G, e, e) fp32, the outputs out0 .. out3 (the
+// pass kernel's dst0 .. dst3) and dpos_part, the EbBwdWs bytes, G slices, the
+// scale (sigma log2 e) and sigma.
+struct EbBwdArgs {
+  const bf16* in0;
+  const bf16* in1;
+  const bf16* in2;
+  const bf16* in3;
+  size_t ld;
+  const float* dF;
+  bf16* out0;
+  bf16* out1;
+  bf16* out2;
+  bf16* out3;
+  float* dpos_part;
+  void* ws;
+  int G, N, C, heads;
+  float scale, sigma;
+};
+
+template <class Layout, int E, bool kRows, bool kGrad, bool SINGLE,
+          bool CROSS>
+static cudaError_t launch_bwd_pass(const EbBwdArgs& a, const EbBwdWs& ws,
+                                   dim3 grid, cudaStream_t st) {
+  constexpr size_t smem = pass_smem_bytes<E, kRows, kGrad>();
+  auto kernel = eb_bwd_pass_kernel<Layout, E, kRows, kGrad, SINGLE, CROSS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kAThreads, smem, st>>>(
+      a.in0, a.in1, a.ld, ws.qstats, ws.kstats, ws.vb, ws.vbdft, ws.vadf,
+      ws.dva, a.out0, a.out1, a.out2, a.out3, a.dpos_part, a.N, a.C, a.heads,
+      a.scale, a.sigma);
+  return cudaGetLastError();
+}
+
+// G slices: at most 65,535 (the grid's second dimension)
+template <class Layout, int E, bool SINGLE, bool CROSS>
+cudaError_t launch_bwd(const EbBwdArgs& a, cudaStream_t st) {
+  const int G = a.G, N = a.N;
+  if (G > 65535 || N <= 0 || a.ws == nullptr) return cudaErrorInvalidValue;
+  const EbBwdWs ws(a.ws, G, N, E, !Layout::kSlice);
+  const dim3 grid((N + kAT - 1) / kAT, G);
+  cudaError_t err;
+  eb_stats_kernel<false, Layout><<<grid, kAThreads, 0, st>>>(
+      a.in0, a.in1, a.ld, ws.qstats, N, a.C, a.heads, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if constexpr (!SINGLE) {
+    eb_stats_kernel<true, Layout><<<grid, kAThreads, 0, st>>>(
+        a.in0, a.in1, a.ld, ws.kstats, N, a.C, a.heads, a.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  constexpr size_t psmem = prologue_smem_bytes<E>();
+  auto prologue = eb_bwd_prologue_kernel<Layout, E, CROSS>;
+  err = cudaFuncSetAttribute(
+      prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)psmem);
+  if (err != cudaSuccess) return err;
+  prologue<<<grid, kAThreads, psmem, st>>>(a.in0, a.in1, a.in2, a.in3, a.ld,
+                                          a.dF, ws.vb, ws.vbdft, ws.vadf, N,
+                                          a.C, a.heads);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if constexpr (!SINGLE) {  // gamma
+    err = launch_bwd_pass<Layout, E, false, false, SINGLE, CROSS>(a, ws, grid,
+                                                                  st);
+    if (err != cudaSuccess) return err;
+  }
+  if ((err = launch_bwd_pass<Layout, E, true, false, SINGLE, CROSS>(
+           a, ws, grid, st)) != cudaSuccess)
+    return err;
+  if ((err = launch_bwd_pass<Layout, E, true, true, SINGLE, CROSS>(
+           a, ws, grid, st)) != cudaSuccess)
+    return err;
+  return launch_bwd_pass<Layout, E, false, true, SINGLE, CROSS>(a, ws, grid,
+                                                                st);
+}
+
+// #6's arguments
 struct EbbTcArgs {
   const bf16* qkv;    // (B, 2, N, 3C)
   const bf16* pos;    // (B, N, 6), or NULL with e = 64
@@ -400,59 +518,15 @@ struct EbbTcArgs {
   int B, N, C, heads;
 };
 
-template <int E, bool kRows, bool kGrad, bool SINGLE, bool CROSS>
-static cudaError_t launch_bwd_pass(const EbbTcArgs& a, const EbBwdWs& ws,
-                                   dim3 grid, cudaStream_t st) {
-  constexpr size_t smem = pass_smem_bytes<E, kRows, kGrad>();
-  auto kernel = eb_bwd_pass_kernel<E, kRows, kGrad, SINGLE, CROSS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kAThreads, smem, st>>>(
-      a.qkv, ws.qstats, ws.kstats, ws.vb, ws.vbdft, ws.vadf, ws.dva, a.dqkv,
-      a.dva, a.dpos_part, a.N, a.C, a.heads, kEbScale);
-  return cudaGetLastError();
-}
-
-// G = 2 B heads slices: at most 65,535 (the grid's second dimension)
+// #6: G = 2 B heads slices of PairLayout, the images of pair b at qkv +
+// (2 b + i) N 3C
 template <int E, bool SINGLE, bool CROSS>
 cudaError_t launch_essential_bwd_tc(const EbbTcArgs& a, cudaStream_t st) {
-  const int G = 2 * a.B * a.heads, N = a.N;
-  if (G > 65535 || N <= 0) return cudaErrorInvalidValue;
-  const EbBwdWs ws(a.ws, G, N, E);
-  const size_t img = (size_t)N * 3 * a.C;
-  const dim3 grid((N + kAT - 1) / kAT, G);
-  cudaError_t err;
-  eb_stats_kernel<false><<<grid, kAThreads, 0, st>>>(
-      a.qkv, a.qkv + img, 2 * img, ws.qstats, N, a.C, a.heads, kEbScale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if constexpr (!SINGLE) {
-    eb_stats_kernel<true><<<grid, kAThreads, 0, st>>>(
-        a.qkv, a.qkv + img, 2 * img, ws.kstats, N, a.C, a.heads, kEbScale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  constexpr size_t psmem = prologue_smem_bytes<E>();
-  err = cudaFuncSetAttribute(eb_bwd_prologue_kernel<E, CROSS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)psmem);
-  if (err != cudaSuccess) return err;
-  eb_bwd_prologue_kernel<E, CROSS><<<grid, kAThreads, psmem, st>>>(
-      a.qkv, a.qkv + img, 2 * img, a.pos, a.dF, ws.vb, ws.vbdft, ws.vadf, N,
-      a.C, a.heads);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if constexpr (!SINGLE) {  // gamma
-    err = launch_bwd_pass<E, false, false, SINGLE, CROSS>(a, ws, grid, st);
-    if (err != cudaSuccess) return err;
-  }
-  if ((err = launch_bwd_pass<E, true, false, SINGLE, CROSS>(a, ws, grid,
-                                                            st)) !=
-      cudaSuccess)
-    return err;
-  if ((err = launch_bwd_pass<E, true, true, SINGLE, CROSS>(a, ws, grid,
-                                                           st)) !=
-      cudaSuccess)
-    return err;
-  return launch_bwd_pass<E, false, true, SINGLE, CROSS>(a, ws, grid, st);
+  const size_t img = (size_t)a.N * 3 * a.C;
+  const EbBwdArgs b{a.qkv, a.qkv + img, a.pos, nullptr, 2 * img, a.dF,
+                    a.dqkv, a.dva, nullptr, nullptr, a.dpos_part, a.ws,
+                    2 * a.B * a.heads, a.N, a.C, a.heads, kEbScale, 0.125f};
+  return launch_bwd<PairLayout, E, SINGLE, CROSS>(b, st);
 }
 
 #define RP_EBB_TC_EXTERN(E, S, X) \

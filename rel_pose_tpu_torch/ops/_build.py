@@ -70,17 +70,23 @@ SIGNATURES = {
     # q, k, v, do, dq, dk, dv, stats, T(do / l) scratch (bf16; else NULL);
     # G, N, d, scale, bf16; stream
     "rp_mhsa_bwd": ([P] * 9 + [I] * 3 + [F, I, P], ctypes.c_int),
-    # q, k, va, vb, F; G, N, e, single, scale * log2e, bf16; stream
-    "rp_bilinear_fwd": ([P] * 5 + [I] * 4 + [F, I, P], ctypes.c_int),
-    # G, N, e -> workspace bytes of rp_bilinear_bwd
-    "rp_bilinear_bwd_workspace": ([I] * 3, L),
+    # G, N, e, bf16 -> workspace bytes of rp_bilinear_fwd (0 for fp32)
+    "rp_bilinear_fwd_workspace": ([I] * 4, L),
+    # q, k, va, vb, F, workspace; G, N, e, single, scale * log2e, bf16;
+    # stream
+    "rp_bilinear_fwd": ([P] * 6 + [I] * 4 + [F, I, P], ctypes.c_int),
+    # G, N, e, bf16 -> workspace bytes of rp_bilinear_bwd
+    "rp_bilinear_bwd_workspace": ([I] * 4, L),
     # q, k, va, vb, dF, dq, dk, dva, dvb, workspace; G, N, e, single,
     # scale * log2e, scale, bf16; stream
     "rp_bilinear_bwd": ([P] * 10 + [I] * 4 + [F, F, I, P], ctypes.c_int),
-    # qkv1, qkv2, pos, F; B, N, C, heads, S, bf16; stream
-    "rp_essential_block_s": ([P] * 4 + [I] * 6 + [P], ctypes.c_int),
-    # qkv1, qkv2, pos, F (bf16); B, N, C, heads, mode; stream
-    "rp_essential_block_variant": ([P] * 4 + [I] * 5 + [P], ctypes.c_int),
+    # B, N, heads, bf16 -> workspace bytes of the two entry points below
+    # (0 for fp32)
+    "rp_cross_variants_workspace": ([I] * 4, L),
+    # qkv1, qkv2, pos, F, workspace; B, N, C, heads, S, bf16; stream
+    "rp_essential_block_s": ([P] * 5 + [I] * 6 + [P], ctypes.c_int),
+    # qkv1, qkv2, pos, F, workspace (bf16); B, N, C, heads, mode; stream
+    "rp_essential_block_variant": ([P] * 5 + [I] * 5 + [P], ctypes.c_int),
 }
 
 

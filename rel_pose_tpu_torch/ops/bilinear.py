@@ -10,17 +10,24 @@ N, e)``, ``(G, N, e)`` -> ``(G, e, e)`` fp32:
   * on CPU tensors it is the plain PyTorch version,
     :func:`bilinear_attention_reference`;
   * on CUDA tensors it launches ``rp_bilinear_fwd`` of ``csrc/bilinear.cu``
-    (which replaces ``_fwd_kernel``) or raises.
+    (which replaces ``_fwd_kernel``) or raises: bf16 the essential block's
+    tensor-core moments (``csrc/essential_tc.cuh``, its slice layout), with
+    the scratch that ``rp_bilinear_fwd_workspace`` sizes; fp32 the SIMT
+    body of ``csrc/bilinear.cuh``.
 
 Under autograd it is a ``torch.autograd.Function``, as the Pallas op is a
 ``custom_vjp`` (``_bilinear_pallas``, ``pallas_essential.py:203-217``): the
 residuals are the inputs, and the backward is
 :func:`fused_bilinear_attention_bwd`, which recomputes -- the plain
 :func:`bilinear_attention_bwd_reference` on the CPU, ``rp_bilinear_bwd`` of
-``csrc/bilinear_bwd.cu`` (which replaces ``_bwd_kernel``) on CUDA.  When va
-and vb are one tensor (the non-cross wiring) autograd adds dva and dvb into
-it, as JAX adds the custom VJP's two cotangents.  The kernels take d = 64,
-e = 64 or 70, fp32 or bf16, contiguous tensors and any G, N and scale.
+``csrc/bilinear_bwd.cu`` (which replaces ``_bwd_kernel``; bf16 on the
+tensor-core passes of ``csrc/essential_tc_bwd.cuh``) on CUDA.  When va and
+vb are one tensor (the non-cross wiring) autograd adds dva and dvb into it,
+as JAX adds the custom VJP's two cotangents.  The kernels take d = 64, e =
+64 or 70, fp32 or bf16, contiguous tensors (bf16 ones on 16-byte
+boundaries) and any N and scale; bf16 at most 65,535 slices (the launch
+grid's second dimension), fp32 any G.  A larger or malformed call raises
+before any launch.
 
 The JAX package's one caller is ``_head_stacked_impl``
 (``pallas_essential_block.py:420-458``); the port's is
@@ -34,6 +41,19 @@ from . import _build
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
 WIDTHS = (64, 70)       # e without and with the positional columns
+MAX_SLICES = 65535      # bf16: slices in the launch grid's second dimension
+_KERNEL_DEVICE = "cuda"   # the device type the kernels launch on
+
+
+def _on_card(what, x):
+    """True for a tensor on the kernels' device (CUDA; the CPU too where the
+    route tests point the launchers there with a stand-in kernel library),
+    False for a CPU tensor (the plain version), a raise for any other."""
+    if x.device.type == _KERNEL_DEVICE:
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel for {x.device}")
 
 
 def _scores(q, k, scale):
@@ -113,16 +133,19 @@ def fused_bilinear_attention(q, k, va, vb, scale, single_softmax=False):
 
 
 def _forward(q, k, va, vb, scale, single_softmax):
-    if q.device.type == "cpu":
+    if not _on_card("fused_bilinear_attention", q):
         return bilinear_attention_reference(q, k, va, vb, scale,
                                             single_softmax)
     G, N, e = _check_inputs("fused_bilinear_attention", q, k, va, vb)
+    bf16 = int(q.dtype == torch.bfloat16)
+    lib = _build.library()
     f = torch.empty((G, e, e), dtype=torch.float32, device=q.device)
+    ws = _workspace(lib.rp_bilinear_fwd_workspace(G, N, e, bf16), q.device)
     stream = _build.prepare_launch(q.device)
-    err = _build.library().rp_bilinear_fwd(
+    err = lib.rp_bilinear_fwd(
         q.data_ptr(), k.data_ptr(), va.data_ptr(), vb.data_ptr(),
-        f.data_ptr(), G, N, e, int(bool(single_softmax)), scale * LOG2E,
-        int(q.dtype == torch.bfloat16), stream)
+        f.data_ptr(), _ptr(ws), G, N, e, int(bool(single_softmax)),
+        scale * LOG2E, bf16, stream)
     _build.check(err, "rp_bilinear_fwd")
     fused_bilinear_attention.launches += 1
     return f
@@ -150,7 +173,7 @@ def fused_bilinear_attention_bwd(q, k, va, vb, df, scale,
     """``(dq, dk, dva, dvb)`` for the fp32 cotangent ``df (G, e, e)``:
     :func:`bilinear_attention_bwd_reference` on CPU tensors,
     ``rp_bilinear_bwd`` on CUDA tensors (or a raise)."""
-    if q.device.type == "cpu":
+    if not _on_card("fused_bilinear_attention_bwd", q):
         return bilinear_attention_bwd_reference(q, k, va, vb, df, scale,
                                                 single_softmax)
     G, N, e = _check_inputs("fused_bilinear_attention_bwd", q, k, va, vb)
@@ -159,17 +182,17 @@ def fused_bilinear_attention_bwd(q, k, va, vb, df, scale,
         raise ValueError("fused_bilinear_attention_bwd: needs a contiguous "
                          f"fp32 dF {(G, e, e)} on {q.device}, got "
                          f"{tuple(df.shape)} {df.dtype} on {df.device}")
+    bf16 = int(q.dtype == torch.bfloat16)
     lib = _build.library()
     dq, dk = torch.empty_like(q), torch.empty_like(k)
     dva, dvb = torch.empty_like(va), torch.empty_like(vb)
-    ws = torch.empty(lib.rp_bilinear_bwd_workspace(G, N, e),
-                     dtype=torch.uint8, device=q.device)
+    ws = _workspace(lib.rp_bilinear_bwd_workspace(G, N, e, bf16), q.device)
     stream = _build.prepare_launch(q.device)
     err = lib.rp_bilinear_bwd(
         q.data_ptr(), k.data_ptr(), va.data_ptr(), vb.data_ptr(),
         df.data_ptr(), dq.data_ptr(), dk.data_ptr(), dva.data_ptr(),
-        dvb.data_ptr(), ws.data_ptr(), G, N, e, int(bool(single_softmax)),
-        scale * LOG2E, scale, int(q.dtype == torch.bfloat16), stream)
+        dvb.data_ptr(), _ptr(ws), G, N, e, int(bool(single_softmax)),
+        scale * LOG2E, scale, bf16, stream)
     _build.check(err, "rp_bilinear_bwd")
     fused_bilinear_attention_bwd.launches += 1
     return dq, dk, dva, dvb
@@ -178,10 +201,20 @@ def fused_bilinear_attention_bwd(q, k, va, vb, df, scale,
 fused_bilinear_attention_bwd.launches = 0
 
 
+def _workspace(size, device):
+    """A uint8 buffer of the ``size`` bytes a workspace query answered (None
+    for 0)."""
+    return torch.empty(size, dtype=torch.uint8, device=device) if size \
+        else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _check_inputs(what, q, k, va, vb):
-    """The kernels' launch checks -> (G, N, e)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for {q.device}")
+    """The kernels' launch checks on tensors on their device -> (G, N,
+    e)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: dtype {q.dtype} (fp32 or bf16)")
     if q.dim() != 3 or va.dim() != 3:
@@ -200,4 +233,12 @@ def _check_inputs(what, q, k, va, vb):
                              f"{q.dtype} on {q.device} with q, k {(G, N, d)}"
                              f" and va, vb {(G, N, e)}; got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if q.dtype == torch.bfloat16:
+        if G > MAX_SLICES:
+            raise ValueError(f"{what}: {G} slices; the bf16 launch grid "
+                             f"takes at most {MAX_SLICES}")
+        for t in (q, k, va, vb):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what}: a bf16 operand at "
+                                 f"{t.data_ptr():#x} is not 16-byte aligned")
     return G, N, e

@@ -16,15 +16,21 @@ result ``F (B, 2, heads, 70, 70)`` fp32, as #4:
 
 On CPU tensors each is its plain version; on CUDA tensors it launches
 ``rp_essential_block_s`` / ``rp_essential_block_variant`` of
-``csrc/cross_variants.cu`` or raises.  No model path runs them: their caller
-is ``scripts/bench_cross_torch.py``, for kernel-design work.
+``csrc/cross_variants.cu`` or raises: bf16 #4's tensor-core moments
+(``csrc/essential_tc.cuh``; ``s`` gives #4's bf16 bits), with the scratch
+that ``rp_cross_variants_workspace`` sizes, at most 65,535 slices (2 B
+heads); fp32 ``s`` the SIMT body of ``csrc/bilinear.cuh``.  No model path
+runs them: their caller is ``scripts/bench_cross_torch.py``, for
+kernel-design work.
 """
 
 import torch
 
 from . import _build
-from .essential_block import (HEAD_DIM, LOG2E, POS_COLS, _check_pair,
-                              _split, essential_block_reference)
+from .bilinear import _ptr, _workspace
+from .essential_block import (HEAD_DIM, LOG2E, POS_COLS, _check_aligned,
+                              _check_grid, _check_pair, _on_card, _split,
+                              essential_block_reference)
 
 MODES = ("mxu_sums", "bf16_mul")
 E = HEAD_DIM + POS_COLS
@@ -63,7 +69,7 @@ def essential_block_s(qkv1, qkv2, positional, S):
     B = qkv1.shape[0]
     if S < 1 or B % S:
         raise ValueError(f"essential_block_s: S = {S} must divide B = {B}")
-    if qkv1.device.type == "cpu":
+    if not _on_card("essential_block_s", qkv1):
         return essential_block_reference(qkv1, qkv2, positional,
                                          _heads(qkv1))
     f, args = _prepare("essential_block_s", qkv1, qkv2, positional)
@@ -85,7 +91,7 @@ def essential_block_variant(qkv1, qkv2, positional, mode):
     if qkv1.dtype != torch.bfloat16:
         raise TypeError(f"essential_block_variant: bf16 only, got "
                         f"{qkv1.dtype}")
-    if qkv1.device.type == "cpu":
+    if not _on_card("essential_block_variant", qkv1):
         return essential_block_variant_reference(qkv1, qkv2, positional,
                                                  mode)
     f, args = _prepare("essential_block_variant", qkv1, qkv2, positional)
@@ -106,16 +112,20 @@ def _check_mode(mode):
 
 
 def _prepare(what, qkv1, qkv2, positional):
-    """Launch checks on CUDA tensors -> (F, the leading C arguments)."""
-    if qkv1.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for {qkv1.device}")
+    """Launch checks on tensors on the kernels' device -> (F, the leading C
+    arguments: qkv1, qkv2, pos, F, workspace; B, N, C, heads)."""
     if positional is None:
         raise ValueError(f"{what}: the variants take a positional table")
     B, N, C3 = qkv1.shape
     heads = _heads(qkv1)
     pos = positional.to(qkv1.dtype).contiguous()
     _check_pair(qkv1, qkv2, pos, C3 // 3, heads)
+    bf16 = qkv1.dtype == torch.bfloat16
+    _check_grid(what, B, heads, bf16)
+    _check_aligned(what, qkv1, qkv2)
+    ws = _workspace(_build.library().rp_cross_variants_workspace(
+        B, N, heads, int(bf16)), qkv1.device)
     f = torch.empty((B, 2, heads, E, E), dtype=torch.float32,
                     device=qkv1.device)
     return f, (qkv1.data_ptr(), qkv2.data_ptr(), pos.data_ptr(),
-               f.data_ptr(), B, N, C3 // 3, heads)
+               f.data_ptr(), _ptr(ws), B, N, C3 // 3, heads)

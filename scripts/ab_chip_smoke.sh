@@ -21,8 +21,8 @@ for tree in "$other" . . "$other"; do
   run=$?
   echo "[ab] run $n ($name): exit $run"
   [ "$run" -eq 0 ] || rc=1
-  grep -E '^\[time\] (mhsa|noess|vit_stack |vit_stack_bwd |essential|eval|train)' \
-    "$log" | cut -c1-160
+  grep -E '^\[time\] (mhsa|noess|vit_stack |vit_stack_bwd |essential|eval|train|bilinear|bench_cross_torch)' \
+    "$log" | cut -c1-240
 done
 for tree in "$other" .; do
   echo "[ab] bits of $tree"

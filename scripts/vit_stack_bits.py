@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Digests of the ViT stack kernels' outputs, and of kernels #7, #2 and #6's
-in fp32, to compare two trees' bits.
+"""Digests of the ViT stack kernels' outputs, of kernels #7, #8 and #9's in
+fp32 and of #2, #4 and #6's in fp32 and bf16, to compare two trees' bits.
 
     python3 scripts/vit_stack_bits.py [--tree DIR]
 
@@ -9,12 +9,17 @@ kernel #1 (``_launch_forward``, with and without the stash) and #5
 (``fused_vit_stack_bwd``) on seeded inputs at the model's widths (G = 16
 sequences of 576 tokens, C = 192, 3 heads, depth 5) on one GPU, in fp32 and
 bf16, kernel #7 (``fused_mhsa``, ``fused_mhsa_bwd``) in fp32 at G = 24
-heads of N = 100 and 576, and the essential block's #2
-(``fused_essential_block_pair``) and #6 (``fused_essential_block_bwd``) in
-fp32 at B = 4 pairs of N = 576 for each of the 8 flag sets, and prints one
-line per (dtype, output) with the sha256 of the output's bytes.  Where two trees run the same kernels (fp32's
-SIMT kernels since the port began), they print the same digests on one
-card.  Needs a CUDA device.
+heads of N = 100 and 576, the essential block's #2
+(``fused_essential_block_pair``), #4 (``fused_essential_block``) and #6
+(``fused_essential_block_bwd``) in fp32 and bf16 at B = 4 pairs of N = 576
+for each of the 8 flag sets, #8 (``fused_bilinear_attention`` and its
+backward) in fp32 at G = 24 slices of N = 576 for e in {70, 64} and both
+softmaxes, and #9's ``essential_block_s`` in fp32 (S = 2, 4, B = 4), and
+prints one line per (dtype, output) with the sha256 of the output's
+bytes.  Where two trees run the same kernels (fp32's SIMT kernels since
+the port began; the essential block's bf16 tensor-core kernels, which use
+no atomics and sum in a fixed order, since they were written), they print
+the same digests on one card.  Needs a CUDA device.
 """
 
 import argparse
@@ -90,11 +95,13 @@ def main():
         print(f"[bits] float32 mhsa N={n} forward {digest(o)} backward "
               f"{digest(*grads)}")
     essential_bits(device)
+    bilinear_bits(device)
     return 0
 
 
 def essential_bits(device, B=4):
-    """fp32 #2 and #6 digests for every (positions, cross, single)."""
+    """#2, #4 and #6 digests for every (positions, cross, single), fp32 and
+    bf16 (the same draws, rounded)."""
     from rel_pose_tpu_torch.ops import essential_block as te
     rng = np.random.default_rng(2)
 
@@ -106,22 +113,55 @@ def essential_bits(device, B=4):
     qkvp = (t((3 * C, C), C ** -0.5), t((3 * C,), 0.1))
     positional = t((B, N, 6))
     qkv = t((B, 2, N, 3 * C))
-    for has_pos in (True, False):
-        e = 64 + 6 * has_pos
-        df = t((B, 2, HEADS, e, e), 0.1)
-        pos = positional if has_pos else None
-        for cross in (False, True):
-            for single in (False, True):
-                kw = {"cross_features": cross, "use_single_softmax": single}
-                f = te.fused_essential_block_pair(xpair, ln, qkvp, pos,
-                                                  HEADS, **kw)
-                dq, dp = te.fused_essential_block_bwd(qkv, pos, df, HEADS,
-                                                      **kw)
-                torch.cuda.synchronize()
-                grads = [dq] if dp is None else [dq, dp]
-                print(f"[bits] float32 essential pos={int(has_pos)} "
-                      f"cross={int(cross)} single={int(single)} pair "
-                      f"{digest(f)} backward {digest(*grads)}")
+    dfs = {e: t((B, 2, HEADS, e, e), 0.1) for e in (70, 64)}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, qk = xpair.to(dtype), qkv.to(dtype)
+        q1, q2 = qk[:, 0].contiguous(), qk[:, 1].contiguous()
+        for has_pos in (True, False):
+            e = 64 + 6 * has_pos
+            pos = positional if has_pos else None
+            for cross in (False, True):
+                for single in (False, True):
+                    kw = {"cross_features": cross,
+                          "use_single_softmax": single}
+                    f = te.fused_essential_block_pair(x, ln, qkvp, pos,
+                                                      HEADS, **kw)
+                    f4 = te.fused_essential_block(q1, q2, pos, HEADS, **kw)
+                    dq, dp = te.fused_essential_block_bwd(qk, pos, dfs[e],
+                                                          HEADS, **kw)
+                    torch.cuda.synchronize()
+                    grads = [dq] if dp is None else [dq, dp]
+                    print(f"[bits] {str(dtype)[6:]} essential "
+                          f"pos={int(has_pos)} cross={int(cross)} "
+                          f"single={int(single)} pair {digest(f)} block "
+                          f"{digest(f4)} backward {digest(*grads)}")
+
+
+def bilinear_bits(device, G=24, B=4):
+    """fp32 #8 (forward, backward; va != vb) and #9 ``essential_block_s``
+    digests."""
+    from rel_pose_tpu_torch.ops import bilinear as tb
+    from rel_pose_tpu_torch.ops import cross_variants as cv
+    rng = np.random.default_rng(3)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(device)
+    for e in (70, 64):
+        q, k, va, vb = t(G, N, 64), t(G, N, 64), t(G, N, e), t(G, N, e)
+        df = t(G, e, e, scale=0.1)
+        for single in (False, True):
+            f = tb.fused_bilinear_attention(q, k, va, vb, 0.125, single)
+            grads = tb.fused_bilinear_attention_bwd(q, k, va, vb, df, 0.125,
+                                                    single)
+            torch.cuda.synchronize()
+            print(f"[bits] float32 bilinear e={e} single={int(single)} "
+                  f"forward {digest(f)} backward {digest(*grads)}")
+    q1, q2, pos = t(B, N, 3 * C), t(B, N, 3 * C), t(B, N, 6)
+    for S in (2, 4):
+        f = cv.essential_block_s(q1, q2, pos, S)
+        torch.cuda.synchronize()
+        print(f"[bits] float32 essential_block_s S={S} {digest(f)}")
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ the bf16 tensor-core decomposition, on the CPU.
   * CPU tensors take the plain versions and load no library.
 
 Then the decomposition the bf16 kernels compute, written out in PyTorch at
-their 64-row tiles (``tc_moments_mirror``, ``tc_bwd_mirror``): column
+their 64-row tiles (``tc_moments_mirror``, ``tc_bwd_mirror`` on the pair
+layout, over the slice-level ``tc_slice_moments`` / ``tc_slice_bwd`` that
+tests/test_torch_bilinear_route.py holds to kernels #8 and #9): column
 statistics merged online over query tiles of the transposed product, the
 exact row max, P vb_n per key tile and per-tile F partials summed in
 order; the backward's statistics, prologue, rho / gamma passes and the two
@@ -414,18 +416,31 @@ def _online_stats(s):
     return m, 1.0 / l
 
 
-def tc_moments_mirror(qkv, pos, heads, cross, single):
-    """F (B, 2, heads, e, e) as the bf16 kernels compute it (essential_tc.
-    cuh), on qkv (B, 2, N, 3C) in T with fp32 sums."""
-    cdt = qkv.dtype
+def _exact_stats(s):
+    """Per row of s (G, rows, cols): the exact max m, then 1 / sum
+    T(exp2(s - m)) in fp32 (bf16 T), as eb_stats_kernel's second walk sums
+    them on the tensor cores (kEbMxuSums)."""
+    m = s.amax(-1)
+    e = torch.exp2(s - m[..., None]).bfloat16().float()
+    return m, 1.0 / e.sum(-1)
+
+
+def tc_slice_moments(q, k, va, vb, scale, mode, cdt):
+    """F (G, e, e) as the bf16 tensor-core moments compute it
+    (essential_tc.cuh) on fp32 slices q, k (G, N, 64), va, vb (G, N, e)
+    holding values of T = cdt, with fp32 sums; ``scale`` the softmax scale
+    times log2e in fp32; ``mode`` "dual", "single", or #9's "bf16_mul" (P =
+    T(T(er) T(ec))) and "mxu_sums" (the same P, lr and lc summed over
+    T(er), T(ec) against exact maxima)."""
     rnd = lambda t: t.to(cdt).float()
-    q, k, vb, va = _slices(qkv, pos, heads, cross)
+    hmul = mode in ("bf16_mul", "mxu_sums")
     n = q.shape[1]
-    s = torch.matmul(q, k.transpose(1, 2)) * SCALE          # (G, N, N)
-    if single:
+    s = torch.matmul(q, k.transpose(1, 2)) * scale           # (G, N, N)
+    if mode == "single":
         vbn = vb
     else:
-        mc, lcinv = _online_stats(s.transpose(1, 2))       # key statistics
+        stats = _exact_stats if mode == "mxu_sums" else _online_stats
+        mc, lcinv = stats(s.transpose(1, 2))               # key statistics
         vbn = rnd(vb * lcinv[..., None])
     mr = s.amax(-1)                                       # the max pass
     f = 0.0
@@ -434,23 +449,34 @@ def tc_moments_mirror(qkv, pos, heads, cross, single):
         for j0 in range(0, n, TILE):                      # key tiles
             blk = s[:, i0:i0 + TILE, j0:j0 + TILE]
             er = torch.exp2(blk - mr[:, i0:i0 + TILE, None])
-            lr = lr + er.sum(-1)
-            p = er if single else er * torch.exp2(
-                blk - mc[:, None, j0:j0 + TILE])
+            lr = lr + (rnd(er) if mode == "mxu_sums" else er).sum(-1)
+            if mode == "single":
+                p = er
+            else:
+                ec = torch.exp2(blk - mc[:, None, j0:j0 + TILE])
+                p = rnd(er) * rnd(ec) if hmul else er * ec
             o = o + torch.matmul(rnd(p), vbn[:, j0:j0 + TILE])
         av = rnd(o * (1.0 / lr)[..., None])
         f = f + torch.matmul(va[:, i0:i0 + TILE].transpose(1, 2), av)
-    B_ = qkv.shape[0]
-    return f.view(B_, 2, heads, *f.shape[1:])
+    return f
 
 
-def _pass(rows, grad, single, own, walk):
+def tc_moments_mirror(qkv, pos, heads, cross, single):
+    """F (B, 2, heads, e, e) as the bf16 kernels compute it (essential_tc.
+    cuh), on qkv (B, 2, N, 3C) in T with fp32 sums."""
+    q, k, vb, va = _slices(qkv, pos, heads, cross)
+    f = tc_slice_moments(q, k, va, vb, SCALE,
+                         "single" if single else "dual", qkv.dtype)
+    return f.view(qkv.shape[0], 2, heads, *f.shape[1:])
+
+
+def _pass(rows, grad, single, own, walk, scale, sigma):
     """One pass of eb_bwd_pass_kernel over (own 64-row tile, walked tile)
     pairs: ``own`` = (X, Y, stats, the rounding to T), ``walk`` = (X, Y,
     Z, stats) with
     stats (m, 1/l, reduction) per row of that side; rows = the own side is
-    the queries.  REDUCE returns the own reduction (rho or gamma), GRAD
-    (out1, out2)."""
+    the queries; s = X Xw^T scale, ds rounded after the factor sigma.
+    REDUCE returns the own reduction (rho or gamma), GRAD (out1, out2)."""
     (ox, oy, ost, rnd), (wx, wy, wz, wst) = own, walk
     G, n, _ = ox.shape
     red = torch.zeros(G, n)
@@ -460,7 +486,7 @@ def _pass(rows, grad, single, own, walk):
         r = slice(r0, r0 + TILE)
         for w0 in range(0, n, TILE):
             w = slice(w0, w0 + TILE)
-            s = torch.matmul(ox[:, r], wx[:, w].transpose(1, 2)) * SCALE
+            s = torch.matmul(ox[:, r], wx[:, w].transpose(1, 2)) * scale
             d = torch.matmul(oy[:, r], wy[:, w].transpose(1, 2))
             po = (torch.exp2(s - ost[0][:, r, None]) * ost[1][:, r, None]
                   if ost is not None else None)
@@ -483,9 +509,37 @@ def _pass(rows, grad, single, own, walk):
                 gam = wred if rows else ored
                 ds = R * (d * Cm - rho) + Cm * (d * R - gam)
                 A = R * Cm
-            out1[:, r] += torch.matmul(rnd(ds * 0.125), wx[:, w])
+            out1[:, r] += torch.matmul(rnd(ds * sigma), wx[:, w])
             out2[:, r] += torch.matmul(rnd(A), wz[:, w])
     return red if not grad else (out1, out2)
+
+
+def tc_slice_bwd(q, k, va, vb, df, scale, sigma, single, cdt):
+    """(dq, dk, dva, dvb) in fp32, before their last rounding, as the bf16
+    passes compute them (essential_tc_bwd.cuh) on fp32 slices q, k (G, N,
+    64), va, vb (G, N, e) holding values of T = cdt and dF (G, e, e);
+    ``scale`` sigma log2e in fp32, sigma the softmax scale."""
+    rnd = lambda t: t.to(cdt).float()
+    s = torch.matmul(q, k.transpose(1, 2)) * scale
+    mr, lrinv = _online_stats(s)
+    qst = [mr, lrinv, None]
+    kst = None if single else [*_online_stats(s.transpose(1, 2)), None]
+    dfb = rnd(df)
+    vbdft = rnd(torch.matmul(vb, dfb.transpose(1, 2)))      # the prologue
+    vadf = rnd(torch.matmul(va, dfb))
+    own_q = lambda st: (q, vadf, st, rnd)
+    own_k = lambda st: (k, vb, st, rnd)
+    args = (scale, sigma)
+    if not single:                                        # gamma, rho
+        kst[2] = _pass(False, False, single, own_k(kst),
+                       (q, vadf, vadf, qst), *args)
+    qst[2] = _pass(True, False, single, own_q(qst), (k, vb, vbdft, kst),
+                   *args)
+    dq, dva = _pass(True, True, single, own_q(qst), (k, vb, vbdft, kst),
+                    *args)
+    dk, dvb = _pass(False, True, single, own_k(kst), (q, vadf, vadf, qst),
+                    *args)
+    return dq, dk, dva, dvb
 
 
 def tc_bwd_mirror(qkv, pos, df, heads, cross, single):
@@ -496,21 +550,8 @@ def tc_bwd_mirror(qkv, pos, df, heads, cross, single):
     rnd = lambda t: t.to(cdt).float()
     q, k, vb, va = _slices(qkv, pos, heads, cross)
     G, n, e = vb.shape
-    s = torch.matmul(q, k.transpose(1, 2)) * SCALE
-    mr, lrinv = _online_stats(s)
-    qst = [mr, lrinv, None]
-    kst = None if single else [*_online_stats(s.transpose(1, 2)), None]
-    dfb = rnd(df.reshape(G, e, e))
-    vbdft = rnd(torch.matmul(vb, dfb.transpose(1, 2)))      # the prologue
-    vadf = rnd(torch.matmul(va, dfb))
-    own_q = lambda st: (q, vadf, st, rnd)
-    own_k = lambda st: (k, vb, st, rnd)
-    if not single:                                        # gamma, rho
-        kst[2] = _pass(False, False, single, own_k(kst),
-                       (q, vadf, vadf, qst))
-    qst[2] = _pass(True, False, single, own_q(qst), (k, vb, vbdft, kst))
-    dq, dva = _pass(True, True, single, own_q(qst), (k, vb, vbdft, kst))
-    dk, dvb = _pass(False, True, single, own_k(kst), (q, vadf, vadf, qst))
+    dq, dk, dva, dvb = tc_slice_bwd(q, k, va, vb, df.reshape(G, e, e),
+                                    SCALE, 0.125, single, cdt)
     B_ = qkv.shape[0]
     shape = lambda t: t.view(B_, 2, heads, n, t.shape[-1])
     dq, dk, dva, dvb = map(shape, (dq, dk, dva, dvb))
