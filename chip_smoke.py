@@ -138,11 +138,37 @@ The last two Pallas kernels: #8, the per-head bilinear op of
      after), with the plain times of s2, mxu_sums and bf16_mul; each with
      its bound.
 
+The no-fusion baseline (``ModelConfig(fusion_transformer=False)``, the
+training CLI's default; no hand kernel on its path) and the training CLI:
+
+  4e. the no-fusion model at full width with seeded weights:
+     ``PosePredictor`` on the card answers phase 4's requests, fp32 and
+     bf16, against the same weights run by the port on the CPU in fp32; 3
+     train steps of 4 pairs per dtype, losses finite, the step-1 loss and
+     per-leaf gradients against the CPU's step in the same dtype on the
+     same batch; its eval forward at batch 256 (bf16) and its train step
+     at batch 60 (fp32, bf16) in pairs/s;
+  6. ``python -m rel_pose_tpu_torch.cli.train`` as a user runs it, on
+     Matterport-layout trees of 480x640 JPEGs written under
+     ``output/chip_smoke_cli/``: the native host library
+     (``rel_pose_tpu_torch/native``) built and loaded; in-process, the
+     flagship at depth 6, bf16, batch 6, 4 steps, a checkpoint every 2,
+     with #1, #2, #5 and #6's counters set to 0 just before and read just
+     after (each must have launched), finite losses and the checkpoints;
+     the module in a child process to step 5, which must resume; the
+     no-fusion default in fp32 for 2 steps; the flagship bf16 at batch 60
+     for 15 steps: the CLI's steady-state pairs/s and the share of its
+     loop's time spent waiting on the data loader, beside phase 5b's
+     synthetic step; then the host pipeline by part (one thread's decode
+     and whole-sample milliseconds a pair, the loader alone in pairs/s).
+
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``; the one before the card's line is the
-``{"kernels": [...]}`` line of all twelve kernels.  Checkpoints go to
-``output/`` beside this file.  The run needs no network and starts no
-process besides ``nvidia-smi`` and ``nvcc``, which it waits for.
+``{"kernels": [...]}`` line of all twelve kernels.  Checkpoints and the
+CLI's trees go to ``output/`` beside this file and are removed.  The run
+needs no network and starts no process besides ``nvidia-smi``, ``nvcc``,
+``make`` (the native host library) and the CLI's child process, each of
+which it waits for.
 """
 
 import itertools
@@ -215,6 +241,16 @@ MHSA_STATS_NORMREL = 1e-5
 MHSA_SCALE = 64 ** -0.5
 LEAF_COS = {torch.float32: 0.9999, torch.bfloat16: 0.98}
 LEAF_RATIO = {torch.float32: 1e-3, torch.bfloat16: 0.1}
+# The no-fusion step on the card against the CPU's (phase 4e), the trunk's
+# leaves (ResNet and extractor): their convolutions sum in cuDNN's order on
+# one side and oneDNN's on the other, and training BatchNorm's cancellation
+# amplifies that, as it does between the two packages on the CPU
+# (tests/test_torch_nofusion.py: 8.1e-3 relative in fp32 on the trunk, 1.3e-5
+# on the head).  Measured on an H100: fp32 |norm ratio - 1| up to 1.3e-3
+# (cosine 0.99999), bf16 cosine down to 0.968.  The pool head and the
+# regressor keep LEAF_COS / LEAF_RATIO.
+TRUNK_LEAF_COS = {torch.float32: 0.9999, torch.bfloat16: 0.9}
+TRUNK_LEAF_RATIO = {torch.float32: 1e-2, torch.bfloat16: 0.2}
 # The head-stacked route (#8's forward and backward under autograd) against
 # #4 + #6 on the same inputs, gradients ||err|| / ||ref||: fp32 1e-4, the
 # same fp32 arithmetic summed in another order; bf16 3e-2 as GRAD_NORMREL,
@@ -1013,9 +1049,11 @@ def kernel_counters():
             "essential_block_bwd": te.fused_essential_block_bwd}
 
 
-def compare_leaves(dtype, grads, plain, failures, label="train"):
+def compare_leaves(dtype, grads, plain, failures, label="train",
+                   leaf_cos=LEAF_COS, leaf_ratio=LEAF_RATIO):
     """Per-parameter cosine and norm ratio of the kernel path's step-1
-    gradient against the plain path's."""
+    gradient against the plain path's (``leaf_cos``, ``leaf_ratio``: the
+    bounds by dtype)."""
     scale = max(g.norm().item() for g in plain.values())
     worst_cos, worst_ratio, bad = 1.0, 0.0, []
     for name, g in grads.items():
@@ -1027,11 +1065,11 @@ def compare_leaves(dtype, grads, plain, failures, label="train"):
         if rn >= 1e-4 * scale:
             worst_cos = min(worst_cos, cos)
             worst_ratio = max(worst_ratio, ratio)
-            if cos < LEAF_COS[dtype] or ratio > LEAF_RATIO[dtype]:
+            if cos < leaf_cos[dtype] or ratio > leaf_ratio[dtype]:
                 bad.append(f"{name} cos {cos:.6f} ratio {gn / rn:.4f}")
     log(f"[{label}] {str(dtype)[6:]} step-1 gradients, {len(grads)} "
-        f"leaves: min cosine {worst_cos:.6f} (>= {LEAF_COS[dtype]}), max "
-        f"|norm ratio - 1| {worst_ratio:.3e} (<= {LEAF_RATIO[dtype]}) "
+        f"leaves: min cosine {worst_cos:.6f} (>= {leaf_cos[dtype]}), max "
+        f"|norm ratio - 1| {worst_ratio:.3e} (<= {leaf_ratio[dtype]}) "
         f"{'ok' if not bad else 'FAIL ' + '; '.join(bad[:5])}")
     if bad:
         failures.append(f"step-1 gradients {dtype}")
@@ -1205,18 +1243,20 @@ def phase_times_train(device, sd, card):
             f"({b[1]}) ({card})")
 
     batch = train_batch(rng, B, device)
+    step_ms = {}
     for dtype in DTYPES:
         for kernels in (True, False):
             model, opt, sched = train_model(dtype, sd, device, kernels)
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_time_ms(lambda: train_step(model, opt, sched, *batch),
                               3)
+            step_ms[dtype, kernels] = ms
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             log(f"[time] train step {str(dtype)[6:]} batch {B} 384x512 uint8 "
                 f"({'kernels' if kernels else 'plain path'}): {ms:.3f} ms, "
                 f"{B / ms * 1e3:.2f} pairs/s, peak {peak:.2f} GiB ({card})")
             del model, opt, sched
-    return rows
+    return rows, step_ms[torch.bfloat16, True]
 
 
 # ------------------------------------------------------------ --noess --
@@ -2045,6 +2085,309 @@ def phase_times_bilinear(device, card, errs):
     return rows, launches
 
 
+# ------------------------------------------------- the no-fusion baseline --
+
+def phase_nofusion(device, card):
+    """(4e) the no-fusion baseline (``ModelConfig(fusion_transformer=
+    False)``, the training CLI's default; no hand kernel on its path) at
+    full width with seeded weights: ``PosePredictor`` on the card answers
+    phase 4's requests, fp32 and bf16, against the same weights run by the
+    port on the CPU in fp32 (POSE_ATOL); 3 train steps of 4 pairs per dtype
+    on the card, losses finite, the step-1 loss and gradients against the
+    CPU's step in the same dtype on the same batch (LOSS_RTOL; LEAF_COS and
+    LEAF_RATIO for the pool head and the regressor, TRUNK_LEAF_COS and
+    TRUNK_LEAF_RATIO for the trunk); then the eval forward at batch 256
+    (256x256, bf16) and the train step at batch 60 (384x512, fp32 and
+    bf16) in pairs/s."""
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.infer import PosePredictor
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    from rel_pose_tpu_torch.nn.init import seeded_state_dict
+    from rel_pose_tpu_torch.train.step import train_step
+    flags = {"fusion_transformer": False}
+    cpu = torch.device("cpu")
+    sd = seeded_state_dict(ViTEss(ModelConfig(**flags), device="meta"),
+                           SEED + 20)
+    failures = []
+
+    def model_on(dev, dtype):
+        m = ViTEss(ModelConfig(compute_dtype=str(dtype)[6:], **flags),
+                   device=dev)
+        m.load_state_dict(sd)
+        return m
+
+    reqs = requests(np.random.default_rng(SEED + 1))
+    cpu32 = model_on(cpu, torch.float32)
+    for dtype in DTYPES:
+        card_model = model_on(device, dtype)
+        for name, images, intr, size in reqs:
+            got, want = (PosePredictor(m, intrinsics=intr, batch_size=8,
+                                       image_size=size).predict_batch(images)
+                         for m in (card_model, cpu32))
+            check_poses(f"nofusion {name}", dtype, got, want, len(images),
+                        failures, label="nofusion")
+        del card_model
+    del cpu32
+
+    for dtype in DTYPES:
+        rng = np.random.default_rng(SEED + 21)
+        batches = [train_batch(rng, SLICE_TRAIN_BATCH, device)
+                   for _ in range(3)]
+        runs = {}
+        for where, dev, steps in (("card", device, 3), ("cpu", cpu, 1)):
+            model, opt, sched = train_model(dtype, sd, dev, True, **flags)
+            losses, grads1 = [], None
+            for step, batch in enumerate(batches[:steps]):
+                metrics, poses = train_step(model, opt, sched,
+                                            *(t.to(dev) for t in batch))
+                losses.append(metrics["loss"].item())
+                if step == 0:
+                    grads1 = {n: p.grad.detach().to(cpu)
+                              for n, p in model.named_parameters()}
+            runs[where] = (losses, grads1)
+            log(f"[nofusion] train {str(dtype)[6:]} on the {where}: losses "
+                f"{[round(v, 6) for v in losses]}")
+            if not all(np.isfinite(losses)):
+                failures.append(f"nofusion losses {dtype} {where}")
+            del model, opt, sched
+        (lk, gk), (lp, gp) = runs["card"], runs["cpu"]
+        rel = abs(lk[0] - lp[0]) / abs(lp[0])
+        ok = rel <= LOSS_RTOL[dtype]
+        log(f"[nofusion] train {str(dtype)[6:]} step-1 loss card "
+            f"{lk[0]:.6f} cpu {lp[0]:.6f} rel {rel:.3e} (<= "
+            f"{LOSS_RTOL[dtype]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"nofusion step-1 loss {dtype}")
+        trunk = [n for n in gk if n.startswith(("resnet.",
+                                                "extractor_final_conv."))]
+        compare_leaves(dtype, {n: gk[n] for n in trunk},
+                       {n: gp[n] for n in trunk}, failures,
+                       label="nofusion trunk", leaf_cos=TRUNK_LEAF_COS,
+                       leaf_ratio=TRUNK_LEAF_RATIO)
+        compare_leaves(dtype, {n: g for n, g in gk.items() if n not in trunk},
+                       {n: g for n, g in gp.items() if n not in trunk},
+                       failures, label="nofusion head")
+    if failures:
+        raise SystemExit(f"no-fusion checks failed: {failures}")
+
+    rng = np.random.default_rng(SEED + 22)
+    B = EVAL_BATCH
+    images = torch.from_numpy(rng.integers(
+        0, 256, (B, 2, 3, 256, 256), dtype=np.uint8)).to(device)
+    intr = torch.full((B, 2, 4), 128.0, device=device)
+    model = model_on(device, torch.bfloat16)
+    with torch.inference_mode():
+        ms = cuda_time_ms(lambda: model(images, intr), 3)
+    log(f"[time] nofusion eval forward bf16 batch {B} 256x256 uint8: "
+        f"{ms:.3f} ms, {B / ms * 1e3:.2f} pairs/s ({card})")
+    del model, images
+    batch = train_batch(rng, TRAIN_BATCH, device)
+    for dtype in DTYPES:
+        model, opt, sched = train_model(dtype, sd, device, True, **flags)
+        ms = cuda_time_ms(lambda: train_step(model, opt, sched, *batch), 3)
+        log(f"[time] nofusion train step {str(dtype)[6:]} batch "
+            f"{TRAIN_BATCH} 384x512 uint8: {ms:.3f} ms, "
+            f"{TRAIN_BATCH / ms * 1e3:.2f} pairs/s ({card})")
+        del model, opt, sched
+
+
+# ---------------------------------------------------- the training CLI --
+
+CLI_DIR = OUTPUT_DIR / "chip_smoke_cli"
+CLI_PAIRS = 24          # the tree's pairs, 480x640 JPEG
+CLI_DEPTH = 6
+CLI_THROUGHPUT_STEPS = 15   # at batch 60, 5 of them the timer's warm-up
+
+
+def write_matterport_tree(root, rng, pairs, entries, images=None):
+    """A Matterport-layout tree: ``pairs`` pairs of 480x640 JPEGs (quality
+    95; smooth colour fields with noise, so that they compress and decode
+    like photographs more than like noise), or a link to the ``images``
+    directory of another tree, and a split file of ``entries`` pairs
+    cycling through them, random poses (W-first quaternions, as the
+    dataset stores them)."""
+    import cv2
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    files = [f"a/b/c/d/e/f/imgs/p{i // 2}_{i % 2}.jpg"
+             for i in range(2 * pairs)]
+    root.mkdir(parents=True, exist_ok=True)
+    if images is not None:
+        (root / "imgs").symlink_to(images, target_is_directory=True)
+    for i in range(0 if images is not None else 2 * pairs):
+        f = rng.uniform(0.5, 3.0, (3, 2))
+        ph = rng.uniform(0, 2 * np.pi, (3, 2))
+        img = np.stack([np.sin(2 * np.pi * f[c, 0] * xx / 640 + ph[c, 0])
+                        * np.cos(2 * np.pi * f[c, 1] * yy / 480 + ph[c, 1])
+                        for c in range(3)], axis=-1)
+        img = 127.5 + 100 * img + rng.normal(0, 8, img.shape)
+        path = root / files[i][len("a/b/c/d/e/f/"):]
+        path.parent.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(path), np.clip(img, 0, 255).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_QUALITY, 95])
+    data = []
+    for k in range(entries):
+        p = k % pairs
+        q = rng.standard_normal(4)
+        q[0] = abs(q[0]) + 2.0
+        data.append({"0": {"file_name": files[2 * p]},
+                     "1": {"file_name": files[2 * p + 1]},
+                     "rel_pose": {"position": list(0.5 * rng.standard_normal(
+                         3)), "rotation": list(q / np.linalg.norm(q))}})
+    (root / "mp3d_planercnn_json").mkdir(parents=True, exist_ok=True)
+    for split in ("train", "val"):
+        (root / "mp3d_planercnn_json" / f"cached_set_{split}.json"
+         ).write_text(json.dumps({"data": data}))
+
+
+def cli_records(name):
+    path = CLI_DIR / "output" / name / "runs" / "metrics.jsonl"
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def phase_cli(device, card, synthetic_ms):
+    """(6) the training CLI, ``rel_pose_tpu_torch.cli.train``, as a user
+    runs it, on Matterport-layout trees of 480x640 JPEGs under
+    ``output/chip_smoke_cli/``: the native host library built and loaded;
+    (a) in-process, the flagship at depth 6, bf16, batch 6, 4 steps, a
+    checkpoint every 2: #1, #2, #5 and #6 launched during the run, finite
+    losses in ``metrics.jsonl``, the checkpoints there; (b) ``python -m``
+    in a child process to step 5: it resumes and exits 0; (c) the no-fusion
+    default, fp32, 2 steps; (d) the flagship bf16 at batch 60 for
+    CLI_THROUGHPUT_STEPS steps: the CLI's steady-state pairs/s and the
+    share of the loop's time spent waiting on the data loader, beside
+    phase 5b's synthetic step (``synthetic_ms``).  Returns (a)'s launch
+    counts."""
+    from rel_pose_tpu_torch import native
+    from rel_pose_tpu_torch.cli import train as cli
+    if not native.available():
+        raise SystemExit(f"native host library: {native.build_error()}")
+    log(f"[cli] native host library loaded: {native.library_path()}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 30)
+    t0 = time.perf_counter()
+    write_matterport_tree(CLI_DIR / "mp", rng, CLI_PAIRS, CLI_PAIRS)
+    write_matterport_tree(CLI_DIR / "mp60", rng, CLI_PAIRS,
+                          TRAIN_BATCH * CLI_THROUGHPUT_STEPS,
+                          images=CLI_DIR / "mp" / "imgs")
+    log(f"[cli] wrote the trees in {time.perf_counter() - t0:.1f} s")
+    common = ["--no_ddp", "--num_workers", "4", "--dataset", "matterport"]
+    flagship = ["--fusion_transformer", "--transformer_depth",
+                str(CLI_DEPTH), "--compute_dtype", "bfloat16"]
+    counters = kernel_counters()
+    failures = []
+    cwd = os.getcwd()
+    os.chdir(CLI_DIR)
+    try:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["--name", "flagship", "--datapath", "mp", "--batch", "6",
+                  "--steps", "4", "--ckpt_every", "2", "--warmup", "2"]
+                 + common + flagship)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        log(f"[cli] flagship bf16 depth {CLI_DEPTH} batch 6, 4 steps in "
+            f"{time.perf_counter() - t0:.1f} s; kernel launches during the "
+            f"CLI's steps: {launches}")
+        failures += [f"{k} never launched in the CLI" for k, v in
+                     launches.items() if v <= 0]
+        losses = [r["train_geo_loss_tr"] + r["train_geo_loss_rot"]
+                  for r in cli_records("flagship")
+                  if "train_geo_loss_tr" in r]
+        ckpts = sorted(os.listdir("output/flagship/checkpoints"))
+        log(f"[cli] flagship losses {losses}, checkpoints {ckpts}")
+        if not losses or not np.isfinite(losses).all():
+            failures.append(f"CLI losses {losses}")
+        if ckpts != ["000002.pth", "000004.pth"]:
+            failures.append(f"CLI checkpoints {ckpts}")
+
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(OUTPUT_DIR.parent)] + [p for p in [
+                os.environ.get("PYTHONPATH")] if p]))
+        r = subprocess.run(
+            [sys.executable, "-m", "rel_pose_tpu_torch.cli.train", "--name",
+             "flagship", "--datapath", "mp", "--batch", "6", "--steps", "5",
+             "--ckpt_every", "2", "--warmup", "2"] + common + flagship,
+            env=env, capture_output=True, text=True, timeout=900)
+        resumed = ("loading existing checkpoint "
+                   "output/flagship/checkpoints/000004.pth" in r.stdout)
+        log(f"[cli] python -m rel_pose_tpu_torch.cli.train --steps 5: exit "
+            f"{r.returncode} in {time.perf_counter() - t0:.1f} s, "
+            f"{'resumed from step 4' if resumed else 'DID NOT RESUME'}, "
+            f"000005.pth "
+            f"{os.path.exists('output/flagship/checkpoints/000005.pth')}")
+        if r.returncode != 0 or not resumed or not os.path.exists(
+                "output/flagship/checkpoints/000005.pth"):
+            failures.append("CLI resume")
+            log(r.stdout[-3000:] + r.stderr[-3000:])
+
+        cli.main(["--name", "nofusion", "--datapath", "mp", "--batch", "6",
+                  "--steps", "2", "--warmup", "1"] + common)
+        losses = [r["train_geo_loss_tr"] + r["train_geo_loss_rot"]
+                  for r in cli_records("nofusion")
+                  if "train_geo_loss_tr" in r]
+        log(f"[cli] no-fusion default fp32, 2 steps: losses {losses}")
+        if not losses or not np.isfinite(losses).all():
+            failures.append(f"CLI no-fusion losses {losses}")
+
+        t0 = time.perf_counter()
+        cli.main(["--name", "batch60", "--datapath", "mp60", "--batch",
+                  str(TRAIN_BATCH), "--steps", str(CLI_THROUGHPUT_STEPS),
+                  "--ckpt_every", "1000000", "--warmup", "2"]
+                 + common + flagship)
+        rec = next(r for r in cli_records("batch60") if "timed_steps" in r)
+        log(f"[time] training CLI bf16 batch {TRAIN_BATCH} 384x512 from "
+            f"480x640 JPEGs ({CLI_THROUGHPUT_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{int(rec['timed_steps'])} timed): "
+            f"{rec['pairs_per_sec_per_chip']:.2f} pairs/s, waiting on the "
+            f"loader {100 * rec['loader_wait_share']:.2f}% of the step; "
+            f"phase 5b's synthetic train_step {synthetic_ms:.3f} ms, "
+            f"{TRAIN_BATCH / synthetic_ms * 1e3:.2f} pairs/s ({card})")
+        log_loader_parts(card)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    if failures:
+        raise SystemExit(f"training CLI checks failed: {failures}")
+    return launches
+
+
+def log_loader_parts(card, pairs=24, batches=6):
+    """The host side of (6d) by part, on the batch-60 tree: one thread's
+    milliseconds a pair for the JPEG decode (``image_read`` of both images)
+    and for the whole sample (decode, resize, jitter, quantize: the
+    dataset's ``__getitem__``), then the CLI's loader alone (4 workers,
+    batch 60, no training beside it) in pairs/s."""
+    from rel_pose_tpu_torch.data import DataLoader, Matterport
+    from rel_pose_tpu_torch.data.base import image_read
+    db = Matterport(datapath="mp60", subepoch=0,
+                    rng=np.random.default_rng(SEED + 31))
+    t0 = time.perf_counter()
+    for a, b in db.scene_info["images"][:pairs]:
+        image_read(a), image_read(b)
+    decode = (time.perf_counter() - t0) / pairs * 1e3
+    t0 = time.perf_counter()
+    for i in range(pairs):
+        db[i]
+    sample = (time.perf_counter() - t0) / pairs * 1e3
+    it = iter(DataLoader(db, batch_size=TRAIN_BATCH, seed=SEED,
+                         num_workers=4))
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    rate = batches * TRAIN_BATCH / (time.perf_counter() - t0)
+    it.close()
+    log(f"[time] host data pipeline, 480x640 JPEG pairs -> 384x512 uint8: "
+        f"one thread {decode:.2f} ms a pair decoding, {sample:.2f} ms a "
+        f"pair in all (resize, jitter, quantize: {sample - decode:.2f}); "
+        f"the loader alone, 4 workers, batch {TRAIN_BATCH}: {rate:.2f} "
+        f"pairs/s ({os.cpu_count()} host cores; {card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2065,7 +2408,10 @@ def main():
     launches = phase_train(device, sd)
     rows = phase_times(device, models, card)
     del models
-    rows.update(phase_times_train(device, sd, card))
+    train_rows, synthetic_ms = phase_times_train(device, sd, card)
+    rows.update(train_rows)
+    del sd
+    phase_nofusion(device, card)
     models, sd = make_models(device, noess=True)
     noess_eval, noess_train = phase_noess(device, models, sd)
     rows.update(phase_times_noess(device, models, sd, card))
@@ -2076,10 +2422,11 @@ def main():
     bench_rows, bench_launches = phase_times_bilinear(
         device, card, (bilinear_errs, variant_errs))
     rows.update(bench_rows)
+    cli_launches = phase_cli(device, card, synthetic_ms)
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
     log(f"[slice] eval launches {eval_launches}, training launches "
-        f"{launches}")
+        f"{launches}, the training CLI's launches {cli_launches}")
     log(f"[noess] eval launches {noess_eval}, training launches "
         f"{noess_train}")
     for flag, (serve, train) in ablations.items():

@@ -1,9 +1,11 @@
 """rel_pose_tpu_torch -- the PyTorch + CUDA (Hopper) port of rel_pose_tpu.
 
 A second package beside the JAX one, which stays the reference.  It holds
-the eval forward served by ``PosePredictor`` and the single-GPU training
-step of the flagship and the --noess configurations; it imports ``torch`` and never ``jax``, nor anything of the
-JAX package (``config.ModelConfig`` is a pinned copy of the JAX one).
+the eval forward served by ``PosePredictor``, the single-GPU training step
+and the training CLI (``python -m rel_pose_tpu_torch.cli.train``) of every
+configuration; it imports ``torch`` and never ``jax``, nor anything of the
+JAX package (``config`` is a pinned copy of the JAX one, ``data`` and
+``native`` are copies of the JAX package's).
 
 Layer map (bottom-up), each module named after its JAX counterpart:
   config    ModelConfig
@@ -16,9 +18,14 @@ Layer map (bottom-up), each module named after its JAX counterpart:
             (autograd Functions) with their plain PyTorch versions, and the
             nvcc build
   models/   ViTEss: image pair -> (B, 2, 7) poses
-  train/    train_step / eval_step, Adam + OneCycle, .pth checkpoints
-  utils/    weights from the JAX package or a reference .pth
+  train/    train_step / eval_step, Adam + OneCycle, .pth checkpoints,
+            the logger
+  data/     dataset readers, augmentation, the threaded loader
+  native/   the host pipeline's C++ (built with make at first use)
+  utils/    weights from the JAX package, a reference .pth or torchvision,
+            the precision knob, StepTimer
   infer     PosePredictor, the serving entry point
+  cli/      train: the training CLI
 """
 
 __version__ = "0.1.0"

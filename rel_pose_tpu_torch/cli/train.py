@@ -1,0 +1,358 @@
+"""Training CLI of the PyTorch port, on one GPU.
+
+    python -m rel_pose_tpu_torch.cli.train --name exp --dataset matterport \\
+        --datapath <root> --batch 6 --fusion_transformer --no_ddp \\
+        --compute_dtype bfloat16
+
+Counterpart of the JAX package's ``train.py`` with the same flags and
+defaults (``train.py:35-71``), plus ``--device`` (``cuda``, the default, or
+``cpu``).  Without ``--fusion_transformer`` it trains the no-fusion
+baseline, as ``train.py`` does.  What it keeps of ``train.py:72-315``:
+
+  * the args snapshot ``output/<name>/args_<stamp>.txt``;
+  * weights from PyTorch's default initializers under
+    ``torch.manual_seed(0)``; Adam + OneCycle (``train.optim``);
+  * ``--resnet_pretrained``: the conv trunk from a local torchvision
+    resnet18 file, overridden by any checkpoint restored after it;
+  * ``--ckpt`` on a ``.pth``: the model and the Adam moments, with the
+    learning-rate schedule and the step count fresh (the reference's
+    ``train.py:75-86``); else auto-resume from the newest
+    ``output/<name>/checkpoints/*.pth``;
+  * the subepoch protocol: subepochs 0-9 train on the dataset, subepoch 10
+    validates (``train.step.eval_step``) for Matterport, InteriorNet and
+    StreetLearn reset at 10;
+  * a checkpoint every ``--ckpt_every`` steps and at ``--steps``;
+  * step k's metrics read on the host (``.item()``) only after step k + 1
+    is queued, so that the card is never drained to log;
+  * a one-batch device prefetch: batch k + 1 is pinned and copied
+    ``non_blocking`` before step k runs; uint8 images go to the card as
+    they are, and the model casts them.
+
+``--image_size`` is accepted and, as in ``train.py``, not passed to the
+datasets (they resize to 384x512).  At the end it writes one record with
+the steady-state pairs/s (``utils.profiling.StepTimer``) and the share of
+the loop's time spent waiting on the data loader to
+``output/<name>/runs/metrics.jsonl``.
+
+It refuses, with a message, what the port cannot do yet: ``--device cuda``
+without a GPU (there is no CPU fallback), more than one GPU (``--gpus`` > 1,
+or several visible without ``--no_ddp``: data parallelism is a later slice),
+a ``--ckpt`` that is not a ``.pth`` (the msgpack ``.ckpt`` reader is a later
+slice) and ``--remat`` (a TPU memory lever the port does not take).
+"""
+
+import argparse
+import sys
+import time
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from ..config import add_model_flags, model_config_from_args
+
+SEED = 0   # the reference's torch.manual_seed(0) (train.py:35)
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        prog="python -m rel_pose_tpu_torch.cli.train")
+    # training (reference flags, train.py:219-231)
+    parser.add_argument("--w_tr", type=float, default=10.0)
+    parser.add_argument("--w_rot", type=float, default=10.0)
+    parser.add_argument("--warmup", type=int, default=10000)
+    parser.add_argument("--batch", type=int, default=1,
+                        help="per-device batch (DDP semantics)")
+    parser.add_argument("--steps", type=int, default=120000)
+    parser.add_argument("--lr", type=float, default=5e-4)
+    parser.add_argument("--clip", type=float, default=2.5)
+    parser.add_argument("--weight_decay", type=float, default=1e-5)
+    parser.add_argument("--num_workers", type=int, default=4)
+    parser.add_argument("--no_ddp", action="store_true", default=False,
+                        help="use a single device")
+    parser.add_argument("--gpus", type=int, default=None,
+                        help="cap on devices used (the port trains on one)")
+    parser.add_argument("--ckpt", help="a .pth checkpoint to restore (warm "
+                        "start: model and Adam moments)")
+    parser.add_argument("--resnet_pretrained",
+                        help="path to torchvision resnet18 weights "
+                             "(ImageNet) to initialize the conv trunk of a "
+                             "fresh run")
+    parser.add_argument("--name", default="bla", help="name your experiment")
+    parser.add_argument("--remat", action="store_true", default=False,
+                        help="not supported by the port (a TPU lever)")
+    # data
+    parser.add_argument("--datapath")
+    parser.add_argument("--image_size", default=[384, 512],
+                        help="accepted and unused, as in train.py")
+    parser.add_argument("--exp")
+    parser.add_argument("--use_mini_dataset", action="store_true")
+    parser.add_argument("--streetlearn_interiornet_type", default="",
+                        choices=("", "T"))
+    parser.add_argument("--dataset", default="matterport",
+                        choices=("matterport", "interiornet", "streetlearn"))
+    parser.add_argument("--ckpt_every", type=int, default=10000)
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="cuda (one GPU) or cpu")
+    add_model_flags(parser)
+    return parser
+
+
+def _refuse(message):
+    raise SystemExit(f"rel_pose_tpu_torch.cli.train: {message}")
+
+
+def check_args(args):
+    """Refuse what the port does not do; -> the torch device."""
+    if args.remat:
+        _refuse("--remat is a TPU memory lever (rematerialized forward) "
+                "that the PyTorch port does not implement")
+    if args.ckpt is not None and not args.ckpt.endswith(".pth"):
+        _refuse(f"--ckpt {args.ckpt}: the port restores .pth checkpoints "
+                "only; reading the JAX package's msgpack .ckpt files is a "
+                "later slice (ROADMAP.md queue 1, the eval / demo / "
+                "epipolar CLIs with .ckpt reading)")
+    if args.gpus is not None and args.gpus > 1:
+        _refuse(f"--gpus {args.gpus}: the port trains on one GPU; data "
+                "parallelism (DDP) is a later slice (ROADMAP.md queue 1)")
+    if args.device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        _refuse("--device cuda, but no CUDA device is visible; pass "
+                "--device cpu to train on the CPU")
+    if not args.no_ddp and args.gpus is None \
+            and torch.cuda.device_count() > 1:
+        _refuse(f"{torch.cuda.device_count()} GPUs are visible and the port "
+                "trains on one: pass --no_ddp (or --gpus 1); data "
+                "parallelism (DDP) is a later slice (ROADMAP.md queue 1)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class _TimedIter:
+    """An iterator that adds the seconds its ``next`` blocks to ``wait``."""
+
+    def __init__(self, iterable):
+        self._it = iter(iterable)
+        self.wait = 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        try:
+            return next(self._it)
+        finally:
+            self.wait += time.perf_counter() - t0
+
+
+def device_batches(host_batches, device):
+    """One-batch device prefetch: batch k + 1's host-to-device copy is
+    queued (pinned memory, ``non_blocking``) before batch k is handed out,
+    so the copy overlaps step k.  Yields ``(host arrays, device tensors)``."""
+    cuda = device.type == "cuda"
+    prev = None
+    for host in host_batches:
+        ts = tuple(torch.from_numpy(a) for a in host)
+        if cuda:
+            ts = tuple(t.pin_memory().to(device, non_blocking=True)
+                       for t in ts)
+        if prev is not None:
+            yield prev
+        prev = (host, ts)
+    if prev is not None:
+        yield prev
+
+
+def build_model(cfg, device):
+    """The model with PyTorch's default initializers under
+    ``torch.manual_seed(SEED)``, drawn on the CPU as the reference's model
+    is (built on the CPU, then moved), then moved to ``device``."""
+    from ..models.vitess import ViTEss
+    from ..nn.init import torch_default_init
+    torch.manual_seed(SEED)
+    model = torch_default_init(ViTEss(cfg, device="cpu"))
+    return model.to(device)
+
+
+def load_resnet_pretrained(model, path):
+    from ..utils.convert import load_torchvision_resnet18
+    trunk = load_torchvision_resnet18(path)
+    expected = {k for k in model.state_dict() if k.startswith("resnet.")}
+    missing = expected - set(trunk)
+    if missing:
+        _refuse(f"--resnet_pretrained {path}: no "
+                f"{sorted(missing)[:3]} ... ({len(missing)} trunk entries "
+                "missing); expected a torchvision resnet18 state dict")
+    model.load_state_dict(trunk, strict=False)
+
+
+def restore(path, model, opt):
+    """The model and the Adam moments from ``path``; the optimizer's groups
+    keep this run's learning-rate schedule.  -> the checkpoint dict."""
+    from ..train.checkpoint import load_checkpoint
+    hyper = [{k: v for k, v in g.items() if k != "params"}
+             for g in opt.param_groups]
+    ckpt = load_checkpoint(path, model, opt)
+    for group, h in zip(opt.param_groups, hyper):
+        group.update(h)
+    return ckpt
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    print(args)
+    device = check_args(args)
+
+    from ..data import DataLoader, dataset_factory
+    from ..train.checkpoint import (checkpoint_path, ensure_output_dirs,
+                                    find_resume_checkpoint, save_checkpoint)
+    from ..train.logger import Logger
+    from ..train.optim import make_optimizer, make_scheduler
+    from ..train.step import eval_step, train_step
+    from ..utils.profiling import StepTimer
+
+    cfg = model_config_from_args(args)
+    ensure_output_dirs(args.name)
+
+    # args snapshot (train.py:278-283)
+    stamp = datetime.now().strftime("%Y-%m-%d_%H-%M")
+    with open(f"output/{args.name}/args_{stamp}.txt", "w") as f:
+        for k, v in vars(args).items():
+            f.write(f"{k}  {v}\n")
+
+    global_batch = args.batch
+    print(f"devices: 1 ({device}), per-device batch {args.batch}, "
+          f"global batch {global_batch}")
+
+    model = build_model(cfg, device)
+    opt, sched = make_optimizer(model, lr=args.lr, steps=args.steps,
+                                warmup=args.warmup,
+                                weight_decay=args.weight_decay)
+
+    # ImageNet-pretrained trunk for fresh runs (reference src/model.py:31);
+    # a checkpoint restored below overrides it
+    if args.resnet_pretrained:
+        load_resnet_pretrained(model, args.resnet_pretrained)
+        print("initialized conv trunk from", args.resnet_pretrained)
+
+    # restore: --ckpt warm start (schedule and step count fresh), else
+    # auto-resume from the newest checkpoint, its step count kept and the
+    # schedule of these arguments taken at that step, as the JAX CLI's
+    # schedule is a function of the restored count
+    train_steps = 0
+    resume = find_resume_checkpoint(args.name)
+    if args.ckpt is not None:
+        print("loading separate checkpoint", args.ckpt)
+        restore(args.ckpt, model, opt)
+    elif resume is not None:
+        print("loading existing checkpoint", resume)
+        train_steps = int(restore(resume, model, opt)["scheduler"]
+                          ["last_epoch"])
+        if train_steps < args.steps:
+            sched = make_scheduler(opt, args.lr, args.steps, args.warmup,
+                                   step=train_steps)
+
+    logger = Logger(args.name, sched)
+    timer = StepTimer(pairs_per_step=global_batch, num_chips=1)
+    waited = 0.0            # loader wait inside the timer's timed steps
+    subepoch = 0
+    epoch_count = 0
+    should_keep_training = train_steps < args.steps
+
+    while should_keep_training:
+        is_training = subepoch != 10
+        train_val = "train" if is_training else "val"
+
+        db = dataset_factory(
+            [args.dataset], datapath=args.datapath, subepoch=subepoch,
+            is_training=is_training,
+            streetlearn_interiornet_type=args.streetlearn_interiornet_type,
+            use_mini_dataset=args.use_mini_dataset)
+        loader = DataLoader(
+            db, batch_size=global_batch, shuffle=is_training, seed=SEED,
+            epoch=epoch_count * 11 + subepoch, num_workers=args.num_workers)
+        n_batches = len(loader)
+        host_batches = _TimedIter(loader)
+
+        def flush_logging(i_batch, metrics, poses_est, poses):
+            """Read one step's metrics on the host and log them."""
+            host_metrics = {k: v.item() for k, v in metrics.items()
+                            if k != "loss"}
+            if is_training:
+                host_metrics["pairs_per_sec_per_chip"] = \
+                    timer.pairs_per_sec_per_chip
+            logger.push(host_metrics)
+            if i_batch % 20 == 0:
+                np.set_printoptions(suppress=True, linewidth=150)
+                print("\n estimated pose")
+                print(poses_est[0].cpu().numpy())
+                print("ground truth pose")
+                print(np.asarray(poses[0]))
+            if (i_batch + 10) % 20 == 0:
+                print("\n metrics:",
+                      {k: v.item() for k, v in metrics.items()}, "\n")
+            if i_batch % 100 == 0:
+                print(f"epoch {epoch_count}\nsubepoch: {subepoch}\n"
+                      f"using {train_val} set\n"
+                      f"batch {i_batch} of {n_batches}")
+
+        pending_log = None
+        for i_batch, (host_batch, batch) in enumerate(
+                device_batches(host_batches, device)):
+            poses = host_batch[1]
+            if is_training:
+                metrics, poses_est = train_step(
+                    model, opt, sched, *batch, w_tr=args.w_tr,
+                    w_rot=args.w_rot, clip=args.clip)
+                train_steps += 1
+            else:
+                metrics, poses_est = eval_step(
+                    model, *batch, w_tr=args.w_tr, w_rot=args.w_rot,
+                    train_val=train_val)
+
+            if pending_log is not None:
+                flush_logging(*pending_log)
+            pending_log = (i_batch, metrics, poses_est, poses)
+            if is_training:
+                wait, host_batches.wait = host_batches.wait, 0.0
+                if timer.tick() is not None:
+                    waited += wait
+
+            done = train_steps >= args.steps
+            if done or (is_training and train_steps % args.ckpt_every == 0):
+                save_checkpoint(checkpoint_path(args.name, train_steps),
+                                model, opt, sched)
+            if done:
+                should_keep_training = False
+                break
+
+        if pending_log is not None:
+            flush_logging(*pending_log)
+
+        subepoch += 1
+        if subepoch == 11 or (subepoch == 10 and args.dataset in
+                              ("interiornet", "streetlearn")):
+            # no val subepoch for interiornet/streetlearn (train.py:205-208)
+            subepoch = 0
+            epoch_count += 1
+
+    if timer.timed_steps:
+        share = waited / timer.total_time
+        print(f"throughput: {timer.pairs_per_sec_per_chip:.2f} pairs/s on "
+              f"{device} over {timer.timed_steps} steps after "
+              f"{timer.warmup}; waiting on the data loader "
+              f"{100 * share:.2f}% of that time")
+        logger.write_dict({"pairs_per_sec_per_chip":
+                           timer.pairs_per_sec_per_chip,
+                           "loader_wait_share": share,
+                           "timed_steps": timer.timed_steps},
+                          step=train_steps)
+    print("finished training!")
+    logger.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,13 @@
 """ViTEss forward: an image pair -> the SE(3) relative pose.
 
-Counterpart of ``rel_pose_tpu/models/vitess.py:124-344`` for the fusion
-transformer configurations: the flagship (Essential Matrix Module, quadratic
-positional encoding), the paper's ablations of the Essential Matrix Module
+Counterpart of ``rel_pose_tpu/models/vitess.py:124-344`` for every
+configuration: the flagship (Essential Matrix Module, quadratic positional
+encoding), the paper's ablations of the Essential Matrix Module
 (``ModelConfig`` flags ``use_single_softmax``, ``cross_features``,
-``no_pos_encoding``, ``l1_pos_encoding``) and --noess
-(``ModelConfig(noess=True)``, where those four flags have no effect):
+``no_pos_encoding``, ``l1_pos_encoding``), --noess
+(``ModelConfig(noess=True)``, where those four flags have no effect) and
+the no-fusion baseline (``ModelConfig(fusion_transformer=False)``, the
+training CLI's default):
 
   uint8 or float (B, 2, 3, H, W) raw BGR images, (B, 2, 4) intrinsics or
   None (the reference's initial positional tables)
@@ -17,6 +19,9 @@ positional encoding), the paper's ablations of the Essential Matrix Module
   -> --noess: cross block x + attn(LN(x)) (``ops.attention``, hand kernels
      on CUDA), x + MLP(LN(x)) -> LayerNorm -> (B, 24, 24, 2 x 192)
      row-major -> ``pool_attn`` 1x1 conv head 384 -> 96 -> 43 -> (B, 24,768)
+  -> no fusion: the extractor's first 96 channels, (2B, 576, 96) reshaped
+     row-major to (B, 24, 24, 192) -> ``pool_transformer_output`` 1x1 conv
+     head 192 -> 96 -> pool_size -> (B, 60 x 576); no hand kernel runs
   -> fp32 pose regressor -> ``normalize_preds`` -> (B, 2, 7)
 
 Attribute names reproduce the reference state-dict keys
@@ -102,13 +107,23 @@ def normalize_preds(Gs, pose_preds):
     return torch.cat([Gs[:, :1], normed[:, 1:]], dim=1)
 
 
+def _conv_pool(c_in, c_mid, c_out):
+    """The reference's 1x1-conv pooling head: conv, BatchNorm, ReLU, conv,
+    BatchNorm (state-dict indices 0, 1, 3, 4)."""
+    return nn.Sequential(nn.Conv2d(c_in, c_mid, 1), nn.BatchNorm2d(c_mid),
+                         nn.ReLU(), nn.Conv2d(c_mid, c_out, 1),
+                         nn.BatchNorm2d(c_out))
+
+
+def _conv_pool_apply(head, x, training):
+    """``_conv_pool_head`` (``rel_pose_tpu/models/vitess.py:258-267``)."""
+    y = torch.relu(conv_bn(x, head[0], head[1], training))
+    return conv_bn(y, head[3], head[4], training)
+
+
 class ViTEss(nn.Module):
     def __init__(self, cfg, device="cuda", kernels=True):
         super().__init__()
-        if not cfg.fusion_transformer:
-            raise NotImplementedError(
-                "the PyTorch port implements the fusion transformer paths "
-                "only (fusion_transformer=False is not ported)")
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype!r}: float32 or bfloat16")
@@ -120,13 +135,15 @@ class ViTEss(nn.Module):
             self.resnet = ResNetTrunk()
             self.extractor_final_conv = ResidualBlock(
                 128, C, 28 - cfg.feature_height + 1)
-            self.fusion_transformer = FusionTransformer(cfg)
+            if cfg.fusion_transformer:
+                self.fusion_transformer = FusionTransformer(cfg)
+            else:
+                # src/model.py:64-70: 1x1 convs C -> pool_feat1 -> pool_size
+                self.pool_transformer_output = _conv_pool(
+                    C, cfg.pool_feat1, cfg.pool_size)
             if cfg.noess:
                 # src/model.py:72-81: 1x1 convs 2C -> pool_feat1 -> 43
-                self.pool_attn = nn.Sequential(
-                    nn.Conv2d(2 * C, cfg.pool_feat1, 1),
-                    nn.BatchNorm2d(cfg.pool_feat1), nn.ReLU(),
-                    nn.Conv2d(cfg.pool_feat1, 43, 1), nn.BatchNorm2d(43))
+                self.pool_attn = _conv_pool(2 * C, cfg.pool_feat1, 43)
             H, H2 = cfg.regressor_input_dim, cfg.fc_hidden_size
             self.pose_regressor = nn.Sequential(
                 nn.Linear(H, H2), nn.ReLU(), nn.Linear(H2, H2), nn.ReLU(),
@@ -159,35 +176,9 @@ class ViTEss(nn.Module):
         from ``Gs (B, 2, 7)``, the identity by default."""
         cfg = self.cfg
         B = images.shape[0]
-        N, C, heads = cfg.num_patches, cfg.total_num_features, cfg.num_heads
-        ft = self.fusion_transformer
-        intr = (None if intrinsics is None else scale_intrinsics(
-            intrinsics.float(), images.shape, cfg.feature_resolution))
         x = self._tokens(images)
-
-        stacked = stack_block_params(ft.blocks[:-1], self.compute_dtype)
-        vit = fused_vit_stack if self.kernels else vit_stack_reference
-        x = vit(x, stacked, heads, pos=ft.pos_embed)
-
-        cb = ft.blocks[-1]
-        if cfg.noess:
-            y = self._noess_head(x, cb)
-        else:
-            f1, f2 = essential_cross_attention_pair(
-                x.reshape(B, 2, N, C), (cb.norm1.weight, cb.norm1.bias),
-                (cb.cross_attn.qkv.weight, cb.cross_attn.qkv.bias),
-                (cb.cross_attn.proj_fundamental.weight,
-                 cb.cross_attn.proj_fundamental.bias),
-                self._positional(intr, B, x.device), heads,
-                cross_features=cfg.cross_features,
-                use_single_softmax=cfg.use_single_softmax,
-                block=(fused_essential_block_pair if self.kernels
-                       else essential_block_pair_reference))
-            fund = torch.stack([f1, f2], dim=1).reshape(2 * B, -1, C)
-            fund = fund + mlp(layernorm(fund, cb.norm2.weight, cb.norm2.bias),
-                              cb.mlp.fc1, cb.mlp.fc2)
-            y = layernorm(fund, ft.norm.weight, ft.norm.bias)
-
+        y = (self._fusion(x, intrinsics, images.shape)
+             if cfg.fusion_transformer else self._no_fusion_head(x))
         y = y.reshape(B, -1).float()
         pr = self.pose_regressor
         y = torch.relu(linear(y, pr[0].weight, pr[0].bias))
@@ -198,6 +189,50 @@ class ViTEss(nn.Module):
             Gs = torch.zeros_like(pose_preds)
             Gs[..., 6] = 1.0
         return normalize_preds(Gs, pose_preds)
+
+    def _fusion(self, x, intrinsics, image_shape):
+        """The fusion transformer: ViT stack, then the essential cross
+        block and the final norm, or --noess's head; ``x (2B, N, C)`` ->
+        features to flatten."""
+        cfg, ft = self.cfg, self.fusion_transformer
+        B = x.shape[0] // 2
+        N, C, heads = cfg.num_patches, cfg.total_num_features, cfg.num_heads
+        intr = (None if intrinsics is None else scale_intrinsics(
+            intrinsics.float(), image_shape, cfg.feature_resolution))
+        stacked = stack_block_params(ft.blocks[:-1], self.compute_dtype)
+        vit = fused_vit_stack if self.kernels else vit_stack_reference
+        x = vit(x, stacked, heads, pos=ft.pos_embed)
+
+        cb = ft.blocks[-1]
+        if cfg.noess:
+            return self._noess_head(x, cb)
+        f1, f2 = essential_cross_attention_pair(
+            x.reshape(B, 2, N, C), (cb.norm1.weight, cb.norm1.bias),
+            (cb.cross_attn.qkv.weight, cb.cross_attn.qkv.bias),
+            (cb.cross_attn.proj_fundamental.weight,
+             cb.cross_attn.proj_fundamental.bias),
+            self._positional(intr, B, x.device), heads,
+            cross_features=cfg.cross_features,
+            use_single_softmax=cfg.use_single_softmax,
+            block=(fused_essential_block_pair if self.kernels
+                   else essential_block_pair_reference))
+        fund = torch.stack([f1, f2], dim=1).reshape(2 * B, -1, C)
+        fund = fund + mlp(layernorm(fund, cb.norm2.weight, cb.norm2.bias),
+                          cb.mlp.fc1, cb.mlp.fc2)
+        return layernorm(fund, ft.norm.weight, ft.norm.bias)
+
+    def _no_fusion_head(self, x):
+        """The no-fusion baseline (``rel_pose_tpu/models/vitess.py:186-187,
+        315-323``): the first C / 2 channels of ``x (2B, N, C)``, reshaped
+        row-major to (B, 24, 24, C) as the reference does (so one image's
+        tokens span two rows of the grid), then ``pool_transformer_output``
+        -> ``(B, pool_size, 24, 24)``."""
+        cfg = self.cfg
+        f = x[..., :cfg.total_num_features // 2].reshape(
+            -1, cfg.feature_height, cfg.feature_width,
+            cfg.total_num_features)
+        return _conv_pool_apply(self.pool_transformer_output,
+                                f.permute(0, 3, 1, 2), self.training)
 
     def _positional(self, intr, batch, device):
         """The positional table of ``_positional``
@@ -231,7 +266,5 @@ class ViTEss(nn.Module):
         f = layernorm(x, ft.norm.weight, ft.norm.bias)
         # (2B, N, C) -> (B, 24, 24, 2C) row-major, as the JAX package
         f = f.reshape(two_b // 2, cfg.feature_height, cfg.feature_width, -1)
-        f = f.permute(0, 3, 1, 2)
-        pa, t = self.pool_attn, self.training
-        return conv_bn(torch.relu(conv_bn(f, pa[0], pa[1], t)), pa[3], pa[4],
-                       t)
+        return _conv_pool_apply(self.pool_attn, f.permute(0, 3, 1, 2),
+                                self.training)

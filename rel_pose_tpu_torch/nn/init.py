@@ -1,10 +1,14 @@
-"""Seeded random weights for a model, drawn with numpy.
+"""Weights for a model built empty.
 
-The port never initializes parameters from PyTorch's global generator: a
-model is built empty and loaded from a state dict.  ``seeded_state_dict``
-makes one at the model's shapes from a numpy seed, so the same seed gives
-the same weights on any host (numpy's generator, unlike the framework ones,
-is the same in both packages' tests and on the GPU host).
+A model is built without initializing its parameters.  Two ways fill it:
+
+  * ``seeded_state_dict`` makes a state dict at the model's shapes from a
+    numpy seed, so the same seed gives the same weights on any host
+    (numpy's generator, unlike the framework ones, is the same in both
+    packages' tests and on the GPU host);
+  * ``torch_default_init`` initializes it in place from PyTorch's global
+    generator as a freshly built reference model is (each module's
+    ``reset_parameters``), under the training CLI's ``torch.manual_seed(0)``.
 """
 
 import numpy as np
@@ -42,3 +46,20 @@ def seeded_state_dict(model, seed):
     return {k: torch.from_numpy(np.asarray(
         v, np.int64 if k.endswith("num_batches_tracked") else np.float32))
         for k, v in out.items()}
+
+
+def torch_default_init(model):
+    """PyTorch's default initialization of every Linear, Conv2d, LayerNorm
+    and BatchNorm2d (``reset_parameters``: kaiming-uniform weights, uniform
+    biases, unit affine, zero running mean and unit running variance), and
+    xavier-uniform for the other parameters (``pos_embed``), as the JAX
+    package's ``vitess_init`` draws them.  In place, from the global
+    generator: call it under ``torch.manual_seed``."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.LayerNorm,
+                            nn.BatchNorm2d)):
+            mod.reset_parameters()
+        else:
+            for param in mod.parameters(recurse=False):
+                nn.init.xavier_uniform_(param)
+    return model

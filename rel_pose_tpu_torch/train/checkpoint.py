@@ -27,6 +27,12 @@ from ..utils.convert import (load_pth, load_reference_state_dict,
 SUFFIX = ".pth"
 
 
+def ensure_output_dirs(name, output_dir="output"):
+    """Create the reference's output layout (``train.py:255-260``)."""
+    for sub in ("checkpoints", "runs", "train_output/images"):
+        os.makedirs(os.path.join(output_dir, name, sub), exist_ok=True)
+
+
 def checkpoint_path(name, step, output_dir="output"):
     return os.path.join(output_dir, name, "checkpoints",
                         f"{step:06d}{SUFFIX}")

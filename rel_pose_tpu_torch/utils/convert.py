@@ -1,7 +1,6 @@
 """Weights into the port's ``ViTEss``.
 
-Counterpart of ``rel_pose_tpu/utils/convert.py``, for the flagship and
---noess configurations:
+Counterpart of ``rel_pose_tpu/utils/convert.py``, for every configuration:
 
   * ``state_dict_from_jax`` turns the JAX package's ``(params, state)``
     pytrees, as numpy arrays, into the port's state dict.  The key names
@@ -11,6 +10,8 @@ Counterpart of ``rel_pose_tpu/utils/convert.py``, for the flagship and
     dict: it strips the DDP ``module.`` prefix and drops what the port does
     not hold (``resnet.layer3/4/fc``, never run by the reference forward,
     and the extractor's ``downsample.1`` alias of ``norm3``).
+  * ``load_torchvision_resnet18`` reads a local torchvision resnet18
+    state dict into the trunk's ``resnet.*`` keys (``--resnet_pretrained``);
   * ``load_pth`` reads a ``.pth`` file, also one whose ``"scheduler"``
     holds a pickled function (the reference's OneCycleLR ``anneal_func``).
   * ``remap_reference_adam_state`` turns the reference's Adam state into
@@ -52,6 +53,38 @@ def _ln(jax_path, key):
             (("params",) + jax_path + ("bias",), f"{key}.bias", False)]
 
 
+def _conv_pool(jax_path, key):
+    """nn.Sequential(conv, BN, ReLU, conv, BN) heads: ``_conv_pool_maps``
+    (``rel_pose_tpu/utils/convert.py:83-92``)."""
+    return (_conv(jax_path + ("conv1",), f"{key}.0")
+            + _bn(jax_path + ("bn1",), f"{key}.1")
+            + _conv(jax_path + ("conv2",), f"{key}.3")
+            + _bn(jax_path + ("bn2",), f"{key}.4"))
+
+
+def _fusion_transformer(cfg):
+    ft = "fusion_transformer"
+    m = [(("params", "pos_embed"), f"{ft}.pos_embed", False)]
+    for i in range(cfg.transformer_depth - 1):
+        jp, tk = ("blocks", i), f"{ft}.blocks.{i}"
+        m += _ln(jp + ("norm1",), f"{tk}.norm1")
+        m += _linear(jp + ("qkv",), f"{tk}.attn.qkv")
+        m += _linear(jp + ("proj",), f"{tk}.attn.proj")
+        m += _ln(jp + ("norm2",), f"{tk}.norm2")
+        m += _linear(jp + ("mlp", "fc1"), f"{tk}.mlp.fc1")
+        m += _linear(jp + ("mlp", "fc2"), f"{tk}.mlp.fc2")
+    jp, tk = ("cross_block",), f"{ft}.blocks.{cfg.transformer_depth - 1}"
+    m += _ln(jp + ("norm1",), f"{tk}.norm1")
+    m += _linear(jp + ("cross_attn", "qkv"), f"{tk}.cross_attn.qkv")
+    proj = "proj" if cfg.noess else "proj_fundamental"
+    m += _linear(jp + ("cross_attn", proj), f"{tk}.cross_attn.{proj}")
+    m += _ln(jp + ("norm2",), f"{tk}.norm2")
+    m += _linear(jp + ("mlp", "fc1"), f"{tk}.mlp.fc1")
+    m += _linear(jp + ("mlp", "fc2"), f"{tk}.mlp.fc2")
+    m += _ln(("norm",), f"{ft}.norm")
+    return m
+
+
 def key_map(cfg):
     """[(JAX tree path, port state-dict key, transpose)] for ``cfg``."""
     m = _conv(("resnet", "conv1"), "resnet.conv1", bias=False)
@@ -74,31 +107,13 @@ def key_map(cfg):
                                                       f"{ek}.norm2")
     m += _conv(ex + ("downsample_conv",), f"{ek}.downsample.0")
     m += _bn(ex + ("norm3",), f"{ek}.norm3")
-    ft = "fusion_transformer"
-    m.append((("params", "pos_embed"), f"{ft}.pos_embed", False))
-    for i in range(cfg.transformer_depth - 1):
-        jp, tk = ("blocks", i), f"{ft}.blocks.{i}"
-        m += _ln(jp + ("norm1",), f"{tk}.norm1")
-        m += _linear(jp + ("qkv",), f"{tk}.attn.qkv")
-        m += _linear(jp + ("proj",), f"{tk}.attn.proj")
-        m += _ln(jp + ("norm2",), f"{tk}.norm2")
-        m += _linear(jp + ("mlp", "fc1"), f"{tk}.mlp.fc1")
-        m += _linear(jp + ("mlp", "fc2"), f"{tk}.mlp.fc2")
-    jp, tk = ("cross_block",), f"{ft}.blocks.{cfg.transformer_depth - 1}"
-    m += _ln(jp + ("norm1",), f"{tk}.norm1")
-    m += _linear(jp + ("cross_attn", "qkv"), f"{tk}.cross_attn.qkv")
-    proj = "proj" if cfg.noess else "proj_fundamental"
-    m += _linear(jp + ("cross_attn", proj), f"{tk}.cross_attn.{proj}")
-    m += _ln(jp + ("norm2",), f"{tk}.norm2")
-    m += _linear(jp + ("mlp", "fc1"), f"{tk}.mlp.fc1")
-    m += _linear(jp + ("mlp", "fc2"), f"{tk}.mlp.fc2")
-    m += _ln(("norm",), f"{ft}.norm")
-    if cfg.noess:   # nn.Sequential(conv, BN, ReLU, conv, BN)
-        jp = ("pool_attn",)
-        m += _conv(jp + ("conv1",), "pool_attn.0") + _bn(jp + ("bn1",),
-                                                         "pool_attn.1")
-        m += _conv(jp + ("conv2",), "pool_attn.3") + _bn(jp + ("bn2",),
-                                                         "pool_attn.4")
+    if cfg.fusion_transformer:
+        m += _fusion_transformer(cfg)
+    else:
+        m += _conv_pool(("pool_transformer_output",),
+                        "pool_transformer_output")
+    if cfg.noess:
+        m += _conv_pool(("pool_attn",), "pool_attn")
     for j, idx in (("fc1", 0), ("fc2", 2), ("fc3", 4)):
         m += _linear(("pose_regressor", j), f"pose_regressor.{idx}")
     return m
@@ -132,6 +147,29 @@ def load_reference_state_dict(sd):
                          "extractor_final_conv.downsample.1.")):
             continue
         out[k] = v
+    return out
+
+
+_TRUNK_PREFIXES = ("conv1.", "bn1.", "layer1.", "layer2.")
+
+
+def load_torchvision_resnet18(path):
+    """A torchvision ``resnet18`` weights file (a state dict, or one under
+    ``"model"`` / ``"state_dict"``, keys with or without ``module.``) ->
+    the executed trunk's entries as the port's ``resnet.*`` state-dict
+    keys: conv1, bn1, layer1 and layer2 with their BatchNorm buffers
+    (``load_torchvision_resnet18``, ``rel_pose_tpu/utils/convert.py:215-254``;
+    layer3 / layer4 / fc never run and are left out)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "state_dict"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+    out = {}
+    for k, v in obj.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.startswith(_TRUNK_PREFIXES):
+            out[f"resnet.{k}"] = v.float() if v.is_floating_point() else v
     return out
 
 

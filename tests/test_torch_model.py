@@ -18,6 +18,7 @@ rounds every Linear before its bias), and flips of one bf16 ulp (2^-8
 relative) reach the fp32 regressor.
 """
 
+import argparse
 import dataclasses
 
 import numpy as np
@@ -116,15 +117,34 @@ def test_normalize_preds_matches_jax():
 ])
 def test_model_config_mirrors_jax(overrides):
     """The port's ModelConfig is a copy of the JAX one: the same fields
-    with the same defaults, and the same derived sizes."""
-    jfields = [(f.name, f.default)
-               for f in dataclasses.fields(jconfig.ModelConfig)]
-    assert [(f.name, f.default)
-            for f in dataclasses.fields(ModelConfig)] == jfields
+    with the same defaults, and the same derived sizes; so are its
+    TrainConfig and its argparse bridge (``add_model_flags`` with either
+    fusion default, ``model_config_from_args``)."""
+    from rel_pose_tpu_torch import config as tconfig
+    for cls in ("ModelConfig", "TrainConfig"):
+        jfields = [(f.name, f.default)
+                   for f in dataclasses.fields(getattr(jconfig, cls))]
+        assert [(f.name, f.default) for f in dataclasses.fields(
+            getattr(tconfig, cls))] == jfields, cls
     got, want = ModelConfig(**overrides), jconfig.ModelConfig(**overrides)
     for prop in ("feature_resolution", "num_patches", "head_dim", "pos_enc",
                  "pool_feat1", "regressor_input_dim"):
         assert getattr(got, prop) == getattr(want, prop), prop
+    argv = [f"--{k}" if v is True else f"--{k}={v}"
+            for k, v in overrides.items() if v is not False]
+    if "fusion_transformer" not in overrides:
+        argv.append("--fusion_transformer")
+    for fusion_default in (False, True):
+        parsers = [mod.add_model_flags(argparse.ArgumentParser(),
+                                       fusion_default=fusion_default)
+                   for mod in (tconfig, jconfig)]
+        assert [[(a.dest, a.default, a.type, a.choices, a.const)
+                 for a in p._actions] for p in parsers] == [
+            [(a.dest, a.default, a.type, a.choices, a.const)
+             for a in parsers[1]._actions]] * 2
+        args = parsers[0].parse_args(argv)
+        assert dataclasses.asdict(tconfig.model_config_from_args(args)) \
+            == dataclasses.asdict(jconfig.model_config_from_args(args))
 
 
 @pytest.mark.parametrize("flag", ["noess", "no_pos_encoding",
@@ -156,6 +176,21 @@ def test_ablation_flags_not_implemented(flag):
         2 * 3 * 64 * 64 if no_pos else 26_880)
 
 
-def test_no_fusion_not_implemented():
-    with pytest.raises(NotImplementedError):
-        ViTEss(ModelConfig(fusion_transformer=False), device="meta")
+def test_no_fusion_builds():
+    """The no-fusion baseline builds the reference's
+    ``pool_transformer_output`` head (1x1 convs 192 -> 96 -> 60 with their
+    BatchNorms at indices 0, 1, 3, 4), no ``fusion_transformer`` and a
+    60 x 576 = 34,560-wide regressor (parity: test_torch_nofusion.py)."""
+    model = ViTEss(ModelConfig(fusion_transformer=False), device="meta")
+    keys = set(model.state_dict())
+    assert not any(k.startswith("fusion_transformer.") for k in keys)
+    assert {k for k in keys if k.startswith("pool_transformer_output.")} == {
+        f"pool_transformer_output.{i}.{s}" for i in (0, 3)
+        for s in ("weight", "bias")} | {
+        f"pool_transformer_output.{i}.{s}" for i in (1, 4)
+        for s in ("weight", "bias", "running_mean", "running_var",
+                  "num_batches_tracked")}
+    head = model.pool_transformer_output
+    assert (head[0].in_channels, head[0].out_channels,
+            head[3].out_channels) == (192, 96, 60)
+    assert model.pose_regressor[0].in_features == 34_560
