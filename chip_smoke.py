@@ -162,13 +162,36 @@ training CLI's default; no hand kernel on its path) and the training CLI:
      synthetic step; then the host pipeline by part (one thread's decode
      and whole-sample milliseconds a pair, the loader alone in pairs/s).
 
+The eval, demo, epipolar and convert CLIs and the predictor's warm-up:
+
+  7. on trees written under ``output/chip_smoke_eval/`` (64 Matterport
+     pairs cycling through 8 480x640 JPEG pairs, 32 InteriorNet 256x256
+     PNG pairs) with the flagship's seeded weights at depth 6, saved as a
+     ``.pth`` and converted by ``cli.convert_checkpoint`` to a ``.ckpt``:
+     (a) ``cli.test_matterport`` fp32 and bf16 from each file, the same
+     bytes from both, its per-pair errors against the plain path's
+     through the CLI's ``eval_camera`` within phase 4's pose tolerance
+     carried through the metric (``rotation_err_tol``, ``tran_err_tol``),
+     #1's and #2's counters set to 0 just before each run and read just
+     after; (b) ``cli.test_streetlearn_interiornet`` bf16, the same; (c)
+     ``cli.demo`` on a ``matterport`` name and another, its printed numbers
+     those of ``PosePredictor``; (d) ``cli.generate_epipolar_imgs`` on the
+     card and on the CPU: the lines within 1e-5 relative, the PNGs
+     compared bit for bit (reported); (e) ``PosePredictor.warmup()`` and
+     the first requests of 1 and 8 pairs in a fresh child process, against
+     one without the warm-up; (f) the Matterport CLI's pairs/s and
+     decode-wait share at batch 64 over 640 pairs, beside the forward
+     alone; (g) ``cli.train --ckpt model.ckpt``, bf16, 2 steps: weights
+     only restored, finite losses, #1, #2, #5 and #6 launched.
+
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``; the one before the card's line is the
 ``{"kernels": [...]}`` line of all twelve kernels.  Checkpoints and the
-CLI's trees go to ``output/`` beside this file and are removed.  The run
+CLIs' trees go to ``output/`` beside this file and are removed.  The run
 needs no network and starts no process besides ``nvidia-smi``, ``nvcc``,
-``make`` (the native host library) and the CLI's child process, each of
-which it waits for.
+``make`` (the native host library), the training CLI's child process and
+phase 7e's two (this script with ``--serve-child``), each of which it
+waits for.
 """
 
 import itertools
@@ -2234,7 +2257,7 @@ def write_matterport_tree(root, rng, pairs, entries, images=None):
                      "rel_pose": {"position": list(0.5 * rng.standard_normal(
                          3)), "rotation": list(q / np.linalg.norm(q))}})
     (root / "mp3d_planercnn_json").mkdir(parents=True, exist_ok=True)
-    for split in ("train", "val"):
+    for split in ("train", "val", "test"):
         (root / "mp3d_planercnn_json" / f"cached_set_{split}.json"
          ).write_text(json.dumps({"data": data}))
 
@@ -2388,7 +2411,522 @@ def log_loader_parts(card, pairs=24, batches=6):
         f"pairs/s ({os.cpu_count()} host cores; {card})")
 
 
+# ------------------------------------------ the eval, demo and epipolar CLIs --
+
+EVAL_DIR = OUTPUT_DIR / "chip_smoke_eval"
+EVAL_PAIRS = 8              # distinct 480x640 JPEG pairs
+EVAL_ENTRIES = 64           # the Matterport test split, cycling through them
+EVAL_INET_PAIRS = 32        # 256x256 PNG pairs
+EVAL_CHECK_BATCH = 16
+EVAL_THROUGHPUT_BATCH = 64
+EVAL_THROUGHPUT_CHUNKS = 10     # 2 of them the pipeline's warm-up
+EVAL_DEPTH = 6
+
+
+def rotation_err_tol(err_deg, atol):
+    """The most a rotation error 2 arccos|<q, g>| (degrees) can move when
+    the predicted quaternion moves by ``atol`` in each of its 4 elements
+    (phase 4's pose tolerance): |<q, g>| moves by at most ||dq|| <= 2 atol,
+    and the angle by as much as arccos does over that interval of its
+    argument, taken exactly (it is steepest near 0 and 180 degrees)."""
+    c = np.cos(np.radians(err_deg) / 2)
+    dc = 2 * atol
+    lo = 2 * np.arccos(np.clip(c + dc, 0, 1))
+    hi = 2 * np.arccos(np.clip(c - dc, 0, 1))
+    theta = np.radians(err_deg)
+    return np.degrees(np.maximum(theta - lo, hi - theta))
+
+
+def tran_err_tol(atol):
+    """The most a translation error ||g - 5 t|| (metres) can move when t
+    moves by ``atol`` in each of its 3 elements: 5 sqrt(3) atol."""
+    return 5.0 * np.sqrt(3.0) * atol
+
+
+def write_viewpoint_tree(root, rng, pairs):
+    """An InteriorNet test tree: ``pairs`` pairs of 256x256 PNGs and
+    ``metadata/interiornet/test_pair_rotation.npy`` with viewpoints whose
+    relative yaw spans 0-115 degrees."""
+    import cv2
+    split = {}
+    for i in range(pairs):
+        p1, p2 = f"s/{i}a.png", f"s/{i}b.png"
+        for p in (p1, p2):
+            path = root / "data" / "interiornet" / p
+            path.parent.mkdir(parents=True, exist_ok=True)
+            img = rng.normal(127.5, 60, (256, 256, 3))
+            cv2.imwrite(str(path), np.clip(img, 0, 255).astype(np.uint8))
+        split[i] = {"img1": {"path": p1, "x": rng.uniform(-0.2, 0.2),
+                             "y": 0.0},
+                    "img2": {"path": p2, "x": rng.uniform(-0.2, 0.2),
+                             "y": 2.0 * i / pairs}}
+    (root / "metadata" / "interiornet").mkdir(parents=True, exist_ok=True)
+    np.save(root / "metadata" / "interiornet" / "test_pair_rotation.npy",
+            np.array([split], dtype=object), allow_pickle=True)
+
+
+def run_quiet(main, argv):
+    """``main(argv)`` with its standard output captured -> (exit code,
+    output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    return code, buf.getvalue()
+
+
+def csv(path):
+    return np.loadtxt(path, delimiter=",", ndmin=1)
+
+
+def check_eval_files(label, ckpt_dir, pth_dir, files, failures):
+    """The .ckpt's and the .pth's results.txt and CSVs, byte for byte."""
+    same = [f for f in ["results.txt"] + files
+            if (ckpt_dir / f).read_bytes() == (pth_dir / f).read_bytes()]
+    log(f"[eval-cli] {label}: .ckpt and .pth give byte-identical "
+        f"{len(same)} of {1 + len(files)} files")
+    if len(same) != 1 + len(files):
+        failures.append(f"{label}: .ckpt and .pth files differ")
+
+
+def check_err_column(label, got, want, tol, failures):
+    """CLI errors (kernels) against the plain path's, row by row, within
+    ``tol`` (an array or a number) plus the CSV's %1.5f rounding."""
+    gap = np.abs(got - want)
+    bad = int((gap > tol + 1e-5).sum())
+    log(f"[eval-cli] {label}: {len(got)} rows, max |kernels - plain| "
+        f"{gap.max():.3e} (bound {np.min(tol):.3e}-{np.max(tol):.3e} + 1e-5)"
+        f" {'ok' if not bad else f'FAIL in {bad} rows'}")
+    if bad:
+        failures.append(f"{label}: {bad} rows beyond the bound")
+
+
+def eval_plain_model(sd, dtype, device):
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    model = ViTEss(ModelConfig(compute_dtype=str(dtype)[6:],
+                               transformer_depth=EVAL_DEPTH),
+                   device=device, kernels=False)
+    model.load_state_dict(sd)
+    return model
+
+
+def eval_matterport_plain(sd, dtype, device, exp):
+    """The Matterport metrics on poses of the plain path for the images
+    the CLI decodes, through the CLI's own ``eval_camera``, under
+    ``output/<exp>/matterport_test``."""
+    from rel_pose_tpu_torch.cli import test_matterport as mp
+    from rel_pose_tpu_torch.data.base import image_read
+    from rel_pose_tpu_torch.infer import (MATTERPORT_INTRINSICS,
+                                          PosePredictor, matterport_eval_pose)
+    dset = json.loads(pathlib.Path(
+        "mp/mp3d_planercnn_json/cached_set_test.json").read_text())["data"]
+    images = np.stack([np.stack([image_read(mp.image_path(
+        "mp", e[k]["file_name"])) for k in ("0", "1")]).transpose(0, 3, 1, 2)
+        for e in dset])
+    pred = PosePredictor(eval_plain_model(sd, dtype, device),
+                         intrinsics=MATTERPORT_INTRINSICS,
+                         batch_size=EVAL_CHECK_BATCH, image_size=(384, 512))
+    poses = matterport_eval_pose(pred.predict_batch(images)[:, 1])
+    gts = [mp.ground_truth(e) for e in dset]
+    preds = {"camera": {"preds": {"tran": [p[:3] for p in poses],
+                                  "rot": [p[3:] for p in poses]},
+                        "gts": {"tran": [g[0] for g in gts],
+                                "rot": [g[1] for g in gts]}}}
+    os.makedirs(f"output/{exp}/matterport_test", exist_ok=True)
+    mp.eval_camera(preds, exp, "matterport_test")
+
+
+def eval_interiornet_plain(sd, dtype, device, exp):
+    """The InteriorNet metrics on the plain path's poses, through the
+    CLI's ``eval_camera``, under ``output/<exp>/interiornet_test``."""
+    from rel_pose_tpu_torch.cli import test_streetlearn_interiornet as insl
+    from rel_pose_tpu_torch.data.base import image_read
+    from rel_pose_tpu_torch.infer import (INTERIORNET_STREETLEARN_INTRINSICS,
+                                          PosePredictor)
+    dset = np.load("inet/metadata/interiornet/test_pair_rotation.npy",
+                   allow_pickle=True)[0]
+    items = sorted(dset.items())[:insl.MAX_PAIRS]
+    images = np.stack([np.stack([image_read(
+        f"inet/data/interiornet/{rec[k]['path']}") for k in ("img1", "img2")
+    ]).transpose(0, 3, 1, 2) for _, rec in items])
+    pred = PosePredictor(eval_plain_model(sd, dtype, device),
+                         intrinsics=INTERIORNET_STREETLEARN_INTRINSICS,
+                         batch_size=EVAL_CHECK_BATCH)
+    poses = pred.predict_batch(images)[:, 1]
+    preds = {"camera": {"preds": {"tran": [], "rot": [p[3:] for p in poses]},
+                        "gts": {"tran": [], "rot": [
+                            insl.ground_truth(rec) for _, rec in items]}}}
+    out = pathlib.Path(f"output/{exp}/interiornet_test")
+    out.mkdir(parents=True, exist_ok=True)
+    insl.eval_camera(preds, str(out))
+
+
+def eval_cli_runs(dev, dtypes, cli, datapath, folder, files, counters,
+                  failures, extra=()):
+    """The CLI from the .ckpt and the .pth in each of ``dtypes``, #1's and
+    #2's counters set to 0 just before each run and read just after; ->
+    {"<folder> <dtype>": launches of the .ckpt run}."""
+    launches = {}
+    for dtype in dtypes:
+        name = str(dtype)[6:]
+        for ckpt in ("model.ckpt", "model.pth"):
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            code, out = run_quiet(cli.main, [
+                "--exp", f"{name}_{ckpt[6:]}", "--datapath", datapath,
+                "--ckpt", ckpt, "--batch", str(EVAL_CHECK_BATCH),
+                "--device", dev, "--fusion_transformer",
+                "--transformer_depth", str(EVAL_DEPTH), "--compute_dtype",
+                name] + list(extra))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            got = {k: counters[k].launches for k in ("vit_stack",
+                                                     "essential_block_pair")}
+            log(f"[eval-cli] {cli.PROG.split('.')[-1]} {name} from {ckpt}: "
+                f"exit {code} in {time.perf_counter() - t0:.1f} s, kernel "
+                f"launches {got}; {out.strip().splitlines()[-1]}")
+            failures += [f"{folder} {name} {ckpt}: {k} never launched"
+                         for k, v in got.items() if v <= 0]
+            if code != 0:
+                failures.append(f"{folder} {name} {ckpt}: exit {code}")
+            launches.setdefault(f"{folder} {name}", got)
+        check_eval_files(f"{folder} {name}",
+                         pathlib.Path(f"output/{name}_ckpt/{folder}"),
+                         pathlib.Path(f"output/{name}_pth/{folder}"), files,
+                         failures)
+    return launches
+
+
+def phase_eval_cli(device, card):
+    """(7) the eval, demo, epipolar and convert CLIs and
+    ``PosePredictor.warmup``, as a user runs them, at full width and depth
+    6 with the flagship's seeded weights, on trees written under
+    ``output/chip_smoke_eval/`` (removed at the end): (a) ``cli.
+    test_matterport`` fp32 and bf16 from a ``.pth`` and from the ``.ckpt``
+    that ``cli.convert_checkpoint`` made of it: the same bytes from both,
+    the per-pair errors against the plain path's through the CLI's
+    ``eval_camera`` within phase 4's pose tolerance carried through the
+    metric, #1 and #2 launched; (b) ``cli.test_streetlearn_interiornet``,
+    bf16, the same checks; (c) ``cli.demo`` on a ``matterport`` name and
+    another: its printed numbers those of ``PosePredictor`` after the
+    demo's conventions; (d) ``cli.generate_epipolar_imgs`` on the card
+    and on the CPU: both PNGs written, the 9 lines' slopes and intercepts
+    within 1e-5 relative, the PNGs compared bit for bit (reported); (e)
+    the warm-up and first-request latency of a cold process with and
+    without ``warmup()``; (f) the Matterport CLI's steady-state pairs/s and
+    decode-wait share at batch 64 beside the forward alone; (g) ``cli.train
+    --ckpt`` on the ``.ckpt``, bf16, 2 steps: weights only restored,
+    finite losses, #1, #2, #5 and #6 launched."""
+    from rel_pose_tpu_torch.cli import convert_checkpoint
+    from rel_pose_tpu_torch.cli import generate_epipolar_imgs as epi
+    from rel_pose_tpu_torch.cli import test_matterport as mp
+    from rel_pose_tpu_torch.cli import test_streetlearn_interiornet as insl
+    from rel_pose_tpu_torch.cli import train as train_cli
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    from rel_pose_tpu_torch.nn.init import seeded_state_dict
+    dev = "cuda" if device.type == "cuda" else "cpu"
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    EVAL_DIR.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 40)
+    t_phase = t0 = time.perf_counter()
+    write_matterport_tree(EVAL_DIR / "mp", rng, EVAL_PAIRS, EVAL_ENTRIES)
+    write_matterport_tree(EVAL_DIR / "mp_many", rng, EVAL_PAIRS,
+                          EVAL_THROUGHPUT_BATCH * EVAL_THROUGHPUT_CHUNKS,
+                          images=EVAL_DIR / "mp" / "imgs")
+    write_viewpoint_tree(EVAL_DIR / "inet", rng, EVAL_INET_PAIRS)
+    cfg = ModelConfig(transformer_depth=EVAL_DEPTH)
+    sd = seeded_state_dict(ViTEss(cfg, device="meta"), SEED)
+    torch.save({"model": sd}, EVAL_DIR / "model.pth")
+    log(f"[eval-cli] wrote the trees and model.pth in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counters = kernel_counters()
+    failures = []
+    cwd = os.getcwd()
+    os.chdir(EVAL_DIR)
+    try:
+        code, out = run_quiet(convert_checkpoint.main, [
+            "--ckpt", "model.pth", "--out", "model.ckpt",
+            "--transformer_depth", str(EVAL_DEPTH)])
+        log(f"[eval-cli] convert_checkpoint: exit {code}; {out.strip()}")
+
+        # (a) Matterport, fp32 and bf16
+        mp_files = ["gt_translation_magnitude_vs_error.csv",
+                    "gt_rotation_magnitude_vs_error.csv"]
+        launches = eval_cli_runs(dev, DTYPES, mp, "mp", "matterport_test",
+                                 mp_files, counters, failures)
+        for dtype in DTYPES:
+            name = str(dtype)[6:]
+            eval_matterport_plain(sd, dtype, device, f"{name}_plain")
+            cli_dir = pathlib.Path(f"output/{name}_ckpt/matterport_test")
+            plain_dir = pathlib.Path(f"output/{name}_plain/matterport_test")
+            t_cli, t_plain = csv(cli_dir / mp_files[0]), csv(
+                plain_dir / mp_files[0])
+            r_cli, r_plain = csv(cli_dir / mp_files[1]), csv(
+                plain_dir / mp_files[1])
+            if not (np.array_equal(t_cli[:, 0], t_plain[:, 0])
+                    and np.array_equal(r_cli[:, 0], r_plain[:, 0])):
+                failures.append(f"matterport {name}: ground truth columns")
+            check_err_column(f"matterport {name} translation error (m)",
+                             t_cli[:, 1], t_plain[:, 1],
+                             tran_err_tol(POSE_ATOL[dtype]), failures)
+            check_err_column(f"matterport {name} rotation error (deg)",
+                             r_cli[:, 1], r_plain[:, 1],
+                             rotation_err_tol(r_plain[:, 1],
+                                              POSE_ATOL[dtype]), failures)
+
+        # (b) InteriorNet, bf16
+        insl_files = ["all_rotation_err_degrees.csv",
+                      "all_gt_rot_degrees.csv"]
+        bf16 = torch.bfloat16
+        launches.update(eval_cli_runs(
+            dev, (bf16,), insl, "inet", "interiornet_test", insl_files,
+            counters, failures, ["--dataset", "interiornet"]))
+        eval_interiornet_plain(sd, bf16, device, "bfloat16_plain")
+        cli_dir = pathlib.Path("output/bfloat16_ckpt/interiornet_test")
+        plain_dir = pathlib.Path("output/bfloat16_plain/interiornet_test")
+        if not np.array_equal(csv(cli_dir / insl_files[1]),
+                              csv(plain_dir / insl_files[1])):
+            failures.append("interiornet: ground-truth angles")
+        want = csv(plain_dir / insl_files[0])
+        check_err_column("interiornet bfloat16 rotation error (deg)",
+                         csv(cli_dir / insl_files[0]), want,
+                         rotation_err_tol(want, POSE_ATOL[bf16]), failures)
+
+        phase_eval_demo(dev, cfg, failures)
+        phase_eval_epipolar(dev, epi, failures)
+        phase_eval_warmup(dev, card, failures)
+
+        # (f) the Matterport CLI's throughput, bf16, batch 64
+        t0 = time.perf_counter()
+        code, out = run_quiet(mp.main, [
+            "--exp", "throughput", "--datapath", "mp_many", "--ckpt",
+            "model.ckpt", "--batch", str(EVAL_THROUGHPUT_BATCH), "--device",
+            dev, "--fusion_transformer", "--transformer_depth",
+            str(EVAL_DEPTH), "--compute_dtype", "bfloat16"])
+        m = re.search(r"throughput: ([\d.]+) pairs/s .* waiting on decode "
+                      r"([\d.]+)%", out)
+        forward_ms = eval_forward_ms(sd, device)
+        log(f"[time] Matterport eval CLI bf16 batch "
+            f"{EVAL_THROUGHPUT_BATCH}, 480x640 JPEGs -> 384x512 "
+            f"({EVAL_THROUGHPUT_CHUNKS} chunks in "
+            f"{time.perf_counter() - t0:.1f} s, exit {code}): "
+            f"{m.group(1) if m else '?'} pairs/s, waiting on decode "
+            f"{m.group(2) if m else '?'}% of the loop; the forward alone "
+            f"(PosePredictor, uint8 480x640 in) {forward_ms:.3f} ms, "
+            f"{EVAL_THROUGHPUT_BATCH / forward_ms * 1e3:.2f} pairs/s "
+            f"({os.cpu_count()} host cores; {card})")
+        if code != 0 or not m:
+            failures.append(f"throughput run: exit {code}")
+
+        # (g) the training CLI from the .ckpt
+        keys = list(counters)
+        for c in counters.values():
+            c.launches = 0
+        code, out = run_quiet(train_cli.main, [
+            "--name", "from_ckpt", "--datapath", "mp", "--batch", "6",
+            "--steps", "2", "--warmup", "1", "--ckpt", "model.ckpt",
+            "--no_ddp", "--num_workers", "4", "--dataset", "matterport",
+            "--fusion_transformer", "--transformer_depth", str(EVAL_DEPTH),
+            "--compute_dtype", "bfloat16", "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        got = {k: counters[k].launches for k in keys}
+        records = [json.loads(line) for line in pathlib.Path(
+            "output/from_ckpt/runs/metrics.jsonl").read_text().splitlines()]
+        losses = [r["train_geo_loss_tr"] + r["train_geo_loss_rot"]
+                  for r in records if "train_geo_loss_tr" in r]
+        restored = "restored weights only" in out
+        log(f"[eval-cli] train --ckpt model.ckpt bf16 2 steps: exit {code}, "
+            f"{'weights only restored' if restored else 'NOT RESTORED'}, "
+            f"losses {losses}, kernel launches {got}")
+        if code != 0 or not restored or not losses \
+                or not np.isfinite(losses).all():
+            failures.append("train --ckpt")
+        failures += [f"train --ckpt: {k} never launched"
+                     for k, v in got.items() if v <= 0]
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    log(f"[eval-cli] phase 7 in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise SystemExit(f"eval CLI checks failed: {failures}")
+    return launches
+
+
+def eval_forward_ms(sd, device):
+    """The CLI's forward alone: ``PosePredictor`` at batch 64 on uint8
+    480x640 pairs, bf16, CUDA events over 3 calls after one."""
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.infer import MATTERPORT_INTRINSICS, PosePredictor
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    if device.type != "cuda":
+        return float("nan")
+    model = ViTEss(ModelConfig(compute_dtype="bfloat16",
+                               transformer_depth=EVAL_DEPTH), device=device)
+    model.load_state_dict(sd)
+    pred = PosePredictor(model, intrinsics=MATTERPORT_INTRINSICS,
+                         batch_size=EVAL_THROUGHPUT_BATCH,
+                         image_size=(384, 512))
+    images = np.random.default_rng(SEED + 41).integers(
+        0, 256, (EVAL_THROUGHPUT_BATCH, 2, 3, 480, 640), dtype=np.uint8)
+    return cuda_time_ms(lambda: pred.predict_batch(images), 3)
+
+
+def phase_eval_demo(dev, cfg, failures):
+    """(7c) ``cli.demo`` on a ``.ckpt`` whose name holds ``matterport``
+    (a 480x640 pair of the Matterport tree) and on one whose name does not
+    (a 256x256 pair of the InteriorNet tree): the header and the 7 or 4
+    numbers, equal as printed to ``PosePredictor``'s after the demo's
+    conventions."""
+    from rel_pose_tpu_torch.cli import demo
+    from rel_pose_tpu_torch.data.base import image_read
+    from rel_pose_tpu_torch.infer import (INTERIORNET_STREETLEARN_INTRINSICS,
+                                          MATTERPORT_INTRINSICS,
+                                          PosePredictor, matterport_demo_pose)
+    cases = [("matterport_seeded.ckpt", "mp/imgs/p0_0.jpg",
+              "mp/imgs/p0_1.jpg", True),
+             ("seeded.ckpt", "inet/data/interiornet/s/0a.png",
+              "inet/data/interiornet/s/0b.png", False)]
+    for ckpt, img1, img2, is_mp in cases:
+        shutil.copy("model.ckpt", ckpt)
+        code, out = run_quiet(demo.main, [
+            "--img1", img1, "--img2", img2, "--ckpt", ckpt, "--device", dev,
+            "--transformer_depth", str(EVAL_DEPTH)])
+        lines = out.strip().splitlines()
+        pred = PosePredictor.from_checkpoint(
+            ckpt, cfg, device=dev,
+            intrinsics=(MATTERPORT_INTRINSICS if is_mp
+                        else INTERIORNET_STREETLEARN_INTRINSICS),
+            image_size=(384, 512) if is_mp else None)
+        pose = pred.predict(image_read(img1), image_read(img2))[1]
+        want = matterport_demo_pose(pose) if is_mp else pose[3:]
+        with np.printoptions(suppress=True, precision=5):
+            want = str(want)
+        header = ("predicted R&t, as quaternion" if is_mp
+                  else "predicted R, as quaternion")
+        printed = " ".join(lines[2:])
+        n = len(printed.replace("[", " ").replace("]", " ").split())
+        ok = (code == 0 and lines[1].startswith(header)
+              and printed == " ".join(want.splitlines())
+              and n == (7 if is_mp else 4))
+        log(f"[eval-cli] demo {ckpt}: {lines[1]} {printed} "
+            f"({n} numbers; PosePredictor {want}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"demo {ckpt}")
+
+
+def phase_eval_epipolar(dev, epi, failures):
+    """(7d) ``cli.generate_epipolar_imgs`` in scratch working directories
+    with ``demo/`` PNGs, on ``dev`` and on the CPU."""
+    import cv2
+    rng = np.random.default_rng(SEED + 42)
+    images = [rng.integers(0, 255, (480, 640, 3), dtype=np.uint8)
+              for _ in range(2)]
+    outs = {}
+    for where in (dev, "cpu"):
+        wd = pathlib.Path(f"epipolar_{where}")
+        (wd / "demo").mkdir(parents=True, exist_ok=True)
+        for i, img in enumerate(images, 1):
+            cv2.imwrite(str(wd / "demo" / f"matterport_{i}.png"), img)
+        os.chdir(wd)
+        try:
+            code, _ = run_quiet(epi.main, ["--device", where])
+            outs[where] = [cv2.imread(epi.out_path1_points),
+                           cv2.imread(epi.out_path2_lines)]
+        finally:
+            os.chdir("..")
+        if code != 0 or any(o is None for o in outs[where]):
+            failures.append(f"epipolar on {where}: exit {code}, PNGs "
+                            f"{[o is not None for o in outs[where]]}")
+            return
+    a = np.array(epi.epipolar_lines((480, 640, 3), torch.device(dev)))
+    b = np.array(epi.epipolar_lines((480, 640, 3), torch.device("cpu")))
+    rel = np.abs(a[:, 2:] - b[:, 2:]) / np.abs(b[:, 2:])
+    diff = [int((x != y).any(axis=-1).sum())
+            for x, y in zip(outs[dev], outs["cpu"])]
+    log(f"[eval-cli] epipolar on {dev}: both PNGs written; the 9 lines' "
+        f"slopes and intercepts within {rel.max():.3e} relative of the "
+        f"CPU's (bound 1e-5); PNGs against the CPU's: "
+        + ", ".join("bit for bit" if d == 0 else f"{d} pixels differ"
+                    for d in diff))
+    if not rel.max() <= 1e-5:
+        failures.append(f"epipolar lines {rel.max():.3e} relative")
+
+
+def phase_eval_warmup(dev, card, failures):
+    """(7e) ``PosePredictor.warmup()`` in a fresh process: bf16, batch 8,
+    256x256 InteriorNet-style requests; its seconds, then the first
+    requests of 1 and of 8 pairs, against a fresh process without it.  A
+    child process each, so that the library load, cuDNN's plans and the
+    allocator's first blocks are really cold (in this process phases 1-6
+    made them); the kernels' nvcc build is on disk by now, as on a server
+    restarted after its first start (phase 2 times the build)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(OUTPUT_DIR.parent)] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]))
+    got = {}
+    for mode in ("warm", "cold"):
+        r = subprocess.run(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--serve-child", mode, str(EVAL_DIR / "model.pth"), dev,
+             str(EVAL_DEPTH)],
+            env=env, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            failures.append(f"warm-up child {mode}: exit {r.returncode}")
+            log(r.stdout[-2000:] + r.stderr[-2000:])
+            return
+        got[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+    w, c = got["warm"], got["cold"]
+    log(f"[time] PosePredictor bf16 batch_size 8, 256x256, a fresh process "
+        f"each: warmup() {w['warmup_s']:.3f} s, then the first request of "
+        f"1 pair {1e3 * w['first_1_s']:.2f} ms and of 8 pairs "
+        f"{1e3 * w['then_8_s']:.2f} ms; without warm-up "
+        f"{1e3 * c['first_1_s']:.2f} ms and {1e3 * c['then_8_s']:.2f} ms "
+        f"(loading the model {w['load_s']:.2f} / {c['load_s']:.2f} s; "
+        f"{card})")
+
+
+def serve_child(mode, pth, dev, depth):
+    """A fresh process of (7e): load the flagship of ``depth`` blocks,
+    ``warmup()`` if ``mode`` is ``warm``, then a request of 1 pair and one
+    of 8; prints one JSON line of host-clock seconds (each request ends in
+    its host copy)."""
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.infer import (INTERIORNET_STREETLEARN_INTRINSICS,
+                                          PosePredictor)
+    rng = np.random.default_rng(SEED + 43)
+    reqs = [rng.integers(0, 256, (n, 2, 3, 256, 256), dtype=np.uint8)
+            for n in (1, 8)]
+    t0 = time.perf_counter()
+    pred = PosePredictor.from_checkpoint(
+        pth, ModelConfig(compute_dtype="bfloat16",
+                         transformer_depth=int(depth)), device=dev,
+        intrinsics=INTERIORNET_STREETLEARN_INTRINSICS, batch_size=8)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    out = {"load_s": time.perf_counter() - t0, "warmup_s": None}
+    if mode == "warm":
+        t0 = time.perf_counter()
+        pred.warmup(256, 256)
+        out["warmup_s"] = time.perf_counter() - t0
+    for key, images in zip(("first_1_s", "then_8_s"), reqs):
+        t0 = time.perf_counter()
+        poses = pred.predict_batch(images)
+        out[key] = time.perf_counter() - t0
+        if not np.isfinite(poses).all():
+            raise SystemExit(f"{key}: non-finite poses")
+    print(json.dumps(out))
+    return 0
+
+
 def main():
+    if sys.argv[1:2] == ["--serve-child"]:
+        return serve_child(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2423,10 +2961,12 @@ def main():
         device, card, (bilinear_errs, variant_errs))
     rows.update(bench_rows)
     cli_launches = phase_cli(device, card, synthetic_ms)
+    eval_cli_launches = phase_eval_cli(device, card)
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
     log(f"[slice] eval launches {eval_launches}, training launches "
-        f"{launches}, the training CLI's launches {cli_launches}")
+        f"{launches}, the training CLI's launches {cli_launches}, the "
+        f"eval CLIs' (per run) {eval_cli_launches}")
     log(f"[noess] eval launches {noess_eval}, training launches "
         f"{noess_train}")
     for flag, (serve, train) in ablations.items():

@@ -16,8 +16,11 @@ baseline, as ``train.py`` does.  What it keeps of ``train.py:72-315``:
     resnet18 file, overridden by any checkpoint restored after it;
   * ``--ckpt`` on a ``.pth``: the model and the Adam moments, with the
     learning-rate schedule and the step count fresh (the reference's
-    ``train.py:75-86``); else auto-resume from the newest
-    ``output/<name>/checkpoints/*.pth``;
+    ``train.py:75-86``); on a ``.ckpt`` of the JAX package: a full train
+    state goes on from its step (weights, Adam moments, the schedule at
+    that step), a weights-only file (``convert_checkpoint``) restores the
+    weights with a fresh optimizer, as ``train.py:127-156`` does; else
+    auto-resume from the newest ``output/<name>/checkpoints/*.pth``;
   * the subepoch protocol: subepochs 0-9 train on the dataset, subepoch 10
     validates (``train.step.eval_step``) for Matterport, InteriorNet and
     StreetLearn reset at 10;
@@ -36,9 +39,8 @@ the loop's time spent waiting on the data loader to
 
 It refuses, with a message, what the port cannot do yet: ``--device cuda``
 without a GPU (there is no CPU fallback), more than one GPU (``--gpus`` > 1,
-or several visible without ``--no_ddp``: data parallelism is a later slice),
-a ``--ckpt`` that is not a ``.pth`` (the msgpack ``.ckpt`` reader is a later
-slice) and ``--remat`` (a TPU memory lever the port does not take).
+or several visible without ``--no_ddp``: data parallelism is a later slice)
+and ``--remat`` (a TPU memory lever the port does not take).
 """
 
 import argparse
@@ -72,8 +74,9 @@ def build_parser():
                         help="use a single device")
     parser.add_argument("--gpus", type=int, default=None,
                         help="cap on devices used (the port trains on one)")
-    parser.add_argument("--ckpt", help="a .pth checkpoint to restore (warm "
-                        "start: model and Adam moments)")
+    parser.add_argument("--ckpt", help="a .pth checkpoint to warm-start "
+                        "from (model and Adam moments), or a .ckpt of the "
+                        "JAX package (a full train state, or weights only)")
     parser.add_argument("--resnet_pretrained",
                         help="path to torchvision resnet18 weights "
                              "(ImageNet) to initialize the conv trunk of a "
@@ -107,11 +110,6 @@ def check_args(args):
     if args.remat:
         _refuse("--remat is a TPU memory lever (rematerialized forward) "
                 "that the PyTorch port does not implement")
-    if args.ckpt is not None and not args.ckpt.endswith(".pth"):
-        _refuse(f"--ckpt {args.ckpt}: the port restores .pth checkpoints "
-                "only; reading the JAX package's msgpack .ckpt files is a "
-                "later slice (ROADMAP.md queue 1, the eval / demo / "
-                "epipolar CLIs with .ckpt reading)")
     if args.gpus is not None and args.gpus > 1:
         _refuse(f"--gpus {args.gpus}: the port trains on one GPU; data "
                 "parallelism (DDP) is a later slice (ROADMAP.md queue 1)")
@@ -199,6 +197,20 @@ def restore(path, model, opt):
     return ckpt
 
 
+def restore_ckpt(path, model, opt, sched):
+    """A JAX ``.ckpt``: its full train state (weights, Adam moments, the
+    schedule at its step; -> that step), or its weights with ``opt`` and
+    ``sched`` left fresh (-> 0)."""
+    from ..train.checkpoint import load_ckpt_train_state
+    step = load_ckpt_train_state(path, model, opt, sched)
+    if step is None:
+        print("restored weights only (no optimizer state in the file); "
+              "the optimizer starts fresh")
+        return 0
+    print(f"restored the full train state at step {step}")
+    return step
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -237,7 +249,8 @@ def main(argv=None):
         load_resnet_pretrained(model, args.resnet_pretrained)
         print("initialized conv trunk from", args.resnet_pretrained)
 
-    # restore: --ckpt warm start (schedule and step count fresh), else
+    # restore: --ckpt warm start (a .pth: schedule and step count fresh; a
+    # .ckpt's full train state goes on from its step), else
     # auto-resume from the newest checkpoint, its step count kept and the
     # schedule of these arguments taken at that step, as the JAX CLI's
     # schedule is a function of the restored count
@@ -245,7 +258,10 @@ def main(argv=None):
     resume = find_resume_checkpoint(args.name)
     if args.ckpt is not None:
         print("loading separate checkpoint", args.ckpt)
-        restore(args.ckpt, model, opt)
+        if args.ckpt.endswith(".pth"):
+            restore(args.ckpt, model, opt)
+        else:
+            train_steps = restore_ckpt(args.ckpt, model, opt, sched)
     elif resume is not None:
         print("loading existing checkpoint", resume)
         train_steps = int(restore(resume, model, opt)["scheduler"]

@@ -2,7 +2,10 @@
 
 Counterpart of ``rel_pose_tpu/geom/quaternion.py``: the products on tensors
 that ``geom.lie`` needs (``:27-58``), batched over leading dimensions and
-differentiable by autograd; and, in numpy float32 as the JAX versions
+differentiable by autograd, with ``quat_to_matrix`` and
+``geodesic_angle_from_matrices`` (``:60,156``), which keep their input's
+dtype, for the eval CLIs' metrics and the epipolar tool; and, in numpy
+float32 as the JAX versions
 compute, the rotation helpers the InteriorNet / StreetLearn readers need
 (``:74-153``): ``matrix_to_quat``, ``rotation_from_viewpoint`` and
 ``relative_rotation_from_viewpoints``.
@@ -36,6 +39,29 @@ def quat_rotate(q, v):
     uv = torch.linalg.cross(u, v, dim=-1)
     uuv = torch.linalg.cross(u, uv, dim=-1)
     return v + 2.0 * (w * uv + uuv)
+
+
+def quat_to_matrix(q):
+    """Unit quaternions ``(..., 4)`` W-last -> rotation matrices
+    ``(..., 3, 3)``."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def geodesic_angle_from_matrices(m1, m2):
+    """Geodesic angle (radians) between rotation matrices ``(..., 3, 3)``:
+    arccos((tr(m1 m2^T) - 1) / 2), the cosine clipped to [-1, 1]."""
+    m = torch.matmul(m1, m2.transpose(-1, -2))
+    cos = (m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2] - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))
 
 
 # ------------------------------------------------ numpy, for the datasets --

@@ -19,7 +19,9 @@ Example::
     poses = pred.predict_batch(images)        # (B, 2, 3, H, W) -> (B, 2, 7)
 
 A --noess checkpoint: ``PosePredictor.from_checkpoint("noess.pth",
-ModelConfig(noess=True), ...)``.
+ModelConfig(noess=True), ...)``.  A ``.ckpt`` written by the JAX package
+loads the same way.  ``pred.warmup()`` before the first request builds the
+kernels and plans the convolutions.
 """
 
 import numpy as np
@@ -28,6 +30,7 @@ import torch
 from .config import ModelConfig
 from .models.vitess import ViTEss
 from .ops.image import nearest_resize
+from .train.checkpoint import load_ckpt_state_dict
 from .utils.convert import load_pth, load_reference_state_dict
 from .utils.precision import apply_matmul_precision
 
@@ -63,6 +66,18 @@ def matterport_demo_pose(pose):
     return out
 
 
+def load_checkpoint_state_dict(path, cfg):
+    """The port's state dict from a reference or port ``.pth`` (a
+    ``{"model", ...}`` dict or a bare state dict) or, for any other name, a
+    msgpack ``.ckpt`` of the JAX package (``load_checkpoint_params``,
+    ``rel_pose_tpu/infer.py:75``)."""
+    if str(path).endswith(".pth"):
+        ckpt = load_pth(path)
+        return load_reference_state_dict(
+            ckpt["model"] if "model" in ckpt else ckpt)
+    return load_ckpt_state_dict(path, cfg)
+
+
 class PosePredictor:
     """Batched relative-pose inference with a loaded ``ViTEss``.
 
@@ -92,18 +107,14 @@ class PosePredictor:
 
     @classmethod
     def from_checkpoint(cls, path, cfg=None, *, device="cuda", **kwargs):
-        """Build from a reference ``.pth`` checkpoint (a ``{"model", ...}``
-        dict, as ``train.checkpoint`` writes, or a bare state dict) of the
-        model ``cfg`` describes: the flagship by default,
-        ``ModelConfig(noess=True)`` for a --noess checkpoint."""
-        if not str(path).endswith(".pth"):
-            raise NotImplementedError(
-                "the PyTorch port loads reference .pth checkpoints only")
-        ckpt = load_pth(path)
-        sd = ckpt["model"] if "model" in ckpt else ckpt
-        model = ViTEss(cfg if cfg is not None else ModelConfig(),
-                       device=device)
-        model.load_state_dict(load_reference_state_dict(sd))
+        """Build from a ``.pth`` or ``.ckpt`` checkpoint
+        (:func:`load_checkpoint_state_dict`) of the model ``cfg``
+        describes: the flagship by default, ``ModelConfig(noess=True)`` for
+        a --noess checkpoint."""
+        cfg = cfg if cfg is not None else ModelConfig()
+        sd = load_checkpoint_state_dict(path, cfg)
+        model = ViTEss(cfg, device=device)
+        model.load_state_dict(sd)
         return cls(model, **kwargs)
 
     def _as_images(self, images):
@@ -176,3 +187,35 @@ class PosePredictor:
     def predict(self, img1, img2, intrinsics=None):
         """One HWC-BGR image pair -> (2, 7) pose."""
         return self.predict_batch([(img1, img2)], intrinsics)[0]
+
+    def warmup(self, height=None, width=None, dtype=np.uint8):
+        """Run one dummy batch of ``batch_size`` pairs so that the first
+        real request does not pay the one-time costs: the kernels' nvcc
+        build, cuDNN's plans and the allocator's first blocks.  Returns
+        ``self`` once the card has finished.
+
+        With ``image_size`` set the dummy defaults to it; without it the
+        model sees the native request resolution, so ``height`` and
+        ``width`` are required and should be the resolution requests will
+        come at.  ``dtype`` is the requests' (uint8 images, or float32
+        ones, run as they come).  Stored per-pair intrinsics that do not
+        tile to the batch are replaced by a dummy (``rel_pose_tpu/
+        infer.py:226-261``)."""
+        if height is None or width is None:
+            if self.image_size is None:
+                raise ValueError(
+                    "warmup(height, width): pass the expected native "
+                    "request resolution -- image_size is not set, so the "
+                    "model runs at the raw input shape (e.g. "
+                    "warmup(256, 256) for InteriorNet/StreetLearn-style "
+                    "traffic)")
+            height, width = self.image_size
+        B = self.batch_size or 1
+        dummy = np.zeros((B, 2, 3, height, width), dtype)
+        intr = self._default_intr
+        if intr is None or (intr.ndim == 3 and intr.shape[0] != B):
+            intr = np.ones(4, np.float32)
+        self._run(dummy, self._intr_for(B, intr))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self

@@ -14,15 +14,26 @@ reads it although its scheduler state holds a pickled function, and its
 Adam state, whose group also lists the frozen ``resnet.layer3/4`` and
 ``fc`` that the port does not hold, is remapped by parameter name
 (``utils.convert.remap_reference_adam_state``).
+
+The JAX package's msgpack ``.ckpt`` files (``rel_pose_tpu/train/
+checkpoint.py``) are read and written through ``utils.msgpack`` and
+``utils.convert.key_map``: :func:`load_ckpt_state_dict` takes the weights
+(the counterpart of its ``load_params_only``), :func:`load_ckpt_train_state`
+a full train state ``{params, bn_state, opt_state, step}`` with its Adam
+moments, and :func:`save_ckpt` writes ``{params, bn_state, opt_state: {},
+step}`` as ``convert_checkpoint.py`` does.
 """
 
 import os
 import re
+import warnings
 
+import numpy as np
 import torch
 
-from ..utils.convert import (load_pth, load_reference_state_dict,
-                             remap_reference_adam_state)
+from ..utils import msgpack
+from ..utils.convert import (key_map, load_pth, load_reference_state_dict,
+                             remap_reference_adam_state, state_dict_from_jax)
 
 SUFFIX = ".pth"
 
@@ -85,3 +96,174 @@ def resume(name, model, opt, sched, output_dir="output"):
         return 0
     load_checkpoint(path, model, opt, sched)
     return sched.last_epoch
+
+
+# ------------------------------------------------ the JAX package's .ckpt --
+
+def read_ckpt(path):
+    """A ``.ckpt`` file -> its tree, flax's digit-keyed maps turned back
+    into lists."""
+    with open(path, "rb") as f:
+        return _as_lists(msgpack.unpackb(f.read()))
+
+
+def _as_lists(tree):
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _as_lists(v) for k, v in tree.items()}
+    if out and set(out) == {str(i) for i in range(len(out))}:
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix}
+    return set().union(*[_leaf_paths(v, prefix + (k,)) for k, v in items]) \
+        if tree else set()
+
+
+def _numpy(tree):
+    """Leaves as numpy; bfloat16 tensors widened to float32."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy(v) for v in tree]
+    if torch.is_tensor(tree):
+        return tree.float().numpy()
+    return tree
+
+
+def _mismatch(path, detail):
+    return ValueError(
+        f"checkpoint {path} does not match the model configuration -- "
+        "check the architecture flags (--transformer_depth, "
+        f"--fusion_transformer, --noess, ...) used when it was trained: "
+        f"{detail}")
+
+
+def _trees_state_dict(raw, cfg, path):
+    """(params, bn_state) of a read ``.ckpt`` -> the port's state dict;
+    the file's leaves must be exactly those of ``cfg``'s key map."""
+    if not isinstance(raw, dict) or "params" not in raw \
+            or "bn_state" not in raw:
+        raise ValueError(f"{path}: no params / bn_state entries")
+    trees = {"params": raw["params"], "state": raw["bn_state"]}
+    want = {p for p, _, _ in key_map(cfg)}
+    have = {("params",) + p for p in _leaf_paths(trees["params"])} | \
+        {("state",) + p for p in _leaf_paths(trees["state"])}
+    if want != have:
+        missing, extra = sorted(map(str, want - have)), sorted(
+            map(str, have - want))
+        raise _mismatch(path, f"missing {missing[:3]} ({len(missing)}), "
+                        f"unexpected {extra[:3]} ({len(extra)})")
+    return state_dict_from_jax(_numpy(trees["params"]),
+                               _numpy(trees["state"]), cfg)
+
+
+def load_ckpt_state_dict(path, cfg):
+    """The weights of a ``.ckpt`` of the model ``cfg`` describes, as the
+    port's state dict (``load_params_only``,
+    ``rel_pose_tpu/train/checkpoint.py:100-117``): its ``params`` and
+    ``bn_state``; anything else in the file is ignored."""
+    return _trees_state_dict(read_ckpt(path), cfg, path)
+
+
+def _adam_state(opt_state):
+    """optax's ``scale_by_adam`` state in a chain's state, or None."""
+    entries = opt_state if isinstance(opt_state, list) else [opt_state]
+    for s in entries:
+        if isinstance(s, dict) and {"count", "mu", "nu"} <= set(s):
+            return s
+    return None
+
+
+def _advance(sched, step):
+    """``sched`` as ``train.optim.make_scheduler(step=step)`` builds it:
+    the schedule at ``step`` updates, the groups' lr set to lr(step)."""
+    sched.last_epoch = min(step, sched.total_steps)
+    with warnings.catch_warnings():
+        # get_lr outside step(): the lr of last_epoch is what is asked for
+        warnings.simplefilter("ignore", UserWarning)
+        lrs = sched.get_lr()
+    for group, lr in zip(sched.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    sched._last_lr = list(lrs)
+
+
+def load_ckpt_train_state(path, model, opt, sched):
+    """Restore a ``.ckpt`` written by the JAX package's ``train.py`` into
+    ``model``, ``opt`` (torch Adam over ``model.parameters()``) and
+    ``sched``.  A full train state gives the weights; optax
+    ``scale_by_adam``'s ``mu`` / ``nu`` (``rel_pose_tpu/train/optim.py:
+    85-89``: on disk the chain's state is a map keyed "0"-"3") become each
+    parameter's ``exp_avg`` / ``exp_avg_sq`` through ``key_map``, Linear
+    weights transposed, and its ``count`` Adam's ``step``; the schedule is
+    advanced to the file's ``step``.  Returns that step.  A params-only
+    file (``{params, bn_state, step=0}``, as ``convert_checkpoint.py``
+    writes) restores the weights, leaves ``opt`` and ``sched`` fresh and
+    returns None."""
+    raw = read_ckpt(path)
+    model.load_state_dict(_trees_state_dict(raw, model.cfg, path))
+    adam = _adam_state(raw.get("opt_state"))
+    if adam is None:
+        return None
+    mu, nu = _numpy(adam["mu"]), _numpy(adam["nu"])
+    count = float(np.asarray(adam["count"]))
+    moments = {}
+    for jpath, key, transpose in key_map(model.cfg):
+        if jpath[0] != "params":
+            continue
+        pair = []
+        for tree in (mu, nu):
+            for p in jpath[1:]:
+                tree = tree[p]
+            arr = np.asarray(tree, np.float32)
+            pair.append(torch.from_numpy(np.ascontiguousarray(
+                arr.T if transpose else arr)))
+        moments[key] = pair
+    names = {id(p): n for n, p in model.named_parameters()}
+    state, groups = {}, []
+    for group in opt.param_groups:
+        idx = []
+        for p in group["params"]:
+            exp_avg, exp_avg_sq = moments[names[id(p)]]
+            idx.append(len(state))
+            state[len(state)] = {"step": torch.tensor(count),
+                                 "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
+        groups.append({**{k: v for k, v in group.items() if k != "params"},
+                       "params": idx})
+    opt.load_state_dict({"state": state, "param_groups": groups})
+    step = int(np.asarray(raw["step"]))
+    _advance(sched, step)
+    return step
+
+
+def save_ckpt(path, model, step=0):
+    """Write ``model``'s weights as a ``.ckpt`` the JAX package reads
+    (``load_params_only``, or ``train.py --ckpt`` as a warm start):
+    ``{params, bn_state, opt_state: {}, step}``, float32 weights and int32
+    BatchNorm counts under the JAX tree's names."""
+    sd = model.state_dict()
+    trees = {"params": {}, "state": {}}
+    for jpath, key, transpose in key_map(model.cfg):
+        t = sd[key].detach().cpu()
+        t = t.T if transpose else t
+        dtype = np.int32 if key.endswith("num_batches_tracked") \
+            else np.float32
+        node = trees[jpath[0]]
+        for p in jpath[1:-1]:
+            node = node.setdefault(str(p), {})
+        node[jpath[-1]] = np.array(t.numpy(), dtype, order="C")
+    data = msgpack.packb({"params": trees["params"],
+                          "bn_state": trees["state"], "opt_state": {},
+                          "step": step})
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)

@@ -100,10 +100,91 @@ def test_from_checkpoint_pth(model, tmp_path):
                                   direct.predict_batch(images))
 
 
-def test_from_checkpoint_rejects_native_ckpt(tmp_path):
-    with pytest.raises(NotImplementedError):
-        tinfer.PosePredictor.from_checkpoint(tmp_path / "x.ckpt", CFG,
-                                             device="cpu")
+def test_from_checkpoint_rejects_native_ckpt(model, tmp_path):
+    """A ``.ckpt`` loads (``save_ckpt``'s, serving as the model it was
+    written from) unless it is of another architecture, which is refused
+    naming the flags."""
+    from rel_pose_tpu_torch.train.checkpoint import save_ckpt
+    path = tmp_path / "x.ckpt"
+    save_ckpt(str(path), model)
+    pred = tinfer.PosePredictor.from_checkpoint(
+        path, CFG, device="cpu",
+        intrinsics=tinfer.INTERIORNET_STREETLEARN_INTRINSICS)
+    direct = tinfer.PosePredictor(
+        model, intrinsics=tinfer.INTERIORNET_STREETLEARN_INTRINSICS)
+    images = RNG.integers(0, 256, (2, 2, 3, 64, 64), dtype=np.uint8)
+    np.testing.assert_array_equal(pred.predict_batch(images),
+                                  direct.predict_batch(images))
+    with pytest.raises(ValueError, match="--transformer_depth"):
+        tinfer.PosePredictor.from_checkpoint(
+            path, ModelConfig(transformer_depth=3), device="cpu")
+
+
+class _Spy:
+    """Stands in for ``PosePredictor._run``: records what it was sent."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, images, intr):
+        self.calls.append((images.shape, images.dtype, intr))
+        return np.zeros((images.shape[0], 2, 7), np.float32)
+
+
+@pytest.mark.parametrize("kwargs,call,want_shape,want_dtype", [
+    ({"image_size": (384, 512), "batch_size": 4}, {}, (4, 2, 3, 384, 512),
+     np.uint8),
+    ({"image_size": (384, 512)}, {"height": 480, "width": 640},
+     (1, 2, 3, 480, 640), np.uint8),
+    ({"batch_size": 8}, {"height": 256, "width": 256,
+                         "dtype": np.float32}, (8, 2, 3, 256, 256),
+     np.float32),
+])
+def test_warmup_runs_one_dummy_batch(model, monkeypatch, kwargs, call,
+                                     want_shape, want_dtype):
+    """``warmup`` sends one zero batch of ``batch_size`` (1 without one)
+    at ``image_size`` or the given size and dtype through ``_run``, with
+    the stored intrinsics tiled to it, and returns the predictor."""
+    pred = tinfer.PosePredictor(
+        model, intrinsics=tinfer.MATTERPORT_INTRINSICS, **kwargs)
+    spy = _Spy()
+    monkeypatch.setattr(pred, "_run", spy)
+    assert pred.warmup(**call) is pred
+    assert len(spy.calls) == 1
+    shape, dtype, intr = spy.calls[0]
+    assert shape == want_shape and dtype == want_dtype
+    np.testing.assert_array_equal(
+        intr, np.tile(tinfer.MATTERPORT_INTRINSICS, (want_shape[0], 2, 1)))
+
+
+def test_warmup_without_image_size_needs_the_resolution(model):
+    pred = tinfer.PosePredictor(model, intrinsics=tinfer.MATTERPORT_INTRINSICS)
+    with pytest.raises(ValueError, match="image_size is not set"):
+        pred.warmup()
+    with pytest.raises(ValueError, match="image_size is not set"):
+        pred.warmup(height=256)
+
+
+@pytest.mark.parametrize("intrinsics", [None, "per-pair"])
+def test_warmup_takes_a_dummy_for_intrinsics_that_do_not_tile(
+        model, monkeypatch, intrinsics):
+    """No stored intrinsics, or per-pair ones of another batch: a dummy
+    of ones, as ``rel_pose_tpu/infer.py:253-259``."""
+    if intrinsics == "per-pair":
+        intrinsics = np.ones((3, 2, 4), np.float32) * 100
+    pred = tinfer.PosePredictor(model, intrinsics=intrinsics, batch_size=2,
+                                image_size=(64, 64))
+    spy = _Spy()
+    monkeypatch.setattr(pred, "_run", spy)
+    pred.warmup()
+    np.testing.assert_array_equal(spy.calls[0][2], np.ones((2, 2, 4)))
+
+
+def test_warmup_runs_the_model_on_the_cpu(model):
+    """Unpatched, on the CPU: the dummy goes through the model."""
+    pred = tinfer.PosePredictor(model, intrinsics=tinfer.MATTERPORT_INTRINSICS,
+                                batch_size=2, image_size=(64, 64))
+    assert pred.warmup() is pred
 
 
 def test_chunking_and_padding(model):

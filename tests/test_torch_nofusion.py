@@ -20,7 +20,11 @@ Tolerances, with their reasons (measured values in brackets):
     ||g_jax|| plus 1e-6 of the largest leaf norm, rtol 1e-4 [1.3e-5] on the
     pool head and the regressor and 2e-2 [8.1e-3] on the ResNet trunk and
     the extractor: fp32 rounding of training BatchNorm, amplified through
-    the trunk as in tests/test_torch_train.py and tests/test_torch_noess.py;
+    the trunk as in tests/test_torch_train.py and tests/test_torch_noess.py,
+    not another computation: in float64 every one of the 56 leaves agrees
+    to 1e-9 [3.2e-14 relative; the five conv biases ahead of a BatchNorm,
+    whose exact gradient is 0, within 4.5e-14 absolute of a largest leaf
+    norm of 2.6e3] (tests/test_torch_nofusion_f64.py);
     BatchNorm running statistics 1e-5 relative, counts exact;
   * 3 train steps: every loss rtol 2e-3 [1.5e-6, 6.9e-5, 1.8e-4 at steps
     1-3]; the updates elementwise within 2 sum(lr) of the JAX ones, per leaf
@@ -79,6 +83,11 @@ def make_setup(cfg=CFG, seed=13):
                 random_poses(rng, B), np.tile(INTERIORNET, (B, 2, 1)))
                for _ in range(3)]
     return params, state, sd, batches
+
+
+def float64_case():
+    """(cfg, setup) for the float64 child of tests/test_torch_train.py."""
+    return CFG, make_setup()
 
 
 @pytest.fixture(scope="module")

@@ -207,8 +207,9 @@ def test_one_step_gradients_match_jax(jax_one_step, port_one_step):
 def float64_gradient_errors(which):
     """{key: (||g_port - g_jax||, ||g_jax||)} of the one-step gradients of
     ``which`` ("flagship": this file's setup, "noess":
-    tests/test_torch_noess.py's, an ablation flag: that of
-    tests/test_torch_ablations.py) in float64, computed by this file run as
+    tests/test_torch_noess.py's, "nofusion": tests/test_torch_nofusion.py's,
+    an ablation flag: that of tests/test_torch_ablations.py; any other name
+    fails the child) in float64, computed by this file run as
     a script in a child process, so that x64 and the casts stay out of this
     one."""
     env = dict(os.environ, RELPOSE_NO_PALLAS="1", JAX_PLATFORMS="cpu")
@@ -428,12 +429,19 @@ def _param_index(model, key):
 
 
 if __name__ == "__main__":
+    import test_torch_ablations
+    import test_torch_ablations_pos
     if sys.argv[1] == "noess":
         import test_torch_noess
         args = test_torch_noess.CFG, test_torch_noess.make_setup()
     elif sys.argv[1] == "flagship":
         args = CFG, _make_setup()
-    else:   # an ablation flag of tests/test_torch_ablations*.py
-        import test_torch_ablations
+    elif sys.argv[1] == "nofusion":
+        import test_torch_nofusion
+        args = test_torch_nofusion.float64_case()
+    elif sys.argv[1] in (test_torch_ablations.FLAGS
+                         + test_torch_ablations_pos.FLAGS):
         args = test_torch_ablations.float64_case(sys.argv[1])
+    else:
+        raise SystemExit(f"unknown float64 case {sys.argv[1]!r}")
     print(json.dumps(_float64_one_step_gradients(*args)))

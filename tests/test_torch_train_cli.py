@@ -19,6 +19,11 @@ and across the packages:
     ``Reference`` of tests/test_torch_checkpoint_precision.py) warm-starts
     the CLI: the Adam moments carry on, the schedule and the step count
     start afresh;
+  * a ``.ckpt`` of the JAX package: a full train state (written by its
+    ``save_checkpoint``) goes on from its step with its Adam moments and
+    the schedule at that step; a weights-only file (the port's
+    ``cli.convert_checkpoint``) restores the weights and starts a fresh
+    optimizer, each saying which it did;
   * ``--resnet_pretrained`` on a synthesized torchvision state dict gives
     the trunk that the JAX package's ``load_torchvision_resnet18`` gives,
     bit for bit.
@@ -182,6 +187,91 @@ def test_ckpt_warm_start_restores_adam_with_a_fresh_step(matterport,
                      * (1 - 1e-6)).all()), name
 
 
+def _jax_train_state(cfg, step, rng):
+    """The JAX package's train state of ``cfg`` from seeded weights, its
+    Adam count, schedule count and step at ``step``, its moments seeded."""
+    import jax.numpy as jnp
+    from rel_pose_tpu.train import TrainState
+    from rel_pose_tpu.train import make_optimizer as jmake_optimizer
+    from rel_pose_tpu.utils.convert import convert_torch_state_dict
+    sd = seeded_state_dict(ViTEss(cfg, device="meta"), seed=9)
+    params, state = convert_torch_state_dict(
+        sd, jconfig.ModelConfig(**cfg.__dict__))
+    tx, _ = jmake_optimizer(5e-4, 10, 2)
+    st = TrainState.create(params, state, tx)
+    count = jnp.asarray(step, jnp.int32)
+    adam = st.opt_state[2]._replace(
+        count=count,
+        mu=jax.tree.map(lambda a: jnp.asarray(
+            1e-3 * rng.standard_normal(a.shape), jnp.float32),
+            st.opt_state[2].mu),
+        nu=jax.tree.map(lambda a: jnp.asarray(
+            1e-6 * rng.uniform(0, 1, a.shape), jnp.float32),
+            st.opt_state[2].nu))
+    return st.replace(opt_state=(st.opt_state[0], st.opt_state[1], adam,
+                                 st.opt_state[3]._replace(count=count)),
+                      step=count), sd
+
+
+def test_jax_ckpt_full_state_goes_on_from_its_step(matterport, capsys):
+    """``--ckpt`` on a JAX full train state at step 2: the run says so,
+    takes 1 step to ``--steps 3`` and saves 000003.pth with every Adam step
+    at 3 (the file's 2, plus one), the schedule at 3, and the moments
+    carried (the second moment at least 0.999 of the file's)."""
+    from rel_pose_tpu.train.checkpoint import save_checkpoint
+    st, _ = _jax_train_state(DEPTH2, 2, np.random.default_rng(3))
+    save_checkpoint(str(matterport / "state.ckpt"), jax.device_get(st))
+    assert run("jaxstate", "--ckpt", "state.ckpt", "--steps", "3",
+               "--warmup", "2", "--ckpt_every", "100", *FUSION) == 0
+    out = capsys.readouterr().out
+    assert "loading separate checkpoint state.ckpt" in out
+    assert "restored the full train state at step 2" in out
+    assert sorted(os.listdir(os.path.join("output", "jaxstate",
+                                          "checkpoints"))) == ["000003.pth"]
+    got = torch.load(ckpt("jaxstate", 3), weights_only=True)
+    assert got["scheduler"]["last_epoch"] == 3
+    nu = {}
+    for path, key, transpose in key_map(DEPTH2):
+        if path[0] == "params":
+            a = np.asarray(_lookup(st.opt_state[2].nu, path[1:]))
+            nu[key] = a.T if transpose else a
+    names = [n for n, _ in ViTEss(DEPTH2, device="meta").named_parameters()]
+    for i, name in enumerate(names):
+        s = got["optimizer"]["state"][i]
+        assert float(s["step"]) == 3.0, name
+        assert bool((s["exp_avg_sq"].numpy() >= 0.999 * nu[name]
+                     * (1 - 1e-6)).all()), name
+
+
+def test_jax_ckpt_weights_only_starts_a_fresh_optimizer(matterport, capsys):
+    """``--ckpt`` on a weights-only ``.ckpt`` (``cli.convert_checkpoint``
+    of a ``.pth``): the run says so, its one step starts from step 0 (Adam
+    step 1, schedule at 1) and from the file's weights."""
+    from rel_pose_tpu_torch.cli import convert_checkpoint
+    sd = seeded_state_dict(ViTEss(DEPTH2, device="cpu"), seed=13)
+    torch.save({"model": sd}, matterport / "w.pth")
+    assert convert_checkpoint.main(["--ckpt", "w.pth", "--out", "w.ckpt",
+                                    "--transformer_depth", "2"]) == 0
+    assert run("weights", "--ckpt", "w.ckpt", "--steps", "1", "--warmup",
+               "1", "--lr", "0", *FUSION) == 0
+    out = capsys.readouterr().out
+    assert "restored weights only" in out and "starts fresh" in out
+    got = torch.load(ckpt("weights", 1), weights_only=True)
+    assert got["scheduler"]["last_epoch"] == 1
+    assert all(float(s["step"]) == 1.0
+               for s in got["optimizer"]["state"].values())
+    for k, v in sd.items():     # lr 0: the file's weights, untouched
+        if not k.endswith(("running_mean", "running_var",
+                           "num_batches_tracked")):
+            torch.testing.assert_close(got["model"][k], v, rtol=0, atol=0)
+
+
+def _lookup(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
 def _torchvision_resnet18(path):
     """A torchvision-layout resnet18 file: the trunk's keys without the
     ``resnet.`` prefix (seeded values), a few tensors of the unused
@@ -235,8 +325,6 @@ def test_resnet_pretrained_trunk_is_jax_s(matterport, capsys):
     (["--device", "cuda"], False, 0, "no CUDA device"),
     (["--device", "cuda"], True, 2, "2 GPUs are visible"),
     (["--device", "cpu", "--gpus", "2"], False, 0, "--gpus 2"),
-    (["--device", "cpu", "--ckpt", "model.ckpt"], False, 0,
-     ".ckpt reading"),
     (["--device", "cpu", "--remat"], False, 0, "--remat"),
 ])
 def test_refusals(tmp_path, monkeypatch, extra, cuda, count, message):
