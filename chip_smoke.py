@@ -184,14 +184,38 @@ The eval, demo, epipolar and convert CLIs and the predictor's warm-up:
      alone; (g) ``cli.train --ckpt model.ckpt``, bf16, 2 steps: weights
      only restored, finite losses, #1, #2, #5 and #6 launched.
 
+Data parallelism (``rel_pose_tpu_torch.parallel``; this host has one card
+and NCCL takes one GPU a rank, so what runs here is two ranks sharing the
+card over gloo, and a world of one over NCCL -- never two cards):
+
+  8a. two ranks over gloo on the one card, child processes of this script
+     (``--ddp-child``): 3 DDP ``train_step``s of the depth-6 flagship with
+     the kernels, fp32 and bf16, 4 Matterport-style 384x512 pairs a rank,
+     against this process's ``train_step`` on all 8 pairs from the same
+     seeded weights: the step-1 global loss, every parameter's step-1
+     gradient (cosine and norm ratio), the BatchNorm running statistics,
+     the parameters after step 3; both ranks' parameters and buffers
+     bit-identical after every step; each rank's #1, #2, #5 and #6
+     launched; the two-rank step's ms beside the one-process step's (the
+     ranks share one card and all-reduce through host memory: not a
+     figure of DDP's speed);
+  8b. ``cli.train`` as a world of one over NCCL (torchrun's RANK=0,
+     WORLD_SIZE=1 set by hand) on phase 6's tree, flagship bf16, 2 steps
+     at batch 6: its step-2 checkpoint equal bit for bit to the same run's
+     with ``--no_ddp``; #1, #2, #5 and #6 launched;
+  8c. ``cli.test_matterport`` as 2 ranks on the card (gloo), fp32, batch
+     16, on phase 7's 64 pairs: the rows in rank-major order, pair for pair
+     within phase 7's fp32 bounds of its single-process rows, the metrics
+     within 1e-4 degrees and 1e-4 m.
+
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``; the one before the card's line is the
 ``{"kernels": [...]}`` line of all twelve kernels.  Checkpoints and the
 CLIs' trees go to ``output/`` beside this file and are removed.  The run
 needs no network and starts no process besides ``nvidia-smi``, ``nvcc``,
-``make`` (the native host library), the training CLI's child process and
-phase 7e's two (this script with ``--serve-child``), each of which it
-waits for.
+``make`` (the native host library), the training CLI's child process,
+phase 7e's two (this script with ``--serve-child``), phase 8a's two ranks
+(``--ddp-child``) and 8c's two, each of which it waits for.
 """
 
 import itertools
@@ -203,6 +227,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -287,6 +312,14 @@ HEAD_STACKED_NORMREL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 def log(*args):
     print(*args, flush=True)
+
+
+def child_env(**extra):
+    """This process's environment for a child process, the repository
+    first on ``PYTHONPATH``, plus ``extra``."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(OUTPUT_DIR.parent)] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]), **extra)
 
 
 def cuda_time_ms(fn, iters, warmup=1):
@@ -2326,14 +2359,11 @@ def phase_cli(device, card, synthetic_ms):
             failures.append(f"CLI checkpoints {ckpts}")
 
         t0 = time.perf_counter()
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [str(OUTPUT_DIR.parent)] + [p for p in [
-                os.environ.get("PYTHONPATH")] if p]))
         r = subprocess.run(
             [sys.executable, "-m", "rel_pose_tpu_torch.cli.train", "--name",
              "flagship", "--datapath", "mp", "--batch", "6", "--steps", "5",
              "--ckpt_every", "2", "--warmup", "2"] + common + flagship,
-            env=env, capture_output=True, text=True, timeout=900)
+            env=child_env(), capture_output=True, text=True, timeout=900)
         resumed = ("loading existing checkpoint "
                    "output/flagship/checkpoints/000004.pth" in r.stdout)
         log(f"[cli] python -m rel_pose_tpu_torch.cli.train --steps 5: exit "
@@ -2372,7 +2402,6 @@ def phase_cli(device, card, synthetic_ms):
         log_loader_parts(card)
     finally:
         os.chdir(cwd)
-        shutil.rmtree(CLI_DIR, ignore_errors=True)
     if failures:
         raise SystemExit(f"training CLI checks failed: {failures}")
     return launches
@@ -2490,12 +2519,13 @@ def check_eval_files(label, ckpt_dir, pth_dir, files, failures):
         failures.append(f"{label}: .ckpt and .pth files differ")
 
 
-def check_err_column(label, got, want, tol, failures):
+def check_err_column(label, got, want, tol, failures,
+                     what="kernels - plain"):
     """CLI errors (kernels) against the plain path's, row by row, within
     ``tol`` (an array or a number) plus the CSV's %1.5f rounding."""
     gap = np.abs(got - want)
     bad = int((gap > tol + 1e-5).sum())
-    log(f"[eval-cli] {label}: {len(got)} rows, max |kernels - plain| "
+    log(f"[eval-cli] {label}: {len(got)} rows, max |{what}| "
         f"{gap.max():.3e} (bound {np.min(tol):.3e}-{np.max(tol):.3e} + 1e-5)"
         f" {'ok' if not bad else f'FAIL in {bad} rows'}")
     if bad:
@@ -2750,7 +2780,6 @@ def phase_eval_cli(device, card):
                      for k, v in got.items() if v <= 0]
     finally:
         os.chdir(cwd)
-        shutil.rmtree(EVAL_DIR, ignore_errors=True)
     log(f"[eval-cli] phase 7 in {time.perf_counter() - t_phase:.1f} s")
     if failures:
         raise SystemExit(f"eval CLI checks failed: {failures}")
@@ -2866,16 +2895,13 @@ def phase_eval_warmup(dev, card, failures):
     allocator's first blocks are really cold (in this process phases 1-6
     made them); the kernels' nvcc build is on disk by now, as on a server
     restarted after its first start (phase 2 times the build)."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(OUTPUT_DIR.parent)] + [p for p in [os.environ.get(
-            "PYTHONPATH")] if p]))
     got = {}
     for mode in ("warm", "cold"):
         r = subprocess.run(
             [sys.executable, str(pathlib.Path(__file__).resolve()),
              "--serve-child", mode, str(EVAL_DIR / "model.pth"), dev,
              str(EVAL_DEPTH)],
-            env=env, capture_output=True, text=True, timeout=600)
+            env=child_env(), capture_output=True, text=True, timeout=600)
         if r.returncode != 0:
             failures.append(f"warm-up child {mode}: exit {r.returncode}")
             log(r.stdout[-2000:] + r.stderr[-2000:])
@@ -2924,9 +2950,382 @@ def serve_child(mode, pth, dev, depth):
     return 0
 
 
+# ------------------------------------------------- data parallelism (8) --
+
+DDP_DEPTH = 6
+DDP_BATCH = 8               # the global batch: 4 pairs a rank
+DDP_STEPS = 3
+DDP_DIR = OUTPUT_DIR / "chip_smoke_ddp"
+# The two-rank step against one process on the union, BatchNorm running
+# statistics after step 1, ||ddp - one|| / ||one|| per buffer: fp32 1e-5
+# (the same sums split in two, as tests/test_torch_ddp.py's 2.2e-16 in
+# float64), bf16 1e-2 (cuDNN may pick other algorithms at 4 pairs than at
+# 8, so bf16 conv outputs, and what follows them, flip by an ulp).  The
+# parameters after step 3: every element within DDP_STEP_BOUND sum(lr) of
+# the single process's -- Adam moves an element by at most lr sqrt(sum_i
+# a_i^2 / b_i) a step, a and b its moments' normalized weights (Cauchy-
+# Schwarz): 1, 1.0014 and 1.0037 lr in steps 1-3, whatever the gradient,
+# so one whose gradient is near 0 can step either way in both runs -- and
+# the median leaf's update within DDP_UPDATE_MEDIAN of it in norm: fp32
+# 1e-2, as
+# tests/test_torch_train.py holds three steps against JAX's; bf16 0.5 --
+# Adam's first steps move an element by about lr sign(g), and bf16's
+# gradients differ by flips (cosine >= LEAF_COS), so every element whose
+# gradient is within that noise steps either way (0.279 on the CPU's plain
+# path at depth 2, where fp32 gives 3.8e-4).
+DDP_BN_NORMREL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+DDP_UPDATE_MEDIAN = {torch.float32: 1e-2, torch.bfloat16: 0.5}
+DDP_STEP_BOUND = 2 * 1.0037
+
+
+def ddp_batches(device):
+    """The 3 global batches of phase 8a, the same in every process."""
+    rng = np.random.default_rng(SEED + 50)
+    return [train_batch(rng, DDP_BATCH, device) for _ in range(DDP_STEPS)]
+
+
+def ddp_state_dict():
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    from rel_pose_tpu_torch.nn.init import seeded_state_dict
+    return seeded_state_dict(ViTEss(ModelConfig(transformer_depth=DDP_DEPTH),
+                                    device="meta"), SEED)
+
+
+def ddp_steps(dtype, sd, device, rank=0, world=1):
+    """``DDP_STEPS`` ``train_step``s of the depth-``DDP_DEPTH`` flagship with
+    the kernels on rank ``rank``'s contiguous shard of each global batch,
+    under DDP when ``world`` > 1; the kernels' counters set to 0 just before
+    the steps and read just after.  -> the step-1 loss, post-clip
+    gradients and BatchNorm running statistics, the parameters after the
+    last step, each step's host milliseconds (synchronized), the warnings
+    the steps raised and, under DDP, the digest of the parameters and
+    buffers after each step."""
+    from rel_pose_tpu_torch import parallel
+    from rel_pose_tpu_torch.train.step import train_step
+    model, opt, sched = train_model(dtype, sd, device, True,
+                                    transformer_depth=DDP_DEPTH)
+    run = parallel.wrap_ddp(model, device) if world > 1 else model
+    per = DDP_BATCH // world
+    counters = kernel_counters()
+    out = {"ms": [], "digests": [], "lrs": []}
+    batches = ddp_batches(device)
+    for c in counters.values():
+        c.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for step, batch in enumerate(batches):
+            local = tuple(t[rank * per:(rank + 1) * per] for t in batch)
+            out["lrs"].append(opt.param_groups[0]["lr"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, _ = train_step(run, opt, sched, *local)
+            loss = metrics["loss"].item()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            if step == 0:
+                out["loss1"] = loss
+                out["grads1"] = {n: p.grad.detach().cpu().clone()
+                                 for n, p in model.named_parameters()}
+                out["bn1"] = {k: v.detach().cpu().clone() for k, v in
+                              model.state_dict().items() if "running" in k}
+            if world > 1:
+                out["digests"].append(parallel.state_digest(model))
+    out["warnings"] = sorted({str(w.message) for w in caught})
+    torch.cuda.synchronize()
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    out["params"] = {n: p.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+    return out
+
+
+def ddp_child(rank, world, port, out_dir):
+    """A rank of (8a): joins the gloo world of ``world`` ranks on the card
+    (NCCL takes one GPU a rank; this host has one), runs
+    :func:`ddp_steps` in fp32 and bf16 and saves what it returns (rank 0
+    all of it, the others their loss, digests, launches and times)."""
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank,
+                      MASTER_ADDR="localhost", MASTER_PORT=port)
+    from rel_pose_tpu_torch import parallel
+    device = parallel.init_distributed("cuda", backend="gloo")
+    sd = ddp_state_dict()
+    res = {}
+    for dtype in DTYPES:
+        r = ddp_steps(dtype, sd, device, int(rank), int(world))
+        if rank != "0":
+            r = {k: r[k] for k in ("loss1", "digests", "launches", "ms",
+                                   "warnings")}
+        res[str(dtype)[6:]] = r
+    torch.save(res, pathlib.Path(out_dir) / f"rank{rank}.pt")
+    parallel.shutdown()
+    return 0
+
+
+def wait_children(procs, label, timeout=600):
+    """Wait for every child; a failing or hanging one fails the phase."""
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise SystemExit(f"{label}: a child did not end in {timeout} s")
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log(out[-4000:])
+            raise SystemExit(f"{label}: child {i} exit {p.returncode}")
+    return outs
+
+
+def phase_ddp_train(device, card):
+    """(8a) two ranks over gloo on the one card, child processes of this
+    script (``--ddp-child``), 3 DDP ``train_step``s of the depth-6 flagship
+    with the kernels, fp32 and bf16, on 4 pairs a rank of 384x512 uint8
+    Matterport-style batches, against this process's ``train_step`` on all
+    8 pairs from the same seeded weights: the step-1 global loss
+    (LOSS_RTOL), every parameter's step-1 gradient (``compare_leaves``; the
+    trunk's leaves at TRUNK_LEAF_COS / TRUNK_LEAF_RATIO, the rest at
+    LEAF_COS / LEAF_RATIO), the running statistics after step 1
+    (DDP_BN_NORMREL), the parameters after step 3 (DDP_STEP_BOUND and
+    DDP_UPDATE_MEDIAN); both ranks' parameters and buffers bit-identical
+    after every step; each rank's #1, #2, #5 and #6 launched; no DDP
+    stride warning (a gradient whose strides differ from its bucket view's
+    would raise one every step).  -> the ranks' launches."""
+    from rel_pose_tpu_torch.parallel.dist import free_port
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    DDP_DIR.mkdir(parents=True)
+    sd = ddp_state_dict()
+    one = {str(d)[6:]: ddp_steps(d, sd, device) for d in DTYPES}
+    torch.cuda.empty_cache()
+    port = str(free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--ddp-child", str(r), "2", port, str(DDP_DIR)],
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    wait_children(procs, "8a")
+    log(f"[ddp] two ranks, fp32 and bf16, {DDP_STEPS} steps each: "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    ranks = [torch.load(DDP_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    failures, launches = [], {}
+    for dtype in DTYPES:
+        name = str(dtype)[6:]
+        a, b, ref = ranks[0][name], ranks[1][name], one[name]
+        same = a["digests"] == b["digests"] and len(a["digests"]) == \
+            DDP_STEPS and a["loss1"] == b["loss1"]
+        log(f"[ddp] {name}: the ranks' parameters and buffers after steps "
+            f"1-{DDP_STEPS} {'bit-identical' if same else 'DIFFER'} "
+            f"(sha256 {[d[:12] for d in a['digests']]})")
+        if not same:
+            failures.append(f"{name}: ranks differ")
+        for r, res in enumerate((a, b)):
+            launches[f"{name} rank {r}"] = res["launches"]
+            if res["warnings"]:
+                log(f"[ddp] {name} rank {r} warned: {res['warnings']}")
+            if any("stride" in w for w in res["warnings"]):
+                failures.append(f"{name} rank {r}: DDP's gradient strides")
+            failures += [f"{name} rank {r}: {k} never launched"
+                         for k, v in res["launches"].items() if v <= 0]
+        rel = abs(a["loss1"] - ref["loss1"]) / abs(ref["loss1"])
+        ok = rel <= LOSS_RTOL[dtype]
+        log(f"[ddp] {name} step-1 global loss two ranks {a['loss1']:.6f} "
+            f"one process {ref['loss1']:.6f} rel {rel:.3e} (<= "
+            f"{LOSS_RTOL[dtype]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} step-1 loss")
+        trunk = [n for n in ref["grads1"] if n.startswith(
+            ("resnet.", "extractor_final_conv."))]
+        gk, gp = a["grads1"], ref["grads1"]
+        compare_leaves(dtype, {n: gk[n] for n in trunk},
+                       {n: gp[n] for n in trunk}, failures,
+                       label="ddp trunk", leaf_cos=TRUNK_LEAF_COS,
+                       leaf_ratio=TRUNK_LEAF_RATIO)
+        compare_leaves(dtype, {n: g for n, g in gk.items() if n not in trunk},
+                       {n: g for n, g in gp.items() if n not in trunk},
+                       failures, label="ddp rest")
+        bn = max(normrel(a["bn1"][k], v) for k, v in ref["bn1"].items())
+        ok = bn <= DDP_BN_NORMREL[dtype]
+        log(f"[ddp] {name} running statistics after step 1, {len(ref['bn1'])}"
+            f" buffers: max ||ddp - one|| / ||one|| {bn:.3e} (<= "
+            f"{DDP_BN_NORMREL[dtype]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} running statistics")
+        lr_sum = sum(ref["lrs"])
+        worst, rels = 0.0, []
+        for k, p in ref["params"].items():
+            worst = max(worst, (a["params"][k] - p).abs().max().item())
+            rels.append(normrel(a["params"][k] - sd[k], p - sd[k]))
+        bound = DDP_STEP_BOUND * lr_sum
+        ok = worst <= bound and np.median(rels) <= DDP_UPDATE_MEDIAN[dtype]
+        log(f"[ddp] {name} parameters after step {DDP_STEPS}: max |ddp - "
+            f"one| {worst:.3e} (<= {DDP_STEP_BOUND:.4f} sum(lr) = "
+            f"{bound:.4e}); the "
+            f"updates' ||ddp - one|| / ||one|| median leaf "
+            f"{np.median(rels):.3e} (<= {DDP_UPDATE_MEDIAN[dtype]}), largest "
+            f"{max(rels):.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} parameters after step {DDP_STEPS}")
+        log(f"[time] {name} train_step, flagship depth {DDP_DEPTH}: two "
+            f"ranks of 4 pairs on the one card over gloo "
+            f"{np.mean(a['ms'][1:]):.1f} / {np.mean(b['ms'][1:]):.1f} ms, "
+            f"one process of 8 pairs {np.mean(ref['ms'][1:]):.1f} ms (steps "
+            f"2-{DDP_STEPS}, host clock; the ranks share one card and "
+            f"all-reduce through host memory: not DDP's speed; {card})")
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    if failures:
+        raise SystemExit(f"8a checks failed: {failures}")
+    return launches
+
+
+def same_tree(a, b):
+    """Two checkpoint trees equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_tree, a, b))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def phase_ddp_cli(card):
+    """(8b) ``cli.train`` as a world of one over NCCL (torchrun's variables
+    set by hand: RANK=0, WORLD_SIZE=1), in this process, on phase 6's
+    Matterport tree: the flagship bf16 at depth CLI_DEPTH, 2 steps at batch
+    6, #1, #2, #5 and #6 launched; its step-2 checkpoint (weights, Adam,
+    schedule) equal bit for bit to the same run's with ``--no_ddp``.  For
+    the two runs to see the same batches, the augmentor draws from
+    ``default_rng(SEED)`` (the CLI's is unseeded), one loader thread keeps
+    its draws in order, and deterministic algorithms are on, as in phase
+    4b.  -> the launches."""
+    from rel_pose_tpu_torch import parallel
+    from rel_pose_tpu_torch.cli import train as cli
+    from rel_pose_tpu_torch.data import augmentation
+    from rel_pose_tpu_torch.parallel.dist import free_port
+    argv = ["--datapath", "mp", "--batch", "6", "--steps", "2",
+            "--ckpt_every", "2", "--warmup", "1", "--num_workers", "1",
+            "--dataset", "matterport", "--fusion_transformer",
+            "--transformer_depth", str(CLI_DEPTH), "--compute_dtype",
+            "bfloat16"]
+    init = augmentation.RGBDAugmentor.__init__
+
+    def seeded(self, reshape_size, rng=None, **kw):
+        init(self, reshape_size, rng=np.random.default_rng(SEED), **kw)
+
+    counters = kernel_counters()
+    world = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+             "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    cwd = os.getcwd()
+    os.chdir(CLI_DIR)
+    augmentation.RGBDAugmentor.__init__ = seeded
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        os.environ.update(world)
+        for c in counters.values():
+            c.launches = 0
+        code, out = run_quiet(cli.main, ["--name", "world1"] + argv)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        m = re.search(r"devices: 1 \(cuda:\d+ on rank 0, (\w+)\)", out)
+        backend = m.group(1) if m else "no group"
+        for k in world:
+            del os.environ[k]
+        left = parallel.joined()
+        code2, _ = run_quiet(cli.main, ["--name", "single", "--no_ddp"]
+                             + argv)
+        a, b = (torch.load(f"output/{n}/checkpoints/000002.pth",
+                           weights_only=False) for n in ("world1", "single"))
+    finally:
+        for k in world:
+            os.environ.pop(k, None)
+        augmentation.RGBDAugmentor.__init__ = init
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        os.chdir(cwd)
+    same = same_tree(a, b)
+    log(f"[ddp] cli.train as a world of one over {backend} (RANK=0, "
+        f"WORLD_SIZE=1), flagship bf16 depth {CLI_DEPTH}, 2 steps at batch "
+        f"6: exit {code}, kernel launches {launches}, the group left "
+        f"{not left}; --no_ddp exit {code2}; step-2 checkpoints (weights, "
+        f"Adam, schedule) {'bit for bit' if same else 'DIFFER'}")
+    failures = [f"8b: {k} never launched" for k, v in launches.items()
+                if v <= 0]
+    if code or code2 or left or not same or backend != "nccl":
+        failures.append("8b: world of one against --no_ddp")
+    if failures:
+        raise SystemExit(f"8b checks failed: {failures}")
+    return launches
+
+
+def phase_ddp_eval():
+    """(8c) ``python -m rel_pose_tpu_torch.cli.test_matterport`` as 2 ranks
+    on the one card (torchrun's variables set by hand; the CLI's world is
+    gloo), fp32, batch EVAL_CHECK_BATCH, on phase 7's 64 pairs from its
+    ``model.ckpt``: the rows come back in rank-major order (pairs 0, 2,
+    ..., 62, then 1, 3, ..., 63) and match phase 7's single-process rows
+    pair for pair -- the ground-truth columns within 1e-3 (the gather
+    carries float32, as the JAX CLI's), the errors within phase 7's fp32
+    bounds -- and the metrics within 1e-4 degrees and 1e-4 m."""
+    from rel_pose_tpu_torch.parallel.dist import free_port
+    port = str(free_port())
+    argv = ["--exp", "ddp2", "--datapath", "mp", "--ckpt", "model.ckpt",
+            "--batch", str(EVAL_CHECK_BATCH), "--device", "cuda",
+            "--fusion_transformer", "--transformer_depth", str(EVAL_DEPTH),
+            "--compute_dtype", "float32"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rel_pose_tpu_torch.cli.test_matterport"]
+        + argv, cwd=EVAL_DIR, env=child_env(
+            RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+            MASTER_ADDR="localhost", MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = wait_children(procs, "8c")
+    shards = [next((line for line in out.splitlines()
+                    if line.startswith(f"rank {r}/2")), "?")
+              for r, out in enumerate(outs)]
+    log(f"[ddp] cli.test_matterport as 2 ranks on the card: "
+        f"{time.perf_counter() - t0:.1f} s; {shards}")
+    failures = []
+    one = EVAL_DIR / "output" / "float32_ckpt" / "matterport_test"
+    two = EVAL_DIR / "output" / "ddp2" / "matterport_test"
+    order = [i for r in range(2) for i in range(EVAL_ENTRIES)[r::2]]
+    tol = {"gt_translation_magnitude_vs_error.csv": tran_err_tol(
+        POSE_ATOL[torch.float32])}
+    for name in ("gt_translation_magnitude_vs_error.csv",
+                 "gt_rotation_magnitude_vs_error.csv"):
+        want, got = csv(one / name)[order], csv(two / name)
+        gt = np.abs(got[:, 0] - want[:, 0]).max()
+        log(f"[ddp] 8c {name}: {len(got)} rows in rank-major order, ground "
+            f"truth max |two - one| {gt:.3e} (<= 1e-3)")
+        if len(got) != EVAL_ENTRIES or gt > 1e-3:
+            failures.append(f"8c {name}: rows")
+        check_err_column(f"8c {name}", got[:, 1], want[:, 1],
+                         tol.get(name, rotation_err_tol(
+                             want[:, 1], POSE_ATOL[torch.float32])),
+                         failures, what="two ranks - one")
+    a = dict(line.rsplit(" ", 1) for line in
+             (one / "results.txt").read_text().strip().splitlines())
+    b = dict(line.rsplit(" ", 1) for line in
+             (two / "results.txt").read_text().strip().splitlines())
+    gap = max(abs(float(a[k]) - float(b[k])) for k in a) \
+        if a.keys() == b.keys() else float("inf")
+    log(f"[ddp] 8c results.txt, {len(a)} metrics: max |two - one| "
+        f"{gap:.3e} (<= 1e-4)")
+    if gap > 1e-4:
+        failures.append("8c metrics")
+    if failures:
+        raise SystemExit(f"8c checks failed: {failures}")
+
+
 def main():
     if sys.argv[1:2] == ["--serve-child"]:
         return serve_child(*sys.argv[2:6])
+    if sys.argv[1:2] == ["--ddp-child"]:
+        return ddp_child(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -2960,8 +3359,17 @@ def main():
     bench_rows, bench_launches = phase_times_bilinear(
         device, card, (bilinear_errs, variant_errs))
     rows.update(bench_rows)
-    cli_launches = phase_cli(device, card, synthetic_ms)
-    eval_cli_launches = phase_eval_cli(device, card)
+    try:
+        cli_launches = phase_cli(device, card, synthetic_ms)
+        eval_cli_launches = phase_eval_cli(device, card)
+        t_phase = time.perf_counter()
+        ddp_launches = phase_ddp_train(device, card)
+        ddp_launches["cli world of one"] = phase_ddp_cli(card)
+        phase_ddp_eval()
+        log(f"[ddp] phase 8 in {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        for d in (CLI_DIR, EVAL_DIR, DDP_DIR):
+            shutil.rmtree(d, ignore_errors=True)
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
     log(f"[slice] eval launches {eval_launches}, training launches "
@@ -2969,6 +3377,7 @@ def main():
         f"eval CLIs' (per run) {eval_cli_launches}")
     log(f"[noess] eval launches {noess_eval}, training launches "
         f"{noess_train}")
+    log(f"[ddp] launches per rank {ddp_launches}")
     for flag, (serve, train) in ablations.items():
         log(f"[ablation {flag}] eval launches {serve}, training launches "
             f"{train}")

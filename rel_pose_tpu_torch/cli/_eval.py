@@ -1,6 +1,16 @@
 """What the port's eval CLIs share (``test_matterport``,
-``test_streetlearn_interiornet``): their common flags, the device, and the
-host decode pipeline of ``test_matterport.py:183-211``.
+``test_streetlearn_interiornet``): their common flags, the device, the
+process-sharded evaluation, and the host decode pipeline of
+``test_matterport.py:183-211``.
+
+Under torchrun (``torchrun --nproc_per_node N -m
+rel_pose_tpu_torch.cli.test_matterport ...``) each rank evaluates the
+strided shard ``items[rank::world]`` on its own device and the per-pair
+rows are gathered in rank-major order (``parallel.allgather_ragged``), as
+the JAX CLIs do over processes (``test_matterport.py:126-131,240``); rank
+0 writes the metrics and the CSVs.  That host gather is the only
+collective, so the world is a gloo one and several ranks may share a card
+(ranks beyond the visible GPUs wrap around onto them).
 
 The pipeline decodes a chunk of ``--batch`` pairs on a thread pool
 (``--decode_workers``, OpenCV releases the GIL) while the card runs the
@@ -17,6 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import add_model_flags
 from ..utils.profiling import StepTimer
 
@@ -47,7 +58,7 @@ def add_eval_flags(parser):
 
 def add_device_flag(parser):
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                        help="cuda (one GPU, the default) or cpu")
+                        help="cuda (a GPU a process, the default) or cpu")
 
 
 def resolve_device(name, prog):
@@ -61,14 +72,46 @@ def resolve_device(name, prog):
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def note_single_device(device):
-    """The JAX CLIs shard the batch over local devices and gather
-    predictions across processes (``test_matterport.py:68``); the port
-    evaluates on one GPU until its data-parallel slice lands."""
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"NOTE: {torch.cuda.device_count()} GPUs are visible; the "
-              f"port evaluates on one ({device}); multi-GPU evaluation "
-              "comes with its data-parallel slice")
+def init_eval_world(device, kernels):
+    """Join torchrun's world, if there is one, over gloo: -> this rank's
+    device (``device`` outside a world).  Rank 0 builds the kernel library
+    first when the model launches ``kernels``.  One process on one of
+    several visible GPUs says how to use them all."""
+    if parallel.launched():
+        device = parallel.init_distributed(device.type, backend="gloo")
+        if kernels:
+            parallel.build_kernels_once(device)
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        print(f"NOTE: {n} GPUs are visible and this process evaluates on "
+              f"one ({device}); torchrun --nproc_per_node {n} shards the "
+              "test set over them")
+    return device
+
+
+def shard(items):
+    """This rank's strided shard ``items[rank::world]``."""
+    world, rank = parallel.world_size(), parallel.rank()
+    if world == 1:
+        return items
+    print(f"rank {rank}/{world}: evaluating {len(items[rank::world])} of "
+          f"{len(items)} pairs")
+    return items[rank::world]
+
+
+def gather_predictions(predictions):
+    """Every rank's per-pair rows in rank-major order, identical on every
+    rank (``test_matterport.py:68-80``; float32, as there); unchanged
+    outside a world."""
+    if parallel.world_size() == 1:
+        return predictions
+    cam = predictions["camera"]
+    g = parallel.allgather_ragged({
+        "pt": (cam["preds"]["tran"], 3), "pr": (cam["preds"]["rot"], 4),
+        "gt": (cam["gts"]["tran"], 3), "gr": (cam["gts"]["rot"], 4)})
+    return {"camera": {
+        "preds": {"tran": list(g["pt"]), "rot": list(g["pr"])},
+        "gts": {"tran": list(g["gt"]), "rot": list(g["gr"])}}}
 
 
 class DecodePipeline:

@@ -1,8 +1,9 @@
-"""Matterport test-split evaluation on one GPU.
+"""Matterport test-split evaluation, on one GPU or sharded over ranks.
 
     python -m rel_pose_tpu_torch.cli.test_matterport --exp exp \\
         --datapath <root> --ckpt model.ckpt --fusion_transformer \\
         --transformer_depth 6 --batch 64
+    torchrun --nproc_per_node 4 -m rel_pose_tpu_torch.cli.test_matterport ...
 
 Counterpart of the JAX package's ``test_matterport.py`` with the same flags
 plus ``--device`` (``cuda``, the default, or ``cpu``).  It reads
@@ -18,6 +19,8 @@ translation times ``DEPTH_SCALE``).  The host decodes one chunk ahead
 (``cli._eval.DecodePipeline``), honouring ``RELPOSE_DECODE_REDUCE`` and
 ``RELPOSE_DECODE_CACHE_MB`` (``data.base``).  The last line gives the
 steady-state pairs/s and the share of the loop spent waiting on decode.
+Under torchrun each rank evaluates ``dset[rank::world]`` and rank 0 writes
+the gathered rows' metrics (``cli._eval``).
 """
 
 import argparse
@@ -27,11 +30,12 @@ import sys
 
 import numpy as np
 
+from .. import parallel
 from ..config import model_config_from_args
 from ..data.base import image_read_cached
 from ..infer import MATTERPORT_INTRINSICS, PosePredictor, matterport_eval_pose
-from ._eval import (DecodePipeline, add_eval_flags, note_single_device,
-                    resolve_device, write_results)
+from ._eval import (DecodePipeline, add_eval_flags, gather_predictions,
+                    init_eval_world, resolve_device, shard, write_results)
 
 PROG = "python -m rel_pose_tpu_torch.cli.test_matterport"
 OUTPUT_FOLDER = "matterport_test"
@@ -100,17 +104,18 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device, PROG)
     cfg = model_config_from_args(args)
+    device = init_eval_world(resolve_device(args.device, PROG),
+                             cfg.fusion_transformer)
 
     with open(os.path.join(args.datapath,
                            "mp3d_planercnn_json/cached_set_test.json")) as f:
-        dset = json.load(f)["data"]
+        dset = shard(json.load(f)["data"])
     print("performing evaluation on %s set using model %s"
           % (OUTPUT_FOLDER, args.ckpt))
     out_dir = os.path.join("output", args.exp, OUTPUT_FOLDER)
-    os.makedirs(out_dir, exist_ok=True)
-    note_single_device(device)
+    if parallel.is_main():
+        os.makedirs(out_dir, exist_ok=True)
 
     predictor = PosePredictor.from_checkpoint(
         args.ckpt, cfg, device=device, intrinsics=MATTERPORT_INTRINSICS,
@@ -140,8 +145,12 @@ def main(argv=None):
             predictions["camera"]["preds"]["tran"].append(pose[:3])
             predictions["camera"]["preds"]["rot"].append(pose[3:])
 
-    write_results(eval_camera(predictions, args.exp, OUTPUT_FOLDER), out_dir)
-    print(pipeline.report(device))
+    predictions = gather_predictions(predictions)
+    if parallel.is_main():
+        write_results(eval_camera(predictions, args.exp, OUTPUT_FOLDER),
+                      out_dir)
+        print(pipeline.report(device))
+    parallel.shutdown()
     return 0
 
 

@@ -1,4 +1,5 @@
-"""InteriorNet / StreetLearn rotation evaluation on one GPU.
+"""InteriorNet / StreetLearn rotation evaluation, on one GPU or sharded
+over ranks (under torchrun, as ``cli.test_matterport``).
 
     python -m rel_pose_tpu_torch.cli.test_streetlearn_interiornet \\
         --exp exp --datapath <root> --dataset interiornet \\
@@ -19,6 +20,8 @@ truth's angle ("overlap large" under 45 degrees, "overlap small" 45-90,
 the rest dropped), go to ``output/<exp>/<set>_test/{results.txt,
 all_rotation_err_degrees.csv, all_gt_rot_degrees.csv}`` under the working
 directory; the metric's geometry runs in float32, as the JAX CLI's does.
+Under torchrun each rank evaluates ``items[rank::world]`` of those pairs
+and rank 0 writes the gathered rows' metrics (``cli._eval``).
 """
 
 import argparse
@@ -28,14 +31,15 @@ import sys
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import model_config_from_args
 from ..data.base import image_read_cached
 from ..geom.quaternion import (geodesic_angle_from_matrices, matrix_to_quat,
                                quat_to_matrix,
                                relative_rotation_from_viewpoints)
 from ..infer import INTERIORNET_STREETLEARN_INTRINSICS, PosePredictor
-from ._eval import (DecodePipeline, add_eval_flags, note_single_device,
-                    resolve_device, write_results)
+from ._eval import (DecodePipeline, add_eval_flags, gather_predictions,
+                    init_eval_world, resolve_device, shard, write_results)
 
 PROG = "python -m rel_pose_tpu_torch.cli.test_streetlearn_interiornet"
 MAX_PAIRS = 1000
@@ -135,8 +139,9 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device, PROG)
     cfg = model_config_from_args(args)
+    device = init_eval_world(resolve_device(args.device, PROG),
+                             cfg.fusion_transformer)
 
     meta, output_folder, image_dir = select_metadata(
         args.dataset, args.streetlearn_interiornet_type)
@@ -145,13 +150,13 @@ def main(argv=None):
     print("performing evaluation on %s set using model %s"
           % (output_folder, args.ckpt))
     out_dir = os.path.join("output", args.exp, output_folder)
-    os.makedirs(out_dir, exist_ok=True)
-    note_single_device(device)
+    if parallel.is_main():
+        os.makedirs(out_dir, exist_ok=True)
 
     predictor = PosePredictor.from_checkpoint(
         args.ckpt, cfg, device=device,
         intrinsics=INTERIORNET_STREETLEARN_INTRINSICS, batch_size=args.batch)
-    items = sorted(dset.items())[:MAX_PAIRS]
+    items = shard(sorted(dset.items())[:MAX_PAIRS])
 
     def load_pair(item):
         _, rec = item
@@ -173,8 +178,11 @@ def main(argv=None):
             predictions["camera"]["preds"]["tran"].append(pose[:3])
             predictions["camera"]["preds"]["rot"].append(pose[3:])
 
-    write_results(eval_camera(predictions, out_dir), out_dir)
-    print(pipeline.report(device))
+    predictions = gather_predictions(predictions)
+    if parallel.is_main():
+        write_results(eval_camera(predictions, out_dir), out_dir)
+        print(pipeline.report(device))
+    parallel.shutdown()
     return 0
 
 

@@ -1,8 +1,10 @@
-"""Training CLI of the PyTorch port, on one GPU.
+"""Training CLI of the PyTorch port, on one GPU or data parallel over
+several.
 
     python -m rel_pose_tpu_torch.cli.train --name exp --dataset matterport \\
-        --datapath <root> --batch 6 --fusion_transformer --no_ddp \\
+        --datapath <root> --batch 6 --fusion_transformer --gpus 4 \\
         --compute_dtype bfloat16
+    torchrun --nproc_per_node 4 -m rel_pose_tpu_torch.cli.train ...
 
 Counterpart of the JAX package's ``train.py`` with the same flags and
 defaults (``train.py:35-71``), plus ``--device`` (``cuda``, the default, or
@@ -31,19 +33,37 @@ baseline, as ``train.py`` does.  What it keeps of ``train.py:72-315``:
     ``non_blocking`` before step k runs; uint8 images go to the card as
     they are, and the model casts them.
 
+Data parallel (``parallel``), one process per GPU as the reference's
+``mp.spawn`` + DDP: ``--gpus N`` (default: every visible GPU; 1 with
+``--device cpu``) starts N local ranks, each on ``cuda:<local rank>`` over
+NCCL, or on the CPU over gloo with ``--device cpu``; under torchrun the CLI
+joins the world it is given; ``--no_ddp`` trains in one process.  The
+global batch is ``--batch`` x the world size: each rank's loader takes
+shard ``rank`` of ``world`` at ``--batch`` (``train.py:216-219`` with one
+device a process), its model is under ``DistributedDataParallel``, the
+training BatchNorm's statistics and the logged metrics are the global
+batch's.  Every rank draws the same weights and restores the same
+checkpoint, and the ranks' weights are checked equal after DDP's initial
+broadcast; rank 0 alone writes the args snapshot, the logger's files and
+the checkpoints (``train.py:244,287-293``), whose keys are the unwrapped
+model's.  On the card, rank 0 builds the kernel library while the others
+wait, so that one ``nvcc`` build runs, not N.
+
 ``--image_size`` is accepted and, as in ``train.py``, not passed to the
 datasets (they resize to 384x512).  At the end it writes one record with
 the steady-state pairs/s (``utils.profiling.StepTimer``) and the share of
 the loop's time spent waiting on the data loader to
 ``output/<name>/runs/metrics.jsonl``.
 
-It refuses, with a message, what the port cannot do yet: ``--device cuda``
-without a GPU (there is no CPU fallback), more than one GPU (``--gpus`` > 1,
-or several visible without ``--no_ddp``: data parallelism is a later slice)
-and ``--remat`` (a TPU memory lever the port does not take).
+It refuses, with a message: ``--device cuda`` without a GPU (there is no
+CPU fallback), ``--gpus`` beyond the visible GPUs or other than torchrun's
+world, ``--no_ddp`` under a world of several ranks, ranks given unequal
+``--batch`` (unequal shards), and ``--remat`` (a TPU memory lever the port
+does not take).
 """
 
 import argparse
+import os
 import sys
 import time
 from datetime import datetime
@@ -51,6 +71,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import add_model_flags, model_config_from_args
 
 SEED = 0   # the reference's torch.manual_seed(0) (train.py:35)
@@ -71,9 +92,10 @@ def build_parser():
     parser.add_argument("--weight_decay", type=float, default=1e-5)
     parser.add_argument("--num_workers", type=int, default=4)
     parser.add_argument("--no_ddp", action="store_true", default=False,
-                        help="use a single device")
+                        help="train in one process on a single device")
     parser.add_argument("--gpus", type=int, default=None,
-                        help="cap on devices used (the port trains on one)")
+                        help="local ranks to start, one a GPU (default: "
+                             "every visible GPU; 1 with --device cpu)")
     parser.add_argument("--ckpt", help="a .pth checkpoint to warm-start "
                         "from (model and Adam moments), or a .ckpt of the "
                         "JAX package (a full train state, or weights only)")
@@ -96,7 +118,7 @@ def build_parser():
                         choices=("matterport", "interiornet", "streetlearn"))
     parser.add_argument("--ckpt_every", type=int, default=10000)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                        help="cuda (one GPU) or cpu")
+                        help="cuda (a GPU a rank) or cpu (gloo ranks)")
     add_model_flags(parser)
     return parser
 
@@ -106,24 +128,33 @@ def _refuse(message):
 
 
 def check_args(args):
-    """Refuse what the port does not do; -> the torch device."""
+    """Refuse what the port does not do; -> the number of local ranks to
+    start (1: this process trains, alone or as a rank of torchrun's
+    world)."""
     if args.remat:
         _refuse("--remat is a TPU memory lever (rematerialized forward) "
                 "that the PyTorch port does not implement")
-    if args.gpus is not None and args.gpus > 1:
-        _refuse(f"--gpus {args.gpus}: the port trains on one GPU; data "
-                "parallelism (DDP) is a later slice (ROADMAP.md queue 1)")
-    if args.device == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+    if args.gpus is not None and args.gpus < 1:
+        _refuse(f"--gpus {args.gpus}: at least one rank")
+    if args.device == "cuda" and not torch.cuda.is_available():
         _refuse("--device cuda, but no CUDA device is visible; pass "
                 "--device cpu to train on the CPU")
-    if not args.no_ddp and args.gpus is None \
-            and torch.cuda.device_count() > 1:
-        _refuse(f"{torch.cuda.device_count()} GPUs are visible and the port "
-                "trains on one: pass --no_ddp (or --gpus 1); data "
-                "parallelism (DDP) is a later slice (ROADMAP.md queue 1)")
-    return torch.device("cuda", torch.cuda.current_device())
+    if parallel.launched():
+        world = int(os.environ["WORLD_SIZE"])
+        if args.no_ddp and world > 1:
+            _refuse(f"--no_ddp under torchrun's world of {world} ranks")
+        if not args.no_ddp and args.gpus not in (None, world):
+            _refuse(f"--gpus {args.gpus} under torchrun's world of {world} "
+                    "ranks")
+        return 1
+    if args.no_ddp:
+        return 1
+    if args.device == "cpu":
+        return args.gpus or 1
+    visible = torch.cuda.device_count()
+    if args.gpus is not None and args.gpus > visible:
+        _refuse(f"--gpus {args.gpus}, but {visible} GPUs are visible")
+    return args.gpus or visible
 
 
 class _TimedIter:
@@ -197,26 +228,51 @@ def restore(path, model, opt):
     return ckpt
 
 
-def restore_ckpt(path, model, opt, sched):
+def restore_ckpt(path, model, opt, sched, log=print):
     """A JAX ``.ckpt``: its full train state (weights, Adam moments, the
     schedule at its step; -> that step), or its weights with ``opt`` and
     ``sched`` left fresh (-> 0)."""
     from ..train.checkpoint import load_ckpt_train_state
     step = load_ckpt_train_state(path, model, opt, sched)
     if step is None:
-        print("restored weights only (no optimizer state in the file); "
-              "the optimizer starts fresh")
+        log("restored weights only (no optimizer state in the file); "
+            "the optimizer starts fresh")
         return 0
-    print(f"restored the full train state at step {step}")
+    log(f"restored the full train state at step {step}")
     return step
+
+
+def _quiet(*args, **kwargs):
+    pass
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    print(args)
-    device = check_args(args)
+    if os.environ.get("RANK", "0") == "0":
+        print(args)
+    nprocs = check_args(args)
+    if nprocs > 1:
+        print(f"starting {nprocs} ranks ({args.device})")
+        parallel.spawn(train, nprocs, args=(args,))
+        return 0
+    return train(args)
 
+
+def train(args):
+    """Train in this process: alone (``--no_ddp``, or no world to join), or
+    as one rank of the world torchrun's environment names."""
+    if args.no_ddp:
+        device = (torch.device("cpu") if args.device == "cpu" else
+                  torch.device("cuda", torch.cuda.current_device()))
+    else:
+        device = parallel.init_distributed(args.device)
+    code = _train(args, device)
+    parallel.shutdown()
+    return code
+
+
+def _train(args, device):
     from ..data import DataLoader, dataset_factory
     from ..train.checkpoint import (checkpoint_path, ensure_output_dirs,
                                     find_resume_checkpoint, save_checkpoint)
@@ -225,18 +281,30 @@ def main(argv=None):
     from ..train.step import eval_step, train_step
     from ..utils.profiling import StepTimer
 
+    world, rank = parallel.world_size(), parallel.rank()
+    main_rank = rank == 0
+    log = print if main_rank else _quiet
+    sizes = parallel.shard_sizes(args.batch)
+    if len(set(sizes)) > 1:
+        _refuse(f"unequal shards: the ranks were given --batch {sizes}; "
+                "data parallelism needs the same batch on every rank")
     cfg = model_config_from_args(args)
-    ensure_output_dirs(args.name)
+    if cfg.fusion_transformer:
+        parallel.build_kernels_once(device)
 
-    # args snapshot (train.py:278-283)
-    stamp = datetime.now().strftime("%Y-%m-%d_%H-%M")
-    with open(f"output/{args.name}/args_{stamp}.txt", "w") as f:
-        for k, v in vars(args).items():
-            f.write(f"{k}  {v}\n")
+    if main_rank:
+        ensure_output_dirs(args.name)
+        # args snapshot (train.py:278-283)
+        stamp = datetime.now().strftime("%Y-%m-%d_%H-%M")
+        with open(f"output/{args.name}/args_{stamp}.txt", "w") as f:
+            for k, v in vars(args).items():
+                f.write(f"{k}  {v}\n")
 
-    global_batch = args.batch
-    print(f"devices: 1 ({device}), per-device batch {args.batch}, "
-          f"global batch {global_batch}")
+    global_batch = args.batch * world
+    where = f"{device} on rank 0" + (f", {parallel.backend()}"
+                                     if parallel.joined() else "")
+    log(f"devices: {world} ({where}), per-device batch {args.batch}, "
+        f"global batch {global_batch}")
 
     model = build_model(cfg, device)
     opt, sched = make_optimizer(model, lr=args.lr, steps=args.steps,
@@ -247,31 +315,36 @@ def main(argv=None):
     # a checkpoint restored below overrides it
     if args.resnet_pretrained:
         load_resnet_pretrained(model, args.resnet_pretrained)
-        print("initialized conv trunk from", args.resnet_pretrained)
+        log("initialized conv trunk from", args.resnet_pretrained)
 
-    # restore: --ckpt warm start (a .pth: schedule and step count fresh; a
-    # .ckpt's full train state goes on from its step), else
+    # restore, on every rank: --ckpt warm start (a .pth: schedule and step
+    # count fresh; a .ckpt's full train state goes on from its step), else
     # auto-resume from the newest checkpoint, its step count kept and the
     # schedule of these arguments taken at that step, as the JAX CLI's
     # schedule is a function of the restored count
     train_steps = 0
     resume = find_resume_checkpoint(args.name)
     if args.ckpt is not None:
-        print("loading separate checkpoint", args.ckpt)
+        log("loading separate checkpoint", args.ckpt)
         if args.ckpt.endswith(".pth"):
             restore(args.ckpt, model, opt)
         else:
-            train_steps = restore_ckpt(args.ckpt, model, opt, sched)
+            train_steps = restore_ckpt(args.ckpt, model, opt, sched, log)
     elif resume is not None:
-        print("loading existing checkpoint", resume)
+        log("loading existing checkpoint", resume)
         train_steps = int(restore(resume, model, opt)["scheduler"]
                           ["last_epoch"])
         if train_steps < args.steps:
             sched = make_scheduler(opt, args.lr, args.steps, args.warmup,
                                    step=train_steps)
 
-    logger = Logger(args.name, sched)
-    timer = StepTimer(pairs_per_step=global_batch, num_chips=1)
+    step_model = model
+    if parallel.joined():
+        step_model = parallel.wrap_ddp(model, device)
+        parallel.check_same_state(model, "after DDP's initial broadcast")
+
+    logger = Logger(args.name, sched) if main_rank else None
+    timer = StepTimer(pairs_per_step=global_batch, num_chips=world)
     waited = 0.0            # loader wait inside the timer's timed steps
     subepoch = 0
     epoch_count = 0
@@ -287,13 +360,17 @@ def main(argv=None):
             streetlearn_interiornet_type=args.streetlearn_interiornet_type,
             use_mini_dataset=args.use_mini_dataset)
         loader = DataLoader(
-            db, batch_size=global_batch, shuffle=is_training, seed=SEED,
-            epoch=epoch_count * 11 + subepoch, num_workers=args.num_workers)
+            db, batch_size=args.batch, shuffle=is_training, seed=SEED,
+            epoch=epoch_count * 11 + subepoch, num_workers=args.num_workers,
+            num_shards=world, shard_index=rank)
         n_batches = len(loader)
         host_batches = _TimedIter(loader)
 
         def flush_logging(i_batch, metrics, poses_est, poses):
-            """Read one step's metrics on the host and log them."""
+            """Read one step's metrics on the host and log them (rank
+            0)."""
+            if not main_rank:
+                return
             host_metrics = {k: v.item() for k, v in metrics.items()
                             if k != "loss"}
             if is_training:
@@ -320,7 +397,7 @@ def main(argv=None):
             poses = host_batch[1]
             if is_training:
                 metrics, poses_est = train_step(
-                    model, opt, sched, *batch, w_tr=args.w_tr,
+                    step_model, opt, sched, *batch, w_tr=args.w_tr,
                     w_rot=args.w_rot, clip=args.clip)
                 train_steps += 1
             else:
@@ -337,7 +414,8 @@ def main(argv=None):
                     waited += wait
 
             done = train_steps >= args.steps
-            if done or (is_training and train_steps % args.ckpt_every == 0):
+            if main_rank and (done or (is_training and
+                                       train_steps % args.ckpt_every == 0)):
                 save_checkpoint(checkpoint_path(args.name, train_steps),
                                 model, opt, sched)
             if done:
@@ -354,7 +432,7 @@ def main(argv=None):
             subepoch = 0
             epoch_count += 1
 
-    if timer.timed_steps:
+    if timer.timed_steps and main_rank:
         share = waited / timer.total_time
         print(f"throughput: {timer.pairs_per_sec_per_chip:.2f} pairs/s on "
               f"{device} over {timer.timed_steps} steps after "
@@ -365,8 +443,9 @@ def main(argv=None):
                            "loader_wait_share": share,
                            "timed_steps": timer.timed_steps},
                           step=train_steps)
-    print("finished training!")
-    logger.close()
+    log("finished training!")
+    if logger is not None:
+        logger.close()
     return 0
 
 

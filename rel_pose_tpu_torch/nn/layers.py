@@ -18,6 +18,8 @@ casts them to the activation dtype where the JAX package does:
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
+
 
 def linear(x, weight, bias):
     """``x @ weight.T`` rounded to x.dtype, then ``+ bias`` in x.dtype."""
@@ -54,11 +56,24 @@ def batchnorm_train(x, bn):
     (``nn/layers.py:93-111``): fp32 batch statistics with
     var = E[x^2] - mean^2, normalized in fp32 and cast to x.dtype.  The
     running statistics of ``bn`` move in place, outside autograd, with
-    momentum 0.1 and the unbiased variance; ``num_batches_tracked`` += 1."""
+    momentum 0.1 and the unbiased variance; ``num_batches_tracked`` += 1.
+
+    In a world of more than one rank (``parallel``) the statistics are the
+    global batch's, as XLA takes them over the JAX package's mesh: the fp32
+    sums of x and x^2 are summed over the ranks by a differentiable
+    all-reduce, so each rank's input gradient carries every rank's loss, and
+    n is the global count."""
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = xf.square().mean((0, 2, 3)) - mean.square()
     n = x.shape[0] * x.shape[2] * x.shape[3]
+    if parallel.world_size() > 1:
+        sums = parallel.all_reduce_sum(torch.stack(
+            [xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))]))
+        n *= parallel.world_size()
+        mean = sums[0] / n
+        var = sums[1] / n - mean.square()
+    else:
+        mean = xf.mean((0, 2, 3))
+        var = xf.square().mean((0, 2, 3)) - mean.square()
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)

@@ -7,7 +7,10 @@ checkpoint is ``{"model", "optimizer", "scheduler"}`` state dicts
 taken.  A write goes through a temporary file and ``os.replace``, so a
 reader never sees half a file.  On start, :func:`resume` loads the newest
 checkpoint (``most_recent_ckpt.pth`` first, else the highest number).
-``infer.PosePredictor.from_checkpoint`` reads the same files.
+``infer.PosePredictor.from_checkpoint`` reads the same files.  A model
+under ``DistributedDataParallel`` is saved and loaded as the module it
+wraps, so the keys carry no ``module.`` prefix and the files are those of
+one process.
 
 A reference training checkpoint loads too: ``utils.convert.load_pth``
 reads it although its scheduler state holds a pickled function, and its
@@ -31,6 +34,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import parallel
 from ..utils import msgpack
 from ..utils.convert import (key_map, load_pth, load_reference_state_dict,
                              remap_reference_adam_state, state_dict_from_jax)
@@ -51,6 +55,7 @@ def checkpoint_path(name, step, output_dir="output"):
 
 def save_checkpoint(path, model, opt, sched):
     """Write the model, optimizer and scheduler state to ``path``."""
+    model = parallel.unwrap(model)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({"model": model.state_dict(), "optimizer": opt.state_dict(),
@@ -78,6 +83,7 @@ def load_checkpoint(path, model, opt=None, sched=None):
     """Load ``path`` into the model (and the optimizer and scheduler, when
     given); a reference checkpoint's ``module.`` keys, frozen parameters
     and pickled scheduler function are accepted."""
+    model = parallel.unwrap(model)
     ckpt = load_pth(path)
     model.load_state_dict(load_reference_state_dict(ckpt["model"]))
     if opt is not None:
@@ -208,6 +214,7 @@ def load_ckpt_train_state(path, model, opt, sched):
     writes) restores the weights, leaves ``opt`` and ``sched`` fresh and
     returns None."""
     raw = read_ckpt(path)
+    model = parallel.unwrap(model)
     model.load_state_dict(_trees_state_dict(raw, model.cfg, path))
     adam = _adam_state(raw.get("opt_state"))
     if adam is None:
@@ -248,6 +255,7 @@ def save_ckpt(path, model, step=0):
     (``load_params_only``, or ``train.py --ckpt`` as a warm start):
     ``{params, bn_state, opt_state: {}, step}``, float32 weights and int32
     BatchNorm counts under the JAX tree's names."""
+    model = parallel.unwrap(model)
     sd = model.state_dict()
     trees = {"params": {}, "state": {}}
     for jpath, key, transpose in key_map(model.cfg):

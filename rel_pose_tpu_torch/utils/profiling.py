@@ -2,7 +2,9 @@
 
 ``StepTimer`` is the counterpart of ``rel_pose_tpu/utils/profiling.py:16-60``
 without the MFU meter: host-clock step time and pairs/s per GPU, the first
-``warmup`` steps skipped.  The training CLI ticks it once a step after
+``warmup`` steps skipped.  A data-parallel run passes the global batch as
+``pairs_per_step`` and its world size as ``num_chips``, as ``train.py:198``
+passes the mesh's size.  The training CLI ticks it once a step after
 queueing the step on the card; over many steps the queue reaches a steady
 state and the mean is the device's rate, or the host's where the host is
 slower.

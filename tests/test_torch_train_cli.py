@@ -323,16 +323,22 @@ def test_resnet_pretrained_trunk_is_jax_s(matterport, capsys):
 
 @pytest.mark.parametrize("extra,cuda,count,message", [
     (["--device", "cuda"], False, 0, "no CUDA device"),
-    (["--device", "cuda"], True, 2, "2 GPUs are visible"),
-    (["--device", "cpu", "--gpus", "2"], False, 0, "--gpus 2"),
+    (["--device", "cuda", "--gpus", "3"], True, 2,
+     "--gpus 3, but 2 GPUs are visible"),
+    (["--device", "cpu", "--batch", "2"], False, 0,
+     "unequal shards: the ranks were given --batch [2, 3]"),
     (["--device", "cpu", "--remat"], False, 0, "--remat"),
 ])
 def test_refusals(tmp_path, monkeypatch, extra, cuda, count, message):
     """What the port cannot do is refused with a message before anything
-    is written; nothing falls back to the CPU."""
+    is written; nothing falls back to the CPU.  The unequal-shards case
+    stands in a second rank that was given ``--batch 3``
+    (``parallel.shard_sizes``, which gathers every rank's batch)."""
+    from rel_pose_tpu_torch import parallel
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.setattr(parallel, "shard_sizes", lambda n: [n, n + 1])
     with pytest.raises(SystemExit) as e:
         cli.main(["--name", "refused", "--datapath", "matterport"] + extra)
     assert message in str(e.value)
