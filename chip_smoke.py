@@ -208,14 +208,40 @@ card over gloo, and a world of one over NCCL -- never two cards):
      within phase 7's fp32 bounds of its single-process rows, the metrics
      within 1e-4 degrees and 1e-4 m.
 
+The tooling (``rel_pose_tpu_torch/utils/profiling.py``, ``gradcheck.py``,
+``train/checkpoint.AsyncCheckpointer``, ``rel_pose_tpu_torch/tools/``),
+under ``output/chip_smoke_tooling/``; 9e's two runs and 9d's float64
+reference are child processes that run beside 9a-9d:
+
+  9a. the FLOPs a pair of the eval forward and the train step
+     (``estimate_step_flops``); MFU against 989 TFLOP/s of phase 5's eval
+     forward (batch 256, bf16) and phase 5b's bf16 train step (batch 60);
+     phase 6's batch-60 CLI record carries an ``mfu`` equal to its pairs/s
+     x FLOPs a pair / 989e12 within 1e-6 relative; every MFU in (0, 1);
+  9b. ``utils.profiling.trace`` around 2 eval forwards: the Chrome trace
+     parses and holds device events of #1 and #2 under their kernel names;
+  9c. the flagship bf16 after 2 steps of 4 pairs: ``save_checkpoint``, then
+     ``AsyncCheckpointer.save`` and 2 more steps at once, then ``close()``:
+     both files equal tensor by tensor; the training thread's ms in
+     ``save()`` beside the synchronous save's;
+  9d. ``tools.check_grads`` in fp32 and bf16 at batch 4: the kernels' and
+     the plain path's gradients of every parameter triangulated against
+     one float64 reference (JAX's gates), the top 5 leaves printed;
+  9e. ``tools.convergence_run`` in fp32 and bf16 (``CONV_STEPS``) through
+     ``cli.train``: tests/test_convergence.py's gates on each trajectory.
+
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``; the one before the card's line is the
-``{"kernels": [...]}`` line of all twelve kernels.  Checkpoints and the
-CLIs' trees go to ``output/`` beside this file and are removed.  The run
-needs no network and starts no process besides ``nvidia-smi``, ``nvcc``,
-``make`` (the native host library), the training CLI's child process,
-phase 7e's two (this script with ``--serve-child``), phase 8a's two ranks
-(``--ddp-child``) and 8c's two, each of which it waits for.
+``{"kernels": [...]}`` line of all twelve kernels, whose ``launches`` of
+#1, #2, #5 and #6 are phase 4b's; phase 9's in this process (9b-9d) are
+logged on their own (``[tooling]``).  Checkpoints and the CLIs' trees go
+to ``output/`` beside this file and are removed.  The run needs no
+network and starts no process besides
+``nvidia-smi``, ``nvcc``, ``make`` (the native host library), the training
+CLI's child process, phase 7e's two (this script with ``--serve-child``),
+phase 8a's two ranks (``--ddp-child``), 8c's two and phase 9's three (two
+``tools.convergence_run``, each with its ``cli.train`` child, and
+``tools.check_grads --reference-child``), each of which it waits for.
 """
 
 import itertools
@@ -312,14 +338,6 @@ HEAD_STACKED_NORMREL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 def log(*args):
     print(*args, flush=True)
-
-
-def child_env(**extra):
-    """This process's environment for a child process, the repository
-    first on ``PYTHONPATH``, plus ``extra``."""
-    return dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(OUTPUT_DIR.parent)] + [p for p in [os.environ.get(
-            "PYTHONPATH")] if p]), **extra)
 
 
 def cuda_time_ms(fn, iters, warmup=1):
@@ -1049,14 +1067,16 @@ def phase_times(device, models, card):
     images = torch.from_numpy(rng.integers(
         0, 256, (B, 2, 3, 256, 256), dtype=np.uint8)).to(device)
     intr = torch.full((B, 2, 4), 128.0, device=device)
+    eval_ms = {}
     for kernels in (True, False):
         model = models[dtype, kernels]
         with torch.inference_mode():
             ms = cuda_time_ms(lambda: model(images, intr), 3)
+        eval_ms[kernels] = ms
         log(f"[time] eval forward bf16 batch {B} 256x256 uint8 "
             f"({'kernels' if kernels else 'plain path'}): {ms:.3f} ms, "
             f"{B / ms * 1e3:.2f} pairs/s ({card})")
-    return rows
+    return rows, eval_ms[True]
 
 
 # ------------------------------------------------------- training slice --
@@ -2315,6 +2335,7 @@ def phase_cli(device, card, synthetic_ms):
     counts."""
     from rel_pose_tpu_torch import native
     from rel_pose_tpu_torch.cli import train as cli
+    from rel_pose_tpu_torch.tools import child_env
     if not native.available():
         raise SystemExit(f"native host library: {native.build_error()}")
     log(f"[cli] native host library loaded: {native.library_path()}")
@@ -2895,6 +2916,7 @@ def phase_eval_warmup(dev, card, failures):
     allocator's first blocks are really cold (in this process phases 1-6
     made them); the kernels' nvcc build is on disk by now, as on a server
     restarted after its first start (phase 2 times the build)."""
+    from rel_pose_tpu_torch.tools import child_env
     got = {}
     for mode in ("warm", "cold"):
         r = subprocess.run(
@@ -3092,6 +3114,7 @@ def phase_ddp_train(device, card):
     stride warning (a gradient whose strides differ from its bucket view's
     would raise one every step).  -> the ranks' launches."""
     from rel_pose_tpu_torch.parallel.dist import free_port
+    from rel_pose_tpu_torch.tools import child_env
     shutil.rmtree(DDP_DIR, ignore_errors=True)
     DDP_DIR.mkdir(parents=True)
     sd = ddp_state_dict()
@@ -3270,6 +3293,7 @@ def phase_ddp_eval():
     carries float32, as the JAX CLI's), the errors within phase 7's fp32
     bounds -- and the metrics within 1e-4 degrees and 1e-4 m."""
     from rel_pose_tpu_torch.parallel.dist import free_port
+    from rel_pose_tpu_torch.tools import child_env
     port = str(free_port())
     argv = ["--exp", "ddp2", "--datapath", "mp", "--ckpt", "model.ckpt",
             "--batch", str(EVAL_CHECK_BATCH), "--device", "cuda",
@@ -3321,6 +3345,240 @@ def phase_ddp_eval():
         raise SystemExit(f"8c checks failed: {failures}")
 
 
+# ------------------------------------------------------------ the tooling --
+
+TOOL_DIR = OUTPUT_DIR / "chip_smoke_tooling"
+# 9e's steps: convergence_run's default of 330 lowered for this phase
+# only, so that phase 9 fits its 120 s (the runs are bound by the host's
+# loader; 330 steps took 121.5 s on an H100's host).  300 keeps the
+# trajectory's four records, the last one the annealed tail's, well below
+# the gates' tenth; at 280 fp32's tr came close to it.
+CONV_STEPS = 300
+CHECK_BATCH = 4             # tools.check_grads' default CHECK_BATCH
+
+
+def trace_kernel_names(path):
+    """The names of the device kernel events of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) if isinstance(
+        events, dict) else events
+    return {e.get("name", "") for e in events
+            if isinstance(e, dict) and e.get("cat") == "kernel"}
+
+
+def same_checkpoint(a, b):
+    """Two checkpoint files hold equal tensors and equal other entries."""
+    def eq(x, y):
+        if torch.is_tensor(x):
+            return (torch.is_tensor(y) and x.dtype == y.dtype
+                    and torch.equal(x, y))
+        if isinstance(x, dict):
+            return (isinstance(y, dict) and list(x) == list(y)
+                    and all(eq(x[k], y[k]) for k in x))
+        if isinstance(x, (list, tuple)):
+            return (isinstance(y, (list, tuple)) and len(x) == len(y)
+                    and all(eq(p, q) for p, q in zip(x, y)))
+        return x == y
+    return eq(torch.load(a, weights_only=True),
+              torch.load(b, weights_only=True))
+
+
+def phase_tooling(device, card, eval_ms, train_bf16_ms):
+    """(9) the tooling of ``rel_pose_tpu_torch/utils`` and ``tools``: 9e's
+    two convergence runs and 9d's float64 reference start first, as child
+    processes, and run beside 9a-9d.
+
+    9a: the FLOPs a pair of the eval forward and the train step
+    (``estimate_step_flops``); MFU of phase 5's eval forward (batch 256
+    bf16) and of phase 5b's bf16 train step (batch 60); phase 6's CLI
+    record at batch 60 carries an ``mfu`` equal to its pairs/s x FLOPs a
+    pair / 989e12 within 1e-6 relative; every MFU in (0, 1).
+    9b: ``trace(dir)`` around 2 eval forwards: the Chrome trace parses and
+    holds device events of #1 (``tc::gemm_fwd_kernel``,
+    ``tc::attn_fwd_kernel``) and #2 (``eb_moments_kernel``).
+    9c: the flagship bf16 after 2 steps: ``save_checkpoint``, then
+    ``AsyncCheckpointer.save`` and 2 more steps at once, then ``close()``:
+    both files equal tensor by tensor; the training thread's ms in
+    ``save()`` beside the synchronous save's.
+    9d: ``tools.check_grads`` in fp32 and bf16 at batch 4 against one
+    float64 reference: every leaf within the gates; top 5 leaves printed.
+    9e: ``tools.convergence_run`` in fp32 and bf16 (CONV_STEPS steps),
+    ``tools.convergence_run.gate`` on each trajectory.
+    -> the in-process launches of #1, #2, #5 and #6 (9b-9d)."""
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    from rel_pose_tpu_torch.nn.init import seeded_state_dict
+    from rel_pose_tpu_torch.tools import (check_grads, child_env,
+                                          convergence_run)
+    from rel_pose_tpu_torch.train import checkpoint
+    from rel_pose_tpu_torch.train.optim import make_optimizer
+    from rel_pose_tpu_torch.train.step import train_step
+    from rel_pose_tpu_torch.utils.profiling import (H100_BF16_PEAK,
+                                                    estimate_step_flops,
+                                                    peak_flops, trace)
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOL_DIR, ignore_errors=True)
+    TOOL_DIR.mkdir(parents=True)
+    failures = []
+    conv_root = TOOL_DIR / "convergence"
+    convergence_run.prepare_tree(str(conv_root))
+    conv = {}
+    t_conv = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        out = open(TOOL_DIR / f"convergence_{dtype}.log", "w")
+        conv[dtype] = (subprocess.Popen(
+            [sys.executable, "-m", "rel_pose_tpu_torch.tools.convergence_run",
+             "--dtype", dtype, "--root", str(conv_root), "--steps",
+             str(CONV_STEPS)], env=child_env(), stdout=out,
+            stderr=subprocess.STDOUT), out)
+    ref_out = TOOL_DIR / "reference_grads.pt"
+    ref_log = open(TOOL_DIR / "reference.log", "w")
+    ref = subprocess.Popen(
+        check_grads.reference_command(ref_out, CHECK_BATCH, device),
+        env=child_env(), stdout=ref_log, stderr=subprocess.STDOUT)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    try:
+        # 9a: FLOPs and MFU
+        t0 = time.perf_counter()
+        cfg = ModelConfig(compute_dtype="bfloat16")
+        eval_pair = estimate_step_flops(cfg, EVAL_BATCH, "eval") / EVAL_BATCH
+        train_pair = (estimate_step_flops(cfg, TRAIN_BATCH, "train")
+                      / TRAIN_BATCH)
+        peak = peak_flops(device, "bfloat16")
+        log(f"[tooling] 9a FLOPs a pair (matmul / conv, plain path counted "
+            f"on the meta device in {time.perf_counter() - t0:.1f} s): eval "
+            f"forward {eval_pair / 1e9:.6f} G, train step "
+            f"{train_pair / 1e9:.6f} G; peak_flops() on this card: {peak}")
+        mfus = {"eval forward bf16 batch 256 (phase 5)":
+                eval_pair * EVAL_BATCH / (eval_ms * 1e-3) / H100_BF16_PEAK,
+                "train step bf16 batch 60 (phase 5b)":
+                train_pair * TRAIN_BATCH / (train_bf16_ms * 1e-3)
+                / H100_BF16_PEAK}
+        rec = next(r for r in cli_records("batch60") if "timed_steps" in r)
+        want = rec["pairs_per_sec_per_chip"] * train_pair / H100_BF16_PEAK
+        got = rec.get("mfu")
+        ok = got is not None and abs(got - want) <= 1e-6 * want
+        mfus["training CLI bf16 batch 60 (phase 6, logged)"] = got or 0.0
+        for name, v in mfus.items():
+            log(f"[tooling] 9a MFU {name}: {100 * v:.4f}% of "
+                f"{H100_BF16_PEAK / 1e12:.0f} TFLOP/s ({card})")
+        log(f"[tooling] 9a the CLI's logged mfu {got} against pairs/s x "
+            f"FLOPs a pair / peak {want}: {'ok' if ok else 'FAIL'}")
+        if peak != H100_BF16_PEAK or not ok:
+            failures.append(f"9a peak {peak}, CLI mfu {got} vs {want}")
+        failures += [f"9a MFU {k} = {v}" for k, v in mfus.items()
+                     if not 0 < v < 1]
+
+        # 9b: a device trace of 2 eval forwards
+        sd = seeded_state_dict(ViTEss(cfg, device="meta"), SEED)
+        model = ViTEss(cfg, device=device)
+        model.load_state_dict(sd)
+        rng = np.random.default_rng(SEED + 90)
+        images = torch.from_numpy(rng.integers(
+            0, 256, (8, 2, 3, 256, 256), dtype=np.uint8)).to(device)
+        intr = torch.full((8, 2, 4), 128.0, device=device)
+        with torch.inference_mode():
+            model(images, intr)
+            with trace(str(TOOL_DIR / "trace")) as prof:
+                for _ in range(2):
+                    model(images, intr)
+        names = trace_kernel_names(prof.trace_path)
+        found = {k: sorted(n for n in names if k in n)[:1] for k in (
+            "tc::gemm_fwd_kernel", "tc::attn_fwd_kernel",
+            "eb_moments_kernel")}
+        log(f"[tooling] 9b trace {prof.trace_path} "
+            f"({os.path.getsize(prof.trace_path)} bytes), {len(names)} "
+            f"kernel names; #1 / #2 events: {found}")
+        failures += [f"9b no {k} event" for k, v in found.items() if not v]
+        del model, images
+
+        # 9c: the asynchronous checkpoint
+        model, opt, sched = train_model(torch.bfloat16, sd, device, True)
+        batches = [train_batch(rng, SLICE_TRAIN_BATCH, device)
+                   for _ in range(4)]
+        for b in batches[:2]:
+            train_step(model, opt, sched, *b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(str(TOOL_DIR / "sync.pth"), model, opt,
+                                   sched)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        with checkpoint.AsyncCheckpointer() as writer:
+            t0 = time.perf_counter()
+            writer.save(str(TOOL_DIR / "async.pth"), model, opt, sched)
+            stall_ms = (time.perf_counter() - t0) * 1e3
+            for b in batches[2:]:
+                train_step(model, opt, sched, *b)
+            torch.cuda.synchronize()
+        same = same_checkpoint(TOOL_DIR / "sync.pth", TOOL_DIR / "async.pth")
+        size = os.path.getsize(TOOL_DIR / "sync.pth") / 1e6
+        log(f"[tooling] 9c {size:.1f} MB checkpoint after 2 bf16 steps, 2 "
+            f"more steps taken at once: the asynchronous file "
+            f"{'equals' if same else 'DIFFERS FROM'} the synchronous one; "
+            f"the training thread waits {stall_ms:.1f} ms in save() "
+            f"against {sync_ms:.1f} ms for save_checkpoint ({card})")
+        if not same:
+            failures.append("9c asynchronous checkpoint")
+        del model, opt, sched, batches
+
+        # 9d: gradient triangulation against the float64 reference
+        ref.wait(timeout=600)
+        ref_log.close()
+        grads, label = check_grads.reference_from_child(
+            ref.returncode, ref_out, (TOOL_DIR / "reference.log").read_text(),
+            CHECK_BATCH, device)
+        log(f"[tooling] 9d reference: {label}")
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            ok = check_grads.check(dtype, CHECK_BATCH, device, grads,
+                                   log=log)[0]
+            log(f"[tooling] 9d {dtype}: {'ok' if ok else 'FAIL'} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            if not ok:
+                failures.append(f"9d triangulation {dtype}")
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        log(f"[tooling] kernel launches in 9b-9d: {launches}")
+        failures += [f"{k} never launched in phase 9" for k, v in
+                     launches.items() if v <= 0]
+
+        # 9e: convergence through the training CLI
+        log(f"[tooling] 9a-9d in {time.perf_counter() - t_phase:.1f} s")
+        for dtype, (proc, out) in conv.items():
+            proc.wait(timeout=900)
+            out.close()
+            log(f"[tooling] 9e {dtype} ended "
+                f"{time.perf_counter() - t_conv:.1f} s after its start")
+            text = (TOOL_DIR / f"convergence_{dtype}.log").read_text()
+            if proc.returncode != 0:
+                log(text[-4000:])
+                failures.append(f"9e {dtype} exit {proc.returncode}")
+                continue
+            summary = convergence_run.parse_summary(text)
+            _, rot, tr = convergence_run.read_trajectory(
+                str(conv_root / "output" / f"conv_{dtype}"), "train")
+            bad = convergence_run.gate(rot, tr)
+            log(f"[tooling] 9e {dtype}, {summary['steps']} steps at batch "
+                f"{summary['batch']}: rot {[round(v, 5) for v in rot]}, tr "
+                f"{[round(v, 5) for v in tr]}, val rot "
+                f"{summary['val_rot_final']} tr {summary['val_tr_final']}: "
+                f"{'converged' if not bad else 'FAIL ' + '; '.join(bad)}")
+            failures += [f"9e {dtype}: {b}" for b in bad]
+    finally:
+        for proc, out in list(conv.values()) + [(ref, ref_log)]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    log(f"[tooling] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise SystemExit(f"tooling checks failed: {failures}")
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--serve-child"]:
         return serve_child(*sys.argv[2:6])
@@ -3343,7 +3601,7 @@ def main():
     models, sd = make_models(device)
     eval_launches = phase_slice(device, models)
     launches = phase_train(device, sd)
-    rows = phase_times(device, models, card)
+    rows, eval_ms = phase_times(device, models, card)
     del models
     train_rows, synthetic_ms = phase_times_train(device, sd, card)
     rows.update(train_rows)
@@ -3367,8 +3625,9 @@ def main():
         ddp_launches["cli world of one"] = phase_ddp_cli(card)
         phase_ddp_eval()
         log(f"[ddp] phase 8 in {time.perf_counter() - t_phase:.1f} s")
+        tool_launches = phase_tooling(device, card, eval_ms, synthetic_ms)
     finally:
-        for d in (CLI_DIR, EVAL_DIR, DDP_DIR):
+        for d in (CLI_DIR, EVAL_DIR, DDP_DIR, TOOL_DIR):
             shutil.rmtree(d, ignore_errors=True)
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
@@ -3378,6 +3637,8 @@ def main():
     log(f"[noess] eval launches {noess_eval}, training launches "
         f"{noess_train}")
     log(f"[ddp] launches per rank {ddp_launches}")
+    log(f"[tooling] launches in phase 9 (9b-9d, in this process) "
+        f"{tool_launches}")
     for flag, (serve, train) in ablations.items():
         log(f"[ablation {flag}] eval launches {serve}, training launches "
             f"{train}")

@@ -26,7 +26,11 @@ baseline, as ``train.py`` does.  What it keeps of ``train.py:72-315``:
   * the subepoch protocol: subepochs 0-9 train on the dataset, subepoch 10
     validates (``train.step.eval_step``) for Matterport, InteriorNet and
     StreetLearn reset at 10;
-  * a checkpoint every ``--ckpt_every`` steps and at ``--steps``;
+  * a checkpoint every ``--ckpt_every`` steps and at ``--steps``, written
+    on a worker thread (``train.checkpoint.AsyncCheckpointer``,
+    ``train.py:200,289-295,309``): the loop waits only for the host copy,
+    and the writer is drained before "finished training!", also when the
+    loop raises;
   * step k's metrics read on the host (``.item()``) only after step k + 1
     is queued, so that the card is never drained to log;
   * a one-batch device prefetch: batch k + 1 is pinned and copied
@@ -53,7 +57,12 @@ wait, so that one ``nvcc`` build runs, not N.
 datasets (they resize to 384x512).  At the end it writes one record with
 the steady-state pairs/s (``utils.profiling.StepTimer``) and the share of
 the loop's time spent waiting on the data loader to
-``output/<name>/runs/metrics.jsonl``.
+``output/<name>/runs/metrics.jsonl``.  Where a peak is known
+(``utils.profiling.peak_flops``: ``$RELPOSE_PEAK_TFLOPS``, or a bf16 model
+on an H100 SXM) the training metrics and that record carry ``mfu``: the
+global batch's matmul / conv FLOPs (``estimate_step_flops``, counted once
+at start) x steps/s / world size / peak, as ``train.py:167-199,251-252``;
+otherwise MFU is left out.
 
 It refuses, with a message: ``--device cuda`` without a GPU (there is no
 CPU fallback), ``--gpus`` beyond the visible GPUs or other than torchrun's
@@ -63,6 +72,7 @@ does not take).
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -193,13 +203,13 @@ def device_batches(host_batches, device):
         yield prev
 
 
-def build_model(cfg, device):
+def build_model(cfg, device, seed=SEED):
     """The model with PyTorch's default initializers under
-    ``torch.manual_seed(SEED)``, drawn on the CPU as the reference's model
+    ``torch.manual_seed(seed)``, drawn on the CPU as the reference's model
     is (built on the CPU, then moved), then moved to ``device``."""
     from ..models.vitess import ViTEss
     from ..nn.init import torch_default_init
-    torch.manual_seed(SEED)
+    torch.manual_seed(seed)
     model = torch_default_init(ViTEss(cfg, device="cpu"))
     return model.to(device)
 
@@ -274,12 +284,13 @@ def train(args):
 
 def _train(args, device):
     from ..data import DataLoader, dataset_factory
-    from ..train.checkpoint import (checkpoint_path, ensure_output_dirs,
-                                    find_resume_checkpoint, save_checkpoint)
+    from ..train.checkpoint import (AsyncCheckpointer, checkpoint_path,
+                                    ensure_output_dirs,
+                                    find_resume_checkpoint)
     from ..train.logger import Logger
     from ..train.optim import make_optimizer, make_scheduler
     from ..train.step import eval_step, train_step
-    from ..utils.profiling import StepTimer
+    from ..utils.profiling import StepTimer, estimate_step_flops, peak_flops
 
     world, rank = parallel.world_size(), parallel.rank()
     main_rank = rank == 0
@@ -344,105 +355,122 @@ def _train(args, device):
         parallel.check_same_state(model, "after DDP's initial broadcast")
 
     logger = Logger(args.name, sched) if main_rank else None
-    timer = StepTimer(pairs_per_step=global_batch, num_chips=world)
-    waited = 0.0            # loader wait inside the timer's timed steps
-    subepoch = 0
-    epoch_count = 0
-    should_keep_training = train_steps < args.steps
+    # MFU: the global batch's model FLOPs (matmul / conv, forward and
+    # backward, counted on the meta device) over the GPU's peak; left out
+    # where no peak is known
+    peak = peak_flops(device, cfg.compute_dtype)
+    step_flops = (estimate_step_flops(cfg, global_batch, "train")
+                  if peak else None)
+    timer = StepTimer(pairs_per_step=global_batch, num_chips=world,
+                      flops_per_step=step_flops, peak_flops=peak)
+    # rank 0 writes the checkpoints on a worker thread; leaving the block
+    # drains it, also when the loop raises, so the last file is whole
+    with (AsyncCheckpointer() if main_rank
+          else contextlib.nullcontext()) as writer:
+        waited = 0.0            # loader wait inside the timer's timed steps
+        subepoch = 0
+        epoch_count = 0
+        should_keep_training = train_steps < args.steps
 
-    while should_keep_training:
-        is_training = subepoch != 10
-        train_val = "train" if is_training else "val"
+        while should_keep_training:
+            is_training = subepoch != 10
+            train_val = "train" if is_training else "val"
 
-        db = dataset_factory(
-            [args.dataset], datapath=args.datapath, subepoch=subepoch,
-            is_training=is_training,
-            streetlearn_interiornet_type=args.streetlearn_interiornet_type,
-            use_mini_dataset=args.use_mini_dataset)
-        loader = DataLoader(
-            db, batch_size=args.batch, shuffle=is_training, seed=SEED,
-            epoch=epoch_count * 11 + subepoch, num_workers=args.num_workers,
-            num_shards=world, shard_index=rank)
-        n_batches = len(loader)
-        host_batches = _TimedIter(loader)
+            db = dataset_factory(
+                [args.dataset], datapath=args.datapath, subepoch=subepoch,
+                is_training=is_training,
+                streetlearn_interiornet_type=args.streetlearn_interiornet_type,
+                use_mini_dataset=args.use_mini_dataset)
+            loader = DataLoader(
+                db, batch_size=args.batch, shuffle=is_training, seed=SEED,
+                epoch=epoch_count * 11 + subepoch,
+                num_workers=args.num_workers, num_shards=world,
+                shard_index=rank)
+            n_batches = len(loader)
+            host_batches = _TimedIter(loader)
 
-        def flush_logging(i_batch, metrics, poses_est, poses):
-            """Read one step's metrics on the host and log them (rank
-            0)."""
-            if not main_rank:
-                return
-            host_metrics = {k: v.item() for k, v in metrics.items()
-                            if k != "loss"}
-            if is_training:
-                host_metrics["pairs_per_sec_per_chip"] = \
-                    timer.pairs_per_sec_per_chip
-            logger.push(host_metrics)
-            if i_batch % 20 == 0:
-                np.set_printoptions(suppress=True, linewidth=150)
-                print("\n estimated pose")
-                print(poses_est[0].cpu().numpy())
-                print("ground truth pose")
-                print(np.asarray(poses[0]))
-            if (i_batch + 10) % 20 == 0:
-                print("\n metrics:",
-                      {k: v.item() for k, v in metrics.items()}, "\n")
-            if i_batch % 100 == 0:
-                print(f"epoch {epoch_count}\nsubepoch: {subepoch}\n"
-                      f"using {train_val} set\n"
-                      f"batch {i_batch} of {n_batches}")
+            def flush_logging(i_batch, metrics, poses_est, poses):
+                """Read one step's metrics on the host and log them (rank
+                0)."""
+                if not main_rank:
+                    return
+                host_metrics = {k: v.item() for k, v in metrics.items()
+                                if k != "loss"}
+                if is_training:
+                    host_metrics["pairs_per_sec_per_chip"] = \
+                        timer.pairs_per_sec_per_chip
+                    if timer.mfu is not None:
+                        host_metrics["mfu"] = timer.mfu
+                logger.push(host_metrics)
+                if i_batch % 20 == 0:
+                    np.set_printoptions(suppress=True, linewidth=150)
+                    print("\n estimated pose")
+                    print(poses_est[0].cpu().numpy())
+                    print("ground truth pose")
+                    print(np.asarray(poses[0]))
+                if (i_batch + 10) % 20 == 0:
+                    print("\n metrics:",
+                          {k: v.item() for k, v in metrics.items()}, "\n")
+                if i_batch % 100 == 0:
+                    print(f"epoch {epoch_count}\nsubepoch: {subepoch}\n"
+                          f"using {train_val} set\n"
+                          f"batch {i_batch} of {n_batches}")
 
-        pending_log = None
-        for i_batch, (host_batch, batch) in enumerate(
-                device_batches(host_batches, device)):
-            poses = host_batch[1]
-            if is_training:
-                metrics, poses_est = train_step(
-                    step_model, opt, sched, *batch, w_tr=args.w_tr,
-                    w_rot=args.w_rot, clip=args.clip)
-                train_steps += 1
-            else:
-                metrics, poses_est = eval_step(
-                    model, *batch, w_tr=args.w_tr, w_rot=args.w_rot,
-                    train_val=train_val)
+            pending_log = None
+            for i_batch, (host_batch, batch) in enumerate(
+                    device_batches(host_batches, device)):
+                poses = host_batch[1]
+                if is_training:
+                    metrics, poses_est = train_step(
+                        step_model, opt, sched, *batch, w_tr=args.w_tr,
+                        w_rot=args.w_rot, clip=args.clip)
+                    train_steps += 1
+                else:
+                    metrics, poses_est = eval_step(
+                        model, *batch, w_tr=args.w_tr, w_rot=args.w_rot,
+                        train_val=train_val)
+
+                if pending_log is not None:
+                    flush_logging(*pending_log)
+                pending_log = (i_batch, metrics, poses_est, poses)
+                if is_training:
+                    wait, host_batches.wait = host_batches.wait, 0.0
+                    if timer.tick() is not None:
+                        waited += wait
+
+                done = train_steps >= args.steps
+                if main_rank and (done or (
+                        is_training and train_steps % args.ckpt_every == 0)):
+                    writer.save(checkpoint_path(args.name, train_steps),
+                                model, opt, sched)
+                if done:
+                    should_keep_training = False
+                    break
 
             if pending_log is not None:
                 flush_logging(*pending_log)
-            pending_log = (i_batch, metrics, poses_est, poses)
-            if is_training:
-                wait, host_batches.wait = host_batches.wait, 0.0
-                if timer.tick() is not None:
-                    waited += wait
 
-            done = train_steps >= args.steps
-            if main_rank and (done or (is_training and
-                                       train_steps % args.ckpt_every == 0)):
-                save_checkpoint(checkpoint_path(args.name, train_steps),
-                                model, opt, sched)
-            if done:
-                should_keep_training = False
-                break
+            subepoch += 1
+            if subepoch == 11 or (subepoch == 10 and args.dataset in
+                                  ("interiornet", "streetlearn")):
+                # no val subepoch for interiornet / streetlearn
+                # (train.py:205-208)
+                subepoch = 0
+                epoch_count += 1
 
-        if pending_log is not None:
-            flush_logging(*pending_log)
-
-        subepoch += 1
-        if subepoch == 11 or (subepoch == 10 and args.dataset in
-                              ("interiornet", "streetlearn")):
-            # no val subepoch for interiornet/streetlearn (train.py:205-208)
-            subepoch = 0
-            epoch_count += 1
-
-    if timer.timed_steps and main_rank:
-        share = waited / timer.total_time
-        print(f"throughput: {timer.pairs_per_sec_per_chip:.2f} pairs/s on "
-              f"{device} over {timer.timed_steps} steps after "
-              f"{timer.warmup}; waiting on the data loader "
-              f"{100 * share:.2f}% of that time")
-        logger.write_dict({"pairs_per_sec_per_chip":
-                           timer.pairs_per_sec_per_chip,
-                           "loader_wait_share": share,
-                           "timed_steps": timer.timed_steps},
-                          step=train_steps)
+        if timer.timed_steps and main_rank:
+            share = waited / timer.total_time
+            mfu = "" if timer.mfu is None else f", MFU {100 * timer.mfu:.3f}%"
+            print(f"throughput: {timer.pairs_per_sec_per_chip:.2f} pairs/s on "
+                  f"{device} over {timer.timed_steps} steps after "
+                  f"{timer.warmup}{mfu}; waiting on the data loader "
+                  f"{100 * share:.2f}% of that time")
+            record = {"pairs_per_sec_per_chip": timer.pairs_per_sec_per_chip,
+                      "loader_wait_share": share,
+                      "timed_steps": timer.timed_steps}
+            if timer.mfu is not None:
+                record["mfu"] = timer.mfu
+            logger.write_dict(record, step=train_steps)
     log("finished training!")
     if logger is not None:
         logger.close()

@@ -1,9 +1,10 @@
 """SE(3) / SO(3) group operations on 7-D pose tensors.
 
-Counterpart of ``rel_pose_tpu/geom/lie.py:43-146`` (which replaced the
-reference's lietorch): compose, inverse and the log map, all that the
-geodesic loss needs.  Pose layout ``(..., 7) = [tx, ty, tz, qx, qy, qz, qw]``
-(W-last unit quaternion); tangent layout ``(..., 6) = [tau, phi]``.
+Counterpart of ``rel_pose_tpu/geom/lie.py`` (which replaced the
+reference's lietorch): the identity, compose, inverse, the log map the
+geodesic loss needs, the exp maps and the quaternion re-normalization.
+Pose layout ``(..., 7) = [tx, ty, tz, qx, qy, qz, qw]`` (W-last unit
+quaternion); tangent layout ``(..., 6) = [tau, phi]``.
 
 Small angles take Taylor branches.  ``torch.where`` has the same gradient
 pitfall as ``jnp.where``: the branch not taken is still differentiated, and
@@ -16,6 +17,19 @@ import torch
 from .quaternion import quat_conjugate, quat_multiply, quat_rotate
 
 _SMALL = 1e-8  # squared-angle cutoff for the Taylor branches (fp32-safe)
+
+
+def se3_identity(shape=(), dtype=torch.float32, device=None):
+    """Identity pose(s) of shape ``shape + (7,)``."""
+    data = torch.zeros(tuple(shape) + (7,), dtype=dtype, device=device)
+    data[..., 6] = 1.0
+    return data
+
+
+def se3_identity_like(pose):
+    """Identity poses of ``pose``'s batch shape, dtype and device
+    (lietorch's ``SE3.IdentityLike``)."""
+    return se3_identity(pose.shape[:-1], pose.dtype, pose.device)
 
 
 def se3_compose(a, b):
@@ -48,12 +62,41 @@ def so3_log(q):
     return torch.where(small, taylor, general) * v
 
 
+def so3_exp(phi):
+    """``(..., 3)`` -> unit quaternion ``(..., 4)`` W-last:
+    [sin(t/2) / t * phi, cos(t/2)], Taylor 1/2 - t^2/48 and 1 - t^2/8 near
+    t = 0."""
+    theta2 = (phi * phi).sum(-1, keepdim=True)
+    small = theta2 < _SMALL
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    half = 0.5 * theta
+    imag = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
+    real = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
+    return torch.cat([imag * phi, real], dim=-1)
+
+
 def _hat(phi):
     """Skew-symmetric matrix of ``(..., 3)`` -> ``(..., 3, 3)``."""
     x, y, z = phi.unbind(-1)
     zeros = torch.zeros_like(x)
     m = torch.stack([zeros, -z, y, z, zeros, -x, -y, x, zeros], dim=-1)
     return m.reshape(phi.shape[:-1] + (3, 3))
+
+
+def _V_matrix(phi):
+    """Left Jacobian V = I + a Phi + b Phi^2 with a = (1 - cos t) / t^2,
+    b = (t - sin t) / t^3; a -> 1/2 - t^2/24, b -> 1/6 - t^2/120."""
+    theta2 = (phi * phi).sum(-1)[..., None, None]
+    small = theta2 < _SMALL
+    t2s = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(t2s)
+    a = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / t2s)
+    b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (t2s * theta))
+    Phi = _hat(phi)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    return eye + a * Phi + b * torch.matmul(Phi, Phi)
 
 
 def _V_inverse(phi):
@@ -76,3 +119,19 @@ def se3_log(pose):
     phi = so3_log(pose[..., 3:])
     tau = torch.matmul(_V_inverse(phi), pose[..., :3, None])[..., 0]
     return torch.cat([tau, phi], dim=-1)
+
+
+def se3_exp(xi):
+    """``(..., 6) = [tau, phi]`` -> ``(..., 7)`` pose."""
+    tau, phi = xi[..., :3], xi[..., 3:]
+    t = torch.matmul(_V_matrix(phi), tau[..., None])[..., 0]
+    return torch.cat([t, so3_exp(phi)], dim=-1)
+
+
+def se3_normalize_quat(pose, eps=0.01):
+    """The quaternion block divided by max(|q|, eps), as
+    ``models.vitess.normalize_preds`` does (the reference's
+    ``src/model.py:148-151``)."""
+    q = pose[..., 3:]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True).clamp_min(eps)
+    return torch.cat([pose[..., :3], q], dim=-1)

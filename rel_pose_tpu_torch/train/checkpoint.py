@@ -7,6 +7,10 @@ checkpoint is ``{"model", "optimizer", "scheduler"}`` state dicts
 taken.  A write goes through a temporary file and ``os.replace``, so a
 reader never sees half a file.  On start, :func:`resume` loads the newest
 checkpoint (``most_recent_ckpt.pth`` first, else the highest number).
+:class:`AsyncCheckpointer` (``rel_pose_tpu/train/checkpoint.py:45-90``)
+writes the same file on a worker thread while training goes on; both take
+a host copy of every tensor first (:func:`host_state`), so the files hold
+CPU tensors wherever the model lives.
 ``infer.PosePredictor.from_checkpoint`` reads the same files.  A model
 under ``DistributedDataParallel`` is saved and loaded as the module it
 wraps, so the keys carry no ``module.`` prefix and the files are those of
@@ -27,9 +31,11 @@ moments, and :func:`save_ckpt` writes ``{params, bn_state, opt_state: {},
 step}`` as ``convert_checkpoint.py`` does.
 """
 
+import copy
 import os
 import re
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -53,14 +59,93 @@ def checkpoint_path(name, step, output_dir="output"):
                         f"{step:06d}{SUFFIX}")
 
 
-def save_checkpoint(path, model, opt, sched):
-    """Write the model, optimizer and scheduler state to ``path``."""
-    model = parallel.unwrap(model)
+def _host(obj, storages):
+    """``obj`` with every tensor copied to host memory, storages shared as
+    in ``obj`` (``storages``: device storage -> its copy), and everything
+    else deep-copied."""
+    if torch.is_tensor(obj):
+        storage = obj.untyped_storage()
+        key = (obj.device, storage.data_ptr())
+        if key not in storages:
+            # a device storage's .cpu() is a synchronous copy; a host one's
+            # is itself
+            storages[key] = (storage.cpu() if obj.device.type != "cpu"
+                             else storage.clone())
+        return torch.empty((0,), dtype=obj.dtype).set_(
+            storages[key], obj.storage_offset(), obj.size(), obj.stride())
+    if isinstance(obj, dict):
+        out = type(obj)((k, _host(v, storages)) for k, v in obj.items())
+        if hasattr(obj, "__dict__"):     # a state dict's _metadata
+            out.__dict__.update(copy.deepcopy(obj.__dict__))
+        return out
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host(v, storages) for v in obj)
+    return copy.deepcopy(obj)
+
+
+def host_state(model, opt, sched):
+    """``{"model", "optimizer", "scheduler"}`` state dicts as host copies
+    that the next training step cannot touch: Adam updates the parameters
+    and its moments in place, and ``state_dict()`` hands out those live
+    tensors.  The device-to-host copies have finished when it returns."""
+    return _host({"model": parallel.unwrap(model).state_dict(),
+                  "optimizer": opt.state_dict(),
+                  "scheduler": sched.state_dict()}, {})
+
+
+def write_checkpoint(path, state):
+    """``torch.save`` ``state`` to a temporary name beside ``path``, then
+    rename it into place."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"model": model.state_dict(), "optimizer": opt.state_dict(),
-                "scheduler": sched.state_dict()}, tmp)
+    torch.save(state, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint(path, model, opt, sched):
+    """Write the model, optimizer and scheduler state to ``path``."""
+    write_checkpoint(path, host_state(model, opt, sched))
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes on a worker thread, overlapping the next steps.
+
+    ``save()`` takes the host copy on the caller's thread (the only part
+    the training loop waits for), then hands it to one worker thread for
+    ``torch.save`` and the rename: the file is :func:`save_checkpoint`'s.
+    At most one write is in flight: ``save()`` first waits for the previous
+    one and re-raises its error, so a crash loses at most the newest
+    checkpoint and every file on disk is whole.  Call ``close()`` (or
+    ``wait()``) before the process ends."""
+
+    def __init__(self):
+        self._ex = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="ckpt-writer")
+        self._fut = None
+
+    def save(self, path, model, opt, sched):
+        self.wait()
+        state = host_state(model, opt, sched)
+        self._fut = self._ex.submit(write_checkpoint, path, state)
+
+    def wait(self):
+        """Block until the write in flight, if any, has ended; re-raise its
+        error."""
+        if self._fut is not None:
+            fut, self._fut = self._fut, None
+            fut.result()
+
+    def close(self):
+        try:
+            self.wait()
+        finally:
+            self._ex.shutdown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def find_resume_checkpoint(name, output_dir="output"):

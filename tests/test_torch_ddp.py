@@ -30,7 +30,10 @@ Tolerances, with their reasons:
     median leaf), the conv biases before a BatchNorm have an exact
     gradient of 0;
   * bit for bit: the two ranks' parameters, buffers and Adam moments after
-    the step; a world of one under DDP against the plain step.
+    the step; a world of one under DDP against the plain step;
+  * exactly: the FLOP count of a train step that each rank of the 2 and
+    the world of one takes on the meta device (the training CLI's MFU
+    numerator).
 """
 
 import dataclasses
@@ -250,6 +253,15 @@ def test_allgather_ragged_is_rank_major(results, case, counts):
             got = results[r][case][name]
             assert got.dtype == np.float32
             np.testing.assert_array_equal(got, want)
+
+
+def test_step_flops_in_a_world_are_one_process_s(results):
+    """The training CLI's MFU numerator: a train step of the global batch
+    counted on the meta device inside a world of 2 (where training
+    BatchNorm would all-reduce) equals the count of a world of one."""
+    flops = [results[k]["flops"] for k in ("r0", "r1", "one")]
+    assert flops[0] is not None and flops[0] > 0
+    assert flops == [flops[0]] * 3
 
 
 def test_unequal_shards_are_refused_on_every_rank(results):

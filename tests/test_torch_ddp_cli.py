@@ -4,7 +4,8 @@
     subprocess; it starts its two ranks with ``parallel.spawn``), 2 steps
     of the depth-2 flagship (fc 64) at ``--batch 1`` a rank on
     tests/test_cli.py's ``make_matterport_tree``: rank 0 alone writes (one
-    args snapshot, one metrics record, one TensorBoard file), the
+    args snapshot, one metrics record, one TensorBoard file), the record
+    carries ``mfu`` where ``$RELPOSE_PEAK_TFLOPS`` names a peak, the
     checkpoint keys carry no ``module.`` prefix and the ``.pth`` loads in
     the port's ``PosePredictor``; a second 2-rank run resumes from step 2;
     under torchrun's variables ``--no_ddp`` and another ``--gpus`` are
@@ -56,22 +57,24 @@ def env(**extra):
     return dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2", **extra)
 
 
-def train(cwd, *extra):
+def train(cwd, *extra, **environ):
     """``python -m rel_pose_tpu_torch.cli.train --gpus 2 --device cpu``,
-    2 ranks of batch 1 -> its stdout."""
+    2 ranks of batch 1, ``environ`` added to the environment -> its
+    stdout."""
     r = subprocess.run(
         [sys.executable, "-m", "rel_pose_tpu_torch.cli.train", "--name",
          "exp", "--datapath", "matterport", "--batch", "1", "--gpus", "2",
          "--device", "cpu", "--num_workers", "1", "--ckpt_every", "2",
          "--warmup", "1"] + FUSION + list(extra),
-        cwd=cwd, env=env(), capture_output=True, text=True, timeout=TIMEOUT)
+        cwd=cwd, env=env(**environ), capture_output=True, text=True,
+        timeout=TIMEOUT)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     return r.stdout
 
 
 def test_two_rank_training_cli(tmp_path):
     make_matterport_tree(str(tmp_path / "matterport"))
-    out = train(tmp_path, "--steps", "2")
+    out = train(tmp_path, "--steps", "2", RELPOSE_PEAK_TFLOPS="989")
     assert "starting 2 ranks (cpu)" in out
     assert "devices: 2 (cpu on rank 0, gloo), per-device batch 1, global " \
         "batch 2" in out
@@ -82,6 +85,7 @@ def test_two_rank_training_cli(tmp_path):
                open(run / "runs" / "metrics.jsonl")]
     assert len(records) == 1 and records[0]["step"] == 2
     assert np.isfinite(records[0]["train_geo_loss_tr"])
+    assert "mfu" in records[0]         # the peak is known: MFU is logged
     assert len(glob.glob(str(run / "runs" / "events.out.tfevents.*"))) <= 1
     assert os.listdir(run / "checkpoints") == ["000002.pth"]
 

@@ -116,3 +116,76 @@ def test_log_gradient_finite_at_identity():
     want = jax.grad(lambda p: jlie.se3_log(p).sum())(jnp.asarray(x))
     assert np.isfinite(t.grad.numpy()).all()
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), atol=1e-6)
+
+
+def _tangents(B, angle):
+    """(B, 6) = [tau, phi]: |tau| about 0.5, |phi| = ``angle`` times a
+    uniform [0.5, 1) factor; angle 1e-5 puts theta^2 below the Taylor
+    cutoff (1e-8)."""
+    phi = RNG.standard_normal((B, 3))
+    phi *= angle * RNG.uniform(0.5, 1.0, (B, 1)) / np.linalg.norm(
+        phi, axis=-1, keepdims=True)
+    return np.concatenate([0.5 * RNG.standard_normal((B, 3)), phi],
+                          -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("angle", [1e-5, 0.3, 3.0])
+def test_exp_maps_match_jax(angle):
+    """so3_exp, _V_matrix and se3_exp through the Taylor branches (1e-5
+    rad) and the general ones (0.3, near pi), values and the gradient of
+    se3_exp; fp32 tolerances as above (values 1e-6, gradients 1e-5 of the
+    largest entry)."""
+    xi = _tangents(6, angle)
+    t, j = torch.from_numpy(xi), jnp.asarray(xi)
+    for got, want in ((lie.so3_exp(t[:, 3:]), jlie.so3_exp(j[:, 3:])),
+                      (lie._V_matrix(t[:, 3:]), jlie._V_matrix(j[:, 3:])),
+                      (lie.se3_exp(t), jlie.se3_exp(j))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6)
+    w = RNG.standard_normal((6, 7)).astype(np.float32)
+    tg = t.clone().requires_grad_()
+    (lie.se3_exp(tg) * torch.from_numpy(w)).sum().backward()
+    want = jax.grad(lambda x: (jlie.se3_exp(x) * w).sum())(j)
+    assert np.isfinite(tg.grad.numpy()).all()
+    np.testing.assert_allclose(tg.grad.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5 * np.abs(np.asarray(want)).max())
+
+
+def test_exp_inverts_log():
+    """se3_log(se3_exp(xi)) = xi and se3_exp(se3_log(p)) = p, fp32 (2e-6
+    absolute: one exp and one log of unit-scale poses)."""
+    xi = torch.from_numpy(_tangents(8, 1.0))
+    np.testing.assert_allclose(lie.se3_log(lie.se3_exp(xi)).numpy(),
+                               xi.numpy(), rtol=0, atol=2e-6)
+    p = torch.from_numpy(poses(8)[:, 1])
+    np.testing.assert_allclose(lie.se3_exp(lie.se3_log(p)).numpy(),
+                               p.numpy(), rtol=0, atol=2e-6)
+
+
+def test_identity_and_normalize_quat_match_jax():
+    """se3_identity (shape, dtype), se3_identity_like (batch shape, dtype,
+    device), and se3_normalize_quat on unit, long and nearly-zero
+    quaternions (the 0.01 floor) against JAX's, 1e-6 absolute."""
+    ident = lie.se3_identity((2, 3), torch.float64)
+    np.testing.assert_array_equal(
+        ident.numpy(), np.asarray(jlie.se3_identity((2, 3), jnp.float32)))
+    assert ident.dtype == torch.float64 and ident.shape == (2, 3, 7)
+    p = torch.from_numpy(poses(5)[:, 1])
+    like = lie.se3_identity_like(p)
+    assert like.dtype == p.dtype and like.device == p.device
+    np.testing.assert_array_equal(
+        like.numpy(), np.asarray(jlie.se3_identity_like(jnp.asarray(p))))
+    x = RNG.standard_normal((5, 7)).astype(np.float32)
+    x[1, 3:] *= 10.0
+    x[2, 3:] *= 1e-4                   # |q| below the floor
+    np.testing.assert_allclose(
+        lie.se3_normalize_quat(torch.from_numpy(x)).numpy(),
+        np.asarray(jlie.se3_normalize_quat(jnp.asarray(x))), rtol=0,
+        atol=1e-6)
+
+
+def test_geom_exports_are_the_jax_packages():
+    import rel_pose_tpu.geom as jgeom
+    import rel_pose_tpu_torch.geom as tgeom
+    assert tgeom.__all__ == jgeom.__all__
+    assert all(callable(getattr(tgeom, n)) for n in tgeom.__all__)

@@ -20,7 +20,10 @@ seeded global batch (:func:`global_batch`) and runs:
 
 In a world of 1 it runs the references: ``plain`` (the step without DDP
 on the whole batch), ``ddp`` (the same step under DDP) and ``bn`` (the
-float64 BatchNorm on the whole input).
+float64 BatchNorm on the whole input).  In both worlds ``flops`` is
+``utils.profiling.estimate_step_flops`` of a train step of the global
+batch, counted on the meta device inside the world, as the training CLI
+counts it for MFU.
 """
 
 import contextlib
@@ -147,7 +150,8 @@ def main(out_dir):
     parallel.init_distributed("cpu")
     rank, world = parallel.rank(), parallel.world_size()
     batch = global_batch()
-    out = {}
+    from rel_pose_tpu_torch.utils.profiling import estimate_step_flops
+    out = {"flops": estimate_step_flops(CFG, B, "train")}
     if world == 1:
         out["plain"] = step(model(), batch, ddp=False)
         out["ddp"] = step(model(), batch, ddp=True)
