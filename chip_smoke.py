@@ -230,11 +230,36 @@ reference are child processes that run beside 9a-9d:
   9e. ``tools.convergence_run`` in fp32 and bf16 (``CONV_STEPS``) through
      ``cli.train``: tests/test_convergence.py's gates on each trajectory.
 
+Sharded serving and the measuring tools (``infer.PosePredictor``'s
+``shard``, ``rel_pose_tpu_torch/tools/bench_*``), in this process after
+phase 9, within about 60 s:
+
+  10a. ``PosePredictor`` at batch_size 8 sharded over two replicas on the
+     one card (``infer.local_devices`` replaced by ``[cuda:0, cuda:0]``),
+     and over the visible GPUs when there are several, serves phase 4's
+     requests in fp32 and bf16: equal to the unsharded predictor on the
+     same weights within 1e-5 (fp32) and phase 4's bf16 pose tolerance; #1
+     and #2 launched once a replica for each request;
+  10b. ``tools.bench_stages``, bf16, batch 256: every stage's time
+     positive, their sum within 10% of the whole forward timed alone;
+  10c. ``tools.bench_stages_bwd``, bf16, batch 60: every stage's forward
+     and backward time positive (``pre`` has no backward), their sum
+     within 10% of a forward and backward timed alone;
+  10d. ``tools.bench_train --mode step``, bf16, batch 60: its JSON line,
+     pairs/s positive;
+  10e. ``tools.bench_infer_latency --reps 10``: both JSON lines;
+  10f. ``tools.bench_loader --n 24``: its JSON line.
+     Each tool runs through its ``main(argv)``, its output logged
+     (``[tools]``), its launches of #1, #2, #5 and #6 counted from 0 just
+     before it and read just after; each must launch the kernels of its
+     path.
+
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``; the one before the card's line is the
 ``{"kernels": [...]}`` line of all twelve kernels, whose ``launches`` of
-#1, #2, #5 and #6 are phase 4b's; phase 9's in this process (9b-9d) are
-logged on their own (``[tooling]``).  Checkpoints and the CLIs' trees go
+#1, #2, #5 and #6 are phase 4b's; phase 9's in this process (9b-9d) and
+phase 10's are logged on their own (``[tooling]``, ``[shard]``,
+``[tools]``).  Checkpoints and the CLIs' trees go
 to ``output/`` beside this file and are removed.  The run needs no
 network and starts no process besides
 ``nvidia-smi``, ``nvcc``, ``make`` (the native host library), the training
@@ -3579,6 +3604,181 @@ def phase_tooling(device, card, eval_ms, train_bf16_ms):
     return launches
 
 
+# ------------------------------- phase 10: sharded serving and the benches --
+
+# The sharded predictor against the unsharded one on the same weights:
+# fp32 the JAX test's 1e-5 (tests/test_infer.py; eval-mode BatchNorm does
+# not depend on the batch, half the batch may sum in another order), bf16
+# phase 4's pose tolerance.
+SHARD_ATOL = {torch.float32: 1e-5, torch.bfloat16: POSE_ATOL[torch.bfloat16]}
+SHARD_BATCH = 8
+# the stages' sum against the whole timed alone: the events cost little,
+# so a gap beyond this is a stage missed or counted twice
+STAGE_SUM_RTOL = 0.10
+
+
+def tool_json(main, argv):
+    """Run a tool's ``main(argv)`` in this process, log what it printed
+    and return its JSON lines."""
+    code, out = run_quiet(main, argv)
+    for line in out.splitlines():
+        log(f"[tools]   {line}")
+    if code != 0:
+        raise SystemExit(f"tool exited {code}")
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def phase_shard(device, failures):
+    """(10a) ``PosePredictor`` sharded over ``[device, device]`` (two
+    replicas on the one card, ``infer.local_devices`` replaced) and over
+    the visible GPUs when there are several, at batch_size 8, phase 4's
+    requests, fp32 and bf16, against the unsharded predictor on the same
+    weights; each request runs one chunk, so #1 and #2 must launch once a
+    replica.  -> {dtype: launches of the last list's requests}."""
+    from rel_pose_tpu_torch import infer
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    from rel_pose_tpu_torch.nn.init import seeded_state_dict
+    from rel_pose_tpu_torch.ops.essential_block import \
+        fused_essential_block_pair
+    from rel_pose_tpu_torch.ops.vit_stack import fused_vit_stack
+    reqs = requests(np.random.default_rng(SEED + 1))
+    lists = [[device, device]]
+    if len(infer.local_devices(device)) > 1:
+        lists.append(infer.local_devices(device))
+    sd = None
+    launches = {}
+    local_devices = infer.local_devices
+    try:
+        for dtype in DTYPES:
+            model = ViTEss(ModelConfig(compute_dtype=str(dtype)[6:]),
+                           device=device)
+            sd = sd if sd is not None else seeded_state_dict(model, SEED)
+            model.load_state_dict(sd)
+            for devs in lists:
+                infer.local_devices = lambda d, devs=devs: devs
+                for name, images, intr, size in reqs:
+                    kw = dict(intrinsics=intr, batch_size=SHARD_BATCH,
+                              image_size=size)
+                    want = infer.PosePredictor(model, shard=False,
+                                               **kw).predict_batch(images)
+                    pred = infer.PosePredictor(model, **kw)
+                    fused_vit_stack.launches = 0
+                    fused_essential_block_pair.launches = 0
+                    got = pred.predict_batch(images)
+                    torch.cuda.synchronize()
+                    counts = (fused_vit_stack.launches,
+                              fused_essential_block_pair.launches)
+                    err = float(np.abs(got - want).max())
+                    ok = (len(pred.devices) == len(devs)
+                          and counts == (len(devs), len(devs))
+                          and got.shape == want.shape
+                          and np.isfinite(got).all()
+                          and err <= SHARD_ATOL[dtype])
+                    log(f"[shard] {name} {str(dtype)[6:]} over "
+                        f"{len(pred.devices)} replicas "
+                        f"({', '.join(map(str, pred.devices))}): max |err| "
+                        f"vs unsharded {err:.3e} (bound "
+                        f"{SHARD_ATOL[dtype]:.0e}), #1 / #2 launches "
+                        f"{counts}: {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(f"10a {name} {dtype} {devs}")
+                launches[str(dtype)[6:]] = dict(zip(
+                    ("vit_stack", "essential_block_pair"), counts))
+            del model
+    finally:
+        infer.local_devices = local_devices
+    return launches
+
+
+def phase_tools(device, card):
+    """(10) the sharded predictor (10a), then the measuring tools of
+    ``rel_pose_tpu_torch/tools`` in this process, each through its
+    ``main(argv)`` as a user runs it: (10b) ``bench_stages``, bf16, batch
+    256, every stage's time positive and their sum within
+    STAGE_SUM_RTOL of the whole forward timed alone; (10c)
+    ``bench_stages_bwd``, bf16, batch 60, the same for the forward and the
+    backward against a forward and backward timed alone; (10d)
+    ``bench_train --mode step``, bf16, batch 60; (10e)
+    ``bench_infer_latency``; (10f) ``bench_loader`` over 24 pairs.  Each
+    tool's kernel launches are counted from 0 just before it and read just
+    after.  -> (10a's launches, {tool: launches})."""
+    from rel_pose_tpu_torch.tools import (bench_infer_latency, bench_loader,
+                                          bench_stages, bench_stages_bwd,
+                                          bench_train)
+    t_phase = time.perf_counter()
+    failures = []
+    shard = phase_shard(device, failures)
+    log(f"[shard] 10a in {time.perf_counter() - t_phase:.1f} s ({card})")
+    counters = kernel_counters()
+    runs = [
+        ("10b bench_stages", bench_stages.main,
+         ["--dtype", "bfloat16", "--batch", str(EVAL_BATCH), "--iters", "5"],
+         ("vit_stack", "essential_block_pair")),
+        ("10c bench_stages_bwd", bench_stages_bwd.main,
+         ["--dtype", "bfloat16", "--batch", str(TRAIN_BATCH), "--iters",
+          "5"], tuple(counters)),
+        ("10d bench_train", bench_train.main,
+         ["--mode", "step", "--dtype", "bfloat16", "--batch",
+          str(TRAIN_BATCH), "--iters", "5"], tuple(counters)),
+        ("10e bench_infer_latency", bench_infer_latency.main,
+         ["--reps", "10"], ("vit_stack", "essential_block_pair")),
+        ("10f bench_loader", bench_loader.main, ["--n", "24"], ()),
+    ]
+    launches, records = {}, {}
+    for label, main, argv, needed in runs:
+        t0 = time.perf_counter()
+        for c in counters.values():
+            c.launches = 0
+        recs = tool_json(main, argv)
+        torch.cuda.synchronize()
+        launches[label] = {k: c.launches for k, c in counters.items()}
+        records[label] = recs
+        log(f"[tools] {label} {' '.join(argv)}: {len(recs)} JSON line(s) "
+            f"in {time.perf_counter() - t0:.1f} s; launches "
+            f"{launches[label]}")
+        failures += [f"{label}: {k} never launched" for k in needed
+                     if launches[label][k] <= 0]
+
+    (st,) = records["10b bench_stages"]
+    bad = [k for k, v in st["stages_ms"].items() if not v > 0]
+    gap = abs(st["stages_sum_ms"] - st["forward_ms"]) / st["forward_ms"]
+    log(f"[tools] 10b eval forward bf16 batch {EVAL_BATCH}: stages "
+        f"{st['stages_sum_ms']:.3f} ms against {st['forward_ms']:.3f} alone "
+        f"({100 * gap:.2f}% apart), {st['pairs_per_sec']:.2f} pairs/s "
+        f"({card})")
+    if bad or not gap <= STAGE_SUM_RTOL:
+        failures.append(f"10b stages {bad}, sum {100 * gap:.2f}% apart")
+    (bw,) = records["10c bench_stages_bwd"]
+    bad = [k for k, v in bw["forward_ms"].items() if not v > 0]
+    bad += [f"{k} backward" for k, v in bw["backward_ms"].items()
+            if k != "pre" and not (v or 0) > 0]
+    total = bw["forward_sum_ms"] + bw["backward_sum_ms"]
+    gap = abs(total - bw["step_ms"]) / bw["step_ms"]
+    log(f"[tools] 10c training forward + backward bf16 batch "
+        f"{TRAIN_BATCH}: stages {bw['forward_sum_ms']:.3f} + "
+        f"{bw['backward_sum_ms']:.3f} ms against {bw['step_ms']:.3f} alone "
+        f"({100 * gap:.2f}% apart; {card})")
+    if bad or not gap <= STAGE_SUM_RTOL:
+        failures.append(f"10c stages {bad}, sum {100 * gap:.2f}% apart")
+    (tr,) = records["10d bench_train"]
+    if not (tr["metric"] == "train_step_ms" and tr["pairs_per_sec"] > 0):
+        failures.append(f"10d {tr}")
+    lat = records["10e bench_infer_latency"]
+    if [r["metric"] for r in lat] != ["predict_latency",
+                                      "predict_batch_latency"] or not all(
+            r["p50_ms"] > 0 for r in lat):
+        failures.append(f"10e {lat}")
+    (ld,) = records["10f bench_loader"]
+    if not (ld["metric"] == "loader_pairs_per_sec" and ld["value"] > 0):
+        failures.append(f"10f {ld}")
+    log(f"[tools] phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise SystemExit(f"phase 10 checks failed: {failures}")
+    return shard, launches
+
+
 def main():
     if sys.argv[1:2] == ["--serve-child"]:
         return serve_child(*sys.argv[2:6])
@@ -3629,6 +3829,7 @@ def main():
     finally:
         for d in (CLI_DIR, EVAL_DIR, DDP_DIR, TOOL_DIR):
             shutil.rmtree(d, ignore_errors=True)
+    shard_launches, tool_bench_launches = phase_tools(device, card)
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
     log(f"[slice] eval launches {eval_launches}, training launches "
@@ -3639,6 +3840,9 @@ def main():
     log(f"[ddp] launches per rank {ddp_launches}")
     log(f"[tooling] launches in phase 9 (9b-9d, in this process) "
         f"{tool_launches}")
+    log(f"[shard] launches in 10a's last request, per dtype "
+        f"{shard_launches}")
+    log(f"[tools] launches in phase 10 by tool {tool_bench_launches}")
     for flag, (serve, train) in ablations.items():
         log(f"[ablation {flag}] eval launches {serve}, training launches "
             f"{train}")

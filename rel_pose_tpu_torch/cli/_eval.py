@@ -1,8 +1,11 @@
 """What the port's eval CLIs share (``test_matterport``,
 ``test_streetlearn_interiornet``): their common flags, the device, the
-process-sharded evaluation, and the host decode pipeline of
+sharded evaluation, and the host decode pipeline of
 ``test_matterport.py:183-211``.
 
+One process evaluates each ``--batch`` over every visible GPU when
+``--batch`` divides their count (``infer.PosePredictor``'s ``shard``), as
+the JAX CLIs do over a host's chips (``test_matterport.py:132-151``).
 Under torchrun (``torchrun --nproc_per_node N -m
 rel_pose_tpu_torch.cli.test_matterport ...``) each rank evaluates the
 strided shard ``items[rank::world]`` on its own device and the per-pair
@@ -27,7 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import parallel
+from .. import infer, parallel
 from ..config import add_model_flags
 from ..utils.profiling import StepTimer
 
@@ -75,18 +78,30 @@ def resolve_device(name, prog):
 def init_eval_world(device, kernels):
     """Join torchrun's world, if there is one, over gloo: -> this rank's
     device (``device`` outside a world).  Rank 0 builds the kernel library
-    first when the model launches ``kernels``.  One process on one of
-    several visible GPUs says how to use them all."""
+    first when the model launches ``kernels``."""
     if parallel.launched():
         device = parallel.init_distributed(device.type, backend="gloo")
         if kernels:
             parallel.build_kernels_once(device)
-    elif device.type == "cuda" and torch.cuda.device_count() > 1:
-        n = torch.cuda.device_count()
-        print(f"NOTE: {n} GPUs are visible and this process evaluates on "
-              f"one ({device}); torchrun --nproc_per_node {n} shards the "
-              "test set over them")
     return device
+
+
+def load_predictor(path, cfg, device, batch, **kwargs):
+    """The CLIs' ``PosePredictor`` at ``--batch``: sharded over every local
+    device outside a torchrun world (a rank keeps its one device), saying
+    whether it shards as the JAX CLIs do."""
+    one_process = parallel.world_size() == 1
+    predictor = infer.PosePredictor.from_checkpoint(
+        path, cfg, device=device, batch_size=batch, shard=one_process,
+        **kwargs)
+    n = len(infer.local_devices(device)) if one_process else 1
+    if len(predictor.devices) > 1:
+        print(f"eval sharded over {len(predictor.devices)} local devices")
+    elif n > 1:
+        print(f"NOTE: --batch {batch} is not divisible by the {n} local "
+              f"devices; falling back to single-device eval (use --batch a "
+              f"multiple of {n} for sharded eval)")
+    return predictor
 
 
 def shard(items):

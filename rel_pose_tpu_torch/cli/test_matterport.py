@@ -1,4 +1,5 @@
-"""Matterport test-split evaluation, on one GPU or sharded over ranks.
+"""Matterport test-split evaluation over every local GPU, or sharded over
+ranks.
 
     python -m rel_pose_tpu_torch.cli.test_matterport --exp exp \\
         --datapath <root> --ckpt model.ckpt --fusion_transformer \\
@@ -9,7 +10,8 @@ Counterpart of the JAX package's ``test_matterport.py`` with the same flags
 plus ``--device`` (``cuda``, the default, or ``cpu``).  It reads
 ``<datapath>/mp3d_planercnn_json/cached_set_test.json`` (image paths with
 their first 6 components dropped), predicts every pair through one
-``PosePredictor(batch_size=--batch, image_size=(384, 512))`` from a
+``PosePredictor(batch_size=--batch, image_size=(384, 512))``, sharded
+over the local GPUs when ``--batch`` divides them (``cli._eval``), from a
 ``.pth`` or a ``.ckpt``, and writes ``output/<exp>/matterport_test/
 {results.txt, gt_translation_magnitude_vs_error.csv,
 gt_rotation_magnitude_vs_error.csv}`` under the working directory.  The
@@ -33,9 +35,10 @@ import numpy as np
 from .. import parallel
 from ..config import model_config_from_args
 from ..data.base import image_read_cached
-from ..infer import MATTERPORT_INTRINSICS, PosePredictor, matterport_eval_pose
+from ..infer import MATTERPORT_INTRINSICS, matterport_eval_pose
 from ._eval import (DecodePipeline, add_eval_flags, gather_predictions,
-                    init_eval_world, resolve_device, shard, write_results)
+                    init_eval_world, load_predictor, resolve_device, shard,
+                    write_results)
 
 PROG = "python -m rel_pose_tpu_torch.cli.test_matterport"
 OUTPUT_FOLDER = "matterport_test"
@@ -117,9 +120,9 @@ def main(argv=None):
     if parallel.is_main():
         os.makedirs(out_dir, exist_ok=True)
 
-    predictor = PosePredictor.from_checkpoint(
-        args.ckpt, cfg, device=device, intrinsics=MATTERPORT_INTRINSICS,
-        batch_size=args.batch, image_size=(384, 512))
+    predictor = load_predictor(args.ckpt, cfg, device, args.batch,
+                               intrinsics=MATTERPORT_INTRINSICS,
+                               image_size=(384, 512))
 
     reduce = int(os.environ.get("RELPOSE_DECODE_REDUCE", "1"))
     if reduce > 1:

@@ -1,5 +1,5 @@
-"""InteriorNet / StreetLearn rotation evaluation, on one GPU or sharded
-over ranks (under torchrun, as ``cli.test_matterport``).
+"""InteriorNet / StreetLearn rotation evaluation over every local GPU, or
+sharded over ranks (under torchrun, as ``cli.test_matterport``).
 
     python -m rel_pose_tpu_torch.cli.test_streetlearn_interiornet \\
         --exp exp --datapath <root> --dataset interiornet \\
@@ -12,7 +12,8 @@ reads the first 1,000 pairs, sorted, of the metadata file its dataset and
 every other type the rotation set, as in the JAX CLI), feeds the images at
 their native resolution (no pre-resize, no reduced decode; the decode
 cache ``RELPOSE_DECODE_CACHE_MB`` applies) through one
-``PosePredictor(batch_size=--batch)`` from a ``.pth`` or a ``.ckpt``, and
+``PosePredictor(batch_size=--batch)`` (sharded as ``cli.test_matterport``'s)
+from a ``.pth`` or a ``.ckpt``, and
 takes the ground truth from the viewpoints
 (``geom.quaternion.relative_rotation_from_viewpoints``,
 ``matrix_to_quat``).  Geodesic errors in degrees, bucketed by the ground
@@ -37,9 +38,10 @@ from ..data.base import image_read_cached
 from ..geom.quaternion import (geodesic_angle_from_matrices, matrix_to_quat,
                                quat_to_matrix,
                                relative_rotation_from_viewpoints)
-from ..infer import INTERIORNET_STREETLEARN_INTRINSICS, PosePredictor
+from ..infer import INTERIORNET_STREETLEARN_INTRINSICS
 from ._eval import (DecodePipeline, add_eval_flags, gather_predictions,
-                    init_eval_world, resolve_device, shard, write_results)
+                    init_eval_world, load_predictor, resolve_device, shard,
+                    write_results)
 
 PROG = "python -m rel_pose_tpu_torch.cli.test_streetlearn_interiornet"
 MAX_PAIRS = 1000
@@ -153,9 +155,8 @@ def main(argv=None):
     if parallel.is_main():
         os.makedirs(out_dir, exist_ok=True)
 
-    predictor = PosePredictor.from_checkpoint(
-        args.ckpt, cfg, device=device,
-        intrinsics=INTERIORNET_STREETLEARN_INTRINSICS, batch_size=args.batch)
+    predictor = load_predictor(args.ckpt, cfg, device, args.batch,
+                               intrinsics=INTERIORNET_STREETLEARN_INTRINSICS)
     items = shard(sorted(dset.items())[:MAX_PAIRS])
 
     def load_pair(item):

@@ -1,9 +1,15 @@
-"""Load-once / predict-many inference on one device: the serving layer.
+"""Load-once / predict-many inference: the serving layer.
 
-Counterpart of ``rel_pose_tpu/infer.py:42-241`` without sharding:
+Counterpart of ``rel_pose_tpu/infer.py:42-241``:
 
   * a fixed ``batch_size``: requests are chunked to it and a ragged tail is
     padded by repeating its last pair, so the model always sees one shape;
+  * ``shard`` (on by default): each chunk is split evenly over every local
+    device (:func:`local_devices`: every visible GPU) when ``batch_size``
+    divides their count, one replica of the model a device, each on a CUDA
+    stream of its own, all issued from the calling thread.  Eval-mode
+    BatchNorm does not depend on the batch, so the poses are those of one
+    device, up to the order in which a smaller batch sums;
   * an optional ``image_size`` nearest pre-resize (the eval CLIs' 384x512
     Matterport convention); the intrinsics are then scaled from the resized
     resolution, as in the JAX package;
@@ -21,7 +27,7 @@ Example::
 A --noess checkpoint: ``PosePredictor.from_checkpoint("noess.pth",
 ModelConfig(noess=True), ...)``.  A ``.ckpt`` written by the JAX package
 loads the same way.  ``pred.warmup()`` before the first request builds the
-kernels and plans the convolutions.
+kernels and plans the convolutions (on every replica).
 """
 
 import numpy as np
@@ -78,6 +84,19 @@ def load_checkpoint_state_dict(path, cfg):
     return load_ckpt_state_dict(path, cfg)
 
 
+def local_devices(device):
+    """The devices a predictor whose model is on ``device`` may shard over:
+    for a CUDA device every visible GPU, ``device`` first; otherwise
+    ``device`` alone (the JAX package's ``jax.local_devices()``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device]
+    n = torch.cuda.device_count()
+    first = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return [torch.device("cuda", (first + i) % n) for i in range(n)]
+
+
 class PosePredictor:
     """Batched relative-pose inference with a loaded ``ViTEss``.
 
@@ -89,13 +108,17 @@ class PosePredictor:
         other.
     batch_size : fixed model batch; ``None`` runs each request as it comes.
     image_size : optional (H, W) nearest pre-resize.
+    shard : split each chunk over :func:`local_devices` when there is more
+        than one and ``batch_size`` divides their count; ``devices`` lists
+        the devices a chunk is split over (the model's alone otherwise) and
+        ``replicas`` their models, ``replicas[0]`` being ``model``.
 
     Construction applies the fp32 precision knob
     (``utils.precision.apply_matmul_precision``).
     """
 
     def __init__(self, model, *, intrinsics=None, batch_size=None,
-                 image_size=None):
+                 image_size=None, shard=True):
         apply_matmul_precision()
         self.model = model.eval()
         self.cfg = model.cfg
@@ -104,6 +127,26 @@ class PosePredictor:
         self.image_size = tuple(image_size) if image_size else None
         self._default_intr = (None if intrinsics is None
                               else np.asarray(intrinsics, np.float32))
+        local = local_devices(self.device)
+        if (shard and batch_size is not None and len(local) > 1
+                and batch_size % len(local) == 0):
+            self.devices = local
+            state = model.state_dict()
+            self.replicas = [self.model] + [
+                self._replica(state, d) for d in local[1:]]
+            self._streams = [torch.cuda.Stream(device=d)
+                             if d.type == "cuda" else None for d in local]
+        else:
+            self.devices = [self.device]
+            self.replicas = [self.model]
+
+    def _replica(self, state, device):
+        """The model rebuilt on ``device`` with the same configuration,
+        route and weights, in eval mode."""
+        m = type(self.model)(self.cfg, device=device,
+                             kernels=self.model.kernels)
+        m.load_state_dict(state)
+        return m.eval()
 
     @classmethod
     def from_checkpoint(cls, path, cfg=None, *, device="cuda", **kwargs):
@@ -151,13 +194,45 @@ class PosePredictor:
                              f"broadcast to ({batch}, 2, 4)")
         return intr
 
-    def _run(self, images, intr):
-        x = torch.from_numpy(images).to(self.device)
-        k = torch.from_numpy(intr).to(self.device)
+    def _forward(self, model, images, intr, device, non_blocking=False):
+        x = images.to(device, non_blocking=non_blocking)
+        k = intr.to(device, non_blocking=non_blocking)
         if self.image_size is not None:
             x = nearest_resize(x, self.image_size)
+        return model(x, k)
+
+    def _run(self, images, intr):
+        images, intr = torch.from_numpy(images), torch.from_numpy(intr)
         with torch.inference_mode():
-            return self.model(x, k).cpu().numpy()
+            if len(self.replicas) == 1:
+                return self._forward(self.model, images, intr,
+                                     self.device).cpu().numpy()
+            return self._run_sharded(images, intr)
+
+    def _run_sharded(self, images, intr):
+        """One chunk split evenly over the replicas: each slice is copied
+        in from pinned memory, resized, run and copied back on its device's
+        stream, every replica's work issued before any is waited on; the
+        results are joined in device order."""
+        n = images.shape[0] // len(self.replicas)
+        outs = []
+        for i, (model, dev, stream) in enumerate(zip(
+                self.replicas, self.devices, self._streams)):
+            img, k = images[i * n:(i + 1) * n], intr[i * n:(i + 1) * n]
+            if stream is None:
+                outs.append(self._forward(model, img, k, dev))
+                continue
+            # the weights were written on the device's current stream
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                y = self._forward(model, img.pin_memory(), k.pin_memory(),
+                                  dev, non_blocking=True)
+                out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+                outs.append(out.copy_(y, non_blocking=True))
+        for stream in self._streams:
+            if stream is not None:
+                stream.synchronize()
+        return torch.cat([o.cpu() for o in outs]).numpy()
 
     def predict_batch(self, images, intrinsics=None):
         """(B, 2, 3, H, W) images (or a list of HWC pairs) -> (B, 2, 7)
@@ -216,6 +291,7 @@ class PosePredictor:
         if intr is None or (intr.ndim == 3 and intr.shape[0] != B):
             intr = np.ones(4, np.float32)
         self._run(dummy, self._intr_for(B, intr))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in self.devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         return self

@@ -156,56 +156,81 @@ class ViTEss(nn.Module):
         return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
                 else torch.float32)
 
-    def _tokens(self, images):
-        """(B, 2, 3, H, W) -> (2B, N, C) tokens in the compute dtype."""
-        dt = self.compute_dtype
-        x = images.reshape((-1,) + images.shape[2:])
-        x = nearest_resize(x, 224).to(dt)
-        mean, inv_std = normalization_constants(dt, x.device)
-        x = x - mean
-        stem_w = self.resnet.conv1.weight.flip(1) * inv_std
-        x = self.resnet(x, stem_weight=stem_w)
-        x = self.extractor_final_conv(x)                  # (2B, C, 24, 24)
-        x = x.reshape(x.shape[0], x.shape[1], -1)
-        return x.transpose(1, 2).contiguous()
+    def stages(self, image_shape, intrinsics=None, Gs=None):
+        """``[(name, fn)]``: the forward on images of ``image_shape`` (B, 2,
+        3, H, W) cut into stages, which ``forward`` applies in order to the
+        images (``tools.bench_stages`` times them one by one):
+
+          pre        reshape, nearest resize to 224, cast, mean subtraction
+          stem       conv1 with the normalization folded in, BN, ReLU,
+                     max-pool
+          layer1, layer2, extractor   the ResNet layers, the k=5 block
+          tokens     (2B, C, 24, 24) -> (2B, 576, C)
+          vit        the ViT stack (kernel #1 on CUDA)
+          cross      the essential cross block, norm2 and MLP, the final
+                     LayerNorm; or --noess's head
+          regress    the fp32 pose regressor and ``normalize_preds``
+
+        The no-fusion baseline has ``head`` in place of ``vit`` and
+        ``cross``."""
+        B = image_shape[0]
+        out = [("pre", self._pre), ("stem", self._stem),
+               ("layer1", self.resnet.layer1), ("layer2", self.resnet.layer2),
+               ("extractor", self.extractor_final_conv),
+               ("tokens", self._to_tokens)]
+        if self.cfg.fusion_transformer:
+            out += [("vit", self._vit),
+                    ("cross", lambda x: self._cross(x, intrinsics,
+                                                    image_shape))]
+        else:
+            out.append(("head", self._no_fusion_head))
+        return out + [("regress", lambda y: self._regress(y, B, Gs))]
 
     def forward(self, images, intrinsics=None, Gs=None):
         """``images (B, 2, 3, H, W)`` uint8 or float raw BGR 0-255,
         ``intrinsics (B, 2, 4)`` [fx, fy, cx, cy] at H x W, or None ->
         ``(B, 2, 7)`` fp32 poses (tx ty tz qx qy qz qw).  Pose 0 is taken
         from ``Gs (B, 2, 7)``, the identity by default."""
-        cfg = self.cfg
-        B = images.shape[0]
-        x = self._tokens(images)
-        y = (self._fusion(x, intrinsics, images.shape)
-             if cfg.fusion_transformer else self._no_fusion_head(x))
-        y = y.reshape(B, -1).float()
-        pr = self.pose_regressor
-        y = torch.relu(linear(y, pr[0].weight, pr[0].bias))
-        y = torch.relu(linear(y, pr[2].weight, pr[2].bias))
-        y = linear(y, pr[4].weight, pr[4].bias)
-        pose_preds = y.reshape(B, cfg.num_images, cfg.pose_size)
-        if Gs is None:
-            Gs = torch.zeros_like(pose_preds)
-            Gs[..., 6] = 1.0
-        return normalize_preds(Gs, pose_preds)
+        x = images
+        for _, stage in self.stages(images.shape, intrinsics, Gs):
+            x = stage(x)
+        return x
 
-    def _fusion(self, x, intrinsics, image_shape):
-        """The fusion transformer: ViT stack, then the essential cross
-        block and the final norm, or --noess's head; ``x (2B, N, C)`` ->
-        features to flatten."""
+    def _pre(self, images):
+        """(B, 2, 3, H, W) -> (2B, 3, 224, 224) in the compute dtype, less
+        the mean."""
+        dt = self.compute_dtype
+        x = images.reshape((-1,) + images.shape[2:])
+        x = nearest_resize(x, 224).to(dt)
+        return x - normalization_constants(dt, x.device)[0]
+
+    def _stem(self, x):
+        inv_std = normalization_constants(self.compute_dtype, x.device)[1]
+        return self.resnet.stem(x, self.resnet.conv1.weight.flip(1) * inv_std)
+
+    @staticmethod
+    def _to_tokens(x):
+        x = x.reshape(x.shape[0], x.shape[1], -1)
+        return x.transpose(1, 2).contiguous()
+
+    def _vit(self, x):
+        """The fusion transformer's ViT stack on ``x (2B, N, C)``."""
+        ft = self.fusion_transformer
+        stacked = stack_block_params(ft.blocks[:-1], self.compute_dtype)
+        vit = fused_vit_stack if self.kernels else vit_stack_reference
+        return vit(x, stacked, self.cfg.num_heads, pos=ft.pos_embed)
+
+    def _cross(self, x, intrinsics, image_shape):
+        """The essential cross block and the final norm, or --noess's head;
+        ``x (2B, N, C)`` -> features to flatten."""
         cfg, ft = self.cfg, self.fusion_transformer
         B = x.shape[0] // 2
         N, C, heads = cfg.num_patches, cfg.total_num_features, cfg.num_heads
-        intr = (None if intrinsics is None else scale_intrinsics(
-            intrinsics.float(), image_shape, cfg.feature_resolution))
-        stacked = stack_block_params(ft.blocks[:-1], self.compute_dtype)
-        vit = fused_vit_stack if self.kernels else vit_stack_reference
-        x = vit(x, stacked, heads, pos=ft.pos_embed)
-
         cb = ft.blocks[-1]
         if cfg.noess:
             return self._noess_head(x, cb)
+        intr = (None if intrinsics is None else scale_intrinsics(
+            intrinsics.float(), image_shape, cfg.feature_resolution))
         f1, f2 = essential_cross_attention_pair(
             x.reshape(B, 2, N, C), (cb.norm1.weight, cb.norm1.bias),
             (cb.cross_attn.qkv.weight, cb.cross_attn.qkv.bias),
@@ -220,6 +245,20 @@ class ViTEss(nn.Module):
         fund = fund + mlp(layernorm(fund, cb.norm2.weight, cb.norm2.bias),
                           cb.mlp.fc1, cb.mlp.fc2)
         return layernorm(fund, ft.norm.weight, ft.norm.bias)
+
+    def _regress(self, y, batch, Gs):
+        """Features of ``batch`` pairs -> ``(batch, 2, 7)`` fp32 poses."""
+        cfg = self.cfg
+        y = y.reshape(batch, -1).float()
+        pr = self.pose_regressor
+        y = torch.relu(linear(y, pr[0].weight, pr[0].bias))
+        y = torch.relu(linear(y, pr[2].weight, pr[2].bias))
+        y = linear(y, pr[4].weight, pr[4].bias)
+        pose_preds = y.reshape(batch, cfg.num_images, cfg.pose_size)
+        if Gs is None:
+            Gs = torch.zeros_like(pose_preds)
+            Gs[..., 6] = 1.0
+        return normalize_preds(Gs, pose_preds)
 
     def _no_fusion_head(self, x):
         """The no-fusion baseline (``rel_pose_tpu/models/vitess.py:186-187,

@@ -54,10 +54,12 @@ class ResNetTrunk(nn.Module):
         self.layer2 = nn.Sequential(BasicBlock(64, 128, 2),
                                     BasicBlock(128, 128, 1))
 
-    def forward(self, x, stem_weight=None):
-        """``stem_weight`` replaces conv1's weight (the model folds the
-        input normalization into it)."""
+    def stem(self, x, stem_weight=None):
+        """conv1 + BN, ReLU, max-pool; ``stem_weight`` replaces conv1's
+        weight (the model folds the input normalization into it)."""
         y = torch.relu(conv_bn(x, self.conv1, self.bn1, self.training,
                                stem_weight))
-        y = max_pool_2d(y)
-        return self.layer2(self.layer1(y))
+        return max_pool_2d(y)
+
+    def forward(self, x, stem_weight=None):
+        return self.layer2(self.layer1(self.stem(x, stem_weight)))

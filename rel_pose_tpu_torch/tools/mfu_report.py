@@ -33,7 +33,6 @@ the peak used.  ``--measure`` without a GPU fails.
 """
 
 import argparse
-import subprocess
 import sys
 
 # the port's tensor-core tiles (tests/test_torch_mfu_report.py reads them
@@ -98,17 +97,6 @@ def floor_line(stage, measured_ms, floor_flops, peak):
     floor_ms = floor_flops / peak * 1e3
     print(f"  {stage:<30} {measured_ms:8.3f} ms   floor {floor_ms:7.3f} ms"
           f"   ({floor_ms / measured_ms * 100:5.1f}% of the time)")
-
-
-def card_line():
-    """nvidia-smi's name and power limit, or why there is none."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip() or "nvidia-smi printed nothing"
-    except OSError:
-        return "no nvidia-smi"
 
 
 def measure(eval_batch, train_batch, device="cuda"):
@@ -208,6 +196,7 @@ def main(argv=None):
                  f"one of --{' --'.join(TIMES)}; there are no recorded "
                  f"defaults (missing --{' --'.join(missing)})")
 
+    from . import card_line
     from ..config import ModelConfig
     from ..utils.profiling import (H100_BF16_PEAK, env_peak_flops,
                                    estimate_step_flops)
