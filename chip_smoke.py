@@ -254,6 +254,36 @@ phase 9, within about 60 s:
      before it and read just after; each must launch the kernels of its
      path.
 
+Rematerialized training (``train_step(..., remat=True)``, the training
+CLI's ``--remat``: ``ViTEss.forward(remat=True)`` checkpoints each stage
+from ``stem`` to ``cross`` or ``head``), after phase 10, on phase 6's
+tree, deterministic algorithms on for 11a-11c as in phase 4b:
+
+  11a. the flagship and --noess at depth 6, 3 ``train_step``s of 4
+     Matterport-style 384x512 pairs, fp32 and bf16, with the kernels,
+     remat against the plain step on the same batches from the same
+     weights: the losses, every step-1 gradient and the state after step 3
+     bit for bit, or else the modules whose gradients differ, the step-1
+     loss within LOSS_RTOL and every gradient within LEAF_COS / LEAF_RATIO
+     (the log says which held); every BatchNorm counted 3 batches; the
+     launches, counted from 0 just before each run: #1 and #2 (--noess: #1
+     and #7's forward) 3 plain and 6 under remat, #5 and #6 (#5 and #7's
+     backward) 3 either way;
+  11b. ``cli.train`` with and without ``--remat``, the no-fusion default,
+     fp32, batch 6, 2 steps, as phase 8b runs its pair: the step-2
+     checkpoints bit for bit (or else the Adam first moments within
+     LEAF_COS / LEAF_RATIO), 10 recomputes with it and none without;
+  11c. two gloo ranks sharing the card (``--ddp-child ... remat``, started
+     before 11a and run beside it): 3 DDP steps of phase 8a, fp32 and bf16,
+     without and with remat: under remat the ranks bit-identical after
+     every step, remat against plain on each rank as 11a, the launches as
+     11a;
+  11d. the flagship's train step in bf16 and fp32 at batch 60 and 120,
+     without and with remat: peak memory (``max_memory_allocated`` after
+     ``reset_peak_memory_stats``), step ms (CUDA events), then the bytes a
+     pair the two batches imply and the batch that fits in the card's
+     memory each way, each with the card's name and power limit.
+
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``; the one before the card's line is the
 ``{"kernels": [...]}`` line of all twelve kernels, whose ``launches`` of
@@ -264,11 +294,13 @@ to ``output/`` beside this file and are removed.  The run needs no
 network and starts no process besides
 ``nvidia-smi``, ``nvcc``, ``make`` (the native host library), the training
 CLI's child process, phase 7e's two (this script with ``--serve-child``),
-phase 8a's two ranks (``--ddp-child``), 8c's two and phase 9's three (two
+phase 8a's and 11c's two ranks (``--ddp-child``), 8c's two and phase 9's
+three (two
 ``tools.convergence_run``, each with its ``cli.train`` child, and
 ``tools.check_grads --reference-child``), each of which it waits for.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -3039,15 +3071,16 @@ def ddp_state_dict():
                                     device="meta"), SEED)
 
 
-def ddp_steps(dtype, sd, device, rank=0, world=1):
+def ddp_steps(dtype, sd, device, rank=0, world=1, remat=False):
     """``DDP_STEPS`` ``train_step``s of the depth-``DDP_DEPTH`` flagship with
     the kernels on rank ``rank``'s contiguous shard of each global batch,
-    under DDP when ``world`` > 1; the kernels' counters set to 0 just before
-    the steps and read just after.  -> the step-1 loss, post-clip
-    gradients and BatchNorm running statistics, the parameters after the
-    last step, each step's host milliseconds (synchronized), the warnings
-    the steps raised and, under DDP, the digest of the parameters and
-    buffers after each step."""
+    under DDP when ``world`` > 1, the forward rematerialized when
+    ``remat``; the kernels' counters set to 0 just before the steps and
+    read just after.  -> the step-1 loss, post-clip gradients and
+    BatchNorm running statistics, the parameters after the last step, the
+    BatchNorms' batch counts, each step's host milliseconds
+    (synchronized), the warnings the steps raised and, under DDP, the
+    digest of the parameters and buffers after each step."""
     from rel_pose_tpu_torch import parallel
     from rel_pose_tpu_torch.train.step import train_step
     model, opt, sched = train_model(dtype, sd, device, True,
@@ -3066,7 +3099,7 @@ def ddp_steps(dtype, sd, device, rank=0, world=1):
             out["lrs"].append(opt.param_groups[0]["lr"])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            metrics, _ = train_step(run, opt, sched, *local)
+            metrics, _ = train_step(run, opt, sched, *local, remat=remat)
             loss = metrics["loss"].item()
             out["ms"].append(1e3 * (time.perf_counter() - t0))
             if step == 0:
@@ -3082,26 +3115,36 @@ def ddp_steps(dtype, sd, device, rank=0, world=1):
     out["launches"] = {k: c.launches for k, c in counters.items()}
     out["params"] = {n: p.detach().cpu().clone()
                      for n, p in model.named_parameters()}
+    out["bn_counts"] = sorted({int(v) for k, v in model.state_dict().items()
+                               if k.endswith("num_batches_tracked")})
     return out
 
 
-def ddp_child(rank, world, port, out_dir):
-    """A rank of (8a): joins the gloo world of ``world`` ranks on the card
-    (NCCL takes one GPU a rank; this host has one), runs
-    :func:`ddp_steps` in fp32 and bf16 and saves what it returns (rank 0
-    all of it, the others their loss, digests, launches and times)."""
+def ddp_child(rank, world, port, out_dir, mode="plain"):
+    """A rank of (8a), or of (11c) with ``mode`` "remat": joins the gloo
+    world of ``world`` ranks on the card (NCCL takes one GPU a rank; this
+    host has one), runs :func:`ddp_steps` in fp32 and bf16 (11c: without
+    and with remat, deterministic algorithms on as in phase 4b) and saves
+    what it returns (rank 0 all of it, the others their loss, digests,
+    launches, batch counts and times)."""
     os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank,
                       MASTER_ADDR="localhost", MASTER_PORT=port)
     from rel_pose_tpu_torch import parallel
     device = parallel.init_distributed("cuda", backend="gloo")
+    remats = (False,)
+    if mode == "remat":
+        remats = (False, True)
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
     sd = ddp_state_dict()
     res = {}
     for dtype in DTYPES:
-        r = ddp_steps(dtype, sd, device, int(rank), int(world))
-        if rank != "0":
-            r = {k: r[k] for k in ("loss1", "digests", "launches", "ms",
-                                   "warnings")}
-        res[str(dtype)[6:]] = r
+        for remat in remats:
+            r = ddp_steps(dtype, sd, device, int(rank), int(world), remat)
+            if rank != "0":
+                r = {k: r[k] for k in ("loss1", "digests", "launches", "ms",
+                                       "warnings", "bn_counts")}
+            res[str(dtype)[6:] + (" remat" if remat else "")] = r
     torch.save(res, pathlib.Path(out_dir) / f"rank{rank}.pt")
     parallel.shutdown()
     return 0
@@ -3779,11 +3822,355 @@ def phase_tools(device, card):
     return shard, launches
 
 
+# ----------------------------------------------------------------- remat --
+
+REMAT_STEPS = 3
+REMAT_CLI_STEPS = 2
+REMAT_DIR = OUTPUT_DIR / "chip_smoke_remat"
+REMAT_BATCHES = (TRAIN_BATCH, 2 * TRAIN_BATCH)      # 11d's readings
+# the forward kernels of a train step: under remat each launches twice a
+# step (the forward and the recompute), the backward kernels once
+FORWARD_KERNELS = ("vit_stack", "essential_block_pair", "mhsa_fwd")
+
+
+def remat_launches(names, steps, remat):
+    """{kernel: launches} that ``steps`` train steps make."""
+    return {k: steps * (2 if remat and k in FORWARD_KERNELS else 1)
+            for k in names}
+
+
+def remat_runs(dtype, sd, device, batches, counters, **flags):
+    """``train_step`` with the kernels on ``batches`` from the weights
+    ``sd``, without and with remat -> {remat: (losses, step-1 post-clip
+    gradients, state dict after the last step, launches)}, each run's
+    counters set to 0 just before its steps and read just after."""
+    from rel_pose_tpu_torch.train.step import train_step
+    out = {}
+    for remat in (False, True):
+        model, opt, sched = train_model(dtype, sd, device, True, **flags)
+        for c in counters.values():
+            c.launches = 0
+        losses, grads = [], None
+        for batch in batches:
+            metrics, _ = train_step(model, opt, sched, *batch, remat=remat)
+            losses.append(metrics["loss"].item())
+            if grads is None:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+        torch.cuda.synchronize()
+        out[remat] = (losses, grads,
+                      {k: v.detach().clone()
+                       for k, v in model.state_dict().items()},
+                      {k: c.launches for k, c in counters.items()})
+        del model, opt, sched
+    return out
+
+
+def module_of(name):
+    """A parameter's module at the grain of the model's stages:
+    ``resnet.conv1``, ``resnet.layer1``, ``extractor_final_conv``,
+    ``fusion_transformer.blocks.5``, ``pose_regressor``, ..."""
+    parts = name.split(".")
+    keep = (3 if parts[1] == "blocks" else 2 if parts[0] == "resnet"
+            else 1)
+    return ".".join(parts[:keep])
+
+
+def compare_remat(label, dtype, runs, steps, failures):
+    """Remat against the plain step on the same batches: the losses, the
+    step-1 gradients and the state after the last step bit for bit; where
+    they are not, the modules whose gradients differ, the step-1 loss
+    within LOSS_RTOL and every gradient within LEAF_COS / LEAF_RATIO (the
+    log says which held).  Every BatchNorm counted ``steps`` batches; the
+    launches as :func:`remat_launches` says."""
+    name = str(dtype)[6:]
+    (lp, gp, sp, np_), (lr, gr, sr, nr) = runs[False], runs[True]
+    same_grads = [k for k in gp if torch.equal(gp[k], gr[k])]
+    bitwise = lp == lr and len(same_grads) == len(gp) and all(
+        torch.equal(v, sr[k]) for k, v in sp.items())
+    if bitwise:
+        log(f"[remat] {label} {name}: losses {[round(v, 6) for v in lr]}, "
+            f"the {len(gp)} step-1 gradients and the state after step "
+            f"{steps} bit for bit against the plain step")
+    else:
+        differ = sorted({module_of(k) for k in gp if k not in same_grads})
+        rel = abs(lr[0] - lp[0]) / abs(lp[0])
+        n_differ = len(gp) - len(same_grads)
+        log(f"[remat] {label} {name}: NOT bit for bit; {n_differ} of "
+            f"{len(gp)} step-1 gradients differ, in "
+            f"{differ}; losses remat {lr}, plain {lp}; step-1 loss rel "
+            f"{rel:.3e} (<= {LOSS_RTOL[dtype]}) "
+            f"{'ok' if rel <= LOSS_RTOL[dtype] else 'FAIL'}")
+        if not rel <= LOSS_RTOL[dtype]:
+            failures.append(f"{label} {name} step-1 loss")
+        compare_leaves(dtype, gr, gp, failures, label=f"remat {label}")
+    counts = {int(v) for k, v in sr.items()
+              if k.endswith("num_batches_tracked")}
+    if counts != {steps}:
+        failures.append(f"{label} {name}: BatchNorm counts {counts}")
+    for remat, got in ((False, np_), (True, nr)):
+        want = remat_launches(got, steps, remat)
+        if got != want:
+            failures.append(f"{label} {name} remat={remat}: launches {got}, "
+                            f"expected {want}")
+    log(f"[remat] {label} {name}: BatchNorm counts {sorted(counts)}; "
+        f"launches plain {np_}, remat {nr}")
+    return nr
+
+
+def remat_ddp_children():
+    """(11c) start two ranks over gloo on the card (``--ddp-child ...
+    remat``); -> their Popen handles."""
+    from rel_pose_tpu_torch.parallel.dist import free_port
+    from rel_pose_tpu_torch.tools import child_env
+    shutil.rmtree(REMAT_DIR, ignore_errors=True)
+    REMAT_DIR.mkdir(parents=True)
+    port = str(free_port())
+    return [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--ddp-child", str(r), "2", port, str(REMAT_DIR), "remat"],
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+
+
+def check_remat_ddp(procs, failures):
+    """(11c) the two ranks' 3 DDP steps of the depth-6 flagship, fp32 and
+    bf16, without and with remat: under remat both ranks' parameters and
+    buffers bit-identical after every step; remat against the plain step
+    bit for bit (the same digests after every step), or else the step-1
+    loss within LOSS_RTOL and rank 0's step-1 gradients within LEAF_COS /
+    LEAF_RATIO; every BatchNorm counted DDP_STEPS batches; the launches of
+    :func:`remat_launches`.  -> the ranks' remat launches."""
+    wait_children(procs, "11c")
+    ranks = [torch.load(REMAT_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    launches = {}
+    for dtype in DTYPES:
+        name = str(dtype)[6:]
+        a, b = ranks[0][name + " remat"], ranks[1][name + " remat"]
+        same = a["digests"] == b["digests"] and a["loss1"] == b["loss1"] \
+            and len(a["digests"]) == DDP_STEPS
+        log(f"[remat] 11c {name}: the two ranks' parameters and buffers "
+            f"after steps 1-{DDP_STEPS} under remat "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"11c {name}: ranks differ")
+        for r, res in enumerate(ranks):
+            plain, remat = res[name], res[name + " remat"]
+            if plain["digests"] == remat["digests"] \
+                    and plain["loss1"] == remat["loss1"]:
+                log(f"[remat] 11c {name} rank {r}: parameters and buffers "
+                    f"after every step bit for bit against the plain step")
+            else:
+                rel = abs(remat["loss1"] - plain["loss1"]) / abs(
+                    plain["loss1"])
+                log(f"[remat] 11c {name} rank {r}: NOT bit for bit; "
+                    f"step-1 loss rel {rel:.3e} (<= {LOSS_RTOL[dtype]})")
+                if not rel <= LOSS_RTOL[dtype]:
+                    failures.append(f"11c {name} rank {r} step-1 loss")
+                if r == 0:
+                    compare_leaves(dtype, remat["grads1"], plain["grads1"],
+                                   failures, label="remat 11c")
+            for on, run in ((False, plain), (True, remat)):
+                want = remat_launches(run["launches"], DDP_STEPS, on)
+                if run["launches"] != want:
+                    failures.append(f"11c {name} rank {r} remat={on}: "
+                                    f"launches {run['launches']}")
+                if run["bn_counts"] != [DDP_STEPS]:
+                    failures.append(f"11c {name} rank {r}: BatchNorm counts "
+                                    f"{run['bn_counts']}")
+            if any("stride" in w for w in remat["warnings"]):
+                failures.append(f"11c {name} rank {r}: DDP's gradient "
+                                "strides")
+            launches[f"{name} rank {r}"] = remat["launches"]
+    log(f"[remat] 11c launches under remat, per rank: {launches}")
+    shutil.rmtree(REMAT_DIR, ignore_errors=True)
+    return launches
+
+
+def remat_cli(failures):
+    """(11b) ``cli.train`` on phase 6's Matterport tree, the no-fusion
+    default in fp32 at batch 6 for REMAT_CLI_STEPS steps, without and with
+    ``--remat``, as phase 8b runs its pair (a seeded augmentor, one loader
+    thread, deterministic algorithms): the step-2 checkpoints (weights,
+    BatchNorm buffers, Adam, schedule) bit for bit, or else the Adam first
+    moments within LEAF_COS / LEAF_RATIO; the recompute entered once a
+    checkpointed stage and step with ``--remat`` and never without; no
+    hand kernel launched (none is on this path)."""
+    from rel_pose_tpu_torch.cli import train as cli
+    from rel_pose_tpu_torch.data import augmentation
+    from rel_pose_tpu_torch.models import vitess
+    argv = ["--datapath", "mp", "--batch", "6", "--steps",
+            str(REMAT_CLI_STEPS), "--ckpt_every", "1000", "--warmup", "1",
+            "--num_workers", "1", "--dataset", "matterport", "--no_ddp"]
+    init = augmentation.RGBDAugmentor.__init__
+    frozen = vitess.frozen_running_stats
+    recomputes = []
+
+    def seeded(self, reshape_size, rng=None, **kw):
+        init(self, reshape_size, rng=np.random.default_rng(SEED), **kw)
+
+    @contextlib.contextmanager
+    def counted():
+        recomputes.append(1)    # when a recompute enters it
+        with frozen():
+            yield
+
+    counters = kernel_counters()
+    cwd = os.getcwd()
+    os.chdir(CLI_DIR)
+    augmentation.RGBDAugmentor.__init__ = seeded
+    vitess.frozen_running_stats = counted
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    entered, codes = {}, {}
+    try:
+        for c in counters.values():
+            c.launches = 0
+        for run, extra in (("remat_plain", []), ("remat", ["--remat"])):
+            shutil.rmtree(f"output/{run}", ignore_errors=True)
+            recomputes.clear()
+            codes[run] = run_quiet(cli.main, ["--name", run] + argv
+                                   + extra)[0]
+            entered[run] = len(recomputes)
+        a, b = (torch.load(f"output/{n}/checkpoints/"
+                           f"{REMAT_CLI_STEPS:06d}.pth", weights_only=False)
+                for n in ("remat_plain", "remat"))
+    finally:
+        augmentation.RGBDAugmentor.__init__ = init
+        vitess.frozen_running_stats = frozen
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        os.chdir(cwd)
+    launches = {k: c.launches for k, c in counters.items()}
+    stages = 5                  # stem, layer1, layer2, extractor, head
+    same = same_tree(a, b)
+    counts = {int(v) for k, v in b["model"].items()
+              if k.endswith("num_batches_tracked")}
+    log(f"[remat] 11b cli.train no-fusion fp32 batch 6, {REMAT_CLI_STEPS} "
+        f"steps: exit {codes}; recomputes entered {entered} (expected 0 "
+        f"and {stages * REMAT_CLI_STEPS}); BatchNorm counts "
+        f"{sorted(counts)}; hand-kernel launches {launches}; step-"
+        f"{REMAT_CLI_STEPS} checkpoints with and without --remat "
+        f"{'bit for bit' if same else 'DIFFER'}")
+    if not same:
+        sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+        compare_leaves(torch.float32,
+                       {str(k): sb[k]["exp_avg"] for k in sa},
+                       {str(k): v["exp_avg"] for k, v in sa.items()},
+                       failures, label="remat 11b Adam first moments")
+    if any(codes.values()) or entered != {
+            "remat_plain": 0, "remat": stages * REMAT_CLI_STEPS} \
+            or counts != {REMAT_CLI_STEPS} or any(launches.values()):
+        failures.append("11b: cli.train --remat")
+
+
+def remat_readings(device, sd, card):
+    """(11d) the flagship's train step (kernels) at 384x512 uint8 in bf16
+    and fp32 at batch 60 and 120, without and with remat: the peak of
+    ``torch.cuda.max_memory_allocated()`` from ``reset_peak_memory_stats()``
+    over a warm-up and 3 timed steps, and the step's ms (CUDA events over
+    the 3); then the bytes a pair the two batches imply, the rest (weights,
+    Adam, workspaces) and the batch that fits in the card's memory each
+    way.  -> {(dtype, remat): (bytes a pair, batch that fits)}."""
+    from rel_pose_tpu_torch.train.step import train_step
+    total = torch.cuda.mem_get_info()[1]
+    rng = np.random.default_rng(SEED + 60)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        peaks = {}
+        for B in REMAT_BATCHES:
+            batch = train_batch(rng, B, device)
+            for remat in (False, True):
+                model, opt, sched = train_model(dtype, sd, device, True)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_time_ms(lambda: train_step(
+                    model, opt, sched, *batch, remat=remat), 3)
+                peaks[B, remat] = torch.cuda.max_memory_allocated()
+                log(f"[remat] 11d train step {name} batch {B} 384x512 uint8"
+                    f" {'remat' if remat else 'plain'}: {ms:.3f} ms, "
+                    f"{B / ms * 1e3:.2f} pairs/s, peak "
+                    f"{peaks[B, remat] / 2 ** 30:.3f} GiB ({card})")
+                del model, opt, sched
+            del batch
+        lo, hi = REMAT_BATCHES
+        for remat in (False, True):
+            per = (peaks[hi, remat] - peaks[lo, remat]) / (hi - lo)
+            rest = peaks[lo, remat] - lo * per
+            fits = int((total - rest) // per)
+            out[dtype, remat] = (per, fits)
+            log(f"[remat] 11d {name} {'remat' if remat else 'plain'}: "
+                f"{per / 2 ** 20:.2f} MiB a pair, {rest / 2 ** 30:.3f} GiB "
+                f"besides; the {total / 2 ** 30:.2f} GiB card fits batch "
+                f"{fits} ({card})")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(device, card):
+    """(11) rematerialized training (``train_step(..., remat=True)``, the
+    training CLI's ``--remat``), after phase 10, with phase 6's trees:
+    11c's two ranks start first and run beside (11a) the depth-6 flagship
+    and --noess, 3 steps of 4 384x512 pairs each, fp32 and bf16, with the
+    kernels, remat against the plain step (:func:`compare_remat`), then
+    (11b) the CLI (:func:`remat_cli`); then (11d) the memory and time
+    readings (:func:`remat_readings`), alone on the card.  Deterministic
+    algorithms are on for 11a-11c, as in phase 4b.  -> (11a's launches
+    under remat, 11c's)."""
+    from rel_pose_tpu_torch.config import ModelConfig
+    from rel_pose_tpu_torch.models.vitess import ViTEss
+    from rel_pose_tpu_torch.nn.init import seeded_state_dict
+    t_phase = time.perf_counter()
+    failures = []
+    procs = remat_ddp_children()
+    try:
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        launches = {}
+        for label, counters, flags in (
+                ("11a flagship", kernel_counters(), {}),
+                ("11a noess", noess_counters(), {"noess": True})):
+            sd = seeded_state_dict(ViTEss(ModelConfig(**flags),
+                                          device="meta"), SEED)
+            for dtype in DTYPES:
+                rng = np.random.default_rng(SEED + 61)
+                batches = [train_batch(rng, SLICE_TRAIN_BATCH, device)
+                           for _ in range(REMAT_STEPS)]
+                runs = remat_runs(dtype, sd, device, batches, counters,
+                                  **flags)
+                launches[f"{label} {str(dtype)[6:]}"] = compare_remat(
+                    label, dtype, runs, REMAT_STEPS, failures)
+                del runs, batches
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        log(f"[remat] 11a in {time.perf_counter() - t_phase:.1f} s")
+        remat_cli(failures)
+        log(f"[remat] 11a-11b in {time.perf_counter() - t_phase:.1f} s")
+        ddp = check_remat_ddp(procs, failures)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"[remat] 11a-11c in {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    remat_readings(device, ddp_state_dict(), card)
+    log(f"[remat] phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise SystemExit(f"phase 11 checks failed: {failures}")
+    return launches, ddp
+
+
 def main():
     if sys.argv[1:2] == ["--serve-child"]:
         return serve_child(*sys.argv[2:6])
     if sys.argv[1:2] == ["--ddp-child"]:
-        return ddp_child(*sys.argv[2:6])
+        return ddp_child(*sys.argv[2:7])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -3826,10 +4213,11 @@ def main():
         phase_ddp_eval()
         log(f"[ddp] phase 8 in {time.perf_counter() - t_phase:.1f} s")
         tool_launches = phase_tooling(device, card, eval_ms, synthetic_ms)
+        shard_launches, tool_bench_launches = phase_tools(device, card)
+        remat_launches, remat_ddp_launches = phase_remat(device, card)
     finally:
-        for d in (CLI_DIR, EVAL_DIR, DDP_DIR, TOOL_DIR):
+        for d in (CLI_DIR, EVAL_DIR, DDP_DIR, TOOL_DIR, REMAT_DIR):
             shutil.rmtree(d, ignore_errors=True)
-    shard_launches, tool_bench_launches = phase_tools(device, card)
     log(f"[check] backward kernels at G=16 / B=8, max |err|: "
         f"{ {f'{k} {str(d)[6:]}': v for (k, d), v in bwd_errs.items()} }")
     log(f"[slice] eval launches {eval_launches}, training launches "
@@ -3843,6 +4231,8 @@ def main():
     log(f"[shard] launches in 10a's last request, per dtype "
         f"{shard_launches}")
     log(f"[tools] launches in phase 10 by tool {tool_bench_launches}")
+    log(f"[remat] launches in phase 11 under remat {remat_launches}, per "
+        f"rank of 11c {remat_ddp_launches}")
     for flag, (serve, train) in ablations.items():
         log(f"[ablation {flag}] eval launches {serve}, training launches "
             f"{train}")

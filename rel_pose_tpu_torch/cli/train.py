@@ -33,6 +33,11 @@ baseline, as ``train.py`` does.  What it keeps of ``train.py:72-315``:
     loop raises;
   * step k's metrics read on the host (``.item()``) only after step k + 1
     is queued, so that the card is never drained to log;
+  * ``--remat``: the forward rematerialized in the backward
+    (``train.step.train_step(..., remat=True)``, as ``train.py:58-60``
+    passes it to ``make_train_step``): less activation memory, so larger
+    per-GPU batches, for one more forward of the checkpointed stages a
+    step; the update is the one the step makes without it;
   * a one-batch device prefetch: batch k + 1 is pinned and copied
     ``non_blocking`` before step k runs; uint8 images go to the card as
     they are, and the model casts them.
@@ -61,14 +66,14 @@ the loop's time spent waiting on the data loader to
 (``utils.profiling.peak_flops``: ``$RELPOSE_PEAK_TFLOPS``, or a bf16 model
 on an H100 SXM) the training metrics and that record carry ``mfu``: the
 global batch's matmul / conv FLOPs (``estimate_step_flops``, counted once
-at start) x steps/s / world size / peak, as ``train.py:167-199,251-252``;
-otherwise MFU is left out.
+at start: the model's FLOPs, without ``--remat``'s recompute) x steps/s /
+world size / peak, as ``train.py:167-199,251-252``; otherwise MFU is left
+out.
 
 It refuses, with a message: ``--device cuda`` without a GPU (there is no
 CPU fallback), ``--gpus`` beyond the visible GPUs or other than torchrun's
-world, ``--no_ddp`` under a world of several ranks, ranks given unequal
-``--batch`` (unequal shards), and ``--remat`` (a TPU memory lever the port
-does not take).
+world, ``--no_ddp`` under a world of several ranks, and ranks given
+unequal ``--batch`` (unequal shards).
 """
 
 import argparse
@@ -115,7 +120,9 @@ def build_parser():
                              "fresh run")
     parser.add_argument("--name", default="bla", help="name your experiment")
     parser.add_argument("--remat", action="store_true", default=False,
-                        help="not supported by the port (a TPU lever)")
+                        help="rematerialize the forward in the backward "
+                             "pass (larger per-GPU batches at about one "
+                             "more forward a step)")
     # data
     parser.add_argument("--datapath")
     parser.add_argument("--image_size", default=[384, 512],
@@ -141,9 +148,6 @@ def check_args(args):
     """Refuse what the port does not do; -> the number of local ranks to
     start (1: this process trains, alone or as a rank of torchrun's
     world)."""
-    if args.remat:
-        _refuse("--remat is a TPU memory lever (rematerialized forward) "
-                "that the PyTorch port does not implement")
     if args.gpus is not None and args.gpus < 1:
         _refuse(f"--gpus {args.gpus}: at least one rank")
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -423,7 +427,7 @@ def _train(args, device):
                 if is_training:
                     metrics, poses_est = train_step(
                         step_model, opt, sched, *batch, w_tr=args.w_tr,
-                        w_rot=args.w_rot, clip=args.clip)
+                        w_rot=args.w_rot, clip=args.clip, remat=args.remat)
                     train_steps += 1
                 else:
                     metrics, poses_est = eval_step(

@@ -40,13 +40,28 @@ a forward under autograd reaches the stages' ``autograd.Function``s
 (``ops.vit_stack``, ``ops.essential_block`` or ``ops.attention``).  Eval
 callers run it under ``torch.no_grad()`` or ``torch.inference_mode()``,
 where no stage keeps anything for a backward.
+
+``forward(..., remat=True)`` rematerializes the training forward, as the
+JAX package's ``make_loss_fn(remat=True)`` does: each stage of
+:data:`REMAT_STAGES` runs under a non-reentrant
+``torch.utils.checkpoint``, which keeps the stage's input, frees what its
+ops and autograd Functions saved for the backward (the ViT stack's stash,
+the essential block's and #7's residuals, the trunk's activations), and
+runs the stage again when the backward reaches it.  The recompute leaves
+the BatchNorm running statistics alone (``nn.layers.
+frozen_running_stats``), so a step moves them once; the gradients are
+those of the plain forward.
 """
+
+import contextlib
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.extractor import ResidualBlock
-from ..nn.layers import conv_bn, layernorm, linear, mlp
+from ..nn.layers import (conv_bn, frozen_running_stats, layernorm, linear,
+                         mlp)
 from ..nn.resnet import ResNetTrunk
 from ..nn.transformer import Block, Mlp
 from ..ops.attention import fused_mhsa, mhsa_reference
@@ -61,6 +76,19 @@ from ..ops.posenc import (l1_positional_encoding,
 from ..ops.vit_stack import (fused_vit_stack, stack_block_params,
                              vit_stack_reference)
 from ..utils.precision import apply_matmul_precision
+
+
+#: the stages that ``forward(remat=True)`` checkpoints: every stage that
+#: holds parameters but the fp32 regressor (``pre`` and ``tokens`` hold
+#: none; the regressor saves about 0.1 MB a pair)
+REMAT_STAGES = ("stem", "layer1", "layer2", "extractor", "vit", "cross",
+                "head")
+
+
+def _remat_contexts():
+    """``context_fn`` of a checkpointed stage: the forward as it is, the
+    recompute without moving BatchNorm's running statistics."""
+    return contextlib.nullcontext(), frozen_running_stats()
 
 
 class CrossAttention(nn.Module):
@@ -186,14 +214,21 @@ class ViTEss(nn.Module):
             out.append(("head", self._no_fusion_head))
         return out + [("regress", lambda y: self._regress(y, B, Gs))]
 
-    def forward(self, images, intrinsics=None, Gs=None):
+    def forward(self, images, intrinsics=None, Gs=None, remat=False):
         """``images (B, 2, 3, H, W)`` uint8 or float raw BGR 0-255,
         ``intrinsics (B, 2, 4)`` [fx, fy, cx, cy] at H x W, or None ->
         ``(B, 2, 7)`` fp32 poses (tx ty tz qx qy qz qw).  Pose 0 is taken
-        from ``Gs (B, 2, 7)``, the identity by default."""
+        from ``Gs (B, 2, 7)``, the identity by default.  ``remat``
+        checkpoints each of :data:`REMAT_STAGES` (the module docstring): less
+        memory held for the backward, one more forward of those stages in
+        it."""
         x = images
-        for _, stage in self.stages(images.shape, intrinsics, Gs):
-            x = stage(x)
+        for name, stage in self.stages(images.shape, intrinsics, Gs):
+            if remat and name in REMAT_STAGES:
+                x = checkpoint(stage, x, use_reentrant=False,
+                               context_fn=_remat_contexts)
+            else:
+                x = stage(x)
         return x
 
     def _pre(self, images):

@@ -9,16 +9,22 @@ casts them to the activation dtype where the JAX package does:
   * ``layernorm``: eps 1e-6, fp32 statistics (``:59-68``);
   * ``conv_bn_eval``: eval BatchNorm folded into the conv in fp32
     (``:146-168``); ``conv_bn`` picks it or, in training, the explicit
-    conv and ``batchnorm_train`` (``:82-111``);
+    conv and ``batchnorm_train`` (``:82-111``), whose running statistics
+    stay put under ``frozen_running_stats``;
   * ``max_pool_2d``: torch semantics, -inf padding (``:173-194``);
   * ``gelu``: exact erf in fp32, the tanh form in bf16 (``:199-209``),
     evaluated in fp32 and rounded to the input dtype.
 """
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn.functional as F
 
 from .. import parallel
+
+_STATS_FROZEN = contextvars.ContextVar("running_stats_frozen", default=False)
 
 
 def linear(x, weight, bias):
@@ -51,12 +57,26 @@ def conv_bn_eval(x, conv, bn, weight=None):
     return y + b.to(x.dtype)[:, None, None]
 
 
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within it, :func:`batchnorm_train` normalizes as it does but moves
+    no running statistics: the recompute of a rematerialized stage
+    (``ViTEss.forward(remat=True)``) must not count its batch twice, as the
+    JAX package's functional BatchNorm state never does."""
+    token = _STATS_FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _STATS_FROZEN.reset(token)
+
+
 def batchnorm_train(x, bn):
     """Training-mode BatchNorm over NCHW with the JAX formula
     (``nn/layers.py:93-111``): fp32 batch statistics with
     var = E[x^2] - mean^2, normalized in fp32 and cast to x.dtype.  The
     running statistics of ``bn`` move in place, outside autograd, with
-    momentum 0.1 and the unbiased variance; ``num_batches_tracked`` += 1.
+    momentum 0.1 and the unbiased variance; ``num_batches_tracked`` += 1;
+    not under :func:`frozen_running_stats`.
 
     In a world of more than one rank (``parallel``) the statistics are the
     global batch's, as XLA takes them over the JAX package's mesh: the fp32
@@ -74,12 +94,13 @@ def batchnorm_train(x, bn):
     else:
         mean = xf.mean((0, 2, 3))
         var = xf.square().mean((0, 2, 3)) - mean.square()
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-        bn.running_var.copy_((1 - m) * bn.running_var
-                             + m * (var * (n / max(n - 1, 1))))
-        bn.num_batches_tracked += 1
+    if not _STATS_FROZEN.get():
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var
+                                 + m * (var * (n / max(n - 1, 1))))
+            bn.num_batches_tracked += 1
     inv = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * inv[:, None, None] \
         + bn.bias[:, None, None]

@@ -16,6 +16,11 @@ means over the ranks: the global batch's, as ``make_train_step`` returns
 them replicated (``rel_pose_tpu/train/step.py:78-88``).  That average of
 each rank's mean loss is the global mean only over equal shards, which the
 step checks.
+
+``remat`` (the training CLI's ``--remat``) rematerializes the forward in
+the backward (``ViTEss.forward(remat=True)``), as ``make_train_step(...,
+remat=True)`` does: less activation memory for one more forward of the
+checkpointed stages; the update is the one the step makes without it.
 """
 
 import torch
@@ -26,33 +31,34 @@ from ..utils.precision import apply_matmul_precision
 
 
 def loss_fn(model, images, poses_gt, intrinsics, w_tr=10.0, w_rot=10.0,
-            train_val="train"):
+            train_val="train", remat=False):
     """-> ``(loss, metrics, poses_est)`` with pose 0 pinned to the
-    identity, as the reference's ``Gs = SE3.IdentityLike``."""
+    identity, as the reference's ``Gs = SE3.IdentityLike``; ``remat``
+    rematerializes the forward's stages in the backward."""
     Gs = torch.zeros_like(poses_gt)
     Gs[..., 6] = 1.0
-    poses_est = model(images, intrinsics, Gs=Gs)
+    poses_est = model(images, intrinsics, Gs=Gs, remat=remat)
     loss_tr, loss_rot, metrics = geodesic_loss(poses_gt, poses_est,
                                                train_val)
     return w_tr * loss_tr + w_rot * loss_rot, metrics, poses_est
 
 
 def train_step(model, opt, sched, images, poses_gt, intrinsics, w_tr=10.0,
-               w_rot=10.0, clip=2.5):
+               w_rot=10.0, clip=2.5, remat=False):
     """One optimizer step on a batch: ``images (B, 2, 3, H, W)``,
     ``poses_gt (B, 2, 7)`` fp32, ``intrinsics (B, 2, 4)`` on the model's
     device (under DDP, this rank's shard).  Returns ``(metrics,
     poses_est)``: ``train_geo_loss_tr``, ``train_geo_loss_rot`` and
     ``loss`` (means over the global batch), and this shard's detached
-    predictions.  Applies the fp32 precision knob (``utils.precision``)
-    first."""
+    predictions.  ``remat`` rematerializes the forward in the backward.
+    Applies the fp32 precision knob (``utils.precision``) first."""
     apply_matmul_precision()
     if parallel.world_size() > 1:
         parallel.check_equal_shards(images.shape[0])
     model.train()
     opt.zero_grad(set_to_none=True)
     loss, metrics, poses_est = loss_fn(model, images, poses_gt, intrinsics,
-                                       w_tr, w_rot, "train")
+                                       w_tr, w_rot, "train", remat)
     loss.backward()
     torch.nn.utils.clip_grad_norm_(model.parameters(), clip)
     opt.step()

@@ -1,0 +1,14 @@
+#!/bin/bash
+# scripts/eval_interiornet.sh on the PyTorch port: the paper's evaluation,
+# sharded over the visible GPUs when --batch divides their count.
+# Arguments are appended to the command: --batch 64, --compute_dtype
+# bfloat16, --device cpu.
+export INTERIORNET_STREETLEARN_PATH=${INTERIORNET_STREETLEARN_PATH:-data}
+
+CKPT=${CKPT:-pretrained_models/interiornet.pth}
+EXPNAME=interiornet
+
+python -m rel_pose_tpu_torch.cli.test_streetlearn_interiornet \
+        --exp ${EXPNAME} --transformer_depth 6 \
+        --fusion_transformer --ckpt $CKPT \
+        --datapath=$INTERIORNET_STREETLEARN_PATH --dataset interiornet "$@"

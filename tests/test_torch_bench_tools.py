@@ -115,16 +115,32 @@ def test_bench_stages_bwd_main():
     assert rec["step_ms"] > 0 and rec["dtype"] == "float32"
 
 
+# scripts/bench_train.py's keys
+BENCH_TRAIN_KEYS = ("metric", "value", "unit", "dtype", "batch", "remat",
+                    "pairs_per_sec")
+
+
 @pytest.mark.parametrize("mode", bench_train.MODES)
 def test_bench_train_main(mode):
     code, (rec,) = json_lines(bench_train.main, SMALL + [
         "--batch", "1", "--iters", "1", "--mode", mode])
     assert code == 0
-    # scripts/bench_train.py's keys (less its TPU-only "remat")
-    for k in ("metric", "value", "unit", "dtype", "batch", "pairs_per_sec"):
+    for k in BENCH_TRAIN_KEYS:
         assert k in rec
     assert rec["metric"] == f"train_{mode}_ms" and rec["unit"] == "ms"
     assert rec["value"] > 0 and rec["pairs_per_sec"] > 0
+    assert rec["remat"] is False
+
+
+def test_bench_train_remat(monkeypatch):
+    """``BENCH_REMAT`` (any value but the empty string, as the JAX
+    script reads it) turns remat on, as ``--remat`` does."""
+    monkeypatch.setenv("BENCH_REMAT", "1")
+    code, (rec,) = json_lines(bench_train.main, SMALL + [
+        "--batch", "1", "--iters", "1", "--mode", "grad"])
+    assert code == 0
+    assert all(k in rec for k in BENCH_TRAIN_KEYS)
+    assert rec["remat"] is True and rec["value"] > 0
 
 
 def test_bench_infer_latency_main():

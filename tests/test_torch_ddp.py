@@ -67,9 +67,9 @@ def _free_port():
     return free_port()
 
 
-def run_world(world, out_dir, timeout=300):
-    """Start ``world`` ranks of tests/torch_ddp_worker.py on a free port;
-    -> the Popen handles."""
+def run_world(world, out_dir, timeout=300, args=()):
+    """Start ``world`` ranks of tests/torch_ddp_worker.py on a free port,
+    with the worker's ``args``; -> the Popen handles."""
     port = _free_port()
     procs = []
     for rank in range(world):
@@ -80,7 +80,7 @@ def run_world(world, out_dir, timeout=300):
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(REPO, "tests",
                                           "torch_ddp_worker.py"),
-             str(out_dir)], env=env, cwd=REPO, stdout=subprocess.PIPE,
+             str(out_dir), *args], env=env, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     return [(p, timeout) for p in procs]
 

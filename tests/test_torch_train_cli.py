@@ -29,6 +29,7 @@ and across the packages:
     bit for bit.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -327,7 +328,6 @@ def test_resnet_pretrained_trunk_is_jax_s(matterport, capsys):
      "--gpus 3, but 2 GPUs are visible"),
     (["--device", "cpu", "--batch", "2"], False, 0,
      "unequal shards: the ranks were given --batch [2, 3]"),
-    (["--device", "cpu", "--remat"], False, 0, "--remat"),
 ])
 def test_refusals(tmp_path, monkeypatch, extra, cuda, count, message):
     """What the port cannot do is refused with a message before anything
@@ -343,6 +343,58 @@ def test_refusals(tmp_path, monkeypatch, extra, cuda, count, message):
         cli.main(["--name", "refused", "--datapath", "matterport"] + extra)
     assert message in str(e.value)
     assert not os.path.exists("output")
+
+
+def same_tree(a, b):
+    """Two checkpoint trees equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_tree, a, b))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize("model", [[], FUSION], ids=["nofusion", "flagship"])
+def test_remat_writes_the_plain_runs_checkpoint(matterport, monkeypatch,
+                                                model):
+    """``--remat`` trains: 2 steps of the no-fusion default and of the
+    flagship write the step-2 checkpoint (weights, BatchNorm buffers, Adam,
+    schedule) of the same run without it, bit for bit.  The augmentor
+    draws from a seeded generator (the CLI's is unseeded) so that both runs
+    see the same batches; one loader thread keeps its draws in order.  The
+    recomputes are counted: none without ``--remat``, one a checkpointed
+    stage a step with it."""
+    from rel_pose_tpu_torch.data import augmentation
+    from rel_pose_tpu_torch.models import vitess
+    init = augmentation.RGBDAugmentor.__init__
+    frozen = vitess.frozen_running_stats
+    recomputes = []
+
+    def seeded(self, reshape_size, rng=None, **kw):
+        init(self, reshape_size, rng=np.random.default_rng(0), **kw)
+
+    @contextlib.contextmanager
+    def counted():
+        recomputes.append(1)    # when a recompute enters it
+        with frozen():
+            yield
+
+    monkeypatch.setattr(augmentation.RGBDAugmentor, "__init__", seeded)
+    monkeypatch.setattr(vitess, "frozen_running_stats", counted)
+    stages = 6 if model else 5      # stem ... cross, or stem ... head
+    for name, extra, n in (("plain", [], 0), ("remat", ["--remat"], 2)):
+        recomputes.clear()
+        assert run(name, "--steps", "2", "--warmup", "1", *model,
+                   *extra) == 0
+        assert len(recomputes) == n * stages, name
+    plain, remat = (torch.load(ckpt(n, 2), weights_only=True)
+                    for n in ("plain", "remat"))
+    assert same_tree(plain, remat)
+    counts = {int(v) for k, v in remat["model"].items()
+              if k.endswith("num_batches_tracked")}
+    assert counts == {2}
 
 
 def test_module_entry_refuses_without_a_gpu(tmp_path):

@@ -1,7 +1,7 @@
 """One rank of the port's data-parallel CPU checks (tests/test_torch_ddp.py).
 
     RANK=r WORLD_SIZE=w LOCAL_RANK=r MASTER_ADDR=localhost MASTER_PORT=p \
-        python tests/torch_ddp_worker.py <out_dir>
+        python tests/torch_ddp_worker.py <out_dir> [--remat]
 
 joins the gloo world of its environment (``parallel.init_distributed``)
 and writes ``<out_dir>/rank<r>_of<w>.pt``.  It imports torch and the port,
@@ -24,6 +24,10 @@ float64 BatchNorm on the whole input).  In both worlds ``flops`` is
 ``utils.profiling.estimate_step_flops`` of a train step of the global
 batch, counted on the meta device inside the world, as the training CLI
 counts it for MFU.
+
+With ``--remat`` (tests/test_torch_remat.py) each rank of a world of 2
+runs only ``train`` and ``train_remat``, the same step with
+``train_step(..., remat=True)``.
 """
 
 import contextlib
@@ -85,9 +89,10 @@ def state_dict(model):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def step(model, batch, ddp):
-    """One ``train_step`` of ``model`` (under DDP when ``ddp``) ->
-    metrics, state dict, post-clip gradients, Adam state, warnings."""
+def step(model, batch, ddp, remat=False):
+    """One ``train_step`` of ``model`` (under DDP when ``ddp``, its forward
+    rematerialized when ``remat``) -> metrics, state dict, post-clip
+    gradients, Adam state, warnings."""
     from rel_pose_tpu_torch import parallel
     from rel_pose_tpu_torch.train.optim import make_optimizer
     from rel_pose_tpu_torch.train.step import train_step
@@ -96,7 +101,8 @@ def step(model, batch, ddp):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         metrics, _ = train_step(run, opt, sched,
-                                *(torch.from_numpy(a) for a in batch))
+                                *(torch.from_numpy(a) for a in batch),
+                                remat=remat)
     return {"metrics": {k: v.item() for k, v in metrics.items()},
             "state": state_dict(model),
             "grads": {n: p.grad.detach().clone()
@@ -144,12 +150,21 @@ def model():
     return m
 
 
-def main(out_dir):
+def main(out_dir, remat=False):
     from rel_pose_tpu_torch import parallel
     from rel_pose_tpu_torch.train.step import train_step
     parallel.init_distributed("cpu")
     rank, world = parallel.rank(), parallel.world_size()
     batch = global_batch()
+    per = B // world
+    local = tuple(a[rank * per:(rank + 1) * per] for a in batch)
+    if remat:
+        torch.save({"train": step(model(), local, ddp=True),
+                    "train_remat": step(model(), local, ddp=True,
+                                        remat=True)},
+                   os.path.join(out_dir, f"rank{rank}_of{world}.pt"))
+        parallel.shutdown()
+        return
     from rel_pose_tpu_torch.utils.profiling import estimate_step_flops
     out = {"flops": estimate_step_flops(CFG, B, "train")}
     if world == 1:
@@ -157,8 +172,6 @@ def main(out_dir):
         out["ddp"] = step(model(), batch, ddp=True)
         out["bn"] = batchnorm(0, B)
     else:
-        per = B // world
-        local = tuple(a[rank * per:(rank + 1) * per] for a in batch)
         out["train"] = step(model(), local, ddp=True)
         rows = {"a": ([[rank * 10 + i] * 3 for i in range(3)], 3),
                 "b": ([[rank * 10 + i] * 4 for i in range(3)], 4)}
@@ -181,4 +194,4 @@ def main(out_dir):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], remat="--remat" in sys.argv[2:])
