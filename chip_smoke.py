@@ -10,7 +10,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      = ``highest``: TF32 off for matmuls and cuDNN convs), checked;
   2. build the hand-written CUDA kernels from ``rel_pose_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version on the card, fp32 and
-     bf16 (ViT stack -- the tensor-core kernels for bf16, SIMT for fp32 --
+     bf16 (ViT stack -- tensor-core kernels, fp32 as 3xTF32 --
      at G=16 and at G=3 sequences, whose 1,728 rows leave a ragged GEMM
      tile, and at G=3 of width 64, off the 192-column tiles; essential
      block at B=8 pairs); the sha256 of the fp32 outputs is printed
@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      plain block inputs, the ViT stack backward (dx and the 12 weight
      gradients, the same three shapes) and the essential block backward
      (dq, dk, dv, dpos, B=8) against their plain backward versions, and
-     each backward twice for identical bits;
+     each backward twice for identical bits; the fp32 ViT stack at G=16
+     against the plain version run in float64: the kernel's max error at
+     most F64_BAR times the fp32 plain version's, for the output, dx and
+     the 12 gradients;
   4. the slice: ``PosePredictor`` over the flagship ``ViTEss`` (depth 6,
      seeded random weights) answers InteriorNet-style 256x256 requests of
      1, 5 and 8 pairs and a Matterport-style 480x640 request resized to
@@ -42,9 +45,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      at that size against the plain version first; its GEMM and attention
      parts from ``torch.profiler``; #2's parts too -- key statistics, vb_n,
      moments, F-partial sum, qkv GEMM, LayerNorm -- each with the TFLOP/s
-     of its executed products and its exp2 count over 3.9 T/s), and the eval
-     forward in pairs/s at batch 256, 256x256 uint8, bf16, preprocessing
-     included;
+     of its executed products and its exp2 count over 3.9 T/s), the ViT
+     stack in fp32 at G = 512 and 120 (beside the fp32 library stack and
+     SDPA, the bound on the 3xTF32 peak, TFLOP/s against it and the SIMT
+     peak), one fp32 reading of #2, #3, #4, and the eval forward in pairs/s
+     at batch 256, 256x256 uint8, bf16, preprocessing included;
   5b. each backward kernel and its plain version at the training shapes of
      batch 60 in bf16 (the ViT stack's and #6's also by part: #6's
      statistics, prologue, rho / gamma passes and its two gradient passes);
@@ -52,8 +57,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      stack from library calls (``F.layer_norm``, cuBLAS ``F.linear``,
      ``F.scaled_dot_product_attention``, ``F.gelu``), forward (eval shapes)
      and backward of a kept forward (training shapes), and one SDPA call
-     each way; and the training step in pairs/s at batch 60, 384x512 uint8
-     (bench.py's train protocol), fp32 and bf16, kernels and plain path.
+     each way; #5 and #6 in fp32 the same way; and the training step in
+     pairs/s at batch 60, 384x512 uint8 (bench.py's train protocol), fp32
+     and bf16, kernels and plain path.
 
 The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
@@ -79,7 +85,8 @@ cross block's plain attention, in place of the essential block):
      the function's products, 4 N^2 d a head forward and 10 backward; the
      backward also with the forward's statistics, as a train step runs
      it), plain version and ``F.scaled_dot_product_attention`` (the
-     yardstick, timed only); the noess eval forward at batch 256 (bf16) and
+     yardstick, timed only), and one fp32 reading of each beside fp32
+     SDPA; the noess eval forward at batch 256 (bf16) and
      train step at batch 60 (fp32, bf16), kernels and plain path.
 
 The ablations of the Essential Matrix Module (``ModelConfig`` with
@@ -136,7 +143,7 @@ The last two Pallas kernels: #8, the per-head bilinear op of
      #4 + #6 and its plain version at batch 60; the microbenchmark script's
      cases at batch 256 (#9's counters set to 0 just before and read just
      after), with the plain times of s2, mxu_sums and bf16_mul; each with
-     its bound.
+     its bound; then one fp32 reading of #8 each way and of #9's s.
 
 The no-fusion baseline (``ModelConfig(fusion_transformer=False)``, the
 training CLI's default; no hand kernel on its path) and the training CLI:
@@ -320,9 +327,12 @@ EVAL_BATCH = 256        # bench.py's eval protocol
 TRAIN_BATCH = 60        # bench.py's train protocol: 384x512 uint8 pairs
 SLICE_TRAIN_BATCH = 4   # the training slice's check batches
 OUTPUT_DIR = pathlib.Path(__file__).resolve().parent / "output"
-# One H100 SXM (NVIDIA data sheet): dense bf16 tensor-core and
-# fp32 non-tensor-core peaks, and the HBM rate, for the kernels' bounds.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# One H100 SXM (NVIDIA data sheet): the dense bf16 tensor-core peak, and
+# for fp32 the TF32 tensor cores' 495 TFLOP/s over the three TF32 products
+# of one fp32-accurate product (3xTF32), which a tensor-core kernel may
+# reach and the SIMT units' 67 may not bound; the HBM rate.
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+SIMT_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 NVSMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]
@@ -611,6 +621,82 @@ def check_vit_bwd(G, dtype, rng, device, failures, C=192, hidden=768):
     return max(e)
 
 
+# The float64 bar of the fp32 ViT stack (#1's output, #5's dx and 12
+# gradients, G = 16): the kernel's max |err| from the plain version run in
+# float64 at most F64_BAR times the fp32 plain version's.  The kernels'
+# products are 3xTF32 (tests/test_torch_tf32x3.py and
+# ops.vit_stack.tf32x3_matmul: it drops the lo . lo term, below 2^-22 of
+# |a||b|), and the tensor cores' fp32 accumulation does not round like an
+# IEEE FMA chain; fp32's cuBLAS and the plain version's elementwise
+# rounding set the fp32 error this is held to.
+F64_BAR = 2.0
+
+
+def vit_stack_f64(x, stacked, heads, pos):
+    """The stack's function on float64 inputs with no rounding between ops
+    (the plain version's arithmetic: two-pass LayerNorm, exp2 softmax with
+    the scale d^-1/2 log2 e, exact-erf GELU), differentiable by autograd:
+    the float64 reference of the fp32 kernels."""
+    import torch.nn.functional as F
+    G, N, C = x.shape
+    d = C // heads
+    x = x + pos
+    for i in range(stacked["qkv_w"].shape[0]):
+        p = {k: v[i] for k, v in stacked.items()}
+        y = F.layer_norm(x, (C,), p["ln1_scale"], p["ln1_bias"], 1e-6)
+        q, k, v = F.linear(y, p["qkv_w"], p["qkv_b"]).view(
+            G, N, 3, heads, d).permute(2, 0, 3, 1, 4)
+        s = torch.matmul(q, k.transpose(-1, -2)) * (d ** -0.5
+                                                     * 1.4426950408889634)
+        e = torch.exp2(s - s.amax(-1, keepdim=True))
+        o = torch.matmul(e, v) / e.sum(-1, keepdim=True)
+        x = x + F.linear(o.transpose(1, 2).reshape(G, N, C), p["proj_w"],
+                         p["proj_b"])
+        y = F.layer_norm(x, (C,), p["ln2_scale"], p["ln2_bias"], 1e-6)
+        x = x + F.linear(F.gelu(F.linear(y, p["fc1_w"], p["fc1_b"])),
+                         p["fc2_w"], p["fc2_b"])
+    return x
+
+
+def check_vit_f64(device, failures, G=16):
+    """#1 (output) and #5 (dx, the 12 stacked gradients) in fp32 against
+    :func:`vit_stack_f64` on the same inputs, beside the fp32 plain
+    versions (each backward from its own forward's stash): fails unless
+    the kernel's max |err| <= F64_BAR x the plain version's, per output."""
+    from rel_pose_tpu_torch.ops import vit_stack as tv
+    rng = np.random.default_rng(SEED + 8)
+    x, stacked, pos = vit_inputs(rng, G, torch.float32, device)
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(
+        np.float32)).to(device)
+    out, xs = tv._launch_forward(x, stacked, 3, pos, stash=True)
+    dx, grads = tv.fused_vit_stack_bwd(xs, g, stacked, 3)
+    plain_xs = []
+    pout = tv.vit_stack_reference(x, stacked, 3, pos, stash=plain_xs)
+    pdx, pgrads = tv.vit_stack_bwd_reference(torch.stack(plain_xs), g,
+                                             stacked, 3)
+    leaves = [t.double().requires_grad_() for t in (x, *stacked.values())]
+    out64 = vit_stack_f64(leaves[0], dict(zip(stacked, leaves[1:])), 3,
+                          pos.double())
+    d64 = torch.autograd.grad(out64, leaves, g.double())
+    rows = [("out", out, pout, out64.detach()), ("dx", dx, pdx, d64[0])]
+    rows += [(f"d{k}", grads[k], pgrads[k], d64[1 + i])
+             for i, k in enumerate(stacked)]
+    worst = 0.0
+    for name, kern, plain, ref in rows:
+        ek = (kern.double() - ref).abs().max().item()
+        ep = (plain.double() - ref).abs().max().item()
+        ratio = ek / ep if ep > 0 else (0.0 if ek == 0 else float("inf"))
+        worst = max(worst, ratio)
+        ok = bool(np.isfinite(ek)) and ek <= F64_BAR * ep
+        log(f"[check] vit_stack fp32 {name} G={G} against float64: kernel "
+            f"max |err| {ek:.3e}, fp32 plain {ep:.3e}, ratio {ratio:.3f} "
+            f"(<= {F64_BAR}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"vit_stack fp32 {name} float64 bar")
+    log(f"[check] vit_stack fp32 G={G} float64 bar: worst ratio "
+        f"{worst:.3f} over {len(rows)} outputs")
+
+
 def phase_kernels_bwd(device):
     """(3b) the stash and both backward kernels against their plain
     versions on the card, fp32 and bf16, and bitwise repeatability."""
@@ -627,6 +713,8 @@ def phase_kernels_bwd(device):
              for G, C, hidden in ((16, 192, 768), (3, 192, 768),
                                   (3, 64, 256))]
         errs["vit_stack_bwd", dtype] = e[0]
+        if dtype == torch.float32:
+            check_vit_f64(device, failures)
 
         xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
         qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
@@ -886,9 +974,10 @@ def sdpa_ms(G, dtype, device, backward):
 
 def library_vit_stack(x, stacked, heads, pos):
     """The stack's function from library calls -- ``F.layer_norm``,
-    cuBLAS ``F.linear``, ``F.scaled_dot_product_attention``, ``F.gelu`` --
-    in the activation dtype: the yardstick of #1 and #5, timed only and
-    never called by the port."""
+    cuBLAS ``F.linear``, ``F.scaled_dot_product_attention``, ``F.gelu``
+    (tanh in bf16, erf in fp32, the port's policy) -- in the activation
+    dtype: the yardstick of #1 and #5, timed only and never called by the
+    port."""
     import torch.nn.functional as F
     G, N, C = x.shape
     x = x + pos
@@ -901,7 +990,9 @@ def library_vit_stack(x, stacked, heads, pos):
         x = x + F.linear(a.transpose(1, 2).reshape(G, N, C), p["proj_w"],
                          p["proj_b"])
         y = F.layer_norm(x, (C,), p["ln2_scale"], p["ln2_bias"], 1e-6)
-        h = F.gelu(F.linear(y, p["fc1_w"], p["fc1_b"]), approximate="tanh")
+        h = F.gelu(F.linear(y, p["fc1_w"], p["fc1_b"]),
+                   approximate="tanh" if x.dtype == torch.bfloat16
+                   else "none")
         x = x + F.linear(h, p["fc2_w"], p["fc2_b"])
     return x
 
@@ -929,12 +1020,12 @@ def library_stack_ms(x, stacked, pos, backward):
 
 
 def kernel_parts_ms(fn):
-    """Device time of one ``fn()`` by part: the tensor-core attention
-    kernels (``rp::tc::attn_*``), the tensor-core GEMMs (``rp::tc::gemm_*``)
-    and the rest."""
+    """Device time of one ``fn()`` by part: the attention kernels
+    (``rp::tc::attn_*``, the SIMT ``rp::attention_*``), the GEMMs
+    (``gemm_*``) and the rest."""
     return profile_parts_ms(fn, lambda key: (
-        "attention" if "tc::attn_" in key else
-        "gemm" if "tc::gemm_" in key else "other"))
+        "attention" if "attn_" in key or "attention_" in key else
+        "gemm" if "gemm_" in key else "other"))
 
 
 # The special-function units' exp2 rate of one H100 SXM, ~3.9 T/s (the
@@ -1061,7 +1152,124 @@ def log_parts(name, parts, gemm_flops, attn_flops, card):
         f"({card})")
 
 
+def time_vit_stack(device, card, G, backward, dtype=torch.float32):
+    """#1 (or, with ``backward``, #5) in ``dtype`` at G sequences of the
+    model's widths: checked against the plain version, then timed beside
+    it, the library stack in the same dtype (fp32: cuBLAS and cuDNN with
+    TF32 off, phase_device) and one SDPA call; the bound on the dtype's
+    peak (fp32: 3xTF32), and the kernel's TFLOP/s of the function's
+    products against it (fp32: and the SIMT peak).  Returns the kernel's
+    row."""
+    from rel_pose_tpu_torch.ops import vit_stack as tv
+    tag = "fp32" if dtype == torch.float32 else "bf16"
+    rng = np.random.default_rng(SEED + 7)
+    failures = []
+    x, stacked, pos = vit_inputs(rng, G, dtype, device)
+    flops = vit_flops(G, 576, 192, 768, 5)
+    if backward:
+        _, xs = tv._launch_forward(x, stacked, 3, pos, stash=True)
+        g = torch.from_numpy(rng.standard_normal(x.shape).astype(
+            np.float32)).to(device, dtype)
+        dx, grads = tv.fused_vit_stack_bwd(xs, g, stacked, 3)
+        rdx, rgrads = tv.vit_stack_bwd_reference(xs, g, stacked, 3)
+        err = max([check_grad(f"vit_stack_bwd dx G={G}", dx, rdx, dtype,
+                              failures)]
+                  + [check_grad(f"vit_stack_bwd d{k} G={G}", grads[k],
+                                rgrads[k], dtype, failures) for k in grads])
+        del dx, grads, rdx, rgrads
+
+        def kernel():
+            return tv.fused_vit_stack_bwd(xs, g, stacked, 3)
+
+        def plain():
+            return tv.vit_stack_bwd_reference(xs, g, stacked, 3)
+        flops *= 2   # dX and dW of each Linear, 4 attention products
+        n_params = sum(v.numel() for v in stacked.values())
+        nb = (nbytes(xs) + 2 * nbytes(g) + nbytes(*stacked.values())
+              + 4 * n_params)
+        name = "vit_stack_bwd"
+    else:
+        err = check_tokens(f"vit_stack G={G} depth=5",
+                           tv.fused_vit_stack(x, stacked, 3, pos),
+                           tv.vit_stack_reference(x, stacked, 3, pos),
+                           dtype, failures)
+
+        def kernel():
+            return tv.fused_vit_stack(x, stacked, 3, pos)
+
+        def plain():
+            return tv.vit_stack_reference(x, stacked, 3, pos)
+        nb = 2 * nbytes(x) + nbytes(pos, *stacked.values())
+        name = "vit_stack"
+    if failures:
+        raise SystemExit(f"{tag} G={G} checks failed: {failures}")
+    ms = cuda_time_ms(kernel, 3)
+    plain_ms = cuda_time_ms(plain, 2 if backward else 3)
+    lib_ms, _ = library_stack_ms(x, stacked, pos, backward)
+    sdpa = sdpa_ms(G, dtype, device, backward)
+    b = bound(flops, nb, dtype)
+    rate = flops / ms / 1e9
+    attn = vit_attention_flops(G, 576, 192, 5, 6 if backward else 2)
+    gemm = (3 if backward else 1) * (vit_flops(G, 576, 192, 768, 5)
+                                     - vit_attention_flops(G, 576, 192, 5, 2))
+    log_parts(f"{name} {tag} G={G}", kernel_parts_ms(kernel), gemm, attn,
+              card)
+    simt = (f", {rate * 1e12 / SIMT_FP32_FLOPS:.1%} of "
+            f"{SIMT_FP32_FLOPS / 1e12:.0f} (SIMT)"
+            if dtype == torch.float32 else "")
+    log(f"[time] {name} {tag} G={G}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, library stack{' backward' if backward else ''}"
+        f" {lib_ms:.3f} ms, one SDPA {'backward' if backward else 'call'} "
+        f"{sdpa:.3f} ms, bound {b[0]:.3f} ms ({b[1]}); {rate:.2f} TFLOP/s "
+        f"of the function's products, {rate * 1e12 / PEAK_FLOPS[dtype]:.1%} "
+        f"of {PEAK_FLOPS[dtype] / 1e12:.0f}{simt} ({card})")
+    return err, ms, plain_ms, lib_ms, b
+
+
+def time_fp32(name, kernel, plain, flops, nb, card, plain_iters=3,
+              lib_ms=None):
+    """One fp32 reading of a kernel at a shape its phase checks (#2-#4 and
+    #6-#9, which keep their SIMT fp32 bodies): CUDA-event ms of ``kernel()``
+    and ``plain()``, the bound on the 3xTF32 peak, the TFLOP/s of the
+    function's products against it and the SIMT peak; returns the row."""
+    ms = cuda_time_ms(kernel, 3)
+    plain_ms = cuda_time_ms(plain, plain_iters)
+    b = bound(flops, nb, torch.float32)
+    rate = flops / ms / 1e9
+    lib = "" if lib_ms is None else f", library {lib_ms:.3f} ms"
+    log(f"[time] {name} fp32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+        f"{lib}, bound {b[0]:.3f} ms ({b[1]}); {rate:.2f} TFLOP/s, "
+        f"{rate * 1e12 / PEAK_FLOPS[torch.float32]:.1%} of 165 (3xTF32), "
+        f"{rate * 1e12 / SIMT_FP32_FLOPS:.1%} of 67 (SIMT) ({card})")
+    return None, ms, plain_ms, lib_ms, b
+
+
+def time_train_steps(device, sd, card, dtypes=DTYPES, **flags):
+    """ms of the batch-60 train step of ``ModelConfig(**flags)`` per
+    (dtype, kernels), with its pairs/s and peak memory logged."""
+    from rel_pose_tpu_torch.train.step import train_step
+    rng = np.random.default_rng(SEED + 5)
+    batch = train_batch(rng, TRAIN_BATCH, device)
+    step_ms = {}
+    for dtype in dtypes:
+        for kernels in (True, False):
+            model, opt, sched = train_model(dtype, sd, device, kernels,
+                                            **flags)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_time_ms(lambda: train_step(model, opt, sched, *batch),
+                              3)
+            step_ms[dtype, kernels] = ms
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"[time] train step {str(dtype)[6:]} batch {TRAIN_BATCH} "
+                f"384x512 uint8 ({'kernels' if kernels else 'plain path'}):"
+                f" {ms:.3f} ms, {TRAIN_BATCH / ms * 1e3:.2f} pairs/s, peak "
+                f"{peak:.2f} GiB ({card})")
+            del model, opt, sched
+    return step_ms
+
+
 def phase_times(device, models, card):
+    from rel_pose_tpu_torch.ops import essential_block as te
     from rel_pose_tpu_torch.ops.essential_block import (
         essential_block_pair_reference, fused_essential_block_pair)
     from rel_pose_tpu_torch.ops.vit_stack import (fused_vit_stack,
@@ -1096,6 +1304,9 @@ def phase_times(device, models, card):
         lambda: fused_vit_stack(x, stacked, 3, pos)),
         vit_flops(G, 576, 192, 768, 5) - attn, attn, card)
     del x, stacked, pos
+    rows["vit_stack fp32"] = time_vit_stack(device, card, G, False)
+    rows["vit_stack fp32 G=120"] = time_vit_stack(device, card,
+                                                 2 * TRAIN_BATCH, False)
 
     args = essential_inputs(rng, B, dtype, device)
     f = fused_essential_block_pair(*args, 3)
@@ -1114,9 +1325,36 @@ def phase_times(device, models, card):
         once=True),
         essential_executed(B, 576, 70, False, False), card)
     del args, f, xpair, positional
+    # fp32 readings of #2, #3, #4 at the same batch
+    args = essential_inputs(np.random.default_rng(SEED + 20), B,
+                            torch.float32, device)
+    xpair, ln, qkvp, positional = args
+    f = fused_essential_block_pair(*args, 3)
+    rows["essential_block_pair fp32"] = time_fp32(
+        f"essential_block_pair batch {B}",
+        lambda: fused_essential_block_pair(*args, 3),
+        lambda: essential_block_pair_reference(*args, 3),
+        essential_fwd_flops(B, 576, 192, 3), nbytes(xpair, f) + 4 * small,
+        card)
+    (x1, x2), (q1, q2), _ = split_pair(xpair, ln, qkvp)
+    f = te.fused_essential_block(q1, q2, positional, 3)
+    rows["essential_block fp32"] = time_fp32(
+        f"essential_block batch {B}",
+        lambda: te.fused_essential_block(q1, q2, positional, 3),
+        lambda: te.essential_block_reference(q1, q2, positional, 3),
+        moments_fwd_flops(B, 576, 3), nbytes(q1, q2, positional, f), card)
+    rows["essential_block_x fp32"] = time_fp32(
+        f"essential_block_x batch {B}",
+        lambda: te.fused_essential_block_x(x1, x2, qkvp, positional, 3),
+        lambda: te.essential_block_x_reference(x1, x2, qkvp, positional, 3),
+        essential_fwd_flops(B, 576, 192, 3),
+        nbytes(x1, x2, positional, f) + 4 * small, card)
+    del args, f, xpair, positional, x1, x2, q1, q2
     if failures:
         raise SystemExit(f"batch-256 kernel checks failed: {failures}")
     for name, (err, ms, plain_ms, lib_ms, b) in rows.items():
+        if " fp32" in name:   # logged by time_vit_stack / time_fp32
+            continue
         log(f"[time] {name} bf16 batch {B}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, library {lib_ms} ms, bound {b[0]:.3f} ms "
             f"({b[1]}) ({card})")
@@ -1303,7 +1541,6 @@ def phase_times_train(device, sd, card):
     from rel_pose_tpu_torch.nn.layers import layernorm
     from rel_pose_tpu_torch.ops import essential_block as te
     from rel_pose_tpu_torch.ops import vit_stack as tv
-    from rel_pose_tpu_torch.train.step import train_step
     B, G = TRAIN_BATCH, 2 * TRAIN_BATCH
     dtype = torch.bfloat16
     rng = np.random.default_rng(SEED + 5)
@@ -1368,27 +1605,31 @@ def phase_times_train(device, sd, card):
         essential_part, once=True),
         essential_executed(B, 576, 70, False, True), card)
     del xpair, qkv, pos, df, dq, dp
+    # #6 in fp32 at the same batch
+    rng32 = np.random.default_rng(SEED + 20)
+    xpair, ln, qkvp, pos = essential_inputs(rng32, B, torch.float32, device)
+    qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
+    df = torch.from_numpy((0.1 * rng32.standard_normal(
+        (B, 2, 3, 70, 70))).astype(np.float32)).to(device)
+    dq, dp = te.fused_essential_block_bwd(qkv, pos, df, 3)
+    rows["essential_block_bwd fp32"] = time_fp32(
+        f"essential_block_bwd batch {B}",
+        lambda: te.fused_essential_block_bwd(qkv, pos, df, 3),
+        lambda: te.essential_block_bwd_reference(qkv, pos, df, 3),
+        essential_bwd_flops(B, 576, 3), 2 * nbytes(qkv) + nbytes(pos, df, dp),
+        card, plain_iters=2)
+    del xpair, qkv, pos, df, dq, dp
     if failures:
         raise SystemExit(f"batch-60 backward checks failed: {failures}")
     for name, (err, ms, plain_ms, lib_ms, b) in rows.items():
+        if " fp32" in name:   # logged by time_vit_stack / time_fp32
+            continue
         log(f"[time] {name} bf16 batch {B}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, library {lib_ms} ms, bound {b[0]:.3f} ms "
             f"({b[1]}) ({card})")
 
-    batch = train_batch(rng, B, device)
-    step_ms = {}
-    for dtype in DTYPES:
-        for kernels in (True, False):
-            model, opt, sched = train_model(dtype, sd, device, kernels)
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_time_ms(lambda: train_step(model, opt, sched, *batch),
-                              3)
-            step_ms[dtype, kernels] = ms
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            log(f"[time] train step {str(dtype)[6:]} batch {B} 384x512 uint8 "
-                f"({'kernels' if kernels else 'plain path'}): {ms:.3f} ms, "
-                f"{B / ms * 1e3:.2f} pairs/s, peak {peak:.2f} GiB ({card})")
-            del model, opt, sched
+    rows["vit_stack_bwd fp32"] = time_vit_stack(device, card, G, True)
+    step_ms = time_train_steps(device, sd, card)
     return rows, step_ms[torch.bfloat16, True]
 
 
@@ -1526,6 +1767,22 @@ def phase_times_noess(device, models, sd, card):
     saved_ms = cuda_time_ms(
         lambda: ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE, stats), 5)
     del q, k, v, do, stats
+    rng32 = np.random.default_rng(SEED + 20)
+    q, k, v = heads(rng32, G_eval, torch.float32, device, 3)
+    rows["mhsa_fwd fp32"] = time_fp32(
+        f"mhsa_fwd G={G_eval}", lambda: ta.fused_mhsa(q, k, v, MHSA_SCALE),
+        lambda: ta.mhsa_reference(q, k, v, MHSA_SCALE),
+        4 * G_eval * N * N * d, 4 * nbytes(q), card,
+        lib_ms=sdpa_ms(G_eval // 3, torch.float32, device, backward=False))
+    del q, k, v
+    q, k, v, do = heads(rng32, G_train, torch.float32, device, 4)
+    rows["mhsa_bwd fp32"] = time_fp32(
+        f"mhsa_bwd G={G_train}",
+        lambda: ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE),
+        lambda: ta.mhsa_bwd_reference(q, k, v, do, MHSA_SCALE),
+        10 * G_train * N * N * d, 7 * nbytes(q), card,
+        lib_ms=sdpa_ms(G_train // 3, torch.float32, device, backward=True))
+    del q, k, v, do
     log(f"[time] mhsa_fwd bf16 G={G_train} (training shapes): kernel "
         f"{fwd_train_ms:.3f} ms; mhsa_bwd from the forward's stats "
         f"{saved_ms:.3f} ms, {10 * G_train * N * N * d / saved_ms / 1e9:.1f}"
@@ -2215,6 +2472,37 @@ def phase_times_bilinear(device, card, errs):
     for name, (err, ms, plain_ms, _, (b_ms, b_by)) in rows.items():
         log(f"[time] {name} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, bound {b_ms:.3f} ms ({b_by}) ({card})")
+
+    # fp32 readings of #8 and #9's s (its other modes are bf16 only)
+    rng32 = np.random.default_rng(SEED + 20)
+    G = 2 * EVAL_BATCH * 3
+    q, k, va, vb, _ = bilinear_inputs(rng32, G, 70, torch.float32, device,
+                                      True)
+    f = tb.fused_bilinear_attention(q, k, va, vb, 0.125)
+    rows["bilinear_fwd fp32"] = time_fp32(
+        f"bilinear_fwd G={G}",
+        lambda: tb.fused_bilinear_attention(q, k, va, vb, 0.125),
+        lambda: tb.bilinear_attention_reference(q, k, va, vb, 0.125),
+        moments_fwd_flops(EVAL_BATCH, 576, 3), nbytes(q, k, vb, f), card)
+    G = 2 * TRAIN_BATCH * 3
+    q, k, va, vb, df = bilinear_inputs(rng32, G, 70, torch.float32, device,
+                                       True)
+    grads = tb.fused_bilinear_attention_bwd(q, k, va, vb, df, 0.125)
+    rows["bilinear_bwd fp32"] = time_fp32(
+        f"bilinear_bwd G={G}",
+        lambda: tb.fused_bilinear_attention_bwd(q, k, va, vb, df, 0.125),
+        lambda: tb.bilinear_attention_bwd_reference(q, k, va, vb, df, 0.125),
+        essential_bwd_flops(TRAIN_BATCH, 576, 3),
+        2 * nbytes(q, k, vb) + nbytes(df, *grads), card, plain_iters=2)
+    del q, k, va, vb, df, grads, f
+    a, b_, p = (t.float() for t in bench.make_inputs(B, device, SEED + 17))
+    f = cv.essential_block_s(a, b_, p, 2)
+    rows["essential_block_s fp32"] = time_fp32(
+        f"essential_block_s S=2 batch {B}",
+        lambda: cv.essential_block_s(a, b_, p, 2),
+        lambda: te.essential_block_reference(a, b_, p, 3),
+        moments_fwd_flops(B, 576, 3), nbytes(a, b_, p, f), card)
+    del a, b_, p, f
     return rows, launches
 
 

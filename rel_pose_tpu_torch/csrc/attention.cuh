@@ -1,11 +1,10 @@
 // Softmax attention over 64-wide heads, forward and backward, on SIMT fp32
-// FMAs: the fp32 route of vit_stack.cu (the ViT blocks' self-attention: q,
-// k, v interleaved in one (G, N, 3C) tensor) and of mhsa.cu (the --noess
-// cross attention: separate (G, N, 64) q, k, v).  bf16 runs the
-// tensor-core kernels of attention_tc.cuh.  Each kernel is templated on a
-// layout, which says where one (sequence, head)'s rows are read and
-// written, in which dtype, and the two places where the two Pallas kernels
-// round differently.
+// FMAs: the fp32 route of mhsa.cu (the --noess cross attention, kernel #7:
+// separate (G, N, 64) q, k, v).  bf16 #7 and the ViT stack's attention in
+// both dtypes (kernels #1 and #5) run the tensor-core kernels of
+// attention_tc.cuh.  Each kernel is templated on a layout, which says where
+// one (sequence, head)'s rows are read and written, in which dtype, and the
+// places where the Pallas kernel rounds.
 //
 // Design: the N x N fp32 score matrix of one head (1.33 MB at N = 576) does
 // not fit in shared memory, so each CUDA block takes 32 query rows and
@@ -57,47 +56,6 @@ __device__ __forceinline__ float ldg_f32(const T* p) {
 // row 0 of q, k, v, o, the cotangent dO of o, and dq, dk, dv, and the row
 // strides: ld_in() of q, k, v, dq, dk, dv, ld_out() of o and dO.  The
 // kernels add row * stride + column to these per-block bases.
-
-// The ViT stack (pallas_vit.py, pallas_vit_bwd.py:_attn_bwd_heads): head h
-// of sequence g reads q, k, v at columns h*64, C + h*64, 2C + h*64 of qkv
-// (G, N, 3C) and writes o at column h*64 of out (G, N, C), in T.  The
-// backward reads the cotangent of o from fp32 dout (G, N, C) and writes
-// fp32 dq, dk, dv at the q, k, v columns of dqkv (G, N, 3C).  The row
-// statistics come from the forward (its `stats`).
-template <typename T>
-struct InterleavedQkv {
-  using Elem = T;
-  static constexpr bool kOwnStats = false;
-  const T* qkv;
-  T* out;
-  const float* dout;
-  float* dqkv;
-  int N, C;
-
-  __device__ size_t ld_in() const { return 3 * (size_t)C; }
-  __device__ size_t ld_out() const { return C; }
-  __device__ size_t in0(int g, int h) const {
-    return (size_t)g * N * ld_in() + h * kHeadDim;
-  }
-  __device__ size_t out0(int g, int h) const {
-    return (size_t)g * N * ld_out() + h * kHeadDim;
-  }
-  __device__ const T* q(int g, int h) const { return qkv + in0(g, h); }
-  __device__ const T* k(int g, int h) const { return q(g, h) + C; }
-  __device__ const T* v(int g, int h) const { return q(g, h) + 2 * C; }
-  __device__ T* o(int g, int h) const { return out + out0(g, h); }
-  __device__ const float* dO(int g, int h) const { return dout + out0(g, h); }
-  __device__ float* dq(int g, int h) const { return dqkv + in0(g, h); }
-  __device__ float* dk(int g, int h) const { return dq(g, h) + C; }
-  __device__ float* dv(int g, int h) const { return dq(g, h) + 2 * C; }
-  // o = (P . v) * (1 / l)
-  __device__ static float normalize(float o, float l) { return o * (1.f / l); }
-  // d s for s = q.k * scale: e ((dp - c) / l) ln2 scale
-  __device__ float ds(float e, float dp, float c, float l,
-                      float scale) const {
-    return e * ((dp - c) / l) * kLn2 * scale;
-  }
-};
 
 // Pallas kernel #7 (pallas_attention.py:_fwd_kernel / _bwd_kernel): q, k,
 // v, o, the cotangent do and dq, dk, dv are separate (G, N, 64) tensors in

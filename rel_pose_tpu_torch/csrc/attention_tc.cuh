@@ -1,33 +1,41 @@
-// Softmax attention over 64-wide heads on the tensor cores, bf16, forward
-// and backward: the ViT stack's self-attention (kernels #1 and #5) and the
-// --noess cross attention (kernel #7).
+// Softmax attention over 64-wide heads on the tensor cores, forward and
+// backward: the ViT stack's self-attention (kernels #1 and #5, bf16 and
+// fp32) and the --noess cross attention (kernel #7, bf16).
 //
-// Replaces, for bf16 only, attention.cuh's SIMT kernels inside
+// Replaces attention.cuh's SIMT kernels inside
 //   - rel_pose_tpu/ops/pallas_vit.py:_vit_stack_kernel (forward, with the
 //     row statistics the backward reads) and pallas_vit_bwd.py:
 //     _attn_bwd_heads (dq, dk, dv), layout Interleaved: q, k, v read from
 //     the qkv GEMM's (G, N, 3C) output, head h at columns h*64, C + h*64,
-//     2C + h*64 (vit_stack.cu);
+//     2C + h*64 (vit_stack.cu), in bf16 and fp32;
 //   - rel_pose_tpu/ops/pallas_attention.py:_fwd_kernel and _bwd_kernel,
 //     layout Separate: (G, N, 64) q, k, v, o, do, dq, dk, dv, one head per
-//     sequence (mhsa.cu).
-// fp32 stays on attention.cuh.  The kernels take base pointers and row
-// strides, and are templates on a layout type, which says in which dtype
-// the cotangent arrives and the gradients leave, and the two rounding
-// points in which the two Pallas kernels differ.
+//     sequence (mhsa.cu), in bf16 (#7's fp32 stays on attention.cuh).
+// The kernels take base pointers and row strides, and are templates on a
+// layout type, which says in which dtype the cotangent arrives and the
+// gradients leave, and the two rounding points in which the two Pallas
+// kernels differ, and on the element type E, which picks the product as
+// gemm_tc.cuh does: bf16 m16n8k16, or fp32 as 3xTF32 on m16n8k8 (each
+// operand split into TF32 hi + lo in registers, hi.hi + hi.lo + lo.hi
+// summed in fp32: fp32 accuracy).
 //
 // What bounds them on the H100: the products, 2 N^2 d multiply-adds a head
 // for the forward's two (QK^T, PV), which at N = 576 and d = 64 is 64
-// operations per byte of q, k, v and o -- below the 295 of the bf16 tensor
-// cores, so at full rate HBM would bound them; here the mma.sync
-// throughput and the exp2 of every score decide.
+// operations per byte of bf16 q, k, v and o -- below the 295 of the bf16
+// tensor cores, so at full rate HBM would bound them -- and 32 in fp32, at
+// 3xTF32's 165 TFLOP/s below its 49; here the mma.sync throughput, the
+// exp2 of every score and, in fp32, the split of every operand decide.
 //
 // Design: one block of 4 warps per (64-query or 64-key tile, head,
-// sequence); each warp owns 16 rows, and every product is mma.sync
-// m16n8k16 with its operands from padded 64 x 64 bf16 shared-memory tiles
-// (ldmatrix, .trans where the product reads a tile along its rows).
+// sequence); each warp owns 16 rows, and every product is mma.sync with its
+// operands from padded 64 x 64 shared-memory tiles (bf16: ldmatrix, .trans
+// where the product reads a tile along its rows; fp32: 32-bit loads, and
+// an accumulator reused as the next product's A operand keeps its
+// registers, the k index permuted so that key 2t sits in slot t and key
+// 2t + 1 in slot t + 4 of each 8-key step, B read in the same order).
 // Scores stay in registers and the Pallas kernels' rounding points are
-// kept exactly, with no online rescaling:
+// kept exactly, with no online rescaling (T is E: bf16 rounds, fp32 keeps
+// the value, as attention.cuh's fp32 kernels do):
 //   forward: a first pass over the key tiles takes the exact row max m of
 //     s = (q . k) * scale (scale = d^-1/2 log2 e, the product rounded on
 //     its own); a second recomputes s, e = exp2(s - m), the fp32 row sum l,
@@ -38,17 +46,19 @@
 //     pass: the same (m, l) bits for a backward whose forward kept none.
 //   dq (per query tile, (m, l) from stats): a first pass forms e and
 //     dp = T(do) . v^T and c = sum(dp e) / l; a second recomputes them,
-//     ds = T(layout's ds(e, dp, c, l)) and dq = ds . k.  c goes to stats,
-//     and T(do / l) to bf16 scratch (and, for the ViT's fp32 cotangent,
-//     T(do)), for the dk / dv kernel.
+//     ds = T(layout's ds(e, dp, c, l)) and dq = ds . k.  fp32 takes c =
+//     do . o from the forward's output instead (equal in exact
+//     arithmetic) and makes the second pass alone.  c goes to stats, and
+//     T(do / l) to scratch (and, for the ViT's bf16 products, T(do) of its
+//     fp32 cotangent), for the dk / dv kernel.
 //   dk, dv (per key tile, walking the query tiles): s^T = k . q^T and
 //     dp^T = v . T(do)^T, with each query's (m, l, c) from stats;
 //     dv += T(e)^T . T(do / l), dk += T(ds)^T . q.
 // Rows >= N load as zeros and keys >= N are masked out of every sum.
-// Tiles stream through 2-stage cp.async rings: the next step's tiles load
-// while this step's products run.
-// Every sum runs in a fixed order and nothing uses atomics: two calls give
-// the same bits.
+// Tiles stream through cp.async rings (2 stages; fp32's dk / dv kernel 1,
+// so that two of its 87 KB blocks share an SM): the next step's tiles load
+// while this step's products run.  Every sum runs in a fixed order and
+// nothing uses atomics: two calls give the same bits.
 
 #pragma once
 
@@ -63,16 +73,31 @@ constexpr int kALd = kHeadDim + 8;        // padded bf16 row of a tile
 constexpr int kAThreads = 128;            // 4 warps x 16 rows
 constexpr int kATileElems = kAT * kALd;
 
-// rows [row0, row0 + 64) of a (rows, 64) bf16 slice with row stride ld into
-// a tile; rows >= N load as zeros
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          size_t ld, int row0, int N) {
+// Padded row of a tile, in elements: bf16 72 (ldmatrix's 8 rows in
+// distinct banks); fp32 68 words, 4 mod 32, so that the fragment loads
+// g * 68 + t and, for a k-permuted B operand, 2t * 68 + g cover the banks.
+template <typename E>
+__host__ __device__ constexpr int tile_ld() {
+  return sizeof(E) == 2 ? kALd : kHeadDim + 4;
+}
+template <typename E>
+__host__ __device__ constexpr int tile_elems() {
+  return kAT * tile_ld<E>();
+}
+
+// rows [row0, row0 + 64) of a (rows, 64) slice with row stride ld into a
+// tile; rows >= N load as zeros
+template <typename E>
+__device__ __forceinline__ void load_tile(E* dst, const E* src, size_t ld,
+                                          int row0, int N) {
+  constexpr int V = 16 / (int)sizeof(E), CPR = kHeadDim / V;
+  constexpr int LD = tile_ld<E>();
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int u = 0; u < kAT * kHeadDim / 8 / kAThreads; ++u) {
-    const int c = tid + u * kAThreads, r = c >> 3, cc = (c & 7) * 8;
+  for (int u = 0; u < kAT * CPR / kAThreads; ++u) {
+    const int c = tid + u * kAThreads, r = c / CPR, cc = (c % CPR) * V;
     const bool ok = row0 + r < N;
-    cp_async16(dst + r * kALd + cc, src + (size_t)(ok ? row0 + r : 0) * ld + cc,
+    cp_async16(dst + r * LD + cc, src + (size_t)(ok ? row0 + r : 0) * ld + cc,
                ok);
   }
 }
@@ -139,6 +164,100 @@ __device__ __forceinline__ void to_afrag(unsigned (&f)[4][4],
   }
 }
 
+// fp32 (3xTF32) counterparts.  An A operand read from a tile stays there
+// (SmemA: its fragments are loaded and split at each product, which keeps
+// the registers of a 64-deep hi / lo fragment set free); an accumulator
+// reused as an A operand is its fp32 values (PF32).
+struct SmemA {
+  const float* tile;
+};
+using PF32 = float[8][4];
+
+__device__ __forceinline__ void load_afrag(SmemA& f, const float* tile) {
+  f.tile = tile;
+}
+
+// s[16 x 64] = a[16 x 64] . B^T in fp32 (3xTF32), B a tile of 64 rows x 64
+__device__ __forceinline__ void mma_abt(float (&s)[8][4], const SmemA& a,
+                                        const float* B) {
+  constexpr int LD = tile_ld<float>();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float* A = a.tile + (warp * 16 + g) * LD + t;
+  const float* Bl = B + g * LD + t;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim; kk += 8) {
+    unsigned ah[4], al[4];
+    split_tf32(A[kk], ah[0], al[0]);
+    split_tf32(A[8 * LD + kk], ah[1], al[1]);
+    split_tf32(A[kk + 4], ah[2], al[2]);
+    split_tf32(A[8 * LD + kk + 4], ah[3], al[3]);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      unsigned bh[2], bl[2];
+      split_tf32(Bl[ni * 8 * LD + kk], bh[0], bl[0]);
+      split_tf32(Bl[ni * 8 * LD + kk + 4], bh[1], bl[1]);
+      mma_3xtf32(s[ni], ah, al, bh, bl);
+    }
+  }
+}
+
+// o[16 x 64] += p[16 x 64] . B in fp32 (3xTF32), p an accumulator tile, B
+// a tile of 64 rows (the sum index) x 64.  Each 8-wide step takes keys
+// 2t and 2t + 1 (p[kk][0..1], p[kk][2..3]: the accumulator's own columns)
+// in slots t and t + 4, and B's rows in the same order.
+__device__ __forceinline__ void mma_ab(float (&o)[8][4], const PF32& p,
+                                       const float* B) {
+  constexpr int LD = tile_ld<float>();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* Bl = B + 2 * t * LD + g;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    unsigned ah[4], al[4];
+    split_tf32(p[kk][0], ah[0], al[0]);  // (g, key 2t)
+    split_tf32(p[kk][2], ah[1], al[1]);  // (g + 8, key 2t)
+    split_tf32(p[kk][1], ah[2], al[2]);  // (g, key 2t + 1)
+    split_tf32(p[kk][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      unsigned bh[2], bl[2];
+      split_tf32(Bl[kk * 8 * LD + ni * 8], bh[0], bl[0]);
+      split_tf32(Bl[(kk * 8 + 1) * LD + ni * 8], bh[1], bl[1]);
+      mma_3xtf32(o[ni], ah, al, bh, bl);
+    }
+  }
+}
+
+// fp32 keeps an accumulator as it is (T(x) = x)
+__device__ __forceinline__ void to_afrag(PF32& f, const float (&s)[8][4]) {
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[ni][e] = s[ni][e];
+}
+
+// the fragment types of an element type's products
+template <typename E>
+struct AttnFrags;
+template <>
+struct AttnFrags<bf16> {
+  using A = unsigned[4][4];  // a tile's fragments, ldmatrix
+  using P = unsigned[4][4];  // T(accumulator), packed
+  static constexpr int kDkvStages = 2;
+  static constexpr int kFwdMinBlocks = 4;
+};
+template <>
+struct AttnFrags<float> {
+  using A = SmemA;
+  using P = PF32;
+  static constexpr int kDkvStages = 1;
+  static constexpr int kFwdMinBlocks = 2;
+};
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -177,10 +296,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 // recomputed in vector registers at every key step, and the ViT forward
 // ran 4% slower (H100, 700 W).
 
-// The ViT stack: the cotangent arrives in fp32 and the dq kernel rounds it
-// into the scratch dob, the dk / dv kernel's operand; dq, dk, dv are
-// written in fp32 and, for the qkv Linear's dW and dX products, rounded to
-// bf16 beside them.
+// The ViT stack: the cotangent arrives in fp32; for bf16 products the dq
+// kernel rounds it into the scratch dob, the dk / dv kernel's operand
+// (fp32 products read it as it is).  dq, dk, dv are written in fp32 and,
+// for the bf16 qkv Linear's dW and dX products, rounded to bf16 beside
+// them.
 struct Interleaved {
   using Dout = float;
   static constexpr bool kF32Grads = true;
@@ -208,13 +328,17 @@ struct Separate {
 };
 
 // two adjacent columns of dq, dk or dv at element o: in fp32 to f where the
-// layout keeps it, in bf16 to b
-template <typename L>
-__device__ __forceinline__ void put_grad(float* f, bf16* b, size_t o,
-                                         float x, float y) {
-  if constexpr (L::kF32Grads)
+// layout keeps it (always for fp32 products), in bf16 to b for bf16 ones
+template <typename L, typename E>
+__device__ __forceinline__ void put_grad(float* f, E* b, size_t o, float x,
+                                         float y) {
+  if constexpr (sizeof(E) == 4) {
     *reinterpret_cast<float2*>(f + o) = make_float2(x, y);
-  *reinterpret_cast<__nv_bfloat162*>(b + o) = __floats2bfloat162_rn(x, y);
+  } else {
+    if constexpr (L::kF32Grads)
+      *reinterpret_cast<float2*>(f + o) = make_float2(x, y);
+    *reinterpret_cast<__nv_bfloat162*>(b + o) = __floats2bfloat162_rn(x, y);
+  }
 }
 
 // ------------------------------------------------------------ forward --
@@ -223,28 +347,39 @@ __device__ __forceinline__ void put_grad(float* f, bf16* b, size_t o,
 // one sequence of 2 nk steps through a 2-stage cp.async ring: the next
 // step's k (and, in the second pass, v) tile loads while this one's
 // products run.  Without kValues only (m, l) are formed and written.
-// Four blocks an SM: at most 128 registers a thread.
-template <typename L, bool kValues>
-__global__ void __launch_bounds__(kAThreads, 4)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out,
+// bf16: four blocks an SM, at most 128 registers a thread; fp32: two of
+// its 87 KB blocks.
+template <typename E>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return 5 * tile_elems<E>() * sizeof(E);
+}
+
+template <typename L, bool kValues, typename E>
+__global__ void __launch_bounds__(kAThreads, AttnFrags<E>::kFwdMinBlocks)
+attn_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                const E* __restrict__ v, E* __restrict__ out,
                 float* __restrict__ stats, int N, int ld, int ldo,
                 float scale) {
-  __shared__ __align__(128) bf16 Qs[kATileElems];
-  __shared__ __align__(128) bf16 Ks[2][kATileElems];
-  __shared__ __align__(128) bf16 Vs[2][kATileElems];
+  constexpr int TE = tile_elems<E>();
+  extern __shared__ __align__(128) unsigned char attn_smem[];
+  // q, then the 2-stage rings of k and v tiles.  A stage's tile is found
+  // by arithmetic: an array of tile pointers indexed by the stage went to
+  // local memory, and the bf16 forward spilled and ran 6% slower (H100).
+  E* Qs = reinterpret_cast<E*>(attn_smem);
+  auto Ks = [&](int st) { return Qs + (1 + st) * TE; };
+  auto Vs = [&](int st) { return Qs + (3 + st) * TE; };
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
   const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
-  const bf16* qb = q + in0;
-  const bf16* kb = k + in0;
-  const bf16* vb = v + in0;
+  const E* qb = q + in0;
+  const E* kb = k + in0;
+  const E* vb = v + in0;
   const int nk = (N + kAT - 1) / kAT;
 
   load_tile(Qs, qb, ld, q0, N);
-  load_tile(Ks[0], kb, ld, 0, N);
+  load_tile(Ks(0), kb, ld, 0, N);
   cp_async_commit();
-  unsigned qf[4][4];
+  typename AttnFrags<E>::A qf;
   float mx[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   float o[8][4] = {};
@@ -254,15 +389,15 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int tn = t + 1;
     if (tn < 2 * nk) {
       const int kn = (tn % nk) * kAT;
-      load_tile(Ks[tn & 1], kb, ld, kn, N);
-      if (kValues && tn >= nk) load_tile(Vs[tn & 1], vb, ld, kn, N);
+      load_tile(Ks(tn & 1), kb, ld, kn, N);
+      if (kValues && tn >= nk) load_tile(Vs(tn & 1), vb, ld, kn, N);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     if (t == 0) load_afrag(qf, Qs);
     const int k0 = (t % nk) * kAT;
-    mma_abt(s, qf, Ks[t & 1]);
+    mma_abt(s, qf, Ks(t & 1));
     if (t < nk) {
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni)
@@ -288,26 +423,31 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[ni][e] = ev;
       }
     if constexpr (kValues) {
-      unsigned pf[4][4];
+      typename AttnFrags<E>::P pf;
       to_afrag(pf, s);  // P = T(e)
-      mma_ab(o, pf, Vs[t & 1]);
+      mma_ab(o, pf, Vs(t & 1));
     }
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
 
-  bf16* ob = out + (size_t)g * N * ldo + h * kHeadDim;
+  E* ob = out + (size_t)g * N * ldo + h * kHeadDim;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + warp * 16 + (lane >> 2) + half * 8;
     if (row >= N) continue;
     if constexpr (kValues) {
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * ldo +
-                                           acc_col(ni, 0)) =
-            __floats2bfloat162_rn(L::normalize(o[ni][2 * half], l[half]),
-                                  L::normalize(o[ni][2 * half + 1], l[half]));
+      for (int ni = 0; ni < 8; ++ni) {
+        const float x = L::normalize(o[ni][2 * half], l[half]);
+        const float y = L::normalize(o[ni][2 * half + 1], l[half]);
+        E* dst = ob + (size_t)row * ldo + acc_col(ni, 0);
+        if constexpr (sizeof(E) == 4)
+          *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(x, y);
+      }
     }
     if (stats && (lane & 3) == 0) {
       float* st = stats + (((size_t)g * gridDim.y + h) * N + row) * 3;
@@ -319,32 +459,42 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------------ dq --
 // dq for 64 query rows of (g, h); reads (m, l) from stats, writes c there.
-// Also writes T(do / l) of its rows to dnb (and, for an fp32 cotangent,
-// T(do) to dob), in the layout of do, the dk / dv kernel's operands.  Two
-// passes over the key tiles (c, then dq) through a 2-stage ring of k and v
-// tiles.  dq goes to fq (fp32, where the layout keeps it) and gq.
-constexpr size_t kDqSmemBytes = 6 * kATileElems * sizeof(bf16);
+// Also writes T(do / l) of its rows to dnb (and, for bf16 products of an
+// fp32 cotangent, T(do) to dob), in the layout of do, the dk / dv kernel's
+// operands.  bf16: two passes over the key tiles (c = sum(dp e) / l, then
+// dq) through a 2-stage ring of k and v tiles.  fp32: one pass, with c =
+// do . o from the forward's output o (in the layout of do; it may alias
+// dnb, each element read before it is written, by the same thread) -- the
+// same value in exact arithmetic, P . v = o l, for 3 N^2 d products in
+// place of 5.  dq goes to fq (fp32, where the layout keeps it or the
+// products are fp32) and gq (bf16 products).
+template <typename E>
+__host__ __device__ constexpr size_t dq_smem_bytes() {
+  return 6 * tile_elems<E>() * sizeof(E);
+}
 
-template <typename L>
+template <typename L, typename E>
 __global__ void __launch_bounds__(kAThreads)
-attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v,
+attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+               const E* __restrict__ v,
                const typename L::Dout* __restrict__ dout,
-               float* __restrict__ stats, bf16* __restrict__ dob,
-               bf16* __restrict__ dnb, float* __restrict__ fq,
-               bf16* __restrict__ gq, int N, int ld, int ldo, float scale,
-               float sm_scale) {
-  extern __shared__ __align__(128) bf16 sm[];
-  bf16* Qs = sm;
-  bf16* DOs = sm + kATileElems;
-  bf16* Ks[2] = {sm + 2 * kATileElems, sm + 3 * kATileElems};
-  bf16* Vs[2] = {sm + 4 * kATileElems, sm + 5 * kATileElems};
+               float* __restrict__ stats, E* __restrict__ dob, E* dnb,
+               const E* ofwd, float* __restrict__ fq, E* __restrict__ gq,
+               int N, int ld, int ldo, float scale, float sm_scale) {
+  constexpr int TE = tile_elems<E>(), LD = tile_ld<E>();
+  constexpr int kPasses = sizeof(E) == 4 ? 1 : 2;
+  __shared__ float crow[kAT];  // fp32: c of the tile's rows
+  extern __shared__ __align__(128) unsigned char attn_smem[];
+  E* Qs = reinterpret_cast<E*>(attn_smem);
+  E* DOs = Qs + TE;
+  E* Ks[2] = {Qs + 2 * TE, Qs + 3 * TE};
+  E* Vs[2] = {Qs + 4 * TE, Qs + 5 * TE};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
   const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
-  const bf16* qb = q + in0;
-  const bf16* kb = k + in0;
-  const bf16* vb = v + in0;
+  const E* qb = q + in0;
+  const E* kb = k + in0;
+  const E* vb = v + in0;
   float* st = stats + ((size_t)g * gridDim.y + h) * N * 3;
   const size_t obase = (size_t)g * N * ldo + h * kHeadDim;
   const int nk = (N + kAT - 1) / kAT;
@@ -358,29 +508,54 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int u = 0; u < kAT * kHeadDim / 4 / kAThreads; ++u) {
     const int c = tid + u * kAThreads, r = c >> 4, cc = (c & 15) * 4;
     const int row = q0 + r;
-    if (row >= N) {
-      *reinterpret_cast<uint2*>(DOs + r * kALd + cc) = make_uint2(0u, 0u);
-      continue;
-    }
-    const size_t o = obase + (size_t)row * ldo + cc;
-    float4 x;
-    uint2 d;
-    if constexpr (L::kF32Grads) {
-      x = __ldg(reinterpret_cast<const float4*>(dout + o));
-      d = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-      *reinterpret_cast<uint2*>(dob + o) = d;
+    if constexpr (sizeof(E) == 4) {
+      static_assert(sizeof(typename L::Dout) == 4, "fp32 cotangent");
+      // every lane reaches the shuffles: rows >= N add zeros
+      const bool ok = row < N;
+      const size_t at = obase + (size_t)(ok ? row : 0) * ldo + cc;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+      if (ok) {
+        x = __ldg(reinterpret_cast<const float4*>(dout + at));
+        y = *reinterpret_cast<const float4*>(ofwd + at);
+      }
+      // c = do . o over the row's 16 threads (a half warp), in fixed order
+      float cp = x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        cp += __shfl_xor_sync(0xffffffffu, cp, off);
+      *reinterpret_cast<float4*>(DOs + r * LD + cc) = x;
+      if ((c & 15) == 0) crow[r] = cp;
+      if (ok) {
+        const float li = st[(size_t)row * 3 + 1];
+        *reinterpret_cast<float4*>(dnb + at) =
+            make_float4(x.x / li, x.y / li, x.z / li, x.w / li);
+        if ((c & 15) == 0) st[(size_t)row * 3 + 2] = cp;
+      }
     } else {
-      d = __ldg(reinterpret_cast<const uint2*>(dout + o));
-      const float2 lo = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&d.x));
-      const float2 hi = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&d.y));
-      x = make_float4(lo.x, lo.y, hi.x, hi.y);
+      if (row >= N) {
+        *reinterpret_cast<uint2*>(DOs + r * LD + cc) = make_uint2(0u, 0u);
+        continue;
+      }
+      const size_t o = obase + (size_t)row * ldo + cc;
+      float4 x;
+      uint2 d;
+      if constexpr (L::kF32Grads) {
+        x = __ldg(reinterpret_cast<const float4*>(dout + o));
+        d = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+        *reinterpret_cast<uint2*>(dob + o) = d;
+      } else {
+        d = __ldg(reinterpret_cast<const uint2*>(dout + o));
+        const float2 lo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&d.x));
+        const float2 hi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&d.y));
+        x = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      const float li = st[(size_t)row * 3 + 1];
+      *reinterpret_cast<uint2*>(DOs + r * LD + cc) = d;
+      *reinterpret_cast<uint2*>(dnb + o) = make_uint2(
+          pack_bf16(x.x / li, x.y / li), pack_bf16(x.z / li, x.w / li));
     }
-    const float li = st[(size_t)row * 3 + 1];
-    *reinterpret_cast<uint2*>(DOs + r * kALd + cc) = d;
-    *reinterpret_cast<uint2*>(dnb + o) = make_uint2(
-        pack_bf16(x.x / li, x.y / li), pack_bf16(x.z / li, x.w / li));
   }
   float m[2], l[2];
 #pragma unroll
@@ -390,14 +565,21 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[half] = row < N ? st[(size_t)row * 3 + 1] : 1.f;
   }
 
-  unsigned qf[4][4], df[4][4];
+  typename AttnFrags<E>::A qf, df;
   float s[8][4], dp[8][4];
   float csum[2] = {0.f, 0.f}, c[2];
   float dq[8][4] = {};
-  for (int t = 0; t < 2 * nk; ++t) {
+  for (int t = 0; t < kPasses * nk; ++t) {
     __syncthreads();
+    if (kPasses == 1 && t == 0) {  // crow is complete
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = warp * 16 + (lane >> 2) + half * 8;
+        c[half] = q0 + r < N ? crow[r] : 0.f;
+      }
+    }
     const int tn = t + 1;
-    if (tn < 2 * nk) {
+    if (tn < kPasses * nk) {
       const int kn = (tn % nk) * kAT;
       load_tile(Ks[tn & 1], kb, ld, kn, N);
       load_tile(Vs[tn & 1], vb, ld, kn, N);
@@ -419,7 +601,7 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[ni][e] = k0 + acc_col(ni, e) < N
                        ? exp2f(__fmul_rn(s[ni][e], scale) - m[e >> 1])
                        : 0.f;
-    if (t < nk) {
+    if (kPasses == 2 && t < nk) {
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
@@ -441,7 +623,7 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int r = e >> 1;
         dp[ni][e] = L::ds(s[ni][e], dp[ni][e], c[r], l[r], scale, sm_scale);
       }
-    unsigned dsf[4][4];
+    typename AttnFrags<E>::P dsf;
     to_afrag(dsf, dp);  // T(ds)
     mma_ab(dq, dsf, Ks[t & 1]);
   }
@@ -459,33 +641,41 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------- dk, dv --
 // dk and dv for 64 keys of (g, h), walking every query tile through a
-// 2-stage cp.async ring of (q, T(do), T(do / l), (m, l, c)) tiles; dob is
-// T(do) in the layout of do (the cotangent itself for kernel #7).  dk and
-// dv go to fk, fv (fp32, where the layout keeps them) and gk, gv.
+// cp.async ring of (q, T(do), T(do / l), (m, l, c)) tiles (2 stages for
+// bf16; 1 for fp32, whose 2-stage block would take 141 KB, one an SM);
+// dob is T(do) in the layout of do (the cotangent itself for kernel #7
+// and fp32).  dk and dv go to fk, fv (fp32, where the layout keeps them)
+// and gk, gv (bf16 products).
 constexpr int kDkvStats = 3 * kAT;  // (m, l, c) of a query tile
-constexpr size_t kDkvSmemBytes =
-    (8 * kATileElems) * sizeof(bf16) + 2 * kDkvStats * sizeof(float);
 
-template <typename L>
+template <typename E>
+__host__ __device__ constexpr size_t dkv_smem_bytes() {
+  constexpr int S = AttnFrags<E>::kDkvStages;
+  return (2 + 3 * S) * tile_elems<E>() * sizeof(E) +
+         S * kDkvStats * sizeof(float);
+}
+
+template <typename L, typename E>
 __global__ void __launch_bounds__(kAThreads)
-attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dob,
-                const bf16* __restrict__ dnb,
-                const float* __restrict__ stats, float* __restrict__ fk,
-                float* __restrict__ fv, bf16* __restrict__ gk,
-                bf16* __restrict__ gv, int N, int ld, int ldo, float scale,
-                float sm_scale) {
-  extern __shared__ __align__(128) bf16 sm[];
-  bf16* Ks = sm;
-  bf16* Vs = sm + kATileElems;
-  bf16* Qs[2] = {sm + 2 * kATileElems, sm + 3 * kATileElems};
-  bf16* DOs[2] = {sm + 4 * kATileElems, sm + 5 * kATileElems};
-  bf16* DNs[2] = {sm + 6 * kATileElems, sm + 7 * kATileElems};
-  float* Ss = reinterpret_cast<float*>(sm + 8 * kATileElems);  // [2][192]
+attn_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                const E* __restrict__ v, const E* __restrict__ dob,
+                const E* __restrict__ dnb, const float* __restrict__ stats,
+                float* __restrict__ fk, float* __restrict__ fv,
+                E* __restrict__ gk, E* __restrict__ gv, int N, int ld,
+                int ldo, float scale, float sm_scale) {
+  constexpr int S = AttnFrags<E>::kDkvStages, TE = tile_elems<E>();
+  extern __shared__ __align__(128) unsigned char attn_smem[];
+  E* Ks = reinterpret_cast<E*>(attn_smem);
+  E* Vs = Ks + TE;
+  E* Qs[2] = {Ks + 2 * TE, Ks + (2 + S - 1) * TE};
+  E* DOs[2] = {Ks + (2 + S) * TE, Ks + (2 + 2 * S - 1) * TE};
+  E* DNs[2] = {Ks + (2 + 2 * S) * TE, Ks + (2 + 3 * S - 1) * TE};
+  // [S][192]
+  float* Ss = reinterpret_cast<float*>(Ks + (2 + 3 * S) * TE);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
   const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
-  const bf16* qb = q + in0;
+  const E* qb = q + in0;
   const size_t obase = (size_t)g * N * ldo + h * kHeadDim;
   const float* st = stats + ((size_t)g * gridDim.y + h) * N * 3;
   const int nq = (N + kAT - 1) / kAT;
@@ -501,23 +691,27 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   load_tile(Ks, k + in0, ld, k0, N);
   load_tile(Vs, v + in0, ld, k0, N);
-  prefetch(0, 0);
+  if constexpr (S == 2) prefetch(0, 0);
   cp_async_commit();
 
-  unsigned kf[4][4], vf[4][4];
+  typename AttnFrags<E>::A kf, vf;
   float dk[8][4] = {}, dv[8][4] = {};
   float s[8][4], dp[8][4];
   for (int it = 0; it < nq; ++it) {
     __syncthreads();  // the stage loaded below was read at it - 1
-    if (it + 1 < nq) prefetch((it + 1) * kAT, (it + 1) & 1);
+    if constexpr (S == 2) {
+      if (it + 1 < nq) prefetch((it + 1) * kAT, (it + 1) & 1);
+    } else {
+      prefetch(it * kAT, 0);
+    }
     cp_async_commit();
-    cp_async_wait<1>();
+    cp_async_wait<S - 1>();
     __syncthreads();
     if (it == 0) {
       load_afrag(kf, Ks);
       load_afrag(vf, Vs);
     }
-    const int q0 = it * kAT, b = it & 1;
+    const int q0 = it * kAT, b = S == 2 ? it & 1 : 0;
     const float* sr = Ss + b * kDkvStats;
     mma_abt(s, kf, Qs[b]);    // s^T: rows keys, columns queries
     mma_abt(dp, vf, DOs[b]);  // dp^T
@@ -532,7 +726,7 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[ni][e] = ok ? ev : 0.f;
         dp[ni][e] = ok ? L::ds(ev, dp[ni][e], cj, lj, scale, sm_scale) : 0.f;
       }
-    unsigned pf[4][4], dsf[4][4];
+    typename AttnFrags<E>::P pf, dsf;
     to_afrag(pf, s);    // T(e)^T
     to_afrag(dsf, dp);  // T(ds)^T
     mma_ab(dv, pf, DNs[b]);
@@ -557,53 +751,68 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // scale = d^-1/2 log2(e) multiplies the scores; sm_scale = d^-1/2 is #7's
 // factor of ds.
 
+// the kernel's dynamic shared memory, where it exceeds the default 48 KB
+template <class K>
+static cudaError_t smem_attr(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // the forward (or, without kValues, its (m, l) alone) over G sequences x
 // heads; with `stats`, (m, l) per row at stats[((g * heads + h) * N + row)
 // * 3]
-template <typename L, bool kValues = true>
-static cudaError_t attention_fwd(const bf16* q, const bf16* k, const bf16* v,
-                                 bf16* out, float* stats, int G, int heads,
-                                 int N, int ld, int ldo, float scale,
+template <typename L, bool kValues = true, typename E>
+static cudaError_t attention_fwd(const E* q, const nd_t<E>* k,
+                                 const nd_t<E>* v, nd_t<E>* out,
+                                 float* stats, int G, int heads, int N,
+                                 int ld, int ldo, float scale,
                                  cudaStream_t stream) {
   if (heads > 65535 || G > 65535) return cudaErrorInvalidValue;
-  attn_fwd_kernel<L, kValues>
-      <<<dim3((N + kAT - 1) / kAT, heads, G), kAThreads, 0, stream>>>(
+  constexpr size_t smem = fwd_smem_bytes<E>();
+  cudaError_t err = smem_attr(attn_fwd_kernel<L, kValues, E>, smem);
+  if (err != cudaSuccess) return err;
+  attn_fwd_kernel<L, kValues, E>
+      <<<dim3((N + kAT - 1) / kAT, heads, G), kAThreads, smem, stream>>>(
           q, k, v, out, stats, N, ld, ldo, scale);
   return cudaGetLastError();
 }
 
-// dq, dk, dv (to f* in fp32 where the layout keeps them, and g* in bf16)
-// from the cotangent dout and the forward's (m, l) in stats (c is written
-// into their third slot); dob (the ViT's T(do)) and dnb (T(do / l)) are
-// bf16 scratch in the layout of do
-template <typename L>
-static cudaError_t attention_bwd(const bf16* q, const bf16* k, const bf16* v,
+// dq, dk, dv (to f* in fp32 where the layout keeps them or the products
+// are fp32, and g* in bf16 for bf16 ones) from the cotangent dout and the
+// forward's (m, l) in stats (c is written into their third slot); dnb is
+// scratch in the layout of do for T(do / l), dob (bf16 products of an fp32
+// cotangent) for T(do); o, the forward's output in the layout of do, is
+// read by fp32 products (it may be dnb)
+template <typename L, typename E>
+static cudaError_t attention_bwd(const E* q, const nd_t<E>* k,
+                                 const nd_t<E>* v,
                                  const typename L::Dout* dout, float* stats,
-                                 bf16* dob, bf16* dnb, float* fq, float* fk,
-                                 float* fv, bf16* gq, bf16* gk, bf16* gv,
-                                 int G, int heads, int N, int ld, int ldo,
-                                 float scale, float sm_scale,
-                                 cudaStream_t stream) {
+                                 nd_t<E>* dob, nd_t<E>* dnb,
+                                 const nd_t<E>* o, float* fq,
+                                 float* fk, float* fv, nd_t<E>* gq,
+                                 nd_t<E>* gk, nd_t<E>* gv, int G, int heads,
+                                 int N, int ld, int ldo, float scale,
+                                 float sm_scale, cudaStream_t stream) {
   if (heads > 65535 || G > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_dq_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDqSmemBytes);
+  constexpr size_t smem_q = dq_smem_bytes<E>(), smem_kv = dkv_smem_bytes<E>();
+  cudaError_t err = smem_attr(attn_dq_kernel<L, E>, smem_q);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_dkv_kernel<L>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDkvSmemBytes);
+  err = smem_attr(attn_dkv_kernel<L, E>, smem_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kAT - 1) / kAT, heads, G);
-  attn_dq_kernel<L><<<grid, kAThreads, kDqSmemBytes, stream>>>(
-      q, k, v, dout, stats, dob, dnb, fq, gq, N, ld, ldo, scale, sm_scale);
+  if (sizeof(E) == 4 && o == nullptr) return cudaErrorInvalidValue;
+  attn_dq_kernel<L, E><<<grid, kAThreads, smem_q, stream>>>(
+      q, k, v, dout, stats, dob, dnb, o, fq, gq, N, ld, ldo, scale,
+      sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const bf16* dkv_do;
-  if constexpr (L::kF32Grads)
-    dkv_do = dob;
-  else
+  const E* dkv_do;
+  if constexpr (sizeof(E) == 4 || !L::kF32Grads)
     dkv_do = dout;
-  attn_dkv_kernel<L><<<grid, kAThreads, kDkvSmemBytes, stream>>>(
+  else
+    dkv_do = dob;
+  attn_dkv_kernel<L, E><<<grid, kAThreads, smem_kv, stream>>>(
       q, k, v, dkv_do, dnb, stats, fk, fv, gk, gv, N, ld, ldo, scale,
       sm_scale);
   return cudaGetLastError();

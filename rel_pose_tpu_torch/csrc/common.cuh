@@ -1,7 +1,7 @@
-// Row LayerNorm and tiled GEMM kernels shared by vit_stack.cu and
-// essential_block.cu, their backward counterparts (the dX and split-K dW
-// GEMMs, the LayerNorm VJP, the fixed-order partial sums), plus the fp32 <->
-// compute-dtype helpers.
+// Row LayerNorm and its VJP, the epilogues of the GEMMs (the ViT stack's
+// tensor-core GEMMs in gemm_tc.cuh apply them; the SIMT gemm_kernel below
+// is the essential block's fp32 qkv Linear), the fixed-order partial sums,
+// and the fp32 <-> compute-dtype helpers.
 //
 // Compute dtype T is float or __nv_bfloat16.  Every product accumulates in
 // fp32 (bf16 products are exact in fp32), every statistic is fp32, and each
@@ -113,9 +113,11 @@ static cudaError_t launch_layernorm(const T* x, const T* pos, T* xsum,
 // ------------------------------------------------------------------ GEMM --
 // out[M, Nout] = epilogue(A[M, K] . W[Nout, K]^T), W in torch Linear layout.
 // SIMT fp32 FMA on 64x64 output tiles, 16-deep K steps through shared
-// memory, 4x4 outputs per thread.  At the ViT widths (K = 192 or 768) the
-// products are compute-bound; this first version leaves the tensor cores
-// unused (a wgmma / TMA pipeline is later work).
+// memory, 4x4 outputs per thread: only the fp32 qkv Linear of the essential
+// block (#2, #3: essential_block.cu) runs it; every bf16 GEMM and the ViT
+// stack's fp32 ones run gemm_tc.cuh on the tensor cores.  At K = 192 the
+// products are compute-bound; the fp32 essential block's move to gemm_tc.cuh
+// is later work.
 
 enum Epilogue {
   kBias = 0,       // T(acc + b)                        (Pallas ViT bias)
@@ -228,16 +230,8 @@ static cudaError_t launch_gemm(const T* A, const T* W, const float* bias,
 }
 
 // =========================================================== backward ====
-// Operands of the backward products follow the Pallas kernels' rounding:
-// a cotangent is kept in fp32 and rounded to T where it enters a product
-// (round_to<T> on load), and every product accumulates in fp32.
-
-// ---------------------------------------------------------------- dX GEMM --
-// out[M, Kout] = epilogue(sum_n T(A[m, n]) * W[n, Kout]): the input
-// cotangent of a Linear, A the fp32 output cotangent (M, Nred), W the torch
-// Linear weight (Nred = out features, Kout = in features) in T.  Same 64x64
-// SIMT tiles as gemm_kernel; the weight is read along its rows.
-
+// The dX GEMM's epilogues (gemm_tc.cuh's gemm_dx_kernel): the input
+// cotangent of a Linear, fp32.
 enum DxEpilogue {
   kDxPlain = 0,     // acc                                  (fp32)
   kDxGeluGrad = 1,  // acc * gelu'(aux)  (aux: fp32 pre-activation, may
@@ -245,145 +239,9 @@ enum DxEpilogue {
                     // thread)
 };
 
-template <typename T, int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_dx_kernel(const float* __restrict__ A, const T* __restrict__ W,
-               const float* aux, float* out, int M, int Kout, int Nred) {
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Ws[kBK][kBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, k0 = blockIdx.x * kBN;
-  const int lr = tid / 4, lk = (tid % 4) * 4;   // A loader: row, 4 n
-  const int wr = tid / 16, wc = (tid % 16) * 4; // W loader: n, 4 columns
-  float acc[4][4] = {};
-  for (int n0 = 0; n0 < Nred; n0 += kBK) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int n = n0 + lk + u, am = m0 + lr;
-      As[lk + u][lr] =
-          (am < M && n < Nred) ? round_to<T>(A[(size_t)am * Nred + n]) : 0.f;
-      const int wn = n0 + wr, kk = k0 + wc + u;
-      Ws[wr][wc + u] =
-          (wn < Nred && kk < Kout) ? to_f32(W[(size_t)wn * Kout + kk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + tx * 4 + j;
-      if (k >= Kout) continue;
-      const size_t o = (size_t)m * Kout + k;
-      out[o] = EPI == kDxGeluGrad ? acc[i][j] * gelu_grad_policy<T>(aux[o])
-                                  : acc[i][j];
-    }
-  }
-}
-
-template <typename T, int EPI>
-static cudaError_t launch_gemm_dx(const float* A, const T* W,
-                                  const float* aux, float* out, int M,
-                                  int Kout, int Nred, cudaStream_t stream) {
-  dim3 grid((Kout + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_dx_kernel<T, EPI><<<grid, kGemmThreads, 0, stream>>>(A, W, aux, out,
-                                                             M, Kout, Nred);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------- dW GEMM, split-K -----
-// dW[Nout, K] = sum_m T(dY[m, n]) * X[m, k] and db[n] = sum_m dY[m, n]
-// over all M = G * N rows, dY the fp32 output cotangent, X the layer input
-// in T.  The Pallas kernel sums them sequentially over its grid; here the
-// rows are cut into fixed chunks of kDwChunk: block (k tile, n tile, chunk)
-// writes its fp32 partial, and sum_partials adds the chunks in order.  No
-// atomics, so two runs give the same bits.  The bias partials are the
-// column sums of the same dY tiles, taken by the blocks of k tile 0.
-
-constexpr int kDwChunk = 2048;
-
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_dw_kernel(const float* __restrict__ dY, const T* __restrict__ X,
-               float* __restrict__ part, float* __restrict__ bias_part, int M,
-               int Nout, int K) {
-  __shared__ float As[kBK][kBM + 4];  // dY rows x n
-  __shared__ float Bs[kBK][kBN + 4];  // X rows x k
-  __shared__ float red[kBK][kBM];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * kBN, n0 = blockIdx.y * kBM;
-  const int s = blockIdx.z;
-  const int mbeg = s * kDwChunk, mend = min(M, mbeg + kDwChunk);
-  const int lr = tid / 16, lc = (tid % 16) * 4;  // loader: row, 4 columns
-  const bool do_bias = bias_part != nullptr && blockIdx.x == 0;
-  float bsum[4] = {};
-  float acc[4][4] = {};
-  for (int m = mbeg; m < mend; m += kBK) {
-    const int mm = m + lr;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int n = n0 + lc + u, k = k0 + lc + u;
-      const float v = (mm < mend && n < Nout) ? dY[(size_t)mm * Nout + n] : 0.f;
-      bsum[u] += v;
-      As[lr][lc + u] = round_to<T>(v);
-      Bs[lr][lc + u] = (mm < mend && k < K) ? to_f32(X[(size_t)mm * K + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kBK; ++r) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[r][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[r][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* P = part + (size_t)s * Nout * K;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty * 4 + i;
-    if (n >= Nout) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + tx * 4 + j;
-      if (k < K) P[(size_t)n * K + k] = acc[i][j];
-    }
-  }
-  if (do_bias) {  // uniform over the block
-#pragma unroll
-    for (int u = 0; u < 4; ++u) red[lr][lc + u] = bsum[u];
-    __syncthreads();
-    if (tid < kBM && n0 + tid < Nout) {
-      float t = 0.f;
-      for (int r = 0; r < kBK; ++r) t += red[r][tid];
-      bias_part[(size_t)s * Nout + n0 + tid] = t;
-    }
-  }
-}
-
-// out[j] = sum over s = 0 .. S-1, in order, of part[s * stride + j]
+// out[j] = sum over s = 0 .. S-1, in order, of part[s * stride + j]: the
+// split-K dW partials and the LayerNorm VJP's column partials, summed in a
+// fixed order (no atomics: two runs give the same bits)
 static __global__ void sum_partials_kernel(const float* __restrict__ part, int S,
                                     size_t stride, size_t L,
                                     float* __restrict__ out) {
@@ -400,26 +258,6 @@ static cudaError_t launch_sum_partials(const float* part, int S,
   sum_partials_kernel<<<(unsigned)((L + 255) / 256), 256, 0, stream>>>(
       part, S, stride, L, out);
   return cudaGetLastError();
-}
-
-static int dw_chunks(int M) { return (M + kDwChunk - 1) / kDwChunk; }
-
-// dW (Nout, K) and db (Nout) of a Linear; part / bias_part hold
-// dw_chunks(M) partials
-template <typename T>
-static cudaError_t weight_grad(const float* dY, const T* X, float* dW,
-                               float* db, float* part, float* bias_part,
-                               int M, int Nout, int K, cudaStream_t stream) {
-  const int S = dw_chunks(M);
-  dim3 grid((K + kBN - 1) / kBN, (Nout + kBM - 1) / kBM, S);
-  gemm_dw_kernel<T><<<grid, kGemmThreads, 0, stream>>>(dY, X, part,
-                                                       bias_part, M, Nout, K);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = launch_sum_partials(part, S, (size_t)Nout * K, (size_t)Nout * K, dW,
-                            stream);
-  if (err != cudaSuccess) return err;
-  return launch_sum_partials(bias_part, S, Nout, Nout, db, stream);
 }
 
 // ---------------------------------------------------- LayerNorm backward --

@@ -11,8 +11,8 @@
 //     PairLayout with S pairs' slices per block, and the modes kEbBf16Mul and
 //     kEbMxuSums (cross_variants.cu).
 // fp32 keeps the SIMT kernels (essential_block.cuh, bilinear.cuh), bit for
-// bit: the tensor cores have no fp32 product, and TF32 would change the
-// results.
+// bit; the 3xTF32 policy of gemm_tc.cuh, which the fp32 ViT stack runs, is
+// not applied to these kernels yet.
 //
 // Per slice g, with q, k (N x 64) and va, vb (N x e): PairLayout's slice is
 // (pair b, direction, head), vb = v_self ++ 6 positional columns (e = 70) or

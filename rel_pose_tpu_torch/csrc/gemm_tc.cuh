@@ -1,41 +1,51 @@
-// Tensor-core GEMMs of the ViT stack's bf16 path (kernels #1 and #5), and
-// the mma.sync / ldmatrix / cp.async helpers that attention_tc.cuh shares.
+// Tensor-core GEMMs of the ViT stack (kernels #1 and #5, bf16 and fp32),
+// and the mma.sync / ldmatrix / cp.async helpers that attention_tc.cuh
+// shares.
 //
-// Replaces, for bf16 only, the SIMT gemm_kernel / gemm_dx_kernel /
-// gemm_dw_kernel of common.cuh inside rel_pose_tpu/ops/pallas_vit.py:
+// Replaces the GEMMs inside rel_pose_tpu/ops/pallas_vit.py:
 // _vit_stack_kernel (qkv, proj, fc1, fc2) and pallas_vit_bwd.py:
-// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears), and
-// the forward GEMM inside pallas_essential_block.py's
-// _essential_block_pair_kernel and _essential_block_x_kernel (the qkv
-// Linear, essential_block.cu).
-// The fp32 path keeps common.cuh's SIMT kernels, bit for bit: the tensor
-// cores have no fp32 product, and TF32 would change the results.
+// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears), in
+// both dtypes, and for bf16 the forward GEMM inside
+// pallas_essential_block.py's _essential_block_pair_kernel and
+// _essential_block_x_kernel (the qkv Linear, essential_block.cu; its fp32
+// route keeps common.cuh's SIMT gemm_kernel).
+//
+// One structure, two products: the element type picks the MMA atom.
+//   bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on operands loaded
+//     with ldmatrix (.trans for the operands that the backward reads along
+//     their other axis); bf16 x bf16 products are exact in fp32.
+//   fp32: 3xTF32 on mma.sync.m16n8k8 .tf32.  Each fp32 operand, loaded
+//     from shared memory with 32-bit loads (ldmatrix moves 16-bit
+//     elements), is split in registers into a TF32 high part hi = rna(x)
+//     and a TF32 residual lo = rna(x - hi), and hi.hi + hi.lo + lo.hi is
+//     summed in fp32: only lo.lo (below 2^-22 of |a||b|) is dropped, so a
+//     product keeps fp32 accuracy.  (TF32 alone, hi.hi, keeps about 3
+//     decimal digits: the port's precision policy forbids it.)
 //
 // What bounds them on the H100: at the ViT widths (M = G * 576 rows, K =
 // 192 or 768, Nout = 192, 576 or 768) one GEMM does 2 M K Nout operations
-// on 2 (M K + M Nout) bytes, 96-153 operations per byte, below the 295 at
-// which the bf16 tensor cores rather than HBM are the limit: alone, each
-// would wait on device memory at the full tensor-core rate.  (The stack's
-// bound counts only its own inputs and outputs and is set by the
-// operations.)  At the rate mma.sync reaches, the products themselves
-// and the ldmatrix loads feeding them decide.
+// on (M K + M Nout) elements, 96-153 operations per byte in bf16, below
+// the 295 at which the bf16 tensor cores rather than HBM are the limit,
+// and 48-77 in fp32, about the 49 at which 3xTF32's 165 TFLOP/s (495 / 3)
+// meets HBM: alone, each would be near the memory bound at the full
+// tensor-core rate.  (The stack's bound counts only its own inputs and
+// outputs and is set by the operations.)  At the rate mma.sync reaches,
+// the products themselves and the shared-memory loads feeding them decide;
+// in fp32 also the split, two cvt and a subtraction per loaded operand.
 //
-// Design: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on operands loaded
-// from padded shared-memory tiles with ldmatrix (.trans for the operands
-// that the backward reads along their other axis), fed by a 3-stage
-// cp.async ring of K steps (128 x 192 output tiles, 64 deep, where the
-// widths allow).  mma.sync and not wgmma + TMA: this is
-// the first tensor-core version of these kernels, written without a way to
-// compile or run it outside the card; mma.sync reaches a fraction of
-// Hopper's wgmma rate (the gap is recorded in PERF.md), and moving to
-// wgmma is later work.  Every product keeps the Pallas kernels' rounding
-// points: operands are bf16 (bf16 x bf16 products are exact in fp32), sums
-// are fp32, only their order differs from the SIMT kernels, and the
-// epilogues are common.cuh's, element for element.  fp32 cotangents enter
-// a product as T(dY): the producing kernel (or a cast kernel) writes the
-// bf16 copy once, which gives the same bits as rounding on the load.  No
-// atomics: the dW GEMM writes per-chunk partials that sum_partials adds
-// in order, so two calls give the same bits.
+// Design: operands from padded shared-memory tiles, fed by a 3-stage
+// cp.async ring of K steps (128 x 192 output tiles where the widths
+// allow).  mma.sync and not wgmma + TMA: written without a way to compile
+// or run it outside the card; mma.sync reaches a fraction of Hopper's
+// wgmma rate (the gap is recorded in PERF.md), and moving to wgmma is
+// later work.  Every product keeps the Pallas kernels' rounding points:
+// sums are fp32, only their order differs from the SIMT kernels, and the
+// epilogues are common.cuh's, element for element.  bf16 products take
+// fp32 cotangents as T(dY): the producing kernel (or a cast kernel) writes
+// the bf16 copy once, which gives the same bits as rounding on the load;
+// fp32 products read the cotangent itself.  No atomics: the dW GEMM writes
+// per-chunk partials that sum_partials adds in order, so two calls give
+// the same bits.
 
 #pragma once
 
@@ -99,35 +109,116 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// Accumulator layout of one m16n8 tile, lane = 4 g + t: c[0], c[1] at
-// (row g, columns 2t, 2t + 1), c[2], c[3] at row g + 8.
+
+// the TF32 value nearest x, ties away from zero, its low 13 mantissa bits
+// zero: cvt.rna.tf32.f32's bits for every finite x, in two integer
+// operations (the magnitude rounded half away from zero at bit 13; a carry
+// moves into the exponent as rounding does)
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + r with hi, lo TF32 and |r| <= 2^-22 |x| (x - hi is exact)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// c += a (16x8, row) . b (8x8, col) on TF32 operands; fp32 accumulate.
+// Lane 4 g + t holds a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (k t, column g), b1 (t + 4, g).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a . b (no accumulator: C is zero)
+__device__ __forceinline__ void mma_tf32_zc(float (&d)[4],
+                                            const unsigned (&a)[4],
+                                            unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// c += a . b to fp32 accuracy from split operands (3xTF32): the three
+// products, the residual ones first, summed into a fresh 8-deep partial
+// that one fp32 add (round to nearest) puts into c.  The tensor cores'
+// fp32 sums do not round to nearest: with the products summed into c
+// itself, each dropped part of an ulp of c, in one direction, at every
+// product, and the ViT stack's outputs sat 10-30x farther from float64
+// than the plain fp32 version's (H100); into the partial, what they drop
+// is a part of an ulp of one 8-term sum.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4],
+                                           const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  float t[4];
+  mma_tf32_zc(t, al, bh[0], bh[1]);
+  mma_tf32(t, ah, bl[0], bl[1]);
+  mma_tf32(t, ah, bh[0], bh[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// T itself, so that a parameter of type nd_t<E> takes no part in deducing
+// E (a nullptr argument converts to it)
+template <class T>
+struct type_is {
+  using type = T;
+};
+template <class T>
+using nd_t = typename type_is<T>::type;
+
+// Accumulator layout of one m16n8 tile (both atoms), lane = 4 g + t:
+// c[0], c[1] at (row g, columns 2t, 2t + 1), c[2], c[3] at row g + 8.
 
 // ------------------------------------------------------------ tile GEMM --
-// C[BM, BN] += A[BM, K] . B[K, BN] over k in [kbeg, kend), bf16 operands.
-// A is K-major (element (m, k) at A[m * lda + k]) or M-major (at
-// A[k * lda + m]); B is K-major (element (k, n) at B[n * ldb + k], the
-// torch Linear weight) or N-major (at B[k * ldb + n]).  Rows m >= m_end of
-// a K-major A and k >= kend of an M-major A or N-major B load as zeros.
-template <int BM_, int BN_, int WM_, int WN_, bool AK_, bool BK_,
-          int BK_DEPTH = 32, int STAGES = 3>
+// C[BM, BN] += A[BM, K] . B[K, BN] over k in [kbeg, kend), operands of
+// type E (bf16 or fp32: the atom).  A is K-major (element (m, k) at
+// A[m * lda + k]) or M-major (at A[k * lda + m]); B is K-major (element
+// (k, n) at B[n * ldb + k], the torch Linear weight) or N-major (at
+// B[k * ldb + n]).  Rows m >= m_end of a K-major A and k >= kend of an
+// M-major A or N-major B load as zeros.
+template <typename E_, int BM_, int BN_, int WM_, int WN_, bool AK_,
+          bool BK_, int BK_DEPTH = 32, int STAGES = 3>
 struct Tile {
+  using E = E_;
+  static constexpr bool kTf32 = sizeof(E) == 4;  // 3xTF32, else bf16
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
   static constexpr bool kAK = AK_, kBK = BK_;
   static constexpr int BK = BK_DEPTH, kStages = STAGES;
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int TM = BM / WM, TN = BN / WN, MI = TM / 16, NI = TN / 8;
-  // padded rows: 8 consecutive ldmatrix rows fall in distinct banks
-  static constexpr int A_LD = kAK ? BK + 8 : BM + 8;
+  static constexpr int kVec = 16 / (int)sizeof(E);  // one cp.async
+  static constexpr int kKStep = kTf32 ? 8 : 16;     // one mma's depth
+  // Padded rows, so that a warp's fragment loads fall in distinct banks:
+  // bf16, 8 consecutive ldmatrix rows; fp32, a row read along k is 4 mod
+  // 32 words long (lane 4 g + t reads word g LD + t), one read along m or
+  // n 8 mod 32 (word t LD + g).
+  static constexpr int kPadK = kTf32 ? 4 : 8, kPadMN = 8;
+  static constexpr int A_LD = kAK ? BK + kPadK : BM + kPadMN;
   static constexpr int A_ELEMS = kAK ? BM * A_LD : BK * A_LD;
-  static constexpr int B_LD = kBK ? BK + 8 : BN + 8;
+  static constexpr int B_LD = kBK ? BK + kPadK : BN + kPadMN;
   static constexpr int B_ELEMS = kBK ? BN * B_LD : BK * B_LD;
   static constexpr int kStageElems = A_ELEMS + B_ELEMS;
   static constexpr int kSmemElems = kStages * kStageElems;
-  static constexpr int A_CHUNKS = BM * BK / 8, B_CHUNKS = BN * BK / 8;
-  static_assert(TM % 16 == 0 && NI % 2 == 0, "warp tile: 16 x 16 steps");
+  static constexpr int A_CHUNKS = BM * BK / kVec, B_CHUNKS = BN * BK / kVec;
+  static_assert(TM % 16 == 0 && (kTf32 || NI % 2 == 0),
+                "warp tile: 16-row steps (bf16: 16 x 16)");
+  static_assert(BK % kKStep == 0, "whole mma steps per K step");
   static_assert(A_CHUNKS % kThreads == 0 && B_CHUNKS % kThreads == 0,
                 "tile loads: whole steps");
-  static constexpr int kSmemBytes = kSmemElems * 2;  // dynamic
+  static constexpr int kSmemBytes = kSmemElems * (int)sizeof(E);  // dynamic
   static_assert(kSmemBytes <= 227 * 1024, "shared memory of one block");
 };
 
@@ -140,25 +231,26 @@ static cudaError_t prepare(K kernel) {
                               Cfg::kSmemBytes);
 }
 
-template <class Cfg>
-__device__ __forceinline__ void load_stage(bf16* st, const bf16* A,
-                                           size_t lda, const bf16* B,
-                                           size_t ldb, int m0, int n0, int k0,
-                                           int m_end, int kend, int tid) {
-  bf16* As = st;
-  bf16* Bs = st + Cfg::A_ELEMS;
+template <class Cfg, typename E = typename Cfg::E>
+__device__ __forceinline__ void load_stage(E* st, const E* A, size_t lda,
+                                           const E* B, size_t ldb, int m0,
+                                           int n0, int k0, int m_end,
+                                           int kend, int tid) {
+  constexpr int V = Cfg::kVec;
+  E* As = st;
+  E* Bs = st + Cfg::A_ELEMS;
 #pragma unroll
   for (int u = 0; u < Cfg::A_CHUNKS / Cfg::kThreads; ++u) {
     const int c = tid + u * Cfg::kThreads;
     if (Cfg::kAK) {
-      constexpr int CPR = Cfg::BK / 8;
-      const int r = c / CPR, kc = (c % CPR) * 8;
+      constexpr int CPR = Cfg::BK / V;
+      const int r = c / CPR, kc = (c % CPR) * V;
       const bool ok = m0 + r < m_end;
       cp_async16(As + r * Cfg::A_LD + kc,
                  A + (size_t)(ok ? m0 + r : 0) * lda + k0 + kc, ok);
     } else {
-      constexpr int CPR = Cfg::BM / 8;
-      const int r = c / CPR, mc = (c % CPR) * 8;
+      constexpr int CPR = Cfg::BM / V;
+      const int r = c / CPR, mc = (c % CPR) * V;
       const bool ok = k0 + r < kend;
       cp_async16(As + r * Cfg::A_LD + mc,
                  A + (size_t)(ok ? k0 + r : 0) * lda + m0 + mc, ok);
@@ -168,13 +260,13 @@ __device__ __forceinline__ void load_stage(bf16* st, const bf16* A,
   for (int u = 0; u < Cfg::B_CHUNKS / Cfg::kThreads; ++u) {
     const int c = tid + u * Cfg::kThreads;
     if (Cfg::kBK) {
-      constexpr int CPR = Cfg::BK / 8;
-      const int r = c / CPR, kc = (c % CPR) * 8;
+      constexpr int CPR = Cfg::BK / V;
+      const int r = c / CPR, kc = (c % CPR) * V;
       cp_async16(Bs + r * Cfg::B_LD + kc, B + (size_t)(n0 + r) * ldb + k0 + kc,
                  true);
     } else {
-      constexpr int CPR = Cfg::BN / 8;
-      const int r = c / CPR, nc = (c % CPR) * 8;
+      constexpr int CPR = Cfg::BN / V;
+      const int r = c / CPR, nc = (c % CPR) * V;
       const bool ok = k0 + r < kend;
       cp_async16(Bs + r * Cfg::B_LD + nc,
                  B + (size_t)(ok ? k0 + r : 0) * ldb + n0 + nc, ok);
@@ -182,6 +274,7 @@ __device__ __forceinline__ void load_stage(bf16* st, const bf16* A,
   }
 }
 
+// one K step of bf16 products: ldmatrix fragments, m16n8k16
 template <class Cfg>
 __device__ __forceinline__ void compute_stage(
     const bf16* st, float (&acc)[Cfg::MI][Cfg::NI][4], int wm, int wn,
@@ -226,12 +319,51 @@ __device__ __forceinline__ void compute_stage(
   }
 }
 
-// acc = A[m0:, kbeg:kend] . B[kbeg:kend, n0:] through the cp.async ring
+// one K step of fp32 products as 3xTF32: 32-bit fragment loads, split in
+// registers, m16n8k8 (the A fragments of a step split once, each B
+// fragment once per warp)
 template <class Cfg>
-__device__ __forceinline__ void mainloop(bf16* smem, const bf16* A,
-                                         size_t lda, const bf16* B,
-                                         size_t ldb, int m0, int n0, int kbeg,
-                                         int kend, int m_end,
+__device__ __forceinline__ void compute_stage(
+    const float* st, float (&acc)[Cfg::MI][Cfg::NI][4], int wm, int wn,
+    int lane) {
+  const float* As = st;
+  const float* Bs = st + Cfg::A_ELEMS;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < Cfg::BK; kk += 8) {
+    unsigned ah[Cfg::MI][4], al[Cfg::MI][4];
+#pragma unroll
+    for (int mi = 0; mi < Cfg::MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = wm * Cfg::TM + mi * 16 + g + (j & 1) * 8;
+        const int k = kk + t + (j >> 1) * 4;
+        split_tf32(Cfg::kAK ? As[m * Cfg::A_LD + k] : As[k * Cfg::A_LD + m],
+                   ah[mi][j], al[mi][j]);
+      }
+#pragma unroll
+    for (int ni = 0; ni < Cfg::NI; ++ni) {
+      const int n = wn * Cfg::TN + ni * 8 + g;
+      unsigned bh[2], bl[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = kk + t + j * 4;
+        split_tf32(Cfg::kBK ? Bs[n * Cfg::B_LD + k] : Bs[k * Cfg::B_LD + n],
+                   bh[j], bl[j]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < Cfg::MI; ++mi)
+        mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh, bl);
+    }
+  }
+}
+
+// acc = A[m0:, kbeg:kend] . B[kbeg:kend, n0:] through the cp.async ring
+template <class Cfg, typename E = typename Cfg::E>
+__device__ __forceinline__ void mainloop(E* smem, const E* A, size_t lda,
+                                         const E* B, size_t ldb, int m0,
+                                         int n0, int kbeg, int kend,
+                                         int m_end,
                                          float (&acc)[Cfg::MI][Cfg::NI][4]) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / Cfg::WN, wn = warp % Cfg::WN;
@@ -279,10 +411,9 @@ __device__ __forceinline__ void acc_coords(int mi, int ni, int half, int& r,
 // aux instead of 4-byte ones scattered over 8 rows.
 template <class Cfg>
 __device__ __forceinline__ float* stage_acc(
-    bf16* smem, const float (&acc)[Cfg::MI][Cfg::NI][4]) {
+    void* smem, const float (&acc)[Cfg::MI][Cfg::NI][4]) {
   constexpr int LDC = Cfg::BN + 8;
-  static_assert(Cfg::kSmemElems * sizeof(bf16) >=
-                    Cfg::BM * LDC * sizeof(float),
+  static_assert(Cfg::kSmemBytes >= Cfg::BM * LDC * (int)sizeof(float),
                 "the staged tile fits the pipeline buffers");
   float* Cs = reinterpret_cast<float*>(smem);
   __syncthreads();  // every warp is done with the pipeline buffers
@@ -314,19 +445,66 @@ __device__ __forceinline__ void unpack4_bf16(uint2 u, float (&v)[4]) {
   v[3] = b.y;
 }
 
-// ------------------------------------------------------- forward GEMM --
-// out[M, Nout] = epilogue(A[M, K] . W[Nout, K]^T) in bf16, common.cuh's
-// Epilogue values (kBias, kBiasGelu, kBiasResid, kRounded -- the essential
-// block's qkv Linear -- and kBiasGeluSplit); resid may alias out (each
-// element is read, then written, by one thread).
-using FwdTile = Tile<128, 64, 2, 2, true, true>;
+// 4 consecutive elements as fp32, and back (rounded to bf16 for bf16)
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  unpack4_bf16(*reinterpret_cast<const uint2*>(p), v);
+}
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = pack4_bf16(v);
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
 
-template <int EPI, class Cfg = FwdTile>
+// ---------------------------------------------------------- tile configs --
+// Per element type: the forward (K-major A and B), dX (K-major A, N-major
+// B) and dW (M-major A, N-major B) tiles, and the wide forward and dX
+// tiles of 192 output columns taken where the widths allow (every ViT
+// GEMM at C = 192): A is read from L2 a third as often as with 64-column
+// tiles, with half as many barriers (one 138 KB block per SM; the fastest
+// of the tiles tried on an H100 at the bf16 eval shapes).  fp32 keeps the
+// tiles' shape with 32-deep K steps (128 bytes a row, as bf16's 64).
+template <typename E>
+struct Cfgs;
+template <>
+struct Cfgs<bf16> {
+  using Fwd = Tile<bf16, 128, 64, 2, 2, true, true>;
+  using FwdWide = Tile<bf16, 128, 192, 4, 2, true, true, 64, 3>;
+  using Dx = Tile<bf16, 128, 64, 2, 2, true, false>;
+  using DxWide = Tile<bf16, 128, 192, 4, 2, true, false, 64, 3>;
+  using Dw = Tile<bf16, 64, 64, 2, 2, false, false>;
+};
+template <>
+struct Cfgs<float> {
+  using Fwd = Tile<float, 128, 64, 2, 2, true, true, 32, 3>;
+  using FwdWide = Tile<float, 128, 192, 4, 2, true, true, 32, 3>;
+  using Dx = Tile<float, 128, 64, 2, 2, true, false, 32, 3>;
+  using DxWide = Tile<float, 128, 192, 4, 2, true, false, 32, 3>;
+  using Dw = Tile<float, 64, 64, 2, 2, false, false, 32, 3>;
+};
+
+// ------------------------------------------------------- forward GEMM --
+// out[M, Nout] = epilogue(A[M, K] . W[Nout, K]^T) in E, common.cuh's
+// Epilogue values (kBias, kBiasGelu, kBiasResid, kRounded -- the essential
+// block's bf16 qkv Linear -- and kBiasGeluSplit), element for element;
+// resid may alias out (each element is read, then written, by one thread).
+template <int EPI, class Cfg>
 __global__ void __launch_bounds__(Cfg::kThreads)
-gemm_fwd_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                const float* __restrict__ bias, const bf16* resid, bf16* out,
-                float* __restrict__ aux, int M, int Nout, int K) {
-  extern __shared__ __align__(128) bf16 smem[];
+gemm_fwd_kernel(const typename Cfg::E* __restrict__ A,
+                const typename Cfg::E* __restrict__ W,
+                const float* __restrict__ bias, const typename Cfg::E* resid,
+                typename Cfg::E* out, float* __restrict__ aux, int M,
+                int Nout, int K) {
+  using E = typename Cfg::E;
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  E* smem = reinterpret_cast<E*>(gemm_smem);
   const int m0 = blockIdx.y * Cfg::BM, n0 = blockIdx.x * Cfg::BN;
   float acc[Cfg::MI][Cfg::NI][4];
   mainloop<Cfg>(smem, A, K, W, K, m0, n0, 0, K, M, acc);
@@ -342,40 +520,32 @@ gemm_fwd_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     const float a[4] = {a4.x, a4.y, a4.z, a4.w};
     const float b[4] = {b4.x, b4.y, b4.z, b4.w};
     float rs[4], v[4];
-    if (EPI == kBiasResid)
-      unpack4_bf16(*reinterpret_cast<const uint2*>(resid + o), rs);
+    if (EPI == kBiasResid) load4(resid + o, rs);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (EPI == kBias) {
         v[j] = a[j] + b[j];
       } else if (EPI == kBiasGelu) {
-        v[j] = gelu_policy<bf16>(round_to<bf16>(a[j] + b[j]));
+        v[j] = gelu_policy<E>(round_to<E>(a[j] + b[j]));
       } else if (EPI == kBiasResid) {
         v[j] = rs[j] + (a[j] + b[j]);
       } else if (EPI == kRounded) {
-        v[j] = round_to<bf16>(a[j]) + round_to<bf16>(b[j]);
+        v[j] = round_to<E>(a[j]) + round_to<E>(b[j]);
       } else {  // kBiasGeluSplit
-        v[j] = gelu_policy<bf16>(a[j] + b[j]);
+        v[j] = gelu_policy<E>(a[j] + b[j]);
       }
     }
     if (EPI == kBiasGeluSplit)
       *reinterpret_cast<float4*>(aux + o) =
           make_float4(a[0] + b[0], a[1] + b[1], a[2] + b[2], a[3] + b[3]);
-    *reinterpret_cast<uint2*>(out + o) = pack4_bf16(v);
+    store4(out + o, v);
   }
 }
 
-// 192 output columns and 64-deep K steps per block where the widths allow
-// (every ViT GEMM at C = 192): A is read from L2 a third as often as with
-// 64-column tiles, with half as many barriers (one 138 KB block per SM;
-// the fastest of the tiles tried on an H100 at the eval shapes)
-using FwdWide = Tile<128, 192, 4, 2, true, true, 64, 3>;
-
-template <int EPI, class Cfg>
-static cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W,
-                                   const float* bias, const bf16* resid,
-                                   bf16* out, int M, int Nout, int K,
-                                   cudaStream_t stream, float* aux) {
+template <int EPI, class Cfg, typename E = typename Cfg::E>
+static cudaError_t launch_gemm_cfg(const E* A, const E* W, const float* bias,
+                                   const E* resid, E* out, int M, int Nout,
+                                   int K, cudaStream_t stream, float* aux) {
   const int mt = (M + Cfg::BM - 1) / Cfg::BM;
   if (Nout % Cfg::BN || K % Cfg::BK || mt > 65535)
     return cudaErrorInvalidValue;
@@ -387,31 +557,34 @@ static cudaError_t launch_gemm_cfg(const bf16* A, const bf16* W,
   return cudaGetLastError();
 }
 
-template <int EPI>
-static cudaError_t launch_gemm(const bf16* A, const bf16* W,
-                               const float* bias, const bf16* resid,
-                               bf16* out, int M, int Nout, int K,
+template <int EPI, typename E>
+static cudaError_t launch_gemm(const E* A, const nd_t<E>* W,
+                               const float* bias, const nd_t<E>* resid,
+                               nd_t<E>* out, int M, int Nout, int K,
                                cudaStream_t stream, float* aux = nullptr) {
-  if (Nout % FwdWide::BN == 0 && K % FwdWide::BK == 0)
-    return launch_gemm_cfg<EPI, FwdWide>(A, W, bias, resid, out, M, Nout, K,
-                                         stream, aux);
-  return launch_gemm_cfg<EPI, FwdTile>(A, W, bias, resid, out, M, Nout, K,
-                                       stream, aux);
+  using Wide = typename Cfgs<E>::FwdWide;
+  if (Nout % Wide::BN == 0 && K % Wide::BK == 0)
+    return launch_gemm_cfg<EPI, Wide>(A, W, bias, resid, out, M, Nout, K,
+                                      stream, aux);
+  return launch_gemm_cfg<EPI, typename Cfgs<E>::Fwd>(A, W, bias, resid, out,
+                                                     M, Nout, K, stream, aux);
 }
 
 // ------------------------------------------------------------ dX GEMM --
-// out[M, Kout] = epilogue(T(dY)[M, Nred] . W[Nred, Kout]) in fp32, W the
-// torch Linear weight (Nred = out features); common.cuh's DxEpilogue.
-// With outb given, T(out) is also written there (the next products'
+// out[M, Kout] = epilogue(dY'[M, Nred] . W[Nred, Kout]) in fp32, W the
+// torch Linear weight (Nred = out features), dY' the cotangent as the
+// product's operand (bf16: T(dY); fp32: dY); common.cuh's DxEpilogue.
+// With outb given, T(out) is also written there (the next bf16 products'
 // operand).  aux may alias out.
-using DxTile = Tile<128, 64, 2, 2, true, false>;
-
-template <int EPI, class Cfg = DxTile>
+template <int EPI, class Cfg>
 __global__ void __launch_bounds__(Cfg::kThreads)
-gemm_dx_kernel(const bf16* __restrict__ dYb, const bf16* __restrict__ W,
-               const float* aux, float* out, bf16* __restrict__ outb, int M,
+gemm_dx_kernel(const typename Cfg::E* __restrict__ dYb,
+               const typename Cfg::E* __restrict__ W, const float* aux,
+               float* out, typename Cfg::E* __restrict__ outb, int M,
                int Kout, int Nred) {
-  extern __shared__ __align__(128) bf16 smem[];
+  using E = typename Cfg::E;
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  E* smem = reinterpret_cast<E*>(gemm_smem);
   const int m0 = blockIdx.y * Cfg::BM, n0 = blockIdx.x * Cfg::BN;
   float acc[Cfg::MI][Cfg::NI][4];
   mainloop<Cfg>(smem, dYb, Nred, W, Kout, m0, n0, 0, Nred, M, acc);
@@ -425,25 +598,23 @@ gemm_dx_kernel(const bf16* __restrict__ dYb, const bf16* __restrict__ W,
     float4 v = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
     if (EPI == kDxGeluGrad) {
       const float4 h = *reinterpret_cast<const float4*>(aux + o);
-      v.x *= gelu_grad_policy<bf16>(h.x);
-      v.y *= gelu_grad_policy<bf16>(h.y);
-      v.z *= gelu_grad_policy<bf16>(h.z);
-      v.w *= gelu_grad_policy<bf16>(h.w);
+      v.x *= gelu_grad_policy<E>(h.x);
+      v.y *= gelu_grad_policy<E>(h.y);
+      v.z *= gelu_grad_policy<E>(h.z);
+      v.w *= gelu_grad_policy<E>(h.w);
     }
     *reinterpret_cast<float4*>(out + o) = v;
-    if (outb)
-      *reinterpret_cast<uint2*>(outb + o) =
-          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    if (outb) {
+      const float w[4] = {v.x, v.y, v.z, v.w};
+      store4(outb + o, w);
+    }
   }
 }
 
-// as FwdWide, for the dX products at the training shapes
-using DxWide = Tile<128, 192, 4, 2, true, false, 64, 3>;
-
-template <int EPI, class Cfg>
-static cudaError_t launch_gemm_dx_cfg(const bf16* dYb, const bf16* W,
-                                      const float* aux, float* out,
-                                      bf16* outb, int M, int Kout, int Nred,
+template <int EPI, class Cfg, typename E = typename Cfg::E>
+static cudaError_t launch_gemm_dx_cfg(const E* dYb, const E* W,
+                                      const float* aux, float* out, E* outb,
+                                      int M, int Kout, int Nred,
                                       cudaStream_t stream) {
   const int mt = (M + Cfg::BM - 1) / Cfg::BM;
   if (Kout % Cfg::BN || Nred % Cfg::BK || mt > 65535)
@@ -456,41 +627,44 @@ static cudaError_t launch_gemm_dx_cfg(const bf16* dYb, const bf16* W,
   return cudaGetLastError();
 }
 
-template <int EPI>
-static cudaError_t launch_gemm_dx(const bf16* dYb, const bf16* W,
-                                  const float* aux, float* out, bf16* outb,
-                                  int M, int Kout, int Nred,
+template <int EPI, typename E>
+static cudaError_t launch_gemm_dx(const E* dYb, const nd_t<E>* W,
+                                  const float* aux, float* out,
+                                  nd_t<E>* outb, int M, int Kout, int Nred,
                                   cudaStream_t stream) {
-  if (Kout % DxWide::BN == 0 && Nred % DxWide::BK == 0)
-    return launch_gemm_dx_cfg<EPI, DxWide>(dYb, W, aux, out, outb, M, Kout,
-                                           Nred, stream);
-  return launch_gemm_dx_cfg<EPI, DxTile>(dYb, W, aux, out, outb, M, Kout,
+  using Wide = typename Cfgs<E>::DxWide;
+  if (Kout % Wide::BN == 0 && Nred % Wide::BK == 0)
+    return launch_gemm_dx_cfg<EPI, Wide>(dYb, W, aux, out, outb, M, Kout,
                                          Nred, stream);
+  return launch_gemm_dx_cfg<EPI, typename Cfgs<E>::Dx>(dYb, W, aux, out, outb,
+                                                       M, Kout, Nred, stream);
 }
 
 // ------------------------------------------------- dW GEMM, split-K -----
-// dW[Nout, K] = sum_m T(dY)[m, n] X[m, k], db[n] = sum_m dY[m, n] (fp32
-// dY): common.cuh's weight_grad on the tensor cores.  Block (k tile,
-// n tile, chunk s) sums rows [s chunk, (s + 1) chunk) and writes its
-// fp32 partial; the blocks of k tile 0 also write the chunk's column sums
-// of dY; sum_partials adds the chunks in order.  A = T(dY) read M-major and
-// B = X read N-major: both tiles go through ldmatrix.trans.
-using DwTile = Tile<64, 64, 2, 2, false, false>;
+// dW[Nout, K] = sum_m dY'[m, n] X[m, k], db[n] = sum_m dY[m, n] (fp32 dY;
+// dY' the product's operand, as in dX).  Block (k tile, n tile, chunk s)
+// sums rows [s chunk, (s + 1) chunk) and writes its fp32 partial; the
+// blocks of k tile 0 also write the chunk's column sums of dY;
+// sum_partials adds the chunks in order.  A = dY' read M-major and B = X
+// read N-major (bf16: both tiles through ldmatrix.trans).
 
-// rows per dW chunk: more, shorter chunks than common.cuh's kDwChunk keep
-// more SMs busy at the training shapes (M / 1,024 partials of Nout x K
-// fp32; shorter chunks than that were slower on an H100)
+// rows per dW chunk: short chunks keep more SMs busy at the training
+// shapes (M / 1,024 partials of Nout x K fp32; shorter chunks than that
+// were slower on an H100, bf16)
 constexpr int kDwChunkTc = 1024;
 
 static int dw_chunks_tc(int M) { return (M + kDwChunkTc - 1) / kDwChunkTc; }
 
-template <class Cfg = DwTile>
+template <class Cfg>
 __global__ void __launch_bounds__(Cfg::kThreads)
-gemm_dw_kernel(const bf16* __restrict__ dYb, const float* __restrict__ dY,
-               const bf16* __restrict__ X, float* __restrict__ part,
-               float* __restrict__ bias_part, int M, int Nout, int K,
-               int chunk) {
-  extern __shared__ __align__(128) bf16 smem[];
+gemm_dw_kernel(const typename Cfg::E* __restrict__ dYb,
+               const float* __restrict__ dY,
+               const typename Cfg::E* __restrict__ X,
+               float* __restrict__ part, float* __restrict__ bias_part, int M,
+               int Nout, int K, int chunk) {
+  using E = typename Cfg::E;
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  E* smem = reinterpret_cast<E*>(gemm_smem);
   __shared__ float red[Cfg::kThreads / Cfg::BM][Cfg::BM];
   const int k0 = blockIdx.x * Cfg::BN, n0 = blockIdx.y * Cfg::BM;
   const int s = blockIdx.z;
@@ -527,13 +701,15 @@ gemm_dw_kernel(const bf16* __restrict__ dYb, const float* __restrict__ dY,
   }
 }
 
-// dW (Nout, K) and db (Nout) of a Linear from T(dY) (dYb), dY and X;
-// part / bias_part hold dw_chunks_tc(M) partials
-template <class Cfg = DwTile>
-static cudaError_t weight_grad(const bf16* dYb, const float* dY,
-                               const bf16* X, float* dW, float* db,
+// dW (Nout, K) and db (Nout) of a Linear from dY' (dYb: T(dY) for bf16,
+// dY itself for fp32), dY and X; part / bias_part hold dw_chunks_tc(M)
+// partials
+template <typename E>
+static cudaError_t weight_grad(const E* dYb, const float* dY,
+                               const nd_t<E>* X, float* dW, float* db,
                                float* part, float* bias_part, int M, int Nout,
                                int K, cudaStream_t stream) {
+  using Cfg = typename Cfgs<E>::Dw;
   static_assert(kDwChunkTc % Cfg::BK == 0, "whole K steps per chunk");
   if (Nout % Cfg::BM || K % Cfg::BN) return cudaErrorInvalidValue;
   const int S = dw_chunks_tc(M);

@@ -5,8 +5,9 @@
 // (rp_mhsa_bwd), Pallas kernel #7.  The Pallas kernel takes one whole
 // (N, d) head per grid step, its N x N fp32 scores resident in VMEM.  Here
 // bf16 runs the tensor-core kernels of attention_tc.cuh (layout Separate)
-// and fp32 the SIMT kernels of attention.cuh (SeparateQkv; the port's fp32
-// has no TF32, so no tensor-core route), both over separate (G, N, 64) q,
+// and fp32 the SIMT kernels of attention.cuh (SeparateQkv; the 3xTF32
+// tensor-core products of the ViT stack's fp32 attention are not yet
+// this layout's), both over separate (G, N, 64) q,
 // k, v and both rounding as #7 does:
 //   forward: s = (q . k) * scale * log2(e) in fp32, e = exp2(s - max),
 //     o = (T(e) . v) / l with l the fp32 row sum of e, rounded to T;
@@ -84,8 +85,8 @@ extern "C" int rp_mhsa_bwd(const void* q, const void* k, const void* v,
     if (!dnb) return cudaErrorInvalidValue;
     return rp::tc::attention_bwd<rp::tc::Separate>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, nullptr,
-        (T*)dnb, nullptr, nullptr, nullptr, (T*)dq, (T*)dk, (T*)dv, G, 1, N,
-        kD, kD, s2, scale, st);
+        (T*)dnb, nullptr, nullptr, nullptr, nullptr, (T*)dq, (T*)dk, (T*)dv,
+        G, 1, N, kD, kD, s2, scale, st);
   }
   const rp::SeparateQkv<float> lay{
       (const float*)q,    (const float*)k, (const float*)v, nullptr,

@@ -5,8 +5,8 @@ Counterpart of ``rel_pose_tpu/infer.py:42-241``:
   * a fixed ``batch_size``: requests are chunked to it and a ragged tail is
     padded by repeating its last pair, so the model always sees one shape;
   * ``shard`` (on by default): each chunk is split evenly over every local
-    device (:func:`local_devices`: every visible GPU) when ``batch_size``
-    divides their count, one replica of the model a device, each on a CUDA
+    device (:func:`local_devices`: every visible GPU) when their count
+    divides ``batch_size``, one replica of the model a device, each on a CUDA
     stream of its own, all issued from the calling thread.  Eval-mode
     BatchNorm does not depend on the batch, so the poses are those of one
     device, up to the order in which a smaller batch sums;
@@ -109,7 +109,7 @@ class PosePredictor:
     batch_size : fixed model batch; ``None`` runs each request as it comes.
     image_size : optional (H, W) nearest pre-resize.
     shard : split each chunk over :func:`local_devices` when there is more
-        than one and ``batch_size`` divides their count; ``devices`` lists
+        than one and their count divides ``batch_size``; ``devices`` lists
         the devices a chunk is split over (the model's alone otherwise) and
         ``replicas`` their models, ``replicas[0]`` being ``model``.
 

@@ -9,10 +9,12 @@ add fused into block 0:
   * on a CUDA tensor it launches the hand kernels of ``csrc/vit_stack.cu``
     (which replace the Pallas ``_vit_stack_kernel``) or raises.
 
-The dtype picks the kernels: bf16 runs on the tensor cores
-(``csrc/gemm_tc.cuh``, ``csrc/attention_tc.cuh``), fp32 on the SIMT
-kernels of ``csrc/common.cuh`` and ``csrc/attention.cuh`` (the tensor cores
-have no fp32 product, and TF32 would change fp32 results).
+Both dtypes run on the tensor cores (``csrc/gemm_tc.cuh``,
+``csrc/attention_tc.cuh``, ``mma.sync``): bf16 as bf16 products, fp32 as
+3xTF32, each fp32 operand split into a TF32 high part and a TF32 residual
+and three TF32 products summed in fp32 (:func:`tf32x3_matmul` is their
+plain model), which keeps fp32 accuracy -- not the single TF32 product,
+about 3 decimal digits, that the port's precision policy forbids.
 
 Under autograd (grad enabled and an input that requires grad) the stack is
 a ``torch.autograd.Function``, as the Pallas op is a ``custom_vjp``
@@ -158,6 +160,29 @@ def _c_params(stacked):
     """The C ABI takes weights in x.dtype and every vector as fp32."""
     return {k: (v if k in _WEIGHTS else v.float()).contiguous()
             for k, v in stacked.items()}
+
+
+def tf32_rna(x):
+    """fp32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest,
+    ties away from zero, keeping 10 mantissa bits (the low 13 bits of the
+    result are zero); infinities and NaNs pass through."""
+    bits = x.contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    rounded = (bits & -0x80000000) | ((mag + 0x1000) & 0x7FFFE000)
+    return torch.where(mag >= 0x7F800000, bits, rounded).view(torch.float32)
+
+
+def tf32x3_matmul(a, b):
+    """``a @ b`` of fp32 matrices as the kernels' fp32 products (3xTF32):
+    each operand split into ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x -
+    hi)``, and ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` summed in fp32, the
+    residual products first.  Only ``lo_a lo_b`` (below 2^-22 of |a||b|) is
+    dropped.  A plain model of the kernels' numerics for the tests; nothing
+    on the main path calls it."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) \
+        + torch.matmul(ah, bh)
 
 
 # ---------------------------------------------------------------- backward --
@@ -323,9 +348,10 @@ def _launch_backward(xs, g, stacked, num_heads):
 fused_vit_stack_bwd.launches = 0
 
 
-# The tensor-core kernels' tiles: GEMM outputs in 64-column tiles, GEMM
-# rows in 128-row tiles on the grid's second axis (at most 65,535), one
-# attention block per (tile, head, sequence) with sequences on the third.
+# The tensor-core kernels' tiles (both dtypes): GEMM outputs in 64-column
+# tiles, GEMM rows in 128-row tiles on the grid's second axis (at most
+# 65,535), one attention block per (tile, head, sequence) with sequences
+# on the third.
 _TC_ROW_TILE, _TC_MAX_GRID = 128, 65535
 
 
@@ -356,10 +382,9 @@ def _check_inputs(x, args, num_heads):
             raise TypeError(f"fused_vit_stack: {name} is {t.dtype}, x is "
                             f"{x.dtype} (stack_block_params(blocks, "
                             "x.dtype))")
-    if x.dtype == torch.bfloat16:   # the tensor-core kernels
-        if hidden % 64:
-            raise ValueError(f"fused_vit_stack: bf16 needs the MLP width to "
-                             f"be a multiple of 64, got {hidden}")
-        if -(-G * N // _TC_ROW_TILE) > _TC_MAX_GRID or G > _TC_MAX_GRID:
-            raise ValueError(f"fused_vit_stack: {G} sequences of {N} tokens "
-                             "exceed the bf16 kernels' grid")
+    if hidden % 64:
+        raise ValueError(f"fused_vit_stack: the kernels need the MLP width "
+                         f"to be a multiple of 64, got {hidden}")
+    if -(-G * N // _TC_ROW_TILE) > _TC_MAX_GRID or G > _TC_MAX_GRID:
+        raise ValueError(f"fused_vit_stack: {G} sequences of {N} tokens "
+                         "exceed the kernels' grid")

@@ -25,12 +25,13 @@ InteriorNet intrinsics, bf16.  The stages are the model's own
 The JAX script times nested prefixes in compiled loops and takes
 differences; PyTorch runs eagerly, so each stage is timed directly between
 CUDA events recorded at its boundaries, and the whole ``model(images,
-intr)`` is timed on its own.  Both are printed, with the share of the whole
+intr)`` is timed on its own, in the same iteration; each time is the
+median over the iterations.  Both are printed, with the share of the whole
 that the stages' sum accounts for (the events themselves cost a little).
 The space-to-depth stem of the JAX script is a TPU rewrite that the port
 does not have.
 
-The last line is one JSON object: ``stages_ms`` (mean ms a forward by
+The last line is one JSON object: ``stages_ms`` (median ms a forward by
 stage), ``stages_sum_ms``, ``forward_ms``, ``sum_share``,
 ``pairs_per_sec`` (from ``forward_ms``), the run's settings and the card
 (``nvidia-smi``'s name and power limit).  ``--device cpu`` (with
@@ -77,7 +78,10 @@ def seeded_model(dtype, depth, device, seed=0):
 
 def measure(model, batch, iters, device, hw=(256, 256), warmup=1):
     """The eval forward of ``model`` at ``batch`` pairs of ``hw`` uint8
-    images: mean ms a forward by stage and of the whole -> dict."""
+    images: median ms a forward by stage and of the whole -> dict.  Each
+    iteration runs the staged forward and then the whole forward, each
+    from an idle card, so that a slow spell of the host or the card falls
+    on both and not on one of them."""
     from ..infer import INTERIORNET_STREETLEARN_INTRINSICS
     rng = np.random.default_rng(0)
     images = torch.from_numpy(rng.integers(
@@ -86,23 +90,23 @@ def measure(model, batch, iters, device, hw=(256, 256), warmup=1):
         device).repeat(batch, 2, 1)
     staged = model.stages(images.shape, intr)
     clock = Clock(device)
-    sums = np.zeros(len(staged))
+    stages, whole = [], []
     with torch.inference_mode():
         for i in range(warmup + iters):
-            _, marks = run_stages(staged, images, clock)
+            clock.sync()
+            marks = run_stages(staged, images, clock)[1]
+            clock.sync()
+            start = clock.mark()
+            model(images, intr)
+            end = clock.mark()
             clock.sync()
             if i >= warmup:
-                sums += [clock.ms(a, b) for a, b in zip(marks, marks[1:])]
-        for _ in range(warmup):
-            model(images, intr)
-        start = clock.mark()
-        for _ in range(iters):
-            model(images, intr)
-        end = clock.mark()
-        clock.sync()
-    forward = clock.ms(start, end) / iters
-    per_stage = {name: float(s / iters) for (name, _), s in zip(staged,
-                                                                 sums)}
+                stages.append([clock.ms(a, b)
+                               for a, b in zip(marks, marks[1:])])
+                whole.append(clock.ms(start, end))
+    forward = float(np.median(whole))
+    per_stage = {name: float(ms) for (name, _), ms in zip(
+        staged, np.median(stages, axis=0))}
     total = float(sum(per_stage.values()))
     return {"stages_ms": per_stage, "stages_sum_ms": total,
             "forward_ms": forward, "sum_share": total / forward,

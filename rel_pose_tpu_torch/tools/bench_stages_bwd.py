@@ -23,9 +23,10 @@ includes #6.  The hooks return nothing, so no gradient changes
 (``tests/test_torch_bench_tools.py`` holds them bit for bit against plain
 autograd), and every parameter belongs to one stage
 (:func:`stage_parameters`).  A forward and backward of ``loss_fn`` without
-hooks or events is timed on its own for comparison.
+hooks or events is timed on its own for comparison, in the same iteration;
+each time is the median over the iterations.
 
-The last line is one JSON object: ``forward_ms`` and ``backward_ms`` (mean
+The last line is one JSON object: ``forward_ms`` and ``backward_ms`` (median
 ms by stage), their sums, ``step_ms`` (the plain forward and backward),
 ``sum_share``, the settings and the card.  ``--device cpu`` rehearses it
 on the CPU (host clock).
@@ -120,39 +121,36 @@ def backward_ms(names, bwd, clock):
 
 
 def measure(model, batch, iters, device, warmup=1):
-    """-> dict of the training forward's and backward's ms by stage and of
-    the plain forward and backward."""
+    """-> dict of the training forward's and backward's median ms by stage
+    and of the plain forward and backward.  Each iteration runs the staged
+    step and then the plain one, each from an idle card, so that a slow
+    spell of the host or the card falls on both and not on one of them."""
     from ..train.step import loss_fn
     images, poses, intr = train_batch(batch, device)
     model.train()
     staged = training_stages(model, images, poses, intr)
     names = [n for n, _ in staged]
     clock = Clock(device)
-    fwd = {n: 0.0 for n in names}
-    bwd = {n: 0.0 for n in names}
+    fwd, bwd, steps = [], [], []
     for i in range(warmup + iters):
+        clock.sync()
         model.zero_grad(set_to_none=True)
         marks, bmarks = staged_step(staged, images, clock)
         clock.sync()
+        model.zero_grad(set_to_none=True)
+        start = clock.mark()
+        loss_fn(model, images, poses, intr)[0].backward()
+        end = clock.mark()
+        clock.sync()
         if i < warmup:
             continue
-        for n, a, b in zip(names, marks, marks[1:]):
-            fwd[n] += clock.ms(a, b) / iters
-        for n, ms in backward_ms(names, bmarks, clock).items():
-            bwd[n] = None if ms is None else bwd[n] + ms / iters
-
-    def plain():
-        model.zero_grad(set_to_none=True)
-        loss_fn(model, images, poses, intr)[0].backward()
-
-    for _ in range(warmup):
-        plain()
-    start = clock.mark()
-    for _ in range(iters):
-        plain()
-    end = clock.mark()
-    clock.sync()
-    step = clock.ms(start, end) / iters
+        fwd.append([clock.ms(a, b) for a, b in zip(marks, marks[1:])])
+        bwd.append(backward_ms(names, bmarks, clock))
+        steps.append(clock.ms(start, end))
+    fwd = {n: float(ms) for n, ms in zip(names, np.median(fwd, axis=0))}
+    bwd = {n: None if bwd[0][n] is None
+           else float(np.median([b[n] for b in bwd])) for n in names}
+    step = float(np.median(steps))
     fsum, bsum = sum(fwd.values()), sum(v for v in bwd.values() if v)
     return {"forward_ms": fwd, "backward_ms": bwd, "forward_sum_ms": fsum,
             "backward_sum_ms": bsum, "step_ms": step,

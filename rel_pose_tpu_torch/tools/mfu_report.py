@@ -19,7 +19,7 @@ Counterpart of ``scripts/mfu_report.py``:
     batch, counted twice: the real MACs of the products, and the MACs at
     the tile shapes the port's tensor-core kernels schedule -- each
     product's dimensions rounded up to the tile: the GEMMs' 128 x 64 x 32
-    (``csrc/gemm_tc.cuh``'s ``FwdTile`` and ``BK_DEPTH``), the attention's
+    (``csrc/gemm_tc.cuh``'s bf16 ``Fwd`` and ``BK_DEPTH``), the attention's
     64-row query and key tiles (``csrc/attention_tc.cuh`` ``kAT``), the
     essential body's e = 70 in 72 output columns (n8 tiles) and 80 of
     depth (k16 steps; ``csrc/essential_tc.cuh`` ``EbW``).
@@ -37,7 +37,7 @@ import sys
 
 # the port's tensor-core tiles (tests/test_torch_mfu_report.py reads them
 # out of the headers)
-GEMM_TILE = (128, 64, 32)    # gemm_tc.cuh: FwdTile BM, BN; Tile BK_DEPTH
+GEMM_TILE = (128, 64, 32)    # gemm_tc.cuh: bf16 Fwd BM, BN; Tile BK_DEPTH
 ATTN_TILE = 64               # attention_tc.cuh: kAT, query and key rows
 MMA_N, MMA_K = 8, 16         # mma.sync m16n8k16: output columns, depth
 TIMES = ("eval_ms", "train_fp32_ms", "train_bf16_ms", "vit_eval_ms",

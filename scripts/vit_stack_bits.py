@@ -16,10 +16,13 @@ for each of the 8 flag sets, #8 (``fused_bilinear_attention`` and its
 backward) in fp32 at G = 24 slices of N = 576 for e in {70, 64} and both
 softmaxes, and #9's ``essential_block_s`` in fp32 (S = 2, 4, B = 4), and
 prints one line per (dtype, output) with the sha256 of the output's
-bytes.  Where two trees run the same kernels (fp32's SIMT kernels since
-the port began; the essential block's bf16 tensor-core kernels, which use
-no atomics and sum in a fixed order, since they were written), they print
-the same digests on one card.  Needs a CUDA device.
+bytes.  Where two trees run the same kernels (every kernel here uses no
+atomics and sums in a fixed order), they print the same digests on one
+card.  A kernel whose sums move changes its digests by design: the fp32
+ViT stack's (forward, forward with the stash, backward) moved when its
+products went from SIMT FMAs to 3xTF32 on the tensor cores, while #2, #4,
+#6 (both dtypes), #7, #8, #9 (fp32) and the bf16 ViT stack kept theirs.
+Needs a CUDA device.
 """
 
 import argparse

@@ -1,7 +1,7 @@
 """The port's MFU report (``rel_pose_tpu_torch.tools.mfu_report``).
 
   * the padding helper, and the tiles it pads to read back out of the
-    port's tensor-core headers (``csrc/gemm_tc.cuh``'s ``FwdTile`` and
+    port's tensor-core headers (``csrc/gemm_tc.cuh``'s bf16 ``Fwd`` and
     ``BK_DEPTH``, ``attention_tc.cuh``'s ``kAT``, ``essential_tc.cuh``'s
     72 output columns and 80 of depth for e = 70);
   * the real-MAC floors equal the per-op count (``count_matmul_flops``) of
@@ -44,7 +44,7 @@ def test_pad():
 
 def test_tiles_are_the_headers():
     gemm = (CSRC / "gemm_tc.cuh").read_text()
-    bm, bn = map(int, re.search(r"using FwdTile = Tile<(\d+), (\d+),",
+    bm, bn = map(int, re.search(r"using Fwd = Tile<bf16, (\d+), (\d+),",
                                 gemm).groups())
     bk = int(re.search(r"int BK_DEPTH = (\d+)", gemm).group(1))
     assert mfu.GEMM_TILE == (bm, bn, bk)

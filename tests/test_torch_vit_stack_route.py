@@ -1,12 +1,11 @@
 """PyTorch port: what the ViT stack's wrappers do in Python around kernels
 #1 and #5 (``ops/vit_stack.py``), on the CPU.
 
-  * the dtype picks the kernels: the wrappers pass bf16 = 1 (the
-    tensor-core kernels) or 0 (fp32, the SIMT kernels) to the C entry
-    points;
-  * the bf16 kernels' shape checks (MLP width, grid size) raise before any
-    launch, where fp32 takes the same shapes; a CPU tensor reaches no
-    kernel;
+  * the dtype picks the products: the wrappers pass bf16 = 1 (bf16
+    tensor-core products) or 0 (fp32, 3xTF32 tensor-core products) to the
+    C entry points;
+  * the tensor-core kernels' shape checks (MLP width, grid size) raise
+    before any launch, in both dtypes; a CPU tensor reaches no kernel;
   * with a stand-in for the kernel library, each wrapper passes as many
     arguments as the C signature has and adds one to its launch counter
     per launch, and only then;
@@ -49,37 +48,37 @@ def tokens(dtype, G=2):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bf16_shape_checks(fake_lib, dtype):
-    """bf16 needs an MLP width in whole 64-column tiles; fp32 (SIMT) takes
-    any."""
+    """Both dtypes' tensor-core kernels need an MLP width in whole
+    64-column tiles (fp32 too, since its products moved from the SIMT
+    kernels to 3xTF32 on the tensor cores); such a width launches."""
     x = tokens(dtype)
     p = stacked(dtype, hidden=96)
     pos = torch.zeros((1, N, C), dtype=dtype)
-    if dtype == torch.bfloat16:
-        with pytest.raises(ValueError, match="multiple of 64"):
-            tv._launch_forward(x, p, HEADS, pos, stash=False)
-        with pytest.raises(ValueError, match="multiple of 64"):
-            tv._launch_backward(torch.stack([x] * DEPTH), x, p, HEADS)
-        assert fake_lib.calls == []
-    else:
+    with pytest.raises(ValueError, match="multiple of 64"):
         tv._launch_forward(x, p, HEADS, pos, stash=False)
+    with pytest.raises(ValueError, match="multiple of 64"):
         tv._launch_backward(torch.stack([x] * DEPTH), x, p, HEADS)
-        assert [name for name, _ in fake_lib.calls] == [
-            "rp_vit_stack", "rp_vit_stack_bwd_workspace", "rp_vit_stack_bwd"]
+    assert fake_lib.calls == []
+    p = stacked(dtype, hidden=128)
+    tv._launch_forward(x, p, HEADS, pos, stash=False)
+    tv._launch_backward(torch.stack([x] * DEPTH), x, p, HEADS)
+    assert [name for name, _ in fake_lib.calls] == [
+        "rp_vit_stack", "rp_vit_stack_bwd_workspace", "rp_vit_stack_bwd"]
 
 
 @pytest.mark.parametrize("G,ok_bf16", [(70000, False), (14000, True)])
 def test_bf16_grid_check(G, ok_bf16):
     """The rows' 128-row tiles and the sequences must fit the grid's
-    65,535 blocks for bf16; fp32 has no such bound."""
+    65,535 blocks, in bf16 and fp32 alike (one tensor-core chain)."""
     args = {k: v.to("meta") for k, v in stacked(torch.bfloat16).items()}
     x = torch.empty((G, 576, C), dtype=torch.bfloat16, device="meta")
-    if ok_bf16:
-        tv._check_inputs(x, args, HEADS)
-    else:
-        with pytest.raises(ValueError, match="grid"):
-            tv._check_inputs(x, args, HEADS)
-    args = {k: v.float() for k, v in args.items()}
-    tv._check_inputs(x.float(), args, HEADS)
+    for dtype in (torch.bfloat16, torch.float32):
+        a = {k: v.to(dtype) for k, v in args.items()}
+        if ok_bf16:
+            tv._check_inputs(x.to(dtype), a, HEADS)
+        else:
+            with pytest.raises(ValueError, match="grid"):
+                tv._check_inputs(x.to(dtype), a, HEADS)
 
 
 def test_cpu_tensor_reaches_no_kernel():
