@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      each backward twice for identical bits; the fp32 ViT stack at G=16
      against the plain version run in float64: the kernel's max error at
      most F64_BAR times the fp32 plain version's, for the output, dx and
-     the 12 gradients;
+     the 12 gradients; the same bar for the fp32 essential block at B=8
+     (#2's F, #6's dq, dk, dv and dpos, each of the 8 flag sets, against
+     ``essential_f64``), the worst ratio printed;
   4. the slice: ``PosePredictor`` over the flagship ``ViTEss`` (depth 6,
      seeded random weights) answers InteriorNet-style 256x256 requests of
      1, 5 and 8 pairs and a Matterport-style 480x640 request resized to
@@ -48,8 +50,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      of its executed products and its exp2 count over 3.9 T/s), the ViT
      stack in fp32 at G = 512 and 120 (beside the fp32 library stack and
      SDPA, the bound on the 3xTF32 peak, TFLOP/s against it and the SIMT
-     peak), one fp32 reading of #2, #3, #4, and the eval forward in pairs/s
-     at batch 256, 256x256 uint8, bf16, preprocessing included;
+     peak), one fp32 reading of #2, #3, #4 (#2's parts too), and the eval
+     forward in pairs/s at batch 256, 256x256 uint8, bf16, preprocessing
+     included;
   5b. each backward kernel and its plain version at the training shapes of
      batch 60 in bf16 (the ViT stack's and #6's also by part: #6's
      statistics, prologue, rho / gamma passes and its two gradient passes);
@@ -57,9 +60,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      stack from library calls (``F.layer_norm``, cuBLAS ``F.linear``,
      ``F.scaled_dot_product_attention``, ``F.gelu``), forward (eval shapes)
      and backward of a kept forward (training shapes), and one SDPA call
-     each way; #5 and #6 in fp32 the same way; and the training step in
-     pairs/s at batch 60, 384x512 uint8 (bench.py's train protocol), fp32
-     and bf16, kernels and plain path.
+     each way; #5 and #6 in fp32 the same way (#6's parts too); and the
+     training step in pairs/s at batch 60, 384x512 uint8 (bench.py's train
+     protocol), fp32 and bf16, kernels and plain path.
 
 The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
@@ -96,10 +99,10 @@ The ablations of the Essential Matrix Module (``ModelConfig`` with
   3d. #2, #4 (``fused_essential_block``) and #6 for every combination of
      {positions, none} x {dual, single softmax} x {va = v_self, cross
      features} against their plain versions at B = 8 pairs of N = 576, and
-     #4 and #6 again at B = 4 of a ragged N = 100, fp32 and bf16 (bf16: the
+     #4 and #6 again at B = 4 of a ragged N = 100, fp32 and bf16 (the
      tensor-core kernels of ``csrc/essential_tc.cuh`` and
-     ``essential_tc_bwd.cuh``); #2 and each backward twice for the same
-     bits; the fp32 outputs' sha256 printed (``scripts/vit_stack_bits.py``
+     ``essential_tc_bwd.cuh``, fp32 as 3xTF32); #2 and each backward twice
+     for the same bits; the fp32 outputs' sha256 printed (``scripts/vit_stack_bits.py``
      prints them for another tree); #3 (``fused_essential_block_x``) for
      the flagship flags and one ablated combination; the four counters
      rose;
@@ -697,6 +700,94 @@ def check_vit_f64(device, failures, G=16):
         f"{worst:.3f} over {len(rows)} outputs")
 
 
+def essential_f64(qkv, pos, heads, cross, single):
+    """F (B, 2, heads, e, e) of the moments on float64 ``qkv (B, 2, N, 3C)``
+    with no rounding (the plain version's arithmetic with T the identity:
+    exp2 softmaxes with the scale d^-1/2 log2 e, vb_n = vb / lc, av = (P
+    vb_n) / lr, F = va^T av), differentiable by autograd.  ``pos`` is
+    (B, 2, heads, N, 6), slice (pair, direction, head)'s positional columns
+    (appended to its vb and va), or None: its gradient is the kernel's
+    dpos_part."""
+    B, _, N, C3 = qkv.shape
+    d = C3 // 3 // heads
+    q, k, v = qkv.view(B, 2, N, 3, heads, d).permute(3, 0, 1, 4, 2, 5)
+    va = v.flip(1) if cross else v
+    if pos is not None:
+        v, va = torch.cat([v, pos], -1), torch.cat([va, pos], -1)
+    s = torch.matmul(q.flip(1), k.transpose(-1, -2)) * (
+        d ** -0.5 * 1.4426950408889634)
+    er = torch.exp2(s - s.amax(-1, keepdim=True))
+    if single:
+        p, vb_n = er, v
+    else:
+        ec = torch.exp2(s - s.amax(-2, keepdim=True))
+        p = er * ec
+        vb_n = v / ec.sum(-2, keepdim=True).transpose(-1, -2)
+    av = torch.matmul(p, vb_n) / er.sum(-1, keepdim=True)
+    return torch.matmul(va.transpose(-1, -2), av)
+
+
+def check_essential_f64(device, failures, B=8):
+    """#2's F (LayerNorm, qkv Linear, moments) and #6's dq, dk, dv and dpos
+    in fp32, for the 8 (has_pos, cross, single) variants at B pairs of N =
+    576, against the plain versions run in float64 (:func:`essential_f64`
+    after a float64 LayerNorm and Linear; #6 by autograd from the same
+    fp32 qkv), beside the fp32 plain versions: fails unless the kernel's
+    max |err| <= F64_BAR x the plain version's, per output and variant."""
+    import torch.nn.functional as F
+    from rel_pose_tpu_torch.ops import essential_block as te
+    rng = np.random.default_rng(SEED + 9)
+    xpair, ln, qkvp, positional = essential_inputs(rng, B, torch.float32,
+                                                   device)
+    _, _, qkv = split_pair(xpair, ln, qkvp)
+    y64 = F.layer_norm(xpair.double(), (xpair.shape[-1],), ln[0].double(),
+                       ln[1].double(), 1e-6)
+    qkv64 = F.linear(y64, qkvp[0].double(), qkvp[1].double())
+    worst = 0.0
+    for has_pos, cross, single in VARIANTS:
+        name, kw = variant_name(has_pos, cross, single), variant_kw(cross,
+                                                                   single)
+        pos = positional if has_pos else None
+        slices = (None if pos is None else pos.double()[:, None, None]
+                  .expand(B, 2, 3, *pos.shape[1:]).contiguous())
+        e = 64 + 6 * has_pos
+        df = torch.from_numpy((0.1 * rng.standard_normal(
+            (B, 2, 3, e, e))).astype(np.float32)).to(device)
+        f = te.fused_essential_block_pair(xpair, ln, qkvp, pos, 3, **kw)
+        dq, dp = te.fused_essential_block_bwd(qkv, pos, df, 3, **kw)
+        pf = te.essential_block_pair_reference(xpair, ln, qkvp, pos, 3, **kw)
+        pq, pp = te.essential_block_bwd_reference(qkv, pos, df, 3, **kw)
+        f64 = essential_f64(qkv64, slices, 3, cross, single)
+        leaves = [qkv.double().requires_grad_()]
+        if slices is not None:
+            leaves.append(slices.clone().requires_grad_())
+        g64 = torch.autograd.grad(
+            (essential_f64(leaves[0], leaves[1] if has_pos else None, 3,
+                           cross, single) * df.double()).sum(), leaves)
+        C = qkv.shape[-1] // 3
+        rows = [("F", f, pf, f64)]
+        rows += [(part, dq[..., sl], pq[..., sl], g64[0][..., sl])
+                 for part, sl in (("dq", slice(0, C)),
+                                  ("dk", slice(C, 2 * C)),
+                                  ("dv", slice(2 * C, 3 * C)))]
+        if has_pos:
+            rows.append(("dpos", dp, pp, g64[1]))
+        for part, kern, plain, ref in rows:
+            ek = (kern.double() - ref).abs().max().item()
+            ep = (plain.double() - ref).abs().max().item()
+            ratio = ek / ep if ep > 0 else (0.0 if ek == 0 else float("inf"))
+            worst = max(worst, ratio)
+            ok = bool(np.isfinite(ek)) and ek <= F64_BAR * ep
+            log(f"[check] essential fp32 {name} {part} B={B} against "
+                f"float64: kernel max |err| {ek:.3e}, fp32 plain {ep:.3e}, "
+                f"ratio {ratio:.3f} (<= {F64_BAR}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"essential fp32 {name} {part} float64 bar")
+    log(f"[check] essential fp32 B={B} float64 bar (#2 F, #6 dq dk dv "
+        f"dpos, 8 variants): worst ratio {worst:.3f}")
+    return worst
+
+
 def phase_kernels_bwd(device):
     """(3b) the stash and both backward kernels against their plain
     versions on the card, fp32 and bf16, and bitwise repeatability."""
@@ -715,6 +806,7 @@ def phase_kernels_bwd(device):
         errs["vit_stack_bwd", dtype] = e[0]
         if dtype == torch.float32:
             check_vit_f64(device, failures)
+            check_essential_f64(device, failures)
 
         xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
         qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
@@ -1085,12 +1177,15 @@ def profile_parts_ms(fn, part_of, once=False):
     return parts
 
 
-def essential_executed(B, N, e, single, backward, C=192, heads=3):
-    """{part: (executed products' FLOPs, exp2 count)} of the bf16
-    tensor-core path at B pairs (padded widths: 72 columns for an e-wide
-    product with e = 70, 80 as the k depth over e)."""
+def essential_executed(B, N, e, single, backward, C=192, heads=3,
+                       dtype=torch.bfloat16):
+    """{part: (executed products' FLOPs, exp2 count)} of the tensor-core
+    path at B pairs (padded widths: 72 columns for an e-wide product with e
+    = 70; as the depth over e, bf16 80 (k16), fp32 72 (k8); fp32 counts
+    each 3xTF32 product once)."""
     G = 2 * B * heads
-    wn, wk = 8 * -(-e // 8), 16 * -(-e // 16)
+    step = 16 if dtype == torch.bfloat16 else 8
+    wn, wk = 8 * -(-e // 8), step * -(-e // step)
     score, n2 = 2 * N * N * 64 * G, N * N * G
     if not backward:
         out = {"moments": (2 * score + 2 * N * N * wn * G
@@ -1229,7 +1324,8 @@ def time_vit_stack(device, card, G, backward, dtype=torch.float32):
 def time_fp32(name, kernel, plain, flops, nb, card, plain_iters=3,
               lib_ms=None):
     """One fp32 reading of a kernel at a shape its phase checks (#2-#4 and
-    #6-#9, which keep their SIMT fp32 bodies): CUDA-event ms of ``kernel()``
+    #6 on the 3xTF32 tensor-core body, #7-#9 on their SIMT fp32 bodies):
+    CUDA-event ms of ``kernel()``
     and ``plain()``, the bound on the 3xTF32 peak, the TFLOP/s of the
     function's products against it and the SIMT peak; returns the row."""
     ms = cuda_time_ms(kernel, 3)
@@ -1335,6 +1431,11 @@ def phase_times(device, models, card):
         lambda: fused_essential_block_pair(*args, 3),
         lambda: essential_block_pair_reference(*args, 3),
         essential_fwd_flops(B, 576, 192, 3), nbytes(xpair, f) + 4 * small,
+        card)
+    log_essential_parts(f"essential_block_pair fp32 B={B}", profile_parts_ms(
+        lambda: fused_essential_block_pair(*args, 3), essential_part,
+        once=True),
+        essential_executed(B, 576, 70, False, False, dtype=torch.float32),
         card)
     (x1, x2), (q1, q2), _ = split_pair(xpair, ln, qkvp)
     f = te.fused_essential_block(q1, q2, positional, 3)
@@ -1618,6 +1719,11 @@ def phase_times_train(device, sd, card):
         lambda: te.essential_block_bwd_reference(qkv, pos, df, 3),
         essential_bwd_flops(B, 576, 3), 2 * nbytes(qkv) + nbytes(pos, df, dp),
         card, plain_iters=2)
+    log_essential_parts(f"essential_block_bwd fp32 B={B}", profile_parts_ms(
+        lambda: te.fused_essential_block_bwd(qkv, pos, df, 3),
+        essential_part, once=True),
+        essential_executed(B, 576, 70, False, True, dtype=torch.float32),
+        card)
     del xpair, qkv, pos, df, dq, dp
     if failures:
         raise SystemExit(f"batch-60 backward checks failed: {failures}")

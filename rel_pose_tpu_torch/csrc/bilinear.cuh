@@ -3,10 +3,10 @@
 // path of Pallas kernels #8 and #9, whose bf16 path runs the tensor-core
 // body of essential_tc.cuh.
 //
-// It is the two-phase SIMT body of the moments kernel of
-// essential_block.cuh (#2-#4's fp32 path), with the same arithmetic in the
-// same order, behind a row source (`Rows`) that says where q, k, va and vb
-// of the slice live.  Its callers:
+// It is a two-phase SIMT body with _eb_combos' arithmetic (the column
+// statistics merged online over 32-row tiles of s, then P, av and F),
+// behind a row source (`Rows`) that says where q, k, va and vb of the
+// slice live.  Its callers:
 //   * bilinear.cu, Pallas kernel #8 (pallas_essential.py:_fwd_kernel): one
 //     block per slice of separate (G, N, 64) q, k and (G, N, e) va, vb
 //     tensors (SliceRows), any runtime scale;

@@ -14,13 +14,13 @@
 //   ds = R (dR - rowsum(dR R)) + Cmat (dC - colsum(dC Cmat)),
 //        dR = dA Cmat, dC = dA R;   with SINGLE ds = R (dA - rowsum(dA R))
 //   dq = T(T(ds scale) k);  dk = T(T(ds scale)^T q)
-// It is the per-(pair, direction, head) VJP of essential_block_bwd.cuh (#6)
+// It is the per-(pair, direction, head) VJP of #6 (essential_tc_bwd.cuh)
 // on a slice of its own: no directions, no positional bookkeeping, and va,
 // vb separate tensors (one tensor in the non-cross wiring; the caller's
 // autograd adds dva and dvb).  Each of dq, dk, dva, dvb has one writer, the
 // slice's block: no atomics, and two runs give the same bits.
 //
-// Design of the fp32 kernel (#6's SIMT one): one CUDA block per slice walks
+// Design of the fp32 kernel (SIMT): one CUDA block per slice walks
 // 32-row tiles of s, the full 32 x N rows in shared memory, in passes:
 //   0. T(vb T(dF)^T) for all N keys into the slice's scratch;
 //   1. column max / sum of exp2(s2), merged online (not with SINGLE);

@@ -1,7 +1,6 @@
-// Row LayerNorm and its VJP, the epilogues of the GEMMs (the ViT stack's
-// tensor-core GEMMs in gemm_tc.cuh apply them; the SIMT gemm_kernel below
-// is the essential block's fp32 qkv Linear), the fixed-order partial sums,
-// and the fp32 <-> compute-dtype helpers.
+// Row LayerNorm and its VJP, the epilogues of the tensor-core GEMMs in
+// gemm_tc.cuh, the fixed-order partial sums, and the fp32 <-> compute-dtype
+// helpers.
 //
 // Compute dtype T is float or __nv_bfloat16.  Every product accumulates in
 // fp32 (bf16 products are exact in fp32), every statistic is fp32, and each
@@ -111,13 +110,8 @@ static cudaError_t launch_layernorm(const T* x, const T* pos, T* xsum,
 }
 
 // ------------------------------------------------------------------ GEMM --
-// out[M, Nout] = epilogue(A[M, K] . W[Nout, K]^T), W in torch Linear layout.
-// SIMT fp32 FMA on 64x64 output tiles, 16-deep K steps through shared
-// memory, 4x4 outputs per thread: only the fp32 qkv Linear of the essential
-// block (#2, #3: essential_block.cu) runs it; every bf16 GEMM and the ViT
-// stack's fp32 ones run gemm_tc.cuh on the tensor cores.  At K = 192 the
-// products are compute-bound; the fp32 essential block's move to gemm_tc.cuh
-// is later work.
+// The epilogues of gemm_tc.cuh's forward GEMM, out[M, Nout] =
+// epilogue(A[M, K] . W[Nout, K]^T) with W in torch Linear layout.
 
 enum Epilogue {
   kBias = 0,       // T(acc + b)                        (Pallas ViT bias)
@@ -127,8 +121,6 @@ enum Epilogue {
   kBiasGeluSplit = 4,  // T(gelu(acc + b)), and acc + b in fp32 to aux
                        // (the backward's fc1 recompute)
 };
-
-constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
 
 template <typename T>
 __device__ __forceinline__ float gelu_policy(float h) {
@@ -152,81 +144,6 @@ __device__ __forceinline__ float gelu_grad_policy(float h) {
   }
   const float phi = expf(-0.5f * h * h) * 0.3989422804014327f;
   return 0.5f * (1.f + erff(h * 0.7071067811865476f)) + h * phi;
-}
-
-template <typename T, int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
-            const float* __restrict__ bias, const T* resid, T* out,
-            float* __restrict__ aux, int M, int Nout, int K) {
-  // resid may alias out: each element is read then written by one thread
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Ws[kBK][kBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  // tile loader: thread -> (row lr, 4 consecutive k from lk)
-  const int lr = tid / 4, lk = (tid % 4) * 4;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int k = k0 + lk + u;
-      const int am = m0 + lr, wn = n0 + lr;
-      As[lk + u][lr] = (am < M && k < K) ? to_f32(A[(size_t)am * K + k]) : 0.f;
-      Ws[lk + u][lr] =
-          (wn < Nout && k < K) ? to_f32(W[(size_t)wn * K + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= Nout) continue;
-      const size_t o = (size_t)m * Nout + n;
-      float v;
-      if (EPI == kBias) {
-        v = acc[i][j] + bias[n];
-      } else if (EPI == kBiasGelu) {
-        v = gelu_policy<T>(round_to<T>(acc[i][j] + bias[n]));
-      } else if (EPI == kBiasResid) {
-        v = to_f32(resid[o]) + (acc[i][j] + bias[n]);
-      } else if (EPI == kBiasGeluSplit) {
-        aux[o] = acc[i][j] + bias[n];
-        v = gelu_policy<T>(acc[i][j] + bias[n]);
-      } else {
-        v = round_to<T>(acc[i][j]) + round_to<T>(bias[n]);
-      }
-      out[o] = from_f32<T>(v);
-    }
-  }
-}
-
-template <typename T, int EPI>
-static cudaError_t launch_gemm(const T* A, const T* W, const float* bias,
-                               const T* resid, T* out, int M, int Nout, int K,
-                               cudaStream_t stream, float* aux = nullptr) {
-  dim3 grid((Nout + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<T, EPI><<<grid, kGemmThreads, 0, stream>>>(
-      A, W, bias, resid, out, aux, M, Nout, K);
-  return cudaGetLastError();
 }
 
 // =========================================================== backward ====

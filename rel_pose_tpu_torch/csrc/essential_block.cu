@@ -9,80 +9,54 @@
 //     (B, N, C) -> the qkv Linear on each image -> moments (no LayerNorm);
 //   rp_essential_block (#4 _essential_block_kernel): precomputed qkv1, qkv2
 //     (B, N, 3C) -> moments.
-// bf16 runs the qkv Linear on the tensor cores (gemm_tc.cuh, epilogue
-// kRounded) and the moments of essential_tc.cuh; fp32 the SIMT GEMM of
-// common.cuh and dual_softmax_kernel of essential_block.cuh, as before.
-// The LayerNorm is common.cuh's for both.  Each entry point takes the flags
-// of _eb_combos (has_pos, single, cross) and picks the kernel variant; the
-// e = 70 variants are instantiated in essential_block.cu / essential_tc.cu,
-// the e = 64 ones in essential_block_e64.cu / essential_tc_e64.cu, so that
-// nvcc builds them in parallel.  bf16 needs the scratch that
-// rp_essential_block_workspace sizes (fp32 none).
+// Both dtypes run the qkv Linear on the tensor cores (gemm_tc.cuh, epilogue
+// kRounded: T(T(acc) + T(b)), fp32 as 3xTF32) and the moments of
+// essential_tc.cuh (bf16 m16n8k16, fp32 3xTF32), with the scratch that
+// rp_essential_block_workspace sizes.  The LayerNorm is common.cuh's.  Each
+// entry point takes the flags of _eb_combos (has_pos, single, cross) and
+// picks the kernel variant; the e = 70 variants are instantiated in
+// essential_tc.cu, the e = 64 ones in essential_tc_e64.cu, so that nvcc
+// builds them in parallel.
 
-#include <type_traits>
-
-#include "essential_block.cuh"
 #include "essential_tc.cuh"
 
 namespace rp {
 
-RP_EB_VARIANTS(RP_EB_FWD_EXTERN, kEbHeadDim)
 namespace tc {
 RP_EB_TC_VARIANTS(RP_EB_TC_EXTERN, kHeadDim + kEbPos)
 RP_EB_TC_VARIANTS(RP_EB_TC_EXTERN, kHeadDim)
 }  // namespace tc
 
-template <int E>
-static cudaError_t moments_e(const EbArgs<float>& a, bool single, bool cross,
-                             cudaStream_t st) {
+template <typename T, int E>
+static cudaError_t moments_e(const tc::EbTcArgs<T>& a, bool single,
+                             bool cross, cudaStream_t st) {
   if (single)
-    return cross ? launch_dual_softmax<float, E, true, true>(a, st)
-                 : launch_dual_softmax<float, E, true, false>(a, st);
-  return cross ? launch_dual_softmax<float, E, false, true>(a, st)
-               : launch_dual_softmax<float, E, false, false>(a, st);
-}
-
-template <int E>
-static cudaError_t moments_tc_e(const tc::EbTcArgs& a, bool single,
-                                bool cross, cudaStream_t st) {
-  if (single)
-    return cross ? tc::launch_moments_tc<E, true, true>(a, st)
-                 : tc::launch_moments_tc<E, true, false>(a, st);
-  return cross ? tc::launch_moments_tc<E, false, true>(a, st)
-               : tc::launch_moments_tc<E, false, false>(a, st);
+    return cross ? tc::launch_moments_tc<T, E, true, true>(a, st)
+                 : tc::launch_moments_tc<T, E, true, false>(a, st);
+  return cross ? tc::launch_moments_tc<T, E, false, true>(a, st)
+               : tc::launch_moments_tc<T, E, false, false>(a, st);
 }
 
 // The moments of both images' (N, 3C) qkv rows at img1 / img2 + b bstride,
-// in T; ws: bf16's scratch
+// in T; ws the scratch
 template <typename T>
 static cudaError_t moments(const T* img1, const T* img2, size_t bstride,
                            const T* pos, float* F, void* ws, int B, int N,
                            int C, int heads, int has_pos, int single,
                            int cross, cudaStream_t st) {
-  if (C != heads * kEbHeadDim || (has_pos && pos == nullptr))
+  if (C != heads * kHeadDim || (has_pos && pos == nullptr) || !ws)
     return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, float>::value) {
-    const EbArgs<float> a{img1, img2, bstride, pos, F, B, N, C, heads};
-    return has_pos ? moments_e<kEbHeadDim + kPosCols>(a, single, cross, st)
-                   : moments_e<kEbHeadDim>(a, single, cross, st);
-  } else {
-    if (ws == nullptr) return cudaErrorInvalidValue;
-    const tc::EbTcArgs a{img1, img2, bstride, pos, F, ws, B, N, C, heads};
-    return has_pos ? moments_tc_e<kEbHeadDim + kPosCols>(a, single, cross, st)
-                   : moments_tc_e<kEbHeadDim>(a, single, cross, st);
-  }
+  const tc::EbTcArgs<T> a{img1, img2, bstride, pos, F, ws, B, N, C, heads};
+  return has_pos
+             ? moments_e<T, kHeadDim + tc::kEbPos>(a, single, cross, st)
+             : moments_e<T, kHeadDim>(a, single, cross, st);
 }
 
 // the qkv Linear out = T(T(x w^T) + T(b)) over M rows
 template <typename T>
 static cudaError_t qkv_linear(const T* x, const T* w, const float* bias,
                              T* out, int M, int C, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value)
-    return launch_gemm<float, kRounded>(x, w, bias, nullptr, out, M, 3 * C,
-                                        C, st);
-  else
-    return tc::launch_gemm<kRounded>(x, w, bias, nullptr, out, M, 3 * C, C,
-                                     st);
+  return tc::launch_gemm<kRounded>(x, w, bias, nullptr, out, M, 3 * C, C, st);
 }
 
 template <typename T>
@@ -124,14 +98,14 @@ static cudaError_t essential_block_x(const T* x1, const T* x2, const T* w,
 
 }  // namespace rp
 
-// bytes of scratch rp_essential_block_pair / _x / rp_essential_block need
-// (bf16: the tensor-core moments' statistics, vb_n and F partials; fp32:
-// none)
+// bytes of scratch rp_essential_block_pair / _x / rp_essential_block need:
+// the tensor-core moments' statistics, vb_n (in the dtype) and F partials
 extern "C" long long rp_essential_block_workspace(int B, int N, int heads,
                                                   int has_pos, int bf16) {
-  if (!bf16) return 0;
-  const int e = rp::kEbHeadDim + (has_pos ? rp::kPosCols : 0);
-  return (long long)rp::tc::EbFwdWs(nullptr, 2 * B * heads, N, e).bytes;
+  const int e = rp::kHeadDim + (has_pos ? rp::tc::kEbPos : 0);
+  return (long long)rp::tc::EbFwdWs(nullptr, 2 * B * heads, N, e,
+                                    bf16 ? 2 : 4)
+      .bytes;
 }
 
 // xpair (B, 2, N, C), w (3C, C) and pos (B, N, 6) in T (pos NULL without

@@ -1,6 +1,7 @@
 // The e = 70 variants (positional columns) of the Essential Matrix Module's
-// tensor-core moments (essential_tc.cuh), instantiated in a translation unit
-// of their own so that nvcc builds them beside the other kernels.
+// tensor-core moments (essential_tc.cuh), bf16 and fp32, instantiated in a
+// translation unit of their own so that nvcc builds them beside the other
+// kernels.
 
 #include "essential_tc.cuh"
 

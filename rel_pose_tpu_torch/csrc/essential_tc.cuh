@@ -1,24 +1,28 @@
-// The Essential Matrix Module's moments on the tensor cores, bf16: one body
+// The Essential Matrix Module's moments on the tensor cores: one body
 // behind four Pallas kernels, which differ in where a slice's rows live
 // (the layout types below) and in a mode:
 //   - #2 _essential_block_pair_kernel, #3 _essential_block_x_kernel and #4
 //     _essential_block_kernel (rel_pose_tpu/ops/pallas_essential_block.py,
 //     core _eb_combos :87): PairLayout, the dual or the single softmax
-//     (essential_block.cu);
+//     (essential_block.cu), bf16 and fp32;
 //   - #8 _fwd_kernel (rel_pose_tpu/ops/pallas_essential.py:72): SliceLayout,
-//     separate (G, N, 64) q, k and (G, N, e) va, vb, any scale (bilinear.cu);
+//     separate (G, N, 64) q, k and (G, N, e) va, vb, any scale (bilinear.cu),
+//     bf16;
 //   - #9 _s_kernel and _variant_kernel (scripts/bench_cross.py:88, :35):
 //     PairLayout with S pairs' slices per block, and the modes kEbBf16Mul and
-//     kEbMxuSums (cross_variants.cu).
-// fp32 keeps the SIMT kernels (essential_block.cuh, bilinear.cuh), bit for
-// bit; the 3xTF32 policy of gemm_tc.cuh, which the fp32 ViT stack runs, is
-// not applied to these kernels yet.
+//     kEbMxuSums (cross_variants.cu), bf16.
+// (#8's and #9's fp32 keep bilinear.cuh's SIMT kernels.)  The kernels are
+// templates on the element type T, which picks the product as gemm_tc.cuh
+// and attention_tc.cuh do: bf16 m16n8k16 with ldmatrix, or fp32 as 3xTF32
+// on m16n8k8 (each operand split into TF32 hi + lo in registers, hi.hi +
+// hi.lo + lo.hi summed into a fresh 8-deep partial that one IEEE fp32 add
+// puts into the sum: fp32 accuracy).
 //
 // Per slice g, with q, k (N x 64) and va, vb (N x e): PairLayout's slice is
 // (pair b, direction, head), vb = v_self ++ 6 positional columns (e = 70) or
 // v_self (e = 64), va = vb or, with CROSS, the query image's v ++ the same
-// columns; T the rounding to bf16.  The Pallas kernels' rounding points,
-// sums in another order:
+// columns; T the rounding to the element type (bf16 rounds, fp32 keeps the
+// value).  The Pallas kernels' rounding points, sums in another order:
 //   s = T(q) T(k)^T scale (fp32; scale = the softmax scale times log2e, d^-1/2
 //   log2e for #2-#4 and #9); mr, mc the exact row and column maxima;
 //   er = exp2(s - mr), ec = exp2(s - mc), lr = sum_j er, lc = sum_i ec;
@@ -31,12 +35,15 @@
 //
 // What bounds it on the H100: the products (3 N^2 d score products with
 // the two statistics passes below, N^2 e for P vb_n and N e^2 for va^T av
-// a slice, mma.sync m16n8k16) and the exp2 of every score, three a score
-// with the dual softmax (one for lc, two for P): at #2's eval shapes 1.53 G
-// exp2, about 0.39 ms at the special-function units' rate, above the
-// 0.21 ms tensor-core bound of the function's products.  Device memory:
-// one read of the inputs, the small statistics and vb_n scratch, and the F
-// partials (E^2 fp32 per 64-query tile and slice).
+// a slice) and the exp2 of every score, three a score with the dual
+// softmax (one for lc, two for P).  bf16, mma.sync m16n8k16: at #2's eval
+// shapes 1.53 G exp2, about 0.39 ms at the special-function units' rate,
+// above the 0.21 ms tensor-core bound of the function's products.  fp32,
+// three m16n8k8 products a product at 3xTF32's 165 TFLOP/s and the split of
+// every loaded operand (two integer ops and a subtraction each): the
+// products decide.  Device memory: one read of the inputs, the small
+// statistics and vb_n scratch, and the F partials (E^2 fp32 per 64-query
+// tile and slice).
 //
 // Design, in launch order (launch_moments):
 //   1. eb_stats_kernel (not kEbSingle), one block per (64-key tile, slice):
@@ -48,17 +55,20 @@
 //      kEbMxuSums rounds each ec to bf16 against the final max, so it walks
 //      twice: the max, then the sums on the tensor cores.  Writes (mc, 1/lc)
 //      per key.
-//   2. eb_vbn_kernel: vb_n = T(vb (1/lc)) (kEbSingle: vb) into bf16 scratch,
-//      rows of kW = 80 (70 used) or 64 columns, zero-padded, so that every
-//      later tile load is whole 16-byte rows.
+//   2. eb_vbn_kernel: vb_n = T(vb (1/lc)) (kEbSingle: vb) into scratch of
+//      the element type, rows of kW (bf16 80, fp32 72; 70 used) or 64
+//      columns, zero-padded, so that every later tile load is whole 16-byte
+//      rows.
 //   3. eb_moments_kernel, one block of 4 warps per (64-query tile, slice;
 //      #9's s: S slices in turn), 16 query rows a warp: a first walk over
 //      the key tiles takes the exact row max (no exp2); a second recomputes
 //      s, forms er, ec, P and lr, and accumulates P vb_n in registers (16 x
-//      72 fp32 a warp); then av = T(. (1/lr)) goes to shared memory and the
-//      tile's partial F = va^T av (mma with va read along its rows,
-//      ldmatrix.trans) to scratch.  Nothing rounded to bf16 is rescaled
-//      online.
+//      72 fp32 a warp; fp32 P stays in the accumulator registers as the A
+//      operand, attention_tc.cuh's k permutation); then av = T(. (1/lr))
+//      goes to shared memory and the tile's partial F = va^T av to scratch
+//      (va read along its rows: bf16 ldmatrix.trans, fp32 32-bit loads with
+//      the sum index permuted as for P).  Nothing rounded to bf16 is
+//      rescaled online.
 //   4. launch_sum_partials adds the query tiles' partials of each slice in
 //      order.
 // Rows >= N load as zeros and keys >= N are masked out of every max and
@@ -66,6 +76,8 @@
 // and a slice's F does not depend on the layout or on S.  va rows of e =
 // 70 in SliceLayout are 140 bytes, off the 16-byte grid: they load with
 // 4-byte cp.async (load_rows4) where PairLayout's load whole 16-byte rows.
+// fp32 tiles are twice bf16's bytes: the moments kernel takes 109 KB and
+// runs two blocks an SM (bf16 three), the statistics kernel 52 KB, four.
 
 #pragma once
 
@@ -78,20 +90,39 @@ namespace tc {
 
 constexpr int kEbPos = 6;  // positional columns appended to v
 
-// The e-wide operands: rows of kW bf16 (e = 70 padded to 80, the k16 depth
-// of the products that sum over e; 64 as it is), in shared memory with
-// rows of kLd (44 or 36 words: 8 ldmatrix rows fall in distinct banks);
-// kNT n8 tiles (72 or 64 columns) of an e-wide product, kKS k16 steps or
-// m16 tiles over e.
-template <int E>
+// The e-wide operands: rows of kW elements (e = 70 padded to the depth of
+// the products that sum over e: bf16 80, k16; fp32 72, k8; e = 64 as it
+// is), in shared memory with rows of kLd elements: bf16 44 or 36 words (8
+// ldmatrix rows fall in distinct banks); fp32 76 or 68 words, 4 times an
+// odd number, so that the fragment loads g kLd + t and, read along the
+// rows with the sum index permuted, 2t kLd + g cover the 32 banks.  kNT n8
+// tiles (72 or 64 columns) of an e-wide product, kKS k16 steps (bf16) and
+// kK8 k8 steps (fp32) over e, kM16 m16 tiles over e.
+template <typename T>
+__host__ __device__ constexpr int eb_kw(int E) {
+  return E == kHeadDim ? kHeadDim : (sizeof(T) == 2 ? 80 : 72);
+}
+
+template <typename T, int E>
 struct EbW {
   static_assert(E == kHeadDim || E == kHeadDim + kEbPos, "e = d or d + 6");
-  static constexpr int kW = E == kHeadDim ? kHeadDim : 80;
-  static constexpr int kLd = kW + 8;
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kW = eb_kw<T>(E);
+  static constexpr int kLd = kW + (kF32 ? 4 : 8);
   static constexpr int kNT = (E + 7) / 8;
   static constexpr int kKS = kW / 16;
+  static constexpr int kK8 = kW / 8;
+  static constexpr int kM16 = (kW + 15) / 16;
   static constexpr int kTileElems = kAT * kLd;
 };
+
+// a pair of adjacent values in the element type (rounded to bf16 for bf16)
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
 
 // ----------------------------------------------------------- fragments --
 
@@ -108,17 +139,17 @@ __device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const bf16* p) {
       : "r"(smem_u32(p)));
 }
 
-// rows [row0, row0 + 64) x W columns of a bf16 matrix with row stride ld
-// into a tile of row stride LD; rows >= N load as zeros
-template <int W, int LD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          size_t ld, int row0, int N) {
-  constexpr int CPR = W / 8;
+// rows [row0, row0 + 64) x W columns of a matrix with row stride ld into a
+// tile of row stride LD, 16 bytes a cp.async; rows >= N load as zeros
+template <int W, int LD, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, size_t ld,
+                                          int row0, int N) {
+  constexpr int V = 16 / (int)sizeof(T), CPR = W / V;
   static_assert(kAT * CPR % kAThreads == 0, "tile loads: whole steps");
 #pragma unroll
   for (int u = 0; u < kAT * CPR / kAThreads; ++u) {
     const int c = threadIdx.x + u * kAThreads, r = c / CPR,
-              cc = (c % CPR) * 8;
+              cc = (c % CPR) * V;
     const bool ok = row0 + r < N;
     cp_async16(dst + r * LD + cc, src + (size_t)(ok ? row0 + r : 0) * ld + cc,
                ok);
@@ -128,11 +159,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
 // rows [row0, row0 + 64) of v ++ pos (columns 64 .. 69; 70 .. kW - 1 zero)
 // into a tile of row stride W::kLd: v through cp.async (row stride ld),
 // the positional columns by plain stores; rows >= N zero
-template <int E>
-__device__ __forceinline__ void load_vrows(bf16* dst, const bf16* v,
-                                           size_t ld, const bf16* pos,
-                                           int row0, int N) {
-  using W = EbW<E>;
+template <int E, typename T>
+__device__ __forceinline__ void load_vrows(T* dst, const T* v, size_t ld,
+                                           const T* pos, int row0, int N) {
+  using W = EbW<T, E>;
   load_rows<kHeadDim, W::kLd>(dst, v, ld, row0, N);
   if constexpr (W::kW > kHeadDim) {
     constexpr int X = W::kW - kHeadDim;
@@ -140,7 +170,7 @@ __device__ __forceinline__ void load_vrows(bf16* dst, const bf16* v,
       const int r = i / X, c = i % X, row = row0 + r;
       dst[r * W::kLd + kHeadDim + c] =
           row < N && c < kEbPos ? pos[(size_t)row * kEbPos + c]
-                                : __float2bfloat16(0.f);
+                                : from_f32<T>(0.f);
     }
   }
 }
@@ -207,6 +237,101 @@ __device__ __forceinline__ void mma_ab_acc(float (&c)[NT][4],
   }
 }
 
+// fp32 (3xTF32) counterparts, from 32-bit shared-memory loads split in
+// registers (gemm_tc.cuh's mma_3xtf32: each 8-deep step into a fresh
+// partial, added to c in IEEE fp32).  Lane 4 g + t.
+
+// c[16 x 8 NT] += A[16 x 8 K8] . B^T: A this warp's 16 rows of a tile (row
+// stride LDA), B a tile of 8 NT rows (the columns of c) x 8 K8 (row stride
+// LDB); both read along their rows (words g LD + t)
+template <int NT, int K8, int LDA, int LDB>
+__device__ __forceinline__ void mma_abt_acc_f32(float (&c)[NT][4],
+                                                const float* A,
+                                                const float* B) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float* a = A + (warp * 16 + g) * LDA + t;
+  const float* b = B + g * LDB + t;
+#pragma unroll
+  for (int kk = 0; kk < 8 * K8; kk += 8) {
+    unsigned ah[4], al[4];
+    split_tf32(a[kk], ah[0], al[0]);
+    split_tf32(a[8 * LDA + kk], ah[1], al[1]);
+    split_tf32(a[kk + 4], ah[2], al[2]);
+    split_tf32(a[8 * LDA + kk + 4], ah[3], al[3]);
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      unsigned bh[2], bl[2];
+      split_tf32(b[ni * 8 * LDB + kk], bh[0], bl[0]);
+      split_tf32(b[ni * 8 * LDB + kk + 4], bh[1], bl[1]);
+      mma_3xtf32(c[ni], ah, al, bh, bl);
+    }
+  }
+}
+
+// c[16 x 8 NT] += p[16 x 64] . B: p an accumulator tile whose 64 columns
+// are the sum index, taken as attention_tc.cuh's fp32 mma_ab takes them
+// (key 2t of each 8-wide step in slot t, 2t + 1 in slot t + 4: the
+// accumulator's own registers), B a tile of 64 rows x 8 NT columns (row
+// stride LD) read in the same order (words 2t LD + g)
+template <int NT, int LD>
+__device__ __forceinline__ void mma_pb_acc_f32(float (&c)[NT][4],
+                                               const float (&p)[8][4],
+                                               const float* B) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* Bl = B + 2 * t * LD + g;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    unsigned ah[4], al[4];
+    split_tf32(p[kk][0], ah[0], al[0]);  // (g, key 2t)
+    split_tf32(p[kk][2], ah[1], al[1]);  // (g + 8, key 2t)
+    split_tf32(p[kk][1], ah[2], al[2]);  // (g, key 2t + 1)
+    split_tf32(p[kk][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      unsigned bh[2], bl[2];
+      split_tf32(Bl[kk * 8 * LD + ni * 8], bh[0], bl[0]);
+      split_tf32(Bl[(kk * 8 + 1) * LD + ni * 8], bh[1], bl[1]);
+      mma_3xtf32(c[ni], ah, al, bh, bl);
+    }
+  }
+}
+
+// c[16 x 8 NT] = A[:, m0 .. m0 + 15]^T . B over the 64 rows of two tiles
+// (row stride LD): the rows of c are A's columns m0 + g (+ 8), both tiles
+// read along their rows with the sum index permuted as in mma_pb_acc_f32
+// (row 2t of each 8-row step in slot t, 2t + 1 in slot t + 4; words 2t LD
+// + g).  A's columns >= KW are taken as zero.
+template <int NT, int LD, int KW>
+__device__ __forceinline__ void mma_atb_f32(float (&c)[NT][4],
+                                            const float* A, int m0,
+                                            const float* B) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool hi = m0 + 8 < KW;  // the tile's rows g + 8 exist
+  const float* a = A + 2 * t * LD + m0 + g;
+  const float* b = B + 2 * t * LD + g;
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[ni][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kAT; kk += 8) {
+    const float* ar = a + kk * LD;
+    unsigned ah[4], al[4];
+    split_tf32(ar[0], ah[0], al[0]);
+    split_tf32(hi ? ar[8] : 0.f, ah[1], al[1]);
+    split_tf32(ar[LD], ah[2], al[2]);
+    split_tf32(hi ? ar[LD + 8] : 0.f, ah[3], al[3]);
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      unsigned bh[2], bl[2];
+      split_tf32(b[kk * LD + ni * 8], bh[0], bl[0]);
+      split_tf32(b[(kk + 1) * LD + ni * 8], bh[1], bl[1]);
+      mma_3xtf32(c[ni], ah, al, bh, bl);
+    }
+  }
+}
+
 // rows [row0, row0 + 64) of an (N, E) bf16 matrix whose rows are 4-byte
 // but not 16-byte aligned (E = 70: 140 bytes) into a tile of W columns and
 // row stride LD, by 4-byte cp.async; columns >= E and rows >= N zero
@@ -257,16 +382,19 @@ __device__ __forceinline__ unsigned& afrag_at(unsigned (&f)[4][4], int ni,
 //   SliceLayout (#8): in0, in1 the (G, N, 64) q, k; in2, in3 the (G, N, e)
 //     va, vb.  va is always read from in2, also when the caller passes one
 //     tensor for both (the non-cross wiring).
+// Both are generic in the element type T; the kernels instantiate
+// PairLayout in bf16 and fp32, SliceLayout in bf16.
 
 // PairLayout's slice g = (b * 2 + direction) * heads + h of a pair's two
 // images, whose qkv rows (3C values) start at img1 + b bstride and img2 +
 // b bstride.  Direction 0 takes q from image 2 and k, v_self from image 1.
+template <typename T>
 struct EbSlice {
-  const bf16* qimg;  // the query image's qkv rows
-  const bf16* kimg;  // the key image's
+  const T* qimg;  // the query image's qkv rows
+  const T* kimg;  // the key image's
   int b, dir, h;
-  __device__ EbSlice(const bf16* img1, const bf16* img2, size_t bstride,
-                     int g, int heads) {
+  __device__ EbSlice(const T* img1, const T* img2, size_t bstride, int g,
+                     int heads) {
     h = g % heads;
     dir = (g / heads) & 1;
     b = g / (2 * heads);
@@ -275,22 +403,43 @@ struct EbSlice {
   }
 };
 
+template <typename T>
 struct EbView {
-  const bf16* q;    // 64-wide rows at stride ldqk
-  const bf16* k;
-  const bf16* va;   // PairLayout: v rows (64 columns) at stride ldqk, the
-  const bf16* vb;   // positional columns from pos; SliceLayout: e-wide rows
-  const bf16* pos;  // PairLayout: the pair's (N, 6) table or NULL
+  const T* q;    // 64-wide rows at stride ldqk
+  const T* k;
+  const T* va;   // PairLayout: v rows (64 columns) at stride ldqk, the
+  const T* vb;   // positional columns from pos; SliceLayout: e-wide rows
+  const T* pos;  // PairLayout: the pair's (N, 6) table or NULL
   size_t ldqk;
 };
 
+// 8 consecutive elements from global memory as fp32 (16 or 32 bytes,
+// aligned)
+__device__ __forceinline__ void load8_f32(const bf16* p, float (&x)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  unpack4_bf16(make_uint2(u.x, u.y), *reinterpret_cast<float(*)[4]>(x));
+  unpack4_bf16(make_uint2(u.z, u.w), *reinterpret_cast<float(*)[4]>(x + 4));
+}
+__device__ __forceinline__ void load8_f32(const float* p, float (&x)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+  x[4] = b.x;
+  x[5] = b.y;
+  x[6] = b.z;
+  x[7] = b.w;
+}
+
 struct PairLayout {
   static constexpr bool kSlice = false;
-  template <int E, bool CROSS>
-  __device__ static EbView view(const bf16* in0, const bf16* in1,
-                                const bf16* in2, size_t ld, int N, int C,
-                                int heads, int g) {
-    const EbSlice sl(in0, in1, ld, g, heads);
+  template <int E, bool CROSS, typename T>
+  __device__ static EbView<T> view(const T* in0, const T* in1, const T* in2,
+                                   size_t ld, int N, int C, int heads,
+                                   int g) {
+    const EbSlice<T> sl(in0, in1, ld, g, heads);
     const int off = sl.h * kHeadDim;
     return {sl.qimg + off, sl.kimg + C + off,
             (CROSS ? sl.qimg : sl.kimg) + 2 * C + off, sl.kimg + 2 * C + off,
@@ -304,52 +453,49 @@ struct PairLayout {
     return (y / P * S + s) * P + y % P;
   }
   // rows [row0, row0 + 64) of v (va or vb of the view) ++ pos into a tile
-  template <int E>
-  __device__ static void load_v(bf16* dst, const bf16* v, const EbView& vw,
+  template <int E, typename T>
+  __device__ static void load_v(T* dst, const T* v, const EbView<T>& vw,
                                 int row0, int N) {
     load_vrows<E>(dst, v, vw.ldqk, vw.pos, row0, N);
   }
   // columns 8 c8 .. 8 c8 + 7 of vb's row n (zero past e)
-  template <int E>
-  __device__ static void vb8(const EbView& vw, int n, int c8, float (&x)[8]) {
+  template <int E, typename T>
+  __device__ static void vb8(const EbView<T>& vw, int n, int c8,
+                             float (&x)[8]) {
     if (c8 < kHeadDim / 8) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-          vw.vb + (size_t)n * vw.ldqk + c8 * 8));
-      unpack4_bf16(make_uint2(u.x, u.y), *reinterpret_cast<float(*)[4]>(x));
-      unpack4_bf16(make_uint2(u.z, u.w),
-                   *reinterpret_cast<float(*)[4]>(x + 4));
+      load8_f32(vw.vb + (size_t)n * vw.ldqk + c8 * 8, x);
     } else {
-      const bf16* p = vw.pos + (size_t)n * kEbPos;
+      const T* p = vw.pos + (size_t)n * kEbPos;
 #pragma unroll
       for (int c = 0; c < 8; ++c)
-        x[c] = c8 == kHeadDim / 8 && c < kEbPos ? __bfloat162float(p[c])
-                                                : 0.f;
+        x[c] = c8 == kHeadDim / 8 && c < kEbPos ? to_f32(p[c]) : 0.f;
     }
   }
 };
 
 struct SliceLayout {
   static constexpr bool kSlice = true;
-  template <int E, bool>
-  __device__ static EbView view(const bf16* in0, const bf16* in1,
-                                const bf16* in2, const bf16* in3, int N,
-                                int g) {
+  template <int E, bool, typename T>
+  __device__ static EbView<T> view(const T* in0, const T* in1, const T* in2,
+                                   const T* in3, int N, int g) {
     const size_t gN = (size_t)g * N;
     return {in0 + gN * kHeadDim, in1 + gN * kHeadDim, in2 + gN * E,
             in3 + gN * E, nullptr, kHeadDim};
   }
   __device__ static int slice(int y, int, int, int) { return y; }
-  template <int E>
-  __device__ static void load_v(bf16* dst, const bf16* v, const EbView&,
+  template <int E, typename T>
+  __device__ static void load_v(T* dst, const T* v, const EbView<T>&,
                                 int row0, int N) {
-    using W = EbW<E>;
+    using W = EbW<T, E>;
     if constexpr (E == kHeadDim)
       load_rows<kHeadDim, W::kLd>(dst, v, kHeadDim, row0, N);
     else
       load_rows4<E, W::kW, W::kLd>(dst, v, row0, N);
   }
-  template <int E>
-  __device__ static void vb8(const EbView& vw, int n, int c8, float (&x)[8]) {
+  template <int E, typename T>
+  __device__ static void vb8(const EbView<T>& vw, int n, int c8,
+                             float (&x)[8]) {
+    static_assert(sizeof(T) == 2, "SliceLayout: bf16 rows");
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(
         vw.vb + (size_t)n * E + c8 * 8);
 #pragma unroll
@@ -363,11 +509,11 @@ struct SliceLayout {
 };
 
 // the view of slice g under its layout
-template <class Layout, int E, bool CROSS>
-__device__ __forceinline__ EbView eb_view(const bf16* in0, const bf16* in1,
-                                          const bf16* in2, const bf16* in3,
-                                          size_t ld, int N, int C, int heads,
-                                          int g) {
+template <class Layout, int E, bool CROSS, typename T>
+__device__ __forceinline__ EbView<T> eb_view(const T* in0, const T* in1,
+                                             const T* in2, const T* in3,
+                                             size_t ld, int N, int C,
+                                             int heads, int g) {
   if constexpr (Layout::kSlice)
     return Layout::template view<E, CROSS>(in0, in1, in2, in3, N, g);
   else
@@ -384,43 +530,52 @@ enum EbMode { kEbDual, kEbSingle, kEbBf16Mul, kEbMxuSums };
 // queries: its row statistics), the max m of its scores over every column
 // of the other side and 1 / sum exp2(s - m), to stats[(g N + row) * 3] and
 // [.. + 1] (slot 2 is the backward's).  One block per (64-row tile, slice)
-// walks the other side's tiles through a 2-stage cp.async ring.  With
-// kExact the walk runs twice, the max and then sum T(exp2(s - m)) on the
-// tensor cores (kEbMxuSums).  Four blocks an SM.
-template <bool kKeyRows, class Layout, bool kExact = false>
+// walks the other side's tiles through a 2-stage cp.async ring (the three
+// tiles in dynamic shared memory: fp32's 52 KB exceed the static 48 KB).
+// With kExact (bf16) the walk runs twice, the max and then sum T(exp2(s -
+// m)) on the tensor cores (kEbMxuSums).  Four blocks an SM.
+template <typename T>
+constexpr size_t stats_smem_bytes() {
+  return 3 * tile_elems<T>() * sizeof(T);
+}
+
+template <bool kKeyRows, class Layout, bool kExact, typename T>
 __global__ void __launch_bounds__(kAThreads, 4)
-eb_stats_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
+eb_stats_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
                 size_t ld, float* __restrict__ stats, int N, int C,
                 int heads, float scale) {
-  __shared__ __align__(128) bf16 Xs[kATileElems];
-  __shared__ __align__(128) bf16 Os[2][kATileElems];
+  static_assert(!kExact || sizeof(T) == 2, "kEbMxuSums: bf16");
+  constexpr int TE = tile_elems<T>();
+  extern __shared__ __align__(128) unsigned char eb_smem[];
+  T* Xs = reinterpret_cast<T*>(eb_smem);
+  const auto Os = [&](int st) { return Xs + (1 + st) * TE; };
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = blockIdx.x * kAT, g = blockIdx.y;
-  const EbView vw = eb_view<Layout, kHeadDim, false>(
-      in0, in1, nullptr, nullptr, ld, N, C, heads, g);
-  const bf16* own = kKeyRows ? vw.k : vw.q;
-  const bf16* other = kKeyRows ? vw.q : vw.k;
+  const EbView<T> vw = eb_view<Layout, kHeadDim, false>(
+      in0, in1, (const T*)nullptr, (const T*)nullptr, ld, N, C, heads, g);
+  const T* own = kKeyRows ? vw.k : vw.q;
+  const T* other = kKeyRows ? vw.q : vw.k;
   const int nt = (N + kAT - 1) / kAT;
   const int steps = kExact ? 2 * nt : nt;
 
   load_tile(Xs, own, vw.ldqk, r0, N);
-  load_tile(Os[0], other, vw.ldqk, 0, N);
+  load_tile(Os(0), other, vw.ldqk, 0, N);
   cp_async_commit();
-  unsigned xf[4][4];
+  typename AttnFrags<T>::A xf;
   float s[8][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float lsum[4] = {};  // kExact: the sums from the tensor cores
   for (int t = 0; t < steps; ++t) {
     __syncthreads();  // the stage loaded below was read at step t - 1
     if (t + 1 < steps)
-      load_tile(Os[(t + 1) & 1], other, vw.ldqk,
+      load_tile(Os((t + 1) & 1), other, vw.ldqk,
                 (kExact && t + 1 >= nt ? t + 1 - nt : t + 1) * kAT, N);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     if (t == 0) load_afrag(xf, Xs);
     const int c0 = (kExact && t >= nt ? t - nt : t) * kAT;
-    mma_abt(s, xf, Os[t & 1]);
+    mma_abt(s, xf, Os(t & 1));
     if constexpr (kExact) {
       if (t < nt) {  // the exact max
 #pragma unroll
@@ -495,22 +650,36 @@ eb_stats_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
   }
 }
 
+// the statistics of G slices' rows (keys with kKeyRows) into stats
+template <bool kKeyRows, class Layout, bool kExact = false, typename T>
+static cudaError_t launch_stats(const T* in0, const T* in1, size_t ld,
+                                float* stats, int G, int N, int C, int heads,
+                                float scale, cudaStream_t st) {
+  constexpr size_t smem = stats_smem_bytes<T>();
+  auto kernel = eb_stats_kernel<kKeyRows, Layout, kExact, T>;
+  cudaError_t err = smem_attr(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((N + kAT - 1) / kAT, G), kAThreads, smem, st>>>(
+      in0, in1, ld, stats, N, C, heads, scale);
+  return cudaGetLastError();
+}
+
 // -------------------------------------------------------------- vb_n --
 // vbn[(g N + n) kW + c] = T(vb[n][c] (1/lc[n])) with kstats, vb[n][c]
 // without (kEbSingle); columns >= e zero.  One thread per 8 columns.
-template <class Layout, int E>
+template <class Layout, int E, typename T>
 __global__ void __launch_bounds__(256)
-eb_vbn_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
-              const bf16* __restrict__ in2, const bf16* __restrict__ in3,
+eb_vbn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
+              const T* __restrict__ in2, const T* __restrict__ in3,
               size_t ld, const float* __restrict__ kstats,
-              bf16* __restrict__ vbn, int N, int C, int heads, int G) {
-  constexpr int CW = EbW<E>::kW / 8;
+              T* __restrict__ vbn, int N, int C, int heads, int G) {
+  constexpr int CW = EbW<T, E>::kW / 8;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)G * N * CW) return;
   const int c8 = (int)(i % CW);
   const size_t gn = i / CW;
   const int n = (int)(gn % N), g = (int)(gn / N);
-  const EbView vw =
+  const EbView<T> vw =
       eb_view<Layout, E, false>(in0, in1, in2, in3, ld, N, C, heads, g);
   float x[8];
   Layout::template vb8<E>(vw, n, c8, x);
@@ -519,9 +688,15 @@ eb_vbn_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
 #pragma unroll
     for (int c = 0; c < 8; ++c) x[c] *= inv;
   }
-  *reinterpret_cast<uint4*>(vbn + i * 8) =
-      make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
-                 pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+  if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<uint4*>(vbn + i * 8) =
+        make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                   pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+  } else {
+    float4* o = reinterpret_cast<float4*>(vbn + i * 8);
+    o[0] = make_float4(x[0], x[1], x[2], x[3]);
+    o[1] = make_float4(x[4], x[5], x[6], x[7]);
+  }
 }
 
 // ------------------------------------------------------------- moments --
@@ -529,37 +704,39 @@ eb_vbn_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
 // G + g) E^2]: the key tiles are walked twice (the row max, then P and
 // P vb_n) as one sequence of 2 nk steps through a 2-stage cp.async ring of
 // k (and, in the second walk, vb_n and mc) tiles.  Block row y takes slice
-// y, or with kGroup the S slices Layout::slice(y, 0 .. S - 1) in turn (#9's s).
-// Three blocks an SM.
-template <int E>
+// y, or with kGroup the S slices Layout::slice(y, 0 .. S - 1) in turn (#9's
+// s).  bf16: three 53 KB blocks an SM; fp32: two of 109 KB.
+template <typename T, int E>
 constexpr size_t moments_smem_bytes() {
-  return (3 * kATileElems + 3 * EbW<E>::kTileElems) * sizeof(bf16) +
+  return (3 * tile_elems<T>() + 3 * EbW<T, E>::kTileElems) * sizeof(T) +
          2 * kAT * sizeof(float);
 }
 
-template <class Layout, int E, int MODE, bool CROSS, bool kGroup>
-__global__ void __launch_bounds__(kAThreads, 3)
-eb_moments_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
-                  const bf16* __restrict__ in2, const bf16* __restrict__ in3,
+template <class Layout, int E, int MODE, bool CROSS, bool kGroup, typename T>
+__global__ void __launch_bounds__(kAThreads, sizeof(T) == 2 ? 3 : 2)
+eb_moments_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
+                  const T* __restrict__ in2, const T* __restrict__ in3,
                   size_t ld, const float* __restrict__ kstats,
-                  const bf16* __restrict__ vbn, float* __restrict__ fpart,
+                  const T* __restrict__ vbn, float* __restrict__ fpart,
                   int N, int C, int heads, int S, float scale) {
-  using W = EbW<E>;
+  using W = EbW<T, E>;
+  constexpr bool kF32 = W::kF32;
+  constexpr int TE = tile_elems<T>();
   constexpr bool SINGLE = MODE == kEbSingle;
   constexpr bool HMUL = MODE == kEbBf16Mul || MODE == kEbMxuSums;
   constexpr bool MXU = MODE == kEbMxuSums;
-  extern __shared__ __align__(128) bf16 sm[];
+  static_assert(!HMUL || !kF32, "#9's modes: bf16");
+  extern __shared__ __align__(128) unsigned char eb_smem[];
+  T* sm = reinterpret_cast<T*>(eb_smem);
   // stage st of the rings at K(st), V(st) (offsets, not arrays of
   // pointers: those were indexed from the stack)
-  bf16* Qs = sm;
-  const auto K = [&](int st) { return sm + (1 + st) * kATileElems; };
-  const auto V = [&](int st) {
-    return sm + 3 * kATileElems + st * W::kTileElems;
-  };
-  bf16* VAs = sm + 3 * kATileElems + 2 * W::kTileElems;
+  T* Qs = sm;
+  const auto K = [&](int st) { return sm + (1 + st) * TE; };
+  const auto V = [&](int st) { return sm + 3 * TE + st * W::kTileElems; };
+  T* VAs = sm + 3 * TE + 2 * W::kTileElems;
   float* MCs = reinterpret_cast<float*>(VAs + W::kTileElems);  // [2][64]
-  bf16* AVs = K(0);  // av, after the walks, over the k ring
-  static_assert(2 * kATileElems >= W::kTileElems, "av fits the k ring");
+  T* AVs = K(0);  // av, after the walks, over the k ring
+  static_assert(2 * TE >= W::kTileElems, "av fits the k ring");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kAT;
   const int nk = (N + kAT - 1) / kAT;
@@ -569,16 +746,16 @@ eb_moments_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
   for (int si = 0; si < per_block; ++si) {
     if (si > 0) __syncthreads();  // the last slice's readers of AVs, VAs
     const int g = kGroup ? Layout::slice(blockIdx.y, si, S, heads) : blockIdx.y;
-    const EbView vw =
+    const EbView<T> vw =
         eb_view<Layout, E, CROSS>(in0, in1, in2, in3, ld, N, C, heads, g);
-    const bf16* vnb = vbn + (size_t)g * N * W::kW;
+    const T* vnb = vbn + (size_t)g * N * W::kW;
     const float* ks = kstats + (size_t)g * N * 3;
 
     load_tile(Qs, vw.q, vw.ldqk, q0, N);
     load_tile(K(0), vw.k, vw.ldqk, 0, N);
     Layout::template load_v<E>(VAs, vw.va, vw, q0, N);
     cp_async_commit();
-    unsigned qf[4][4];
+    typename AttnFrags<T>::A qf;
     float mx[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
     float lsum[4] = {};  // MXU: the row sums from the tensor cores
@@ -618,9 +795,9 @@ eb_moments_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
         continue;
       }
       const float* mc = MCs + (t & 1) * kAT;
-      unsigned pf[4][4];
       if constexpr (HMUL) {
         // P = T(T(er) T(ec)), one bf16 product per packed pair of columns
+        unsigned pf[4][4];
         unsigned ef[4][4];  // MXU: T(er), for the row sums
 #pragma unroll
         for (int ni = 0; ni < 8; ++ni)
@@ -647,6 +824,7 @@ eb_moments_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
             if (MXU) afrag_at(ef, ni, h) = erb;
           }
         if (MXU) mma_row_sums(lsum, ef);
+        mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
       } else {
 #pragma unroll
         for (int ni = 0; ni < 8; ++ni)
@@ -662,9 +840,14 @@ eb_moments_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
             }
             s[ni][e] = p;
           }
-        to_afrag(pf, s);  // P = T(er ec)
+        if constexpr (kF32) {
+          mma_pb_acc_f32<W::kNT, W::kLd>(o, s, V(t & 1));  // P, fp32
+        } else {
+          unsigned pf[4][4];
+          to_afrag(pf, s);  // P = T(er ec)
+          mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
+        }
       }
-      mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
     }
     cp_async_wait<0>();
     __syncthreads();  // every warp is done with the k ring: av goes there
@@ -675,24 +858,31 @@ eb_moments_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
       const bool ok = q0 + r < N;
 #pragma unroll
       for (int ni = 0; ni < W::kNT; ++ni)
-        *reinterpret_cast<__nv_bfloat162*>(AVs + r * W::kLd +
-                                           acc_col(ni, 0)) =
-            __floats2bfloat162_rn(ok ? o[ni][2 * half] * inv : 0.f,
-                                  ok ? o[ni][2 * half + 1] * inv : 0.f);
+        store2(AVs + r * W::kLd + acc_col(ni, 0),
+               ok ? o[ni][2 * half] * inv : 0.f,
+               ok ? o[ni][2 * half + 1] * inv : 0.f);
     }
     __syncthreads();
     // F[e1][e2] = sum_i va[i][e1] av[i][e2]: va read along its rows (the
     // M-major A operand), m16 tiles of e1 shared out over the warps
     float* fp = fpart + ((size_t)blockIdx.x * G + g) * E * E;
-    for (int mt = warp; mt < W::kKS; mt += kAThreads / 32) {
-      unsigned af[4][4];
+    for (int mt = warp; mt < W::kM16; mt += kAThreads / 32) {
+      float f[W::kNT][4];
+      if constexpr (kF32) {
+        mma_atb_f32<W::kNT, W::kLd, W::kW>(f, VAs, mt * 16, AVs);
+      } else {
+        unsigned af[4][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldsm_x4_t(af[kk], VAs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
-                                    W::kLd +
-                              mt * 16 + ((lane >> 3) & 1) * 8);
-      float f[W::kNT][4] = {};
-      mma_ab_acc<W::kNT, 4, W::kLd>(f, af, AVs);
+        for (int kk = 0; kk < 4; ++kk)
+          ldsm_x4_t(af[kk], VAs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                      W::kLd +
+                                mt * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int ni = 0; ni < W::kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[ni][e] = 0.f;
+        mma_ab_acc<W::kNT, 4, W::kLd>(f, af, AVs);
+      }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int e1 = mt * 16 + (lane >> 2) + half * 8;
@@ -711,24 +901,28 @@ eb_moments_kernel(const bf16* __restrict__ in0, const bf16* __restrict__ in1,
 
 // ---------------------------------------------------------- workspace --
 // Scratch of the forward, in this order, each piece 256-byte aligned:
-// (mc, 1/lc, -) per key (G N x 3 fp32), vb_n (G N kW bf16), the F partials
-// (ceil(N / 64) G E^2 fp32).
+// (mc, 1/lc, -) per key (G N x 3 fp32), vb_n (G N kW elements of `elem`
+// bytes: 2 bf16, 4 fp32), the F partials (ceil(N / 64) G E^2 fp32).
 static inline size_t eb_align(size_t x) { return (x + 255) & ~(size_t)255; }
+
+static inline int eb_kw_of(int E, int elem) {
+  return elem == 2 ? eb_kw<bf16>(E) : eb_kw<float>(E);
+}
 
 struct EbFwdWs {
   float* kstats;
-  bf16* vbn;
+  void* vbn;
   float* fpart;
   size_t bytes;
-  EbFwdWs(void* base, int G, int N, int E) {
-    const int kW = E == kHeadDim ? kHeadDim : 80;
+  EbFwdWs(void* base, int G, int N, int E, int elem = 2) {
+    const int kW = eb_kw_of(E, elem);
     const int nt = (N + kAT - 1) / kAT;
     const uintptr_t p = reinterpret_cast<uintptr_t>(base);
     size_t o = 0;
     kstats = reinterpret_cast<float*>(p + o);
     o += eb_align(sizeof(float) * (size_t)G * N * 3);
-    vbn = reinterpret_cast<bf16*>(p + o);
-    o += eb_align(sizeof(bf16) * (size_t)G * N * kW);
+    vbn = reinterpret_cast<void*>(p + o);
+    o += eb_align((size_t)elem * G * N * kW);
     fpart = reinterpret_cast<float*>(p + o);
     o += eb_align(sizeof(float) * (size_t)nt * G * E * E);
     bytes = o;
@@ -738,48 +932,49 @@ struct EbFwdWs {
 // Host-side arguments of launch_moments: the layout's in0 .. in3 and ld
 // (see the layouts), F (G, e, e) fp32, the EbFwdWs bytes, G slices, S of
 // them per block with kGroup, and the scale (the softmax scale times
-// log2 e).
-struct EbFwdArgs {
-  const bf16* in0;
-  const bf16* in1;
-  const bf16* in2;
-  const bf16* in3;
+// log2 e).  EbFwdArgs: bf16's (#8, #9).
+template <typename T>
+struct EbFwdArgsT {
+  const T* in0;
+  const T* in1;
+  const T* in2;
+  const T* in3;
   size_t ld;
   float* F;
   void* ws;
   int G, N, C, heads, S;
   float scale;
 };
+using EbFwdArgs = EbFwdArgsT<bf16>;
 
 // G slices: at most 65,535 (the grid's second dimension)
-template <class Layout, int E, int MODE, bool CROSS, bool kGroup>
-cudaError_t launch_moments(const EbFwdArgs& a, cudaStream_t st) {
+template <class Layout, int E, int MODE, bool CROSS, bool kGroup, typename T>
+cudaError_t launch_moments(const EbFwdArgsT<T>& a, cudaStream_t st) {
   const int G = a.G, N = a.N;
   if (G > 65535 || N <= 0 || a.ws == nullptr ||
       (kGroup && (a.S < 1 || G % (2 * a.heads * a.S) != 0)))
     return cudaErrorInvalidValue;
-  const EbFwdWs ws(a.ws, G, N, E);
+  const EbFwdWs ws(a.ws, G, N, E, (int)sizeof(T));
+  T* vbn = reinterpret_cast<T*>(ws.vbn);
   const int nt = (N + kAT - 1) / kAT;
-  const dim3 grid(nt, G);
   cudaError_t err;
   if constexpr (MODE != kEbSingle) {
-    eb_stats_kernel<true, Layout, MODE == kEbMxuSums>
-        <<<grid, kAThreads, 0, st>>>(a.in0, a.in1, a.ld, ws.kstats, N, a.C,
-                                     a.heads, a.scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_stats<true, Layout, MODE == kEbMxuSums>(
+        a.in0, a.in1, a.ld, ws.kstats, G, N, a.C, a.heads, a.scale, st);
+    if (err != cudaSuccess) return err;
   }
-  const size_t chunks = (size_t)G * N * (EbW<E>::kW / 8);
+  const size_t chunks = (size_t)G * N * (EbW<T, E>::kW / 8);
   eb_vbn_kernel<Layout, E><<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(
       a.in0, a.in1, a.in2, a.in3, a.ld,
-      MODE == kEbSingle ? nullptr : ws.kstats, ws.vbn, N, a.C, a.heads, G);
+      MODE == kEbSingle ? nullptr : ws.kstats, vbn, N, a.C, a.heads, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  constexpr size_t smem = moments_smem_bytes<E>();
-  auto kernel = eb_moments_kernel<Layout, E, MODE, CROSS, kGroup>;
+  constexpr size_t smem = moments_smem_bytes<T, E>();
+  auto kernel = eb_moments_kernel<Layout, E, MODE, CROSS, kGroup, T>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(nt, kGroup ? G / a.S : G), kAThreads, smem, st>>>(
-      a.in0, a.in1, a.in2, a.in3, a.ld, ws.kstats, ws.vbn, ws.fpart, N, a.C,
+      a.in0, a.in1, a.in2, a.in3, a.ld, ws.kstats, vbn, ws.fpart, N, a.C,
       a.heads, a.S, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t L = (size_t)G * E * E;
@@ -787,37 +982,41 @@ cudaError_t launch_moments(const EbFwdArgs& a, cudaStream_t st) {
 }
 
 // #2-#4's arguments: qkv rows of image i of pair b at img_i + b bstride.
+template <typename T>
 struct EbTcArgs {
-  const bf16* img1;
-  const bf16* img2;
+  const T* img1;
+  const T* img2;
   size_t bstride;
-  const bf16* pos;  // (B, N, 6), or NULL with e = 64
-  float* F;         // (B, 2, heads, e, e)
-  void* ws;         // EbFwdWs bytes
+  const T* pos;  // (B, N, 6), or NULL with e = 64
+  float* F;      // (B, 2, heads, e, e)
+  void* ws;      // EbFwdWs bytes
   int B, N, C, heads;
 };
 
 constexpr float kEbScale = 0.125f * 1.4426950408889634f;  // d^-1/2 log2(e)
 
 // #2-#4's moments: G = 2 B heads slices of PairLayout
-template <int E, bool SINGLE, bool CROSS>
-cudaError_t launch_moments_tc(const EbTcArgs& a, cudaStream_t st) {
-  const EbFwdArgs f{a.img1, a.img2, a.pos, nullptr, a.bstride, a.F, a.ws,
-                    2 * a.B * a.heads, a.N, a.C, a.heads, 1, kEbScale};
+template <typename T, int E, bool SINGLE, bool CROSS>
+cudaError_t launch_moments_tc(const EbTcArgs<T>& a, cudaStream_t st) {
+  const EbFwdArgsT<T> f{a.img1, a.img2, a.pos, nullptr, a.bstride, a.F, a.ws,
+                        2 * a.B * a.heads, a.N, a.C, a.heads, 1, kEbScale};
   return launch_moments<PairLayout, E, SINGLE ? kEbSingle : kEbDual, CROSS,
                         false>(f, st);
 }
 
-// X(E, SINGLE, CROSS) for the 4 bf16 variants of one e
-#define RP_EB_TC_VARIANTS(X, E) \
-  X(E, false, false) X(E, false, true) X(E, true, false) X(E, true, true)
+// X(T, E, SINGLE, CROSS) for the 8 variants of one e: {bf16, fp32} x
+// {dual, single softmax} x {va = v_self, cross features}
+#define RP_EB_TC_VARIANTS(X, E)                                         \
+  X(bf16, E, false, false) X(bf16, E, false, true) X(bf16, E, true, false) \
+  X(bf16, E, true, true) X(float, E, false, false)                      \
+  X(float, E, false, true) X(float, E, true, false) X(float, E, true, true)
 
-#define RP_EB_TC_EXTERN(E, S, X) \
-  extern template cudaError_t launch_moments_tc<E, S, X>(const EbTcArgs&, \
-                                                          cudaStream_t);
-#define RP_EB_TC_INSTANTIATE(E, S, X) \
-  template cudaError_t launch_moments_tc<E, S, X>(const EbTcArgs&,        \
-                                                   cudaStream_t);
+#define RP_EB_TC_EXTERN(T, E, S, X)                                \
+  extern template cudaError_t launch_moments_tc<T, E, S, X>( \
+      const EbTcArgs<T>&, cudaStream_t);
+#define RP_EB_TC_INSTANTIATE(T, E, S, X)                    \
+  template cudaError_t launch_moments_tc<T, E, S, X>(const EbTcArgs<T>&, \
+                                                      cudaStream_t);
 
 }  // namespace tc
 }  // namespace rp

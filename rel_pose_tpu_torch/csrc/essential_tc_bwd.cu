@@ -1,6 +1,7 @@
 // The e = 70 variants (positional columns) of the Essential Matrix Module's
-// tensor-core backward (essential_tc_bwd.cuh), instantiated in a translation
-// unit of their own so that nvcc builds them beside the other kernels.
+// tensor-core backward (essential_tc_bwd.cuh), bf16 and fp32, instantiated
+// in a translation unit of their own so that nvcc builds them beside the
+// other kernels.
 
 #include "essential_tc_bwd.cuh"
 

@@ -1,15 +1,20 @@
 // The backward of the Essential Matrix Module's moments on the tensor
-// cores, bf16, on essential_tc.cuh's layouts: replaces, for bf16,
+// cores, on essential_tc.cuh's layouts: replaces
 //   - rel_pose_tpu/ops/pallas_essential_block_bwd.py:
-//     _essential_block_bwd_kernel (#6), PairLayout (essential_block_bwd.cu);
+//     _essential_block_bwd_kernel (#6), PairLayout (essential_block_bwd.cu),
+//     bf16 and fp32;
 //   - rel_pose_tpu/ops/pallas_essential.py:_bwd_kernel (#8), SliceLayout
-//     (bilinear_bwd.cu).
-// fp32 keeps the SIMT kernels (essential_block_bwd.cuh, bilinear_bwd.cu),
-// bit for bit.
+//     (bilinear_bwd.cu), bf16 (#8's fp32 keeps bilinear_bwd.cu's SIMT
+//     kernel).
+// The kernels are templates on the element type T, as essential_tc.cuh's:
+// bf16 products are mma.sync m16n8k16 with ldmatrix (.trans where a product
+// reads a tile along its rows), fp32 ones 3xTF32 on m16n8k8 from 32-bit
+// loads, an accumulator reused as the next product's A operand with
+// attention_tc.cuh's k permutation.
 //
 // Per slice (essential_tc.cuh's notation, scale = the softmax scale sigma
 // times log2e; the Pallas kernels' rounding points, #6 :68-111 and #8
-// :100-141, sums in another order):
+// :100-141, sums in another order; T is the identity in fp32):
 //   R = er / lr, Cm = ec / lc (the normalized row and column softmaxes),
 //   A = R Cm (SINGLE: R), Ab = T(A);
 //   vbdft = T(vb T(dF)^T), vadf = T(va T(dF));  dA = vadf vb^T (fp32);
@@ -24,7 +29,7 @@
 //   a. eb_stats_kernel (essential_tc.cuh) for the queries (mr, 1/lr) and,
 //      with the dual softmax, for the keys (mc, 1/lc);
 //   b. eb_bwd_prologue_kernel: vb packed into kW-wide rows, vbdft and vadf
-//      (bf16 scratch, the same rows);
+//      (scratch of the element type, the same rows);
 //   c. eb_bwd_pass_kernel<rows = keys, REDUCE> (dual only): gamma;
 //   d. <rows = queries, REDUCE>: rho;
 //   e. <rows = queries, GRAD>: ds and A again; dq += dsb k, dva += Ab vbdft;
@@ -32,28 +37,31 @@
 //      s^T = k q^T, dA^T = vb vadf^T; dk += dsb^T q, dvb += Ab^T vadf.
 // The passes are one template: with rows = keys the roles of (R, rho) and
 // (Cm, gamma) swap, and the formulas above are symmetric under that swap.
-// Every product is mma.sync m16n8k16 with ldmatrix (.trans where a product
-// reads a tile along its rows); the walked tiles stream through a 2-stage
-// cp.async ring.  rho and gamma are not replaced by an algebraic shortcut
-// (rho_i = vadf_i (A vb)_i), which would move a rounding point.
+// The walked tiles stream through a 2-stage cp.async ring (fp32's pass e,
+// whose walked stage holds three tiles, 1 stage: two of its 92 KB blocks
+// share an SM, as two of the other fp32 passes' 110 KB ones do; bf16's run
+// two 2-stage blocks an SM).  rho and gamma are not replaced by an
+// algebraic shortcut (rho_i = vadf_i (A vb)_i), which would move a rounding
+// point.
 //
-// PairLayout's outputs keep essential_block_bwd.cuh's scatter: dq and dk go
-// to the q and k slots of dqkv, each written by one (direction, head); pass
-// e writes dva in fp32 to scratch, and pass f adds it to dvb (dv = T(dvb +
+// PairLayout's outputs keep the Pallas kernel's scatter: dq and dk go to
+// the q and k slots of dqkv, each written by one (direction, head); pass e
+// writes dva in fp32 to scratch, and pass f adds it to dvb (dv = T(dvb +
 // dva)) unless CROSS, where T(dva) goes to the (B, 2, N, C) dva buffer of
-// the query image (the wrapper adds it to dqkv in bf16) and only its
-// positional columns are added; the positional columns go to the per-slice
-// fp32 partials dpos_part (B, 2, heads, N, 6).  SliceLayout's are simpler,
-// as _bwd_kernel's: dq, dk to (G, N, 64) and dva = T(Ab vbdft), dvb =
-// T(Ab^T vadf) to (G, N, e), each rounded by itself (no scratch; with va
-// and vb one tensor the caller's autograd adds the two).  No atomics, sums
-// in a fixed order: two calls give the same bits.
+// the query image (the wrapper adds it to dqkv in the element type) and
+// only its positional columns are added; the positional columns go to the
+// per-slice fp32 partials dpos_part (B, 2, heads, N, 6).  SliceLayout's are
+// simpler, as _bwd_kernel's: dq, dk to (G, N, 64) and dva = T(Ab vbdft),
+// dvb = T(Ab^T vadf) to (G, N, e), each rounded by itself (no scratch; with
+// va and vb one tensor the caller's autograd adds the two).  No atomics,
+// sums in a fixed order: two calls give the same bits.
 //
 // What bounds it on the H100: the products, executed 2 score products in
 // the statistics (one with SINGLE) and 4 score + 4 dA products in the
 // passes (3 + 3), plus dq, dk, dva, dvb: about 11 N^2 64 multiply-adds a
-// slice against the function's 5, at mma.sync's rate; and 10 exp2 a score
-// (4 with SINGLE).
+// slice against the function's 5, at mma.sync's rate (fp32: three m16n8k8
+// products each, and the split of every loaded operand); and 10 exp2 a
+// score (4 with SINGLE).
 
 #pragma once
 
@@ -64,35 +72,38 @@ namespace tc {
 
 // ----------------------------------------------------------- prologue --
 // For 64 rows of slice g: vb packed to VB, vbdft = T(vb T(dF)^T) and
-// vadf = T(va T(dF)), rows of kW bf16 (columns >= e zero).  T(dF) sits in
-// shared memory as [e][f], zero-padded to kW x kW.
-template <int E>
+// vadf = T(va T(dF)), rows of kW elements (columns >= e zero).  T(dF) sits
+// in shared memory as [e][f], zero-padded to kW x kW; fp32 also keeps its
+// transpose [f][e], so that both products read their B operand along its
+// rows (words g kLd + t).
+template <typename T, int E>
 constexpr size_t prologue_smem_bytes() {
-  return 3 * EbW<E>::kTileElems * sizeof(bf16) +
-         EbW<E>::kW * EbW<E>::kLd * sizeof(bf16);
+  using W = EbW<T, E>;
+  return (3 * W::kTileElems + (W::kF32 ? 2 : 1) * W::kW * W::kLd) *
+         sizeof(T);
 }
 
-template <class Layout, int E, bool CROSS>
+template <class Layout, int E, bool CROSS, typename T>
 __global__ void __launch_bounds__(kAThreads)
-eb_bwd_prologue_kernel(const bf16* __restrict__ in0,
-                       const bf16* __restrict__ in1,
-                       const bf16* __restrict__ in2,
-                       const bf16* __restrict__ in3, size_t ld,
-                       const float* __restrict__ dF, bf16* __restrict__ VB,
-                       bf16* __restrict__ VBDFT, bf16* __restrict__ VADF,
-                       int N, int C, int heads) {
-  using W = EbW<E>;
+eb_bwd_prologue_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
+                       const T* __restrict__ in2, const T* __restrict__ in3,
+                       size_t ld, const float* __restrict__ dF,
+                       T* __restrict__ VB, T* __restrict__ VBDFT,
+                       T* __restrict__ VADF, int N, int C, int heads) {
+  using W = EbW<T, E>;
   // va in a tile of its own: a cross-features pair, or any slice (its va
   // and vb may differ)
   constexpr bool kOwnVa = CROSS || Layout::kSlice;
-  extern __shared__ __align__(128) bf16 sm[];
-  bf16* VBs = sm;
-  bf16* VAs = kOwnVa ? sm + W::kTileElems : VBs;
-  bf16* Os = sm + 2 * W::kTileElems;  // an output tile, staged
-  bf16* DF = sm + 3 * W::kTileElems;  // [kW][kLd]: T(dF)[e][f]
+  extern __shared__ __align__(128) unsigned char eb_smem[];
+  T* sm = reinterpret_cast<T*>(eb_smem);
+  T* VBs = sm;
+  T* VAs = kOwnVa ? sm + W::kTileElems : VBs;
+  T* Os = sm + 2 * W::kTileElems;  // an output tile, staged
+  T* DF = sm + 3 * W::kTileElems;  // [kW][kLd]: T(dF)[e][f]
+  T* DFt = DF + W::kW * W::kLd;    // fp32: [kW][kLd], dF[e][f] at [f][e]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.x * kAT, g = blockIdx.y;
-  const EbView vw =
+  const EbView<T> vw =
       eb_view<Layout, E, CROSS>(in0, in1, in2, in3, ld, N, C, heads, g);
   Layout::template load_v<E>(VBs, vw.vb, vw, r0, N);
   if (kOwnVa) Layout::template load_v<E>(VAs, vw.va, vw, r0, N);
@@ -100,18 +111,21 @@ eb_bwd_prologue_kernel(const bf16* __restrict__ in0,
   const float* df = dF + (size_t)g * E * E;
   for (int i = tid; i < W::kW * W::kW; i += kAThreads) {
     const int e = i / W::kW, f = i % W::kW;
-    DF[e * W::kLd + f] = __float2bfloat16(e < E && f < E ? df[e * E + f] : 0.f);
+    const T v = from_f32<T>(e < E && f < E ? df[e * E + f] : 0.f);
+    DF[e * W::kLd + f] = v;
+    if constexpr (W::kF32) DFt[f * W::kLd + e] = v;
   }
   cp_async_wait<0>();
   __syncthreads();
 
-  // one kW-wide output tile from the staging tile Os to rows r0.. of out
-  constexpr int CPR = W::kW / 8;
+  // one kW-wide output tile from the staging tile Os to rows r0.. of out,
+  // 16 bytes a thread and step
+  constexpr int V = 16 / (int)sizeof(T), CPR = W::kW / V;
   const size_t obase = ((size_t)g * N + r0) * W::kW;
-  auto store = [&](bf16* out) {
+  auto store = [&](T* out) {
     __syncthreads();
     for (int c = tid; c < kAT * CPR; c += kAThreads) {
-      const int r = c / CPR, cc = (c % CPR) * 8;
+      const int r = c / CPR, cc = (c % CPR) * V;
       if (r0 + r < N)
         *reinterpret_cast<uint4*>(out + obase + (size_t)r * W::kW + cc) =
             *reinterpret_cast<const uint4*>(Os + r * W::kLd + cc);
@@ -125,37 +139,53 @@ eb_bwd_prologue_kernel(const bf16* __restrict__ in0,
       const int r = warp * 16 + (lane >> 2) + half * 8;
 #pragma unroll
       for (int ni = 0; ni < W::kNT; ++ni)
-        *reinterpret_cast<__nv_bfloat162*>(Os + r * W::kLd + acc_col(ni, 0)) =
-            __floats2bfloat162_rn(c[ni][2 * half], c[ni][2 * half + 1]);
+        store2(Os + r * W::kLd + acc_col(ni, 0), c[ni][2 * half],
+               c[ni][2 * half + 1]);
       for (int col = W::kNT * 8 + 2 * (lane & 3); col < W::kW; col += 8)
-        *reinterpret_cast<__nv_bfloat162*>(Os + r * W::kLd + col) =
-            __floats2bfloat162_rn(0.f, 0.f);
+        store2(Os + r * W::kLd + col, 0.f, 0.f);
     }
   };
 
   // vb itself, packed
   for (int c = tid; c < kAT * CPR; c += kAThreads) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
+    const int r = c / CPR, cc = (c % CPR) * V;
     if (r0 + r < N)
       *reinterpret_cast<uint4*>(VB + obase + (size_t)r * W::kW + cc) =
           *reinterpret_cast<const uint4*>(VBs + r * W::kLd + cc);
   }
-  unsigned af[W::kKS][4];
-  {
-    // vbdft[n][e] = sum_f vb[n][f] T(dF)[e][f]: DF's rows are the columns
-    float c[W::kNT][4] = {};
-    load_afrag_k<W::kKS, W::kLd>(af, VBs);
-    mma_abt_acc<W::kNT, W::kKS, W::kLd>(c, af, DF);
-    stage(c);
-    store(VBDFT);
-  }
-  {
-    // vadf[n][f] = sum_e va[n][e] T(dF)[e][f]: DF's rows are the sum index
-    float c[W::kNT][4] = {};
-    load_afrag_k<W::kKS, W::kLd>(af, VAs);
-    mma_ab_acc<W::kNT, W::kKS, W::kLd>(c, af, DF);
-    stage(c);
-    store(VADF);
+  if constexpr (W::kF32) {
+    {
+      // vbdft[n][e] = sum_f vb[n][f] dF[e][f]: DF's rows are the columns
+      float c[W::kNT][4] = {};
+      mma_abt_acc_f32<W::kNT, W::kK8, W::kLd, W::kLd>(c, VBs, DF);
+      stage(c);
+      store(VBDFT);
+    }
+    {
+      // vadf[n][f] = sum_e va[n][e] dF[e][f]: DFt's rows are the columns
+      float c[W::kNT][4] = {};
+      mma_abt_acc_f32<W::kNT, W::kK8, W::kLd, W::kLd>(c, VAs, DFt);
+      stage(c);
+      store(VADF);
+    }
+  } else {
+    unsigned af[W::kKS][4];
+    {
+      // vbdft[n][e] = sum_f vb[n][f] T(dF)[e][f]: DF's rows are the columns
+      float c[W::kNT][4] = {};
+      load_afrag_k<W::kKS, W::kLd>(af, VBs);
+      mma_abt_acc<W::kNT, W::kKS, W::kLd>(c, af, DF);
+      stage(c);
+      store(VBDFT);
+    }
+    {
+      // vadf[n][f] = sum_e va[n][e] T(dF)[e][f]: DF's rows are the sum index
+      float c[W::kNT][4] = {};
+      load_afrag_k<W::kKS, W::kLd>(af, VAs);
+      mma_ab_acc<W::kNT, W::kKS, W::kLd>(c, af, DF);
+      stage(c);
+      store(VADF);
+    }
   }
 }
 
@@ -170,55 +200,60 @@ eb_bwd_prologue_kernel(const bf16* __restrict__ in0,
 // out2 += . Zw, and writes them: PairLayout to dst0 = dqkv, dst1 = the
 // cross features' dva (B, 2, N, C), DVA and dpos_part; SliceLayout to dst0
 // .. dst3 = dq, dk, dva, dvb (see the file's head).
-template <int E, bool kRows, bool kGrad>
+template <typename T, bool kRows, bool kGrad>
+__host__ __device__ constexpr int pass_stages() {
+  return sizeof(T) == 4 && kRows && kGrad ? 1 : 2;
+}
+
+template <typename T, int E, bool kRows, bool kGrad>
 constexpr size_t pass_smem_bytes() {
   constexpr int kZ = kRows && kGrad;  // a walked Z tile of its own
-  return (kATileElems + EbW<E>::kTileElems +
-          2 * (kATileElems + (1 + kZ) * EbW<E>::kTileElems)) *
-             sizeof(bf16) +
-         2 * 3 * kAT * sizeof(float);
+  constexpr int S = pass_stages<T, kRows, kGrad>();
+  return (tile_elems<T>() + EbW<T, E>::kTileElems +
+          S * (tile_elems<T>() + (1 + kZ) * EbW<T, E>::kTileElems)) *
+             sizeof(T) +
+         S * 3 * kAT * sizeof(float);
 }
 
 template <class Layout, int E, bool kRows, bool kGrad, bool SINGLE,
-          bool CROSS>
+          bool CROSS, typename T>
 __global__ void __launch_bounds__(kAThreads, 2)
-eb_bwd_pass_kernel(const bf16* __restrict__ in0,
-                   const bf16* __restrict__ in1, size_t ld,
-                   float* __restrict__ qstats, float* __restrict__ kstats,
-                   const bf16* __restrict__ VB,
-                   const bf16* __restrict__ VBDFT,
-                   const bf16* __restrict__ VADF, float* __restrict__ DVA,
-                   bf16* __restrict__ dst0, bf16* __restrict__ dst1,
-                   bf16* __restrict__ dst2, bf16* __restrict__ dst3,
-                   float* __restrict__ dpos_part, int N, int C, int heads,
-                   float scale, float sigma) {
-  using W = EbW<E>;
+eb_bwd_pass_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
+                   size_t ld, float* __restrict__ qstats,
+                   float* __restrict__ kstats, const T* __restrict__ VB,
+                   const T* __restrict__ VBDFT, const T* __restrict__ VADF,
+                   float* __restrict__ DVA, T* __restrict__ dst0,
+                   T* __restrict__ dst1, T* __restrict__ dst2,
+                   T* __restrict__ dst3, float* __restrict__ dpos_part, int N,
+                   int C, int heads, float scale, float sigma) {
+  using W = EbW<T, E>;
+  constexpr int TE = tile_elems<T>();
   constexpr bool kZ = kRows && kGrad;
+  constexpr int S = pass_stages<T, kRows, kGrad>();
   // with SINGLE only the query side has statistics
   constexpr bool kOwnStats = !SINGLE || kRows;
   constexpr bool kWalkStats = !SINGLE || !kRows;
-  extern __shared__ __align__(128) bf16 sm[];
+  extern __shared__ __align__(128) unsigned char eb_smem[];
+  T* sm = reinterpret_cast<T*>(eb_smem);
   // stage st of the walked ring: X, Y (and Z) tiles at WX(st) .. (offsets,
   // not arrays of pointers: those were indexed from the stack)
-  constexpr int kStage = kATileElems + (1 + kZ) * W::kTileElems;
-  bf16* OXs = sm;
-  bf16* OYs = sm + kATileElems;
-  const auto WX = [&](int st) {
-    return OYs + W::kTileElems + st * kStage;
-  };
-  const auto WY = [&](int st) { return WX(st) + kATileElems; };
+  constexpr int kStage = TE + (1 + kZ) * W::kTileElems;
+  T* OXs = sm;
+  T* OYs = sm + TE;
+  const auto WX = [&](int st) { return OYs + W::kTileElems + st * kStage; };
+  const auto WY = [&](int st) { return WX(st) + TE; };
   const auto WZ = [&](int st) { return WY(st) + kZ * W::kTileElems; };
-  float* WSs = reinterpret_cast<float*>(OYs + W::kTileElems + 2 * kStage);
+  float* WSs = reinterpret_cast<float*>(OYs + W::kTileElems + S * kStage);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.x * kAT, g = blockIdx.y;
-  const EbView vw = eb_view<Layout, E, CROSS>(in0, in1, nullptr, nullptr,
-                                              ld, N, C, heads, g);
+  const EbView<T> vw = eb_view<Layout, E, CROSS>(
+      in0, in1, (const T*)nullptr, (const T*)nullptr, ld, N, C, heads, g);
   const size_t gN = (size_t)g * N;
-  const bf16* ownX = kRows ? vw.q : vw.k;
-  const bf16* walkX = kRows ? vw.k : vw.q;
-  const bf16* ownY = (kRows ? VADF : VB) + gN * W::kW;
-  const bf16* walkY = (kRows ? VB : VADF) + gN * W::kW;
-  const bf16* walkZ = VBDFT + gN * W::kW;
+  const T* ownX = kRows ? vw.q : vw.k;
+  const T* walkX = kRows ? vw.k : vw.q;
+  const T* ownY = (kRows ? VADF : VB) + gN * W::kW;
+  const T* walkY = (kRows ? VB : VADF) + gN * W::kW;
+  const T* walkZ = VBDFT + gN * W::kW;
   float* ost = (kRows ? qstats : kstats) + gN * 3;
   const float* wst = (kRows ? kstats : qstats) + gN * 3;
   const int nt = (N + kAT - 1) / kAT;
@@ -237,7 +272,7 @@ eb_bwd_pass_kernel(const bf16* __restrict__ in0,
   };
   load_tile(OXs, ownX, vw.ldqk, r0, N);
   load_rows<W::kW, W::kLd>(OYs, ownY, W::kW, r0, N);
-  prefetch(0, 0);
+  if constexpr (S == 2) prefetch(0, 0);
   cp_async_commit();
 
   // the own rows' statistics (benign values past N)
@@ -254,25 +289,31 @@ eb_bwd_pass_kernel(const bf16* __restrict__ in0,
     }
   }
 
-  unsigned xf[4][4];
+  typename AttnFrags<T>::A xf;
   float s[8][4], d[8][4];
   float red[2] = {0.f, 0.f};
   float out1[8][4] = {}, out2[W::kNT][4] = {};
   for (int t = 0; t < nt; ++t) {
     __syncthreads();  // the stage loaded below was read at step t - 1
-    if (t + 1 < nt) prefetch((t + 1) * kAT, (t + 1) & 1);
+    if constexpr (S == 2) {
+      if (t + 1 < nt) prefetch((t + 1) * kAT, (t + 1) & 1);
+    } else {
+      prefetch(t * kAT, 0);
+    }
     cp_async_commit();
-    cp_async_wait<1>();
+    cp_async_wait<S - 1>();
     __syncthreads();
     if (t == 0) load_afrag(xf, OXs);
-    const int w0 = t * kAT, st = t & 1;
+    const int w0 = t * kAT, st = S == 2 ? t & 1 : 0;
     const float* ws = WSs + st * 3 * kAT;
     mma_abt(s, xf, WX(st));
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) d[ni][e] = 0.f;
-    {
+    if constexpr (W::kF32) {
+      mma_abt_acc_f32<8, W::kK8, W::kLd, W::kLd>(d, OYs, WY(st));
+    } else {
       // reloaded each step: kept live, they pushed the gradient passes
       // past 255 registers
       unsigned yf[W::kKS][4];
@@ -316,11 +357,16 @@ eb_bwd_pass_kernel(const bf16* __restrict__ in0,
         d[ni][e] = A;
       }
     if constexpr (kGrad) {
-      unsigned dsf[4][4], abf[4][4];
-      to_afrag(dsf, s);  // T(ds sigma)
-      to_afrag(abf, d);  // T(A)
-      mma_ab(out1, dsf, WX(st));
-      mma_ab_acc<W::kNT, 4, W::kLd>(out2, abf, WZ(st));
+      if constexpr (W::kF32) {
+        mma_ab(out1, s, WX(st));                          // ds sigma, fp32
+        mma_pb_acc_f32<W::kNT, W::kLd>(out2, d, WZ(st));  // A, fp32
+      } else {
+        unsigned dsf[4][4], abf[4][4];
+        to_afrag(dsf, s);  // T(ds sigma)
+        to_afrag(abf, d);  // T(A)
+        mma_ab(out1, dsf, WX(st));
+        mma_ab_acc<W::kNT, 4, W::kLd>(out2, abf, WZ(st));
+      }
     }
   }
 
@@ -335,42 +381,39 @@ eb_bwd_pass_kernel(const bf16* __restrict__ in0,
   }
   if constexpr (Layout::kSlice) {
     // dq | dk and dva | dvb of the own rows, each rounded by itself
-    bf16* gx = (kRows ? dst0 : dst1) + gN * kHeadDim;
-    bf16* gv = (kRows ? dst2 : dst3) + gN * E;
+    T* gx = (kRows ? dst0 : dst1) + gN * kHeadDim;
+    T* gv = (kRows ? dst2 : dst3) + gN * E;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
       if (row >= N) continue;
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni)
-        *reinterpret_cast<__nv_bfloat162*>(gx + (size_t)row * kHeadDim +
-                                           acc_col(ni, 0)) =
-            __floats2bfloat162_rn(out1[ni][2 * half], out1[ni][2 * half + 1]);
+        store2(gx + (size_t)row * kHeadDim + acc_col(ni, 0),
+               out1[ni][2 * half], out1[ni][2 * half + 1]);
 #pragma unroll
       for (int ni = 0; ni < W::kNT; ++ni) {
         const int col = acc_col(ni, 0);
         if (col < E)
-          *reinterpret_cast<__nv_bfloat162*>(gv + (size_t)row * E + col) =
-              __floats2bfloat162_rn(out2[ni][2 * half],
-                                    out2[ni][2 * half + 1]);
+          store2(gv + (size_t)row * E + col, out2[ni][2 * half],
+                 out2[ni][2 * half + 1]);
       }
     }
     return;
   }
   // own rows' outputs; the image of the own rows in dqkv (dst0)
-  const EbSlice sl(in0, in1, ld, g, heads);
+  const EbSlice<T> sl(in0, in1, ld, g, heads);
   const size_t C3 = 3 * (size_t)C;
-  bf16* out = dst0 + ((kRows ? sl.qimg : sl.kimg) - in0);
+  T* out = dst0 + ((kRows ? sl.qimg : sl.kimg) - in0);
   float* dva = DVA + gN * E;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
     if (row >= N) continue;
-    bf16* o1 = out + (size_t)row * C3 + (kRows ? 0 : C) + sl.h * kHeadDim;
+    T* o1 = out + (size_t)row * C3 + (kRows ? 0 : C) + sl.h * kHeadDim;
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
-      *reinterpret_cast<__nv_bfloat162*>(o1 + acc_col(ni, 0)) =
-          __floats2bfloat162_rn(out1[ni][2 * half], out1[ni][2 * half + 1]);
+      store2(o1 + acc_col(ni, 0), out1[ni][2 * half], out1[ni][2 * half + 1]);
 #pragma unroll
     for (int ni = 0; ni < W::kNT; ++ni) {
       const int col = acc_col(ni, 0);
@@ -380,9 +423,9 @@ eb_bwd_pass_kernel(const bf16* __restrict__ in0,
       if (kRows) {  // dva
         *reinterpret_cast<float2*>(dvrow) = v;
         if (CROSS && col < kHeadDim)
-          *reinterpret_cast<__nv_bfloat162*>(
-              dst1 + ((sl.qimg - in0) / C3 + row) * C + sl.h * kHeadDim +
-              col) = __floats2bfloat162_rn(v.x, v.y);
+          store2(dst1 + ((sl.qimg - in0) / C3 + row) * C + sl.h * kHeadDim +
+                     col,
+                 v.x, v.y);
         continue;
       }
       // dvb (+ dva, summed in fp32)
@@ -392,8 +435,7 @@ eb_bwd_pass_kernel(const bf16* __restrict__ in0,
         v.y += a.y;
       }
       if (col < kHeadDim)
-        *reinterpret_cast<__nv_bfloat162*>(o1 + C + col) =
-            __floats2bfloat162_rn(v.x, v.y);
+        store2(o1 + C + col, v.x, v.y);
       else
         *reinterpret_cast<float2*>(dpos_part + (gN + row) * kEbPos + col -
                                    kHeadDim) = v;
@@ -404,25 +446,26 @@ eb_bwd_pass_kernel(const bf16* __restrict__ in0,
 // ---------------------------------------------------------- workspace --
 // Scratch of the backward, in this order, each piece 256-byte aligned:
 // the query and key statistics (G N x 3 fp32 each), VB, VBDFT, VADF (G N kW
-// bf16 each) and, for PairLayout's dva (kDva), G N e fp32.
+// elements of `elem` bytes each: 2 bf16, 4 fp32) and, for PairLayout's dva
+// (kDva), G N e fp32.
 struct EbBwdWs {
   float* qstats;
   float* kstats;
-  bf16* vb;
-  bf16* vbdft;
-  bf16* vadf;
+  void* vb;
+  void* vbdft;
+  void* vadf;
   float* dva;
   size_t bytes;
-  EbBwdWs(void* base, int G, int N, int E, bool kDva) {
-    const int kW = E == kHeadDim ? kHeadDim : 80;
+  EbBwdWs(void* base, int G, int N, int E, bool kDva, int elem = 2) {
+    const int kW = eb_kw_of(E, elem);
     const size_t st = eb_align(sizeof(float) * (size_t)G * N * 3);
-    const size_t rows = eb_align(sizeof(bf16) * (size_t)G * N * kW);
+    const size_t rows = eb_align((size_t)elem * G * N * kW);
     const uintptr_t p = reinterpret_cast<uintptr_t>(base);
     qstats = reinterpret_cast<float*>(p);
     kstats = reinterpret_cast<float*>(p + st);
-    vb = reinterpret_cast<bf16*>(p + 2 * st);
-    vbdft = reinterpret_cast<bf16*>(p + 2 * st + rows);
-    vadf = reinterpret_cast<bf16*>(p + 2 * st + 2 * rows);
+    vb = reinterpret_cast<void*>(p + 2 * st);
+    vbdft = reinterpret_cast<void*>(p + 2 * st + rows);
+    vadf = reinterpret_cast<void*>(p + 2 * st + 2 * rows);
     dva = kDva ? reinterpret_cast<float*>(p + 2 * st + 3 * rows) : nullptr;
     bytes = 2 * st + 3 * rows +
             (kDva ? eb_align(sizeof(float) * (size_t)G * N * E) : 0);
@@ -432,63 +475,79 @@ struct EbBwdWs {
 // Host-side arguments of launch_bwd: the layout's in0 .. in3 and ld (see
 // essential_tc.cuh), dF (G, e, e) fp32, the outputs out0 .. out3 (the
 // pass kernel's dst0 .. dst3) and dpos_part, the EbBwdWs bytes, G slices, the
-// scale (sigma log2 e) and sigma.
-struct EbBwdArgs {
-  const bf16* in0;
-  const bf16* in1;
-  const bf16* in2;
-  const bf16* in3;
+// scale (sigma log2 e) and sigma.  EbBwdArgs: bf16's (#8).
+template <typename T>
+struct EbBwdArgsT {
+  const T* in0;
+  const T* in1;
+  const T* in2;
+  const T* in3;
   size_t ld;
   const float* dF;
-  bf16* out0;
-  bf16* out1;
-  bf16* out2;
-  bf16* out3;
+  T* out0;
+  T* out1;
+  T* out2;
+  T* out3;
   float* dpos_part;
   void* ws;
   int G, N, C, heads;
   float scale, sigma;
 };
+using EbBwdArgs = EbBwdArgsT<bf16>;
+
+// the operand rows of the workspace in the element type
+template <typename T>
+struct EbBwdRows {
+  T* vb;
+  T* vbdft;
+  T* vadf;
+  explicit EbBwdRows(const EbBwdWs& ws)
+      : vb(reinterpret_cast<T*>(ws.vb)),
+        vbdft(reinterpret_cast<T*>(ws.vbdft)),
+        vadf(reinterpret_cast<T*>(ws.vadf)) {}
+};
 
 template <class Layout, int E, bool kRows, bool kGrad, bool SINGLE,
-          bool CROSS>
-static cudaError_t launch_bwd_pass(const EbBwdArgs& a, const EbBwdWs& ws,
+          bool CROSS, typename T>
+static cudaError_t launch_bwd_pass(const EbBwdArgsT<T>& a, const EbBwdWs& ws,
                                    dim3 grid, cudaStream_t st) {
-  constexpr size_t smem = pass_smem_bytes<E, kRows, kGrad>();
-  auto kernel = eb_bwd_pass_kernel<Layout, E, kRows, kGrad, SINGLE, CROSS>;
+  constexpr size_t smem = pass_smem_bytes<T, E, kRows, kGrad>();
+  auto kernel =
+      eb_bwd_pass_kernel<Layout, E, kRows, kGrad, SINGLE, CROSS, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  const EbBwdRows<T> r(ws);
   kernel<<<grid, kAThreads, smem, st>>>(
-      a.in0, a.in1, a.ld, ws.qstats, ws.kstats, ws.vb, ws.vbdft, ws.vadf,
+      a.in0, a.in1, a.ld, ws.qstats, ws.kstats, r.vb, r.vbdft, r.vadf,
       ws.dva, a.out0, a.out1, a.out2, a.out3, a.dpos_part, a.N, a.C, a.heads,
       a.scale, a.sigma);
   return cudaGetLastError();
 }
 
 // G slices: at most 65,535 (the grid's second dimension)
-template <class Layout, int E, bool SINGLE, bool CROSS>
-cudaError_t launch_bwd(const EbBwdArgs& a, cudaStream_t st) {
+template <class Layout, int E, bool SINGLE, bool CROSS, typename T>
+cudaError_t launch_bwd(const EbBwdArgsT<T>& a, cudaStream_t st) {
   const int G = a.G, N = a.N;
   if (G > 65535 || N <= 0 || a.ws == nullptr) return cudaErrorInvalidValue;
-  const EbBwdWs ws(a.ws, G, N, E, !Layout::kSlice);
+  const EbBwdWs ws(a.ws, G, N, E, !Layout::kSlice, (int)sizeof(T));
   const dim3 grid((N + kAT - 1) / kAT, G);
-  cudaError_t err;
-  eb_stats_kernel<false, Layout><<<grid, kAThreads, 0, st>>>(
-      a.in0, a.in1, a.ld, ws.qstats, N, a.C, a.heads, a.scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  cudaError_t err = launch_stats<false, Layout>(
+      a.in0, a.in1, a.ld, ws.qstats, G, N, a.C, a.heads, a.scale, st);
+  if (err != cudaSuccess) return err;
   if constexpr (!SINGLE) {
-    eb_stats_kernel<true, Layout><<<grid, kAThreads, 0, st>>>(
-        a.in0, a.in1, a.ld, ws.kstats, N, a.C, a.heads, a.scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_stats<true, Layout>(a.in0, a.in1, a.ld, ws.kstats, G, N,
+                                     a.C, a.heads, a.scale, st);
+    if (err != cudaSuccess) return err;
   }
-  constexpr size_t psmem = prologue_smem_bytes<E>();
-  auto prologue = eb_bwd_prologue_kernel<Layout, E, CROSS>;
+  constexpr size_t psmem = prologue_smem_bytes<T, E>();
+  auto prologue = eb_bwd_prologue_kernel<Layout, E, CROSS, T>;
   err = cudaFuncSetAttribute(
       prologue, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)psmem);
   if (err != cudaSuccess) return err;
+  const EbBwdRows<T> r(ws);
   prologue<<<grid, kAThreads, psmem, st>>>(a.in0, a.in1, a.in2, a.in3, a.ld,
-                                          a.dF, ws.vb, ws.vbdft, ws.vadf, N,
+                                          a.dF, r.vb, r.vbdft, r.vadf, N,
                                           a.C, a.heads);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if constexpr (!SINGLE) {  // gamma
@@ -507,12 +566,13 @@ cudaError_t launch_bwd(const EbBwdArgs& a, cudaStream_t st) {
 }
 
 // #6's arguments
+template <typename T>
 struct EbbTcArgs {
-  const bf16* qkv;    // (B, 2, N, 3C)
-  const bf16* pos;    // (B, N, 6), or NULL with e = 64
+  const T* qkv;       // (B, 2, N, 3C)
+  const T* pos;       // (B, N, 6), or NULL with e = 64
   const float* dF;    // (B, 2, heads, e, e)
-  bf16* dqkv;         // (B, 2, N, 3C)
-  bf16* dva;          // (B, 2, N, C) with CROSS, else NULL
+  T* dqkv;            // (B, 2, N, 3C)
+  T* dva;             // (B, 2, N, C) with CROSS, else NULL
   float* dpos_part;   // (B, 2, heads, N, 6), or NULL with e = 64
   void* ws;           // EbBwdWs bytes
   int B, N, C, heads;
@@ -520,21 +580,22 @@ struct EbbTcArgs {
 
 // #6: G = 2 B heads slices of PairLayout, the images of pair b at qkv +
 // (2 b + i) N 3C
-template <int E, bool SINGLE, bool CROSS>
-cudaError_t launch_essential_bwd_tc(const EbbTcArgs& a, cudaStream_t st) {
+template <typename T, int E, bool SINGLE, bool CROSS>
+cudaError_t launch_essential_bwd_tc(const EbbTcArgs<T>& a, cudaStream_t st) {
   const size_t img = (size_t)a.N * 3 * a.C;
-  const EbBwdArgs b{a.qkv, a.qkv + img, a.pos, nullptr, 2 * img, a.dF,
-                    a.dqkv, a.dva, nullptr, nullptr, a.dpos_part, a.ws,
-                    2 * a.B * a.heads, a.N, a.C, a.heads, kEbScale, 0.125f};
+  const EbBwdArgsT<T> b{a.qkv, a.qkv + img, a.pos, nullptr, 2 * img, a.dF,
+                        a.dqkv, a.dva, nullptr, nullptr, a.dpos_part, a.ws,
+                        2 * a.B * a.heads, a.N, a.C, a.heads, kEbScale,
+                        0.125f};
   return launch_bwd<PairLayout, E, SINGLE, CROSS>(b, st);
 }
 
-#define RP_EBB_TC_EXTERN(E, S, X) \
-  extern template cudaError_t launch_essential_bwd_tc<E, S, X>(          \
-      const EbbTcArgs&, cudaStream_t);
-#define RP_EBB_TC_INSTANTIATE(E, S, X) \
-  template cudaError_t launch_essential_bwd_tc<E, S, X>(const EbbTcArgs&, \
-                                                         cudaStream_t);
+#define RP_EBB_TC_EXTERN(T, E, S, X)                                      \
+  extern template cudaError_t launch_essential_bwd_tc<T, E, S, X>(        \
+      const EbbTcArgs<T>&, cudaStream_t);
+#define RP_EBB_TC_INSTANTIATE(T, E, S, X)                                 \
+  template cudaError_t launch_essential_bwd_tc<T, E, S, X>(               \
+      const EbbTcArgs<T>&, cudaStream_t);
 
 }  // namespace tc
 }  // namespace rp

@@ -1,6 +1,7 @@
 // The e = 64 variants (no positional encoding) of the Essential Matrix
-// Module's tensor-core backward (essential_tc_bwd.cuh), instantiated in a
-// translation unit of their own so that nvcc builds them in parallel.
+// Module's tensor-core backward (essential_tc_bwd.cuh), bf16 and fp32,
+// instantiated in a translation unit of their own so that nvcc builds them
+// in parallel.
 
 #include "essential_tc_bwd.cuh"
 

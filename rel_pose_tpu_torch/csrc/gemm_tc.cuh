@@ -4,11 +4,10 @@
 //
 // Replaces the GEMMs inside rel_pose_tpu/ops/pallas_vit.py:
 // _vit_stack_kernel (qkv, proj, fc1, fc2) and pallas_vit_bwd.py:
-// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears), in
-// both dtypes, and for bf16 the forward GEMM inside
-// pallas_essential_block.py's _essential_block_pair_kernel and
-// _essential_block_x_kernel (the qkv Linear, essential_block.cu; its fp32
-// route keeps common.cuh's SIMT gemm_kernel).
+// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears), and
+// the forward GEMM inside pallas_essential_block.py's
+// _essential_block_pair_kernel and _essential_block_x_kernel (the qkv
+// Linear, essential_block.cu), all in both dtypes.
 //
 // One structure, two products: the element type picks the MMA atom.
 //   bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on operands loaded
@@ -493,7 +492,7 @@ struct Cfgs<float> {
 // ------------------------------------------------------- forward GEMM --
 // out[M, Nout] = epilogue(A[M, K] . W[Nout, K]^T) in E, common.cuh's
 // Epilogue values (kBias, kBiasGelu, kBiasResid, kRounded -- the essential
-// block's bf16 qkv Linear -- and kBiasGeluSplit), element for element;
+// block's qkv Linear -- and kBiasGeluSplit), element for element;
 // resid may alias out (each element is read, then written, by one thread).
 template <int EPI, class Cfg>
 __global__ void __launch_bounds__(Cfg::kThreads)

@@ -48,7 +48,7 @@ SIGNATURES = {
     # cross after the sizes; pos (and the positional outputs) NULL without
     # positions.
     # B, N, heads, has_pos, bf16 -> workspace bytes of the three forward
-    # entry points below (0 for fp32)
+    # entry points below
     "rp_essential_block_workspace": ([I] * 5, L),
     # xpair, ln scale, ln bias, w, b, pos, F, 2 scratch buffers, workspace;
     # B, N, C, heads, 3 flags, bf16; stream

@@ -22,12 +22,13 @@ Each takes ``positional`` (``(B, N, 6)`` or None) and the flags
 tensor it is its plain PyTorch version (``essential_block_pair_reference``,
 ``essential_block_x_reference``, ``essential_block_reference``); on a CUDA
 tensor it launches the hand kernels of ``csrc/essential_block.cu`` or
-raises: bf16 the tensor-core qkv GEMM (``csrc/gemm_tc.cuh``) and moments
-(``csrc/essential_tc.cuh``), with the scratch that
-``rp_essential_block_workspace`` sizes; fp32 the SIMT kernels.  The bf16
-kernels take at most 65,535 slices (2 B heads: 10,922 pairs of the
-flagship), the fp32 ones 65,535 pairs, and the qkv GEMM 65,535 row tiles
-(128 rows bf16, 64 fp32); a larger call raises before any launch.
+raises: the tensor-core qkv GEMM (``csrc/gemm_tc.cuh``) and moments
+(``csrc/essential_tc.cuh``), bf16 on m16n8k16 and fp32 as 3xTF32 (three
+TF32 products a product, fp32 accuracy), with the scratch that
+``rp_essential_block_workspace`` sizes.  The kernels take at most 65,535
+slices (2 B heads: 10,922 pairs of the flagship) and the qkv GEMM 65,535
+row tiles of 128 rows; a larger call raises before any launch, as does an
+operand that does not start on a 16-byte boundary.
 
 Per direction and head: s = q k^T / sqrt(d), A = softmax_row(s) *
 softmax_col(s) in fp32 (softmax_row(s) alone with ``use_single_softmax``),
@@ -45,9 +46,9 @@ recomputes the LayerNorm and ``linear_rounded`` in PyTorch where the op has
 them, runs :func:`fused_essential_block_bwd` for dqkv and the positional
 cotangent -- the plain :func:`essential_block_bwd_reference` on CPU
 tensors, the kernel of ``csrc/essential_block_bwd.cu`` (which replaces
-``_essential_block_bwd_kernel``; bf16 on the tensor-core passes of
-``csrc/essential_tc_bwd.cuh``) on CUDA tensors -- and chains through the
-Linear and the LayerNorm VJP in PyTorch.
+``_essential_block_bwd_kernel``: the tensor-core passes of
+``csrc/essential_tc_bwd.cuh``, both dtypes) on CUDA tensors -- and chains
+through the Linear and the LayerNorm VJP in PyTorch.
 """
 
 import torch
@@ -150,32 +151,30 @@ def _on_card(name, x):
     raise ValueError(f"{name}: no kernel for {x.device}")
 
 
-def _check_grid(name, B, num_heads, bf16, gemm_rows=0):
-    """Raise unless the launch grids take ``B`` pairs: bf16 one block row
-    per slice (2 B heads), fp32 one per pair; the qkv GEMM over
-    ``gemm_rows`` rows one per 128 (bf16) or 64 (fp32) rows."""
-    slices = 2 * B * num_heads if bf16 else B
-    tiles = -(-gemm_rows // (128 if bf16 else 64))
+def _check_grid(name, B, num_heads, gemm_rows=0):
+    """Raise unless the launch grids take ``B`` pairs: one block row per
+    slice (2 B heads); the qkv GEMM over ``gemm_rows`` rows one per 128
+    rows."""
+    slices = 2 * B * num_heads
+    tiles = -(-gemm_rows // 128)
     if slices > MAX_GRID or tiles > MAX_GRID:
         raise ValueError(
-            f"{name}: {B} pairs need {slices} "
-            f"{'slices' if bf16 else 'pair blocks'} and {tiles} GEMM row "
+            f"{name}: {B} pairs need {slices} slices and {tiles} GEMM row "
             f"tiles; the launch grid takes at most {MAX_GRID} of each")
 
 
 def _check_aligned(name, *tensors):
-    """The bf16 kernels load 16-byte rows (cp.async): every operand must
-    start on a 16-byte boundary."""
+    """The kernels load 16-byte rows (cp.async): every operand must start
+    on a 16-byte boundary."""
     for t in tensors:
-        if (t is not None and t.dtype == torch.bfloat16
-                and t.data_ptr() % 16):
-            raise ValueError(f"{name}: a bf16 operand at {t.data_ptr():#x} "
-                             "is not 16-byte aligned")
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: a {str(t.dtype)[6:]} operand at "
+                             f"{t.data_ptr():#x} is not 16-byte aligned")
 
 
 def _workspace(query, B, N, num_heads, positional, bf16, device):
     """The scratch that the entry point's workspace ``query`` asks for
-    (None when it needs none)."""
+    (None when it answers 0)."""
     size = query(B, N, num_heads, int(positional is not None), int(bf16))
     return (torch.empty(size, dtype=torch.uint8, device=device) if size
             else None)
@@ -223,7 +222,7 @@ def _pair_forward(xpair, lns, lnb, w, b, positional, num_heads,
     pos = None if positional is None else positional.to(cdt).contiguous()
     _check_inputs(xpair, (lns, lnb, w, b, pos), num_heads)
     bf16 = cdt == torch.bfloat16
-    _check_grid("fused_essential_block_pair", B, num_heads, bf16, 2 * B * N)
+    _check_grid("fused_essential_block_pair", B, num_heads, 2 * B * N)
     _check_aligned("fused_essential_block_pair", xpair, w)
     lib = _build.library()
     f = _f_out(B, num_heads, positional, xpair.device)
@@ -330,7 +329,7 @@ def _x_forward(x1, x2, w, b, positional, num_heads, cross_features,
                              f"{tuple(t.shape)} tensor on {t.device}, "
                              f"expected {shape} on {x1.device}")
     bf16 = cdt == torch.bfloat16
-    _check_grid("fused_essential_block_x", B, num_heads, bf16, B * N)
+    _check_grid("fused_essential_block_x", B, num_heads, B * N)
     _check_aligned("fused_essential_block_x", x1, x2, w)
     lib = _build.library()
     f = _f_out(B, num_heads, positional, x1.device)
@@ -395,7 +394,7 @@ def _block_forward(qkv1, qkv2, positional, num_heads, cross_features,
     pos = None if positional is None else positional.to(cdt).contiguous()
     _check_pair(qkv1, qkv2, pos, C3 // 3, num_heads)
     bf16 = cdt == torch.bfloat16
-    _check_grid("fused_essential_block", B, num_heads, bf16)
+    _check_grid("fused_essential_block", B, num_heads)
     _check_aligned("fused_essential_block", qkv1, qkv2)
     lib = _build.library()
     f = _f_out(B, num_heads, positional, qkv1.device)
@@ -561,7 +560,7 @@ def fused_essential_block_bwd(qkv, positional, df, num_heads,
             f"{None if pos is None else tuple(pos.shape)}, "
             f"{tuple(df.shape)} {df.dtype}")
     bf16 = qkv.dtype == torch.bfloat16
-    _check_grid("fused_essential_block_bwd", B, num_heads, bf16)
+    _check_grid("fused_essential_block_bwd", B, num_heads)
     _check_aligned("fused_essential_block_bwd", qkv)
     lib = _build.library()
     dqkv = torch.empty_like(qkv)

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Readings of the essential block's kernels #2 and #6 in one tree, to
+compare two trees on one GPU.
+
+    python3 scripts/ab_essential.py [--tree DIR] [--dtype float32|bfloat16]
+                                    [--no-step]
+
+Imports ``rel_pose_tpu_torch`` from ``DIR`` (this checkout by default) and
+``chip_smoke.py`` from this checkout, builds DIR's kernels, and in the
+dtype (float32 by default) checks and times #2 (``fused_essential_block_
+pair``, the flagship's flags) at batch 256, the eval shape, and #6
+(``fused_essential_block_bwd``) at batch 60, the training shape, each
+beside its plain version and with its bound (operations over 165 TFLOP/s
+in fp32, 989 in bf16, or bytes over 3.35 TB/s); then each kernel's parts
+from ``torch.profiler`` (``chip_smoke.essential_part``); then, unless
+``--no-step``, the flagship's train step at batch 60 in that dtype with
+the kernels and on the plain path (``chip_smoke.time_train_steps``).  Run
+it in turns on one card, the other tree, this one, this one, the other.
+Needs a CUDA device.
+"""
+
+import argparse
+import importlib.util
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def readings(cs, device, card, dtype):
+    """#2 at batch 256 and #6 at batch 60 in ``dtype``: checked against the
+    plain versions (chip_smoke's tolerances), timed beside them, by part."""
+    from rel_pose_tpu_torch.nn.layers import layernorm
+    from rel_pose_tpu_torch.ops import essential_block as te
+    name, failures = str(dtype)[6:], []
+    B = cs.EVAL_BATCH
+    rng = np.random.default_rng(cs.SEED + 20)
+    args = cs.essential_inputs(rng, B, dtype, device)
+    xpair, ln, qkvp, positional = args
+    f = te.fused_essential_block_pair(*args, 3)
+    cs.check_f(f"essential_block_pair B={B}", f,
+               te.essential_block_pair_reference(*args, 3), dtype, failures)
+    ms = cs.cuda_time_ms(lambda: te.fused_essential_block_pair(*args, 3), 3)
+    plain = cs.cuda_time_ms(
+        lambda: te.essential_block_pair_reference(*args, 3), 3)
+    small = sum(t.numel() for t in (*ln, *qkvp, positional))
+    b = cs.bound(cs.essential_fwd_flops(B, 576, 192, 3),
+                 cs.nbytes(xpair, f) + xpair.element_size() * small, dtype)
+    cs.log(f"[ab] essential_block_pair {name} batch {B}: kernel {ms:.3f} "
+           f"ms, plain {plain:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) "
+           f"({card})")
+    cs.log_essential_parts(
+        f"essential_block_pair {name} B={B}", cs.profile_parts_ms(
+            lambda: te.fused_essential_block_pair(*args, 3),
+            cs.essential_part, once=True),
+        cs.essential_executed(B, 576, 70, False, False, dtype=dtype), card)
+    del args, f, xpair
+
+    B = cs.TRAIN_BATCH
+    xpair, ln, qkvp, pos = cs.essential_inputs(rng, B, dtype, device)
+    qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
+    pos = pos.to(dtype)
+    df = torch.from_numpy((0.1 * rng.standard_normal(
+        (B, 2, 3, 70, 70))).astype(np.float32)).to(device)
+    dq, dp = te.fused_essential_block_bwd(qkv, pos, df, 3)
+    rq, rp = te.essential_block_bwd_reference(qkv, pos, df, 3)
+    cs.check_grad(f"essential_block_bwd dqkv B={B}", dq, rq, dtype, failures)
+    cs.check_grad(f"essential_block_bwd dpos B={B}", dp, rp, dtype, failures)
+    del rq, rp
+    ms = cs.cuda_time_ms(lambda: te.fused_essential_block_bwd(qkv, pos, df,
+                                                              3), 3)
+    plain = cs.cuda_time_ms(
+        lambda: te.essential_block_bwd_reference(qkv, pos, df, 3), 2)
+    b = cs.bound(cs.essential_bwd_flops(B, 576, 3),
+                 2 * cs.nbytes(qkv) + cs.nbytes(pos, df, dp), dtype)
+    cs.log(f"[ab] essential_block_bwd {name} batch {B}: kernel {ms:.3f} ms, "
+           f"plain {plain:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) ({card})")
+    cs.log_essential_parts(
+        f"essential_block_bwd {name} B={B}", cs.profile_parts_ms(
+            lambda: te.fused_essential_block_bwd(qkv, pos, df, 3),
+            cs.essential_part, once=True),
+        cs.essential_executed(B, 576, 70, False, True, dtype=dtype), card)
+    if failures:
+        raise SystemExit(f"ab_essential checks failed: {failures}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--no-step", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_essential: no CUDA device", file=sys.stderr)
+        return 1
+    tree = pathlib.Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import rel_pose_tpu_torch
+    where = pathlib.Path(rel_pose_tpu_torch.__file__).resolve()
+    if tree not in where.parents:
+        raise SystemExit(f"rel_pose_tpu_torch from {where}, not {tree}")
+    cs.log(f"[ab] tree {tree}")
+    dtype = getattr(torch, args.dtype)
+    device = torch.device("cuda:0")
+    card = cs.phase_device()
+    cs.phase_build()
+    readings(cs, device, card, dtype)
+    if not args.no_step:
+        _, sd = cs.make_models(device)
+        cs.time_train_steps(device, sd, card, dtypes=(dtype,))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

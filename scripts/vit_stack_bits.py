@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Digests of the ViT stack kernels' outputs, of kernels #7, #8 and #9's in
-fp32 and of #2, #4 and #6's in fp32 and bf16, to compare two trees' bits.
+"""Digests of the ViT stack kernels' outputs, of kernel #7's in fp32 and of
+#2, #4, #6, #8 and #9's in fp32 and bf16, to compare two trees' bits.
 
     python3 scripts/vit_stack_bits.py [--tree DIR]
 
@@ -13,15 +13,16 @@ heads of N = 100 and 576, the essential block's #2
 (``fused_essential_block_pair``), #4 (``fused_essential_block``) and #6
 (``fused_essential_block_bwd``) in fp32 and bf16 at B = 4 pairs of N = 576
 for each of the 8 flag sets, #8 (``fused_bilinear_attention`` and its
-backward) in fp32 at G = 24 slices of N = 576 for e in {70, 64} and both
-softmaxes, and #9's ``essential_block_s`` in fp32 (S = 2, 4, B = 4), and
-prints one line per (dtype, output) with the sha256 of the output's
+backward) in fp32 and bf16 at G = 24 slices of N = 576 for e in {70, 64}
+and both softmaxes, and #9's ``essential_block_s`` (S = 2, 4, B = 4) in
+both dtypes and ``essential_block_variant`` (mxu_sums, bf16_mul) in bf16,
+and prints one line per (dtype, output) with the sha256 of the output's
 bytes.  Where two trees run the same kernels (every kernel here uses no
 atomics and sums in a fixed order), they print the same digests on one
 card.  A kernel whose sums move changes its digests by design: the fp32
 ViT stack's (forward, forward with the stash, backward) moved when its
-products went from SIMT FMAs to 3xTF32 on the tensor cores, while #2, #4,
-#6 (both dtypes), #7, #8, #9 (fp32) and the bf16 ViT stack kept theirs.
+products went from SIMT FMAs to 3xTF32 on the tensor cores, and fp32 #2,
+#4 and #6's when they did; the bf16 digests of every kernel stayed.
 Needs a CUDA device.
 """
 
@@ -141,8 +142,9 @@ def essential_bits(device, B=4):
 
 
 def bilinear_bits(device, G=24, B=4):
-    """fp32 #8 (forward, backward; va != vb) and #9 ``essential_block_s``
-    digests."""
+    """#8 (forward, backward; va != vb) and #9 ``essential_block_s``
+    digests in fp32 and bf16 (the same draws, rounded), and #9's bf16
+    modes."""
     from rel_pose_tpu_torch.ops import bilinear as tb
     from rel_pose_tpu_torch.ops import cross_variants as cv
     rng = np.random.default_rng(3)
@@ -150,21 +152,30 @@ def bilinear_bits(device, G=24, B=4):
     def t(*shape, scale=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
             np.float32)).to(device)
-    for e in (70, 64):
-        q, k, va, vb = t(G, N, 64), t(G, N, 64), t(G, N, e), t(G, N, e)
-        df = t(G, e, e, scale=0.1)
-        for single in (False, True):
-            f = tb.fused_bilinear_attention(q, k, va, vb, 0.125, single)
-            grads = tb.fused_bilinear_attention_bwd(q, k, va, vb, df, 0.125,
-                                                    single)
+    draws = {e: (t(G, N, 64), t(G, N, 64), t(G, N, e), t(G, N, e),
+                 t(G, e, e, scale=0.1)) for e in (70, 64)}
+    pair = t(B, N, 3 * C), t(B, N, 3 * C), t(B, N, 6)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for e, (q, k, va, vb, df) in draws.items():
+            q, k, va, vb = (x.to(dtype) for x in (q, k, va, vb))
+            for single in (False, True):
+                f = tb.fused_bilinear_attention(q, k, va, vb, 0.125, single)
+                grads = tb.fused_bilinear_attention_bwd(q, k, va, vb, df,
+                                                        0.125, single)
+                torch.cuda.synchronize()
+                print(f"[bits] {name} bilinear e={e} single={int(single)} "
+                      f"forward {digest(f)} backward {digest(*grads)}")
+        q1, q2, pos = (x.to(dtype) for x in pair)
+        for S in (2, 4):
+            f = cv.essential_block_s(q1, q2, pos, S)
             torch.cuda.synchronize()
-            print(f"[bits] float32 bilinear e={e} single={int(single)} "
-                  f"forward {digest(f)} backward {digest(*grads)}")
-    q1, q2, pos = t(B, N, 3 * C), t(B, N, 3 * C), t(B, N, 6)
-    for S in (2, 4):
-        f = cv.essential_block_s(q1, q2, pos, S)
+            print(f"[bits] {name} essential_block_s S={S} {digest(f)}")
+    q1, q2, pos = (x.to(torch.bfloat16) for x in pair)
+    for mode in ("mxu_sums", "bf16_mul"):
+        f = cv.essential_block_variant(q1, q2, pos, mode)
         torch.cuda.synchronize()
-        print(f"[bits] float32 essential_block_s S={S} {digest(f)}")
+        print(f"[bits] bfloat16 essential_block_variant {mode} {digest(f)}")
 
 
 if __name__ == "__main__":

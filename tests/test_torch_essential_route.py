@@ -1,40 +1,48 @@
 """PyTorch port: the essential block's kernels (#2, #3, #4 and #6,
 ``ops/essential_block.py``) around their launches, and a plain mirror of
-the bf16 tensor-core decomposition, on the CPU.
+the tensor-core decomposition, on the CPU.
 
-  * the dtype picks the kernels: the wrappers pass bf16 = 1 (the tensor-core
-    kernels of ``csrc/essential_tc.cuh`` / ``essential_tc_bwd.cuh``) or 0
-    (the SIMT kernels) to the C entry points, after asking
+  * both dtypes take the tensor-core kernels of ``csrc/essential_tc.cuh`` /
+    ``essential_tc_bwd.cuh`` (bf16 m16n8k16, fp32 3xTF32): the wrappers
+    pass bf16 = 1 or 0 to the C entry points, after asking
     ``rp_essential_block_workspace`` / ``rp_essential_block_bwd_workspace``
-    for the scratch of those arguments, and hand on a buffer of that size
-    (none where the answer is 0); every call has the C signature's arity;
+    for the scratch of those arguments, and hand on a buffer of that size;
+    every call has the C signature's arity;
   * every (e, SINGLE, CROSS) reaches the entry points with its flags,
     shapes and contiguous operands; the bwd buffers (dva with cross
     features, the positional partials) are there exactly when needed;
-  * the launch grids' limits (65,535 slices for bf16, pairs for fp32, GEMM
-    row tiles), bad shapes and dtypes raise before any launch;
+  * the launch grids' limits (65,535 slices, GEMM row tiles of 128 rows),
+    operands off the 16-byte grid, bad shapes and dtypes raise before any
+    launch;
   * each wrapper adds one to its launch counter per launch, only then;
   * CPU tensors take the plain versions and load no library.
 
-Then the decomposition the bf16 kernels compute, written out in PyTorch at
+Then the decomposition the kernels compute, written out in PyTorch at
 their 64-row tiles (``tc_moments_mirror``, ``tc_bwd_mirror`` on the pair
 layout, over the slice-level ``tc_slice_moments`` / ``tc_slice_bwd`` that
 tests/test_torch_bilinear_route.py holds to kernels #8 and #9): column
 statistics merged online over query tiles of the transposed product, the
 exact row max, P vb_n per key tile and per-tile F partials summed in
 order; the backward's statistics, prologue, rho / gamma passes and the two
-gradient passes as one template whose own and walked sides swap.  Both are
-held to the Pallas kernels in interpret mode (``_essential_block_call``,
-``essential_block_bwd_call``) and to the port's plain versions at N = 64,
-100 (a ragged last tile) and 576.  Tolerances are those of
-tests/test_torch_essential_ablations.py: F relative to max|F| 1e-5 fp32,
-1e-2 bf16; backward ||err|| / ||ref|| 1e-5 fp32, 1e-2 bf16 (a sum-order
-difference can flip one bf16 rounding by an ulp).  The kernels themselves
-run only on the card (``chip_smoke.py`` phase 3d).
+gradient passes as one template whose own and walked sides swap.  In fp32
+every product goes through ``ops.vit_stack.tf32x3_matmul``, the plain
+model of the kernels' 3xTF32.  Both are held to the Pallas kernels in
+interpret mode (``_essential_block_call``, ``essential_block_bwd_call``)
+and to the port's plain versions at N = 64, 100 (a ragged last tile) and
+576.  Tolerances are those of tests/test_torch_essential_ablations.py: F
+relative to max|F| 1e-5 fp32, 1e-2 bf16; backward ||err|| / ||ref|| 1e-5
+fp32, 1e-2 bf16 (a sum-order difference can flip one bf16 rounding by an
+ulp).  And the fp32 mirror's float64 bar, that of ``chip_smoke.py`` phase
+3b: at N = 576, one pair, each flag set, its max |err| from the moments
+run in float64 at most twice the fp32 plain version's, for F, dq, dk, dv
+and dpos; a mirror with single TF32 products (hi . hi) fails it.  The
+kernels themselves run only on the card (``chip_smoke.py`` phases 3b,
+3d).
 """
 
 import itertools
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +54,7 @@ from rel_pose_tpu.ops.pallas_essential_block_bwd import \
 from rel_pose_tpu_torch.nn.transformer import LOG2E
 from rel_pose_tpu_torch.ops import _build
 from rel_pose_tpu_torch.ops import essential_block as te
+from rel_pose_tpu_torch.ops.vit_stack import tf32_rna, tf32x3_matmul
 
 B, N, HEADS = 2, 10, 3
 C = 64 * HEADS
@@ -54,7 +63,7 @@ DTYPES = [torch.bfloat16, torch.float32]
 VARIANTS = list(itertools.product((True, False), repeat=3))
 VARIANT_IDS = [f"{'pos' if p else 'nopos'}-{'cross' if x else 'self'}-"
                f"{'single' if s else 'dual'}" for p, x, s in VARIANTS]
-WS_BYTES = 4096       # the stand-in's answer to a bf16 workspace query
+WS_BYTES = 4096       # the stand-in's answer to a workspace query
 
 
 def _n(rng, *shape, scale=1.0):
@@ -72,11 +81,13 @@ def pair_args(dtype, has_pos=True, b=B, n=N):
 
 class FakeLibrary:
     """Records each entry point's arguments; the workspace queries answer
-    ``WS_BYTES`` for bf16 and 0 for fp32, the launchers ``err``."""
+    ``WS_BYTES`` for bf16 and, with ``fp32_ws``, for fp32 too (else 0), the
+    launchers ``err``."""
 
-    def __init__(self, err=0):
+    def __init__(self, err=0, fp32_ws=False):
         self.calls = []
         self.err = err
+        self.fp32_ws = fp32_ws
 
     def __getattr__(self, name):
         def entry(*args):
@@ -84,7 +95,7 @@ class FakeLibrary:
                 return b"stand-in error"
             self.calls.append((name, args))
             if name.endswith("_workspace"):
-                return WS_BYTES if args[-1] else 0
+                return WS_BYTES if args[-1] or self.fp32_ws else 0
             return self.err
         return entry
 
@@ -94,7 +105,7 @@ class FakeLibrary:
 
 @pytest.fixture
 def fake_lib(monkeypatch):
-    lib = FakeLibrary()
+    lib = FakeLibrary(fp32_ws=True)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "prepare_launch", lambda device: 0)
     monkeypatch.setattr(te, "_KERNEL_DEVICE", "cpu")
@@ -109,10 +120,10 @@ def check_arity(lib):
 def check_workspace(lib, query, launch_args, ws_index, has_pos, bf16,
                     b=B, n=N):
     """The workspace query carries (B, N, heads, has_pos, bf16) and the
-    launch the buffer of the size it answered (None without one)."""
+    launch the buffer of the size it answered: both dtypes have one."""
     (qname, qargs), = [(k, a) for k, a in lib.calls if k == query]
     assert qargs == (b, n, HEADS, int(has_pos), int(bf16))
-    assert (launch_args[ws_index] is None) == (not bf16)
+    assert launch_args[ws_index] is not None
 
 
 # ----------------------------------------------------------- the routes --
@@ -202,8 +213,7 @@ def test_bwd_route(fake_lib, has_pos, cross, single, dtype):
     assert (args[5] is None) == (not has_pos) == (dpos is None)
     assert args[7:15] == (B, N, C, HEADS, int(has_pos), int(single),
                           int(cross), int(dtype == torch.bfloat16))
-    # the SIMT kernel needs its accumulators: fp32 asks too, and the
-    # stand-in answers 0, so no buffer goes with it
+    # the tensor-core passes' statistics and operand rows, both dtypes
     check_workspace(fake_lib, "rp_essential_block_bwd_workspace", args, 6,
                     has_pos, dtype == torch.bfloat16)
     assert dqkv.shape == qkv.shape and dqkv.dtype == dtype
@@ -232,9 +242,11 @@ def test_workspace_buffer_has_the_answered_size(fake_lib, monkeypatch):
 @pytest.mark.parametrize("which", ["pair", "x", "block", "bwd"])
 @pytest.mark.parametrize("dtype,b,ok", [
     (torch.bfloat16, 65535 // (2 * HEADS), True),
-    (torch.bfloat16, 65535 // (2 * HEADS) + 1, False)])
+    (torch.bfloat16, 65535 // (2 * HEADS) + 1, False),
+    (torch.float32, 65535 // (2 * HEADS), True),
+    (torch.float32, 65535 // (2 * HEADS) + 1, False)])
 def test_slice_limit(fake_lib, which, dtype, b, ok):
-    """bf16: at most 65,535 slices (2 B heads) in the grid."""
+    """At most 65,535 slices (2 B heads) in the grid, either dtype."""
     n = 1
     if which in ("pair", "x"):
         xpair = torch.empty((b, 2, n, C), dtype=dtype)
@@ -264,9 +276,10 @@ def test_slice_limit(fake_lib, which, dtype, b, ok):
 
 
 @pytest.mark.parametrize("dtype,rows_per_tile", [(torch.bfloat16, 128),
-                                                 (torch.float32, 64)])
+                                                 (torch.float32, 128)])
 def test_gemm_row_tile_limit(fake_lib, dtype, rows_per_tile):
-    """The qkv GEMM's grid: at most 65,535 row tiles of 2 B N rows."""
+    """The qkv GEMM's grid: at most 65,535 row tiles of 2 B N rows (128
+    rows a tile, both dtypes: the tensor-core GEMM)."""
     n = 65535 * rows_per_tile // 2 + 1          # one row too many, B = 1
     xpair = torch.empty((1, 2, n, C), dtype=dtype)
     ln = (torch.ones(C), torch.zeros(C))
@@ -326,6 +339,22 @@ def test_unaligned_bf16_operand_raises(fake_lib, which):
         else:
             te.fused_essential_block_bwd(
                 qkv, None, _n(rng, B, 2, HEADS, 64, 64), HEADS)
+    assert fake_lib.calls == []
+
+
+def test_unaligned_fp32_operand_raises(fake_lib):
+    """fp32 operands load as 16-byte rows too (four values a cp.async): a
+    view one element in raises before any launch, forward and backward."""
+    rng = np.random.default_rng(14)
+    flat = _n(rng, 2 * B * N * 3 * C + 1)
+    qkv = flat[1:].view(B, 2, N, 3 * C)
+    q1 = flat[1:1 + B * N * 3 * C].view(B, N, 3 * C)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        te.fused_essential_block(q1, q1, None, HEADS)
+    with pytest.raises(ValueError, match="16-byte"):
+        te.fused_essential_block_bwd(
+            qkv, None, _n(rng, B, 2, HEADS, 64, 64), HEADS)
     assert fake_lib.calls == []
 
 
@@ -425,17 +454,17 @@ def _exact_stats(s):
     return m, 1.0 / e.sum(-1)
 
 
-def tc_slice_moments(q, k, va, vb, scale, mode, cdt):
-    """F (G, e, e) as the bf16 tensor-core moments compute it
-    (essential_tc.cuh) on fp32 slices q, k (G, N, 64), va, vb (G, N, e)
-    holding values of T = cdt, with fp32 sums; ``scale`` the softmax scale
-    times log2e in fp32; ``mode`` "dual", "single", or #9's "bf16_mul" (P =
-    T(T(er) T(ec))) and "mxu_sums" (the same P, lr and lc summed over
-    T(er), T(ec) against exact maxima)."""
+def tc_slice_moments(q, k, va, vb, scale, mode, cdt, mm=torch.matmul):
+    """F (G, e, e) as the tensor-core moments compute it (essential_tc.cuh)
+    on fp32 slices q, k (G, N, 64), va, vb (G, N, e) holding values of T =
+    cdt, with fp32 sums and every product through ``mm``; ``scale`` the
+    softmax scale times log2e in fp32; ``mode`` "dual", "single", or #9's
+    "bf16_mul" (P = T(T(er) T(ec))) and "mxu_sums" (the same P, lr and lc
+    summed over T(er), T(ec) against exact maxima)."""
     rnd = lambda t: t.to(cdt).float()
     hmul = mode in ("bf16_mul", "mxu_sums")
     n = q.shape[1]
-    s = torch.matmul(q, k.transpose(1, 2)) * scale           # (G, N, N)
+    s = mm(q, k.transpose(1, 2)) * scale                     # (G, N, N)
     if mode == "single":
         vbn = vb
     else:
@@ -455,27 +484,36 @@ def tc_slice_moments(q, k, va, vb, scale, mode, cdt):
             else:
                 ec = torch.exp2(blk - mc[:, None, j0:j0 + TILE])
                 p = rnd(er) * rnd(ec) if hmul else er * ec
-            o = o + torch.matmul(rnd(p), vbn[:, j0:j0 + TILE])
+            o = o + mm(rnd(p), vbn[:, j0:j0 + TILE])
         av = rnd(o * (1.0 / lr)[..., None])
-        f = f + torch.matmul(va[:, i0:i0 + TILE].transpose(1, 2), av)
+        f = f + mm(va[:, i0:i0 + TILE].transpose(1, 2), av)
     return f
 
 
-def tc_moments_mirror(qkv, pos, heads, cross, single):
-    """F (B, 2, heads, e, e) as the bf16 kernels compute it (essential_tc.
-    cuh), on qkv (B, 2, N, 3C) in T with fp32 sums."""
+def mirror_matmul(cdt):
+    """The kernels' product in T = cdt: bf16 operands multiply exactly in
+    fp32, fp32 ones as 3xTF32 (``tf32x3_matmul``)."""
+    return tf32x3_matmul if cdt == torch.float32 else torch.matmul
+
+
+def tc_moments_mirror(qkv, pos, heads, cross, single, mm=None):
+    """F (B, 2, heads, e, e) as the kernels compute it (essential_tc.cuh),
+    on qkv (B, 2, N, 3C) in T with fp32 sums; every product through ``mm``
+    (by default :func:`mirror_matmul`)."""
     q, k, vb, va = _slices(qkv, pos, heads, cross)
     f = tc_slice_moments(q, k, va, vb, SCALE,
-                         "single" if single else "dual", qkv.dtype)
+                         "single" if single else "dual", qkv.dtype,
+                         mm or mirror_matmul(qkv.dtype))
     return f.view(qkv.shape[0], 2, heads, *f.shape[1:])
 
 
-def _pass(rows, grad, single, own, walk, scale, sigma):
+def _pass(rows, grad, single, own, walk, scale, sigma, mm):
     """One pass of eb_bwd_pass_kernel over (own 64-row tile, walked tile)
     pairs: ``own`` = (X, Y, stats, the rounding to T), ``walk`` = (X, Y,
     Z, stats) with
     stats (m, 1/l, reduction) per row of that side; rows = the own side is
-    the queries; s = X Xw^T scale, ds rounded after the factor sigma.
+    the queries; s = X Xw^T scale, ds rounded after the factor sigma; every
+    product through ``mm``.
     REDUCE returns the own reduction (rho or gamma), GRAD (out1, out2)."""
     (ox, oy, ost, rnd), (wx, wy, wz, wst) = own, walk
     G, n, _ = ox.shape
@@ -486,8 +524,8 @@ def _pass(rows, grad, single, own, walk, scale, sigma):
         r = slice(r0, r0 + TILE)
         for w0 in range(0, n, TILE):
             w = slice(w0, w0 + TILE)
-            s = torch.matmul(ox[:, r], wx[:, w].transpose(1, 2)) * scale
-            d = torch.matmul(oy[:, r], wy[:, w].transpose(1, 2))
+            s = mm(ox[:, r], wx[:, w].transpose(1, 2)) * scale
+            d = mm(oy[:, r], wy[:, w].transpose(1, 2))
             po = (torch.exp2(s - ost[0][:, r, None]) * ost[1][:, r, None]
                   if ost is not None else None)
             pw = (torch.exp2(s - wst[0][:, None, w]) * wst[1][:, None, w]
@@ -509,27 +547,29 @@ def _pass(rows, grad, single, own, walk, scale, sigma):
                 gam = wred if rows else ored
                 ds = R * (d * Cm - rho) + Cm * (d * R - gam)
                 A = R * Cm
-            out1[:, r] += torch.matmul(rnd(ds * sigma), wx[:, w])
-            out2[:, r] += torch.matmul(rnd(A), wz[:, w])
+            out1[:, r] += mm(rnd(ds * sigma), wx[:, w])
+            out2[:, r] += mm(rnd(A), wz[:, w])
     return red if not grad else (out1, out2)
 
 
-def tc_slice_bwd(q, k, va, vb, df, scale, sigma, single, cdt):
-    """(dq, dk, dva, dvb) in fp32, before their last rounding, as the bf16
-    passes compute them (essential_tc_bwd.cuh) on fp32 slices q, k (G, N,
-    64), va, vb (G, N, e) holding values of T = cdt and dF (G, e, e);
-    ``scale`` sigma log2e in fp32, sigma the softmax scale."""
+def tc_slice_bwd(q, k, va, vb, df, scale, sigma, single, cdt,
+                 mm=torch.matmul):
+    """(dq, dk, dva, dvb) in fp32, before their last rounding, as the
+    tensor-core passes compute them (essential_tc_bwd.cuh) on fp32 slices
+    q, k (G, N, 64), va, vb (G, N, e) holding values of T = cdt and dF (G,
+    e, e), every product through ``mm``; ``scale`` sigma log2e in fp32,
+    sigma the softmax scale."""
     rnd = lambda t: t.to(cdt).float()
-    s = torch.matmul(q, k.transpose(1, 2)) * scale
+    s = mm(q, k.transpose(1, 2)) * scale
     mr, lrinv = _online_stats(s)
     qst = [mr, lrinv, None]
     kst = None if single else [*_online_stats(s.transpose(1, 2)), None]
     dfb = rnd(df)
-    vbdft = rnd(torch.matmul(vb, dfb.transpose(1, 2)))      # the prologue
-    vadf = rnd(torch.matmul(va, dfb))
+    vbdft = rnd(mm(vb, dfb.transpose(1, 2)))                # the prologue
+    vadf = rnd(mm(va, dfb))
     own_q = lambda st: (q, vadf, st, rnd)
     own_k = lambda st: (k, vb, st, rnd)
-    args = (scale, sigma)
+    args = (scale, sigma, mm)
     if not single:                                        # gamma, rho
         kst[2] = _pass(False, False, single, own_k(kst),
                        (q, vadf, vadf, qst), *args)
@@ -542,16 +582,18 @@ def tc_slice_bwd(q, k, va, vb, df, scale, sigma, single, cdt):
     return dq, dk, dva, dvb
 
 
-def tc_bwd_mirror(qkv, pos, df, heads, cross, single):
+def tc_bwd_mirror(qkv, pos, df, heads, cross, single, mm=None):
     """(dqkv (B, 2, N, 3C) in T, dpos_part (B, 2, h, N, 6) fp32 or None)
-    as the bf16 passes compute them (essential_tc_bwd.cuh), with the
-    wrapper's bf16 add of the cross features' dva."""
+    as the tensor-core passes compute them (essential_tc_bwd.cuh), with
+    the wrapper's add of the cross features' dva in T; every product
+    through ``mm`` (by default :func:`mirror_matmul`)."""
     cdt = qkv.dtype
     rnd = lambda t: t.to(cdt).float()
     q, k, vb, va = _slices(qkv, pos, heads, cross)
     G, n, e = vb.shape
     dq, dk, dva, dvb = tc_slice_bwd(q, k, va, vb, df.reshape(G, e, e),
-                                    SCALE, 0.125, single, cdt)
+                                    SCALE, 0.125, single, cdt,
+                                    mm or mirror_matmul(cdt))
     B_ = qkv.shape[0]
     shape = lambda t: t.view(B_, 2, heads, n, t.shape[-1])
     dq, dk, dva, dvb = map(shape, (dq, dk, dva, dvb))
@@ -643,3 +685,60 @@ def test_bwd_mirror_matches_pallas(n, has_pos, cross, single, dtype):
         assert _normrel(got_pos, plain_pos) <= BWD_TOL[dtype]
     else:
         assert got_pos is None
+
+
+# ---------------------------------------------- the fp32 float64 bar --
+
+def tf32_matmul(a, b):
+    """One TF32 product (hi . hi) in fp32: what 3xTF32 is not."""
+    return torch.matmul(tf32_rna(a), tf32_rna(b))
+
+
+def f64_errors(n, has_pos, cross, single, mm=None):
+    """{output: (the mirror's max |err|, the fp32 plain version's)} from
+    the moments run in float64 (``chip_smoke.essential_f64``, gradients by
+    autograd) on one pair of N = n, for F, dq, dk, dv and, with positions,
+    dpos (per slice)."""
+    qkv, pos, df = _mirror_inputs(n, has_pos)
+    pos = pos if has_pos else None
+    f = tc_moments_mirror(qkv, pos, 1, cross, single, mm)
+    dqkv, dpos = tc_bwd_mirror(qkv, pos, df, 1, cross, single, mm)
+    pf = te.essential_block_reference(qkv[:, 0], qkv[:, 1], pos, 1, cross,
+                                      single)
+    pqkv, ppos = te.essential_block_bwd_reference(qkv, pos, df, 1, cross,
+                                                  single)
+    leaves = [qkv.double().requires_grad_()]
+    if has_pos:
+        leaves.append(pos.double()[:, None, None].expand(1, 2, 1, n, 6)
+                      .clone().requires_grad_())
+    f64 = chip_smoke.essential_f64(leaves[0], leaves[1] if has_pos else None,
+                                   1, cross, single)
+    g64 = torch.autograd.grad((f64 * df.double()).sum(), leaves)
+    rows = {"F": (f, pf, f64.detach())}
+    for i, part in enumerate(("dq", "dk", "dv")):
+        sl = slice(64 * i, 64 * (i + 1))
+        rows[part] = (dqkv[..., sl], pqkv[..., sl], g64[0][..., sl])
+    if has_pos:
+        rows["dpos"] = (dpos, ppos, g64[1])
+    err = lambda t, ref: (t.double() - ref).abs().max().item()
+    return {part: (err(got, ref), err(plain, ref))
+            for part, (got, plain, ref) in rows.items()}
+
+
+@pytest.mark.parametrize("has_pos,cross,single", VARIANTS, ids=VARIANT_IDS)
+def test_fp32_mirror_within_float64_bar(has_pos, cross, single):
+    """The fp32 mirror (3xTF32 products) at N = 576, one pair: its max
+    |err| from float64 at most ``chip_smoke.F64_BAR`` (2) times the fp32
+    plain version's, per output."""
+    for part, (got, plain) in f64_errors(576, has_pos, cross,
+                                         single).items():
+        assert got <= chip_smoke.F64_BAR * plain, (part, got, plain)
+
+
+def test_tf32_mirror_fails_float64_bar():
+    """The same mirror with single TF32 products (hi . hi, about 3 decimal
+    digits) is far outside the bar, for every output: the bar tells TF32
+    from 3xTF32."""
+    for part, (got, plain) in f64_errors(576, True, False, False,
+                                         tf32_matmul).items():
+        assert got > 10 * chip_smoke.F64_BAR * plain, (part, got, plain)

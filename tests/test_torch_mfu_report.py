@@ -52,9 +52,9 @@ def test_tiles_are_the_headers():
     assert mfu.ATTN_TILE == int(re.search(r"constexpr int kAT = (\d+);",
                                           attn).group(1))
     eb = (CSRC / "essential_tc.cuh").read_text()
-    width = int(re.search(r"kW = E == kHeadDim \? kHeadDim : (\d+);",
-                          eb).group(1))
-    assert width == mfu.pad(70, mfu.MMA_K)            # k16 depth over e
+    width = int(re.search(r"E == kHeadDim \? kHeadDim : \(sizeof\(T\) == 2 "
+                          r"\? (\d+) :", eb).group(1))
+    assert width == mfu.pad(70, mfu.MMA_K)            # bf16's k16 depth over e
     assert "kNT = (E + 7) / 8;" in eb                 # n8 output tiles
     assert 8 * ((70 + 7) // 8) == mfu.pad(70, mfu.MMA_N)
 
