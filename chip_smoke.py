@@ -24,7 +24,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      most F64_BAR times the fp32 plain version's, for the output, dx and
      the 12 gradients; the same bar for the fp32 essential block at B=8
      (#2's F, #6's dq, dk, dv and dpos, each of the 8 flag sets, against
-     ``essential_f64``), the worst ratio printed;
+     ``essential_f64``) and for fp32 #7 at G = 8 heads of N = 64, 100 and
+     576 (o, and dq, dk, dv from the forward's statistics and o, against
+     the exact attention in float64), the worst ratio printed;
   4. the slice: ``PosePredictor`` over the flagship ``ViTEss`` (depth 6,
      seeded random weights) answers InteriorNet-style 256x256 requests of
      1, 5 and 8 pairs and a Matterport-style 480x640 request resized to
@@ -67,16 +69,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
 
-  3c. kernel #7 (``csrc/mhsa.cu``: bf16 on the tensor cores of
-     ``csrc/attention_tc.cuh``, fp32 on the SIMT ``attention.cuh``) against
-     its plain versions at G = 24 heads of N = 64, 100 (a ragged last tile)
+  3c. kernel #7 (``csrc/mhsa.cu`` on the tensor cores of
+     ``csrc/attention_tc.cuh``: bf16 products, fp32 as 3xTF32) against its
+     plain versions at G = 24 heads of N = 64, 100 (a ragged last tile)
      and 576, fp32 and bf16: the forward against ``mhsa_reference``, dq,
      dk, dv against ``mhsa_bwd_reference``; a second call gives the same
-     bits; in bf16 the row statistics the forward keeps against
+     bits; the row statistics the forward keeps against
      ``mhsa_stats_reference``, the backward under autograd (the forward's
-     statistics) equal bit for bit to ``fused_mhsa_bwd`` without them (its
-     stats pass), and the forward equal with and without statistics; the
-     fp32 outputs' sha256 printed; both launch counters rose;
+     statistics, and in fp32 its output) equal bit for bit to
+     ``fused_mhsa_bwd`` without them (bf16: its stats pass; fp32: the
+     forward with statistics first), and the forward equal with and
+     without statistics; the fp32 outputs' sha256 printed; both launch
+     counters rose;
   4c. the noess slice at depth 6 with seeded weights, kernels against the
      plain path, fp32 and bf16: ``PosePredictor`` answers the requests of
      phase 4; 3 train steps of 4 pairs as phase 4b (step-1 loss and
@@ -89,7 +93,9 @@ cross block's plain attention, in place of the essential block):
      backward also with the forward's statistics, as a train step runs
      it), plain version and ``F.scaled_dot_product_attention`` (the
      yardstick, timed only), and one fp32 reading of each beside fp32
-     SDPA; the noess eval forward at batch 256 (bf16) and
+     SDPA, the backward without statistics (the forward first) and from
+     the forward's statistics and o; the noess eval forward at batch 256
+     (bf16) and
      train step at batch 60 (fp32, bf16), kernels and plain path.
 
 The ablations of the Essential Matrix Module (``ModelConfig`` with
@@ -295,7 +301,8 @@ tree, deterministic algorithms on for 11a-11c as in phase 4b:
      memory each way, each with the card's name and power limit.
 
 The line before the last is the card's name and power limit; the last is
-``{"ok": true, "device": {...}}``; the one before the card's line is the
+``{"ok": true, "device": {...}}``; before the card's line, the run's
+seconds from the start of ``main`` (``[run]``) and the
 ``{"kernels": [...]}`` line of all twelve kernels, whose ``launches`` of
 #1, #2, #5 and #6 are phase 4b's; phase 9's in this process (9b-9d) and
 phase 10's are logged on their own (``[tooling]``, ``[shard]``,
@@ -377,9 +384,10 @@ LOSS_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # kernel keeps them fp32, as #7 does; 5e-3 measured on the CPU).  Its
 # backward is held to mhsa_bwd_reference at GRAD_NORMREL.
 MHSA_FWD_NORMREL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# The row statistics (m, l) that #7's bf16 forward keeps, against
+# The row statistics (m, l) that #7's forward keeps, against
 # mhsa_stats_reference, ||err|| / ||ref|| per statistic: 1e-5 -- fp32 sums
-# of the same exact bf16 products in another order, and exp2 on both sides
+# of the same products in another order (bf16: exact bf16 products; fp32:
+# 3xTF32 against fp32 products, fp32-accurate both), and exp2 on both sides
 # (3e-7 measured on the CPU between the plain version and JAX).
 MHSA_STATS_NORMREL = 1e-5
 MHSA_SCALE = 64 ** -0.5
@@ -788,6 +796,43 @@ def check_essential_f64(device, failures, B=8):
     return worst
 
 
+def check_mhsa_f64(device, failures, G=8):
+    """#7's fp32 forward (o) and backward from its kept (m, l) and o (dq,
+    dk, dv) at G heads of N = 64, 100 and 576, against the exact softmax
+    attention in float64 (autograd), beside the fp32 plain versions: fails
+    unless the kernel's max |err| <= F64_BAR x the plain version's, per
+    output and N."""
+    from rel_pose_tpu_torch.ops import attention as ta
+    rng = np.random.default_rng(SEED + 10)
+    worst = 0.0
+    for N in (64, 100, 576):
+        q, k, v, do = heads(rng, G, torch.float32, device, 4, N)
+        o, stats = ta._launch_fwd(q, k, v, MHSA_SCALE, stats=True)
+        kern = (o, *ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE, stats, o))
+        plain = (ta.mhsa_reference(q, k, v, MHSA_SCALE),
+                 *ta.mhsa_bwd_reference(q, k, v, do, MHSA_SCALE))
+        leaves = [t.double().requires_grad_() for t in (q, k, v)]
+        o64 = torch.matmul(torch.softmax(torch.matmul(
+            leaves[0], leaves[1].transpose(-1, -2)) * MHSA_SCALE, -1),
+            leaves[2])
+        ref = (o64.detach(), *torch.autograd.grad(o64, leaves, do.double()))
+        for name, kt, pt, rt in zip(("o", "dq", "dk", "dv"), kern, plain,
+                                    ref):
+            ek = (kt.double() - rt).abs().max().item()
+            ep = (pt.double() - rt).abs().max().item()
+            ratio = ek / ep if ep > 0 else (0.0 if ek == 0 else float("inf"))
+            worst = max(worst, ratio)
+            ok = bool(np.isfinite(ek)) and ek <= F64_BAR * ep
+            log(f"[check] mhsa fp32 {name} G={G} N={N} against float64: "
+                f"kernel max |err| {ek:.3e}, fp32 plain {ep:.3e}, ratio "
+                f"{ratio:.3f} (<= {F64_BAR}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"mhsa fp32 {name} N={N} float64 bar")
+    log(f"[check] mhsa fp32 G={G} float64 bar (#7 o, dq, dk, dv; N = 64, "
+        f"100, 576): worst ratio {worst:.3f}")
+    return worst
+
+
 def phase_kernels_bwd(device):
     """(3b) the stash and both backward kernels against their plain
     versions on the card, fp32 and bf16, and bitwise repeatability."""
@@ -807,6 +852,7 @@ def phase_kernels_bwd(device):
         if dtype == torch.float32:
             check_vit_f64(device, failures)
             check_essential_f64(device, failures)
+            check_mhsa_f64(device, failures)
 
         xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
         qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
@@ -858,9 +904,10 @@ def check_mhsa(G, dtype, device, failures, seed=SEED + 6, N=576):
 
 
 def check_mhsa_routes(q, k, v, do, failures, label):
-    """bf16: the forward's kept (m, l) against mhsa_stats_reference; the
-    forward with and without them, and the backward from them (autograd)
-    and from the stats pass, bit for bit."""
+    """The forward's kept (m, l) against mhsa_stats_reference; the forward
+    with and without them, and the backward from them (autograd: in fp32
+    also from the forward's o) and without them (bf16: the stats pass;
+    fp32: the forward with statistics first), bit for bit."""
     from rel_pose_tpu_torch.ops import attention as ta
     o, stats = ta._launch_fwd(q, k, v, MHSA_SCALE, stats=True)
     ref = ta.mhsa_stats_reference(q, k, MHSA_SCALE)
@@ -875,17 +922,19 @@ def check_mhsa_routes(q, k, v, do, failures, label):
     same_fwd = torch.equal(o, ta.fused_mhsa(q, k, v, MHSA_SCALE)) and \
         torch.equal(o, o_grad.detach())
     same_bwd = all(torch.equal(a, b) for a, b in zip(saved, passed))
-    log(f"[check] mhsa {label} bf16: forward with / without stats "
-        f"{'bit for bit' if same_fwd else 'DIFFER'}; backward from the "
-        f"forward's stats / the stats pass "
+    without = "the stats pass" if q.dtype == torch.bfloat16 else \
+        "none (the forward first)"
+    log(f"[check] mhsa {label} {str(q.dtype)[6:]}: forward with / without "
+        f"stats {'bit for bit' if same_fwd else 'DIFFER'}; backward from "
+        f"the forward's stats / {without} "
         f"{'bit for bit' if same_bwd else 'DIFFER'}")
     if not (same_fwd and same_bwd):
-        failures.append(f"mhsa routes differ {label}")
+        failures.append(f"mhsa routes differ {label} {q.dtype}")
 
 
 def phase_kernels_mhsa(device):
     """(3c) kernel #7 against its plain versions, fp32 and bf16, G = 24
-    heads of N = 64, 100, 576; each kernel twice for identical bits; bf16's
+    heads of N = 64, 100, 576; each kernel twice for identical bits; the
     statistics and both backward routes; both counters rose."""
     from rel_pose_tpu_torch.ops import attention as ta
     failures = []
@@ -904,8 +953,7 @@ def phase_kernels_mhsa(device):
             if dtype == torch.float32:
                 log(f"[check] mhsa fp32 G=24 N={N} sha256 "
                     f"{digest(*outs[0])}")
-            else:
-                check_mhsa_routes(q, k, v, do, failures, f"G=24 N={N}")
+            check_mhsa_routes(q, k, v, do, failures, f"G=24 N={N}")
     launches = (ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches)
     log(f"[check] mhsa launches (fwd, bwd): {launches}")
     if min(launches) < 6 * len(DTYPES):
@@ -1113,10 +1161,9 @@ def library_stack_ms(x, stacked, pos, backward):
 
 def kernel_parts_ms(fn):
     """Device time of one ``fn()`` by part: the attention kernels
-    (``rp::tc::attn_*``, the SIMT ``rp::attention_*``), the GEMMs
-    (``gemm_*``) and the rest."""
+    (``rp::tc::attn_*``), the GEMMs (``gemm_*``) and the rest."""
     return profile_parts_ms(fn, lambda key: (
-        "attention" if "attn_" in key or "attention_" in key else
+        "attention" if "attn_" in key else
         "gemm" if "gemm_" in key else "other"))
 
 
@@ -1323,11 +1370,11 @@ def time_vit_stack(device, card, G, backward, dtype=torch.float32):
 
 def time_fp32(name, kernel, plain, flops, nb, card, plain_iters=3,
               lib_ms=None):
-    """One fp32 reading of a kernel at a shape its phase checks (#2-#4 and
-    #6 on the 3xTF32 tensor-core body, #7-#9 on their SIMT fp32 bodies):
-    CUDA-event ms of ``kernel()``
-    and ``plain()``, the bound on the 3xTF32 peak, the TFLOP/s of the
-    function's products against it and the SIMT peak; returns the row."""
+    """One fp32 reading of a kernel at a shape its phase checks (#2-#4,
+    #6 and #7 on the 3xTF32 tensor-core bodies, #8 and #9 on their SIMT
+    fp32 bodies): CUDA-event ms of ``kernel()`` and ``plain()``, the bound
+    on the 3xTF32 peak, the TFLOP/s of the function's products against it
+    and the SIMT peak; returns the row."""
     ms = cuda_time_ms(kernel, 3)
     plain_ms = cuda_time_ms(plain, plain_iters)
     b = bound(flops, nb, torch.float32)
@@ -1882,13 +1929,20 @@ def phase_times_noess(device, models, sd, card):
         lib_ms=sdpa_ms(G_eval // 3, torch.float32, device, backward=False))
     del q, k, v
     q, k, v, do = heads(rng32, G_train, torch.float32, device, 4)
+    lib32_ms = sdpa_ms(G_train // 3, torch.float32, device, backward=True)
     rows["mhsa_bwd fp32"] = time_fp32(
-        f"mhsa_bwd G={G_train}",
+        f"mhsa_bwd G={G_train} (no stats: the forward first)",
         lambda: ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE),
         lambda: ta.mhsa_bwd_reference(q, k, v, do, MHSA_SCALE),
-        10 * G_train * N * N * d, 7 * nbytes(q), card,
-        lib_ms=sdpa_ms(G_train // 3, torch.float32, device, backward=True))
-    del q, k, v, do
+        10 * G_train * N * N * d, 7 * nbytes(q), card, lib_ms=lib32_ms)
+    o, stats = ta._launch_fwd(q, k, v, MHSA_SCALE, stats=True)
+    rows["mhsa_bwd fp32 kept"] = time_fp32(
+        f"mhsa_bwd G={G_train} (the forward's stats and o, as a train step "
+        f"runs it)",
+        lambda: ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE, stats, o),
+        lambda: ta.mhsa_bwd_reference(q, k, v, do, MHSA_SCALE),
+        10 * G_train * N * N * d, 8 * nbytes(q), card, lib_ms=lib32_ms)
+    del q, k, v, do, o, stats
     log(f"[time] mhsa_fwd bf16 G={G_train} (training shapes): kernel "
         f"{fwd_train_ms:.3f} ms; mhsa_bwd from the forward's stats "
         f"{saved_ms:.3f} ms, {10 * G_train * N * N * d / saved_ms / 1e9:.1f}"
@@ -4565,6 +4619,7 @@ def main():
         return serve_child(*sys.argv[2:6])
     if sys.argv[1:2] == ["--ddp-child"]:
         return ddp_child(*sys.argv[2:7])
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -4673,6 +4728,7 @@ def main():
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib_ms})
+    log(f"[run] chip_smoke.py in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,16 +1,16 @@
 // Softmax attention over 64-wide heads on the tensor cores, forward and
-// backward: the ViT stack's self-attention (kernels #1 and #5, bf16 and
-// fp32) and the --noess cross attention (kernel #7, bf16).
+// backward: the ViT stack's self-attention (kernels #1 and #5) and the
+// --noess cross attention (kernel #7), each in bf16 and fp32.
 //
-// Replaces attention.cuh's SIMT kernels inside
+// Replaces
 //   - rel_pose_tpu/ops/pallas_vit.py:_vit_stack_kernel (forward, with the
 //     row statistics the backward reads) and pallas_vit_bwd.py:
 //     _attn_bwd_heads (dq, dk, dv), layout Interleaved: q, k, v read from
 //     the qkv GEMM's (G, N, 3C) output, head h at columns h*64, C + h*64,
-//     2C + h*64 (vit_stack.cu), in bf16 and fp32;
+//     2C + h*64 (vit_stack.cu);
 //   - rel_pose_tpu/ops/pallas_attention.py:_fwd_kernel and _bwd_kernel,
-//     layout Separate: (G, N, 64) q, k, v, o, do, dq, dk, dv, one head per
-//     sequence (mhsa.cu), in bf16 (#7's fp32 stays on attention.cuh).
+//     layout Separate<E>: (G, N, 64) q, k, v, o, do, dq, dk, dv, one head
+//     per sequence (mhsa.cu).
 // The kernels take base pointers and row strides, and are templates on a
 // layout type, which says in which dtype the cotangent arrives and the
 // gradients leave, and the two rounding points in which the two Pallas
@@ -35,7 +35,7 @@
 // 2t + 1 in slot t + 4 of each 8-key step, B read in the same order).
 // Scores stay in registers and the Pallas kernels' rounding points are
 // kept exactly, with no online rescaling (T is E: bf16 rounds, fp32 keeps
-// the value, as attention.cuh's fp32 kernels do):
+// the value):
 //   forward: a first pass over the key tiles takes the exact row max m of
 //     s = (q . k) * scale (scale = d^-1/2 log2 e, the product rounded on
 //     its own); a second recomputes s, e = exp2(s - m), the fp32 row sum l,
@@ -62,11 +62,12 @@
 
 #pragma once
 
-#include "attention.cuh"
 #include "gemm_tc.cuh"
 
 namespace rp {
 namespace tc {
+
+constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kAT = 64;                   // rows of a query or key tile
 constexpr int kALd = kHeadDim + 8;        // padded bf16 row of a tile
@@ -313,10 +314,12 @@ struct Interleaved {
   }
 };
 
-// Kernel #7: the cotangent arrives in bf16 and the kernels read it as it
-// is; dq, dk, dv go out in bf16 only.
+// Kernel #7: the cotangent arrives in the element type and the kernels
+// read it as it is; dq, dk, dv go out in it alone (bf16 rounded, fp32
+// through put_grad's fp32 branch).
+template <typename E>
 struct Separate {
-  using Dout = bf16;
+  using Dout = E;
   static constexpr bool kF32Grads = false;
   // o / l (pallas_attention.py:66)
   __device__ static float normalize(float o, float l) { return o / l; }

@@ -15,6 +15,8 @@
 
 namespace rp {
 
+constexpr int kHeadDim = 64;  // the model's head width (192 / 3 heads)
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

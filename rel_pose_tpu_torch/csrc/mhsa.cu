@@ -4,30 +4,31 @@
 // and its row statistics alone, rp_mhsa_stats) and _bwd_kernel
 // (rp_mhsa_bwd), Pallas kernel #7.  The Pallas kernel takes one whole
 // (N, d) head per grid step, its N x N fp32 scores resident in VMEM.  Here
-// bf16 runs the tensor-core kernels of attention_tc.cuh (layout Separate)
-// and fp32 the SIMT kernels of attention.cuh (SeparateQkv; the 3xTF32
-// tensor-core products of the ViT stack's fp32 attention are not yet
-// this layout's), both over separate (G, N, 64) q,
-// k, v and both rounding as #7 does:
+// both dtypes run the tensor-core kernels of attention_tc.cuh (layout
+// Separate<T>: bf16 products on m16n8k16, fp32 ones as 3xTF32 on m16n8k8)
+// over separate (G, N, 64) q, k, v, rounding as #7 does:
 //   forward: s = (q . k) * scale * log2(e) in fp32, e = exp2(s - max),
 //     o = (T(e) . v) / l with l the fp32 row sum of e, rounded to T;
 //   backward: e and l as the forward forms them, do_n = T(do / l),
 //     dv = T(e)^T . do_n, dp = do . v^T, c = rowsum(dp * e) / l,
 //     ds = T(e ((dp - c) (scale / l))), dq = ds . k, dk = ds^T . q, each
 //     rounded to T.
-// The Pallas backward recomputes the row max m and sum l.  The bf16
+// The Pallas backward recomputes the row max m and sum l.  Here the
 // backward reads them from stats: written by its forward (kept under
-// autograd) or by rp_mhsa_stats, the forward's max and sum passes without
-// P . v -- the same arithmetic, so the same bits.  The fp32 dq kernel
-// recomputes them itself.
+// autograd) or, for bf16, by rp_mhsa_stats, the forward's max and sum
+// passes without P . v -- the same arithmetic, so the same bits.  The fp32
+// backward also reads the forward's output o and takes c = do . o (equal
+// to rowsum(dp * e) / l in exact arithmetic), so that its dq kernel makes
+// one pass over the keys in place of two.
 //
 // What bounds it on the H100: the function's products, 4 N^2 d operations
-// a head forward on 8 N d bytes (288 a byte at N = 576: the bf16 forward
-// sits at the ridge where HBM and the tensor cores bound it alike), 10
-// N^2 d backward.  The bf16 kernels execute 3 N^2 d multiply-adds forward
-// (the exact max pass), 9 backward (dq 5, dk / dv 4) and 2 more for the
-// stats pass, on mma.sync, whose rate and the exp2 of every score decide;
-// fp32 runs SIMT FMAs fed from shared memory.
+// a head forward on 8 N d bytes (288 a byte at N = 576 in bf16: the
+// forward sits at the ridge where HBM and the tensor cores bound it alike;
+// fp32 on 3xTF32's 165 TFLOP/s is bound by the operations), 10 N^2 d
+// backward.  The kernels execute 3 N^2 d multiply-adds forward (the exact
+// max pass), 9 backward in bf16 (dq 5, dk / dv 4) and 7 in fp32 (dq 3),
+// and 2 more for bf16's stats pass, on mma.sync, whose rate and the exp2
+// of every score decide.
 
 #include "attention_tc.cuh"
 
@@ -50,14 +51,12 @@ extern "C" int rp_mhsa_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   const float s2 = (float)(scale * kLog2e);
   if (bf16)
-    return rp::tc::attention_fwd<rp::tc::Separate>(
+    return rp::tc::attention_fwd<rp::tc::Separate<T>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, stats, G, 1, N, kD, kD,
         s2, st);
-  // q, k, v, o, dout, dq, dk, dv, N, scale
-  const rp::SeparateQkv<float> lay{(const float*)q, (const float*)k,
-                                   (const float*)v, (float*)o, nullptr,
-                                   nullptr, nullptr, nullptr, N, scale};
-  return rp::launch_attention(lay, stats, G, 1, N, s2, st);
+  return rp::tc::attention_fwd<rp::tc::Separate<float>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, stats, G,
+      1, N, kD, kD, s2, st);
 }
 
 // rp_mhsa_fwd's (m, l) alone, bf16: the statistics of a backward whose
@@ -65,32 +64,35 @@ extern "C" int rp_mhsa_fwd(const void* q, const void* k, const void* v,
 extern "C" int rp_mhsa_stats(const void* q, const void* k, float* stats,
                              int G, int N, int d, float scale, void* stream) {
   if (d != kD || G <= 0 || N <= 0) return cudaErrorInvalidValue;
-  return rp::tc::attention_fwd<rp::tc::Separate, false>(
+  return rp::tc::attention_fwd<rp::tc::Separate<T>, false>(
       (const T*)q, (const T*)k, nullptr, nullptr, stats, G, 1, N, kD, kD,
       (float)(scale * kLog2e), (cudaStream_t)stream);
 }
 
 // dq, dk, dv of rp_mhsa_fwd from q, k, v and the cotangent dout, all
-// (G, N, d) in the same dtype.  stats (3 G N fp32): for bf16 the forward's
-// (m, l), c written into the third slot; for fp32 scratch.  dnb: (G, N, d)
-// bf16 scratch for T(do / l), bf16 only.
+// (G, N, d) in the same dtype.  stats (3 G N fp32): the forward's (m, l),
+// c written into the third slot.  dnb: (G, N, d) scratch in that dtype for
+// T(do / l).  o: the forward's output, fp32 only (NULL for bf16); never
+// dnb.
 extern "C" int rp_mhsa_bwd(const void* q, const void* k, const void* v,
                            const void* dout, void* dq, void* dk, void* dv,
-                           float* stats, void* dnb, int G, int N, int d,
-                           float scale, int bf16, void* stream) {
-  if (d != kD || G <= 0 || N <= 0) return cudaErrorInvalidValue;
+                           float* stats, void* dnb, const void* o, int G,
+                           int N, int d, float scale, int bf16,
+                           void* stream) {
+  if (d != kD || G <= 0 || N <= 0 || !stats || !dnb)
+    return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float s2 = (float)(scale * kLog2e);
   if (bf16) {
-    if (!dnb) return cudaErrorInvalidValue;
-    return rp::tc::attention_bwd<rp::tc::Separate>(
+    if (o) return cudaErrorInvalidValue;
+    return rp::tc::attention_bwd<rp::tc::Separate<T>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, nullptr,
         (T*)dnb, nullptr, nullptr, nullptr, nullptr, (T*)dq, (T*)dk, (T*)dv,
         G, 1, N, kD, kD, s2, scale, st);
   }
-  const rp::SeparateQkv<float> lay{
-      (const float*)q,    (const float*)k, (const float*)v, nullptr,
-      (const float*)dout, (float*)dq,      (float*)dk,      (float*)dv,
-      N,                  scale};
-  return rp::launch_attention_bwd(lay, stats, G, 1, N, s2, st);
+  if (!o || o == dnb) return cudaErrorInvalidValue;
+  return rp::tc::attention_bwd<rp::tc::Separate<float>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      stats, nullptr, (float*)dnb, (const float*)o, (float*)dq, (float*)dk,
+      (float*)dv, nullptr, nullptr, nullptr, G, 1, N, kD, kD, s2, scale, st);
 }

@@ -67,9 +67,9 @@ SIGNATURES = {
     "rp_mhsa_fwd": ([P] * 5 + [I] * 3 + [F, I, P], ctypes.c_int),
     # q, k, stats (bf16 only); G, N, d, scale; stream
     "rp_mhsa_stats": ([P] * 3 + [I] * 3 + [F, P], ctypes.c_int),
-    # q, k, v, do, dq, dk, dv, stats, T(do / l) scratch (bf16; else NULL);
-    # G, N, d, scale, bf16; stream
-    "rp_mhsa_bwd": ([P] * 9 + [I] * 3 + [F, I, P], ctypes.c_int),
+    # q, k, v, do, dq, dk, dv, stats, T(do / l) scratch, the forward's o
+    # (fp32; NULL for bf16); G, N, d, scale, bf16; stream
+    "rp_mhsa_bwd": ([P] * 10 + [I] * 3 + [F, I, P], ctypes.c_int),
     # G, N, e, bf16 -> workspace bytes of rp_bilinear_fwd (0 for fp32)
     "rp_bilinear_fwd_workspace": ([I] * 4, L),
     # q, k, va, vb, F, workspace; G, N, e, single, scale * log2e, bf16;

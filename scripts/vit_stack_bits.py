@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Digests of the ViT stack kernels' outputs, of kernel #7's in fp32 and of
-#2, #4, #6, #8 and #9's in fp32 and bf16, to compare two trees' bits.
+"""Digests of the ViT stack kernels' outputs and of #2, #4, #6, #7, #8 and
+#9's, in fp32 and bf16, to compare two trees' bits.
 
     python3 scripts/vit_stack_bits.py [--tree DIR]
 
@@ -8,8 +8,8 @@ Imports ``rel_pose_tpu_torch`` from ``DIR`` (this checkout by default), runs
 kernel #1 (``_launch_forward``, with and without the stash) and #5
 (``fused_vit_stack_bwd``) on seeded inputs at the model's widths (G = 16
 sequences of 576 tokens, C = 192, 3 heads, depth 5) on one GPU, in fp32 and
-bf16, kernel #7 (``fused_mhsa``, ``fused_mhsa_bwd``) in fp32 at G = 24
-heads of N = 100 and 576, the essential block's #2
+bf16, kernel #7 (``fused_mhsa``, ``fused_mhsa_bwd``) in fp32 and bf16 at
+G = 24 heads of N = 100 and 576, the essential block's #2
 (``fused_essential_block_pair``), #4 (``fused_essential_block``) and #6
 (``fused_essential_block_bwd``) in fp32 and bf16 at B = 4 pairs of N = 576
 for each of the 8 flag sets, #8 (``fused_bilinear_attention`` and its
@@ -22,7 +22,7 @@ atomics and sums in a fixed order), they print the same digests on one
 card.  A kernel whose sums move changes its digests by design: the fp32
 ViT stack's (forward, forward with the stash, backward) moved when its
 products went from SIMT FMAs to 3xTF32 on the tensor cores, and fp32 #2,
-#4 and #6's when they did; the bf16 digests of every kernel stayed.
+#4, #6 and #7's when they did; the bf16 digests of every kernel stayed.
 Needs a CUDA device.
 """
 
@@ -89,15 +89,17 @@ def main():
         print(f"[bits] {name} forward+stash {digest(out2, xs)}")
         print(f"[bits] {name} backward {digest(dx, *grads.values())}")
     from rel_pose_tpu_torch.ops import attention as ta
-    for n in (100, 576):
-        rng = np.random.default_rng(1)
-        q, k, v, do = (torch.from_numpy(rng.standard_normal(
-            (24, n, 64)).astype(np.float32)).to(device) for _ in range(4))
-        o = ta.fused_mhsa(q, k, v, 0.125)
-        grads = ta.fused_mhsa_bwd(q, k, v, do, 0.125)
-        torch.cuda.synchronize()
-        print(f"[bits] float32 mhsa N={n} forward {digest(o)} backward "
-              f"{digest(*grads)}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (100, 576):
+            rng = np.random.default_rng(1)
+            q, k, v, do = (torch.from_numpy(rng.standard_normal(
+                (24, n, 64)).astype(np.float32)).to(device, dtype)
+                for _ in range(4))
+            o = ta.fused_mhsa(q, k, v, 0.125)
+            grads = ta.fused_mhsa_bwd(q, k, v, do, 0.125)
+            torch.cuda.synchronize()
+            print(f"[bits] {str(dtype)[6:]} mhsa N={n} forward {digest(o)} "
+                  f"backward {digest(*grads)}")
     essential_bits(device)
     bilinear_bits(device)
     return 0

@@ -1,18 +1,22 @@
 """PyTorch port: what kernel #7's wrappers do in Python around the kernels
 (``ops/attention.py``), on the CPU.
 
-  * the dtype picks the kernels: the wrappers pass bf16 = 1 (the
-    tensor-core kernels of ``csrc/attention_tc.cuh``) or 0 (fp32, the SIMT
-    kernels of ``csrc/attention.cuh``) to the C entry points;
+  * the dtype picks the kernels: the wrappers pass bf16 = 1 (bf16
+    products) or 0 (fp32 products as 3xTF32), both on the tensor-core
+    kernels of ``csrc/attention_tc.cuh``, to the C entry points;
   * with a stand-in for the kernel library (the launchers pointed at the
     CPU), each wrapper passes as many arguments as the C signature has;
-  * under autograd the bf16 forward asks its kernel for the row statistics
-    and the backward hands the same buffer on, with no stats pass; called
-    without them, the bf16 backward runs ``rp_mhsa_stats`` first, into the
-    buffer it then hands to ``rp_mhsa_bwd``; fp32 never keeps them;
+  * under autograd the forward asks its kernel for the row statistics and
+    the backward hands the same buffer on, with no stats pass, and in fp32
+    also the forward's output o; called without them, the bf16 backward
+    runs ``rp_mhsa_stats`` first, the fp32 backward ``rp_mhsa_fwd`` with
+    statistics, into the buffers it then hands to ``rp_mhsa_bwd``; bf16
+    passes no o, and o is never the T(do / l) scratch;
   * the head-count limit of the launch grid and the shape, dtype and
-    contiguity checks raise before any launch;
-  * each wrapper adds one to its launch counter per launch, and only then;
+    contiguity checks, of the statistics and of o too, raise before any
+    launch;
+  * each wrapper adds one to its launch counter per launch, and only then
+    (the fp32 backward's own forward counts as the backward's);
   * CPU tensors take the plain versions, load no library and leave the
     counters alone.
 
@@ -96,25 +100,33 @@ def test_forward_keeps_stats_on_request(fake_lib):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_backward_without_stats(fake_lib, dtype):
     """bf16 forms the statistics with ``rp_mhsa_stats`` into the buffer
-    that ``rp_mhsa_bwd`` then reads; fp32 passes scratch and no T(do / l)
-    buffer (its kernels recompute the statistics)."""
+    that ``rp_mhsa_bwd`` then reads, and passes no o; fp32 runs the forward
+    with statistics and passes its statistics and output on.  Both pass a
+    T(do / l) scratch of their own."""
     q, k, v, do = heads(dtype)
+    f0 = ta.fused_mhsa.launches
     dq, dk, dv = ta.fused_mhsa_bwd(q, k, v, do, SCALE)
     check_arity(fake_lib)
     bwd = dict(fake_lib.calls)["rp_mhsa_bwd"]
-    # q, k, v, do, dq, dk, dv, stats, dnb; G, N, d, scale, bf16; stream
+    # q, k, v, do, dq, dk, dv, stats, dnb, o; G, N, d, scale, bf16; stream
     assert bwd[:7] == tuple(t.data_ptr() for t in (q, k, v, do, dq, dk, dv))
-    assert bwd[9:14] == (G, N, D, SCALE, int(dtype == torch.bfloat16))
+    assert bwd[10:15] == (G, N, D, SCALE, int(dtype == torch.bfloat16))
+    assert bwd[8] is not None and bwd[8] not in bwd[:8]
     if dtype == torch.bfloat16:
         assert fake_lib.names() == ["rp_mhsa_stats", "rp_mhsa_bwd"]
         stats_args = fake_lib.calls[0][1]
         assert stats_args[:2] == (q.data_ptr(), k.data_ptr())
         assert stats_args[3:7] == (G, N, D, SCALE)
         assert stats_args[2] == bwd[7]
-        assert bwd[8] is not None and bwd[8] not in bwd[:8]
+        assert bwd[9] is None
     else:
-        assert fake_lib.names() == ["rp_mhsa_bwd"]
-        assert bwd[7] is not None and bwd[8] is None
+        assert fake_lib.names() == ["rp_mhsa_fwd", "rp_mhsa_bwd"]
+        fwd = fake_lib.calls[0][1]
+        assert fwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        assert fwd[5:10] == (G, N, D, SCALE, 0)
+        assert fwd[4] is not None and bwd[7] == fwd[4]
+        assert bwd[9] == fwd[3] and bwd[9] != bwd[8]
+    assert ta.fused_mhsa.launches == f0
     assert all(g.shape == q.shape and g.dtype == dtype for g in (dq, dk, dv))
 
 
@@ -124,27 +136,48 @@ def test_backward_with_stats_takes_no_stats_pass(fake_lib):
     ta.fused_mhsa_bwd(q, k, v, do, SCALE, stats)
     (name, args), = fake_lib.calls
     assert name == "rp_mhsa_bwd" and args[7] == stats.data_ptr()
+    assert args[9] is None
+
+
+def test_fp32_backward_with_stats_and_o_runs_no_forward(fake_lib):
+    """fp32 given the forward's statistics and output: one launch, which
+    reads both; its T(do / l) scratch is a buffer of its own."""
+    q, k, v, do, o = heads(torch.float32, 5)
+    stats = torch.zeros((G, N, 3))
+    ta.fused_mhsa_bwd(q, k, v, do, SCALE, stats, o)
+    check_arity(fake_lib)
+    (name, args), = fake_lib.calls
+    assert name == "rp_mhsa_bwd"
+    assert args[7] == stats.data_ptr() and args[9] == o.data_ptr()
+    assert args[8] not in (o.data_ptr(), stats.data_ptr(), *args[:7])
+    assert args[14] == 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_autograd_hands_the_forward_stats_on(fake_lib, dtype):
-    """Under autograd the bf16 forward writes (m, l) and the backward reads
-    that buffer, with no stats pass; fp32 keeps none."""
+    """Under autograd the forward writes (m, l) and the backward reads that
+    buffer, with no stats pass; fp32 also hands the forward's output on as
+    o, bf16 passes none."""
     leaves = [t.requires_grad_() for t in heads(dtype, 3)]
     out = ta.fused_mhsa(*leaves, SCALE)
     grads = torch.autograd.grad(out, leaves, torch.ones_like(out))
     check_arity(fake_lib)
     assert fake_lib.names() == ["rp_mhsa_fwd", "rp_mhsa_bwd"]
     fwd, bwd = (args for _, args in fake_lib.calls)
+    assert fwd[4] is not None and bwd[7] == fwd[4]
     if dtype == torch.bfloat16:
-        assert fwd[4] is not None and bwd[7] == fwd[4]
+        assert bwd[9] is None
     else:
-        assert fwd[4] is None and bwd[8] is None
+        assert fwd[3] == out.data_ptr() and bwd[9] == fwd[3]
+        assert bwd[8] != bwd[9]
     assert [g.shape for g in grads] == [(G, N, D)] * 3
 
 
 @pytest.mark.parametrize("case", ["fp32 heads", "shape", "dtype", "forward"])
 def test_stats_checks(fake_lib, case):
+    """The statistics must be the forward's (G, N, 3) fp32 buffer, and fp32
+    heads take them only with o; the fp32 forward keeps them as the bf16
+    one does."""
     q, k, v, do = heads(torch.bfloat16)
     stats = torch.zeros((G, N, 3))
     if case == "fp32 heads":
@@ -158,10 +191,38 @@ def test_stats_checks(fake_lib, case):
         with pytest.raises(ValueError, match="stats"):
             ta.fused_mhsa_bwd(q, k, v, do, SCALE, stats.double())
     else:
-        with pytest.raises(ValueError, match="statistics"):
-            ta._launch_fwd(*(t.float() for t in (q, k, v)), SCALE,
-                           stats=True)
+        o, st = ta._launch_fwd(*(t.float() for t in (q, k, v)), SCALE,
+                               stats=True)
+        (name, args), = fake_lib.calls
+        assert st.shape == (G, N, 3) and st.dtype == torch.float32
+        assert args[4] == st.data_ptr() and args[3] == o.data_ptr()
+        return
     assert fake_lib.calls == []
+
+
+@pytest.mark.parametrize("case", ["bf16 heads", "no stats", "shape",
+                                  "dtype", "not contiguous"])
+def test_o_checks(fake_lib, case):
+    """o: fp32 heads only, with the statistics, a contiguous tensor of the
+    heads' shape and dtype; a bad one raises before any launch."""
+    q, k, v, do, o = heads(torch.float32, 5)
+    stats = torch.zeros((G, N, 3))
+    f0, b0 = ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches
+    if case == "bf16 heads":
+        args = [t.bfloat16() for t in (q, k, v, do)] + [SCALE, stats, o]
+    elif case == "no stats":
+        args = [q, k, v, do, SCALE, None, o]
+    elif case == "shape":
+        args = [q, k, v, do, SCALE, stats, o[:, :-1].contiguous()]
+    elif case == "dtype":
+        args = [q, k, v, do, SCALE, stats, o.bfloat16()]
+    else:
+        args = [q, k, v, do, SCALE, stats,
+                o.transpose(0, 1).contiguous().transpose(0, 1)]
+    with pytest.raises(ValueError, match=r"\bo\b"):
+        ta.fused_mhsa_bwd(*args)
+    assert fake_lib.calls == []
+    assert (ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches) == (f0, b0)
 
 
 @pytest.mark.parametrize("G_,ok", [(ta.MAX_HEADS, True),
@@ -230,6 +291,23 @@ def test_failed_launch_raises_and_does_not_count(fake_lib):
     with pytest.raises(RuntimeError, match="rp_mhsa_stats"):
         ta.fused_mhsa_bwd(q, k, v, do, SCALE)
     assert (ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches) == (f0, b0)
+
+
+def test_fp32_backward_counts_its_forward_once(fake_lib):
+    """fp32 without statistics: the forward it runs first counts as the
+    backward's one launch; a failed forward there raises and counts
+    nothing."""
+    q, k, v, do = heads(torch.float32)
+    f0, b0 = ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches
+    ta.fused_mhsa_bwd(q, k, v, do, SCALE)
+    assert (ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches) == (f0,
+                                                                    b0 + 1)
+    fake_lib.err = 1
+    with pytest.raises(RuntimeError, match="rp_mhsa_fwd"):
+        ta.fused_mhsa_bwd(q, k, v, do, SCALE)
+    assert (ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches) == (f0,
+                                                                    b0 + 1)
+    assert fake_lib.names() == ["rp_mhsa_fwd", "rp_mhsa_bwd", "rp_mhsa_fwd"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
