@@ -24,9 +24,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      most F64_BAR times the fp32 plain version's, for the output, dx and
      the 12 gradients; the same bar for the fp32 essential block at B=8
      (#2's F, #6's dq, dk, dv and dpos, each of the 8 flag sets, against
-     ``essential_f64``) and for fp32 #7 at G = 8 heads of N = 64, 100 and
+     ``essential_f64``), for fp32 #7 at G = 8 heads of N = 64, 100 and
      576 (o, and dq, dk, dv from the forward's statistics and o, against
-     the exact attention in float64), the worst ratio printed;
+     the exact attention in float64) and for fp32 #8 at G = 8 slices of N =
+     576 and 100 (F, dq, dk, dva, dvb, each of the 8 (e, softmax, va = vb
+     or not) cases, against ``bilinear_f64``), the worst ratio printed;
   4. the slice: ``PosePredictor`` over the flagship ``ViTEss`` (depth 6,
      seeded random weights) answers InteriorNet-style 256x256 requests of
      1, 5 and 8 pairs and a Matterport-style 480x640 request resized to
@@ -133,18 +135,18 @@ The last two Pallas kernels: #8, the per-head bilinear op of
 
   3e. #8's forward and backward against their plain versions at G = 24
      slices of N = 576 and of a ragged N = 100, e in {70, 64}, dual and
-     single softmax, va is vb and va != vb, fp32 (SIMT) and bf16 (the
+     single softmax, va is vb and va != vb, fp32 and bf16 (the
      tensor-core body of ``csrc/essential_tc.cuh`` /
-     ``essential_tc_bwd.cuh``), forward and backward each twice for the
-     same bits; then ``essential_block_head_stacked`` under autograd
-     against #4 + #6 at B = 8 for the 8 flag combinations, fp32 and bf16
-     (F, dqkv1, dqkv2, dpos), #8's counters set to 0 just before that route
-     and read just after;
+     ``essential_tc_bwd.cuh``, fp32 as 3xTF32), forward and backward each
+     twice for the same bits; then ``essential_block_head_stacked`` under
+     autograd against #4 + #6 at B = 8 for the 8 flag combinations, fp32
+     and bf16 (F, dqkv1, dqkv2, dpos; F's equality with #4's bits reported
+     per dtype), #8's counters set to 0 just before that route and read
+     just after;
   3f. ``essential_block_s`` (S = 2, 4) against #4 at B = 8, fp32 and bf16:
-     bf16 must give #4's bits (fp32's equal bits reported);
-     ``essential_block_variant`` (mxu_sums, bf16_mul) against its plain
-     version at B = 8, bf16; every bf16 case twice for the same bits; both
-     counters rose;
+     each must give #4's bits and repeat them; ``essential_block_variant``
+     (mxu_sums, bf16_mul) against its plain version at B = 8, bf16, twice
+     for the same bits; both counters rose;
   5e. bf16 times: #8's forward at G = 1,536 (e = 70) and backward at G =
      360 against their plain versions, and by part (statistics, vb_n
      packing, moments, F-partial sum; statistics, prologue, each pass) with
@@ -152,7 +154,9 @@ The last two Pallas kernels: #8, the per-head bilinear op of
      #4 + #6 and its plain version at batch 60; the microbenchmark script's
      cases at batch 256 (#9's counters set to 0 just before and read just
      after), with the plain times of s2, mxu_sums and bf16_mul; each with
-     its bound; then one fp32 reading of #8 each way and of #9's s.
+     its bound; then one fp32 reading of #8 each way and of #9's s (3xTF32
+     bodies), each beside its plain version, its bound and the TFLOP/s of
+     the function's products.
 
 The no-fusion baseline (``ModelConfig(fusion_transformer=False)``, the
 training CLI's default; no hand kernel on its path) and the training CLI:
@@ -643,6 +647,22 @@ def check_vit_bwd(G, dtype, rng, device, failures, C=192, hidden=768):
 F64_BAR = 2.0
 
 
+def f64_ratio(label, kern, plain, ref, failures):
+    """Log the kernel's and the fp32 plain version's max |err| from the
+    float64 ``ref``; fail unless the kernel's <= F64_BAR x the plain
+    version's.  Returns the ratio."""
+    ek = (kern.double() - ref).abs().max().item()
+    ep = (plain.double() - ref).abs().max().item()
+    ratio = ek / ep if ep > 0 else (0.0 if ek == 0 else float("inf"))
+    ok = bool(np.isfinite(ek)) and ek <= F64_BAR * ep
+    log(f"[check] {label} against float64: kernel max |err| {ek:.3e}, fp32 "
+        f"plain {ep:.3e}, ratio {ratio:.3f} (<= {F64_BAR}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label} float64 bar")
+    return ratio
+
+
 def vit_stack_f64(x, stacked, heads, pos):
     """The stack's function on float64 inputs with no rounding between ops
     (the plain version's arithmetic: two-pass LayerNorm, exp2 softmax with
@@ -692,18 +712,8 @@ def check_vit_f64(device, failures, G=16):
     rows = [("out", out, pout, out64.detach()), ("dx", dx, pdx, d64[0])]
     rows += [(f"d{k}", grads[k], pgrads[k], d64[1 + i])
              for i, k in enumerate(stacked)]
-    worst = 0.0
-    for name, kern, plain, ref in rows:
-        ek = (kern.double() - ref).abs().max().item()
-        ep = (plain.double() - ref).abs().max().item()
-        ratio = ek / ep if ep > 0 else (0.0 if ek == 0 else float("inf"))
-        worst = max(worst, ratio)
-        ok = bool(np.isfinite(ek)) and ek <= F64_BAR * ep
-        log(f"[check] vit_stack fp32 {name} G={G} against float64: kernel "
-            f"max |err| {ek:.3e}, fp32 plain {ep:.3e}, ratio {ratio:.3f} "
-            f"(<= {F64_BAR}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"vit_stack fp32 {name} float64 bar")
+    worst = max(f64_ratio(f"vit_stack fp32 {name} G={G}", *row, failures)
+                for name, *row in rows)
     log(f"[check] vit_stack fp32 G={G} float64 bar: worst ratio "
         f"{worst:.3f} over {len(rows)} outputs")
 
@@ -780,19 +790,62 @@ def check_essential_f64(device, failures, B=8):
                                   ("dv", slice(2 * C, 3 * C)))]
         if has_pos:
             rows.append(("dpos", dp, pp, g64[1]))
-        for part, kern, plain, ref in rows:
-            ek = (kern.double() - ref).abs().max().item()
-            ep = (plain.double() - ref).abs().max().item()
-            ratio = ek / ep if ep > 0 else (0.0 if ek == 0 else float("inf"))
-            worst = max(worst, ratio)
-            ok = bool(np.isfinite(ek)) and ek <= F64_BAR * ep
-            log(f"[check] essential fp32 {name} {part} B={B} against "
-                f"float64: kernel max |err| {ek:.3e}, fp32 plain {ep:.3e}, "
-                f"ratio {ratio:.3f} (<= {F64_BAR}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                failures.append(f"essential fp32 {name} {part} float64 bar")
+        worst = max(worst, *(
+            f64_ratio(f"essential fp32 {name} {part} B={B}", *row, failures)
+            for part, *row in rows))
     log(f"[check] essential fp32 B={B} float64 bar (#2 F, #6 dq dk dv "
         f"dpos, 8 variants): worst ratio {worst:.3f}")
+    return worst
+
+
+def bilinear_f64(q, k, va, vb, scale, single):
+    """F (G, e, e) of #8 on float64 slices with no rounding (the plain
+    version's arithmetic with T the identity: s2 = q k^T scale log2 e, exp2
+    softmaxes, vb_n = vb / lc, av = (P vb_n) / lr, F = va^T av),
+    differentiable by autograd in q, k, va and vb."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * (scale * 1.4426950408889634)
+    er = torch.exp2(s - s.amax(-1, keepdim=True))
+    if single:
+        p, vb_n = er, vb
+    else:
+        ec = torch.exp2(s - s.amax(-2, keepdim=True))
+        p = er * ec
+        vb_n = vb / ec.sum(-2, keepdim=True).transpose(-1, -2)
+    av = torch.matmul(p, vb_n) / er.sum(-1, keepdim=True)
+    return torch.matmul(va.transpose(-1, -2), av)
+
+
+def check_bilinear_f64(device, failures, G=8):
+    """#8's fp32 F and its backward's dq, dk, dva, dvb at G slices of N =
+    576 and 100, for each (e, softmax, va = vb or not), against
+    :func:`bilinear_f64` (gradients by autograd, va and vb separate leaves)
+    beside the fp32 plain versions: fails unless the kernel's max |err| <=
+    F64_BAR x the plain version's, per output and case."""
+    from rel_pose_tpu_torch.ops import bilinear as tb
+    rng = np.random.default_rng(SEED + 21)
+    worst = 0.0
+    for n, e, single, same in itertools.product(
+            (576, 100), (70, 64), (False, True), (True, False)):
+        name = (f"N={n} e={e} {'single' if single else 'dual'} "
+                f"{'va=vb' if same else 'va!=vb'} G={G}")
+        q, k, va, vb, df = bilinear_inputs(rng, G, e, torch.float32, device,
+                                           same, n)
+        f = tb.fused_bilinear_attention(q, k, va, vb, 0.125, single)
+        grads = tb.fused_bilinear_attention_bwd(q, k, va, vb, df, 0.125,
+                                                single)
+        pf = tb.bilinear_attention_reference(q, k, va, vb, 0.125, single)
+        pgrads = tb.bilinear_attention_bwd_reference(q, k, va, vb, df, 0.125,
+                                                     single)
+        leaves = [t.double().requires_grad_() for t in (q, k, va, vb)]
+        f64 = bilinear_f64(*leaves, 0.125, single)
+        g64 = torch.autograd.grad((f64 * df.double()).sum(), leaves)
+        rows = [("F", f, pf, f64.detach())]
+        rows += list(zip(("dq", "dk", "dva", "dvb"), grads, pgrads, g64))
+        worst = max(worst, *(
+            f64_ratio(f"bilinear fp32 {name} {part}", *row, failures)
+            for part, *row in rows))
+    log(f"[check] bilinear fp32 G={G} float64 bar (#8 F, dq, dk, dva, dvb, "
+        f"16 cases): worst ratio {worst:.3f}")
     return worst
 
 
@@ -816,18 +869,10 @@ def check_mhsa_f64(device, failures, G=8):
             leaves[0], leaves[1].transpose(-1, -2)) * MHSA_SCALE, -1),
             leaves[2])
         ref = (o64.detach(), *torch.autograd.grad(o64, leaves, do.double()))
-        for name, kt, pt, rt in zip(("o", "dq", "dk", "dv"), kern, plain,
-                                    ref):
-            ek = (kt.double() - rt).abs().max().item()
-            ep = (pt.double() - rt).abs().max().item()
-            ratio = ek / ep if ep > 0 else (0.0 if ek == 0 else float("inf"))
-            worst = max(worst, ratio)
-            ok = bool(np.isfinite(ek)) and ek <= F64_BAR * ep
-            log(f"[check] mhsa fp32 {name} G={G} N={N} against float64: "
-                f"kernel max |err| {ek:.3e}, fp32 plain {ep:.3e}, ratio "
-                f"{ratio:.3f} (<= {F64_BAR}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                failures.append(f"mhsa fp32 {name} N={N} float64 bar")
+        worst = max(worst, *(
+            f64_ratio(f"mhsa fp32 {name} G={G} N={N}", *row, failures)
+            for name, *row in zip(("o", "dq", "dk", "dv"), kern, plain,
+                                  ref)))
     log(f"[check] mhsa fp32 G={G} float64 bar (#7 o, dq, dk, dv; N = 64, "
         f"100, 576): worst ratio {worst:.3f}")
     return worst
@@ -853,6 +898,7 @@ def phase_kernels_bwd(device):
             check_vit_f64(device, failures)
             check_essential_f64(device, failures)
             check_mhsa_f64(device, failures)
+            check_bilinear_f64(device, failures)
 
         xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
         qkv = te.linear_rounded(layernorm(xpair, *ln), *qkvp)
@@ -1370,11 +1416,11 @@ def time_vit_stack(device, card, G, backward, dtype=torch.float32):
 
 def time_fp32(name, kernel, plain, flops, nb, card, plain_iters=3,
               lib_ms=None):
-    """One fp32 reading of a kernel at a shape its phase checks (#2-#4,
-    #6 and #7 on the 3xTF32 tensor-core bodies, #8 and #9 on their SIMT
-    fp32 bodies): CUDA-event ms of ``kernel()`` and ``plain()``, the bound
-    on the 3xTF32 peak, the TFLOP/s of the function's products against it
-    and the SIMT peak; returns the row."""
+    """One fp32 reading of a kernel at a shape its phase checks (#2-#4 and
+    #6-#9, all on the 3xTF32 tensor-core bodies): CUDA-event ms of
+    ``kernel()`` and ``plain()``, the bound on the 3xTF32 peak, the
+    TFLOP/s of the function's products against it and the SIMT peak;
+    returns the row."""
     ms = cuda_time_ms(kernel, 3)
     plain_ms = cuda_time_ms(plain, plain_iters)
     b = bound(flops, nb, torch.float32)
@@ -2359,13 +2405,14 @@ def moments_grads(fn, q1, q2, pos, kw, cot):
 def phase_kernels_bilinear(device):
     """(3e) #8 against its plain versions at G = 24 slices (4 pairs x 2
     directions x 3 heads) of N = 576 and of a ragged N = 100, e in {70,
-    64}, dual and single softmax, va is vb and va != vb, fp32 (SIMT) and
-    bf16 (the tensor-core body of essential_tc.cuh / essential_tc_bwd.cuh);
-    forward and backward each twice for the same bits.  Then #8's public
-    route, ``essential_block_head_stacked`` under autograd, against #4 + #6
-    (``fused_essential_block`` under autograd) at B = 8 for the 8 flag
-    combinations, fp32 and bf16, #8's counters set to 0 just before that
-    route and read just after.  Returns (max |err| of the forward, of the
+    64}, dual and single softmax, va is vb and va != vb, fp32 and bf16 (the
+    tensor-core body of essential_tc.cuh / essential_tc_bwd.cuh, fp32 as
+    3xTF32); forward and backward each twice for the same bits.  Then #8's
+    public route, ``essential_block_head_stacked`` under autograd, against
+    #4 + #6 (``fused_essential_block`` under autograd) at B = 8 for the 8
+    flag combinations, fp32 and bf16, #8's counters set to 0 just before
+    that route and read just after; how many of its F equal #4's bits, per
+    dtype, is reported.  Returns (max |err| of the forward, of the
     backward, the route's launches)."""
     from rel_pose_tpu_torch.ops import bilinear as tb
     from rel_pose_tpu_torch.ops import essential_block as te
@@ -2421,17 +2468,18 @@ def phase_kernels_bilinear(device):
                 "bilinear_bwd": counters[1].launches}
     log(f"[check] head-stacked route (#8) launches: {launches}")
     failures += [f"{k} never launched" for k, v in launches.items() if v <= 0]
-    same_bits = []
+    same_bits = {dtype: [] for dtype in DTYPES}
     for (dtype, name, args), (f, grads) in zip(runs, stacked):
         ref_f, ref_grads = moments_grads(te.fused_essential_block, *args)
-        same_bits.append(torch.equal(f, ref_f))
+        same_bits[dtype].append(torch.equal(f, ref_f))
         check_f(f"head-stacked {name} F vs #4 B=8", f, ref_f, dtype,
                 failures)
         for part, g, r in zip(("dqkv1", "dqkv2", "dpos"), grads, ref_grads):
             check_grad(f"head-stacked {name} {part} vs #6 B=8", g, r, dtype,
                        failures, HEAD_STACKED_NORMREL[dtype])
-    log(f"[check] head-stacked F equal to #4's bits in "
-        f"{sum(same_bits)} of {len(same_bits)} runs")
+    log("[check] head-stacked F equal to #4's bits in " + ", ".join(
+        f"{sum(v)} of {len(v)} {str(d)[6:]} runs"
+        for d, v in same_bits.items()))
     if failures:
         raise SystemExit(f"#8 checks failed: {failures}")
     return max(e_fwd), max(e_bwd), launches
@@ -2439,10 +2487,10 @@ def phase_kernels_bilinear(device):
 
 def phase_kernels_cross_variants(device):
     """(3f) #9: ``essential_block_s`` for S in {2, 4} against #4 at B = 8,
-    fp32 and bf16 (F_RTOL held; bf16 must give #4's bits, fp32's equal
-    bits reported), and both modes of ``essential_block_variant`` against
-    their plain version at B = 8 in bf16; every bf16 case twice for the
-    same bits; both counters rose.  Returns max |err| of (S, variants)."""
+    fp32 and bf16 (F_RTOL held; each must give #4's bits), and both modes
+    of ``essential_block_variant`` against their plain version at B = 8 in
+    bf16; every case twice for the same bits; both counters rose.  Returns
+    max |err| of (S, variants)."""
     from rel_pose_tpu_torch.ops import cross_variants as cv
     from rel_pose_tpu_torch.ops import essential_block as te
     failures, e_s, e_v = [], [], []
@@ -2452,23 +2500,23 @@ def phase_kernels_cross_variants(device):
         xpair, ln, qkvp, positional = essential_inputs(rng, 8, dtype, device)
         _, (q1, q2), _ = split_pair(xpair, ln, qkvp)
         f4 = te.fused_essential_block(q1, q2, positional, 3)
-        bf16 = dtype == torch.bfloat16
+        name = str(dtype)[6:]
         for S in (2, 4):
             f, again = (cv.essential_block_s(q1, q2, positional, S)
                         for _ in range(2))
             torch.cuda.synchronize()
             same = torch.equal(f, f4)
-            log(f"[check] essential_block_s S={S} {str(dtype)[6:]}: F "
+            log(f"[check] essential_block_s S={S} {name}: F "
                 f"{'equal to' if same else 'DIFFERS from'} #4's bits")
-            if bf16 and not same:
-                failures.append(f"essential_block_s S={S} bf16 F differs "
+            if not same:
+                failures.append(f"essential_block_s S={S} {name} F differs "
                                 f"from #4's bits")
-            if bf16 and not torch.equal(f, again):
-                failures.append(f"essential_block_s S={S} not bitwise "
-                                f"repeatable")
+            if not torch.equal(f, again):
+                failures.append(f"essential_block_s S={S} {name} not "
+                                f"bitwise repeatable")
             e_s.append(check_f(f"essential_block_s S={S} vs #4 B=8", f, f4,
                                dtype, failures))
-        if bf16:
+        if dtype == torch.bfloat16:
             for mode in cv.MODES:
                 f, again = (cv.essential_block_variant(q1, q2, positional,
                                                        mode)
@@ -2633,7 +2681,8 @@ def phase_times_bilinear(device, card, errs):
         log(f"[time] {name} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, bound {b_ms:.3f} ms ({b_by}) ({card})")
 
-    # fp32 readings of #8 and #9's s (its other modes are bf16 only)
+    # fp32 readings of #8 and #9's s on the 3xTF32 bodies (#9's other modes
+    # are bf16 only)
     rng32 = np.random.default_rng(SEED + 20)
     G = 2 * EVAL_BATCH * 3
     q, k, va, vb, _ = bilinear_inputs(rng32, G, 70, torch.float32, device,

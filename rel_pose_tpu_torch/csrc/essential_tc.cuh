@@ -6,17 +6,16 @@
 //     core _eb_combos :87): PairLayout, the dual or the single softmax
 //     (essential_block.cu), bf16 and fp32;
 //   - #8 _fwd_kernel (rel_pose_tpu/ops/pallas_essential.py:72): SliceLayout,
-//     separate (G, N, 64) q, k and (G, N, e) va, vb, any scale (bilinear.cu),
-//     bf16;
+//     separate (G, N, 64) q, k and (G, N, e) va, vb, any scale (bilinear.cu,
+//     bilinear_f32.cu), bf16 and fp32;
 //   - #9 _s_kernel and _variant_kernel (scripts/bench_cross.py:88, :35):
-//     PairLayout with S pairs' slices per block, and the modes kEbBf16Mul and
-//     kEbMxuSums (cross_variants.cu), bf16.
-// (#8's and #9's fp32 keep bilinear.cuh's SIMT kernels.)  The kernels are
-// templates on the element type T, which picks the product as gemm_tc.cuh
-// and attention_tc.cuh do: bf16 m16n8k16 with ldmatrix, or fp32 as 3xTF32
-// on m16n8k8 (each operand split into TF32 hi + lo in registers, hi.hi +
-// hi.lo + lo.hi summed into a fresh 8-deep partial that one IEEE fp32 add
-// puts into the sum: fp32 accuracy).
+//     PairLayout with S pairs' slices per block (bf16 and fp32), and the
+//     modes kEbBf16Mul and kEbMxuSums (bf16) (cross_variants.cu).
+// The kernels are templates on the element type T, which picks the product
+// as gemm_tc.cuh and attention_tc.cuh do: bf16 m16n8k16 with ldmatrix, or
+// fp32 as 3xTF32 on m16n8k8 (each operand split into TF32 hi + lo in
+// registers, hi.hi + hi.lo + lo.hi summed into a fresh 8-deep partial that
+// one IEEE fp32 add puts into the sum: fp32 accuracy).
 //
 // Per slice g, with q, k (N x 64) and va, vb (N x e): PairLayout's slice is
 // (pair b, direction, head), vb = v_self ++ 6 positional columns (e = 70) or
@@ -74,8 +73,9 @@
 // Rows >= N load as zeros and keys >= N are masked out of every max and
 // sum.  No atomics, sums in a fixed order: two calls give the same bits,
 // and a slice's F does not depend on the layout or on S.  va rows of e =
-// 70 in SliceLayout are 140 bytes, off the 16-byte grid: they load with
-// 4-byte cp.async (load_rows4) where PairLayout's load whole 16-byte rows.
+// 70 in SliceLayout are off the 16-byte grid (bf16 140 bytes, fp32 280):
+// they load two values a cp.async, 4 or 8 bytes (load_rows2), where
+// PairLayout's load whole 16-byte rows.
 // fp32 tiles are twice bf16's bytes: the moments kernel takes 109 KB and
 // runs two blocks an SM (bf16 three), the statistics kernel 52 KB, four.
 
@@ -332,22 +332,36 @@ __device__ __forceinline__ void mma_atb_f32(float (&c)[NT][4],
   }
 }
 
-// rows [row0, row0 + 64) of an (N, E) bf16 matrix whose rows are 4-byte
-// but not 16-byte aligned (E = 70: 140 bytes) into a tile of W columns and
-// row stride LD, by 4-byte cp.async; columns >= E and rows >= N zero
-template <int E, int W, int LD>
-__device__ __forceinline__ void load_rows4(bf16* dst, const bf16* src,
-                                           int row0, int N) {
-  static_assert(E % 2 == 0 && W % 2 == 0 && E <= W, "whole 4-byte words");
-  constexpr int kSrcWords = E / 2, kDstWords = W / 2;
-  for (int i = threadIdx.x; i < kAT * kDstWords; i += kAThreads) {
-    const int r = i / kDstWords, w = i % kDstWords;
-    bf16* d = dst + r * LD + 2 * w;
-    if (w < kSrcWords) {
+// 8-byte cp.async (zero-filled when !ok)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// rows [row0, row0 + 64) of an (N, E) matrix whose rows are not 16-byte
+// aligned (E = 70: bf16 140 bytes, fp32 280) into a tile of W columns and
+// row stride LD, two values a cp.async (bf16 4 bytes, fp32 8); columns >= E
+// and rows >= N zero
+template <int E, int W, int LD, typename T>
+__device__ __forceinline__ void load_rows2(T* dst, const T* src, int row0,
+                                           int N) {
+  static_assert(E % 2 == 0 && W % 2 == 0 && E <= W, "whole value pairs");
+  constexpr int kSrcPairs = E / 2, kDstPairs = W / 2;
+  for (int i = threadIdx.x; i < kAT * kDstPairs; i += kAThreads) {
+    const int r = i / kDstPairs, w = i % kDstPairs;
+    T* d = dst + r * LD + 2 * w;
+    if (w < kSrcPairs) {
       const bool ok = row0 + r < N;
-      cp_async4(d, src + (size_t)(ok ? row0 + r : 0) * E + 2 * w, ok);
+      const T* s = src + (size_t)(ok ? row0 + r : 0) * E + 2 * w;
+      if constexpr (sizeof(T) == 2)
+        cp_async4(d, s, ok);
+      else
+        cp_async8(d, s, ok);
     } else {
-      *reinterpret_cast<unsigned*>(d) = 0u;
+      d[0] = d[1] = from_f32<T>(0.f);
     }
   }
 }
@@ -382,8 +396,8 @@ __device__ __forceinline__ unsigned& afrag_at(unsigned (&f)[4][4], int ni,
 //   SliceLayout (#8): in0, in1 the (G, N, 64) q, k; in2, in3 the (G, N, e)
 //     va, vb.  va is always read from in2, also when the caller passes one
 //     tensor for both (the non-cross wiring).
-// Both are generic in the element type T; the kernels instantiate
-// PairLayout in bf16 and fp32, SliceLayout in bf16.
+// Both are generic in the element type T, and the kernels instantiate both
+// in bf16 and fp32.
 
 // PairLayout's slice g = (b * 2 + direction) * heads + h of a pair's two
 // images, whose qkv rows (3C values) start at img1 + b bstride and img2 +
@@ -412,6 +426,15 @@ struct EbView {
   const T* pos;  // PairLayout: the pair's (N, 6) table or NULL
   size_t ldqk;
 };
+
+// 2 consecutive elements from global memory as fp32 (4 or 8 bytes,
+// aligned)
+__device__ __forceinline__ float2 load2_f32(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 
 // 8 consecutive elements from global memory as fp32 (16 or 32 bytes,
 // aligned)
@@ -490,17 +513,17 @@ struct SliceLayout {
     if constexpr (E == kHeadDim)
       load_rows<kHeadDim, W::kLd>(dst, v, kHeadDim, row0, N);
     else
-      load_rows4<E, W::kW, W::kLd>(dst, v, row0, N);
+      load_rows2<E, W::kW, W::kLd>(dst, v, row0, N);
   }
+  // columns 8 c8 .. 8 c8 + 7 of vb's row n (zero past e), as value pairs:
+  // a row of e = 70 is 4-byte (bf16) or 8-byte (fp32) aligned
   template <int E, typename T>
   __device__ static void vb8(const EbView<T>& vw, int n, int c8,
                              float (&x)[8]) {
-    static_assert(sizeof(T) == 2, "SliceLayout: bf16 rows");
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(
-        vw.vb + (size_t)n * E + c8 * 8);
+    const T* p = vw.vb + (size_t)n * E + c8 * 8;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 v = c8 * 8 + 2 * j < E ? __bfloat1622float2(p[j])
+      const float2 v = c8 * 8 + 2 * j < E ? load2_f32(p + 2 * j)
                                           : make_float2(0.f, 0.f);
       x[2 * j] = v.x;
       x[2 * j + 1] = v.y;
@@ -932,7 +955,7 @@ struct EbFwdWs {
 // Host-side arguments of launch_moments: the layout's in0 .. in3 and ld
 // (see the layouts), F (G, e, e) fp32, the EbFwdWs bytes, G slices, S of
 // them per block with kGroup, and the scale (the softmax scale times
-// log2 e).  EbFwdArgs: bf16's (#8, #9).
+// log2 e).
 template <typename T>
 struct EbFwdArgsT {
   const T* in0;
@@ -945,7 +968,6 @@ struct EbFwdArgsT {
   int G, N, C, heads, S;
   float scale;
 };
-using EbFwdArgs = EbFwdArgsT<bf16>;
 
 // G slices: at most 65,535 (the grid's second dimension)
 template <class Layout, int E, int MODE, bool CROSS, bool kGroup, typename T>
@@ -979,6 +1001,27 @@ cudaError_t launch_moments(const EbFwdArgsT<T>& a, cudaStream_t st) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t L = (size_t)G * E * E;
   return launch_sum_partials(ws.fpart, nt, L, L, a.F, st);
+}
+
+// #8's forward: G slices of SliceLayout, e = 64 or 70, the dual or the
+// single softmax (bilinear.cu; fp32 instantiated in bilinear_f32.cu)
+template <typename T>
+cudaError_t launch_slice_moments(const EbFwdArgsT<T>& a, int e, int single,
+                                 cudaStream_t st) {
+  constexpr int kE70 = kHeadDim + kEbPos;
+  if (e == kE70)
+    return single
+               ? launch_moments<SliceLayout, kE70, kEbSingle, false, false>(a,
+                                                                         st)
+               : launch_moments<SliceLayout, kE70, kEbDual, false, false>(a,
+                                                                       st);
+  if (e == kHeadDim)
+    return single
+               ? launch_moments<SliceLayout, kHeadDim, kEbSingle, false,
+                                false>(a, st)
+               : launch_moments<SliceLayout, kHeadDim, kEbDual, false, false>(
+                     a, st);
+  return cudaErrorInvalidValue;
 }
 
 // #2-#4's arguments: qkv rows of image i of pair b at img_i + b bstride.

@@ -4,8 +4,7 @@
 //     _essential_block_bwd_kernel (#6), PairLayout (essential_block_bwd.cu),
 //     bf16 and fp32;
 //   - rel_pose_tpu/ops/pallas_essential.py:_bwd_kernel (#8), SliceLayout
-//     (bilinear_bwd.cu), bf16 (#8's fp32 keeps bilinear_bwd.cu's SIMT
-//     kernel).
+//     (bilinear_bwd.cu, bilinear_bwd_f32.cu), bf16 and fp32.
 // The kernels are templates on the element type T, as essential_tc.cuh's:
 // bf16 products are mma.sync m16n8k16 with ldmatrix (.trans where a product
 // reads a tile along its rows), fp32 ones 3xTF32 on m16n8k8 from 32-bit
@@ -475,7 +474,7 @@ struct EbBwdWs {
 // Host-side arguments of launch_bwd: the layout's in0 .. in3 and ld (see
 // essential_tc.cuh), dF (G, e, e) fp32, the outputs out0 .. out3 (the
 // pass kernel's dst0 .. dst3) and dpos_part, the EbBwdWs bytes, G slices, the
-// scale (sigma log2 e) and sigma.  EbBwdArgs: bf16's (#8).
+// scale (sigma log2 e) and sigma.
 template <typename T>
 struct EbBwdArgsT {
   const T* in0;
@@ -493,7 +492,6 @@ struct EbBwdArgsT {
   int G, N, C, heads;
   float scale, sigma;
 };
-using EbBwdArgs = EbBwdArgsT<bf16>;
 
 // the operand rows of the workspace in the element type
 template <typename T>
@@ -563,6 +561,22 @@ cudaError_t launch_bwd(const EbBwdArgsT<T>& a, cudaStream_t st) {
     return err;
   return launch_bwd_pass<Layout, E, false, true, SINGLE, CROSS>(a, ws, grid,
                                                                 st);
+}
+
+// #8's backward: G slices of SliceLayout, e = 64 or 70, the dual or the
+// single softmax (bilinear_bwd.cu; fp32 instantiated in
+// bilinear_bwd_f32.cu)
+template <typename T>
+cudaError_t launch_slice_bwd(const EbBwdArgsT<T>& a, int e, int single,
+                             cudaStream_t st) {
+  constexpr int kE70 = kHeadDim + kEbPos;
+  if (e == kE70)
+    return single ? launch_bwd<SliceLayout, kE70, true, false>(a, st)
+                  : launch_bwd<SliceLayout, kE70, false, false>(a, st);
+  if (e == kHeadDim)
+    return single ? launch_bwd<SliceLayout, kHeadDim, true, false>(a, st)
+                  : launch_bwd<SliceLayout, kHeadDim, false, false>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 // #6's arguments

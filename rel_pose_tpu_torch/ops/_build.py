@@ -70,7 +70,7 @@ SIGNATURES = {
     # q, k, v, do, dq, dk, dv, stats, T(do / l) scratch, the forward's o
     # (fp32; NULL for bf16); G, N, d, scale, bf16; stream
     "rp_mhsa_bwd": ([P] * 10 + [I] * 3 + [F, I, P], ctypes.c_int),
-    # G, N, e, bf16 -> workspace bytes of rp_bilinear_fwd (0 for fp32)
+    # G, N, e, bf16 -> workspace bytes of rp_bilinear_fwd
     "rp_bilinear_fwd_workspace": ([I] * 4, L),
     # q, k, va, vb, F, workspace; G, N, e, single, scale * log2e, bf16;
     # stream
@@ -81,7 +81,6 @@ SIGNATURES = {
     # scale * log2e, scale, bf16; stream
     "rp_bilinear_bwd": ([P] * 10 + [I] * 4 + [F, F, I, P], ctypes.c_int),
     # B, N, heads, bf16 -> workspace bytes of the two entry points below
-    # (0 for fp32)
     "rp_cross_variants_workspace": ([I] * 4, L),
     # qkv1, qkv2, pos, F, workspace; B, N, C, heads, S, bf16; stream
     "rp_essential_block_s": ([P] * 5 + [I] * 6 + [P], ctypes.c_int),

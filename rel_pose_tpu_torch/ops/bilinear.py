@@ -10,24 +10,25 @@ N, e)``, ``(G, N, e)`` -> ``(G, e, e)`` fp32:
   * on CPU tensors it is the plain PyTorch version,
     :func:`bilinear_attention_reference`;
   * on CUDA tensors it launches ``rp_bilinear_fwd`` of ``csrc/bilinear.cu``
-    (which replaces ``_fwd_kernel``) or raises: bf16 the essential block's
-    tensor-core moments (``csrc/essential_tc.cuh``, its slice layout), with
-    the scratch that ``rp_bilinear_fwd_workspace`` sizes; fp32 the SIMT
-    body of ``csrc/bilinear.cuh``.
+    (which replaces ``_fwd_kernel``) or raises: the essential block's
+    tensor-core moments (``csrc/essential_tc.cuh``, its slice layout; bf16
+    on m16n8k16, fp32 as 3xTF32), with the scratch that
+    ``rp_bilinear_fwd_workspace`` sizes.
 
 Under autograd it is a ``torch.autograd.Function``, as the Pallas op is a
 ``custom_vjp`` (``_bilinear_pallas``, ``pallas_essential.py:203-217``): the
 residuals are the inputs, and the backward is
 :func:`fused_bilinear_attention_bwd`, which recomputes -- the plain
 :func:`bilinear_attention_bwd_reference` on the CPU, ``rp_bilinear_bwd`` of
-``csrc/bilinear_bwd.cu`` (which replaces ``_bwd_kernel``; bf16 on the
-tensor-core passes of ``csrc/essential_tc_bwd.cuh``) on CUDA.  When va and
-vb are one tensor (the non-cross wiring) autograd adds dva and dvb into it,
-as JAX adds the custom VJP's two cotangents.  The kernels take d = 64, e =
-64 or 70, fp32 or bf16, contiguous tensors (bf16 ones on 16-byte
-boundaries) and any N and scale; bf16 at most 65,535 slices (the launch
-grid's second dimension), fp32 any G.  A larger or malformed call raises
-before any launch.
+``csrc/bilinear_bwd.cu`` (which replaces ``_bwd_kernel``; the tensor-core
+passes of ``csrc/essential_tc_bwd.cuh``) on CUDA.  When va and vb are one
+tensor (the non-cross wiring) autograd adds dva and dvb into it, as JAX
+adds the custom VJP's two cotangents.  The kernels take d = 64, e = 64 or
+70, fp32 or bf16, contiguous tensors on the boundaries their loads need
+(16 bytes, but 8 for fp32 va and vb of e = 70, whose 280-byte rows load
+two values a copy), any N and scale, and at most 65,535 slices (the launch
+grid's second dimension).  A larger or malformed call raises before any
+launch.
 
 The JAX package's one caller is ``_head_stacked_impl``
 (``pallas_essential_block.py:420-458``); the port's is
@@ -41,7 +42,7 @@ from . import _build
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
 WIDTHS = (64, 70)       # e without and with the positional columns
-MAX_SLICES = 65535      # bf16: slices in the launch grid's second dimension
+MAX_SLICES = 65535      # slices in the launch grid's second dimension
 _KERNEL_DEVICE = "cuda"   # the device type the kernels launch on
 
 
@@ -233,12 +234,15 @@ def _check_inputs(what, q, k, va, vb):
                              f"{q.dtype} on {q.device} with q, k {(G, N, d)}"
                              f" and va, vb {(G, N, e)}; got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if q.dtype == torch.bfloat16:
-        if G > MAX_SLICES:
-            raise ValueError(f"{what}: {G} slices; the bf16 launch grid "
-                             f"takes at most {MAX_SLICES}")
-        for t in (q, k, va, vb):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{what}: a bf16 operand at "
-                                 f"{t.data_ptr():#x} is not 16-byte aligned")
+    if G > MAX_SLICES:
+        raise ValueError(f"{what}: {G} slices; the launch grid takes at "
+                         f"most {MAX_SLICES}")
+    # fp32 va, vb of e = 70 load two values (8 bytes) a copy; every other
+    # operand whole 16-byte rows
+    v_align = 8 if q.dtype == torch.float32 and e == 70 else 16
+    for t, align in ((q, 16), (k, 16), (va, v_align), (vb, v_align)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: a {str(t.dtype)[6:]} operand at "
+                             f"{t.data_ptr():#x} is not {align}-byte "
+                             "aligned")
     return G, N, e

@@ -16,12 +16,12 @@ result ``F (B, 2, heads, 70, 70)`` fp32, as #4:
 
 On CPU tensors each is its plain version; on CUDA tensors it launches
 ``rp_essential_block_s`` / ``rp_essential_block_variant`` of
-``csrc/cross_variants.cu`` or raises: bf16 #4's tensor-core moments
-(``csrc/essential_tc.cuh``; ``s`` gives #4's bf16 bits), with the scratch
-that ``rp_cross_variants_workspace`` sizes, at most 65,535 slices (2 B
-heads); fp32 ``s`` the SIMT body of ``csrc/bilinear.cuh``.  No model path
-runs them: their caller is ``scripts/bench_cross_torch.py``, for
-kernel-design work.
+``csrc/cross_variants.cu`` or raises: #4's tensor-core moments
+(``csrc/essential_tc.cuh``; bf16 on m16n8k16, fp32 as 3xTF32, and ``s``
+gives #4's bits in either dtype), with the scratch that
+``rp_cross_variants_workspace`` sizes, at most 65,535 slices (2 B heads).
+No model path runs them: their caller is ``scripts/bench_cross_torch.py``,
+for kernel-design work.
 """
 
 import torch
@@ -120,11 +120,10 @@ def _prepare(what, qkv1, qkv2, positional):
     heads = _heads(qkv1)
     pos = positional.to(qkv1.dtype).contiguous()
     _check_pair(qkv1, qkv2, pos, C3 // 3, heads)
-    bf16 = qkv1.dtype == torch.bfloat16
-    _check_grid(what, B, heads, bf16)
+    _check_grid(what, B, heads)
     _check_aligned(what, qkv1, qkv2)
     ws = _workspace(_build.library().rp_cross_variants_workspace(
-        B, N, heads, int(bf16)), qkv1.device)
+        B, N, heads, int(qkv1.dtype == torch.bfloat16)), qkv1.device)
     f = torch.empty((B, 2, heads, E, E), dtype=torch.float32,
                     device=qkv1.device)
     return f, (qkv1.data_ptr(), qkv2.data_ptr(), pos.data_ptr(),

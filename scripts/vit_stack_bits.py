@@ -22,7 +22,8 @@ atomics and sums in a fixed order), they print the same digests on one
 card.  A kernel whose sums move changes its digests by design: the fp32
 ViT stack's (forward, forward with the stash, backward) moved when its
 products went from SIMT FMAs to 3xTF32 on the tensor cores, and fp32 #2,
-#4, #6 and #7's when they did; the bf16 digests of every kernel stayed.
+#4, #6, #7, #8 and #9's when they did; the bf16 digests of every kernel
+stayed.
 Needs a CUDA device.
 """
 

@@ -1,16 +1,17 @@
 """PyTorch port: kernels #8 (``ops/bilinear.py``) and #9
 (``ops/cross_variants.py``) around their launches, and a plain mirror of
-their bf16 tensor-core decomposition, on the CPU.
+their tensor-core decomposition, on the CPU.
 
-  * the dtype picks the kernels: the wrappers pass bf16 = 1 (the tensor-core
-    body of ``csrc/essential_tc.cuh`` / ``essential_tc_bwd.cuh``) or 0 (the
-    SIMT kernels) to the C entry points, after asking
+  * both dtypes take the tensor-core body of ``csrc/essential_tc.cuh`` /
+    ``essential_tc_bwd.cuh`` (bf16 m16n8k16, fp32 3xTF32): the wrappers pass
+    bf16 = 1 or 0 to the C entry points, after asking
     ``rp_bilinear_fwd_workspace``, ``rp_bilinear_bwd_workspace`` or
     ``rp_cross_variants_workspace`` for the scratch of those arguments, and
-    hand on a buffer of that size (none where the answer is 0); every call
-    has the C signature's arity;
-  * #8's bf16 slice limit (65,535, the launch grid's second dimension), bad
-    shapes, dtypes and unaligned bf16 operands raise before any launch;
+    hand on a buffer of that size, fp32 its own scratch too; every call has
+    the C signature's arity;
+  * the slice limit (65,535, the launch grid's second dimension) in both
+    dtypes, bad shapes, dtypes and operands off the boundaries their loads
+    need (16 bytes; 8 for fp32 va, vb of e = 70) raise before any launch;
   * a failed launch raises and does not count; each counter rises once per
     launch; ``essential_block_s`` / ``essential_block_variant`` pass S and
     the mode;
@@ -18,9 +19,10 @@ their bf16 tensor-core decomposition, on the CPU.
 The launchers are pointed at the CPU (``_KERNEL_DEVICE``) with a stand-in
 library, as tests/test_torch_essential_route.py does.
 
-Then the decomposition the bf16 kernels compute, written out in PyTorch at
+Then the decomposition the kernels compute, written out in PyTorch at
 their 64-row tiles by tests/test_torch_essential_route.py's
-``tc_slice_moments`` / ``tc_slice_bwd``: on #8's slice layout (va != vb, a
+``tc_slice_moments`` / ``tc_slice_bwd`` with the kernels' products
+(``mirror_matmul``: fp32 as 3xTF32): on #8's slice layout (va != vb, a
 runtime scale, e = 64 and 70, dual and single softmax) against the Pallas
 ``_fwd_call`` / ``_bwd_call`` in interpret mode and the port's plain
 versions, and in #9's modes (``mxu_sums``: exact column maxima and sums of
@@ -28,13 +30,19 @@ bf16 exps; ``bf16_mul``: P as one bf16 product) against ``_variant_kernel``
 in interpret mode, at N = 64, 100 (a ragged tile) and 576 for one case.
 Tolerances as in the existing files: F relative to max|F| 1e-5 fp32, 1e-2
 bf16 (#9's modes 1e-3); backward ||err|| / ||ref|| 1e-5 fp32, 1e-2 bf16.
-The kernels themselves run only on the card (``chip_smoke.py`` 3e, 3f).
+And #8's fp32 mirror held to the float64 bar of ``chip_smoke.py`` phase 3b
+(``chip_smoke.bilinear_f64``): at N = 576 and 100, e = 70 and 64, dual and
+single softmax, its max |err| from float64 at most twice the fp32 plain
+version's for F, dq, dk, dva and dvb; a mirror with single TF32 products
+fails it.  The kernels themselves run only on the card (``chip_smoke.py``
+3b, 3e, 3f).
 """
 
 import functools
 import importlib.util
 import pathlib
 
+import chip_smoke
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -47,9 +55,11 @@ from rel_pose_tpu_torch.ops import _build
 from rel_pose_tpu_torch.ops import bilinear as tb
 from rel_pose_tpu_torch.ops import cross_variants as cv
 from rel_pose_tpu_torch.ops import essential_block as te
+from rel_pose_tpu_torch.ops.vit_stack import tf32x3_matmul
 from test_torch_essential_route import (WS_BYTES, FakeLibrary, _normrel,
-                                        _slices, check_arity,
-                                        tc_slice_bwd, tc_slice_moments)
+                                        _slices, check_arity, mirror_matmul,
+                                        tc_slice_bwd, tc_slice_moments,
+                                        tf32_matmul)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 G, N, HEADS = 3, 10, 3
@@ -81,7 +91,7 @@ def pair_args(dtype, b=2, n=N):
 
 @pytest.fixture
 def fake_lib(monkeypatch):
-    lib = FakeLibrary()
+    lib = FakeLibrary(fp32_ws=True)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "prepare_launch", lambda device: 0)
     monkeypatch.setattr(tb, "_KERNEL_DEVICE", "cpu")
@@ -108,7 +118,7 @@ def test_forward_route(fake_lib, dtype, e, single, same):
     assert args[:5] == (q.data_ptr(), k.data_ptr(), va.data_ptr(),
                         vb.data_ptr(), f.data_ptr())
     assert (args[2] == args[3]) == same
-    assert (args[5] is None) == (not bf16)
+    assert args[5] is not None      # fp32 passes its scratch too
     assert args[6:10] == (G, N, e, int(single))
     assert args[10] == pytest.approx(SIGMA * tb.LOG2E)
     assert args[11] == bf16
@@ -132,7 +142,7 @@ def test_backward_route(fake_lib, dtype, e, single):
     assert args[:5] == (q.data_ptr(), k.data_ptr(), va.data_ptr(),
                         vb.data_ptr(), df.data_ptr())
     assert args[5:9] == tuple(g.data_ptr() for g in grads)
-    assert (args[9] is None) == (not bf16)
+    assert args[9] is not None      # fp32 passes its scratch too
     assert args[10:14] == (G, N, e, int(single))
     assert args[14] == pytest.approx(SIGMA * tb.LOG2E)
     assert args[15] == pytest.approx(SIGMA) and args[16] == bf16
@@ -158,7 +168,8 @@ def test_autograd_route(fake_lib, same):
 
 
 def test_workspace_buffer_has_the_answered_size(fake_lib, monkeypatch):
-    """The buffers handed on are uint8 tensors of the answered size."""
+    """The buffers handed on are uint8 tensors of the answered size, in
+    either dtype."""
     sizes = []
     real = torch.empty
 
@@ -168,11 +179,14 @@ def test_workspace_buffer_has_the_answered_size(fake_lib, monkeypatch):
             sizes.append(t.numel())
         return t
     monkeypatch.setattr(torch, "empty", empty)
-    q, k, va, vb, df = bilinear_args(torch.bfloat16)
-    tb.fused_bilinear_attention(q, k, va, vb, SIGMA)
-    tb.fused_bilinear_attention_bwd(q, k, va, vb, df, SIGMA)
-    cv.essential_block_s(*pair_args(torch.bfloat16), 2)
-    assert sizes == [WS_BYTES] * 3
+    for dtype in DTYPES:
+        q, k, va, vb, df = bilinear_args(dtype)
+        tb.fused_bilinear_attention(q, k, va, vb, SIGMA)
+        tb.fused_bilinear_attention_bwd(q, k, va, vb, df, SIGMA)
+        cv.essential_block_s(*pair_args(dtype), 2)
+    assert sizes == [WS_BYTES] * 6
+    assert [a[-1] for n, a in fake_lib.calls if n.endswith("_workspace")] \
+        == [1, 1, 1, 0, 0, 0]
 
 
 # (entry point, dtype, G, launches): a passing backward call would need a
@@ -180,10 +194,11 @@ def test_workspace_buffer_has_the_answered_size(fake_lib, monkeypatch):
 @pytest.mark.parametrize("which,dtype,g,ok", [
     ("fwd", torch.bfloat16, 65535, True),
     ("fwd", torch.bfloat16, 65536, False),
-    ("fwd", torch.float32, 65536, True),
-    ("bwd", torch.bfloat16, 65536, False)])
+    ("fwd", torch.float32, 65536, False),
+    ("bwd", torch.bfloat16, 65536, False),
+    ("bwd", torch.float32, 65536, False)])
 def test_slice_limit(fake_lib, which, dtype, g, ok):
-    """bf16: at most 65,535 slices in the grid; fp32's SIMT grid any."""
+    """At most 65,535 slices in the grid, in either dtype."""
     q = torch.empty((g, 1, 64), dtype=dtype)
     df = torch.empty((1, 64, 64))       # never read: the limit raises first
     call = ((lambda: tb.fused_bilinear_attention(q, q, q, q, SIGMA))
@@ -201,8 +216,8 @@ def test_slice_limit(fake_lib, which, dtype, g, ok):
 CHECK_CASES = [("float16", TypeError), ("head width", ValueError),
                ("e", ValueError), ("not contiguous", ValueError),
                ("k shape", ValueError), ("vb dtype", ValueError),
-               ("unaligned", ValueError), ("dF shape", ValueError),
-               ("dF dtype", ValueError)]
+               ("unaligned", ValueError), ("unaligned fp32", ValueError),
+               ("dF shape", ValueError), ("dF dtype", ValueError)]
 
 
 @pytest.mark.parametrize("case,exc", CHECK_CASES,
@@ -226,6 +241,12 @@ def test_input_checks_raise_before_any_launch(fake_lib, case, exc):
         flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
         q = flat[1:].view(q.shape)
         assert q.is_contiguous() and q.data_ptr() % 16
+    elif case == "unaligned fp32":
+        # an fp32 va of e = 70 one value in: off the 8 bytes of its loads
+        q, k, vb = q.float(), k.float(), vb.float()
+        flat = torch.zeros(va.numel() + 1)
+        va = flat[1:].view(va.shape)
+        assert va.is_contiguous() and va.data_ptr() % 8
     elif case == "dF shape":
         df = df[:, :64, :64].contiguous()
     else:
@@ -233,14 +254,38 @@ def test_input_checks_raise_before_any_launch(fake_lib, case, exc):
     counters = (tb.fused_bilinear_attention.launches,
                 tb.fused_bilinear_attention_bwd.launches)
     if not case.startswith("dF"):
-        with pytest.raises(exc, match="16-byte" if case == "unaligned"
-                           else None):
+        with pytest.raises(exc, match={"unaligned": "16-byte",
+                                       "unaligned fp32": "8-byte"}.get(case)):
             tb.fused_bilinear_attention(q, k, va, vb, SIGMA)
     with pytest.raises(exc):
         tb.fused_bilinear_attention_bwd(q, k, va, vb, df, SIGMA)
     assert fake_lib.calls == []
     assert counters == (tb.fused_bilinear_attention.launches,
                         tb.fused_bilinear_attention_bwd.launches)
+
+
+@pytest.mark.parametrize("which,e,offset,ok", [
+    ("va", 70, 2, True), ("vb", 70, 2, True), ("q", 70, 2, False),
+    ("va", 64, 2, False)], ids=["va-e70-8B", "vb-e70-8B", "q-8B",
+                                "va-e64-8B"])
+def test_fp32_operand_alignment(fake_lib, which, e, offset, ok):
+    """fp32 va and vb of e = 70 load two values (8 bytes) a copy: 8 bytes
+    in launches; q, k and e = 64 rows load 16 bytes a copy and raise
+    there, forward and backward."""
+    args = list(bilinear_args(torch.float32, e))
+    i = "q k va vb".split().index(which)
+    flat = torch.zeros(args[i].numel() + offset)
+    args[i] = flat[offset:].view(args[i].shape).copy_(args[i])
+    assert args[i].data_ptr() % 16 == 8
+    calls = (lambda: tb.fused_bilinear_attention(*args[:4], SIGMA),
+             lambda: tb.fused_bilinear_attention_bwd(*args, SIGMA))
+    for call in calls:
+        if ok:
+            call()
+        else:
+            with pytest.raises(ValueError, match="16-byte"):
+                call()
+    assert len(fake_lib.calls) == (4 if ok else 0)
 
 
 def test_counters_rise_once_per_launch(fake_lib):
@@ -289,7 +334,8 @@ def test_essential_block_s_route(fake_lib, dtype, S):
     assert query == (2, N, HEADS, bf16)
     # qkv1, qkv2, pos, F, ws; B, N, C, heads, S, bf16; stream
     assert args[:2] == (q1.data_ptr(), q2.data_ptr())
-    assert args[3] == f.data_ptr() and (args[4] is None) == (not bf16)
+    assert args[3] == f.data_ptr()
+    assert args[4] is not None      # fp32 passes its scratch too
     assert args[5:11] == (2, N, C, HEADS, S, bf16)
     assert f.shape == (2, 2, HEADS, 70, 70)
 
@@ -309,12 +355,13 @@ def test_essential_block_variant_route(fake_lib, mode):
 
 
 def test_cross_variants_checks_raise_before_any_launch(fake_lib):
-    """bf16: at most 65,535 slices (2 B heads); S must divide B; the modes
-    take bf16 only."""
-    big = torch.empty((65535 // (2 * HEADS) + 1, 1, 3 * C),
-                      dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="65535"):
-        cv.essential_block_s(big, big, torch.zeros(big.shape[:2] + (6,)), 1)
+    """At most 65,535 slices (2 B heads) in either dtype; S must divide B;
+    the modes take bf16 only."""
+    for dtype in DTYPES:
+        big = torch.empty((65535 // (2 * HEADS) + 1, 1, 3 * C), dtype=dtype)
+        with pytest.raises(ValueError, match="65535"):
+            cv.essential_block_s(big, big,
+                                 torch.zeros(big.shape[:2] + (6,)), 1)
     q1, q2, pos = pair_args(torch.bfloat16)
     with pytest.raises(ValueError, match="divide"):
         cv.essential_block_s(q1, q2, pos, 3)
@@ -383,7 +430,8 @@ def test_slice_moments_mirror_matches_pallas(n, e, single, dtype):
                                     interpret=True))
     got = tc_slice_moments(*(t.float() for t in xs),
                            np.float32(SIGMA * tb.LOG2E),
-                           "single" if single else "dual", dtype)
+                           "single" if single else "dual", dtype,
+                           mirror_matmul(dtype))
     plain = tb.bilinear_attention_reference(*xs, SIGMA, single)
     for ref in (want, plain.numpy()):
         np.testing.assert_allclose(got.numpy(), ref, rtol=0,
@@ -401,11 +449,57 @@ def test_slice_bwd_mirror_matches_pallas(n, e, single, dtype):
                          single, interpret=True)
     got = [g.to(dtype) for g in tc_slice_bwd(
         *(t.float() for t in xs), df, np.float32(SIGMA * tb.LOG2E), SIGMA,
-        single, dtype)]
+        single, dtype, mirror_matmul(dtype))]
     plain = tb.bilinear_attention_bwd_reference(*xs, df, SIGMA, single)
     for name, g, w, p in zip(("dq", "dk", "dva", "dvb"), got, want, plain):
         for ref in (np.asarray(w, np.float32), p.float()):
             assert _normrel(g.float(), ref) <= TOL[dtype], name
+
+
+# ---------------------------------------------- the fp32 float64 bar --
+
+def slice_f64_errors(n, e, single, mm=tf32x3_matmul):
+    """{output: (the mirror's max |err|, the fp32 plain version's)} from
+    #8 run in float64 (``chip_smoke.bilinear_f64``, gradients by autograd
+    with va and vb separate leaves) on ``_mirror_slices`` (one slice va =
+    vb, one va != vb), for F, dq, dk, dva and dvb."""
+    xs, df = _mirror_slices(n, e, torch.float32)
+    scale = np.float32(SIGMA * tb.LOG2E)
+    got = [tc_slice_moments(*xs, scale, "single" if single else "dual",
+                            torch.float32, mm),
+           *tc_slice_bwd(*xs, df, scale, SIGMA, single, torch.float32, mm)]
+    plain = [tb.bilinear_attention_reference(*xs, SIGMA, single),
+             *tb.bilinear_attention_bwd_reference(*xs, df, SIGMA, single)]
+    leaves = [t.double().requires_grad_() for t in xs]
+    f64 = chip_smoke.bilinear_f64(*leaves, SIGMA, single)
+    ref = [f64.detach(), *torch.autograd.grad((f64 * df.double()).sum(),
+                                              leaves)]
+    err = lambda t, r: (t.double() - r).abs().max().item()
+    return {part: (err(g, r), err(p, r)) for part, g, p, r in zip(
+        ("F", "dq", "dk", "dva", "dvb"), got, plain, ref)}
+
+
+F64_CASES = [(n, e, s) for n in (576, 100) for e in (70, 64)
+             for s in (False, True)]
+
+
+@pytest.mark.parametrize("n,e,single", F64_CASES,
+                         ids=[f"N={n}-e={e}-{'single' if s else 'dual'}"
+                              for n, e, s in F64_CASES])
+def test_fp32_slice_mirror_within_float64_bar(n, e, single):
+    """#8's fp32 mirror (3xTF32 products): its max |err| from float64 at
+    most ``chip_smoke.F64_BAR`` (2) times the fp32 plain version's, per
+    output."""
+    for part, (got, plain) in slice_f64_errors(n, e, single).items():
+        assert got <= chip_smoke.F64_BAR * plain, (part, got, plain)
+
+
+def test_tf32_slice_mirror_fails_float64_bar():
+    """The same mirror with single TF32 products (hi . hi) is far outside
+    the bar, for every output: the bar tells TF32 from 3xTF32 on #8 too."""
+    for part, (got, plain) in slice_f64_errors(576, 70, False,
+                                               tf32_matmul).items():
+        assert got > 10 * chip_smoke.F64_BAR * plain, (part, got, plain)
 
 
 @pytest.fixture(scope="module")
