@@ -53,8 +53,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      moments, F-partial sum, qkv GEMM, LayerNorm -- each with the TFLOP/s
      of its executed products and its exp2 count over 3.9 T/s), the ViT
      stack in fp32 at G = 512 and 120 (beside the fp32 library stack and
-     SDPA, the bound on the 3xTF32 peak, TFLOP/s against it and the SIMT
-     peak), one fp32 reading of #2, #3, #4 (#2's parts too), and the eval
+     SDPA, the bound on the 3xTF32 peak, TFLOP/s against it), one fp32
+     reading of #2, #3, #4 (#2's parts too), and the eval
      forward in pairs/s at batch 256, 256x256 uint8, bf16, preprocessing
      included;
   5b. each backward kernel and its plain version at the training shapes of
@@ -71,16 +71,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
 
-  3c. kernel #7 (``csrc/mhsa.cu`` on the tensor cores of
-     ``csrc/attention_tc.cuh``: bf16 products, fp32 as 3xTF32) against its
+  3c. kernel #7 (``csrc/mhsa.cu``: bf16 on the wgmma + TMA kernels of
+     ``csrc/attention_wgmma.cuh``, fp32 as 3xTF32 on those of
+     ``csrc/attention_tc.cuh``) against its
      plain versions at G = 24 heads of N = 64, 100 (a ragged last tile)
      and 576, fp32 and bf16: the forward against ``mhsa_reference``, dq,
      dk, dv against ``mhsa_bwd_reference``; a second call gives the same
      bits; the row statistics the forward keeps against
      ``mhsa_stats_reference``, the backward under autograd (the forward's
-     statistics, and in fp32 its output) equal bit for bit to
-     ``fused_mhsa_bwd`` without them (bf16: its stats pass; fp32: the
-     forward with statistics first), and the forward equal with and
+     statistics and output) equal bit for bit to ``fused_mhsa_bwd``
+     without them (the forward with statistics first), and the forward
+     equal with and
      without statistics; the fp32 outputs' sha256 printed; both launch
      counters rose;
   4c. the noess slice at depth 6 with seeded weights, kernels against the
@@ -262,9 +263,10 @@ phase 9, within about 60 s:
      and #2 launched once a replica for each request;
   10b. ``tools.bench_stages``, bf16, batch 256: every stage's time
      positive, their sum within 10% of the whole forward timed alone;
-  10c. ``tools.bench_stages_bwd``, bf16, batch 60: every stage's forward
-     and backward time positive (``pre`` has no backward), their sum
-     within 10% of a forward and backward timed alone;
+  10c. ``tools.bench_stages_bwd``, bf16, batch 60, 15 iterations: every
+     stage's forward and backward time positive (``pre`` has no
+     backward), their sum within 10% of a forward and backward timed
+     alone;
   10d. ``tools.bench_train --mode step``, bf16, batch 60: its JSON line,
      pairs/s positive;
   10e. ``tools.bench_infer_latency --reps 10``: both JSON lines;
@@ -344,9 +346,8 @@ OUTPUT_DIR = pathlib.Path(__file__).resolve().parent / "output"
 # One H100 SXM (NVIDIA data sheet): the dense bf16 tensor-core peak, and
 # for fp32 the TF32 tensor cores' 495 TFLOP/s over the three TF32 products
 # of one fp32-accurate product (3xTF32), which a tensor-core kernel may
-# reach and the SIMT units' 67 may not bound; the HBM rate.
+# reach; the HBM rate.
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-SIMT_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 NVSMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]
@@ -951,9 +952,9 @@ def check_mhsa(G, dtype, device, failures, seed=SEED + 6, N=576):
 
 def check_mhsa_routes(q, k, v, do, failures, label):
     """The forward's kept (m, l) against mhsa_stats_reference; the forward
-    with and without them, and the backward from them (autograd: in fp32
-    also from the forward's o) and without them (bf16: the stats pass;
-    fp32: the forward with statistics first), bit for bit."""
+    with and without them, and the backward from them and the forward's o
+    (autograd) and without them (the forward with statistics first), bit
+    for bit."""
     from rel_pose_tpu_torch.ops import attention as ta
     o, stats = ta._launch_fwd(q, k, v, MHSA_SCALE, stats=True)
     ref = ta.mhsa_stats_reference(q, k, MHSA_SCALE)
@@ -968,11 +969,9 @@ def check_mhsa_routes(q, k, v, do, failures, label):
     same_fwd = torch.equal(o, ta.fused_mhsa(q, k, v, MHSA_SCALE)) and \
         torch.equal(o, o_grad.detach())
     same_bwd = all(torch.equal(a, b) for a, b in zip(saved, passed))
-    without = "the stats pass" if q.dtype == torch.bfloat16 else \
-        "none (the forward first)"
     log(f"[check] mhsa {label} {str(q.dtype)[6:]}: forward with / without "
         f"stats {'bit for bit' if same_fwd else 'DIFFER'}; backward from "
-        f"the forward's stats / {without} "
+        f"the forward's stats and o / none (the forward first) "
         f"{'bit for bit' if same_bwd else 'DIFFER'}")
     if not (same_fwd and same_bwd):
         failures.append(f"mhsa routes differ {label} {q.dtype}")
@@ -1207,7 +1206,8 @@ def library_stack_ms(x, stacked, pos, backward):
 
 def kernel_parts_ms(fn):
     """Device time of one ``fn()`` by part: the attention kernels
-    (``rp::tc::attn_*``), the GEMMs (``gemm_*``) and the rest."""
+    (``rp::tc::attn_*``, bf16's ``rp::tc::wg::attn_*``), the GEMMs
+    (``gemm_*``) and the rest."""
     return profile_parts_ms(fn, lambda key: (
         "attention" if "attn_" in key else
         "gemm" if "gemm_" in key else "other"))
@@ -1326,7 +1326,18 @@ def vit_attention_flops(G, N, C, depth, passes):
     return depth * passes * 2 * G * N * N * C
 
 
-def log_parts(name, parts, gemm_flops, attn_flops, card):
+# N x N x C products the attention kernels execute per sequence and block:
+# the forward (bf16 one pass with online rescaling, fp32 an exact max pass
+# first) and #5's backward (the recomputed forward and the backward's 7:
+# dq's s, dp, dq; dk / dv's s^T, dp^T, dv, dk)
+ATTN_EXEC_PASSES = {(torch.bfloat16, False): 2, (torch.bfloat16, True): 9,
+                    (torch.float32, False): 3, (torch.float32, True): 10}
+
+
+def log_parts(name, parts, gemm_flops, attn_flops, card, attn_exec=None):
+    """The GEMM and attention parts' ms and TFLOP/s of the function's
+    products, the attention part's also of the products it executes
+    (``attn_exec`` FLOPs)."""
     if not parts:
         log(f"[time] {name} parts: not measured (no device time in the "
             f"profile)")
@@ -1334,6 +1345,12 @@ def log_parts(name, parts, gemm_flops, attn_flops, card):
     for part, flops in (("gemm", gemm_flops), ("attention", attn_flops)):
         ms = parts.get(part, 0.0)
         rate = f"{flops / ms / 1e9:.2f} TFLOP/s" if ms > 0 else "n/a"
+        if part == "attention" and attn_exec and ms > 0:
+            rate += (f" of the function's products, "
+                     f"{attn_exec / ms / 1e9:.2f} TFLOP/s")
+            log(f"[time] {name} {part} part: {ms:.3f} ms, {rate} of the "
+                f"executed products ({card})")
+            continue
         log(f"[time] {name} {part} part: {ms:.3f} ms, {rate} of the "
             f"function's products ({card})")
     log(f"[time] {name} other kernels: {parts.get('other', 0.0):.3f} ms "
@@ -1346,8 +1363,7 @@ def time_vit_stack(device, card, G, backward, dtype=torch.float32):
     it, the library stack in the same dtype (fp32: cuBLAS and cuDNN with
     TF32 off, phase_device) and one SDPA call; the bound on the dtype's
     peak (fp32: 3xTF32), and the kernel's TFLOP/s of the function's
-    products against it (fp32: and the SIMT peak).  Returns the kernel's
-    row."""
+    products against it.  Returns the kernel's row."""
     from rel_pose_tpu_torch.ops import vit_stack as tv
     tag = "fp32" if dtype == torch.float32 else "bf16"
     rng = np.random.default_rng(SEED + 7)
@@ -1401,16 +1417,14 @@ def time_vit_stack(device, card, G, backward, dtype=torch.float32):
     gemm = (3 if backward else 1) * (vit_flops(G, 576, 192, 768, 5)
                                      - vit_attention_flops(G, 576, 192, 5, 2))
     log_parts(f"{name} {tag} G={G}", kernel_parts_ms(kernel), gemm, attn,
-              card)
-    simt = (f", {rate * 1e12 / SIMT_FP32_FLOPS:.1%} of "
-            f"{SIMT_FP32_FLOPS / 1e12:.0f} (SIMT)"
-            if dtype == torch.float32 else "")
+              card, vit_attention_flops(G, 576, 192, 5,
+                                        ATTN_EXEC_PASSES[dtype, backward]))
     log(f"[time] {name} {tag} G={G}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, library stack{' backward' if backward else ''}"
         f" {lib_ms:.3f} ms, one SDPA {'backward' if backward else 'call'} "
         f"{sdpa:.3f} ms, bound {b[0]:.3f} ms ({b[1]}); {rate:.2f} TFLOP/s "
         f"of the function's products, {rate * 1e12 / PEAK_FLOPS[dtype]:.1%} "
-        f"of {PEAK_FLOPS[dtype] / 1e12:.0f}{simt} ({card})")
+        f"of {PEAK_FLOPS[dtype] / 1e12:.0f} ({card})")
     return err, ms, plain_ms, lib_ms, b
 
 
@@ -1419,8 +1433,7 @@ def time_fp32(name, kernel, plain, flops, nb, card, plain_iters=3,
     """One fp32 reading of a kernel at a shape its phase checks (#2-#4 and
     #6-#9, all on the 3xTF32 tensor-core bodies): CUDA-event ms of
     ``kernel()`` and ``plain()``, the bound on the 3xTF32 peak, the
-    TFLOP/s of the function's products against it and the SIMT peak;
-    returns the row."""
+    TFLOP/s of the function's products against it; returns the row."""
     ms = cuda_time_ms(kernel, 3)
     plain_ms = cuda_time_ms(plain, plain_iters)
     b = bound(flops, nb, torch.float32)
@@ -1428,8 +1441,8 @@ def time_fp32(name, kernel, plain, flops, nb, card, plain_iters=3,
     lib = "" if lib_ms is None else f", library {lib_ms:.3f} ms"
     log(f"[time] {name} fp32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
         f"{lib}, bound {b[0]:.3f} ms ({b[1]}); {rate:.2f} TFLOP/s, "
-        f"{rate * 1e12 / PEAK_FLOPS[torch.float32]:.1%} of 165 (3xTF32), "
-        f"{rate * 1e12 / SIMT_FP32_FLOPS:.1%} of 67 (SIMT) ({card})")
+        f"{rate * 1e12 / PEAK_FLOPS[torch.float32]:.1%} of 165 (3xTF32) "
+        f"({card})")
     return None, ms, plain_ms, lib_ms, b
 
 
@@ -1491,7 +1504,9 @@ def phase_times(device, models, card):
     attn = vit_attention_flops(G, 576, 192, 5, 2)
     log_parts(f"vit_stack G={G}", kernel_parts_ms(
         lambda: fused_vit_stack(x, stacked, 3, pos)),
-        vit_flops(G, 576, 192, 768, 5) - attn, attn, card)
+        vit_flops(G, 576, 192, 768, 5) - attn, attn, card,
+        vit_attention_flops(G, 576, 192, 5,
+                            ATTN_EXEC_PASSES[dtype, False]))
     del x, stacked, pos
     rows["vit_stack fp32"] = time_vit_stack(device, card, G, False)
     rows["vit_stack fp32 G=120"] = time_vit_stack(device, card,
@@ -1772,7 +1787,8 @@ def phase_times_train(device, sd, card):
     gemm = 3 * (fwd - attn_fwd)
     log_parts(f"vit_stack_bwd G={G}", kernel_parts_ms(
         lambda: tv.fused_vit_stack_bwd(xs, g, stacked, 3)), gemm,
-        vit_attention_flops(G, 576, 192, 5, 6), card)
+        vit_attention_flops(G, 576, 192, 5, 6), card,
+        vit_attention_flops(G, 576, 192, 5, ATTN_EXEC_PASSES[dtype, True]))
     del x, stacked, pos, xs, g
 
     xpair, ln, qkvp, positional = essential_inputs(rng, B, dtype, device)
@@ -1962,10 +1978,10 @@ def phase_times_noess(device, models, sd, card):
     b = bound(10 * G_train * N * N * d, 7 * nbytes(q), dtype)
     rows["mhsa_bwd"] = (err_bwd, ms, plain_ms, lib_ms, b)
     fwd_train_ms = cuda_time_ms(lambda: ta.fused_mhsa(q, k, v, MHSA_SCALE), 5)
-    _, stats = ta._launch_fwd(q, k, v, MHSA_SCALE, stats=True)
+    o, stats = ta._launch_fwd(q, k, v, MHSA_SCALE, stats=True)
     saved_ms = cuda_time_ms(
-        lambda: ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE, stats), 5)
-    del q, k, v, do, stats
+        lambda: ta.fused_mhsa_bwd(q, k, v, do, MHSA_SCALE, stats, o), 5)
+    del q, k, v, do, o, stats
     rng32 = np.random.default_rng(SEED + 20)
     q, k, v = heads(rng32, G_eval, torch.float32, device, 3)
     rows["mhsa_fwd fp32"] = time_fp32(
@@ -1989,17 +2005,24 @@ def phase_times_noess(device, models, sd, card):
         lambda: ta.mhsa_bwd_reference(q, k, v, do, MHSA_SCALE),
         10 * G_train * N * N * d, 8 * nbytes(q), card, lib_ms=lib32_ms)
     del q, k, v, do, o, stats
+    # the bf16 kernels execute 4 N^2 d operations a head forward (one pass)
+    # and 14 backward (7 products), 18 with the forward a backward without
+    # statistics runs first
     log(f"[time] mhsa_fwd bf16 G={G_train} (training shapes): kernel "
-        f"{fwd_train_ms:.3f} ms; mhsa_bwd from the forward's stats "
+        f"{fwd_train_ms:.3f} ms; mhsa_bwd from the forward's stats and o "
         f"{saved_ms:.3f} ms, {10 * G_train * N * N * d / saved_ms / 1e9:.1f}"
-        f" TFLOP/s ({card})")
-    for name, G, per_head in (("mhsa_fwd", G_eval, 4),
-                              ("mhsa_bwd", G_train, 10)):
+        f" TFLOP/s of the function's products, "
+        f"{14 * G_train * N * N * d / saved_ms / 1e9:.1f} TFLOP/s of the "
+        f"executed products ({card})")
+    for name, G, per_head, executed in (("mhsa_fwd", G_eval, 4, 4),
+                                        ("mhsa_bwd", G_train, 10, 18)):
         err, ms, plain_ms, lib_ms, (b_ms, b_by) = rows[name]
         log(f"[time] {name} bf16 G={G}: kernel {ms:.3f} ms "
             f"({per_head * G * N * N * d / ms / 1e9:.1f} TFLOP/s of the "
-            f"function's products), plain {plain_ms:.3f} ms, library "
-            f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) ({card})")
+            f"function's products, "
+            f"{executed * G * N * N * d / ms / 1e9:.1f} of the executed), "
+            f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}) ({card})")
 
     B = EVAL_BATCH
     images = torch.from_numpy(rng.integers(
@@ -3961,7 +3984,8 @@ def phase_tooling(device, card, eval_ms, train_bf16_ms):
     pair / 989e12 within 1e-6 relative; every MFU in (0, 1).
     9b: ``trace(dir)`` around 2 eval forwards: the Chrome trace parses and
     holds device events of #1 (``tc::gemm_fwd_kernel``,
-    ``tc::attn_fwd_kernel``) and #2 (``eb_moments_kernel``).
+    ``attn_fwd_kernel``: bf16's ``tc::wg::``, fp32's ``tc::``) and #2
+    (``eb_moments_kernel``).
     9c: the flagship bf16 after 2 steps: ``save_checkpoint``, then
     ``AsyncCheckpointer.save`` and 2 more steps at once, then ``close()``:
     both files equal tensor by tensor; the training thread's ms in
@@ -4052,7 +4076,7 @@ def phase_tooling(device, card, eval_ms, train_bf16_ms):
                     model(images, intr)
         names = trace_kernel_names(prof.trace_path)
         found = {k: sorted(n for n in names if k in n)[:1] for k in (
-            "tc::gemm_fwd_kernel", "tc::attn_fwd_kernel",
+            "tc::gemm_fwd_kernel", "attn_fwd_kernel",
             "eb_moments_kernel")}
         log(f"[tooling] 9b trace {prof.trace_path} "
             f"({os.path.getsize(prof.trace_path)} bytes), {len(names)} "
@@ -4155,6 +4179,15 @@ SHARD_BATCH = 8
 # the stages' sum against the whole timed alone: the events cost little,
 # so a gap beyond this is a stage missed or counted twice
 STAGE_SUM_RTOL = 0.10
+# 10c's iterations: the training step is partly bound by the host
+# enqueuing it, so one iteration's staged or plain step spreads 5-15% on
+# an H100 host, and a median of 5 can land 10% off; 15 narrow it
+STAGES_BWD_ITERS = 15
+
+
+def fmt_ms(values):
+    """A list of ms as ``[a, b, ...]`` to 3 decimals."""
+    return "[" + ", ".join(f"{v:.3f}" for v in values) + "]"
 
 
 def tool_json(main, argv):
@@ -4258,7 +4291,7 @@ def phase_tools(device, card):
          ("vit_stack", "essential_block_pair")),
         ("10c bench_stages_bwd", bench_stages_bwd.main,
          ["--dtype", "bfloat16", "--batch", str(TRAIN_BATCH), "--iters",
-          "5"], tuple(counters)),
+          str(STAGES_BWD_ITERS)], tuple(counters)),
         ("10d bench_train", bench_train.main,
          ["--mode", "step", "--dtype", "bfloat16", "--batch",
           str(TRAIN_BATCH), "--iters", "5"], tuple(counters)),
@@ -4296,12 +4329,17 @@ def phase_tools(device, card):
             if k != "pre" and not (v or 0) > 0]
     total = bw["forward_sum_ms"] + bw["backward_sum_ms"]
     gap = abs(total - bw["step_ms"]) / bw["step_ms"]
+    each = (f"each iteration's staged step {fmt_ms(bw['staged_ms_each'])}, "
+            f"plain step {fmt_ms(bw['step_ms_each'])} ms, the host enqueuing "
+            f"it {fmt_ms(bw['host_ms_each'])} ms; allocator retries "
+            f"{bw['alloc_retries']}, cudaMalloc calls {bw['device_allocs']}")
     log(f"[tools] 10c training forward + backward bf16 batch "
         f"{TRAIN_BATCH}: stages {bw['forward_sum_ms']:.3f} + "
         f"{bw['backward_sum_ms']:.3f} ms against {bw['step_ms']:.3f} alone "
-        f"({100 * gap:.2f}% apart; {card})")
+        f"({100 * gap:.2f}% apart; {card}); {each}")
     if bad or not gap <= STAGE_SUM_RTOL:
-        failures.append(f"10c stages {bad}, sum {100 * gap:.2f}% apart")
+        failures.append(f"10c stages {bad}, sum {100 * gap:.2f}% apart; "
+                        f"{each}")
     (tr,) = records["10d bench_train"]
     if not (tr["metric"] == "train_step_ms" and tr["pairs_per_sec"] > 0):
         failures.append(f"10d {tr}")
@@ -4750,9 +4788,9 @@ def main():
         "essential_block_bwd": (
             "rel_pose_tpu_torch/csrc/essential_block_bwd.cu",
             "rel_pose_tpu/ops/pallas_essential_block_bwd.py:35"),
-        "mhsa_fwd": ("rel_pose_tpu_torch/csrc/attention_tc.cuh",
+        "mhsa_fwd": ("rel_pose_tpu_torch/csrc/attention_wgmma.cuh",
                      "rel_pose_tpu/ops/pallas_attention.py:53"),
-        "mhsa_bwd": ("rel_pose_tpu_torch/csrc/attention_tc.cuh",
+        "mhsa_bwd": ("rel_pose_tpu_torch/csrc/attention_wgmma.cuh",
                      "rel_pose_tpu/ops/pallas_attention.py:69"),
         "essential_block": ("rel_pose_tpu_torch/csrc/essential_block.cu",
                             "rel_pose_tpu/ops/pallas_essential_block.py:213"),

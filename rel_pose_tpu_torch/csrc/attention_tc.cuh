@@ -1,6 +1,11 @@
 // Softmax attention over 64-wide heads on the tensor cores, forward and
 // backward: the ViT stack's self-attention (kernels #1 and #5) and the
-// --noess cross attention (kernel #7), each in bf16 and fp32.
+// --noess cross attention (kernel #7).  This header holds the two layouts
+// and the fp32 body; bf16 runs the wgmma + TMA body of attention_wgmma.cuh,
+// to which attention_fwd / attention_bwd below send it.  Its 64-row tile
+// helpers (load_tile, load_afrag, mma_abt, mma_ab, to_afrag in both element
+// types, AttnFrags; bf16's to_afrag in attention_wgmma.cuh) are also the
+// essential block's (essential_tc.cuh).
 //
 // Replaces
 //   - rel_pose_tpu/ops/pallas_vit.py:_vit_stack_kernel (forward, with the
@@ -14,54 +19,48 @@
 // The kernels take base pointers and row strides, and are templates on a
 // layout type, which says in which dtype the cotangent arrives and the
 // gradients leave, and the two rounding points in which the two Pallas
-// kernels differ, and on the element type E, which picks the product as
-// gemm_tc.cuh does: bf16 m16n8k16, or fp32 as 3xTF32 on m16n8k8 (each
+// kernels differ.  fp32 products run as 3xTF32 on mma.sync m16n8k8 (each
 // operand split into TF32 hi + lo in registers, hi.hi + hi.lo + lo.hi
 // summed in fp32: fp32 accuracy).
 //
-// What bounds them on the H100: the products, 2 N^2 d multiply-adds a head
-// for the forward's two (QK^T, PV), which at N = 576 and d = 64 is 64
-// operations per byte of bf16 q, k, v and o -- below the 295 of the bf16
-// tensor cores, so at full rate HBM would bound them -- and 32 in fp32, at
-// 3xTF32's 165 TFLOP/s below its 49; here the mma.sync throughput, the
-// exp2 of every score and, in fp32, the split of every operand decide.
+// What bounds the fp32 kernels on the H100: the products, 2 N^2 d
+// multiply-adds a head for the forward's two (QK^T, PV), 32 operations per
+// byte of fp32 q, k, v and o at N = 576 and d = 64 -- under the 49 of
+// 3xTF32's 165 TFLOP/s, so at full rate HBM would bound them; here the
+// mma.sync throughput, the exp2 of every score and the split of every
+// operand decide.
 //
 // Design: one block of 4 warps per (64-query or 64-key tile, head,
 // sequence); each warp owns 16 rows, and every product is mma.sync with its
-// operands from padded 64 x 64 shared-memory tiles (bf16: ldmatrix, .trans
-// where the product reads a tile along its rows; fp32: 32-bit loads, and
-// an accumulator reused as the next product's A operand keeps its
-// registers, the k index permuted so that key 2t sits in slot t and key
-// 2t + 1 in slot t + 4 of each 8-key step, B read in the same order).
-// Scores stay in registers and the Pallas kernels' rounding points are
-// kept exactly, with no online rescaling (T is E: bf16 rounds, fp32 keeps
-// the value):
+// operands from padded 64 x 64 shared-memory tiles (32-bit loads; an
+// accumulator reused as the next product's A operand keeps its registers,
+// the k index permuted so that key 2t sits in slot t and key 2t + 1 in slot
+// t + 4 of each 8-key step, B read in the same order).  Scores stay in
+// registers and the Pallas kernels' rounding points are kept exactly, with
+// no online rescaling:
 //   forward: a first pass over the key tiles takes the exact row max m of
 //     s = (q . k) * scale (scale = d^-1/2 log2 e, the product rounded on
-//     its own); a second recomputes s, e = exp2(s - m), the fp32 row sum l,
-//     P = T(e) and P . v; o = T(layout's normalize(P . v, l)).  That is
-//     3 N^2 d multiply-adds instead of 2, the price of exact statistics
-//     without 147 KB of score rows in shared memory.  With `stats`, (m, l)
-//     per row.  Without its values (P . v) the same kernel is #7's stats
-//     pass: the same (m, l) bits for a backward whose forward kept none.
-//   dq (per query tile, (m, l) from stats): a first pass forms e and
-//     dp = T(do) . v^T and c = sum(dp e) / l; a second recomputes them,
-//     ds = T(layout's ds(e, dp, c, l)) and dq = ds . k.  fp32 takes c =
-//     do . o from the forward's output instead (equal in exact
-//     arithmetic) and makes the second pass alone.  c goes to stats, and
-//     T(do / l) to scratch (and, for the ViT's bf16 products, T(do) of its
-//     fp32 cotangent), for the dk / dv kernel.
+//     its own); a second recomputes s, e = exp2(s - m), the fp32 row sum l
+//     and e . v; o = layout's normalize(e . v, l).  That is 3 N^2 d
+//     multiply-adds instead of 2, the price of exact statistics without
+//     147 KB of score rows in shared memory.  With `stats`, (m, l) per row.
+//   dq (per query tile, (m, l) from stats): c = do . o from the forward's
+//     output (equal to sum(dp e) / l in exact arithmetic), then one pass:
+//     e, dp = do . v^T, ds = layout's ds(e, dp, c, l) and dq = ds . k.  c
+//     goes to stats, and do / l to scratch, for the dk / dv kernel.
 //   dk, dv (per key tile, walking the query tiles): s^T = k . q^T and
-//     dp^T = v . T(do)^T, with each query's (m, l, c) from stats;
-//     dv += T(e)^T . T(do / l), dk += T(ds)^T . q.
+//     dp^T = v . do^T, with each query's (m, l, c) from stats;
+//     dv += e^T . (do / l), dk += ds^T . q.
 // Rows >= N load as zeros and keys >= N are masked out of every sum.
-// Tiles stream through cp.async rings (2 stages; fp32's dk / dv kernel 1,
-// so that two of its 87 KB blocks share an SM): the next step's tiles load
-// while this step's products run.  Every sum runs in a fixed order and
-// nothing uses atomics: two calls give the same bits.
+// Tiles stream through cp.async (the forward and dq kernels a 2-stage ring;
+// the dk / dv kernel one stage, so that two of its 87 KB blocks share an
+// SM): the next step's tiles load while this step's products run.  Every
+// sum runs in a fixed order and nothing uses atomics: two calls give the
+// same bits.
 
 #pragma once
 
+#include "attention_wgmma.cuh"
 #include "gemm_tc.cuh"
 
 namespace rp {
@@ -152,19 +151,6 @@ __device__ __forceinline__ void mma_ab(float (&o)[8][4],
     }
 }
 
-// an accumulator tile [16 x 64] rounded to bf16 as A fragments of the next
-// product (its columns become the sum index)
-__device__ __forceinline__ void to_afrag(unsigned (&f)[4][4],
-                                         const float (&s)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    f[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    f[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    f[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    f[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-}
-
 // fp32 (3xTF32) counterparts.  An A operand read from a tile stays there
 // (SmemA: its fragments are loaded and split at each product, which keeps
 // the registers of a 64-deep hi / lo fragment set free); an accumulator
@@ -248,40 +234,16 @@ template <>
 struct AttnFrags<bf16> {
   using A = unsigned[4][4];  // a tile's fragments, ldmatrix
   using P = unsigned[4][4];  // T(accumulator), packed
-  static constexpr int kDkvStages = 2;
-  static constexpr int kFwdMinBlocks = 4;
 };
 template <>
 struct AttnFrags<float> {
   using A = SmemA;
   using P = PF32;
-  static constexpr int kDkvStages = 1;
-  static constexpr int kFwdMinBlocks = 2;
 };
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// column of s[ni][e] within its 64-wide tile
-__device__ __forceinline__ int acc_col(int ni, int e) {
-  return ni * 8 + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
-// 4-byte cp.async (zero-filled when !ok)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
+// the fp32 kernels' tiles
+constexpr int kFLd = tile_ld<float>();
+constexpr int kFTileElems = tile_elems<float>();
 
 // -------------------------------------------------------------- layouts --
 // Both layouts address a (sequence g, head h)'s rows alike: q, k, v and
@@ -315,8 +277,7 @@ struct Interleaved {
 };
 
 // Kernel #7: the cotangent arrives in the element type and the kernels
-// read it as it is; dq, dk, dv go out in it alone (bf16 rounded, fp32
-// through put_grad's fp32 branch).
+// read it as it is; dq, dk, dv go out in it alone.
 template <typename E>
 struct Separate {
   using Dout = E;
@@ -330,18 +291,10 @@ struct Separate {
   }
 };
 
-// two adjacent columns of dq, dk or dv at element o: in fp32 to f where the
-// layout keeps it (always for fp32 products), in bf16 to b for bf16 ones
-template <typename L, typename E>
-__device__ __forceinline__ void put_grad(float* f, E* b, size_t o, float x,
+// two adjacent columns of fp32 dq, dk or dv at element o
+__device__ __forceinline__ void put_grad(float* f, size_t o, float x,
                                          float y) {
-  if constexpr (sizeof(E) == 4) {
-    *reinterpret_cast<float2*>(f + o) = make_float2(x, y);
-  } else {
-    if constexpr (L::kF32Grads)
-      *reinterpret_cast<float2*>(f + o) = make_float2(x, y);
-    *reinterpret_cast<__nv_bfloat162*>(b + o) = __floats2bfloat162_rn(x, y);
-  }
+  *reinterpret_cast<float2*>(f + o) = make_float2(x, y);
 }
 
 // ------------------------------------------------------------ forward --
@@ -349,40 +302,35 @@ __device__ __forceinline__ void put_grad(float* f, E* b, size_t o, float x,
 // The key tiles are walked twice (the max pass, then the P . v pass) as
 // one sequence of 2 nk steps through a 2-stage cp.async ring: the next
 // step's k (and, in the second pass, v) tile loads while this one's
-// products run.  Without kValues only (m, l) are formed and written.
-// bf16: four blocks an SM, at most 128 registers a thread; fp32: two of
-// its 87 KB blocks.
-template <typename E>
-__host__ __device__ constexpr size_t fwd_smem_bytes() {
-  return 5 * tile_elems<E>() * sizeof(E);
-}
+// products run.  Two of its 87 KB blocks an SM.
+constexpr size_t kFwdSmemBytes = 5 * kFTileElems * sizeof(float);
 
-template <typename L, bool kValues, typename E>
-__global__ void __launch_bounds__(kAThreads, AttnFrags<E>::kFwdMinBlocks)
-attn_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                const E* __restrict__ v, E* __restrict__ out,
+template <typename L>
+__global__ void __launch_bounds__(kAThreads, 2)
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out,
                 float* __restrict__ stats, int N, int ld, int ldo,
                 float scale) {
-  constexpr int TE = tile_elems<E>();
+  constexpr int TE = kFTileElems;
   extern __shared__ __align__(128) unsigned char attn_smem[];
   // q, then the 2-stage rings of k and v tiles.  A stage's tile is found
   // by arithmetic: an array of tile pointers indexed by the stage went to
   // local memory, and the bf16 forward spilled and ran 6% slower (H100).
-  E* Qs = reinterpret_cast<E*>(attn_smem);
+  float* Qs = reinterpret_cast<float*>(attn_smem);
   auto Ks = [&](int st) { return Qs + (1 + st) * TE; };
   auto Vs = [&](int st) { return Qs + (3 + st) * TE; };
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
   const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
-  const E* qb = q + in0;
-  const E* kb = k + in0;
-  const E* vb = v + in0;
+  const float* qb = q + in0;
+  const float* kb = k + in0;
+  const float* vb = v + in0;
   const int nk = (N + kAT - 1) / kAT;
 
   load_tile(Qs, qb, ld, q0, N);
   load_tile(Ks(0), kb, ld, 0, N);
   cp_async_commit();
-  typename AttnFrags<E>::A qf;
+  SmemA qf;
   float mx[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   float o[8][4] = {};
@@ -393,7 +341,7 @@ attn_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
     if (tn < 2 * nk) {
       const int kn = (tn % nk) * kAT;
       load_tile(Ks(tn & 1), kb, ld, kn, N);
-      if (kValues && tn >= nk) load_tile(Vs(tn & 1), vb, ld, kn, N);
+      if (tn >= nk) load_tile(Vs(tn & 1), vb, ld, kn, N);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -425,32 +373,22 @@ attn_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
         l[e >> 1] += ev;
         s[ni][e] = ev;
       }
-    if constexpr (kValues) {
-      typename AttnFrags<E>::P pf;
-      to_afrag(pf, s);  // P = T(e)
-      mma_ab(o, pf, Vs(t & 1));
-    }
+    mma_ab(o, s, Vs(t & 1));
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
 
-  E* ob = out + (size_t)g * N * ldo + h * kHeadDim;
+  float* ob = out + (size_t)g * N * ldo + h * kHeadDim;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + warp * 16 + (lane >> 2) + half * 8;
     if (row >= N) continue;
-    if constexpr (kValues) {
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const float x = L::normalize(o[ni][2 * half], l[half]);
-        const float y = L::normalize(o[ni][2 * half + 1], l[half]);
-        E* dst = ob + (size_t)row * ldo + acc_col(ni, 0);
-        if constexpr (sizeof(E) == 4)
-          *reinterpret_cast<float2*>(dst) = make_float2(x, y);
-        else
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(x, y);
-      }
+    for (int ni = 0; ni < 8; ++ni) {
+      const float x = L::normalize(o[ni][2 * half], l[half]);
+      const float y = L::normalize(o[ni][2 * half + 1], l[half]);
+      *reinterpret_cast<float2*>(ob + (size_t)row * ldo + acc_col(ni, 0)) =
+          make_float2(x, y);
     }
     if (stats && (lane & 3) == 0) {
       float* st = stats + (((size_t)g * gridDim.y + h) * N + row) * 3;
@@ -462,42 +400,37 @@ attn_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
 
 // ------------------------------------------------------------------ dq --
 // dq for 64 query rows of (g, h); reads (m, l) from stats, writes c there.
-// Also writes T(do / l) of its rows to dnb (and, for bf16 products of an
-// fp32 cotangent, T(do) to dob), in the layout of do, the dk / dv kernel's
-// operands.  bf16: two passes over the key tiles (c = sum(dp e) / l, then
-// dq) through a 2-stage ring of k and v tiles.  fp32: one pass, with c =
-// do . o from the forward's output o (in the layout of do; it may alias
-// dnb, each element read before it is written, by the same thread) -- the
-// same value in exact arithmetic, P . v = o l, for 3 N^2 d products in
-// place of 5.  dq goes to fq (fp32, where the layout keeps it or the
-// products are fp32) and gq (bf16 products).
-template <typename E>
-__host__ __device__ constexpr size_t dq_smem_bytes() {
-  return 6 * tile_elems<E>() * sizeof(E);
-}
+// Also writes do / l of its rows to dnb, in the layout of do, the dk / dv
+// kernel's operand.  One pass over the key tiles through a 2-stage ring of
+// k and v tiles, with c = do . o from the forward's output o (in the
+// layout of do; it may alias dnb, each element read before it is written,
+// by the same thread) -- the same value in exact arithmetic as the Pallas
+// kernel's sum(dp e) / l, P . v = o l, for 3 N^2 d products in place of 5.
+// dq goes to fq.
+constexpr size_t kDqSmemBytes = 6 * kFTileElems * sizeof(float);
 
-template <typename L, typename E>
+template <typename L>
 __global__ void __launch_bounds__(kAThreads)
-attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
-               const E* __restrict__ v,
+attn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v,
                const typename L::Dout* __restrict__ dout,
-               float* __restrict__ stats, E* __restrict__ dob, E* dnb,
-               const E* ofwd, float* __restrict__ fq, E* __restrict__ gq,
-               int N, int ld, int ldo, float scale, float sm_scale) {
-  constexpr int TE = tile_elems<E>(), LD = tile_ld<E>();
-  constexpr int kPasses = sizeof(E) == 4 ? 1 : 2;
-  __shared__ float crow[kAT];  // fp32: c of the tile's rows
+               float* __restrict__ stats, float* dnb, const float* ofwd,
+               float* __restrict__ fq, int N, int ld, int ldo, float scale,
+               float sm_scale) {
+  constexpr int TE = kFTileElems, LD = kFLd;
+  static_assert(sizeof(typename L::Dout) == 4, "fp32 cotangent");
+  __shared__ float crow[kAT];  // c of the tile's rows
   extern __shared__ __align__(128) unsigned char attn_smem[];
-  E* Qs = reinterpret_cast<E*>(attn_smem);
-  E* DOs = Qs + TE;
-  E* Ks[2] = {Qs + 2 * TE, Qs + 3 * TE};
-  E* Vs[2] = {Qs + 4 * TE, Qs + 5 * TE};
+  float* Qs = reinterpret_cast<float*>(attn_smem);
+  float* DOs = Qs + TE;
+  float* Ks[2] = {Qs + 2 * TE, Qs + 3 * TE};
+  float* Vs[2] = {Qs + 4 * TE, Qs + 5 * TE};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
   const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
-  const E* qb = q + in0;
-  const E* kb = k + in0;
-  const E* vb = v + in0;
+  const float* qb = q + in0;
+  const float* kb = k + in0;
+  const float* vb = v + in0;
   float* st = stats + ((size_t)g * gridDim.y + h) * N * 3;
   const size_t obase = (size_t)g * N * ldo + h * kHeadDim;
   const int nk = (N + kAT - 1) / kAT;
@@ -506,58 +439,31 @@ attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
   load_tile(Ks[0], kb, ld, 0, N);
   load_tile(Vs[0], vb, ld, 0, N);
   cp_async_commit();
-  // T(do) into the tile, T(do / l) to dnb
+  // do into the tile, do / l to dnb
 #pragma unroll
   for (int u = 0; u < kAT * kHeadDim / 4 / kAThreads; ++u) {
     const int c = tid + u * kAThreads, r = c >> 4, cc = (c & 15) * 4;
     const int row = q0 + r;
-    if constexpr (sizeof(E) == 4) {
-      static_assert(sizeof(typename L::Dout) == 4, "fp32 cotangent");
-      // every lane reaches the shuffles: rows >= N add zeros
-      const bool ok = row < N;
-      const size_t at = obase + (size_t)(ok ? row : 0) * ldo + cc;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-      if (ok) {
-        x = __ldg(reinterpret_cast<const float4*>(dout + at));
-        y = *reinterpret_cast<const float4*>(ofwd + at);
-      }
-      // c = do . o over the row's 16 threads (a half warp), in fixed order
-      float cp = x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+    // every lane reaches the shuffles: rows >= N add zeros
+    const bool ok = row < N;
+    const size_t at = obase + (size_t)(ok ? row : 0) * ldo + cc;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (ok) {
+      x = __ldg(reinterpret_cast<const float4*>(dout + at));
+      y = *reinterpret_cast<const float4*>(ofwd + at);
+    }
+    // c = do . o over the row's 16 threads (a half warp), in fixed order
+    float cp = x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        cp += __shfl_xor_sync(0xffffffffu, cp, off);
-      *reinterpret_cast<float4*>(DOs + r * LD + cc) = x;
-      if ((c & 15) == 0) crow[r] = cp;
-      if (ok) {
-        const float li = st[(size_t)row * 3 + 1];
-        *reinterpret_cast<float4*>(dnb + at) =
-            make_float4(x.x / li, x.y / li, x.z / li, x.w / li);
-        if ((c & 15) == 0) st[(size_t)row * 3 + 2] = cp;
-      }
-    } else {
-      if (row >= N) {
-        *reinterpret_cast<uint2*>(DOs + r * LD + cc) = make_uint2(0u, 0u);
-        continue;
-      }
-      const size_t o = obase + (size_t)row * ldo + cc;
-      float4 x;
-      uint2 d;
-      if constexpr (L::kF32Grads) {
-        x = __ldg(reinterpret_cast<const float4*>(dout + o));
-        d = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-        *reinterpret_cast<uint2*>(dob + o) = d;
-      } else {
-        d = __ldg(reinterpret_cast<const uint2*>(dout + o));
-        const float2 lo = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&d.x));
-        const float2 hi = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&d.y));
-        x = make_float4(lo.x, lo.y, hi.x, hi.y);
-      }
+    for (int off = 8; off > 0; off >>= 1)
+      cp += __shfl_xor_sync(0xffffffffu, cp, off);
+    *reinterpret_cast<float4*>(DOs + r * LD + cc) = x;
+    if ((c & 15) == 0) crow[r] = cp;
+    if (ok) {
       const float li = st[(size_t)row * 3 + 1];
-      *reinterpret_cast<uint2*>(DOs + r * LD + cc) = d;
-      *reinterpret_cast<uint2*>(dnb + o) = make_uint2(
-          pack_bf16(x.x / li, x.y / li), pack_bf16(x.z / li, x.w / li));
+      *reinterpret_cast<float4*>(dnb + at) =
+          make_float4(x.x / li, x.y / li, x.z / li, x.w / li);
+      if ((c & 15) == 0) st[(size_t)row * 3 + 2] = cp;
     }
   }
   float m[2], l[2];
@@ -568,13 +474,13 @@ attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
     l[half] = row < N ? st[(size_t)row * 3 + 1] : 1.f;
   }
 
-  typename AttnFrags<E>::A qf, df;
+  SmemA qf, df;
   float s[8][4], dp[8][4];
-  float csum[2] = {0.f, 0.f}, c[2];
+  float c[2];
   float dq[8][4] = {};
-  for (int t = 0; t < kPasses * nk; ++t) {
+  for (int t = 0; t < nk; ++t) {
     __syncthreads();
-    if (kPasses == 1 && t == 0) {  // crow is complete
+    if (t == 0) {  // crow is complete
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = warp * 16 + (lane >> 2) + half * 8;
@@ -582,8 +488,8 @@ attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
       }
     }
     const int tn = t + 1;
-    if (tn < kPasses * nk) {
-      const int kn = (tn % nk) * kAT;
+    if (tn < nk) {
+      const int kn = tn * kAT;
       load_tile(Ks[tn & 1], kb, ld, kn, N);
       load_tile(Vs[tn & 1], vb, ld, kn, N);
     }
@@ -594,7 +500,7 @@ attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
       load_afrag(qf, Qs);
       load_afrag(df, DOs);
     }
-    const int k0 = (t % nk) * kAT;
+    const int k0 = t * kAT;
     mma_abt(s, qf, Ks[t & 1]);
     mma_abt(dp, df, Vs[t & 1]);
 #pragma unroll
@@ -604,21 +510,6 @@ attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
         s[ni][e] = k0 + acc_col(ni, e) < N
                        ? exp2f(__fmul_rn(s[ni][e], scale) - m[e >> 1])
                        : 0.f;
-    if (kPasses == 2 && t < nk) {
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) csum[e >> 1] += dp[ni][e] * s[ni][e];
-      if (t == nk - 1) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          c[half] = quad_sum(csum[half]) / l[half];
-          const int row = q0 + warp * 16 + (lane >> 2) + half * 8;
-          if (row < N && (lane & 3) == 0) st[(size_t)row * 3 + 2] = c[half];
-        }
-      }
-      continue;
-    }
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
@@ -626,9 +517,7 @@ attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
         const int r = e >> 1;
         dp[ni][e] = L::ds(s[ni][e], dp[ni][e], c[r], l[r], scale, sm_scale);
       }
-    typename AttnFrags<E>::P dsf;
-    to_afrag(dsf, dp);  // T(ds)
-    mma_ab(dq, dsf, Ks[t & 1]);
+    mma_ab(dq, dp, Ks[t & 1]);
   }
 
 #pragma unroll
@@ -637,103 +526,86 @@ attn_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
     if (row >= N) continue;
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
-      put_grad<L>(fq, gq, in0 + (size_t)row * ld + acc_col(ni, 0),
-                  dq[ni][2 * half], dq[ni][2 * half + 1]);
+      put_grad(fq, in0 + (size_t)row * ld + acc_col(ni, 0), dq[ni][2 * half],
+               dq[ni][2 * half + 1]);
   }
 }
 
 // ------------------------------------------------------------- dk, dv --
 // dk and dv for 64 keys of (g, h), walking every query tile through a
-// cp.async ring of (q, T(do), T(do / l), (m, l, c)) tiles (2 stages for
-// bf16; 1 for fp32, whose 2-stage block would take 141 KB, one an SM);
-// dob is T(do) in the layout of do (the cotangent itself for kernel #7
-// and fp32).  dk and dv go to fk, fv (fp32, where the layout keeps them)
-// and gk, gv (bf16 products).
+// one-stage cp.async buffer of (q, do, do / l, (m, l, c)) tiles (two
+// stages would take 141 KB, one block an SM); do is the cotangent itself.
+// dk and dv go to fk, fv.
 constexpr int kDkvStats = 3 * kAT;  // (m, l, c) of a query tile
+constexpr size_t kDkvSmemBytes =
+    5 * kFTileElems * sizeof(float) + kDkvStats * sizeof(float);
 
-template <typename E>
-__host__ __device__ constexpr size_t dkv_smem_bytes() {
-  constexpr int S = AttnFrags<E>::kDkvStages;
-  return (2 + 3 * S) * tile_elems<E>() * sizeof(E) +
-         S * kDkvStats * sizeof(float);
-}
-
-template <typename L, typename E>
+template <typename L>
 __global__ void __launch_bounds__(kAThreads)
-attn_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                const E* __restrict__ v, const E* __restrict__ dob,
-                const E* __restrict__ dnb, const float* __restrict__ stats,
-                float* __restrict__ fk, float* __restrict__ fv,
-                E* __restrict__ gk, E* __restrict__ gv, int N, int ld,
-                int ldo, float scale, float sm_scale) {
-  constexpr int S = AttnFrags<E>::kDkvStages, TE = tile_elems<E>();
+attn_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dob,
+                const float* __restrict__ dnb,
+                const float* __restrict__ stats, float* __restrict__ fk,
+                float* __restrict__ fv, int N, int ld, int ldo, float scale,
+                float sm_scale) {
+  constexpr int TE = kFTileElems;
   extern __shared__ __align__(128) unsigned char attn_smem[];
-  E* Ks = reinterpret_cast<E*>(attn_smem);
-  E* Vs = Ks + TE;
-  E* Qs[2] = {Ks + 2 * TE, Ks + (2 + S - 1) * TE};
-  E* DOs[2] = {Ks + (2 + S) * TE, Ks + (2 + 2 * S - 1) * TE};
-  E* DNs[2] = {Ks + (2 + 2 * S) * TE, Ks + (2 + 3 * S - 1) * TE};
-  // [S][192]
-  float* Ss = reinterpret_cast<float*>(Ks + (2 + 3 * S) * TE);
+  float* Ks = reinterpret_cast<float*>(attn_smem);
+  float* Vs = Ks + TE;
+  float* Qs = Ks + 2 * TE;
+  float* DOs = Ks + 3 * TE;
+  float* DNs = Ks + 4 * TE;
+  float* Ss = Ks + 5 * TE;  // [192]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k0 = blockIdx.x * kAT, h = blockIdx.y, g = blockIdx.z;
   const size_t in0 = (size_t)g * N * ld + h * kHeadDim;
-  const E* qb = q + in0;
+  const float* qb = q + in0;
   const size_t obase = (size_t)g * N * ldo + h * kHeadDim;
   const float* st = stats + ((size_t)g * gridDim.y + h) * N * 3;
   const int nq = (N + kAT - 1) / kAT;
 
-  auto prefetch = [&](int q0, int stage) {
-    load_tile(Qs[stage], qb, ld, q0, N);
-    load_tile(DOs[stage], dob + obase, ldo, q0, N);
-    load_tile(DNs[stage], dnb + obase, ldo, q0, N);
+  auto prefetch = [&](int q0) {
+    load_tile(Qs, qb, ld, q0, N);
+    load_tile(DOs, dob + obase, ldo, q0, N);
+    load_tile(DNs, dnb + obase, ldo, q0, N);
     const int valid = 3 * min(kAT, N - q0);
     for (int i = tid; i < kDkvStats; i += kAThreads)
-      cp_async4(Ss + stage * kDkvStats + i,
-                st + (size_t)q0 * 3 + (i < valid ? i : 0), i < valid);
+      cp_async4(Ss + i, st + (size_t)q0 * 3 + (i < valid ? i : 0),
+                i < valid);
   };
   load_tile(Ks, k + in0, ld, k0, N);
   load_tile(Vs, v + in0, ld, k0, N);
-  if constexpr (S == 2) prefetch(0, 0);
   cp_async_commit();
 
-  typename AttnFrags<E>::A kf, vf;
+  SmemA kf, vf;
   float dk[8][4] = {}, dv[8][4] = {};
   float s[8][4], dp[8][4];
   for (int it = 0; it < nq; ++it) {
-    __syncthreads();  // the stage loaded below was read at it - 1
-    if constexpr (S == 2) {
-      if (it + 1 < nq) prefetch((it + 1) * kAT, (it + 1) & 1);
-    } else {
-      prefetch(it * kAT, 0);
-    }
+    __syncthreads();  // the buffer loaded below was read at it - 1
+    prefetch(it * kAT);
     cp_async_commit();
-    cp_async_wait<S - 1>();
+    cp_async_wait<0>();
     __syncthreads();
     if (it == 0) {
       load_afrag(kf, Ks);
       load_afrag(vf, Vs);
     }
-    const int q0 = it * kAT, b = S == 2 ? it & 1 : 0;
-    const float* sr = Ss + b * kDkvStats;
-    mma_abt(s, kf, Qs[b]);    // s^T: rows keys, columns queries
-    mma_abt(dp, vf, DOs[b]);  // dp^T
+    const int q0 = it * kAT;
+    mma_abt(s, kf, Qs);    // s^T: rows keys, columns queries
+    mma_abt(dp, vf, DOs);  // dp^T
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = acc_col(ni, e);
         const bool ok = q0 + j < N;
-        const float mj = sr[3 * j], lj = sr[3 * j + 1], cj = sr[3 * j + 2];
+        const float mj = Ss[3 * j], lj = Ss[3 * j + 1], cj = Ss[3 * j + 2];
         const float ev = exp2f(__fmul_rn(s[ni][e], scale) - mj);
         s[ni][e] = ok ? ev : 0.f;
         dp[ni][e] = ok ? L::ds(ev, dp[ni][e], cj, lj, scale, sm_scale) : 0.f;
       }
-    typename AttnFrags<E>::P pf, dsf;
-    to_afrag(pf, s);    // T(e)^T
-    to_afrag(dsf, dp);  // T(ds)^T
-    mma_ab(dv, pf, DNs[b]);
-    mma_ab(dk, dsf, Qs[b]);
+    mma_ab(dv, s, DNs);
+    mma_ab(dk, dp, Qs);
   }
 
 #pragma unroll
@@ -743,8 +615,8 @@ attn_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni) {
       const size_t o = in0 + (size_t)row * ld + acc_col(ni, 0);
-      put_grad<L>(fk, gk, o, dk[ni][2 * half], dk[ni][2 * half + 1]);
-      put_grad<L>(fv, gv, o, dv[ni][2 * half], dv[ni][2 * half + 1]);
+      put_grad(fk, o, dk[ni][2 * half], dk[ni][2 * half + 1]);
+      put_grad(fv, o, dv[ni][2 * half], dv[ni][2 * half + 1]);
     }
   }
 }
@@ -754,71 +626,72 @@ attn_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
 // scale = d^-1/2 log2(e) multiplies the scores; sm_scale = d^-1/2 is #7's
 // factor of ds.
 
-// the kernel's dynamic shared memory, where it exceeds the default 48 KB
-template <class K>
-static cudaError_t smem_attr(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// the forward over G sequences x heads; with `stats`, (m, l) per row at
+// stats[((g * heads + h) * N + row) * 3]
+template <typename L>
+static cudaError_t attention_fwd(const float* q, const float* k,
+                                 const float* v, float* out, float* stats,
+                                 int G, int heads, int N, int ld, int ldo,
+                                 float scale, cudaStream_t stream) {
+  if (heads > 65535 || G > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = smem_attr(attn_fwd_kernel<L>, kFwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  attn_fwd_kernel<L><<<dim3((N + kAT - 1) / kAT, heads, G), kAThreads,
+                       kFwdSmemBytes, stream>>>(q, k, v, out, stats, N, ld,
+                                                ldo, scale);
+  return cudaGetLastError();
 }
-
-// the forward (or, without kValues, its (m, l) alone) over G sequences x
-// heads; with `stats`, (m, l) per row at stats[((g * heads + h) * N + row)
-// * 3]
-template <typename L, bool kValues = true, typename E>
-static cudaError_t attention_fwd(const E* q, const nd_t<E>* k,
-                                 const nd_t<E>* v, nd_t<E>* out,
-                                 float* stats, int G, int heads, int N,
-                                 int ld, int ldo, float scale,
+template <typename L>
+static cudaError_t attention_fwd(const bf16* q, const bf16* k, const bf16* v,
+                                 bf16* out, float* stats, int G, int heads,
+                                 int N, int ld, int ldo, float scale,
                                  cudaStream_t stream) {
   if (heads > 65535 || G > 65535) return cudaErrorInvalidValue;
-  constexpr size_t smem = fwd_smem_bytes<E>();
-  cudaError_t err = smem_attr(attn_fwd_kernel<L, kValues, E>, smem);
-  if (err != cudaSuccess) return err;
-  attn_fwd_kernel<L, kValues, E>
-      <<<dim3((N + kAT - 1) / kAT, heads, G), kAThreads, smem, stream>>>(
-          q, k, v, out, stats, N, ld, ldo, scale);
-  return cudaGetLastError();
+  return wg::attention_fwd<L>(q, k, v, out, stats, G, heads, N, ld, ldo,
+                              scale, stream);
 }
 
-// dq, dk, dv (to f* in fp32 where the layout keeps them or the products
-// are fp32, and g* in bf16 for bf16 ones) from the cotangent dout and the
-// forward's (m, l) in stats (c is written into their third slot); dnb is
-// scratch in the layout of do for T(do / l), dob (bf16 products of an fp32
-// cotangent) for T(do); o, the forward's output in the layout of do, is
-// read by fp32 products (it may be dnb)
-template <typename L, typename E>
-static cudaError_t attention_bwd(const E* q, const nd_t<E>* k,
-                                 const nd_t<E>* v,
-                                 const typename L::Dout* dout, float* stats,
-                                 nd_t<E>* dob, nd_t<E>* dnb,
-                                 const nd_t<E>* o, float* fq,
-                                 float* fk, float* fv, nd_t<E>* gq,
-                                 nd_t<E>* gk, nd_t<E>* gv, int G, int heads,
-                                 int N, int ld, int ldo, float scale,
-                                 float sm_scale, cudaStream_t stream) {
-  if (heads > 65535 || G > 65535) return cudaErrorInvalidValue;
-  constexpr size_t smem_q = dq_smem_bytes<E>(), smem_kv = dkv_smem_bytes<E>();
-  cudaError_t err = smem_attr(attn_dq_kernel<L, E>, smem_q);
+// dq, dk, dv (to f* in fp32; for bf16 also, or only, to g* as the layout
+// says) from the cotangent dout, the forward's output o (in the layout of
+// do; it may be dnb) and its (m, l) in stats (c is written into their
+// third slot); dnb is scratch in the layout of do for T(do / l), dob
+// (bf16 products of an fp32 cotangent) for T(do)
+template <typename L>
+static cudaError_t attention_bwd(const float* q, const float* k,
+                                 const float* v, const float* dout,
+                                 float* stats, float*, float* dnb,
+                                 const float* o, float* fq, float* fk,
+                                 float* fv, float*, float*, float*, int G,
+                                 int heads, int N, int ld, int ldo,
+                                 float scale, float sm_scale,
+                                 cudaStream_t stream) {
+  if (heads > 65535 || G > 65535 || o == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = smem_attr(attn_dq_kernel<L>, kDqSmemBytes);
   if (err != cudaSuccess) return err;
-  err = smem_attr(attn_dkv_kernel<L, E>, smem_kv);
+  err = smem_attr(attn_dkv_kernel<L>, kDkvSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kAT - 1) / kAT, heads, G);
-  if (sizeof(E) == 4 && o == nullptr) return cudaErrorInvalidValue;
-  attn_dq_kernel<L, E><<<grid, kAThreads, smem_q, stream>>>(
-      q, k, v, dout, stats, dob, dnb, o, fq, gq, N, ld, ldo, scale,
-      sm_scale);
+  attn_dq_kernel<L><<<grid, kAThreads, kDqSmemBytes, stream>>>(
+      q, k, v, dout, stats, dnb, o, fq, N, ld, ldo, scale, sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const E* dkv_do;
-  if constexpr (sizeof(E) == 4 || !L::kF32Grads)
-    dkv_do = dout;
-  else
-    dkv_do = dob;
-  attn_dkv_kernel<L, E><<<grid, kAThreads, smem_kv, stream>>>(
-      q, k, v, dkv_do, dnb, stats, fk, fv, gk, gv, N, ld, ldo, scale,
-      sm_scale);
+  attn_dkv_kernel<L><<<grid, kAThreads, kDkvSmemBytes, stream>>>(
+      q, k, v, dout, dnb, stats, fk, fv, N, ld, ldo, scale, sm_scale);
   return cudaGetLastError();
+}
+template <typename L>
+static cudaError_t attention_bwd(const bf16* q, const bf16* k, const bf16* v,
+                                 const typename L::Dout* dout, float* stats,
+                                 bf16* dob, bf16* dnb, const bf16* o,
+                                 float* fq, float* fk, float* fv, bf16* gq,
+                                 bf16* gk, bf16* gv, int G, int heads, int N,
+                                 int ld, int ldo, float scale, float sm_scale,
+                                 cudaStream_t stream) {
+  if (heads > 65535 || G > 65535) return cudaErrorInvalidValue;
+  return wg::attention_bwd<L>(q, k, v, dout, stats, dob, dnb, o, fq, fk, fv,
+                              gq, gk, gv, G, heads, N, ld, ldo, scale,
+                              sm_scale, stream);
 }
 
 }  // namespace tc

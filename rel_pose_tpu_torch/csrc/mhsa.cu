@@ -1,34 +1,31 @@
 // Hand kernels for the plain softmax attention of the --noess cross block.
 //
-// Replaces: rel_pose_tpu/ops/pallas_attention.py:_fwd_kernel (rp_mhsa_fwd,
-// and its row statistics alone, rp_mhsa_stats) and _bwd_kernel
-// (rp_mhsa_bwd), Pallas kernel #7.  The Pallas kernel takes one whole
-// (N, d) head per grid step, its N x N fp32 scores resident in VMEM.  Here
-// both dtypes run the tensor-core kernels of attention_tc.cuh (layout
-// Separate<T>: bf16 products on m16n8k16, fp32 ones as 3xTF32 on m16n8k8)
-// over separate (G, N, 64) q, k, v, rounding as #7 does:
+// Replaces: rel_pose_tpu/ops/pallas_attention.py:_fwd_kernel (rp_mhsa_fwd)
+// and _bwd_kernel (rp_mhsa_bwd), Pallas kernel #7.  The Pallas kernel
+// takes one whole (N, d) head per grid step, its N x N fp32 scores
+// resident in VMEM.  Here the layout Separate<T> runs, over separate
+// (G, N, 64) q, k, v, bf16 on the wgmma + TMA body of attention_wgmma.cuh
+// and fp32 on the 3xTF32 body of attention_tc.cuh, rounding as #7 does:
 //   forward: s = (q . k) * scale * log2(e) in fp32, e = exp2(s - max),
-//     o = (T(e) . v) / l with l the fp32 row sum of e, rounded to T;
+//     o = (T(e) . v) / l with l the fp32 row sum of e, rounded to T (bf16
+//     takes the max as it runs, one pass with online rescaling, so that e
+//     is rounded against the running max; fp32 makes an exact max pass);
 //   backward: e and l as the forward forms them, do_n = T(do / l),
-//     dv = T(e)^T . do_n, dp = do . v^T, c = rowsum(dp * e) / l,
-//     ds = T(e ((dp - c) (scale / l))), dq = ds . k, dk = ds^T . q, each
-//     rounded to T.
-// The Pallas backward recomputes the row max m and sum l.  Here the
-// backward reads them from stats: written by its forward (kept under
-// autograd) or, for bf16, by rp_mhsa_stats, the forward's max and sum
-// passes without P . v -- the same arithmetic, so the same bits.  The fp32
-// backward also reads the forward's output o and takes c = do . o (equal
-// to rowsum(dp * e) / l in exact arithmetic), so that its dq kernel makes
-// one pass over the keys in place of two.
+//     dv = T(e)^T . do_n, dp = do . v^T, c, ds = T(e ((dp - c) (scale /
+//     l))), dq = ds . k, dk = ds^T . q, each rounded to T.
+// The Pallas backward recomputes the row max m and sum l and takes c =
+// rowsum(dp e) / l.  Here the backward reads (m, l) from stats, written by
+// its forward (kept under autograd, or by a forward run first), and takes
+// c = do . o from the forward's output o (equal in exact arithmetic), so
+// that its dq kernel makes one pass over the keys.
 //
 // What bounds it on the H100: the function's products, 4 N^2 d operations
 // a head forward on 8 N d bytes (288 a byte at N = 576 in bf16: the
 // forward sits at the ridge where HBM and the tensor cores bound it alike;
 // fp32 on 3xTF32's 165 TFLOP/s is bound by the operations), 10 N^2 d
-// backward.  The kernels execute 3 N^2 d multiply-adds forward (the exact
-// max pass), 9 backward in bf16 (dq 5, dk / dv 4) and 7 in fp32 (dq 3),
-// and 2 more for bf16's stats pass, on mma.sync, whose rate and the exp2
-// of every score decide.
+// backward.  The kernels execute 2 N^2 d multiply-adds forward in bf16 (3
+// in fp32, the exact max pass) and 7 backward (dq 3, dk / dv 4), and one
+// exp2 of every score a kernel.
 
 #include "attention_tc.cuh"
 
@@ -59,38 +56,24 @@ extern "C" int rp_mhsa_fwd(const void* q, const void* k, const void* v,
       1, N, kD, kD, s2, st);
 }
 
-// rp_mhsa_fwd's (m, l) alone, bf16: the statistics of a backward whose
-// forward kept none
-extern "C" int rp_mhsa_stats(const void* q, const void* k, float* stats,
-                             int G, int N, int d, float scale, void* stream) {
-  if (d != kD || G <= 0 || N <= 0) return cudaErrorInvalidValue;
-  return rp::tc::attention_fwd<rp::tc::Separate<T>, false>(
-      (const T*)q, (const T*)k, nullptr, nullptr, stats, G, 1, N, kD, kD,
-      (float)(scale * kLog2e), (cudaStream_t)stream);
-}
-
-// dq, dk, dv of rp_mhsa_fwd from q, k, v and the cotangent dout, all
-// (G, N, d) in the same dtype.  stats (3 G N fp32): the forward's (m, l),
-// c written into the third slot.  dnb: (G, N, d) scratch in that dtype for
-// T(do / l).  o: the forward's output, fp32 only (NULL for bf16); never
-// dnb.
+// dq, dk, dv of rp_mhsa_fwd from q, k, v, the cotangent dout and the
+// forward's output o, all (G, N, d) in the same dtype.  stats (3 G N
+// fp32): the forward's (m, l), c written into the third slot.  dnb:
+// (G, N, d) scratch in that dtype for T(do / l), never o.
 extern "C" int rp_mhsa_bwd(const void* q, const void* k, const void* v,
                            const void* dout, void* dq, void* dk, void* dv,
                            float* stats, void* dnb, const void* o, int G,
                            int N, int d, float scale, int bf16,
                            void* stream) {
-  if (d != kD || G <= 0 || N <= 0 || !stats || !dnb)
+  if (d != kD || G <= 0 || N <= 0 || !stats || !dnb || !o || o == dnb)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float s2 = (float)(scale * kLog2e);
-  if (bf16) {
-    if (o) return cudaErrorInvalidValue;
+  if (bf16)
     return rp::tc::attention_bwd<rp::tc::Separate<T>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats, nullptr,
-        (T*)dnb, nullptr, nullptr, nullptr, nullptr, (T*)dq, (T*)dk, (T*)dv,
-        G, 1, N, kD, kD, s2, scale, st);
-  }
-  if (!o || o == dnb) return cudaErrorInvalidValue;
+        (T*)dnb, (const T*)o, nullptr, nullptr, nullptr, (T*)dq, (T*)dk,
+        (T*)dv, G, 1, N, kD, kD, s2, scale, st);
   return rp::tc::attention_bwd<rp::tc::Separate<float>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       stats, nullptr, (float*)dnb, (const float*)o, (float*)dq, (float*)dk,

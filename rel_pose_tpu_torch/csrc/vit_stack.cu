@@ -10,15 +10,17 @@
 //   (a) row LayerNorm (block 0 also adds pos_embed)   -> common.cuh
 //   (b) qkv GEMM, bias epilogue                        -> gemm_tc.cuh
 //   (c) attention per (sequence, head, 64-query tile)  -> attention_tc.cuh
+//       (bf16: attention_wgmma.cuh)
 //   (b) proj GEMM, + residual epilogue (in place on the stream)
 //   (a) LayerNorm, (b) fc1 GEMM + GELU, (b) fc2 GEMM + residual
 //
-// Both dtypes run the products on the tensor cores with mma.sync, fp32
-// sums and the Pallas kernels' rounding points: bf16 as m16n8k16, fp32 as
-// 3xTF32 (m16n8k8 on operands split into TF32 hi + lo, the lo . lo term
-// dropped: fp32 accuracy, not the 3-digit TF32 that the port's precision
-// policy forbids).  Attention reads q, k, v from the qkv GEMM's (G, N, 3C)
-// output (layout Interleaved).
+// Both dtypes run the products on the tensor cores with fp32 sums and the
+// Pallas kernels' rounding points: the GEMMs on mma.sync, bf16 as
+// m16n8k16, fp32 as 3xTF32 (m16n8k8 on operands split into TF32 hi + lo,
+// the lo . lo term dropped: fp32 accuracy, not the 3-digit TF32 that the
+// port's precision policy forbids); bf16 attention on wgmma with TMA-fed
+// tiles, fp32 attention on 3xTF32 mma.sync.  Attention reads q, k, v from
+// the qkv GEMM's (G, N, 3C) output (layout Interleaved).
 //
 // What bounds it on the H100: the GEMMs and the two attention products
 // (about 0.76 GFLOP per sequence per block), at the rate mma.sync reaches
@@ -50,8 +52,9 @@ static cudaError_t launch_attention(const E* qkv, E* out, float* stats,
 // dq, dk, dv into dqkv (fp32) and, for bf16, dqkvb, both (G, N, 3C), from
 // qkv, the fp32 cotangent dout (G, N, C) of the attention output and the
 // forward's stats (c is written into their third slot); dnb is (G, N, C)
-// scratch for T(do / l) and, for fp32, holds the forward's output o on
-// entry; for bf16 dob takes T(do)
+// scratch for T(do / l) that holds the forward's output o on entry (the dq
+// kernel reads each element of o before it writes T(do / l) over it); for
+// bf16 dob takes T(do)
 template <typename E>
 static cudaError_t launch_attention_bwd(const E* qkv, const float* dout,
                                         float* stats, float* dqkv, E* dqkvb,
@@ -59,8 +62,7 @@ static cudaError_t launch_attention_bwd(const E* qkv, const float* dout,
                                         int heads, cudaStream_t stream) {
   if (C != heads * kHeadDim) return cudaErrorInvalidValue;
   return attention_bwd<Interleaved>(
-      qkv, qkv + C, qkv + 2 * C, dout, stats, dob, dnb,
-      sizeof(E) == 4 ? dnb : nullptr, dqkv, dqkv + C,
+      qkv, qkv + C, qkv + 2 * C, dout, stats, dob, dnb, dnb, dqkv, dqkv + C,
       dqkv + 2 * C, dqkvb, dqkvb ? dqkvb + C : nullptr,
       dqkvb ? dqkvb + 2 * C : nullptr, G, heads, N, 3 * C, C, kVitScale, 0.f,
       stream);
@@ -156,8 +158,9 @@ extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
 //     GEMM (fc2's with the GELU derivative in its epilogue); the two
 //     LayerNorm VJPs with their dscale / dbias partials; attention in the
 //     flash-attention-2 split: one kernel per (sequence, head, 64-query
-//     tile) forms dq, another per (sequence, head, 64-key tile) walks the
-//     query tiles for dk and dv.
+//     tile) forms dq with c = rowsum(do o) from the recomputed output o,
+//     another per (sequence, head, 64-key tile) walks the query tiles for
+//     dk and dv.
 // The residual cotangent stays fp32 between kernels, as in VMEM.  A fp32
 // cotangent enters a bf16 product as its bf16 copy: T(dxo) and T(dxa) cast
 // into dyb, T(dh1) written by the fc2 dX epilogue into hg (free once fc2's
@@ -165,8 +168,9 @@ extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
 // products read the cotangents themselves.
 //
 // What bounds it on the H100: the products (about 2.8x the forward's:
-// recompute, dX and dW for each GEMM; 7 N x N x 64 products for attention
-// against the forward's 2), on the tensor cores as in the forward.  Device
+// recompute, dX and dW for each GEMM; for attention the recomputed
+// forward's 2 N x N x 64 products (fp32: 3) and the backward's 7), on the
+// tensor cores as in the forward.  Device
 // memory traffic is the stash, one round trip of each activation per
 // kernel, and the dW partials, tens of MB per block, below a millisecond
 // at 3.35 TB/s.
@@ -309,7 +313,8 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
     RP_CHECK(launch_gemm_dx<kDxPlain>(dya, projw + i * cc, nullptr, b.dtmp,
                                       nullptr, M, C, C, st));  // dattn
     // T(do / l) into attn and, for bf16, T(do) into dyb, both read for the
-    // last time by proj's dW and dX above (fp32 reads o from attn first)
+    // last time by proj's dW and dX above (the dq kernel reads o from attn
+    // first)
     RP_CHECK(launch_attention_bwd(qkv, b.dtmp, b.astat, b.dqkv, dqkvb, dyb,
                                   attn, G, N, C, heads, st));
     const E* dq;

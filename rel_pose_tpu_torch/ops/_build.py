@@ -65,10 +65,8 @@ SIGNATURES = {
     "rp_essential_block_bwd": ([P] * 7 + [I] * 8 + [P], ctypes.c_int),
     # q, k, v, o, stats (or NULL); G, N, d, scale, bf16; stream
     "rp_mhsa_fwd": ([P] * 5 + [I] * 3 + [F, I, P], ctypes.c_int),
-    # q, k, stats (bf16 only); G, N, d, scale; stream
-    "rp_mhsa_stats": ([P] * 3 + [I] * 3 + [F, P], ctypes.c_int),
-    # q, k, v, do, dq, dk, dv, stats, T(do / l) scratch, the forward's o
-    # (fp32; NULL for bf16); G, N, d, scale, bf16; stream
+    # q, k, v, do, dq, dk, dv, stats, T(do / l) scratch, the forward's o;
+    # G, N, d, scale, bf16; stream
     "rp_mhsa_bwd": ([P] * 10 + [I] * 3 + [F, I, P], ctypes.c_int),
     # G, N, e, bf16 -> workspace bytes of rp_bilinear_fwd
     "rp_bilinear_fwd_workspace": ([I] * 4, L),

@@ -6,9 +6,9 @@ the --noess cross block's attention).  ``fused_mhsa(q, k, v, scale)`` is
 
   * on CPU tensors it is the plain PyTorch version, :func:`mhsa_reference`;
   * on CUDA tensors it launches ``rp_mhsa_fwd`` of ``csrc/mhsa.cu`` (which
-    replaces ``_fwd_kernel``: the tensor-core kernels of
-    ``csrc/attention_tc.cuh``, bf16 products or fp32 ones as 3xTF32) or
-    raises.
+    replaces ``_fwd_kernel``: bf16 on the wgmma + TMA kernels of
+    ``csrc/attention_wgmma.cuh``, one pass with online rescaling; fp32 on
+    the 3xTF32 kernels of ``csrc/attention_tc.cuh``) or raises.
 
 Under autograd (grad enabled and an input that requires grad) it is a
 ``torch.autograd.Function``, as the Pallas op is a ``custom_vjp``
@@ -17,14 +17,13 @@ backward is :func:`fused_mhsa_bwd` -- the plain :func:`mhsa_bwd_reference`
 on the CPU, ``rp_mhsa_bwd`` (which replaces ``_bwd_kernel``) on CUDA.  The
 Pallas backward recomputes each row's score max m and sum l; the kernels'
 forward writes them under autograd (3 G N fp32 values, the third slot the
-backward's) and the backward reads them.  The fp32 backward also reads the
-forward's output o (saved too: c = do . o in place of the dq kernel's
-first pass).  Called without them, the bf16 backward first runs
-``rp_mhsa_stats``, the forward's max and sum passes alone, and the fp32
-backward the forward with statistics: the same bits either way.  The
-kernels take head width d = 64, fp32 or bf16, contiguous tensors and at
-most 65,535 heads (the launch grid's third dimension: 10,922 pairs of the
---noess model, 6 heads a pair).
+backward's) and saves its output o beside them, and the backward reads
+both (c = do . o in place of rowsum(dp e) / l, equal in exact arithmetic,
+so that the dq kernel makes one pass over the keys).  Called without
+them, the backward first runs the forward with statistics: the same bits
+either way.  The kernels take head width d = 64, fp32 or bf16, contiguous
+tensors and at most 65,535 heads (the launch grid's third dimension:
+10,922 pairs of the --noess model, 6 heads a pair).
 """
 
 import torch
@@ -56,7 +55,7 @@ def _exp_scores(q, k, scale):
 
 def mhsa_stats_reference(q, k, scale):
     """``(G, N, 2)`` fp32: each query row's (m, l), the statistics that the
-    kernels keep in the first two slots of their ``stats``."""
+    kernels' forward keeps in the first two slots of ``stats``."""
     _, m, l = _exp_scores(q, k, scale)
     return torch.cat([m, l], -1)
 
@@ -110,8 +109,7 @@ class _Mhsa(torch.autograd.Function):
         else:
             o, stats = _launch_fwd(q, k, v, scale, stats=True)
         ctx.save_for_backward(q, k, v, stats,
-                              o if stats is not None and
-                              q.dtype == torch.float32 else None)
+                              o if stats is not None else None)
         return o
 
     @staticmethod
@@ -125,9 +123,8 @@ def fused_mhsa_bwd(q, k, v, do, scale, stats=None, o=None):
     """``(dq, dk, dv)``: :func:`mhsa_bwd_reference` on CPU tensors,
     ``rp_mhsa_bwd`` on CUDA tensors (or a raise).  ``stats``: the
     ``(G, N, 3)`` fp32 statistics that ``_launch_fwd(..., stats=True)``
-    wrote, and for fp32 heads ``o``, the output it returned with them (bf16
-    takes no ``o``).  Without them the bf16 backward runs ``rp_mhsa_stats``
-    first, the fp32 backward ``rp_mhsa_fwd`` with statistics.  The backward
+    wrote, with ``o``, the output it returned with them; without them the
+    backward runs ``rp_mhsa_fwd`` with statistics first.  The backward
     writes each row's c into the third slot of ``stats``."""
     if _plain(q):
         return mhsa_bwd_reference(q, k, v, do, scale)
@@ -141,32 +138,21 @@ def fused_mhsa_bwd(q, k, v, do, scale, stats=None, o=None):
                          f"contiguous ({G}, {N}, 3) float32 tensor on "
                          f"{q.device}, got {tuple(stats.shape)} "
                          f"{stats.dtype} on {stats.device}")
-    if bf16 and o is not None:
-        raise ValueError("fused_mhsa_bwd: o is the fp32 backward's; the "
-                         "bf16 kernels take none")
-    if not bf16 and (stats is None) != (o is None):
-        raise ValueError("fused_mhsa_bwd: the fp32 backward takes the "
-                         "forward's stats and o together, or neither")
+    if (stats is None) != (o is None):
+        raise ValueError("fused_mhsa_bwd: the backward takes the forward's "
+                         "stats and o together, or neither")
     if o is not None:
         _check_inputs("fused_mhsa_bwd (o)", q, o)
     lib = _build.library()
     stream = _build.prepare_launch(q.device)
     if stats is None:
-        if bf16:
-            stats = torch.empty((G, N, 3), dtype=torch.float32,
-                                device=q.device)
-            _build.check(lib.rp_mhsa_stats(
-                q.data_ptr(), k.data_ptr(), stats.data_ptr(), G, N, d, scale,
-                stream), "rp_mhsa_stats")
-        else:
-            o, stats = _fwd(q, k, v, scale, True)
+        o, stats = _fwd(q, k, v, scale, True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dnb = torch.empty_like(q)   # T(do / l)
     err = lib.rp_mhsa_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        dnb.data_ptr(), None if bf16 else o.data_ptr(), G, N, d, scale,
-        int(bf16), stream)
+        dnb.data_ptr(), o.data_ptr(), G, N, d, scale, int(bf16), stream)
     _build.check(err, "rp_mhsa_bwd")
     fused_mhsa_bwd.launches += 1
     return dq, dk, dv
@@ -186,8 +172,8 @@ def _launch_fwd(q, k, v, scale, stats=False):
 
 
 def _fwd(q, k, v, scale, stats):
-    """``rp_mhsa_fwd`` on checked inputs, uncounted (the fp32 backward's
-    own forward counts as its launch)."""
+    """``rp_mhsa_fwd`` on checked inputs, uncounted (a backward's own
+    forward counts as its launch)."""
     G, N, d = q.shape
     o = torch.empty_like(q)
     st = (torch.empty((G, N, 3), dtype=torch.float32, device=q.device)

@@ -9,12 +9,15 @@ add fused into block 0:
   * on a CUDA tensor it launches the hand kernels of ``csrc/vit_stack.cu``
     (which replace the Pallas ``_vit_stack_kernel``) or raises.
 
-Both dtypes run on the tensor cores (``csrc/gemm_tc.cuh``,
-``csrc/attention_tc.cuh``, ``mma.sync``): bf16 as bf16 products, fp32 as
-3xTF32, each fp32 operand split into a TF32 high part and a TF32 residual
-and three TF32 products summed in fp32 (:func:`tf32x3_matmul` is their
-plain model), which keeps fp32 accuracy -- not the single TF32 product,
-about 3 decimal digits, that the port's precision policy forbids.
+Both dtypes run on the tensor cores: the GEMMs on ``mma.sync``
+(``csrc/gemm_tc.cuh``), bf16 attention on ``wgmma`` with TMA-fed tiles
+and one pass with online rescaling (``csrc/attention_wgmma.cuh``), fp32
+attention on ``mma.sync`` (``csrc/attention_tc.cuh``).  bf16 runs bf16
+products, fp32 3xTF32 ones, each fp32 operand split into a TF32 high part
+and a TF32 residual and three TF32 products summed in fp32
+(:func:`tf32x3_matmul` is their plain model), which keeps fp32 accuracy --
+not the single TF32 product, about 3 decimal digits, that the port's
+precision policy forbids.
 
 Under autograd (grad enabled and an input that requires grad) the stack is
 a ``torch.autograd.Function``, as the Pallas op is a ``custom_vjp``

@@ -28,13 +28,15 @@ each time is the median over the iterations.
 
 The last line is one JSON object: ``forward_ms`` and ``backward_ms`` (median
 ms by stage), their sums, ``step_ms`` (the plain forward and backward),
-``sum_share``, the settings and the card.  ``--device cpu`` rehearses it
+``sum_share``, each iteration's readings and the allocator's counts
+(:func:`measure`), the settings and the card.  ``--device cpu`` rehearses it
 on the CPU (host clock).
 """
 
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -123,30 +125,57 @@ def backward_ms(names, bwd, clock):
 def measure(model, batch, iters, device, warmup=1):
     """-> dict of the training forward's and backward's median ms by stage
     and of the plain forward and backward.  Each iteration runs the staged
-    step and then the plain one, each from an idle card, so that a slow
-    spell of the host or the card falls on both and not on one of them."""
+    step and the plain one, each from an idle card, so that a slow spell
+    of the host or the card falls on both and not on one of them, and the
+    two take turns at going first, so that a drift of the host's speed
+    over the iterations (the step is partly bound by the host enqueuing it)
+    falls on both alike.  Beside the medians: each iteration's staged step
+    end to end (``staged_ms_each``), its plain step (``step_ms_each``) and
+    the host's ms to enqueue that plain step (``host_ms_each``, the host
+    clock from its start until ``backward()`` returns), and on the card
+    the caching allocator's retries (``alloc_retries``: frees of cached
+    blocks after a failed ``cudaMalloc``) and ``cudaMalloc`` calls
+    (``device_allocs``) over the timed iterations."""
     from ..train.step import loss_fn
     images, poses, intr = train_batch(batch, device)
     model.train()
     staged = training_stages(model, images, poses, intr)
     names = [n for n, _ in staged]
     clock = Clock(device)
-    fwd, bwd, steps = [], [], []
-    for i in range(warmup + iters):
+
+    def run_staged():
         clock.sync()
         model.zero_grad(set_to_none=True)
-        marks, bmarks = staged_step(staged, images, clock)
+        return staged_step(staged, images, clock)
+
+    def run_plain():
         clock.sync()
         model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
         start = clock.mark()
         loss_fn(model, images, poses, intr)[0].backward()
         end = clock.mark()
+        return start, end, (time.perf_counter() - t0) * 1e3
+
+    fwd, bwd, steps, staged_each, host_each = [], [], [], [], []
+    for i in range(warmup + iters):
+        if i == warmup:
+            before = allocator_counts(device)
+        if i % 2:
+            start, end, host = run_plain()
+            marks, bmarks = run_staged()
+        else:
+            marks, bmarks = run_staged()
+            start, end, host = run_plain()
         clock.sync()
         if i < warmup:
             continue
         fwd.append([clock.ms(a, b) for a, b in zip(marks, marks[1:])])
         bwd.append(backward_ms(names, bmarks, clock))
         steps.append(clock.ms(start, end))
+        staged_each.append(clock.ms(marks[0], bmarks["end"]))
+        host_each.append(host)
+    after = allocator_counts(device)
     fwd = {n: float(ms) for n, ms in zip(names, np.median(fwd, axis=0))}
     bwd = {n: None if bwd[0][n] is None
            else float(np.median([b[n] for b in bwd])) for n in names}
@@ -154,7 +183,21 @@ def measure(model, batch, iters, device, warmup=1):
     fsum, bsum = sum(fwd.values()), sum(v for v in bwd.values() if v)
     return {"forward_ms": fwd, "backward_ms": bwd, "forward_sum_ms": fsum,
             "backward_sum_ms": bsum, "step_ms": step,
-            "sum_share": (fsum + bsum) / step}
+            "sum_share": (fsum + bsum) / step,
+            "staged_ms_each": [float(v) for v in staged_each],
+            "step_ms_each": [float(v) for v in steps],
+            "host_ms_each": host_each,
+            **{k: after[k] - before[k] for k in after}}
+
+
+def allocator_counts(device):
+    """The caching allocator's counts of retries and ``cudaMalloc`` calls
+    so far on ``device`` (zeros on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return {"alloc_retries": 0, "device_allocs": 0}
+    stats = torch.cuda.memory_stats(device)
+    return {"alloc_retries": stats.get("num_alloc_retries", 0),
+            "device_allocs": stats.get("num_device_alloc", 0)}
 
 
 def main(argv=None):

@@ -12,17 +12,19 @@ Counterpart of ``scripts/mfu_report.py``:
     estimate_step_flops`` (the count the training CLI logs) and the step
     times, against ``$RELPOSE_PEAK_TFLOPS`` or else the H100 SXM's dense
     bf16 tensor-core peak (``utils.profiling.H100_BF16_PEAK``, 989
-    TFLOP/s).  The fp32 step runs on no tensor core (TF32 is off by
-    default), and its row reads against the same bf16 peak, as the JAX
-    script's fp32 row does;
+    TFLOP/s).  In the fp32 step every hand kernel runs on the tensor
+    cores as 3xTF32 (three TF32 products a product, fp32 accuracy); only
+    cuBLAS and cuDNN keep TF32 off.  Its row reads against the same bf16
+    peak, as the JAX script's fp32 row does;
   * the ViT stack's (#1) and the essential block's (#2) floors at the eval
     batch, counted twice: the real MACs of the products, and the MACs at
-    the tile shapes the port's tensor-core kernels schedule -- each
+    the tile shapes the port's bf16 tensor-core kernels schedule -- each
     product's dimensions rounded up to the tile: the GEMMs' 128 x 64 x 32
     (``csrc/gemm_tc.cuh``'s bf16 ``Fwd`` and ``BK_DEPTH``), the attention's
-    64-row query and key tiles (``csrc/attention_tc.cuh`` ``kAT``), the
-    essential body's e = 70 in 72 output columns (n8 tiles) and 80 of
-    depth (k16 steps; ``csrc/essential_tc.cuh`` ``EbW``).
+    64-row query and key tiles (``csrc/attention_wgmma.cuh`` ``kT``, the
+    bf16 body's wgmma tiles), the essential body's e = 70 in 72 output
+    columns (n8 tiles) and 80 of depth (k16 steps;
+    ``csrc/essential_tc.cuh`` ``EbW``).
 
 The times come from ``--measure`` (CUDA events on the card, as
 ``chip_smoke.py`` times them: 3 calls after a warm-up; the eval forward on
@@ -35,10 +37,10 @@ the peak used.  ``--measure`` without a GPU fails.
 import argparse
 import sys
 
-# the port's tensor-core tiles (tests/test_torch_mfu_report.py reads them
-# out of the headers)
+# the port's bf16 tensor-core tiles (tests/test_torch_mfu_report.py reads
+# them out of the headers)
 GEMM_TILE = (128, 64, 32)    # gemm_tc.cuh: bf16 Fwd BM, BN; Tile BK_DEPTH
-ATTN_TILE = 64               # attention_tc.cuh: kAT, query and key rows
+ATTN_TILE = 64               # attention_wgmma.cuh: kT, query and key rows
 MMA_N, MMA_K = 8, 16         # mma.sync m16n8k16: output columns, depth
 TIMES = ("eval_ms", "train_fp32_ms", "train_bf16_ms", "vit_eval_ms",
          "cross_eval_ms")
@@ -228,8 +230,9 @@ def main(argv=None):
             ("train step fp32", train_flops, args.train_fp32_ms, T),
             ("train step bf16", train_flops, args.train_bf16_ms, T)):
         mfu = flops / (ms * 1e-3) / peak
-        note = ("  (fp32 runs on no tensor core: read against the bf16 "
-                "peak)" if "fp32" in tag else "")
+        note = ("  (fp32: hand kernels as 3xTF32, cuBLAS / cuDNN without "
+                "TF32; read against the bf16 peak)" if "fp32" in tag
+                else "")
         print(f"  {tag:<16} batch {batch:3d}: {fmt(flops)} / {ms:.3f} ms"
               f"  -> MFU {mfu * 100:6.3f}%{note}")
     print(f"\n== ViT stack (#1), eval batch {B} ({depth} blocks x {G} "

@@ -13,9 +13,9 @@ version, one ``F.scaled_dot_product_attention`` call and its bound
 (operations over 165 TFLOP/s in fp32, 989 in bf16, or bytes over 3.35
 TB/s): the forward (``fused_mhsa``) at G = 1,536 heads, the eval shape;
 the backward (``fused_mhsa_bwd``) at G = 360, the training shape, without
-the forward's statistics and, where the tree's wrapper takes them (bf16;
-fp32 where it takes ``o``), from the statistics and output of a forward
-run with them, as a train step runs it; then, unless ``--no-step``, the
+the forward's statistics and, where the tree's wrapper takes them, from
+the statistics (and output, where the wrapper takes ``o`` in that dtype)
+of a forward run with them, as a train step runs it; then, unless ``--no-step``, the
 --noess train step at batch 60 in that dtype with the kernels and on the
 plain path (``chip_smoke.time_train_steps``).  Run it in turns on one card,
 the other tree, this one, this one, the other.  Needs a CUDA device.
@@ -71,7 +71,11 @@ def readings(cs, device, card, dtype):
     takes_o = "o" in inspect.signature(ta.fused_mhsa_bwd).parameters
     if dtype == torch.bfloat16 or takes_o:
         o, stats = ta._launch_fwd(q, k, v, scale, stats=True)
-        kept = (stats,) if dtype == torch.bfloat16 else (stats, o)
+        kept = (stats, o) if takes_o else (stats,)
+        try:
+            ta.fused_mhsa_bwd(q, k, v, do, scale, *kept)
+        except ValueError:   # a tree whose bf16 backward takes no o
+            kept = (stats,)
         ms = cs.cuda_time_ms(
             lambda: ta.fused_mhsa_bwd(q, k, v, do, scale, *kept), 5)
         b = cs.bound(flops, (7 + len(kept) - 1) * cs.nbytes(q), dtype)

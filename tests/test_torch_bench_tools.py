@@ -115,6 +115,18 @@ def test_bench_stages_bwd_main():
     assert rec["step_ms"] > 0 and rec["dtype"] == "float32"
 
 
+def test_bench_stages_bwd_each_iteration():
+    """Both orders of the staged and plain steps run; each iteration's
+    readings come out, and the plain step's median is theirs."""
+    code, (rec,) = json_lines(bench_stages_bwd.main,
+                              SMALL + ["--batch", "1", "--iters", "2"])
+    assert code == 0
+    for key in ("staged_ms_each", "step_ms_each", "host_ms_each"):
+        assert len(rec[key]) == 2 and all(v > 0 for v in rec[key])
+    assert rec["step_ms"] == pytest.approx(np.median(rec["step_ms_each"]))
+    assert rec["alloc_retries"] == rec["device_allocs"] == 0
+
+
 # scripts/bench_train.py's keys
 BENCH_TRAIN_KEYS = ("metric", "value", "unit", "dtype", "batch", "remat",
                     "pairs_per_sec")

@@ -2,7 +2,8 @@
 
   * the padding helper, and the tiles it pads to read back out of the
     port's tensor-core headers (``csrc/gemm_tc.cuh``'s bf16 ``Fwd`` and
-    ``BK_DEPTH``, ``attention_tc.cuh``'s ``kAT``, ``essential_tc.cuh``'s
+    ``BK_DEPTH``, ``attention_wgmma.cuh``'s ``kT`` -- the bf16 body's
+    tiles, which the fp32 body's ``kAT`` matches -- ``essential_tc.cuh``'s
     72 output columns and 80 of depth for e = 70);
   * the real-MAC floors equal the per-op count (``count_matmul_flops``) of
     the plain versions the kernels are held to, ``vit_stack_reference``
@@ -48,9 +49,12 @@ def test_tiles_are_the_headers():
                                 gemm).groups())
     bk = int(re.search(r"int BK_DEPTH = (\d+)", gemm).group(1))
     assert mfu.GEMM_TILE == (bm, bn, bk)
-    attn = (CSRC / "attention_tc.cuh").read_text()
-    assert mfu.ATTN_TILE == int(re.search(r"constexpr int kAT = (\d+);",
+    attn = (CSRC / "attention_wgmma.cuh").read_text()
+    assert mfu.ATTN_TILE == int(re.search(r"constexpr int kT = (\d+);",
                                           attn).group(1))
+    attn32 = (CSRC / "attention_tc.cuh").read_text()
+    assert mfu.ATTN_TILE == int(re.search(r"constexpr int kAT = (\d+);",
+                                          attn32).group(1))
     eb = (CSRC / "essential_tc.cuh").read_text()
     width = int(re.search(r"E == kHeadDim \? kHeadDim : \(sizeof\(T\) == 2 "
                           r"\? (\d+) :", eb).group(1))

@@ -2,21 +2,21 @@
 (``ops/attention.py``), on the CPU.
 
   * the dtype picks the kernels: the wrappers pass bf16 = 1 (bf16
-    products) or 0 (fp32 products as 3xTF32), both on the tensor-core
-    kernels of ``csrc/attention_tc.cuh``, to the C entry points;
+    products on the wgmma + TMA kernels of ``csrc/attention_wgmma.cuh``)
+    or 0 (fp32 products as 3xTF32 on ``csrc/attention_tc.cuh``) to the C
+    entry points;
   * with a stand-in for the kernel library (the launchers pointed at the
     CPU), each wrapper passes as many arguments as the C signature has;
   * under autograd the forward asks its kernel for the row statistics and
-    the backward hands the same buffer on, with no stats pass, and in fp32
-    also the forward's output o; called without them, the bf16 backward
-    runs ``rp_mhsa_stats`` first, the fp32 backward ``rp_mhsa_fwd`` with
-    statistics, into the buffers it then hands to ``rp_mhsa_bwd``; bf16
-    passes no o, and o is never the T(do / l) scratch;
+    the backward hands the same buffer on, and the forward's output o,
+    with no forward of its own; called without them, the backward runs
+    ``rp_mhsa_fwd`` with statistics first, into the buffers it then hands
+    to ``rp_mhsa_bwd``; o is never the T(do / l) scratch;
   * the head-count limit of the launch grid and the shape, dtype and
     contiguity checks, of the statistics and of o too, raise before any
     launch;
   * each wrapper adds one to its launch counter per launch, and only then
-    (the fp32 backward's own forward counts as the backward's);
+    (the backward's own forward counts as the backward's);
   * CPU tensors take the plain versions, load no library and leave the
     counters alone.
 
@@ -99,10 +99,8 @@ def test_forward_keeps_stats_on_request(fake_lib):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_backward_without_stats(fake_lib, dtype):
-    """bf16 forms the statistics with ``rp_mhsa_stats`` into the buffer
-    that ``rp_mhsa_bwd`` then reads, and passes no o; fp32 runs the forward
-    with statistics and passes its statistics and output on.  Both pass a
-    T(do / l) scratch of their own."""
+    """Both dtypes run the forward with statistics and pass its statistics
+    and output on, and a T(do / l) scratch of their own."""
     q, k, v, do = heads(dtype)
     f0 = ta.fused_mhsa.launches
     dq, dk, dv = ta.fused_mhsa_bwd(q, k, v, do, SCALE)
@@ -112,31 +110,26 @@ def test_backward_without_stats(fake_lib, dtype):
     assert bwd[:7] == tuple(t.data_ptr() for t in (q, k, v, do, dq, dk, dv))
     assert bwd[10:15] == (G, N, D, SCALE, int(dtype == torch.bfloat16))
     assert bwd[8] is not None and bwd[8] not in bwd[:8]
-    if dtype == torch.bfloat16:
-        assert fake_lib.names() == ["rp_mhsa_stats", "rp_mhsa_bwd"]
-        stats_args = fake_lib.calls[0][1]
-        assert stats_args[:2] == (q.data_ptr(), k.data_ptr())
-        assert stats_args[3:7] == (G, N, D, SCALE)
-        assert stats_args[2] == bwd[7]
-        assert bwd[9] is None
-    else:
-        assert fake_lib.names() == ["rp_mhsa_fwd", "rp_mhsa_bwd"]
-        fwd = fake_lib.calls[0][1]
-        assert fwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
-        assert fwd[5:10] == (G, N, D, SCALE, 0)
-        assert fwd[4] is not None and bwd[7] == fwd[4]
-        assert bwd[9] == fwd[3] and bwd[9] != bwd[8]
+    assert fake_lib.names() == ["rp_mhsa_fwd", "rp_mhsa_bwd"]
+    fwd = fake_lib.calls[0][1]
+    assert fwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert fwd[5:10] == (G, N, D, SCALE, int(dtype == torch.bfloat16))
+    assert fwd[4] is not None and bwd[7] == fwd[4]
+    assert bwd[9] == fwd[3] and bwd[9] != bwd[8]
     assert ta.fused_mhsa.launches == f0
     assert all(g.shape == q.shape and g.dtype == dtype for g in (dq, dk, dv))
 
 
 def test_backward_with_stats_takes_no_stats_pass(fake_lib):
-    q, k, v, do = heads(torch.bfloat16)
+    """bf16 given the forward's statistics and output: one launch, which
+    reads both."""
+    q, k, v, do, o = heads(torch.bfloat16, 5)
     stats = torch.zeros((G, N, 3))
-    ta.fused_mhsa_bwd(q, k, v, do, SCALE, stats)
+    ta.fused_mhsa_bwd(q, k, v, do, SCALE, stats, o)
     (name, args), = fake_lib.calls
     assert name == "rp_mhsa_bwd" and args[7] == stats.data_ptr()
-    assert args[9] is None
+    assert args[9] == o.data_ptr() and args[8] != o.data_ptr()
+    assert args[14] == 1
 
 
 def test_fp32_backward_with_stats_and_o_runs_no_forward(fake_lib):
@@ -156,8 +149,7 @@ def test_fp32_backward_with_stats_and_o_runs_no_forward(fake_lib):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_autograd_hands_the_forward_stats_on(fake_lib, dtype):
     """Under autograd the forward writes (m, l) and the backward reads that
-    buffer, with no stats pass; fp32 also hands the forward's output on as
-    o, bf16 passes none."""
+    buffer and the forward's output as o, with no forward of its own."""
     leaves = [t.requires_grad_() for t in heads(dtype, 3)]
     out = ta.fused_mhsa(*leaves, SCALE)
     grads = torch.autograd.grad(out, leaves, torch.ones_like(out))
@@ -165,19 +157,16 @@ def test_autograd_hands_the_forward_stats_on(fake_lib, dtype):
     assert fake_lib.names() == ["rp_mhsa_fwd", "rp_mhsa_bwd"]
     fwd, bwd = (args for _, args in fake_lib.calls)
     assert fwd[4] is not None and bwd[7] == fwd[4]
-    if dtype == torch.bfloat16:
-        assert bwd[9] is None
-    else:
-        assert fwd[3] == out.data_ptr() and bwd[9] == fwd[3]
-        assert bwd[8] != bwd[9]
+    assert fwd[3] == out.data_ptr() and bwd[9] == fwd[3]
+    assert bwd[8] != bwd[9]
     assert [g.shape for g in grads] == [(G, N, D)] * 3
 
 
 @pytest.mark.parametrize("case", ["fp32 heads", "shape", "dtype", "forward"])
 def test_stats_checks(fake_lib, case):
-    """The statistics must be the forward's (G, N, 3) fp32 buffer, and fp32
-    heads take them only with o; the fp32 forward keeps them as the bf16
-    one does."""
+    """The statistics must be the forward's (G, N, 3) fp32 buffer, taken
+    only with o (fp32 heads here; bf16 in test_o_checks); the fp32 forward
+    keeps them as the bf16 one does."""
     q, k, v, do = heads(torch.bfloat16)
     stats = torch.zeros((G, N, 3))
     if case == "fp32 heads":
@@ -203,8 +192,9 @@ def test_stats_checks(fake_lib, case):
 @pytest.mark.parametrize("case", ["bf16 heads", "no stats", "shape",
                                   "dtype", "not contiguous"])
 def test_o_checks(fake_lib, case):
-    """o: fp32 heads only, with the statistics, a contiguous tensor of the
-    heads' shape and dtype; a bad one raises before any launch."""
+    """o: with the statistics, a contiguous tensor of the heads' shape and
+    dtype (an fp32 o for bf16 heads raises); a bad one raises before any
+    launch."""
     q, k, v, do, o = heads(torch.float32, 5)
     stats = torch.zeros((G, N, 3))
     f0, b0 = ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches
@@ -270,7 +260,7 @@ def test_input_checks_raise_before_any_launch(fake_lib, case, exc):
 
 def test_counters_rise_once_per_launch(fake_lib):
     """The forward counts its launch; the backward counts once per call,
-    its stats pass included."""
+    its own forward included."""
     q, k, v, do = heads(torch.bfloat16)
     f0, b0 = ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches
     ta.fused_mhsa(q, k, v, SCALE)
@@ -288,7 +278,7 @@ def test_failed_launch_raises_and_does_not_count(fake_lib):
     f0, b0 = ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches
     with pytest.raises(RuntimeError, match="rp_mhsa_fwd"):
         ta.fused_mhsa(q, k, v, SCALE)
-    with pytest.raises(RuntimeError, match="rp_mhsa_stats"):
+    with pytest.raises(RuntimeError, match="rp_mhsa_fwd"):
         ta.fused_mhsa_bwd(q, k, v, do, SCALE)
     assert (ta.fused_mhsa.launches, ta.fused_mhsa_bwd.launches) == (f0, b0)
 
