@@ -66,7 +66,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      and backward of a kept forward (training shapes), and one SDPA call
      each way; #5 and #6 in fp32 the same way (#6's parts too); and the
      training step in pairs/s at batch 60, 384x512 uint8 (bench.py's train
-     protocol), fp32 and bf16, kernels and plain path.
+     protocol), fp32 and bf16, kernels and plain path;
+  5f. each bf16 GEMM of #1 and #5 alone (``ops.vit_gemm``, the test-only
+     entry ``rp_gemm_bf16`` of ``csrc/gemm_wgmma.cuh``'s body): #1's four
+     Linears at G = 512, #5's recompute, dX and dW at G = 120, a ragged M
+     of 1,728 rows and C = 64 / hidden 256 (64-column tiles), each against
+     its plain version at the bf16 tolerances, twice for the same bits,
+     and timed beside one library call (``F.linear`` / ``torch.matmul``,
+     cuBLAS) and its bound.
 
 The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
@@ -240,7 +247,8 @@ reference are child processes that run beside 9a-9d:
      phase 6's batch-60 CLI record carries an ``mfu`` equal to its pairs/s
      x FLOPs a pair / 989e12 within 1e-6 relative; every MFU in (0, 1);
   9b. ``utils.profiling.trace`` around 2 eval forwards: the Chrome trace
-     parses and holds device events of #1 and #2 under their kernel names;
+     parses and holds device events of #1 and #2 under their kernel names
+     (#1's bf16 GEMMs ``wg::gemm_wgmma_kernel``);
   9c. the flagship bf16 after 2 steps of 4 pairs: ``save_checkpoint``, then
      ``AsyncCheckpointer.save`` and 2 more steps at once, then ``close()``:
      both files equal tensor by tensor; the training thread's ms in
@@ -1207,7 +1215,9 @@ def library_stack_ms(x, stacked, pos, backward):
 def kernel_parts_ms(fn):
     """Device time of one ``fn()`` by part: the attention kernels
     (``rp::tc::attn_*``, bf16's ``rp::tc::wg::attn_*``), the GEMMs
-    (``gemm_*``) and the rest."""
+    (``gemm_*``: fp32's ``rp::tc::gemm_*_kernel``, bf16's
+    ``rp::tc::wg::gemm_wgmma_kernel`` and ``gemm_dw_bias_kernel``) and the
+    rest."""
     return profile_parts_ms(fn, lambda key: (
         "attention" if "attn_" in key else
         "gemm" if "gemm_" in key else "other"))
@@ -1849,6 +1859,126 @@ def phase_times_train(device, sd, card):
 
 
 # ------------------------------------------------------------ --noess --
+
+# The bf16 GEMMs of #1 (G = 512, the eval shapes) and #5 (G = 120, the
+# training shapes) alone, and a ragged M (G = 3: 1,728 rows) and C = 64 /
+# hidden 256 (64-column tiles): (label, op, epilogue, M, N, K) in
+# ops.vit_gemm's terms -- N the output width (dW: the Linear's out
+# features), K the depth (dW: its in features).
+GEMM_C, GEMM_H = 192, 768
+GEMM_SHAPES = [
+    ("#1 qkv", "fwd", "bias", 512 * 576, 3 * GEMM_C, GEMM_C),
+    ("#1 proj", "fwd", "bias_resid", 512 * 576, GEMM_C, GEMM_C),
+    ("#1 fc1", "fwd", "bias_gelu", 512 * 576, GEMM_H, GEMM_C),
+    ("#1 fc2", "fwd", "bias_resid", 512 * 576, GEMM_C, GEMM_H),
+    ("#5 qkv", "fwd", "bias", 120 * 576, 3 * GEMM_C, GEMM_C),
+    ("#5 proj", "fwd", "bias_resid", 120 * 576, GEMM_C, GEMM_C),
+    ("#5 fc1", "fwd", "bias_gelu_split", 120 * 576, GEMM_H, GEMM_C),
+    ("#5 fc2 dX", "dx", "gelu_grad", 120 * 576, GEMM_H, GEMM_C),
+    ("#5 fc1 dX", "dx", "plain", 120 * 576, GEMM_C, GEMM_H),
+    ("#5 proj dX", "dx", "plain", 120 * 576, GEMM_C, GEMM_C),
+    ("#5 qkv dX", "dx", "plain", 120 * 576, GEMM_C, 3 * GEMM_C),
+    ("#5 fc2 dW", "dw", None, 120 * 576, GEMM_C, GEMM_H),
+    ("#5 fc1 dW", "dw", None, 120 * 576, GEMM_H, GEMM_C),
+    ("#5 proj dW", "dw", None, 120 * 576, GEMM_C, GEMM_C),
+    ("#5 qkv dW", "dw", None, 120 * 576, 3 * GEMM_C, GEMM_C),
+    ("ragged proj", "fwd", "bias_resid", 3 * 576, GEMM_C, GEMM_C),
+    ("ragged fc1", "fwd", "bias_gelu_split", 3 * 576, GEMM_H, GEMM_C),
+    ("ragged fc2 dX", "dx", "gelu_grad", 3 * 576, GEMM_H, GEMM_C),
+    ("ragged qkv dW", "dw", None, 3 * 576, 3 * GEMM_C, GEMM_C),
+    ("C=64 fc1", "fwd", "bias_gelu", 3 * 576, 256, 64),
+    ("C=64 fc2", "fwd", "bias_resid", 3 * 576, 64, 256),
+    ("C=64 fc2 dX", "dx", "gelu_grad", 3 * 576, 256, 64),
+    ("C=64 fc1 dX", "dx", "plain", 3 * 576, 64, 256),
+    ("C=64 fc1 dW", "dw", None, 3 * 576, 256, 64),
+]
+
+
+def gemm_operands(op, epi, M, N, K, device, seed):
+    """Seeded operands of one ``vit_gemm`` call at the stack's scales:
+    bf16 activations and cotangent copies ~ N(0, 1), weights ~ N(0, 1/K),
+    fp32 biases, GELU pre-activations and cotangents."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+    kw = {}
+    if op == "fwd":
+        a, b = r(M, K), r(N, K, scale=K ** -0.5)
+        kw["bias"] = r(N, scale=0.1, dtype=torch.float32)
+        if epi == "bias_resid":
+            kw["resid"] = r(M, N)
+    elif op == "dx":
+        a, b = r(M, K), r(K, N, scale=K ** -0.5)
+        if epi == "gelu_grad":
+            kw["aux"], kw["outb"] = r(M, N, dtype=torch.float32), True
+    else:
+        dy = r(M, N, dtype=torch.float32)
+        a, b = dy.to(torch.bfloat16), r(M, K)
+        kw["dy"] = dy
+    return a, b, kw
+
+
+def library_gemm(op, a, b, kw):
+    """One library call of the same product in bf16 (the yardstick, timed
+    only): ``F.linear`` with the bias, ``torch.matmul`` for dX and dW."""
+    import torch.nn.functional as F
+    if op == "fwd":
+        return F.linear(a, b, kw["bias"].to(a.dtype))
+    if op == "dx":
+        return torch.matmul(a, b)
+    return torch.matmul(a.t(), b)
+
+
+def phase_gemm(device, card):
+    """(5f) each bf16 GEMM of #1 and #5 alone, through the test-only entry
+    ``rp_gemm_bf16`` (``ops.vit_gemm``; the model path never calls it):
+    against its plain version at the bf16 tolerances (bf16 outputs as
+    check_tokens, fp32 ones as check_grad), twice for the same bits, then
+    timed (CUDA events) beside one library call and its bound.  Returns
+    {label: (ms, library ms, bound ms)}."""
+    from rel_pose_tpu_torch.ops.vit_gemm import vit_gemm, vit_gemm_reference
+    t0 = time.perf_counter()
+    failures, rows = [], {}
+    for n, (label, op, epi, M, N, K) in enumerate(GEMM_SHAPES):
+        a, b, kw = gemm_operands(op, epi, M, N, K, device, SEED + 300 + n)
+        name = f"gemm {label} {op} {epi or ''} M={M} N={N} K={K}"
+        out = vit_gemm(op, epi, a, b, **kw)
+        again = vit_gemm(op, epi, a, b, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(out, again)):
+            failures.append(f"{name}: two calls differ")
+        ref = vit_gemm_reference(op, epi, a, b, **kw)
+        for i, (o, r) in enumerate(zip(out, ref)):
+            if o.dtype == torch.bfloat16:
+                check_tokens(f"{name} out{i}", o, r, torch.bfloat16, failures)
+            else:
+                check_grad(f"{name} out{i}", o, r, torch.bfloat16, failures)
+        del again, ref
+        ms = cuda_time_ms(lambda: vit_gemm(op, epi, a, b, **kw), 5)
+        lib_ms = cuda_time_ms(lambda: library_gemm(op, a, b, kw), 5)
+        flops = 2 * M * N * K
+        nb = nbytes(a, b, *out, *(t for t in kw.values()
+                                  if isinstance(t, torch.Tensor)))
+        bms, by = bound(flops, nb, torch.bfloat16)
+        rows[label] = (ms, lib_ms, bms)
+        log(f"[time] {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s, {nb / ms / 1e6:.0f} GB/s), library {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}) ({card})")
+        del a, b, kw, out
+    for tag, blocks in (("#1", 5), ("#5", 5)):
+        k = sum(v[0] for lab, v in rows.items() if lab.startswith(tag))
+        lb = sum(v[1] for lab, v in rows.items() if lab.startswith(tag))
+        bd = sum(v[2] for lab, v in rows.items() if lab.startswith(tag))
+        log(f"[time] gemm {tag} its GEMMs alone x {blocks} blocks: kernel "
+            f"{blocks * k:.3f} ms, library {blocks * lb:.3f} ms, bound "
+            f"{blocks * bd:.3f} ms ({card})")
+    log(f"[time] phase 5f in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise SystemExit(f"GEMM checks failed: {failures}")
+    return rows
+
 
 def noess_counters():
     from rel_pose_tpu_torch.ops import attention as ta
@@ -3983,9 +4113,9 @@ def phase_tooling(device, card, eval_ms, train_bf16_ms):
     record at batch 60 carries an ``mfu`` equal to its pairs/s x FLOPs a
     pair / 989e12 within 1e-6 relative; every MFU in (0, 1).
     9b: ``trace(dir)`` around 2 eval forwards: the Chrome trace parses and
-    holds device events of #1 (``tc::gemm_fwd_kernel``,
-    ``attn_fwd_kernel``: bf16's ``tc::wg::``, fp32's ``tc::``) and #2
-    (``eb_moments_kernel``).
+    holds device events of #1 (bf16: ``tc::wg::gemm_wgmma_kernel``,
+    ``tc::wg::attn_fwd_kernel``) and #2 (``eb_moments_kernel``, its qkv
+    GEMM ``tc::gemm_fwd_kernel``).
     9c: the flagship bf16 after 2 steps: ``save_checkpoint``, then
     ``AsyncCheckpointer.save`` and 2 more steps at once, then ``close()``:
     both files equal tensor by tensor; the training thread's ms in
@@ -4076,8 +4206,8 @@ def phase_tooling(device, card, eval_ms, train_bf16_ms):
                     model(images, intr)
         names = trace_kernel_names(prof.trace_path)
         found = {k: sorted(n for n in names if k in n)[:1] for k in (
-            "tc::gemm_fwd_kernel", "attn_fwd_kernel",
-            "eb_moments_kernel")}
+            "wg::gemm_wgmma_kernel", "attn_fwd_kernel",
+            "eb_moments_kernel", "tc::gemm_fwd_kernel")}
         log(f"[tooling] 9b trace {prof.trace_path} "
             f"({os.path.getsize(prof.trace_path)} bytes), {len(names)} "
             f"kernel names; #1 / #2 events: {found}")
@@ -4729,6 +4859,7 @@ def main():
     train_rows, synthetic_ms = phase_times_train(device, sd, card)
     rows.update(train_rows)
     del sd
+    phase_gemm(device, card)
     phase_nofusion(device, card)
     models, sd = make_models(device, noess=True)
     noess_eval, noess_train = phase_noess(device, models, sd)

@@ -51,9 +51,8 @@
 
 #pragma once
 
-#include <cuda.h>
-
 #include "gemm_tc.cuh"
+#include "sm90.cuh"
 
 namespace rp {
 namespace tc {
@@ -99,73 +98,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
-// the kernel's dynamic shared memory, where it exceeds the default 48 KB
-template <class K>
-static cudaError_t smem_attr(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 namespace wg {
 
 constexpr int kT = 64;                  // rows of a query or key tile
 constexpr int kThreads = 128;           // one warpgroup
 constexpr int kTileBytes = kT * 128;    // 64 rows of 64 bf16
 constexpr int kStages = 2;
-
-// ------------------------------------------------------------ PTX pieces --
-__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// waits for the phase of the given parity to complete; a wait of more than
-// 2^32 cycles (about 2 s) is a fault, and traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
-  unsigned done;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 32)) __trap();
-  } while (!done);
-}
-
-// one 64 x 64 box of a 3-D tensor map at (column c0, row r0, sequence g)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
-                                         uint32_t bar, int c0, int r0,
-                                         int g) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(r0),
-      "r"(g)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 
 // keeps the compiler from moving an accumulator's (or a register A
 // operand's) reads or writes across the asynchronous products
@@ -180,23 +118,6 @@ __device__ __forceinline__ void fence_frag(unsigned (&f)[4][4]) {
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(f[kk][e])::"memory");
-}
-
-// A shared-memory operand: a 64-row tile of 128-byte rows at `addr`
-// (1024-byte aligned), 128-byte swizzle; 8-row groups 1024 bytes apart
-// (SBO).  K-major (the tile's rows are M or N, its columns the sum index):
-// each 16-deep step starts 32 bytes further.  MN-major (its rows are the
-// sum index, its columns N; only B): each step starts 16 rows further, and
-// the 64 columns are one swizzle atom, so LBO is never stepped over.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)64 << 16) |
-         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ uint64_t kmajor_step(uint64_t d, int kk) {
-  return d + (uint64_t)(2 * kk);  // 32 bytes in 16-byte units
-}
-__device__ __forceinline__ uint64_t mnmajor_step(uint64_t d, int kk) {
-  return d + (uint64_t)(128 * kk);  // 16 rows of 128 bytes
 }
 
 #define RP_WG_ACC(d)                                                        \
@@ -256,19 +177,6 @@ __device__ __forceinline__ void gemm_pb(float (&d)[8][4],
   const uint64_t db = desc(b);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) mma_rs(d, p[kk], mnmajor_step(db, kk));
-}
-
-// byte offset of 16-byte chunk ch (columns 8 ch .. 8 ch + 7) of row r in a
-// 128-byte-swizzled tile: what TMA writes and wgmma reads
-__device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return r * 128 + ((ch ^ (r & 7)) << 4);
-}
-
-// the dynamic shared memory, rounded up to the 1024 bytes of the swizzle
-// atom; the launchers ask for kAlign more than they use
-constexpr int kAlign = 1024;
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((kAlign - (smem_u32(raw) & (kAlign - 1))) & (kAlign - 1));
 }
 
 // (dq, dk or dv) two adjacent columns: fp32 to f where the layout keeps it,
@@ -687,32 +595,6 @@ attn_dkv_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // ------------------------------------------------------------ launchers --
-// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
-// point query: the library links no libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-  cudaError_t err = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-  if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-    fn = reinterpret_cast<EncodeTiled>(p);
-  return fn;
-}
-
 // the tensor map of one operand: `heads` 64-column heads of G sequences of
 // N rows from base, row stride ld elements, 64 x 64 boxes, 128-byte swizzle;
 // rows >= N read as zeros

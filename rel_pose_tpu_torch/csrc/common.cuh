@@ -1,6 +1,6 @@
-// Row LayerNorm and its VJP, the epilogues of the tensor-core GEMMs in
-// gemm_tc.cuh, the fixed-order partial sums, and the fp32 <-> compute-dtype
-// helpers.
+// Row LayerNorm and its VJP, the epilogues of the tensor-core GEMMs
+// (gemm_wgmma.cuh, gemm_tc.cuh), the fixed-order partial sums, and the
+// fp32 <-> compute-dtype helpers.
 //
 // Compute dtype T is float or __nv_bfloat16.  Every product accumulates in
 // fp32 (bf16 products are exact in fp32), every statistic is fp32, and each
@@ -38,12 +38,6 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -112,8 +106,9 @@ static cudaError_t launch_layernorm(const T* x, const T* pos, T* xsum,
 }
 
 // ------------------------------------------------------------------ GEMM --
-// The epilogues of gemm_tc.cuh's forward GEMM, out[M, Nout] =
-// epilogue(A[M, K] . W[Nout, K]^T) with W in torch Linear layout.
+// The epilogues of the forward GEMMs (gemm_wgmma.cuh for the bf16 ViT
+// stack, gemm_tc.cuh otherwise), out[M, Nout] = epilogue(A[M, K] .
+// W[Nout, K]^T) with W in torch Linear layout.
 
 enum Epilogue {
   kBias = 0,       // T(acc + b)                        (Pallas ViT bias)
@@ -149,14 +144,21 @@ __device__ __forceinline__ float gelu_grad_policy(float h) {
 }
 
 // =========================================================== backward ====
-// The dX GEMM's epilogues (gemm_tc.cuh's gemm_dx_kernel): the input
-// cotangent of a Linear, fp32.
+// The dX GEMMs' epilogues (gemm_wgmma.cuh in bf16, gemm_tc.cuh's
+// gemm_dx_kernel in fp32): the input cotangent of a Linear, fp32.
 enum DxEpilogue {
   kDxPlain = 0,     // acc                                  (fp32)
   kDxGeluGrad = 1,  // acc * gelu'(aux)  (aux: fp32 pre-activation, may
                     // alias out: each element is read then written by one
                     // thread)
 };
+
+// rows per split-K chunk of both dW GEMMs: short chunks keep more SMs busy
+// at the training shapes (M / 1,024 partials of Nout x K fp32; shorter
+// chunks than that were slower on an H100, bf16, mma.sync)
+constexpr int kDwChunk = 1024;
+
+static int dw_chunks(int M) { return (M + kDwChunk - 1) / kDwChunk; }
 
 // out[j] = sum over s = 0 .. S-1, in order, of part[s * stride + j]: the
 // split-K dW partials and the LayerNorm VJP's column partials, summed in a

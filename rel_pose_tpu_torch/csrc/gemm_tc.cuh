@@ -1,18 +1,21 @@
-// Tensor-core GEMMs of the ViT stack (kernels #1 and #5, bf16 and fp32),
-// and the mma.sync / ldmatrix / cp.async helpers that attention_tc.cuh
-// shares.
+// Tensor-core GEMMs on mma.sync: the fp32 GEMMs of the ViT stack (kernels
+// #1 and #5) and the essential block's qkv Linear in both dtypes, and the
+// mma.sync / ldmatrix / cp.async helpers that attention_tc.cuh and
+// essential_tc.cuh share.
 //
 // Replaces the GEMMs inside rel_pose_tpu/ops/pallas_vit.py:
 // _vit_stack_kernel (qkv, proj, fc1, fc2) and pallas_vit_bwd.py:
-// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears), and
-// the forward GEMM inside pallas_essential_block.py's
-// _essential_block_pair_kernel and _essential_block_x_kernel (the qkv
-// Linear, essential_block.cu), all in both dtypes.
+// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears) in
+// fp32 -- bf16 runs those on gemm_wgmma.cuh -- and the forward GEMM inside
+// pallas_essential_block.py's _essential_block_pair_kernel and
+// _essential_block_x_kernel (the qkv Linear, essential_block.cu, epilogue
+// kRounded) in both dtypes.  bf16 keeps only that forward here (launch_gemm
+// refuses any other bf16 epilogue at compile time, and Cfgs<bf16> has no dX
+// or dW tile), so that the essential block stays as it is.
 //
 // One structure, two products: the element type picks the MMA atom.
-//   bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on operands loaded
-//     with ldmatrix (.trans for the operands that the backward reads along
-//     their other axis); bf16 x bf16 products are exact in fp32.
+//   bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on K-major operands
+//     loaded with ldmatrix; bf16 x bf16 products are exact in fp32.
 //   fp32: 3xTF32 on mma.sync.m16n8k8 .tf32.  Each fp32 operand, loaded
 //     from shared memory with 32-bit loads (ldmatrix moves 16-bit
 //     elements), is split in registers into a TF32 high part hi = rna(x)
@@ -34,30 +37,21 @@
 //
 // Design: operands from padded shared-memory tiles, fed by a 3-stage
 // cp.async ring of K steps (128 x 192 output tiles where the widths
-// allow).  mma.sync and not wgmma + TMA: written without a way to compile
-// or run it outside the card; mma.sync reaches a fraction of Hopper's
-// wgmma rate (the gap is recorded in PERF.md), and moving to wgmma is
-// later work.  Every product keeps the Pallas kernels' rounding points:
-// sums are fp32, only their order differs from the SIMT kernels, and the
-// epilogues are common.cuh's, element for element.  bf16 products take
-// fp32 cotangents as T(dY): the producing kernel (or a cast kernel) writes
-// the bf16 copy once, which gives the same bits as rounding on the load;
-// fp32 products read the cotangent itself.  No atomics: the dW GEMM writes
-// per-chunk partials that sum_partials adds in order, so two calls give
-// the same bits.
+// allow).  Every product keeps the Pallas kernels' rounding points: sums
+// are fp32, only their order differs from the SIMT kernels, and the
+// epilogues are common.cuh's, element for element.  fp32 products read the
+// cotangents themselves.  No atomics: the dW GEMM writes per-chunk
+// partials that sum_partials adds in order, so two calls give the same
+// bits.
 
 #pragma once
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace rp {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
 
 // 16 bytes global -> shared, or 16 zero bytes when !ok (src unread)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -273,11 +267,13 @@ __device__ __forceinline__ void load_stage(E* st, const E* A, size_t lda,
   }
 }
 
-// one K step of bf16 products: ldmatrix fragments, m16n8k16
+// one K step of bf16 products: ldmatrix fragments, m16n8k16 (K-major A and
+// B: the forward tiles, the only bf16 ones)
 template <class Cfg>
 __device__ __forceinline__ void compute_stage(
     const bf16* st, float (&acc)[Cfg::MI][Cfg::NI][4], int wm, int wn,
     int lane) {
+  static_assert(Cfg::kAK && Cfg::kBK, "bf16 tiles are K-major");
   const bf16* As = st;
   const bf16* Bs = st + Cfg::A_ELEMS;
 #pragma unroll
@@ -286,25 +282,15 @@ __device__ __forceinline__ void compute_stage(
 #pragma unroll
     for (int mi = 0; mi < Cfg::MI; ++mi) {
       const int row0 = wm * Cfg::TM + mi * 16;
-      if (Cfg::kAK)
-        ldsm_x4(af[mi], As + (row0 + (lane & 15)) * Cfg::A_LD + kk +
-                            (lane >> 4) * 8);
-      else
-        ldsm_x4_t(af[mi], As + (kk + (lane & 7) + (lane >> 4) * 8) *
-                                   Cfg::A_LD +
-                              row0 + ((lane >> 3) & 1) * 8);
+      ldsm_x4(af[mi], As + (row0 + (lane & 15)) * Cfg::A_LD + kk +
+                          (lane >> 4) * 8);
     }
 #pragma unroll
     for (int ni = 0; ni < Cfg::NI; ni += 2) {
       const int col0 = wn * Cfg::TN + ni * 8;
       unsigned r[4];
-      if (Cfg::kBK)
-        ldsm_x4(r, Bs + (col0 + (lane & 7) + (lane >> 4) * 8) * Cfg::B_LD +
-                       kk + ((lane >> 3) & 1) * 8);
-      else
-        ldsm_x4_t(r, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                              Cfg::B_LD +
-                         col0 + (lane >> 4) * 8);
+      ldsm_x4(r, Bs + (col0 + (lane & 7) + (lane >> 4) * 8) * Cfg::B_LD +
+                     kk + ((lane >> 3) & 1) * 8);
       bfr[ni][0] = r[0];
       bfr[ni][1] = r[1];
       bfr[ni + 1][0] = r[2];
@@ -469,16 +455,14 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
 // GEMM at C = 192): A is read from L2 a third as often as with 64-column
 // tiles, with half as many barriers (one 138 KB block per SM; the fastest
 // of the tiles tried on an H100 at the bf16 eval shapes).  fp32 keeps the
-// tiles' shape with 32-deep K steps (128 bytes a row, as bf16's 64).
+// tiles' shape with 32-deep K steps (128 bytes a row, as bf16's 64).  bf16
+// has only the forward tiles: its ViT GEMMs run on gemm_wgmma.cuh.
 template <typename E>
 struct Cfgs;
 template <>
 struct Cfgs<bf16> {
   using Fwd = Tile<bf16, 128, 64, 2, 2, true, true>;
   using FwdWide = Tile<bf16, 128, 192, 4, 2, true, true, 64, 3>;
-  using Dx = Tile<bf16, 128, 64, 2, 2, true, false>;
-  using DxWide = Tile<bf16, 128, 192, 4, 2, true, false, 64, 3>;
-  using Dw = Tile<bf16, 64, 64, 2, 2, false, false>;
 };
 template <>
 struct Cfgs<float> {
@@ -561,6 +545,8 @@ static cudaError_t launch_gemm(const E* A, const nd_t<E>* W,
                                const float* bias, const nd_t<E>* resid,
                                nd_t<E>* out, int M, int Nout, int K,
                                cudaStream_t stream, float* aux = nullptr) {
+  static_assert(sizeof(E) == 4 || EPI == kRounded,
+                "bf16 ViT GEMMs run on gemm_wgmma.cuh");
   using Wide = typename Cfgs<E>::FwdWide;
   if (Nout % Wide::BN == 0 && K % Wide::BK == 0)
     return launch_gemm_cfg<EPI, Wide>(A, W, bias, resid, out, M, Nout, K,
@@ -570,23 +556,20 @@ static cudaError_t launch_gemm(const E* A, const nd_t<E>* W,
 }
 
 // ------------------------------------------------------------ dX GEMM --
-// out[M, Kout] = epilogue(dY'[M, Nred] . W[Nred, Kout]) in fp32, W the
-// torch Linear weight (Nred = out features), dY' the cotangent as the
-// product's operand (bf16: T(dY); fp32: dY); common.cuh's DxEpilogue.
-// With outb given, T(out) is also written there (the next bf16 products'
-// operand).  aux may alias out.
+// out[M, Kout] = epilogue(dY[M, Nred] . W[Nred, Kout]) in fp32, W the
+// torch Linear weight (Nred = out features); common.cuh's DxEpilogue.  aux
+// may alias out.
 template <int EPI, class Cfg>
 __global__ void __launch_bounds__(Cfg::kThreads)
-gemm_dx_kernel(const typename Cfg::E* __restrict__ dYb,
+gemm_dx_kernel(const typename Cfg::E* __restrict__ dY,
                const typename Cfg::E* __restrict__ W, const float* aux,
-               float* out, typename Cfg::E* __restrict__ outb, int M,
-               int Kout, int Nred) {
+               float* out, int M, int Kout, int Nred) {
   using E = typename Cfg::E;
   extern __shared__ __align__(128) unsigned char gemm_smem[];
   E* smem = reinterpret_cast<E*>(gemm_smem);
   const int m0 = blockIdx.y * Cfg::BM, n0 = blockIdx.x * Cfg::BN;
   float acc[Cfg::MI][Cfg::NI][4];
-  mainloop<Cfg>(smem, dYb, Nred, W, Kout, m0, n0, 0, Nred, M, acc);
+  mainloop<Cfg>(smem, dY, Nred, W, Kout, m0, n0, 0, Nred, M, acc);
   const float* Cs = stage_acc<Cfg>(smem, acc);
   constexpr int LDC = Cfg::BN + 8, C4 = Cfg::BN / 4;
   for (int idx = threadIdx.x; idx < Cfg::BM * C4; idx += Cfg::kThreads) {
@@ -603,17 +586,13 @@ gemm_dx_kernel(const typename Cfg::E* __restrict__ dYb,
       v.w *= gelu_grad_policy<E>(h.w);
     }
     *reinterpret_cast<float4*>(out + o) = v;
-    if (outb) {
-      const float w[4] = {v.x, v.y, v.z, v.w};
-      store4(outb + o, w);
-    }
   }
 }
 
 template <int EPI, class Cfg, typename E = typename Cfg::E>
-static cudaError_t launch_gemm_dx_cfg(const E* dYb, const E* W,
-                                      const float* aux, float* out, E* outb,
-                                      int M, int Kout, int Nred,
+static cudaError_t launch_gemm_dx_cfg(const E* dY, const E* W,
+                                      const float* aux, float* out, int M,
+                                      int Kout, int Nred,
                                       cudaStream_t stream) {
   const int mt = (M + Cfg::BM - 1) / Cfg::BM;
   if (Kout % Cfg::BN || Nred % Cfg::BK || mt > 65535)
@@ -621,43 +600,33 @@ static cudaError_t launch_gemm_dx_cfg(const E* dYb, const E* W,
   cudaError_t err = prepare<Cfg>(gemm_dx_kernel<EPI, Cfg>);
   if (err != cudaSuccess) return err;
   gemm_dx_kernel<EPI, Cfg><<<dim3(Kout / Cfg::BN, mt), Cfg::kThreads,
-                             Cfg::kSmemBytes, stream>>>(dYb, W, aux, out,
-                                                        outb, M, Kout, Nred);
+                             Cfg::kSmemBytes, stream>>>(dY, W, aux, out, M,
+                                                        Kout, Nred);
   return cudaGetLastError();
 }
 
-template <int EPI, typename E>
-static cudaError_t launch_gemm_dx(const E* dYb, const nd_t<E>* W,
-                                  const float* aux, float* out,
-                                  nd_t<E>* outb, int M, int Kout, int Nred,
-                                  cudaStream_t stream) {
-  using Wide = typename Cfgs<E>::DxWide;
+template <int EPI>
+static cudaError_t launch_gemm_dx(const float* dY, const float* W,
+                                  const float* aux, float* out, int M,
+                                  int Kout, int Nred, cudaStream_t stream) {
+  using Wide = Cfgs<float>::DxWide;
   if (Kout % Wide::BN == 0 && Nred % Wide::BK == 0)
-    return launch_gemm_dx_cfg<EPI, Wide>(dYb, W, aux, out, outb, M, Kout,
-                                         Nred, stream);
-  return launch_gemm_dx_cfg<EPI, typename Cfgs<E>::Dx>(dYb, W, aux, out, outb,
-                                                       M, Kout, Nred, stream);
+    return launch_gemm_dx_cfg<EPI, Wide>(dY, W, aux, out, M, Kout, Nred,
+                                         stream);
+  return launch_gemm_dx_cfg<EPI, Cfgs<float>::Dx>(dY, W, aux, out, M, Kout,
+                                                  Nred, stream);
 }
 
 // ------------------------------------------------- dW GEMM, split-K -----
-// dW[Nout, K] = sum_m dY'[m, n] X[m, k], db[n] = sum_m dY[m, n] (fp32 dY;
-// dY' the product's operand, as in dX).  Block (k tile, n tile, chunk s)
-// sums rows [s chunk, (s + 1) chunk) and writes its fp32 partial; the
-// blocks of k tile 0 also write the chunk's column sums of dY;
-// sum_partials adds the chunks in order.  A = dY' read M-major and B = X
-// read N-major (bf16: both tiles through ldmatrix.trans).
-
-// rows per dW chunk: short chunks keep more SMs busy at the training
-// shapes (M / 1,024 partials of Nout x K fp32; shorter chunks than that
-// were slower on an H100, bf16)
-constexpr int kDwChunkTc = 1024;
-
-static int dw_chunks_tc(int M) { return (M + kDwChunkTc - 1) / kDwChunkTc; }
+// dW[Nout, K] = sum_m dY[m, n] X[m, k], db[n] = sum_m dY[m, n] (fp32).
+// Block (k tile, n tile, chunk s) sums rows [s chunk, (s + 1) chunk) and
+// writes its fp32 partial; the blocks of k tile 0 also write the chunk's
+// column sums of dY; sum_partials adds the chunks in order.  A = dY read
+// M-major and B = X read N-major.
 
 template <class Cfg>
 __global__ void __launch_bounds__(Cfg::kThreads)
-gemm_dw_kernel(const typename Cfg::E* __restrict__ dYb,
-               const float* __restrict__ dY,
+gemm_dw_kernel(const float* __restrict__ dY,
                const typename Cfg::E* __restrict__ X,
                float* __restrict__ part, float* __restrict__ bias_part, int M,
                int Nout, int K, int chunk) {
@@ -669,7 +638,7 @@ gemm_dw_kernel(const typename Cfg::E* __restrict__ dYb,
   const int s = blockIdx.z;
   const int mbeg = s * chunk, mend = min(M, mbeg + chunk);
   float acc[Cfg::MI][Cfg::NI][4];
-  mainloop<Cfg>(smem, dYb, Nout, X, K, n0, k0, mbeg, mend, Nout, acc);
+  mainloop<Cfg>(smem, dY, Nout, X, K, n0, k0, mbeg, mend, Nout, acc);
   float* P = part + (size_t)s * Nout * K;
 #pragma unroll
   for (int mi = 0; mi < Cfg::MI; ++mi)
@@ -700,24 +669,21 @@ gemm_dw_kernel(const typename Cfg::E* __restrict__ dYb,
   }
 }
 
-// dW (Nout, K) and db (Nout) of a Linear from dY' (dYb: T(dY) for bf16,
-// dY itself for fp32), dY and X; part / bias_part hold dw_chunks_tc(M)
-// partials
-template <typename E>
-static cudaError_t weight_grad(const E* dYb, const float* dY,
-                               const nd_t<E>* X, float* dW, float* db,
-                               float* part, float* bias_part, int M, int Nout,
-                               int K, cudaStream_t stream) {
-  using Cfg = typename Cfgs<E>::Dw;
-  static_assert(kDwChunkTc % Cfg::BK == 0, "whole K steps per chunk");
+// dW (Nout, K) and db (Nout) of a Linear from dY (fp32: the product reads
+// the cotangent itself) and X; part / bias_part hold dw_chunks(M) partials
+static cudaError_t weight_grad(const float* dY, const float* X, float* dW,
+                               float* db, float* part, float* bias_part,
+                               int M, int Nout, int K, cudaStream_t stream) {
+  using Cfg = Cfgs<float>::Dw;
+  static_assert(kDwChunk % Cfg::BK == 0, "whole K steps per chunk");
   if (Nout % Cfg::BM || K % Cfg::BN) return cudaErrorInvalidValue;
-  const int S = dw_chunks_tc(M);
+  const int S = dw_chunks(M);
   cudaError_t err = prepare<Cfg>(gemm_dw_kernel<Cfg>);
   if (err != cudaSuccess) return err;
   gemm_dw_kernel<Cfg><<<dim3(K / Cfg::BN, Nout / Cfg::BM, S), Cfg::kThreads,
-                        Cfg::kSmemBytes, stream>>>(dYb, dY, X, part,
+                        Cfg::kSmemBytes, stream>>>(dY, X, part,
                                                    bias_part, M, Nout, K,
-                                                   kDwChunkTc);
+                                                   kDwChunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = launch_sum_partials(part, S, (size_t)Nout * K, (size_t)Nout * K, dW,

@@ -8,26 +8,28 @@
 // shared memory, so here each block is a short chain of kernels launched
 // from rp_vit_stack, per block:
 //   (a) row LayerNorm (block 0 also adds pos_embed)   -> common.cuh
-//   (b) qkv GEMM, bias epilogue                        -> gemm_tc.cuh
-//   (c) attention per (sequence, head, 64-query tile)  -> attention_tc.cuh
-//       (bf16: attention_wgmma.cuh)
+//   (b) qkv GEMM, bias epilogue                        -> gemm_wgmma.cuh
+//       (fp32: gemm_tc.cuh)
+//   (c) attention per (sequence, head, 64-query tile)  -> attention_wgmma.cuh
+//       (fp32: attention_tc.cuh)
 //   (b) proj GEMM, + residual epilogue (in place on the stream)
 //   (a) LayerNorm, (b) fc1 GEMM + GELU, (b) fc2 GEMM + residual
 //
 // Both dtypes run the products on the tensor cores with fp32 sums and the
-// Pallas kernels' rounding points: the GEMMs on mma.sync, bf16 as
-// m16n8k16, fp32 as 3xTF32 (m16n8k8 on operands split into TF32 hi + lo,
-// the lo . lo term dropped: fp32 accuracy, not the 3-digit TF32 that the
-// port's precision policy forbids); bf16 attention on wgmma with TMA-fed
-// tiles, fp32 attention on 3xTF32 mma.sync.  Attention reads q, k, v from
-// the qkv GEMM's (G, N, 3C) output (layout Interleaved).
+// Pallas kernels' rounding points.  bf16: the GEMMs and the attention on
+// wgmma with TMA-fed tiles (gemm_wgmma.cuh, attention_wgmma.cuh).  fp32:
+// 3xTF32 on mma.sync (m16n8k8 on operands split into TF32 hi + lo, the lo .
+// lo term dropped: fp32 accuracy, not the 3-digit TF32 that the port's
+// precision policy forbids; gemm_tc.cuh, attention_tc.cuh).  Attention
+// reads q, k, v from the qkv GEMM's (G, N, 3C) output (layout
+// Interleaved).
 //
-// What bounds it on the H100: the GEMMs and the two attention products
-// (about 0.76 GFLOP per sequence per block), at the rate mma.sync reaches
-// (and, in fp32, three TF32 products and a split per operand for each).
-// Activations make one device-memory round trip per kernel (the bf16 MLP
-// hidden is 453 MB at batch 256, about 0.3 ms at 3.35 TB/s), small next to
-// the products.
+// What bounds it on the H100: in bf16, HBM -- each GEMM sits at 96-154
+// operations a byte, under the tensor cores' 295 -- with activations
+// making one device-memory round trip per kernel (the bf16 MLP hidden is
+// 906 MB a block at G = 512, about 0.27 ms at 3.35 TB/s each way); in fp32
+// the products, at the rate 3xTF32 on mma.sync reaches (three TF32
+// products and a split per operand for each).
 
 #include <type_traits>
 
@@ -35,6 +37,62 @@
 
 namespace rp {
 namespace tc {
+
+// gemm_wgmma.cu: the bf16 GEMMs of gemm_wgmma.cuh, `epi` one of
+// common.cuh's Epilogue values but kRounded (forward) or DxEpilogue (dX)
+namespace wg {
+cudaError_t vit_gemm_bf16(int epi, const bf16* A, const bf16* W,
+                          const float* bias, const bf16* resid, bf16* out,
+                          float* aux, int M, int N, int K, cudaStream_t st);
+cudaError_t vit_gemm_dx_bf16(int epi, const bf16* dYb, const bf16* W,
+                             const float* aux, float* out, bf16* outb, int M,
+                             int N, int K, cudaStream_t st);
+cudaError_t vit_weight_grad_bf16(const bf16* dYb, const float* dY,
+                                 const bf16* X, float* dW, float* db,
+                                 float* part, float* bpart, int M, int Nout,
+                                 int K, cudaStream_t st);
+}  // namespace wg
+
+// The stack's GEMMs by dtype: bf16 on the wgmma body (gemm_wgmma.cu), fp32
+// on gemm_tc.cuh's 3xTF32 mma.sync body.  outb (bf16 only) takes T(out).
+template <int EPI>
+static cudaError_t stack_gemm(const bf16* A, const bf16* W, const float* bias,
+                              const bf16* resid, bf16* out, int M, int N,
+                              int K, cudaStream_t st, float* aux = nullptr) {
+  return wg::vit_gemm_bf16(EPI, A, W, bias, resid, out, aux, M, N, K, st);
+}
+template <int EPI>
+static cudaError_t stack_gemm(const float* A, const float* W,
+                              const float* bias, const float* resid,
+                              float* out, int M, int N, int K,
+                              cudaStream_t st, float* aux = nullptr) {
+  return launch_gemm<EPI>(A, W, bias, resid, out, M, N, K, st, aux);
+}
+template <int EPI>
+static cudaError_t stack_gemm_dx(const bf16* dYb, const bf16* W,
+                                 const float* aux, float* out, bf16* outb,
+                                 int M, int N, int K, cudaStream_t st) {
+  return wg::vit_gemm_dx_bf16(EPI, dYb, W, aux, out, outb, M, N, K, st);
+}
+template <int EPI>
+static cudaError_t stack_gemm_dx(const float* dY, const float* W,
+                                 const float* aux, float* out, float*, int M,
+                                 int N, int K, cudaStream_t st) {
+  return launch_gemm_dx<EPI>(dY, W, aux, out, M, N, K, st);
+}
+static cudaError_t stack_weight_grad(const bf16* dYb, const float* dY,
+                                     const bf16* X, float* dW, float* db,
+                                     float* part, float* bpart, int M,
+                                     int Nout, int K, cudaStream_t st) {
+  return wg::vit_weight_grad_bf16(dYb, dY, X, dW, db, part, bpart, M, Nout,
+                                  K, st);
+}
+static cudaError_t stack_weight_grad(const float*, const float* dY,
+                                     const float* X, float* dW, float* db,
+                                     float* part, float* bpart, int M,
+                                     int Nout, int K, cudaStream_t st) {
+  return weight_grad(dY, X, dW, db, part, bpart, M, Nout, K, st);
+}
 
 constexpr float kVitScale = 0.125f * 1.4426950408889634f;  // 64^-1/2 log2 e
 
@@ -100,19 +158,18 @@ static cudaError_t vit_stack(const E* x, const E* pos, E* out, E* stash,
                     : launch_layernorm<E>(out, nullptr, nullptr, xcopy,
                                           ln1s + i * C, ln1b + i * C, y,
                                           nullptr, M, N, C, st));
-    RP_CHECK(launch_gemm<kBias>(y, qkvw + i * 3 * cc, qkvb + i * 3 * C,
-                                nullptr, qkv, M, 3 * C, C, st));
+    RP_CHECK(stack_gemm<kBias>(y, qkvw + i * 3 * cc, qkvb + i * 3 * C, nullptr,
+                               qkv, M, 3 * C, C, st));
     RP_CHECK(launch_attention(qkv, attn, nullptr, G, N, C, heads, st));
-    RP_CHECK(launch_gemm<kBiasResid>(attn, projw + i * cc, projb + i * C, out,
-                                     out, M, C, C, st));
+    RP_CHECK(stack_gemm<kBiasResid>(attn, projw + i * cc, projb + i * C, out,
+                                    out, M, C, C, st));
     RP_CHECK(launch_layernorm<E>(out, nullptr, nullptr, nullptr, ln2s + i * C,
                                  ln2b + i * C, y, nullptr, M, N, C, st));
-    RP_CHECK(launch_gemm<kBiasGelu>(y, fc1w + (size_t)i * hidden * C,
-                                    fc1b + (size_t)i * hidden, nullptr, hid, M,
-                                    hidden, C, st));
-    RP_CHECK(launch_gemm<kBiasResid>(hid, fc2w + (size_t)i * C * hidden,
-                                     fc2b + i * C, out, out, M, C, hidden,
-                                     st));
+    RP_CHECK(stack_gemm<kBiasGelu>(y, fc1w + (size_t)i * hidden * C,
+                                   fc1b + (size_t)i * hidden, nullptr, hid, M,
+                                   hidden, C, st));
+    RP_CHECK(stack_gemm<kBiasResid>(hid, fc2w + (size_t)i * C * hidden,
+                                    fc2b + i * C, out, out, M, C, hidden, st));
   }
 #undef RP_CHECK
   return cudaSuccess;
@@ -167,13 +224,13 @@ extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
 // dW has read it), T(dqkv) by the attention backward into dqkvb; fp32
 // products read the cotangents themselves.
 //
-// What bounds it on the H100: the products (about 2.8x the forward's:
-// recompute, dX and dW for each GEMM; for attention the recomputed
-// forward's 2 N x N x 64 products (fp32: 3) and the backward's 7), on the
-// tensor cores as in the forward.  Device
-// memory traffic is the stash, one round trip of each activation per
-// kernel, and the dW partials, tens of MB per block, below a millisecond
-// at 3.35 TB/s.
+// What bounds it on the H100: in bf16, as in the forward, device memory:
+// the stash, one round trip of each activation per kernel, the fp32
+// cotangents, the GELU pre-activation h1 and the dW partials, about 34 KB
+// a row a block (about 11.8 GB at G = 120, 3.5 ms at 3.35 TB/s), against
+// 3x the forward's GEMM products and, in attention, the recomputed
+// forward's 2 N x N x 64 products and the backward's 7.  In fp32 the
+// products (three TF32 ones each) on mma.sync.
 
 namespace rp {
 
@@ -211,7 +268,7 @@ static size_t vit_bwd_carve(char* base, int G, int N, int C, int heads,
   b->dtmp = (float*)take(M * C * f);
   b->dqkv = (float*)take(M * 3 * C * f);
   b->h1 = (float*)take(M * hidden * f);
-  const size_t S = tc::dw_chunks_tc((int)M);  // gemm_tc.cuh's dW chunks
+  const size_t S = dw_chunks((int)M);  // the dW GEMMs' chunks
   b->wpart = (float*)take(S * (size_t)C * (hidden > 3 * C ? hidden : 3 * C) * f);
   b->bpart = (float*)take(S * (size_t)(hidden > 3 * C ? hidden : 3 * C) * f);
   b->lnpart = (float*)take((size_t)lnb_blocks((int)M) * 2 * C * f);
@@ -273,45 +330,45 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
     // recompute block i's forward pieces
     RP_CHECK(launch_layernorm<E>(xin, nullptr, nullptr, nullptr, ln1s + i * C,
                                  ln1b + i * C, y1, b.stats1, M, N, C, st));
-    RP_CHECK(launch_gemm<kBias>(y1, qkvw + i * 3 * cc, qkvb + i * 3 * C,
-                                nullptr, qkv, M, 3 * C, C, st));
+    RP_CHECK(stack_gemm<kBias>(y1, qkvw + i * 3 * cc, qkvb + i * 3 * C, nullptr,
+                               qkv, M, 3 * C, C, st));
     RP_CHECK(launch_attention(qkv, attn, b.astat, G, N, C, heads, st));
-    RP_CHECK(launch_gemm<kBiasResid>(attn, projw + i * cc, projb + i * C, xin,
-                                     xa, M, C, C, st));
+    RP_CHECK(stack_gemm<kBiasResid>(attn, projw + i * cc, projb + i * C, xin,
+                                    xa, M, C, C, st));
     RP_CHECK(launch_layernorm<E>(xa, nullptr, nullptr, nullptr, ln2s + i * C,
                                  ln2b + i * C, y2, b.stats2, M, N, C, st));
-    RP_CHECK(launch_gemm<kBiasGeluSplit>(y2, fc1w + i * hc,
-                                         fc1b + (size_t)i * hidden, nullptr,
-                                         hg, M, hidden, C, st, b.h1));
+    RP_CHECK(stack_gemm<kBiasGeluSplit>(y2, fc1w + i * hc,
+                                        fc1b + (size_t)i * hidden, nullptr, hg,
+                                        M, hidden, C, st, b.h1));
     // MLP: x_out = xa + fc2(gelu(fc1(LN2(xa))))
     const E* dyo = operand(b.dxo, dyb, nMC, st, &err);
     RP_CHECK(err);
-    RP_CHECK(weight_grad(dyo, b.dxo, hg, dfc2w + i * hc, dfc2b + i * C,
-                         b.wpart, b.bpart, M, C, hidden, st));
+    RP_CHECK(stack_weight_grad(dyo, b.dxo, hg, dfc2w + i * hc, dfc2b + i * C,
+                               b.wpart, b.bpart, M, C, hidden, st));
     // dh1 into h1 and, for bf16, T(dh1) into hg
-    RP_CHECK(launch_gemm_dx<kDxGeluGrad>(dyo, fc2w + i * hc, b.h1, b.h1,
-                                         kBf16 ? hg : nullptr, M, hidden, C,
-                                         st));
+    RP_CHECK(stack_gemm_dx<kDxGeluGrad>(dyo, fc2w + i * hc, b.h1, b.h1,
+                                        kBf16 ? hg : nullptr, M, hidden, C,
+                                        st));
     const E* dh1;
     if constexpr (kBf16)
       dh1 = hg;
     else
       dh1 = b.h1;
-    RP_CHECK(weight_grad(dh1, b.h1, y2, dfc1w + i * hc,
-                         dfc1b + (size_t)i * hidden, b.wpart, b.bpart, M,
-                         hidden, C, st));
-    RP_CHECK(launch_gemm_dx<kDxPlain>(dh1, fc1w + i * hc, nullptr, b.dtmp,
-                                      nullptr, M, C, hidden, st));
+    RP_CHECK(stack_weight_grad(dh1, b.h1, y2, dfc1w + i * hc,
+                               dfc1b + (size_t)i * hidden, b.wpart, b.bpart, M,
+                               hidden, C, st));
+    RP_CHECK(stack_gemm_dx<kDxPlain>(dh1, fc1w + i * hc, nullptr, b.dtmp,
+                                     nullptr, M, C, hidden, st));
     RP_CHECK(layernorm_grad<E>(b.dtmp, xa, b.stats2, ln2s + i * C, b.dxo,
                                b.dxa, dln2s + i * C, dln2b + i * C, b.lnpart,
                                M, C, st));
     // attention: xa = x_in + proj(attention(qkv(LN1(x_in))))
     const E* dya = operand(b.dxa, dyb, nMC, st, &err);
     RP_CHECK(err);
-    RP_CHECK(weight_grad(dya, b.dxa, attn, dprojw + i * cc, dprojb + i * C,
-                         b.wpart, b.bpart, M, C, C, st));
-    RP_CHECK(launch_gemm_dx<kDxPlain>(dya, projw + i * cc, nullptr, b.dtmp,
-                                      nullptr, M, C, C, st));  // dattn
+    RP_CHECK(stack_weight_grad(dya, b.dxa, attn, dprojw + i * cc,
+                               dprojb + i * C, b.wpart, b.bpart, M, C, C, st));
+    RP_CHECK(stack_gemm_dx<kDxPlain>(dya, projw + i * cc, nullptr, b.dtmp,
+                                     nullptr, M, C, C, st));  // dattn
     // T(do / l) into attn and, for bf16, T(do) into dyb, both read for the
     // last time by proj's dW and dX above (the dq kernel reads o from attn
     // first)
@@ -322,11 +379,11 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
       dq = dqkvb;
     else
       dq = b.dqkv;
-    RP_CHECK(weight_grad(dq, b.dqkv, y1, dqkvw + i * 3 * cc,
-                         dqkvbias + i * 3 * C, b.wpart, b.bpart, M, 3 * C, C,
-                         st));
-    RP_CHECK(launch_gemm_dx<kDxPlain>(dq, qkvw + i * 3 * cc, nullptr, b.dtmp,
-                                      nullptr, M, C, 3 * C, st));
+    RP_CHECK(stack_weight_grad(dq, b.dqkv, y1, dqkvw + i * 3 * cc,
+                               dqkvbias + i * 3 * C, b.wpart, b.bpart, M, 3 * C,
+                               C, st));
+    RP_CHECK(stack_gemm_dx<kDxPlain>(dq, qkvw + i * 3 * cc, nullptr, b.dtmp,
+                                     nullptr, M, C, 3 * C, st));
     RP_CHECK(layernorm_grad<E>(b.dtmp, xin, b.stats1, ln1s + i * C, b.dxa,
                                b.dxo, dln1s + i * C, dln1b + i * C, b.lnpart,
                                M, C, st));

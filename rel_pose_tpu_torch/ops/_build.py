@@ -78,6 +78,9 @@ SIGNATURES = {
     # q, k, va, vb, dF, dq, dk, dva, dvb, workspace; G, N, e, single,
     # scale * log2e, scale, bf16; stream
     "rp_bilinear_bwd": ([P] * 10 + [I] * 4 + [F, F, I, P], ctypes.c_int),
+    # one bf16 GEMM of the ViT stack's wgmma body (test only): op, epilogue;
+    # a, b, f, r, out, aux, outb, part, bpart; M, N, K; stream
+    "rp_gemm_bf16": ([I, I] + [P] * 9 + [I] * 3 + [P], ctypes.c_int),
     # B, N, heads, bf16 -> workspace bytes of the two entry points below
     "rp_cross_variants_workspace": ([I] * 4, L),
     # qkv1, qkv2, pos, F, workspace; B, N, C, heads, S, bf16; stream

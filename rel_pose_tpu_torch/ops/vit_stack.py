@@ -9,15 +9,16 @@ add fused into block 0:
   * on a CUDA tensor it launches the hand kernels of ``csrc/vit_stack.cu``
     (which replace the Pallas ``_vit_stack_kernel``) or raises.
 
-Both dtypes run on the tensor cores: the GEMMs on ``mma.sync``
-(``csrc/gemm_tc.cuh``), bf16 attention on ``wgmma`` with TMA-fed tiles
-and one pass with online rescaling (``csrc/attention_wgmma.cuh``), fp32
-attention on ``mma.sync`` (``csrc/attention_tc.cuh``).  bf16 runs bf16
-products, fp32 3xTF32 ones, each fp32 operand split into a TF32 high part
-and a TF32 residual and three TF32 products summed in fp32
-(:func:`tf32x3_matmul` is their plain model), which keeps fp32 accuracy --
-not the single TF32 product, about 3 decimal digits, that the port's
-precision policy forbids.
+Both dtypes run on the tensor cores.  bf16: the GEMMs on ``wgmma`` fed by
+TMA in persistent blocks (``csrc/gemm_wgmma.cuh``; ``ops/vit_gemm.py`` runs
+one alone), the attention on ``wgmma`` with TMA-fed tiles and one pass with
+online rescaling (``csrc/attention_wgmma.cuh``).  fp32: both on
+``mma.sync`` (``csrc/gemm_tc.cuh``, ``csrc/attention_tc.cuh``) as 3xTF32
+products, each fp32 operand split into a TF32 high part and a TF32
+residual and three TF32 products summed in fp32 (:func:`tf32x3_matmul` is
+their plain model), which keeps fp32 accuracy -- not the single TF32
+product, about 3 decimal digits, that the port's precision policy
+forbids.
 
 Under autograd (grad enabled and an input that requires grad) the stack is
 a ``torch.autograd.Function``, as the Pallas op is a ``custom_vjp``
@@ -351,11 +352,14 @@ def _launch_backward(xs, g, stacked, num_heads):
 fused_vit_stack_bwd.launches = 0
 
 
-# The tensor-core kernels' tiles (both dtypes): GEMM outputs in 64-column
-# tiles, GEMM rows in 128-row tiles on the grid's second axis (at most
-# 65,535), one attention block per (tile, head, sequence) with sequences
-# on the third.
+# The kernels' limits.  GEMM outputs come in 64-column tiles in both
+# dtypes.  fp32's GEMMs (gemm_tc.cuh) put 128-row tiles on the grid's
+# second axis, at most 65,535; bf16's (gemm_wgmma.cuh) are persistent and
+# take any row count, their operands by TMA from 16-byte aligned bases.
+# The attention launches a block per (tile, head, sequence), sequences on
+# the grid's third axis (at most 65,535), in both dtypes.
 _TC_ROW_TILE, _TC_MAX_GRID = 128, 65535
+_TMA_ALIGN = 16
 
 
 def _check_inputs(x, args, num_heads):
@@ -388,6 +392,13 @@ def _check_inputs(x, args, num_heads):
     if hidden % 64:
         raise ValueError(f"fused_vit_stack: the kernels need the MLP width "
                          f"to be a multiple of 64, got {hidden}")
-    if -(-G * N // _TC_ROW_TILE) > _TC_MAX_GRID or G > _TC_MAX_GRID:
+    rows_limited = x.dtype == torch.float32 \
+        and -(-G * N // _TC_ROW_TILE) > _TC_MAX_GRID
+    if rows_limited or G > _TC_MAX_GRID:
         raise ValueError(f"fused_vit_stack: {G} sequences of {N} tokens "
                          "exceed the kernels' grid")
+    if x.dtype == torch.bfloat16:
+        for name, t in [("x", x)] + [(n, args[n]) for n in _WEIGHTS]:
+            if t.data_ptr() % _TMA_ALIGN:
+                raise ValueError(f"fused_vit_stack: {name} must start on a "
+                                 f"{_TMA_ALIGN}-byte boundary (TMA)")

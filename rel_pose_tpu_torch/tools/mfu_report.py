@@ -19,8 +19,10 @@ Counterpart of ``scripts/mfu_report.py``:
   * the ViT stack's (#1) and the essential block's (#2) floors at the eval
     batch, counted twice: the real MACs of the products, and the MACs at
     the tile shapes the port's bf16 tensor-core kernels schedule -- each
-    product's dimensions rounded up to the tile: the GEMMs' 128 x 64 x 32
-    (``csrc/gemm_tc.cuh``'s bf16 ``Fwd`` and ``BK_DEPTH``), the attention's
+    product's dimensions rounded up to the tile: the GEMMs' 128 x 192 x 64
+    (``csrc/gemm_wgmma.cuh``: two 64-row consumers, ``kWideN`` columns,
+    ``kGemmK`` deep; the essential block's qkv GEMM on ``gemm_tc.cuh``'s
+    ``FwdWide`` has the same tile at C = 192), the attention's
     64-row query and key tiles (``csrc/attention_wgmma.cuh`` ``kT``, the
     bf16 body's wgmma tiles), the essential body's e = 70 in 72 output
     columns (n8 tiles) and 80 of depth (k16 steps;
@@ -39,7 +41,7 @@ import sys
 
 # the port's bf16 tensor-core tiles (tests/test_torch_mfu_report.py reads
 # them out of the headers)
-GEMM_TILE = (128, 64, 32)    # gemm_tc.cuh: bf16 Fwd BM, BN; Tile BK_DEPTH
+GEMM_TILE = (128, 192, 64)   # gemm_wgmma.cuh: 64 kWG rows, kWideN, kGemmK
 ATTN_TILE = 64               # attention_wgmma.cuh: kT, query and key rows
 MMA_N, MMA_K = 8, 16         # mma.sync m16n8k16: output columns, depth
 TIMES = ("eval_ms", "train_fp32_ms", "train_bf16_ms", "vit_eval_ms",

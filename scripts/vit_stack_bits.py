@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Digests of the ViT stack kernels' outputs and of #2, #4, #6, #7, #8 and
-#9's, in fp32 and bf16, to compare two trees' bits.
+"""Digests of the ViT stack kernels' outputs and of #2, #3, #4, #6, #7, #8
+and #9's, in fp32 and bf16, to compare two trees' bits.
 
     python3 scripts/vit_stack_bits.py [--tree DIR]
 
@@ -10,7 +10,8 @@ kernel #1 (``_launch_forward``, with and without the stash) and #5
 sequences of 576 tokens, C = 192, 3 heads, depth 5) on one GPU, in fp32 and
 bf16, kernel #7 (``fused_mhsa``, ``fused_mhsa_bwd``) in fp32 and bf16 at
 G = 24 heads of N = 100 and 576, the essential block's #2
-(``fused_essential_block_pair``), #4 (``fused_essential_block``) and #6
+(``fused_essential_block_pair``), #3 (``fused_essential_block_x``), #4
+(``fused_essential_block``) and #6
 (``fused_essential_block_bwd``) in fp32 and bf16 at B = 4 pairs of N = 576
 for each of the 8 flag sets, #8 (``fused_bilinear_attention`` and its
 backward) in fp32 and bf16 at G = 24 slices of N = 576 for e in {70, 64}
@@ -22,8 +23,9 @@ atomics and sums in a fixed order), they print the same digests on one
 card.  A kernel whose sums move changes its digests by design: the fp32
 ViT stack's (forward, forward with the stash, backward) moved when its
 products went from SIMT FMAs to 3xTF32 on the tensor cores, and fp32 #2,
-#4, #6, #7, #8 and #9's when they did; the bf16 digests of every kernel
-stayed.
+#4, #6, #7, #8 and #9's when they did; the bf16 ViT stack's and #7's
+when their attention moved from mma.sync to wgmma, and the stack's again
+when its GEMMs did.
 Needs a CUDA device.
 """
 
@@ -107,8 +109,9 @@ def main():
 
 
 def essential_bits(device, B=4):
-    """#2, #4 and #6 digests for every (positions, cross, single), fp32 and
-    bf16 (the same draws, rounded)."""
+    """#2, #3 (the pair's raw tokens as its normed input), #4 and #6
+    digests for every (positions, cross, single), fp32 and bf16 (the same
+    draws, rounded)."""
     from rel_pose_tpu_torch.ops import essential_block as te
     rng = np.random.default_rng(2)
 
@@ -124,6 +127,7 @@ def essential_bits(device, B=4):
     for dtype in (torch.float32, torch.bfloat16):
         x, qk = xpair.to(dtype), qkv.to(dtype)
         q1, q2 = qk[:, 0].contiguous(), qk[:, 1].contiguous()
+        x1, x2 = x[:, 0].contiguous(), x[:, 1].contiguous()
         for has_pos in (True, False):
             e = 64 + 6 * has_pos
             pos = positional if has_pos else None
@@ -133,6 +137,8 @@ def essential_bits(device, B=4):
                           "use_single_softmax": single}
                     f = te.fused_essential_block_pair(x, ln, qkvp, pos,
                                                       HEADS, **kw)
+                    f3 = te.fused_essential_block_x(x1, x2, qkvp, pos, HEADS,
+                                                    **kw)
                     f4 = te.fused_essential_block(q1, q2, pos, HEADS, **kw)
                     dq, dp = te.fused_essential_block_bwd(qk, pos, dfs[e],
                                                           HEADS, **kw)
@@ -140,8 +146,9 @@ def essential_bits(device, B=4):
                     grads = [dq] if dp is None else [dq, dp]
                     print(f"[bits] {str(dtype)[6:]} essential "
                           f"pos={int(has_pos)} cross={int(cross)} "
-                          f"single={int(single)} pair {digest(f)} block "
-                          f"{digest(f4)} backward {digest(*grads)}")
+                          f"single={int(single)} pair {digest(f)} x "
+                          f"{digest(f3)} block {digest(f4)} backward "
+                          f"{digest(*grads)}")
 
 
 def bilinear_bits(device, G=24, B=4):

@@ -1,8 +1,10 @@
 """The port's MFU report (``rel_pose_tpu_torch.tools.mfu_report``).
 
   * the padding helper, and the tiles it pads to read back out of the
-    port's tensor-core headers (``csrc/gemm_tc.cuh``'s bf16 ``Fwd`` and
-    ``BK_DEPTH``, ``attention_wgmma.cuh``'s ``kT`` -- the bf16 body's
+    port's tensor-core headers (``csrc/gemm_wgmma.cuh``'s forward tile: two
+    64-row consumers, ``kWideN`` columns, ``kGemmK`` deep, which
+    ``gemm_tc.cuh``'s bf16 ``FwdWide`` matches; ``attention_wgmma.cuh``'s
+    ``kT`` -- the bf16 body's
     tiles, which the fp32 body's ``kAT`` matches -- ``essential_tc.cuh``'s
     72 output columns and 80 of depth for e = 70);
   * the real-MAC floors equal the per-op count (``count_matmul_flops``) of
@@ -39,16 +41,21 @@ def test_pad():
     assert mfu.pad(70, 8) == 72
     assert mfu.pad(70, 16) == 80
     assert mfu.pad(576, 128) == 640
-    assert mfu.gemm_macs(200, 40, 70, True) == 256 * 64 * 128
+    assert mfu.gemm_macs(200, 40, 70, True) == 256 * 64 * 192
     assert mfu.gemm_macs(200, 40, 70, False) == 200 * 40 * 70
 
 
 def test_tiles_are_the_headers():
-    gemm = (CSRC / "gemm_tc.cuh").read_text()
-    bm, bn = map(int, re.search(r"using Fwd = Tile<bf16, (\d+), (\d+),",
-                                gemm).groups())
-    bk = int(re.search(r"int BK_DEPTH = (\d+)", gemm).group(1))
-    assert mfu.GEMM_TILE == (bm, bn, bk)
+    gemm = (CSRC / "gemm_wgmma.cuh").read_text()
+    wgs = int(re.search(r"kWG = OP == kOpDw \? \d+ : (\d+);",
+                        gemm).group(1))
+    bn = int(re.search(r"constexpr int kWideN = (\d+);", gemm).group(1))
+    bk = int(re.search(r"constexpr int kGemmK = (\d+);", gemm).group(1))
+    assert mfu.GEMM_TILE == (64 * wgs, bn, bk)
+    tc = (CSRC / "gemm_tc.cuh").read_text()
+    assert re.search(r"using FwdWide = Tile<bf16, (\d+), (\d+), \d+, \d+, "
+                     r"true, true, (\d+)", tc).groups() == tuple(
+        map(str, mfu.GEMM_TILE))
     attn = (CSRC / "attention_wgmma.cuh").read_text()
     assert mfu.ATTN_TILE == int(re.search(r"constexpr int kT = (\d+);",
                                           attn).group(1))

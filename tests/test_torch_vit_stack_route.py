@@ -4,8 +4,9 @@
   * the dtype picks the products: the wrappers pass bf16 = 1 (bf16
     tensor-core products) or 0 (fp32, 3xTF32 tensor-core products) to the
     C entry points;
-  * the tensor-core kernels' shape checks (MLP width, grid size) raise
-    before any launch, in both dtypes; a CPU tensor reaches no kernel;
+  * the kernels' shape checks (MLP width, grid size: fp32's GEMM row
+    tiles, both dtypes' sequences) raise before any launch; a CPU tensor
+    reaches no kernel;
   * with a stand-in for the kernel library, each wrapper passes as many
     arguments as the C signature has and adds one to its launch counter
     per launch, and only then;
@@ -66,15 +67,19 @@ def test_bf16_shape_checks(fake_lib, dtype):
         "rp_vit_stack", "rp_vit_stack_bwd_workspace", "rp_vit_stack_bwd"]
 
 
-@pytest.mark.parametrize("G,ok_bf16", [(70000, False), (14000, True)])
-def test_bf16_grid_check(G, ok_bf16):
-    """The rows' 128-row tiles and the sequences must fit the grid's
-    65,535 blocks, in bf16 and fp32 alike (one tensor-core chain)."""
+@pytest.mark.parametrize("G,ok_bf16,ok_fp32", [(70000, False, False),
+                                               (20000, True, False),
+                                               (14000, True, True)])
+def test_bf16_grid_check(G, ok_bf16, ok_fp32):
+    """The sequences must fit the attention grid's 65,535 blocks in both
+    dtypes; fp32's mma.sync GEMMs also put the rows' 128-row tiles on the
+    grid (at most 65,535), while bf16's persistent wgmma GEMMs take any
+    row count (G = 20,000: 90,000 row tiles)."""
     args = {k: v.to("meta") for k, v in stacked(torch.bfloat16).items()}
     x = torch.empty((G, 576, C), dtype=torch.bfloat16, device="meta")
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, ok in ((torch.bfloat16, ok_bf16), (torch.float32, ok_fp32)):
         a = {k: v.to(dtype) for k, v in args.items()}
-        if ok_bf16:
+        if ok:
             tv._check_inputs(x.to(dtype), a, HEADS)
         else:
             with pytest.raises(ValueError, match="grid"):
