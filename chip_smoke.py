@@ -79,8 +79,8 @@ The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
 
   3c. kernel #7 (``csrc/mhsa.cu``: bf16 on the wgmma + TMA kernels of
-     ``csrc/attention_wgmma.cuh``, fp32 as 3xTF32 on those of
-     ``csrc/attention_tc.cuh``) against its
+     ``csrc/attention_wgmma.cuh``, fp32 as 3xTF32 on the TF32 wgmma + TMA
+     kernels of ``csrc/attention_wgmma_f32.cuh``) against its
      plain versions at G = 24 heads of N = 64, 100 (a ragged last tile)
      and 576, fp32 and bf16: the forward against ``mhsa_reference``, dq,
      dk, dv against ``mhsa_bwd_reference``; a second call gives the same
@@ -1214,7 +1214,7 @@ def library_stack_ms(x, stacked, pos, backward):
 
 def kernel_parts_ms(fn):
     """Device time of one ``fn()`` by part: the attention kernels
-    (``rp::tc::attn_*``, bf16's ``rp::tc::wg::attn_*``), the GEMMs
+    (``rp::tc::wg::attn_*``: bf16's, fp32's ``attn_*_f32_kernel``), the GEMMs
     (``gemm_*``: fp32's ``rp::tc::gemm_*_kernel``, bf16's
     ``rp::tc::wg::gemm_wgmma_kernel`` and ``gemm_dw_bias_kernel``) and the
     rest."""
@@ -1337,11 +1337,11 @@ def vit_attention_flops(G, N, C, depth, passes):
 
 
 # N x N x C products the attention kernels execute per sequence and block:
-# the forward (bf16 one pass with online rescaling, fp32 an exact max pass
-# first) and #5's backward (the recomputed forward and the backward's 7:
-# dq's s, dp, dq; dk / dv's s^T, dp^T, dv, dk)
+# the forward (one pass with online rescaling, both dtypes) and #5's
+# backward (the recomputed forward and the backward's: dq's s, dp, dq; bf16
+# dk / dv's s^T, dp^T, dv, dk; fp32 dk's s^T, dp^T, dk and dv's s^T, dv)
 ATTN_EXEC_PASSES = {(torch.bfloat16, False): 2, (torch.bfloat16, True): 9,
-                    (torch.float32, False): 3, (torch.float32, True): 10}
+                    (torch.float32, False): 2, (torch.float32, True): 10}
 
 
 def log_parts(name, parts, gemm_flops, attn_flops, card, attn_exec=None):

@@ -3,7 +3,8 @@
 // Accelerator (TMA): the bf16 body of kernels #1, #5 (the ViT stack's
 // self-attention, layout Interleaved) and #7 (the --noess cross attention,
 // layout Separate<bf16>).  attention_tc.cuh's attention_fwd / attention_bwd
-// send bf16 here; fp32 stays on its 3xTF32 mma.sync body.
+// send bf16 here; fp32 runs the 3xTF32 wgmma body of
+// attention_wgmma_f32.cuh, which shares this file's helpers.
 //
 // Replaces, in bf16,
 //   - rel_pose_tpu/ops/pallas_vit.py:_vit_stack_kernel's attn_stage and
@@ -57,8 +58,8 @@
 namespace rp {
 namespace tc {
 
-// helpers of both attention bodies and the essential block's
-// (attention_tc.cuh, essential_tc.cuh)
+// helpers of both attention bodies (this file's and
+// attention_wgmma_f32.cuh's) and the essential block's (essential_tc.cuh)
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -156,8 +157,8 @@ __device__ __forceinline__ void mma_rs(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-#undef RP_WG_ACC
-#undef RP_WG_D32
+// (RP_WG_ACC and RP_WG_D32 stay defined for attention_wgmma_f32.cuh's
+// tf32 products, which undefines them)
 
 // d = A . B^T over the 64-deep rows of two K-major tiles (issued, not
 // waited for)

@@ -4,12 +4,13 @@
 // and _bwd_kernel (rp_mhsa_bwd), Pallas kernel #7.  The Pallas kernel
 // takes one whole (N, d) head per grid step, its N x N fp32 scores
 // resident in VMEM.  Here the layout Separate<T> runs, over separate
-// (G, N, 64) q, k, v, bf16 on the wgmma + TMA body of attention_wgmma.cuh
-// and fp32 on the 3xTF32 body of attention_tc.cuh, rounding as #7 does:
+// (G, N, 64) q, k, v, on the wgmma + TMA bodies -- bf16 attention_wgmma.cuh,
+// fp32 (3xTF32 on TF32 wgmma) attention_wgmma_f32.cuh -- rounding as #7
+// does:
 //   forward: s = (q . k) * scale * log2(e) in fp32, e = exp2(s - max),
-//     o = (T(e) . v) / l with l the fp32 row sum of e, rounded to T (bf16
-//     takes the max as it runs, one pass with online rescaling, so that e
-//     is rounded against the running max; fp32 makes an exact max pass);
+//     o = (T(e) . v) / l with l the fp32 row sum of e, rounded to T (the
+//     max is taken as the key tiles pass, one pass with online rescaling,
+//     so that e is formed against the running max);
 //   backward: e and l as the forward forms them, do_n = T(do / l),
 //     dv = T(e)^T . do_n, dp = do . v^T, c, ds = T(e ((dp - c) (scale /
 //     l))), dq = ds . k, dk = ds^T . q, each rounded to T.
@@ -23,9 +24,10 @@
 // a head forward on 8 N d bytes (288 a byte at N = 576 in bf16: the
 // forward sits at the ridge where HBM and the tensor cores bound it alike;
 // fp32 on 3xTF32's 165 TFLOP/s is bound by the operations), 10 N^2 d
-// backward.  The kernels execute 2 N^2 d multiply-adds forward in bf16 (3
-// in fp32, the exact max pass) and 7 backward (dq 3, dk / dv 4), and one
-// exp2 of every score a kernel.
+// backward.  The kernels execute 2 N^2 d multiply-adds forward and, in
+// bf16, 7 backward (dq 3, dk / dv 4), in fp32 8 (dq 3, dk 3, dv 2: dk and
+// dv are kernels of their own, each forming the scores), and one exp2 of
+// every score a kernel.
 
 #include "attention_tc.cuh"
 

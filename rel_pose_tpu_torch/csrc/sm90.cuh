@@ -1,8 +1,9 @@
-// Hopper (sm_90a) primitives shared by the two wgmma bodies: the bf16
-// attention (attention_wgmma.cuh) and the bf16 GEMMs of the ViT stack
-// (gemm_wgmma.cuh).  mbarriers, TMA tile loads, the tensor-map encoder,
-// wgmma's fence / commit / wait, and the shared-memory matrix descriptor
-// of a tile in the 128-byte swizzle.
+// Hopper (sm_90a) primitives shared by the wgmma bodies: the attention in
+// bf16 (attention_wgmma.cuh) and fp32 (attention_wgmma_f32.cuh) and the
+// bf16 GEMMs of the ViT stack (gemm_wgmma.cuh).  mbarriers, TMA tile loads,
+// the tensor-map encoder (and the fp32 attention's maps), wgmma's fence /
+// commit / wait, the proxy fence, and the shared-memory matrix descriptor
+// of a tile in the 128-byte swizzle (bf16 and tf32 k-steps).
 
 #pragma once
 
@@ -100,6 +101,12 @@ __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// orders this thread's generic-proxy writes to shared memory before the
+// async proxy (wgmma, TMA) reads them; a barrier follows
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // A shared-memory operand of wgmma: a tile of 128-byte rows at `addr`
 // (1024-byte aligned), 128-byte swizzle, 8-row groups kSbo bytes apart
 // (SBO).  K-major (the tile's rows are M or N, its columns the sum index):
@@ -122,6 +129,15 @@ __device__ __forceinline__ uint64_t kmajor_step(uint64_t d, int kk) {
 }
 __device__ __forceinline__ uint64_t mnmajor_step(uint64_t d, int kk) {
   return d + (uint64_t)(kk * kStepMN / 16);
+}
+
+// tf32 operands: a 64 x 64 fp32 tile K-major is two 128-byte swizzle
+// columns kF32Half bytes apart (columns 0-31, then 32-63), each 64 rows of
+// 128 bytes; a k8 step is 32 bytes, and steps 4-7 lie in the second
+// column.  tests/test_torch_attention_wgmma_f32.py walks these addresses.
+constexpr int kF32Half = 64 * kRowBytes;  // 8192
+__device__ __forceinline__ uint64_t tf32_step(uint64_t d, int kk) {
+  return d + (uint64_t)(((kk >> 2) * kF32Half + (kk & 3) * kStepK) / 16);
 }
 
 // byte offset of 16-byte chunk ch (columns 8 ch .. 8 ch + 7) of row r in a
@@ -162,6 +178,29 @@ static EncodeTiled encode_tiled() {
   if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
     fn = reinterpret_cast<EncodeTiled>(p);
   return fn;
+}
+
+// the fp32 attention's tensor map of one operand: `heads` 64-column heads
+// of G sequences of N rows from base, row stride ld elements; 64 x 64
+// boxes landing unswizzled (rows of 256 bytes: the block splits them into
+// tf32 tiles itself); rows >= N read as zeros
+static cudaError_t make_map_f32(CUtensorMap* map, const float* base, int G,
+                                int heads, int N, int ld) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)heads * kHeadDim, (cuuint64_t)N,
+                              (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(float),
+                                 (cuuint64_t)N * ld * sizeof(float)};
+  const cuuint32_t box[3] = {(cuuint32_t)kHeadDim, 64, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<float*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace wg

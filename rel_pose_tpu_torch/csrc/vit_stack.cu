@@ -11,16 +11,17 @@
 //   (b) qkv GEMM, bias epilogue                        -> gemm_wgmma.cuh
 //       (fp32: gemm_tc.cuh)
 //   (c) attention per (sequence, head, 64-query tile)  -> attention_wgmma.cuh
-//       (fp32: attention_tc.cuh)
+//       (fp32: attention_wgmma_f32.cuh)
 //   (b) proj GEMM, + residual epilogue (in place on the stream)
 //   (a) LayerNorm, (b) fc1 GEMM + GELU, (b) fc2 GEMM + residual
 //
 // Both dtypes run the products on the tensor cores with fp32 sums and the
 // Pallas kernels' rounding points.  bf16: the GEMMs and the attention on
 // wgmma with TMA-fed tiles (gemm_wgmma.cuh, attention_wgmma.cuh).  fp32:
-// 3xTF32 on mma.sync (m16n8k8 on operands split into TF32 hi + lo, the lo .
-// lo term dropped: fp32 accuracy, not the 3-digit TF32 that the port's
-// precision policy forbids; gemm_tc.cuh, attention_tc.cuh).  Attention
+// 3xTF32 (operands split into TF32 hi + lo, the lo . lo term dropped: fp32
+// accuracy, not the 3-digit TF32 that the port's precision policy
+// forbids), the GEMMs on mma.sync m16n8k8 (gemm_tc.cuh), the attention on
+// TF32 wgmma with TMA-fed tiles (attention_wgmma_f32.cuh).  Attention
 // reads q, k, v from the qkv GEMM's (G, N, 3C) output (layout
 // Interleaved).
 //
@@ -28,8 +29,9 @@
 // operations a byte, under the tensor cores' 295 -- with activations
 // making one device-memory round trip per kernel (the bf16 MLP hidden is
 // 906 MB a block at G = 512, about 0.27 ms at 3.35 TB/s each way); in fp32
-// the products, at the rate 3xTF32 on mma.sync reaches (three TF32
-// products and a split per operand for each).
+// the products, at the rate 3xTF32 reaches (three TF32 products and a split
+// per operand for each) on mma.sync (the GEMMs) and TF32 wgmma (the
+// attention).
 
 #include <type_traits>
 

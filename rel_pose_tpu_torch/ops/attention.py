@@ -6,9 +6,9 @@ the --noess cross block's attention).  ``fused_mhsa(q, k, v, scale)`` is
 
   * on CPU tensors it is the plain PyTorch version, :func:`mhsa_reference`;
   * on CUDA tensors it launches ``rp_mhsa_fwd`` of ``csrc/mhsa.cu`` (which
-    replaces ``_fwd_kernel``: bf16 on the wgmma + TMA kernels of
-    ``csrc/attention_wgmma.cuh``, one pass with online rescaling; fp32 on
-    the 3xTF32 kernels of ``csrc/attention_tc.cuh``) or raises.
+    replaces ``_fwd_kernel``: wgmma + TMA kernels, one pass with online
+    rescaling, bf16 on ``csrc/attention_wgmma.cuh``, fp32 as 3xTF32 on the
+    TF32 ones of ``csrc/attention_wgmma_f32.cuh``) or raises.
 
 Under autograd (grad enabled and an input that requires grad) it is a
 ``torch.autograd.Function``, as the Pallas op is a ``custom_vjp``

@@ -12,13 +12,14 @@ add fused into block 0:
 Both dtypes run on the tensor cores.  bf16: the GEMMs on ``wgmma`` fed by
 TMA in persistent blocks (``csrc/gemm_wgmma.cuh``; ``ops/vit_gemm.py`` runs
 one alone), the attention on ``wgmma`` with TMA-fed tiles and one pass with
-online rescaling (``csrc/attention_wgmma.cuh``).  fp32: both on
-``mma.sync`` (``csrc/gemm_tc.cuh``, ``csrc/attention_tc.cuh``) as 3xTF32
-products, each fp32 operand split into a TF32 high part and a TF32
-residual and three TF32 products summed in fp32 (:func:`tf32x3_matmul` is
-their plain model), which keeps fp32 accuracy -- not the single TF32
-product, about 3 decimal digits, that the port's precision policy
-forbids.
+online rescaling (``csrc/attention_wgmma.cuh``).  fp32: the GEMMs on
+``mma.sync`` (``csrc/gemm_tc.cuh``), the attention on TF32 ``wgmma`` with
+TMA-fed tiles, one pass with online rescaling as in bf16
+(``csrc/attention_wgmma_f32.cuh``), every product as 3xTF32, each fp32
+operand split into a TF32 high part and a TF32 residual and three TF32
+products summed in fp32 (:func:`tf32x3_matmul` is their plain model), which
+keeps fp32 accuracy -- not the single TF32 product, about 3 decimal digits,
+that the port's precision policy forbids.
 
 Under autograd (grad enabled and an input that requires grad) the stack is
 a ``torch.autograd.Function``, as the Pallas op is a ``custom_vjp``

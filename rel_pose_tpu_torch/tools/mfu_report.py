@@ -24,8 +24,10 @@ Counterpart of ``scripts/mfu_report.py``:
     ``kGemmK`` deep; the essential block's qkv GEMM on ``gemm_tc.cuh``'s
     ``FwdWide`` has the same tile at C = 192), the attention's
     64-row query and key tiles (``csrc/attention_wgmma.cuh`` ``kT``, the
-    bf16 body's wgmma tiles), the essential body's e = 70 in 72 output
-    columns (n8 tiles) and 80 of depth (k16 steps;
+    wgmma tiles of the bf16 body and of the fp32 one,
+    ``csrc/attention_wgmma_f32.cuh``: both execute 2 products a head
+    forward, and 7 (bf16) or 8 (fp32) backward), the essential body's
+    e = 70 in 72 output columns (n8 tiles) and 80 of depth (k16 steps;
     ``csrc/essential_tc.cuh`` ``EbW``).
 
 The times come from ``--measure`` (CUDA events on the card, as
@@ -42,7 +44,7 @@ import sys
 # the port's bf16 tensor-core tiles (tests/test_torch_mfu_report.py reads
 # them out of the headers)
 GEMM_TILE = (128, 192, 64)   # gemm_wgmma.cuh: 64 kWG rows, kWideN, kGemmK
-ATTN_TILE = 64               # attention_wgmma.cuh: kT, query and key rows
+ATTN_TILE = 64               # attention_wgmma*.cuh: kT, query and key rows
 MMA_N, MMA_K = 8, 16         # mma.sync m16n8k16: output columns, depth
 TIMES = ("eval_ms", "train_fp32_ms", "train_bf16_ms", "vit_eval_ms",
          "cross_eval_ms")

@@ -15,10 +15,11 @@ TB/s): the forward (``fused_mhsa``) at G = 1,536 heads, the eval shape;
 the backward (``fused_mhsa_bwd``) at G = 360, the training shape, without
 the forward's statistics and, where the tree's wrapper takes them, from
 the statistics (and output, where the wrapper takes ``o`` in that dtype)
-of a forward run with them, as a train step runs it; then, unless ``--no-step``, the
---noess train step at batch 60 in that dtype with the kernels and on the
-plain path (``chip_smoke.time_train_steps``).  Run it in turns on one card,
-the other tree, this one, this one, the other.  Needs a CUDA device.
+of a forward run with them, as a train step runs it, that also by kernel
+(``torch.profiler``); then, unless ``--no-step``, the --noess train step
+at batch 60 in that dtype with the kernels and on the plain path
+(``chip_smoke.time_train_steps``).  Run it in turns on one card, the other
+tree, this one, this one, the other.  Needs a CUDA device.
 """
 
 import argparse
@@ -83,6 +84,11 @@ def readings(cs, device, card, dtype):
                f"{'stats and o' if len(kept) == 2 else 'stats'}: kernel "
                f"{ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), bound "
                f"{b[0]:.3f} ms ({b[1]}) ({card})")
+        parts = cs.profile_parts_ms(
+            lambda: ta.fused_mhsa_bwd(q, k, v, do, scale, *kept),
+            lambda key: key.split("<")[0].split("::")[-1], once=True)
+        cs.log(f"[ab] mhsa_bwd {name} G={G_train} by kernel, ms: "
+               f"{ {key: round(v, 3) for key, v in parts.items()} } ({card})")
     else:
         cs.log(f"[ab] mhsa_bwd {name}: this tree's backward keeps no "
                f"statistics")

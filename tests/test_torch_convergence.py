@@ -26,6 +26,7 @@ the spread of the trajectories behind the fixture's thread count.
 
 import filecmp
 import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -84,23 +85,45 @@ def _run(model, opt, sched):
     return rot, tr
 
 
+# The instruction set the trajectories run on, whatever the host offers:
+# oneDNN and ATen pick their CPU kernels by it, and a bf16 trajectory moves
+# with their roundings.  AVX2, which every x86-64 host of these tests has.
+PINNED_ISA = {"ONEDNN_MAX_CPU_ISA": "AVX2", "ATEN_CPU_CAPABILITY": "avx2"}
+
+
 @pytest.fixture(scope="module")
 def trajectories():
-    """{dtype: (rot, tr)}, on two intra-op threads whatever the process
-    was given, so that the result does not depend on the host's cores:
-    oneDNN blocks its sums by the thread count, and a bf16 trajectory
-    moves with those roundings.  The last gate, rot ends at most 1.5x its
-    minimum, reads one step of a tail that wanders at the loss floor, in
-    either dtype: over weight seeds 0-2 on 1, 2 and 4 threads (this
-    file's ``__main__``) every run fell at least 81x in rot and tr, and
-    that gate failed the fp32 runs of seed 2 on every thread count and 4
-    of the 9 bf16 runs -- among them this seed on one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    """{dtype: (rot, tr)}, each dtype's run in a child process (both at
+    once) on two intra-op threads and ``PINNED_ISA``, whatever the test
+    process was given, so that the result depends on neither the host's
+    cores nor its instruction set: oneDNN blocks its sums by the thread
+    count and picks its bf16 kernels by the instruction set, and a bf16
+    trajectory moves with those roundings.  (The bf16 run of this seed
+    passed every gate with oneDNN's AMX kernels and failed the last one
+    with its AVX-512 kernels, which some hosts of these tests have alone:
+    rot ended at 0.00756 above 1.5x its minimum 0.00277.)  The last gate,
+    rot ends at most 1.5x its minimum, reads one step of a tail that
+    wanders at the loss floor, in either dtype: over weight seeds 0-2 on
+    1, 2 and 4 threads (this file's ``__main__``) every run fell at least
+    81x in rot and tr, and that gate failed the fp32 runs of seed 2 on
+    every thread count and 4 of the 9 bf16 runs -- among them this seed on
+    one thread."""
+    env = dict(os.environ, PYTHONPATH=REPO, **PINNED_ISA)
+    procs = {dtype: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--trajectory", dtype],
+        env=env, stdout=subprocess.PIPE, text=True) for dtype in DTYPES}
+    out = {}
     try:
-        return {dtype: _run(*_setup(dtype)) for dtype in DTYPES}
+        for dtype, p in procs.items():
+            stdout, _ = p.communicate(timeout=1200)
+            assert p.returncode == 0, (dtype, p.returncode)
+            out[dtype] = tuple(json.loads(stdout.strip().splitlines()[-1]))
     finally:
-        torch.set_num_threads(threads)
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -180,10 +203,17 @@ def _spread_run(dtype, threads, seed):
             "tr_end": tr[-1], "gate": tool.gate(rot, tr)}
 
 
-if __name__ == "__main__":
+def _trajectory_child(dtype):
+    """The fixture's child: one dtype's (rot, tr) as a JSON line."""
+    torch.set_num_threads(2)
+    print(json.dumps(_run(*_setup(dtype))), flush=True)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--trajectory"]:
+    _trajectory_child(sys.argv[2])
+elif __name__ == "__main__":
     import concurrent.futures
     import itertools
-    import json
     import multiprocessing
     runs = list(itertools.product(DTYPES, (1, 2, 4), (0, 1, 2)))
     with concurrent.futures.ProcessPoolExecutor(

@@ -59,9 +59,11 @@ def test_tiles_are_the_headers():
     attn = (CSRC / "attention_wgmma.cuh").read_text()
     assert mfu.ATTN_TILE == int(re.search(r"constexpr int kT = (\d+);",
                                           attn).group(1))
-    attn32 = (CSRC / "attention_tc.cuh").read_text()
-    assert mfu.ATTN_TILE == int(re.search(r"constexpr int kAT = (\d+);",
-                                          attn32).group(1))
+    # the fp32 body launches and lands its boxes in the same 64-row tiles
+    attn32 = (CSRC / "attention_wgmma_f32.cuh").read_text()
+    assert "constexpr int kF32Raw = kT * kHeadDim * 4;" in attn32
+    assert attn32.count("dim3((N + kT - 1) / kT, heads, G)") == 1
+    assert attn32.count("const dim3 grid((N + kT - 1) / kT, heads, G);") == 1
     eb = (CSRC / "essential_tc.cuh").read_text()
     width = int(re.search(r"E == kHeadDim \? kHeadDim : \(sizeof\(T\) == 2 "
                           r"\? (\d+) :", eb).group(1))

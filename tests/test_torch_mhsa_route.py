@@ -3,8 +3,8 @@
 
   * the dtype picks the kernels: the wrappers pass bf16 = 1 (bf16
     products on the wgmma + TMA kernels of ``csrc/attention_wgmma.cuh``)
-    or 0 (fp32 products as 3xTF32 on ``csrc/attention_tc.cuh``) to the C
-    entry points;
+    or 0 (fp32 products as 3xTF32 on the TF32 wgmma + TMA kernels of
+    ``csrc/attention_wgmma_f32.cuh``) to the C entry points;
   * with a stand-in for the kernel library (the launchers pointed at the
     CPU), each wrapper passes as many arguments as the C signature has;
   * under autograd the forward asks its kernel for the row statistics and
