@@ -67,13 +67,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      each way; #5 and #6 in fp32 the same way (#6's parts too); and the
      training step in pairs/s at batch 60, 384x512 uint8 (bench.py's train
      protocol), fp32 and bf16, kernels and plain path;
-  5f. each bf16 GEMM of #1 and #5 alone (``ops.vit_gemm``, the test-only
-     entry ``rp_gemm_bf16`` of ``csrc/gemm_wgmma.cuh``'s body): #1's four
-     Linears at G = 512, #5's recompute, dX and dW at G = 120, a ragged M
-     of 1,728 rows and C = 64 / hidden 256 (64-column tiles), each against
-     its plain version at the bf16 tolerances, twice for the same bits,
-     and timed beside one library call (``F.linear`` / ``torch.matmul``,
-     cuBLAS) and its bound.
+  5f. each GEMM of #1 and #5 alone, bf16 and fp32 (``ops.vit_gemm``, the
+     test-only entries ``rp_gemm_bf16`` of ``csrc/gemm_wgmma.cuh``'s body
+     and ``rp_gemm_f32`` of ``csrc/gemm_wgmma_f32.cuh``'s, 3xTF32): #1's
+     four Linears at G = 512, #5's recompute, dX and dW at G = 120, a
+     ragged M of 1,728 rows and C = 64 / hidden 256 (64-column tiles), each
+     against its plain version at the dtype's tolerances, twice for the
+     same bits, fp32 also against float64 (F64_BAR, the worst ratio
+     printed), and timed beside one library call in the same dtype
+     (``F.linear`` / ``torch.matmul``, cuBLAS; fp32 with TF32 off) and its
+     bound, with the sums over #1's and #5's GEMMs.
 
 The --noess ablation (``ModelConfig(noess=True)``: Pallas kernel #7, the
 cross block's plain attention, in place of the essential block):
@@ -1215,9 +1218,9 @@ def library_stack_ms(x, stacked, pos, backward):
 def kernel_parts_ms(fn):
     """Device time of one ``fn()`` by part: the attention kernels
     (``rp::tc::wg::attn_*``: bf16's, fp32's ``attn_*_f32_kernel``), the GEMMs
-    (``gemm_*``: fp32's ``rp::tc::gemm_*_kernel``, bf16's
-    ``rp::tc::wg::gemm_wgmma_kernel`` and ``gemm_dw_bias_kernel``) and the
-    rest."""
+    (``gemm_*``: bf16's ``rp::tc::wg::gemm_wgmma_kernel``, fp32's
+    ``gemm_f32_kernel`` and ``gemm_split_weight_kernel``, both dtypes'
+    ``gemm_dw_bias_kernel``) and the rest."""
     return profile_parts_ms(fn, lambda key: (
         "attention" if "attn_" in key else
         "gemm" if "gemm_" in key else "other"))
@@ -1860,9 +1863,9 @@ def phase_times_train(device, sd, card):
 
 # ------------------------------------------------------------ --noess --
 
-# The bf16 GEMMs of #1 (G = 512, the eval shapes) and #5 (G = 120, the
-# training shapes) alone, and a ragged M (G = 3: 1,728 rows) and C = 64 /
-# hidden 256 (64-column tiles): (label, op, epilogue, M, N, K) in
+# The GEMMs of #1 (G = 512, the eval shapes) and #5 (G = 120, the training
+# shapes) alone, and a ragged M (G = 3: 1,728 rows) and C = 64 / hidden 256
+# (64-column tiles), in bf16 and fp32: (label, op, epilogue, M, N, K) in
 # ops.vit_gemm's terms -- N the output width (dW: the Linear's out
 # features), K the depth (dW: its in features).
 GEMM_C, GEMM_H = 192, 768
@@ -1894,13 +1897,14 @@ GEMM_SHAPES = [
 ]
 
 
-def gemm_operands(op, epi, M, N, K, device, seed):
+def gemm_operands(op, epi, M, N, K, device, seed, dtype=torch.bfloat16):
     """Seeded operands of one ``vit_gemm`` call at the stack's scales:
-    bf16 activations and cotangent copies ~ N(0, 1), weights ~ N(0, 1/K),
-    fp32 biases, GELU pre-activations and cotangents."""
+    activations and cotangents (bf16: the cotangent's bf16 copy) ~ N(0, 1)
+    and weights ~ N(0, 1/K) in ``dtype``, fp32 biases, GELU
+    pre-activations and cotangents."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def r(*shape, scale=1.0, dtype=torch.bfloat16):
+    def r(*shape, scale=1.0, dtype=dtype):
         return (torch.randn(shape, generator=gen, device=device)
                 * scale).to(dtype)
     kw = {}
@@ -1912,17 +1916,43 @@ def gemm_operands(op, epi, M, N, K, device, seed):
     elif op == "dx":
         a, b = r(M, K), r(K, N, scale=K ** -0.5)
         if epi == "gelu_grad":
-            kw["aux"], kw["outb"] = r(M, N, dtype=torch.float32), True
+            kw["aux"] = r(M, N, dtype=torch.float32)
+            if dtype == torch.bfloat16:
+                kw["outb"] = True
     else:
         dy = r(M, N, dtype=torch.float32)
-        a, b = dy.to(torch.bfloat16), r(M, K)
+        a, b = dy.to(dtype), r(M, K)
         kw["dy"] = dy
     return a, b, kw
 
 
+def gemm_f64(op, epi, a, b, kw):
+    """The function of one fp32 ``vit_gemm`` call in float64, nothing
+    rounded (the float64 bar's reference)."""
+    import torch.nn.functional as F
+    from rel_pose_tpu_torch.ops.vit_stack import _gelu_grad
+    A, B = a.double(), b.double()
+    if op == "fwd":
+        h = torch.matmul(A, B.t()) + kw["bias"].double()
+        if epi == "bias":
+            return (h,)
+        if epi == "bias_gelu":
+            return (F.gelu(h),)
+        if epi == "bias_resid":
+            return (kw["resid"].double() + h,)
+        return F.gelu(h), h
+    if op == "dx":
+        out = torch.matmul(A, B)
+        if epi == "gelu_grad":
+            out = out * _gelu_grad(kw["aux"].double(), torch.float32)
+        return (out,)
+    return torch.matmul(A.t(), B), kw["dy"].double().sum(0)
+
+
 def library_gemm(op, a, b, kw):
-    """One library call of the same product in bf16 (the yardstick, timed
-    only): ``F.linear`` with the bias, ``torch.matmul`` for dX and dW."""
+    """One library call of the same product in the operands' dtype (the
+    yardstick, timed only; fp32 with TF32 off, phase_device):
+    ``F.linear`` with the bias, ``torch.matmul`` for dX and dW."""
     import torch.nn.functional as F
     if op == "fwd":
         return F.linear(a, b, kw["bias"].to(a.dtype))
@@ -1932,48 +1962,67 @@ def library_gemm(op, a, b, kw):
 
 
 def phase_gemm(device, card):
-    """(5f) each bf16 GEMM of #1 and #5 alone, through the test-only entry
-    ``rp_gemm_bf16`` (``ops.vit_gemm``; the model path never calls it):
-    against its plain version at the bf16 tolerances (bf16 outputs as
-    check_tokens, fp32 ones as check_grad), twice for the same bits, then
-    timed (CUDA events) beside one library call and its bound.  Returns
-    {label: (ms, library ms, bound ms)}."""
+    """(5f) each GEMM of #1 and #5 alone, bf16 then fp32, through the
+    test-only entries ``rp_gemm_bf16`` / ``rp_gemm_f32`` (``ops.vit_gemm``;
+    the model path never calls them): against its plain version at the
+    dtype's tolerances (bf16 outputs, and fp32's forward outputs, as
+    check_tokens, the others as check_grad), twice for the same
+    bits, fp32 also against float64 (``gemm_f64``: each product's max
+    |err| at most F64_BAR x the fp32 plain version's; dW's bias sums,
+    gemm_wgmma.cuh's gemm_dw_bias_kernel and no product, logged beside),
+    then timed (CUDA events) beside one library call in the same dtype and
+    its bound.  Returns {(dtype, label): (ms, library ms, bound ms)}."""
     from rel_pose_tpu_torch.ops.vit_gemm import vit_gemm, vit_gemm_reference
     t0 = time.perf_counter()
-    failures, rows = [], {}
-    for n, (label, op, epi, M, N, K) in enumerate(GEMM_SHAPES):
-        a, b, kw = gemm_operands(op, epi, M, N, K, device, SEED + 300 + n)
-        name = f"gemm {label} {op} {epi or ''} M={M} N={N} K={K}"
-        out = vit_gemm(op, epi, a, b, **kw)
-        again = vit_gemm(op, epi, a, b, **kw)
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(out, again)):
-            failures.append(f"{name}: two calls differ")
-        ref = vit_gemm_reference(op, epi, a, b, **kw)
-        for i, (o, r) in enumerate(zip(out, ref)):
-            if o.dtype == torch.bfloat16:
-                check_tokens(f"{name} out{i}", o, r, torch.bfloat16, failures)
-            else:
-                check_grad(f"{name} out{i}", o, r, torch.bfloat16, failures)
-        del again, ref
-        ms = cuda_time_ms(lambda: vit_gemm(op, epi, a, b, **kw), 5)
-        lib_ms = cuda_time_ms(lambda: library_gemm(op, a, b, kw), 5)
-        flops = 2 * M * N * K
-        nb = nbytes(a, b, *out, *(t for t in kw.values()
-                                  if isinstance(t, torch.Tensor)))
-        bms, by = bound(flops, nb, torch.bfloat16)
-        rows[label] = (ms, lib_ms, bms)
-        log(f"[time] {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s, {nb / ms / 1e6:.0f} GB/s), library {lib_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}) ({card})")
-        del a, b, kw, out
-    for tag, blocks in (("#1", 5), ("#5", 5)):
-        k = sum(v[0] for lab, v in rows.items() if lab.startswith(tag))
-        lb = sum(v[1] for lab, v in rows.items() if lab.startswith(tag))
-        bd = sum(v[2] for lab, v in rows.items() if lab.startswith(tag))
-        log(f"[time] gemm {tag} its GEMMs alone x {blocks} blocks: kernel "
-            f"{blocks * k:.3f} ms, library {blocks * lb:.3f} ms, bound "
-            f"{blocks * bd:.3f} ms ({card})")
+    failures, rows, ratios = [], {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for n, (label, op, epi, M, N, K) in enumerate(GEMM_SHAPES):
+            a, b, kw = gemm_operands(op, epi, M, N, K, device,
+                                     SEED + 300 + n, dtype)
+            name = f"gemm {tag} {label} {op} {epi or ''} M={M} N={N} K={K}"
+            out = vit_gemm(op, epi, a, b, **kw)
+            again = vit_gemm(op, epi, a, b, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                failures.append(f"{name}: two calls differ")
+            ref = vit_gemm_reference(op, epi, a, b, **kw)
+            for i, (o, r) in enumerate(zip(out, ref)):
+                if (o.dtype == torch.bfloat16 if dtype == torch.bfloat16
+                        else op == "fwd"):
+                    check_tokens(f"{name} out{i}", o, r, dtype, failures)
+                else:
+                    check_grad(f"{name} out{i}", o, r, dtype, failures)
+            if dtype == torch.float32:
+                exact = gemm_f64(op, epi, a, b, kw)
+                for i, (o, r, x) in enumerate(zip(out, ref, exact)):
+                    if op == "dw" and i == 1:
+                        f64_ratio(f"{name} bias sums (logged)", o, r, x, [])
+                    else:
+                        ratios.append(f64_ratio(f"{name} out{i}", o, r, x,
+                                                failures))
+                del exact
+            del again, ref
+            ms = cuda_time_ms(lambda: vit_gemm(op, epi, a, b, **kw), 5)
+            lib_ms = cuda_time_ms(lambda: library_gemm(op, a, b, kw), 5)
+            flops = 2 * M * N * K
+            nb = nbytes(a, b, *out, *(t for t in kw.values()
+                                      if isinstance(t, torch.Tensor)))
+            bms, by = bound(flops, nb, dtype)
+            rows[dtype, label] = (ms, lib_ms, bms)
+            log(f"[time] {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f}"
+                f" TFLOP/s, {nb / ms / 1e6:.0f} GB/s), library "
+                f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}) ({card})")
+            del a, b, kw, out
+        for kern, blocks in (("#1", 5), ("#5", 5)):
+            mine = [v for (d, lab), v in rows.items()
+                    if d == dtype and lab.startswith(kern)]
+            k, lb, bd = (sum(v[i] for v in mine) for i in range(3))
+            log(f"[time] gemm {tag} {kern} its GEMMs alone x {blocks} "
+                f"blocks: kernel {blocks * k:.3f} ms, library "
+                f"{blocks * lb:.3f} ms, bound {blocks * bd:.3f} ms ({card})")
+    log(f"[check] gemm fp32 float64 bar: worst ratio {max(ratios):.3f} over "
+        f"{len(ratios)} outputs (<= {F64_BAR})")
     log(f"[time] phase 5f in {time.perf_counter() - t0:.1f} s")
     if failures:
         raise SystemExit(f"GEMM checks failed: {failures}")

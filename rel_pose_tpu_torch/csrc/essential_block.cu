@@ -56,7 +56,7 @@ static cudaError_t moments(const T* img1, const T* img2, size_t bstride,
 template <typename T>
 static cudaError_t qkv_linear(const T* x, const T* w, const float* bias,
                              T* out, int M, int C, cudaStream_t st) {
-  return tc::launch_gemm<kRounded>(x, w, bias, nullptr, out, M, 3 * C, C, st);
+  return tc::launch_gemm<kRounded>(x, w, bias, out, M, 3 * C, C, st);
 }
 
 template <typename T>

@@ -1,17 +1,13 @@
-// Tensor-core GEMMs on mma.sync: the fp32 GEMMs of the ViT stack (kernels
-// #1 and #5) and the essential block's qkv Linear in both dtypes, and the
-// mma.sync / ldmatrix / cp.async helpers that attention_tc.cuh and
-// essential_tc.cuh share.
+// Tensor-core GEMMs on mma.sync: the essential block's qkv Linear in both
+// dtypes, and the mma.sync / ldmatrix / cp.async / TF32-split helpers that
+// attention_tc.cuh, essential_tc.cuh and the wgmma bodies share.
 //
-// Replaces the GEMMs inside rel_pose_tpu/ops/pallas_vit.py:
-// _vit_stack_kernel (qkv, proj, fc1, fc2) and pallas_vit_bwd.py:
-// _vit_stack_bwd_kernel (the recompute, dX and dW of the same Linears) in
-// fp32 -- bf16 runs those on gemm_wgmma.cuh -- and the forward GEMM inside
-// pallas_essential_block.py's _essential_block_pair_kernel and
-// _essential_block_x_kernel (the qkv Linear, essential_block.cu, epilogue
-// kRounded) in both dtypes.  bf16 keeps only that forward here (launch_gemm
-// refuses any other bf16 epilogue at compile time, and Cfgs<bf16> has no dX
-// or dW tile), so that the essential block stays as it is.
+// Replaces the forward GEMM inside pallas_essential_block.py's
+// _essential_block_pair_kernel and _essential_block_x_kernel (the qkv
+// Linear, essential_block.cu, epilogue kRounded) in both dtypes.  The ViT
+// stack's GEMMs run on gemm_wgmma.cuh (bf16) and gemm_wgmma_f32.cuh (fp32):
+// launch_gemm refuses any other epilogue at compile time, so that the
+// essential block stays as it is.
 //
 // One structure, two products: the element type picks the MMA atom.
 //   bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on K-major operands
@@ -24,25 +20,18 @@
 //     product keeps fp32 accuracy.  (TF32 alone, hi.hi, keeps about 3
 //     decimal digits: the port's precision policy forbids it.)
 //
-// What bounds them on the H100: at the ViT widths (M = G * 576 rows, K =
-// 192 or 768, Nout = 192, 576 or 768) one GEMM does 2 M K Nout operations
-// on (M K + M Nout) elements, 96-153 operations per byte in bf16, below
-// the 295 at which the bf16 tensor cores rather than HBM are the limit,
-// and 48-77 in fp32, about the 49 at which 3xTF32's 165 TFLOP/s (495 / 3)
-// meets HBM: alone, each would be near the memory bound at the full
-// tensor-core rate.  (The stack's bound counts only its own inputs and
-// outputs and is set by the operations.)  At the rate mma.sync reaches,
-// the products themselves and the shared-memory loads feeding them decide;
-// in fp32 also the split, two cvt and a subtraction per loaded operand.
+// What bounds it on the H100: at C = 192 the qkv Linear does 2 M C 3C
+// operations on (M C + M 3C) elements, 96 operations per byte in bf16,
+// below the 295 at which the bf16 tensor cores rather than HBM are the
+// limit, and 48 in fp32, about the 49 at which 3xTF32's 165 TFLOP/s (495 /
+// 3) meets HBM.  At the rate mma.sync reaches, the products themselves and
+// the shared-memory loads feeding them decide; in fp32 also the split, two
+// cvt and a subtraction per loaded operand.
 //
 // Design: operands from padded shared-memory tiles, fed by a 3-stage
 // cp.async ring of K steps (128 x 192 output tiles where the widths
-// allow).  Every product keeps the Pallas kernels' rounding points: sums
-// are fp32, only their order differs from the SIMT kernels, and the
-// epilogues are common.cuh's, element for element.  fp32 products read the
-// cotangents themselves.  No atomics: the dW GEMM writes per-chunk
-// partials that sum_partials adds in order, so two calls give the same
-// bits.
+// allow).  Sums are fp32 and the epilogue is common.cuh's kRounded,
+// element for element.
 
 #pragma once
 
@@ -177,32 +166,26 @@ using nd_t = typename type_is<T>::type;
 
 // ------------------------------------------------------------ tile GEMM --
 // C[BM, BN] += A[BM, K] . B[K, BN] over k in [kbeg, kend), operands of
-// type E (bf16 or fp32: the atom).  A is K-major (element (m, k) at
-// A[m * lda + k]) or M-major (at A[k * lda + m]); B is K-major (element
-// (k, n) at B[n * ldb + k], the torch Linear weight) or N-major (at
-// B[k * ldb + n]).  Rows m >= m_end of a K-major A and k >= kend of an
-// M-major A or N-major B load as zeros.
-template <typename E_, int BM_, int BN_, int WM_, int WN_, bool AK_,
-          bool BK_, int BK_DEPTH = 32, int STAGES = 3>
+// type E (bf16 or fp32: the atom), both K-major: element (m, k) at A[m *
+// lda + k], (k, n) at B[n * ldb + k] (the torch Linear weight).  Rows m >=
+// m_end of A load as zeros.
+template <typename E_, int BM_, int BN_, int WM_, int WN_, int BK_DEPTH = 32,
+          int STAGES = 3>
 struct Tile {
   using E = E_;
   static constexpr bool kTf32 = sizeof(E) == 4;  // 3xTF32, else bf16
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
-  static constexpr bool kAK = AK_, kBK = BK_;
   static constexpr int BK = BK_DEPTH, kStages = STAGES;
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int TM = BM / WM, TN = BN / WN, MI = TM / 16, NI = TN / 8;
   static constexpr int kVec = 16 / (int)sizeof(E);  // one cp.async
   static constexpr int kKStep = kTf32 ? 8 : 16;     // one mma's depth
   // Padded rows, so that a warp's fragment loads fall in distinct banks:
-  // bf16, 8 consecutive ldmatrix rows; fp32, a row read along k is 4 mod
-  // 32 words long (lane 4 g + t reads word g LD + t), one read along m or
-  // n 8 mod 32 (word t LD + g).
-  static constexpr int kPadK = kTf32 ? 4 : 8, kPadMN = 8;
-  static constexpr int A_LD = kAK ? BK + kPadK : BM + kPadMN;
-  static constexpr int A_ELEMS = kAK ? BM * A_LD : BK * A_LD;
-  static constexpr int B_LD = kBK ? BK + kPadK : BN + kPadMN;
-  static constexpr int B_ELEMS = kBK ? BN * B_LD : BK * B_LD;
+  // bf16, 8 consecutive ldmatrix rows; fp32, a row 4 mod 32 words long
+  // (lane 4 g + t reads word g LD + t).
+  static constexpr int kPad = kTf32 ? 4 : 8;
+  static constexpr int A_LD = BK + kPad, A_ELEMS = BM * A_LD;
+  static constexpr int B_LD = BK + kPad, B_ELEMS = BN * B_LD;
   static constexpr int kStageElems = A_ELEMS + B_ELEMS;
   static constexpr int kSmemElems = kStages * kStageElems;
   static constexpr int A_CHUNKS = BM * BK / kVec, B_CHUNKS = BN * BK / kVec;
@@ -228,52 +211,32 @@ template <class Cfg, typename E = typename Cfg::E>
 __device__ __forceinline__ void load_stage(E* st, const E* A, size_t lda,
                                            const E* B, size_t ldb, int m0,
                                            int n0, int k0, int m_end,
-                                           int kend, int tid) {
-  constexpr int V = Cfg::kVec;
+                                           int tid) {
+  constexpr int CPR = Cfg::BK / Cfg::kVec;  // 16-byte chunks a row
   E* As = st;
   E* Bs = st + Cfg::A_ELEMS;
 #pragma unroll
   for (int u = 0; u < Cfg::A_CHUNKS / Cfg::kThreads; ++u) {
     const int c = tid + u * Cfg::kThreads;
-    if (Cfg::kAK) {
-      constexpr int CPR = Cfg::BK / V;
-      const int r = c / CPR, kc = (c % CPR) * V;
-      const bool ok = m0 + r < m_end;
-      cp_async16(As + r * Cfg::A_LD + kc,
-                 A + (size_t)(ok ? m0 + r : 0) * lda + k0 + kc, ok);
-    } else {
-      constexpr int CPR = Cfg::BM / V;
-      const int r = c / CPR, mc = (c % CPR) * V;
-      const bool ok = k0 + r < kend;
-      cp_async16(As + r * Cfg::A_LD + mc,
-                 A + (size_t)(ok ? k0 + r : 0) * lda + m0 + mc, ok);
-    }
+    const int r = c / CPR, kc = (c % CPR) * Cfg::kVec;
+    const bool ok = m0 + r < m_end;
+    cp_async16(As + r * Cfg::A_LD + kc,
+               A + (size_t)(ok ? m0 + r : 0) * lda + k0 + kc, ok);
   }
 #pragma unroll
   for (int u = 0; u < Cfg::B_CHUNKS / Cfg::kThreads; ++u) {
     const int c = tid + u * Cfg::kThreads;
-    if (Cfg::kBK) {
-      constexpr int CPR = Cfg::BK / V;
-      const int r = c / CPR, kc = (c % CPR) * V;
-      cp_async16(Bs + r * Cfg::B_LD + kc, B + (size_t)(n0 + r) * ldb + k0 + kc,
-                 true);
-    } else {
-      constexpr int CPR = Cfg::BN / V;
-      const int r = c / CPR, nc = (c % CPR) * V;
-      const bool ok = k0 + r < kend;
-      cp_async16(Bs + r * Cfg::B_LD + nc,
-                 B + (size_t)(ok ? k0 + r : 0) * ldb + n0 + nc, ok);
-    }
+    const int r = c / CPR, kc = (c % CPR) * Cfg::kVec;
+    cp_async16(Bs + r * Cfg::B_LD + kc, B + (size_t)(n0 + r) * ldb + k0 + kc,
+               true);
   }
 }
 
-// one K step of bf16 products: ldmatrix fragments, m16n8k16 (K-major A and
-// B: the forward tiles, the only bf16 ones)
+// one K step of bf16 products: ldmatrix fragments, m16n8k16
 template <class Cfg>
 __device__ __forceinline__ void compute_stage(
     const bf16* st, float (&acc)[Cfg::MI][Cfg::NI][4], int wm, int wn,
     int lane) {
-  static_assert(Cfg::kAK && Cfg::kBK, "bf16 tiles are K-major");
   const bf16* As = st;
   const bf16* Bs = st + Cfg::A_ELEMS;
 #pragma unroll
@@ -323,8 +286,7 @@ __device__ __forceinline__ void compute_stage(
       for (int j = 0; j < 4; ++j) {
         const int m = wm * Cfg::TM + mi * 16 + g + (j & 1) * 8;
         const int k = kk + t + (j >> 1) * 4;
-        split_tf32(Cfg::kAK ? As[m * Cfg::A_LD + k] : As[k * Cfg::A_LD + m],
-                   ah[mi][j], al[mi][j]);
+        split_tf32(As[m * Cfg::A_LD + k], ah[mi][j], al[mi][j]);
       }
 #pragma unroll
     for (int ni = 0; ni < Cfg::NI; ++ni) {
@@ -333,8 +295,7 @@ __device__ __forceinline__ void compute_stage(
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int k = kk + t + j * 4;
-        split_tf32(Cfg::kBK ? Bs[n * Cfg::B_LD + k] : Bs[k * Cfg::B_LD + n],
-                   bh[j], bl[j]);
+        split_tf32(Bs[n * Cfg::B_LD + k], bh[j], bl[j]);
       }
 #pragma unroll
       for (int mi = 0; mi < Cfg::MI; ++mi)
@@ -343,12 +304,11 @@ __device__ __forceinline__ void compute_stage(
   }
 }
 
-// acc = A[m0:, kbeg:kend] . B[kbeg:kend, n0:] through the cp.async ring
+// acc = A[m0:, :K] . B[:K, n0:] through the cp.async ring
 template <class Cfg, typename E = typename Cfg::E>
 __device__ __forceinline__ void mainloop(E* smem, const E* A, size_t lda,
                                          const E* B, size_t ldb, int m0,
-                                         int n0, int kbeg, int kend,
-                                         int m_end,
+                                         int n0, int K, int m_end,
                                          float (&acc)[Cfg::MI][Cfg::NI][4]) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / Cfg::WN, wn = warp % Cfg::WN;
@@ -358,12 +318,12 @@ __device__ __forceinline__ void mainloop(E* smem, const E* A, size_t lda,
     for (int ni = 0; ni < Cfg::NI; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  const int nk = (kend - kbeg + Cfg::BK - 1) / Cfg::BK;
+  const int nk = (K + Cfg::BK - 1) / Cfg::BK;
 #pragma unroll
   for (int s = 0; s < Cfg::kStages - 1; ++s) {
     if (s < nk)
       load_stage<Cfg>(smem + s * Cfg::kStageElems, A, lda, B, ldb, m0, n0,
-                      kbeg + s * Cfg::BK, m_end, kend, tid);
+                      s * Cfg::BK, m_end, tid);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -373,7 +333,7 @@ __device__ __forceinline__ void mainloop(E* smem, const E* A, size_t lda,
     const int nt = kt + Cfg::kStages - 1;
     if (nt < nk)
       load_stage<Cfg>(smem + (nt % Cfg::kStages) * Cfg::kStageElems, A, lda,
-                      B, ldb, m0, n0, kbeg + nt * Cfg::BK, m_end, kend, tid);
+                      B, ldb, m0, n0, nt * Cfg::BK, m_end, tid);
     cp_async_commit();
     compute_stage<Cfg>(smem + (kt % Cfg::kStages) * Cfg::kStageElems, acc, wm,
                        wn, lane);
@@ -430,17 +390,8 @@ __device__ __forceinline__ void unpack4_bf16(uint2 u, float (&v)[4]) {
   v[3] = b.y;
 }
 
-// 4 consecutive elements as fp32, and back (rounded to bf16 for bf16)
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  unpack4_bf16(*reinterpret_cast<const uint2*>(p), v);
-}
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
+// 4 fp32 values stored as 4 consecutive elements (rounded to bf16 for
+// bf16)
 __device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = pack4_bf16(v);
 }
@@ -449,247 +400,84 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
 }
 
 // ---------------------------------------------------------- tile configs --
-// Per element type: the forward (K-major A and B), dX (K-major A, N-major
-// B) and dW (M-major A, N-major B) tiles, and the wide forward and dX
-// tiles of 192 output columns taken where the widths allow (every ViT
-// GEMM at C = 192): A is read from L2 a third as often as with 64-column
-// tiles, with half as many barriers (one 138 KB block per SM; the fastest
-// of the tiles tried on an H100 at the bf16 eval shapes).  fp32 keeps the
-// tiles' shape with 32-deep K steps (128 bytes a row, as bf16's 64).  bf16
-// has only the forward tiles: its ViT GEMMs run on gemm_wgmma.cuh.
+// Per element type: the forward tile (K-major A and B), and the wide one of
+// 192 output columns taken where the widths allow (the qkv Linear at C =
+// 192): A is read from L2 a third as often as with 64-column tiles, with
+// half as many barriers (one 138 KB block per SM; the fastest of the tiles
+// tried on an H100 at the bf16 eval shapes).  fp32 keeps the tiles' shape
+// with 32-deep K steps (128 bytes a row, as bf16's 64).
 template <typename E>
 struct Cfgs;
 template <>
 struct Cfgs<bf16> {
-  using Fwd = Tile<bf16, 128, 64, 2, 2, true, true>;
-  using FwdWide = Tile<bf16, 128, 192, 4, 2, true, true, 64, 3>;
+  using Fwd = Tile<bf16, 128, 64, 2, 2>;
+  using FwdWide = Tile<bf16, 128, 192, 4, 2, 64, 3>;
 };
 template <>
 struct Cfgs<float> {
-  using Fwd = Tile<float, 128, 64, 2, 2, true, true, 32, 3>;
-  using FwdWide = Tile<float, 128, 192, 4, 2, true, true, 32, 3>;
-  using Dx = Tile<float, 128, 64, 2, 2, true, false, 32, 3>;
-  using DxWide = Tile<float, 128, 192, 4, 2, true, false, 32, 3>;
-  using Dw = Tile<float, 64, 64, 2, 2, false, false, 32, 3>;
+  using Fwd = Tile<float, 128, 64, 2, 2, 32, 3>;
+  using FwdWide = Tile<float, 128, 192, 4, 2, 32, 3>;
 };
 
 // ------------------------------------------------------- forward GEMM --
-// out[M, Nout] = epilogue(A[M, K] . W[Nout, K]^T) in E, common.cuh's
-// Epilogue values (kBias, kBiasGelu, kBiasResid, kRounded -- the essential
-// block's qkv Linear -- and kBiasGeluSplit), element for element;
-// resid may alias out (each element is read, then written, by one thread).
+// out[M, Nout] = T(T(A[M, K] . W[Nout, K]^T) + T(b)) in E: common.cuh's
+// kRounded, the essential block's qkv Linear, element for element.
 template <int EPI, class Cfg>
 __global__ void __launch_bounds__(Cfg::kThreads)
 gemm_fwd_kernel(const typename Cfg::E* __restrict__ A,
                 const typename Cfg::E* __restrict__ W,
-                const float* __restrict__ bias, const typename Cfg::E* resid,
-                typename Cfg::E* out, float* __restrict__ aux, int M,
+                const float* __restrict__ bias, typename Cfg::E* out, int M,
                 int Nout, int K) {
   using E = typename Cfg::E;
+  static_assert(EPI == kRounded, "the ViT GEMMs run on the wgmma bodies");
   extern __shared__ __align__(128) unsigned char gemm_smem[];
   E* smem = reinterpret_cast<E*>(gemm_smem);
   const int m0 = blockIdx.y * Cfg::BM, n0 = blockIdx.x * Cfg::BN;
   float acc[Cfg::MI][Cfg::NI][4];
-  mainloop<Cfg>(smem, A, K, W, K, m0, n0, 0, K, M, acc);
+  mainloop<Cfg>(smem, A, K, W, K, m0, n0, K, M, acc);
   const float* Cs = stage_acc<Cfg>(smem, acc);
   constexpr int LDC = Cfg::BN + 8, C4 = Cfg::BN / 4;
   for (int idx = threadIdx.x; idx < Cfg::BM * C4; idx += Cfg::kThreads) {
     const int r = idx / C4, c = (idx % C4) * 4;
     const int m = m0 + r, n = n0 + c;
     if (m >= M) continue;
-    const size_t o = (size_t)m * Nout + n;
     const float4 a4 = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
     const float4 b4 = *reinterpret_cast<const float4*>(bias + n);
     const float a[4] = {a4.x, a4.y, a4.z, a4.w};
     const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-    float rs[4], v[4];
-    if (EPI == kBiasResid) load4(resid + o, rs);
+    float v[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (EPI == kBias) {
-        v[j] = a[j] + b[j];
-      } else if (EPI == kBiasGelu) {
-        v[j] = gelu_policy<E>(round_to<E>(a[j] + b[j]));
-      } else if (EPI == kBiasResid) {
-        v[j] = rs[j] + (a[j] + b[j]);
-      } else if (EPI == kRounded) {
-        v[j] = round_to<E>(a[j]) + round_to<E>(b[j]);
-      } else {  // kBiasGeluSplit
-        v[j] = gelu_policy<E>(a[j] + b[j]);
-      }
-    }
-    if (EPI == kBiasGeluSplit)
-      *reinterpret_cast<float4*>(aux + o) =
-          make_float4(a[0] + b[0], a[1] + b[1], a[2] + b[2], a[3] + b[3]);
-    store4(out + o, v);
+    for (int j = 0; j < 4; ++j) v[j] = round_to<E>(a[j]) + round_to<E>(b[j]);
+    store4(out + (size_t)m * Nout + n, v);
   }
 }
 
 template <int EPI, class Cfg, typename E = typename Cfg::E>
 static cudaError_t launch_gemm_cfg(const E* A, const E* W, const float* bias,
-                                   const E* resid, E* out, int M, int Nout,
-                                   int K, cudaStream_t stream, float* aux) {
+                                   E* out, int M, int Nout, int K,
+                                   cudaStream_t stream) {
   const int mt = (M + Cfg::BM - 1) / Cfg::BM;
   if (Nout % Cfg::BN || K % Cfg::BK || mt > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = prepare<Cfg>(gemm_fwd_kernel<EPI, Cfg>);
   if (err != cudaSuccess) return err;
   gemm_fwd_kernel<EPI, Cfg><<<dim3(Nout / Cfg::BN, mt), Cfg::kThreads,
-                              Cfg::kSmemBytes, stream>>>(
-      A, W, bias, resid, out, aux, M, Nout, K);
+                              Cfg::kSmemBytes, stream>>>(A, W, bias, out, M,
+                                                         Nout, K);
   return cudaGetLastError();
 }
 
 template <int EPI, typename E>
 static cudaError_t launch_gemm(const E* A, const nd_t<E>* W,
-                               const float* bias, const nd_t<E>* resid,
-                               nd_t<E>* out, int M, int Nout, int K,
-                               cudaStream_t stream, float* aux = nullptr) {
-  static_assert(sizeof(E) == 4 || EPI == kRounded,
-                "bf16 ViT GEMMs run on gemm_wgmma.cuh");
+                               const float* bias, nd_t<E>* out, int M,
+                               int Nout, int K, cudaStream_t stream) {
+  static_assert(EPI == kRounded,
+                "the ViT GEMMs run on gemm_wgmma.cuh / gemm_wgmma_f32.cuh");
   using Wide = typename Cfgs<E>::FwdWide;
   if (Nout % Wide::BN == 0 && K % Wide::BK == 0)
-    return launch_gemm_cfg<EPI, Wide>(A, W, bias, resid, out, M, Nout, K,
-                                      stream, aux);
-  return launch_gemm_cfg<EPI, typename Cfgs<E>::Fwd>(A, W, bias, resid, out,
-                                                     M, Nout, K, stream, aux);
-}
-
-// ------------------------------------------------------------ dX GEMM --
-// out[M, Kout] = epilogue(dY[M, Nred] . W[Nred, Kout]) in fp32, W the
-// torch Linear weight (Nred = out features); common.cuh's DxEpilogue.  aux
-// may alias out.
-template <int EPI, class Cfg>
-__global__ void __launch_bounds__(Cfg::kThreads)
-gemm_dx_kernel(const typename Cfg::E* __restrict__ dY,
-               const typename Cfg::E* __restrict__ W, const float* aux,
-               float* out, int M, int Kout, int Nred) {
-  using E = typename Cfg::E;
-  extern __shared__ __align__(128) unsigned char gemm_smem[];
-  E* smem = reinterpret_cast<E*>(gemm_smem);
-  const int m0 = blockIdx.y * Cfg::BM, n0 = blockIdx.x * Cfg::BN;
-  float acc[Cfg::MI][Cfg::NI][4];
-  mainloop<Cfg>(smem, dY, Nred, W, Kout, m0, n0, 0, Nred, M, acc);
-  const float* Cs = stage_acc<Cfg>(smem, acc);
-  constexpr int LDC = Cfg::BN + 8, C4 = Cfg::BN / 4;
-  for (int idx = threadIdx.x; idx < Cfg::BM * C4; idx += Cfg::kThreads) {
-    const int r = idx / C4, c = (idx % C4) * 4;
-    const int m = m0 + r;
-    if (m >= M) continue;
-    const size_t o = (size_t)m * Kout + n0 + c;
-    float4 v = *reinterpret_cast<const float4*>(Cs + r * LDC + c);
-    if (EPI == kDxGeluGrad) {
-      const float4 h = *reinterpret_cast<const float4*>(aux + o);
-      v.x *= gelu_grad_policy<E>(h.x);
-      v.y *= gelu_grad_policy<E>(h.y);
-      v.z *= gelu_grad_policy<E>(h.z);
-      v.w *= gelu_grad_policy<E>(h.w);
-    }
-    *reinterpret_cast<float4*>(out + o) = v;
-  }
-}
-
-template <int EPI, class Cfg, typename E = typename Cfg::E>
-static cudaError_t launch_gemm_dx_cfg(const E* dY, const E* W,
-                                      const float* aux, float* out, int M,
-                                      int Kout, int Nred,
-                                      cudaStream_t stream) {
-  const int mt = (M + Cfg::BM - 1) / Cfg::BM;
-  if (Kout % Cfg::BN || Nred % Cfg::BK || mt > 65535)
-    return cudaErrorInvalidValue;
-  cudaError_t err = prepare<Cfg>(gemm_dx_kernel<EPI, Cfg>);
-  if (err != cudaSuccess) return err;
-  gemm_dx_kernel<EPI, Cfg><<<dim3(Kout / Cfg::BN, mt), Cfg::kThreads,
-                             Cfg::kSmemBytes, stream>>>(dY, W, aux, out, M,
-                                                        Kout, Nred);
-  return cudaGetLastError();
-}
-
-template <int EPI>
-static cudaError_t launch_gemm_dx(const float* dY, const float* W,
-                                  const float* aux, float* out, int M,
-                                  int Kout, int Nred, cudaStream_t stream) {
-  using Wide = Cfgs<float>::DxWide;
-  if (Kout % Wide::BN == 0 && Nred % Wide::BK == 0)
-    return launch_gemm_dx_cfg<EPI, Wide>(dY, W, aux, out, M, Kout, Nred,
-                                         stream);
-  return launch_gemm_dx_cfg<EPI, Cfgs<float>::Dx>(dY, W, aux, out, M, Kout,
-                                                  Nred, stream);
-}
-
-// ------------------------------------------------- dW GEMM, split-K -----
-// dW[Nout, K] = sum_m dY[m, n] X[m, k], db[n] = sum_m dY[m, n] (fp32).
-// Block (k tile, n tile, chunk s) sums rows [s chunk, (s + 1) chunk) and
-// writes its fp32 partial; the blocks of k tile 0 also write the chunk's
-// column sums of dY; sum_partials adds the chunks in order.  A = dY read
-// M-major and B = X read N-major.
-
-template <class Cfg>
-__global__ void __launch_bounds__(Cfg::kThreads)
-gemm_dw_kernel(const float* __restrict__ dY,
-               const typename Cfg::E* __restrict__ X,
-               float* __restrict__ part, float* __restrict__ bias_part, int M,
-               int Nout, int K, int chunk) {
-  using E = typename Cfg::E;
-  extern __shared__ __align__(128) unsigned char gemm_smem[];
-  E* smem = reinterpret_cast<E*>(gemm_smem);
-  __shared__ float red[Cfg::kThreads / Cfg::BM][Cfg::BM];
-  const int k0 = blockIdx.x * Cfg::BN, n0 = blockIdx.y * Cfg::BM;
-  const int s = blockIdx.z;
-  const int mbeg = s * chunk, mend = min(M, mbeg + chunk);
-  float acc[Cfg::MI][Cfg::NI][4];
-  mainloop<Cfg>(smem, dY, Nout, X, K, n0, k0, mbeg, mend, Nout, acc);
-  float* P = part + (size_t)s * Nout * K;
-#pragma unroll
-  for (int mi = 0; mi < Cfg::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < Cfg::NI; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        int r, c;
-        acc_coords<Cfg>(mi, ni, half, r, c);
-        *reinterpret_cast<float2*>(P + (size_t)(n0 + r) * K + k0 + c) =
-            make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
-  if (bias_part != nullptr && blockIdx.x == 0) {  // uniform over the block
-    const int tid = threadIdx.x, col = tid % Cfg::BM, h = tid / Cfg::BM;
-    constexpr int kSplit = Cfg::kThreads / Cfg::BM;
-    static_assert(kSplit >= 1 && Cfg::kThreads % Cfg::BM == 0,
-                  "whole threads per column");
-    float t = 0.f;
-    for (int m = mbeg + h; m < mend; m += kSplit)
-      t += dY[(size_t)m * Nout + n0 + col];
-    red[h][col] = t;
-    __syncthreads();
-    if (tid < Cfg::BM) {
-      float u = 0.f;
-      for (int j = 0; j < kSplit; ++j) u += red[j][tid];
-      bias_part[(size_t)s * Nout + n0 + tid] = u;
-    }
-  }
-}
-
-// dW (Nout, K) and db (Nout) of a Linear from dY (fp32: the product reads
-// the cotangent itself) and X; part / bias_part hold dw_chunks(M) partials
-static cudaError_t weight_grad(const float* dY, const float* X, float* dW,
-                               float* db, float* part, float* bias_part,
-                               int M, int Nout, int K, cudaStream_t stream) {
-  using Cfg = Cfgs<float>::Dw;
-  static_assert(kDwChunk % Cfg::BK == 0, "whole K steps per chunk");
-  if (Nout % Cfg::BM || K % Cfg::BN) return cudaErrorInvalidValue;
-  const int S = dw_chunks(M);
-  cudaError_t err = prepare<Cfg>(gemm_dw_kernel<Cfg>);
-  if (err != cudaSuccess) return err;
-  gemm_dw_kernel<Cfg><<<dim3(K / Cfg::BN, Nout / Cfg::BM, S), Cfg::kThreads,
-                        Cfg::kSmemBytes, stream>>>(dY, X, part,
-                                                   bias_part, M, Nout, K,
-                                                   kDwChunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = launch_sum_partials(part, S, (size_t)Nout * K, (size_t)Nout * K, dW,
-                            stream);
-  if (err != cudaSuccess) return err;
-  return launch_sum_partials(bias_part, S, Nout, Nout, db, stream);
+    return launch_gemm_cfg<EPI, Wide>(A, W, bias, out, M, Nout, K, stream);
+  return launch_gemm_cfg<EPI, typename Cfgs<E>::Fwd>(A, W, bias, out, M,
+                                                     Nout, K, stream);
 }
 
 }  // namespace tc

@@ -1,8 +1,9 @@
 // The bf16 GEMMs of the ViT stack (kernels #1 and #5) on Hopper's
 // warpgroup tensor-core products (wgmma) with operands brought by the
 // Tensor Memory Accelerator (TMA), in persistent, warp-specialised blocks.
-// fp32 keeps gemm_tc.cuh's 3xTF32 mma.sync body, and so does the essential
-// block's qkv Linear (kRounded) in both dtypes.
+// fp32 runs on gemm_wgmma_f32.cuh (3xTF32 on TF32 wgmma), which shares this
+// file's pieces; the essential block's qkv Linear (kRounded) stays on
+// gemm_tc.cuh's mma.sync body in both dtypes.
 //
 // Replaces, in bf16, the jnp.dot / dot_general products inside
 //   - rel_pose_tpu/ops/pallas_vit.py:_vit_stack_kernel: qkv (:129), proj
@@ -60,7 +61,7 @@
 
 #pragma once
 
-#include "gemm_tc.cuh"  // bf16, load4 / store4
+#include "gemm_tc.cuh"  // bf16, store4, unpack4_bf16, split_tf32
 #include "sm90.cuh"
 
 namespace rp {

@@ -9,29 +9,28 @@
 // from rp_vit_stack, per block:
 //   (a) row LayerNorm (block 0 also adds pos_embed)   -> common.cuh
 //   (b) qkv GEMM, bias epilogue                        -> gemm_wgmma.cuh
-//       (fp32: gemm_tc.cuh)
+//       (fp32: gemm_wgmma_f32.cuh)
 //   (c) attention per (sequence, head, 64-query tile)  -> attention_wgmma.cuh
 //       (fp32: attention_wgmma_f32.cuh)
 //   (b) proj GEMM, + residual epilogue (in place on the stream)
 //   (a) LayerNorm, (b) fc1 GEMM + GELU, (b) fc2 GEMM + residual
 //
 // Both dtypes run the products on the tensor cores with fp32 sums and the
-// Pallas kernels' rounding points.  bf16: the GEMMs and the attention on
-// wgmma with TMA-fed tiles (gemm_wgmma.cuh, attention_wgmma.cuh).  fp32:
+// Pallas kernels' rounding points, on wgmma with TMA-fed tiles.  bf16: the
+// GEMMs (gemm_wgmma.cuh) and the attention (attention_wgmma.cuh).  fp32:
 // 3xTF32 (operands split into TF32 hi + lo, the lo . lo term dropped: fp32
 // accuracy, not the 3-digit TF32 that the port's precision policy
-// forbids), the GEMMs on mma.sync m16n8k8 (gemm_tc.cuh), the attention on
-// TF32 wgmma with TMA-fed tiles (attention_wgmma_f32.cuh).  Attention
-// reads q, k, v from the qkv GEMM's (G, N, 3C) output (layout
-// Interleaved).
+// forbids) on TF32 wgmma, the GEMMs (gemm_wgmma_f32.cuh, the weights split
+// once a call into hi / lo copies, ws) and the attention
+// (attention_wgmma_f32.cuh).  Attention reads q, k, v from the qkv GEMM's
+// (G, N, 3C) output (layout Interleaved).
 //
 // What bounds it on the H100: in bf16, HBM -- each GEMM sits at 96-154
 // operations a byte, under the tensor cores' 295 -- with activations
 // making one device-memory round trip per kernel (the bf16 MLP hidden is
 // 906 MB a block at G = 512, about 0.27 ms at 3.35 TB/s each way); in fp32
 // the products, at the rate 3xTF32 reaches (three TF32 products and a split
-// per operand for each) on mma.sync (the GEMMs) and TF32 wgmma (the
-// attention).
+// per operand for each) on TF32 wgmma.
 
 #include <type_traits>
 
@@ -40,8 +39,9 @@
 namespace rp {
 namespace tc {
 
-// gemm_wgmma.cu: the bf16 GEMMs of gemm_wgmma.cuh, `epi` one of
-// common.cuh's Epilogue values but kRounded (forward) or DxEpilogue (dX)
+// gemm_wgmma.cu / gemm_wgmma_f32.cu: the GEMMs of gemm_wgmma.cuh (bf16)
+// and gemm_wgmma_f32.cuh (fp32), `epi` one of common.cuh's Epilogue values
+// but kRounded (forward) or DxEpilogue (dX)
 namespace wg {
 cudaError_t vit_gemm_bf16(int epi, const bf16* A, const bf16* W,
                           const float* bias, const bf16* resid, bf16* out,
@@ -53,10 +53,23 @@ cudaError_t vit_weight_grad_bf16(const bf16* dYb, const float* dY,
                                  const bf16* X, float* dW, float* db,
                                  float* part, float* bpart, int M, int Nout,
                                  int K, cudaStream_t st);
+cudaError_t vit_split_weight_f32(const float* W, float* Ws, int count, int R,
+                                 int C, bool transpose, cudaStream_t st);
+cudaError_t vit_gemm_f32(int epi, const float* A, const float* Ws,
+                         const float* bias, const float* resid, float* out,
+                         float* aux, int M, int N, int K, cudaStream_t st);
+cudaError_t vit_gemm_dx_f32(int epi, const float* dY, const float* WTs,
+                            const float* aux, float* out, int M, int N, int K,
+                            cudaStream_t st);
+cudaError_t vit_weight_grad_f32(const float* dY, const float* X, float* dW,
+                                float* db, float* part, float* bpart, int M,
+                                int Nout, int K, cudaStream_t st);
 }  // namespace wg
 
-// The stack's GEMMs by dtype: bf16 on the wgmma body (gemm_wgmma.cu), fp32
-// on gemm_tc.cuh's 3xTF32 mma.sync body.  outb (bf16 only) takes T(out).
+// The stack's GEMMs by dtype: bf16 on gemm_wgmma.cuh's body, fp32 on
+// gemm_wgmma_f32.cuh's 3xTF32 one, which takes the weight as its TF32 hi /
+// lo split (StackWeight: for dX, the split of its transpose).  outb (bf16
+// only) takes T(out).
 template <int EPI>
 static cudaError_t stack_gemm(const bf16* A, const bf16* W, const float* bias,
                               const bf16* resid, bf16* out, int M, int N,
@@ -64,11 +77,11 @@ static cudaError_t stack_gemm(const bf16* A, const bf16* W, const float* bias,
   return wg::vit_gemm_bf16(EPI, A, W, bias, resid, out, aux, M, N, K, st);
 }
 template <int EPI>
-static cudaError_t stack_gemm(const float* A, const float* W,
+static cudaError_t stack_gemm(const float* A, const float* Ws,
                               const float* bias, const float* resid,
                               float* out, int M, int N, int K,
                               cudaStream_t st, float* aux = nullptr) {
-  return launch_gemm<EPI>(A, W, bias, resid, out, M, N, K, st, aux);
+  return wg::vit_gemm_f32(EPI, A, Ws, bias, resid, out, aux, M, N, K, st);
 }
 template <int EPI>
 static cudaError_t stack_gemm_dx(const bf16* dYb, const bf16* W,
@@ -77,10 +90,10 @@ static cudaError_t stack_gemm_dx(const bf16* dYb, const bf16* W,
   return wg::vit_gemm_dx_bf16(EPI, dYb, W, aux, out, outb, M, N, K, st);
 }
 template <int EPI>
-static cudaError_t stack_gemm_dx(const float* dY, const float* W,
+static cudaError_t stack_gemm_dx(const float* dY, const float* WTs,
                                  const float* aux, float* out, float*, int M,
                                  int N, int K, cudaStream_t st) {
-  return launch_gemm_dx<EPI>(dY, W, aux, out, M, N, K, st);
+  return wg::vit_gemm_dx_f32(EPI, dY, WTs, aux, out, M, N, K, st);
 }
 static cudaError_t stack_weight_grad(const bf16* dYb, const float* dY,
                                      const bf16* X, float* dW, float* db,
@@ -93,7 +106,61 @@ static cudaError_t stack_weight_grad(const float*, const float* dY,
                                      const float* X, float* dW, float* db,
                                      float* part, float* bpart, int M,
                                      int Nout, int K, cudaStream_t st) {
-  return weight_grad(dY, X, dW, db, part, bpart, M, Nout, K, st);
+  return wg::vit_weight_grad_f32(dY, X, dW, db, part, bpart, M, Nout, K,
+                                 st);
+}
+
+// The stacked weight (depth, R, C) of one Linear as the GEMMs take it,
+// block i at [i]: bf16 the weight itself; fp32 its TF32 hi / lo split (2 R,
+// C) a block -- with `transpose`, of its transpose (2 C, R), dX's operand
+// -- written into ws by one launch
+template <typename E>
+struct StackWeight {
+  const E* w;
+  size_t stride;
+  const E* operator[](int i) const { return w + i * stride; }
+};
+
+static cudaError_t stack_weight(const bf16* w, int depth, int R, int C, bool,
+                                float*, StackWeight<bf16>* out,
+                                cudaStream_t) {
+  *out = {w, (size_t)R * C};
+  return depth < 1 ? cudaErrorInvalidValue : cudaSuccess;
+}
+static cudaError_t stack_weight(const float* w, int depth, int R, int C,
+                                bool transpose, float* ws,
+                                StackWeight<float>* out, cudaStream_t st) {
+  *out = {ws, 2 * (size_t)R * C};
+  return wg::vit_split_weight_f32(w, ws, depth, R, C, transpose, st);
+}
+
+// floats of the four Linears' splits, depth blocks (fp32; bf16 takes none)
+static size_t split_floats(int C, int hidden, int depth) {
+  return 2 * (size_t)depth * C * (4 * (size_t)C + 2 * (size_t)hidden);
+}
+
+// the four Linears' weights (qkv, proj, fc1, fc2) as stack_weight gives
+// them, their fp32 splits in ws in that order (split_floats in all)
+template <typename E>
+static cudaError_t stack_weights(const E* qkvw, const E* projw,
+                                 const E* fc1w, const E* fc2w, int C,
+                                 int hidden, int depth, bool transpose,
+                                 float* ws, StackWeight<E>* wq,
+                                 StackWeight<E>* wp, StackWeight<E>* w1,
+                                 StackWeight<E>* w2, cudaStream_t st) {
+  const size_t cc = (size_t)C * C, hc = (size_t)hidden * C;
+  auto at = [&](size_t floats) { return ws ? ws + 2 * depth * floats : ws; };
+  cudaError_t err = stack_weight(qkvw, depth, 3 * C, C, transpose, at(0), wq,
+                                 st);
+  if (err == cudaSuccess)
+    err = stack_weight(projw, depth, C, C, transpose, at(3 * cc), wp, st);
+  if (err == cudaSuccess)
+    err = stack_weight(fc1w, depth, hidden, C, transpose, at(4 * cc), w1,
+                       st);
+  if (err == cudaSuccess)
+    err = stack_weight(fc2w, depth, C, hidden, transpose, at(4 * cc + hc),
+                       w2, st);
+  return err;
 }
 
 constexpr float kVitScale = 0.125f * 1.4426950408889634f;  // 64^-1/2 log2 e
@@ -143,8 +210,8 @@ static cudaError_t vit_stack(const E* x, const E* pos, E* out, E* stash,
                              const float* ln2b, const E* fc1w,
                              const float* fc1b, const E* fc2w,
                              const float* fc2b, E* y, E* qkv, E* attn, E* hid,
-                             int G, int N, int C, int heads, int hidden,
-                             int depth, cudaStream_t st) {
+                             float* ws, int G, int N, int C, int heads,
+                             int hidden, int depth, cudaStream_t st) {
   if (C != heads * kHeadDim) return cudaErrorInvalidValue;
   const int M = G * N;
   cudaError_t err;
@@ -152,26 +219,27 @@ static cudaError_t vit_stack(const E* x, const E* pos, E* out, E* stash,
   if ((err = (call)) != cudaSuccess) { \
     return err;                        \
   }
+  StackWeight<E> wq, wp, w1, w2;
+  RP_CHECK(stack_weights(qkvw, projw, fc1w, fc2w, C, hidden, depth, false, ws,
+                         &wq, &wp, &w1, &w2, st));
   for (int i = 0; i < depth; ++i) {
-    const size_t cc = (size_t)C * C;
     E* xcopy = stash ? stash + (size_t)i * M * C : nullptr;
     RP_CHECK(i == 0 ? launch_layernorm<E>(x, pos, out, xcopy, ln1s, ln1b, y,
                                           nullptr, M, N, C, st)
                     : launch_layernorm<E>(out, nullptr, nullptr, xcopy,
                                           ln1s + i * C, ln1b + i * C, y,
                                           nullptr, M, N, C, st));
-    RP_CHECK(stack_gemm<kBias>(y, qkvw + i * 3 * cc, qkvb + i * 3 * C, nullptr,
-                               qkv, M, 3 * C, C, st));
+    RP_CHECK(stack_gemm<kBias>(y, wq[i], qkvb + i * 3 * C, nullptr, qkv, M,
+                               3 * C, C, st));
     RP_CHECK(launch_attention(qkv, attn, nullptr, G, N, C, heads, st));
-    RP_CHECK(stack_gemm<kBiasResid>(attn, projw + i * cc, projb + i * C, out,
-                                    out, M, C, C, st));
+    RP_CHECK(stack_gemm<kBiasResid>(attn, wp[i], projb + i * C, out, out, M,
+                                    C, C, st));
     RP_CHECK(launch_layernorm<E>(out, nullptr, nullptr, nullptr, ln2s + i * C,
                                  ln2b + i * C, y, nullptr, M, N, C, st));
-    RP_CHECK(stack_gemm<kBiasGelu>(y, fc1w + (size_t)i * hidden * C,
-                                   fc1b + (size_t)i * hidden, nullptr, hid, M,
-                                   hidden, C, st));
-    RP_CHECK(stack_gemm<kBiasResid>(hid, fc2w + (size_t)i * C * hidden,
-                                    fc2b + i * C, out, out, M, C, hidden, st));
+    RP_CHECK(stack_gemm<kBiasGelu>(y, w1[i], fc1b + (size_t)i * hidden,
+                                   nullptr, hid, M, hidden, C, st));
+    RP_CHECK(stack_gemm<kBiasResid>(hid, w2[i], fc2b + i * C, out, out, M, C,
+                                    hidden, st));
   }
 #undef RP_CHECK
   return cudaSuccess;
@@ -180,6 +248,8 @@ static cudaError_t vit_stack(const E* x, const E* pos, E* out, E* stash,
 }  // namespace tc
 }  // namespace rp
 
+// ws: fp32, split_floats(C, hidden, depth) floats for the weights' splits
+// (ops/vit_stack.py sizes it); bf16, unused
 extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
                             void* stash, const float* ln1s, const float* ln1b,
                             const void* qkvw, const float* qkvb,
@@ -187,9 +257,9 @@ extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
                             const float* ln2s, const float* ln2b,
                             const void* fc1w, const float* fc1b,
                             const void* fc2w, const float* fc2b, void* y,
-                            void* qkv, void* attn, void* hid, int G, int N,
-                            int C, int heads, int hidden, int depth, int bf16,
-                            void* stream) {
+                            void* qkv, void* attn, void* hid, void* ws,
+                            int G, int N, int C, int heads, int hidden,
+                            int depth, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   auto run = [&](auto* tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
@@ -197,7 +267,7 @@ extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
         (const T*)x, (const T*)pos, (T*)out, (T*)stash, ln1s, ln1b,
         (const T*)qkvw, qkvb, (const T*)projw, projb, ln2s, ln2b,
         (const T*)fc1w, fc1b, (const T*)fc2w, fc2b, (T*)y, (T*)qkv,
-        (T*)attn, (T*)hid, G, N, C, heads, hidden, depth, st);
+        (T*)attn, (T*)hid, (float*)ws, G, N, C, heads, hidden, depth, st);
   };
   return bf16 ? run((__nv_bfloat16*)nullptr) : run((float*)nullptr);
 }
@@ -232,7 +302,7 @@ extern "C" int rp_vit_stack(const void* x, const void* pos, void* out,
 // a row a block (about 11.8 GB at G = 120, 3.5 ms at 3.35 TB/s), against
 // 3x the forward's GEMM products and, in attention, the recomputed
 // forward's 2 N x N x 64 products and the backward's 7.  In fp32 the
-// products (three TF32 ones each) on mma.sync.
+// products (three TF32 ones each) on TF32 wgmma.
 
 namespace rp {
 
@@ -296,7 +366,9 @@ static const float* operand(const float* dy, float*, size_t, cudaStream_t,
   return dy;
 }
 
-// grads: the 12 fp32 stacked gradients in STACK_FIELDS order
+// grads: the 12 fp32 stacked gradients in STACK_FIELDS order; wsplit (fp32
+// only): 2 split_floats(C, hidden, depth) floats for the weights' splits,
+// the recompute's then dX's
 template <typename E>
 static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
                                  const float* ln1b, const E* qkvw,
@@ -305,8 +377,9 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
                                  const float* ln2b, const E* fc1w,
                                  const float* fc1b, const E* fc2w,
                                  const float* fc2b, E* dx, float* const* gr,
-                                 void* ws, int G, int N, int C, int heads,
-                                 int hidden, int depth, cudaStream_t st) {
+                                 void* ws, float* wsplit, int G, int N,
+                                 int C, int heads, int hidden, int depth,
+                                 cudaStream_t st) {
   constexpr bool kBf16 = sizeof(E) == 2;
   if (C != heads * kHeadDim) return cudaErrorInvalidValue;
   const int M = G * N;
@@ -323,6 +396,14 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
   if ((err = (call)) != cudaSuccess) { \
     return err;                        \
   }
+  // the weights as the recompute's GEMMs (w*) and dX's (t*) take them
+  StackWeight<E> wq, wp, w1, w2, tq, tp, t1, t2;
+  RP_CHECK(stack_weights(qkvw, projw, fc1w, fc2w, C, hidden, depth, false,
+                         wsplit, &wq, &wp, &w1, &w2, st));
+  RP_CHECK(stack_weights(qkvw, projw, fc1w, fc2w, C, hidden, depth, true,
+                         wsplit ? wsplit + split_floats(C, hidden, depth)
+                                : wsplit,
+                         &tq, &tp, &t1, &t2, st));
   to_f32_kernel<E><<<(unsigned)((nMC + 255) / 256), 256, 0, st>>>(g, b.dxo,
                                                                   nMC);
   RP_CHECK(cudaGetLastError());
@@ -332,23 +413,22 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
     // recompute block i's forward pieces
     RP_CHECK(launch_layernorm<E>(xin, nullptr, nullptr, nullptr, ln1s + i * C,
                                  ln1b + i * C, y1, b.stats1, M, N, C, st));
-    RP_CHECK(stack_gemm<kBias>(y1, qkvw + i * 3 * cc, qkvb + i * 3 * C, nullptr,
-                               qkv, M, 3 * C, C, st));
+    RP_CHECK(stack_gemm<kBias>(y1, wq[i], qkvb + i * 3 * C, nullptr, qkv, M,
+                               3 * C, C, st));
     RP_CHECK(launch_attention(qkv, attn, b.astat, G, N, C, heads, st));
-    RP_CHECK(stack_gemm<kBiasResid>(attn, projw + i * cc, projb + i * C, xin,
-                                    xa, M, C, C, st));
+    RP_CHECK(stack_gemm<kBiasResid>(attn, wp[i], projb + i * C, xin, xa, M, C,
+                                    C, st));
     RP_CHECK(launch_layernorm<E>(xa, nullptr, nullptr, nullptr, ln2s + i * C,
                                  ln2b + i * C, y2, b.stats2, M, N, C, st));
-    RP_CHECK(stack_gemm<kBiasGeluSplit>(y2, fc1w + i * hc,
-                                        fc1b + (size_t)i * hidden, nullptr, hg,
-                                        M, hidden, C, st, b.h1));
+    RP_CHECK(stack_gemm<kBiasGeluSplit>(y2, w1[i], fc1b + (size_t)i * hidden,
+                                        nullptr, hg, M, hidden, C, st, b.h1));
     // MLP: x_out = xa + fc2(gelu(fc1(LN2(xa))))
     const E* dyo = operand(b.dxo, dyb, nMC, st, &err);
     RP_CHECK(err);
     RP_CHECK(stack_weight_grad(dyo, b.dxo, hg, dfc2w + i * hc, dfc2b + i * C,
                                b.wpart, b.bpart, M, C, hidden, st));
     // dh1 into h1 and, for bf16, T(dh1) into hg
-    RP_CHECK(stack_gemm_dx<kDxGeluGrad>(dyo, fc2w + i * hc, b.h1, b.h1,
+    RP_CHECK(stack_gemm_dx<kDxGeluGrad>(dyo, t2[i], b.h1, b.h1,
                                         kBf16 ? hg : nullptr, M, hidden, C,
                                         st));
     const E* dh1;
@@ -359,8 +439,8 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
     RP_CHECK(stack_weight_grad(dh1, b.h1, y2, dfc1w + i * hc,
                                dfc1b + (size_t)i * hidden, b.wpart, b.bpart, M,
                                hidden, C, st));
-    RP_CHECK(stack_gemm_dx<kDxPlain>(dh1, fc1w + i * hc, nullptr, b.dtmp,
-                                     nullptr, M, C, hidden, st));
+    RP_CHECK(stack_gemm_dx<kDxPlain>(dh1, t1[i], nullptr, b.dtmp, nullptr, M,
+                                     C, hidden, st));
     RP_CHECK(layernorm_grad<E>(b.dtmp, xa, b.stats2, ln2s + i * C, b.dxo,
                                b.dxa, dln2s + i * C, dln2b + i * C, b.lnpart,
                                M, C, st));
@@ -369,8 +449,8 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
     RP_CHECK(err);
     RP_CHECK(stack_weight_grad(dya, b.dxa, attn, dprojw + i * cc,
                                dprojb + i * C, b.wpart, b.bpart, M, C, C, st));
-    RP_CHECK(stack_gemm_dx<kDxPlain>(dya, projw + i * cc, nullptr, b.dtmp,
-                                     nullptr, M, C, C, st));  // dattn
+    RP_CHECK(stack_gemm_dx<kDxPlain>(dya, tp[i], nullptr, b.dtmp, nullptr, M,
+                                     C, C, st));  // dattn
     // T(do / l) into attn and, for bf16, T(do) into dyb, both read for the
     // last time by proj's dW and dX above (the dq kernel reads o from attn
     // first)
@@ -384,8 +464,8 @@ static cudaError_t vit_stack_bwd(const E* xs, const E* g, const float* ln1s,
     RP_CHECK(stack_weight_grad(dq, b.dqkv, y1, dqkvw + i * 3 * cc,
                                dqkvbias + i * 3 * C, b.wpart, b.bpart, M, 3 * C,
                                C, st));
-    RP_CHECK(stack_gemm_dx<kDxPlain>(dq, qkvw + i * 3 * cc, nullptr, b.dtmp,
-                                     nullptr, M, C, 3 * C, st));
+    RP_CHECK(stack_gemm_dx<kDxPlain>(dq, tq[i], nullptr, b.dtmp, nullptr, M,
+                                     C, 3 * C, st));
     RP_CHECK(layernorm_grad<E>(b.dtmp, xin, b.stats1, ln1s + i * C, b.dxa,
                                b.dxo, dln1s + i * C, dln1b + i * C, b.lnpart,
                                M, C, st));
@@ -408,7 +488,9 @@ extern "C" long long rp_vit_stack_bwd_workspace(int G, int N, int C,
 }
 
 // xs, g, the 12 stacked parameters and the 12 fp32 gradients in
-// STACK_FIELDS order (weights in T, vectors fp32), dx in T, the workspace
+// STACK_FIELDS order (weights in T, vectors fp32), dx in T, the workspace,
+// fp32's weight splits (2 split_floats(C, hidden, depth) floats, sized by
+// ops/vit_stack.py; bf16: unused)
 extern "C" int rp_vit_stack_bwd(
     const void* xs, const void* g, const float* ln1s, const float* ln1b,
     const void* qkvw, const float* qkvb, const void* projw,
@@ -416,8 +498,8 @@ extern "C" int rp_vit_stack_bwd(
     const void* fc1w, const float* fc1b, const void* fc2w, const float* fc2b,
     void* dx, float* dln1s, float* dln1b, float* dqkvw, float* dqkvb,
     float* dprojw, float* dprojb, float* dln2s, float* dln2b, float* dfc1w,
-    float* dfc1b, float* dfc2w, float* dfc2b, void* ws, int G, int N, int C,
-    int heads, int hidden, int depth, int bf16, void* stream) {
+    float* dfc1b, float* dfc2w, float* dfc2b, void* ws, void* wsplit, int G,
+    int N, int C, int heads, int hidden, int depth, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* const gr[12] = {dln1s, dln1b, dqkvw, dqkvb, dprojw, dprojb,
                          dln2s, dln2b, dfc1w, dfc1b, dfc2w, dfc2b};
@@ -426,8 +508,8 @@ extern "C" int rp_vit_stack_bwd(
     return rp::tc::vit_stack_bwd<T>(
         (const T*)xs, (const T*)g, ln1s, ln1b, (const T*)qkvw, qkvb,
         (const T*)projw, projb, ln2s, ln2b, (const T*)fc1w, fc1b,
-        (const T*)fc2w, fc2b, (T*)dx, gr, ws, G, N, C, heads, hidden, depth,
-        st);
+        (const T*)fc2w, fc2b, (T*)dx, gr, ws, (float*)wsplit, G, N, C, heads,
+        hidden, depth, st);
   };
   return bf16 ? run((__nv_bfloat16*)nullptr) : run((float*)nullptr);
 }

@@ -37,13 +37,15 @@ SIGNATURES = {
     "rp_set_device": ([I], ctypes.c_int),
     "rp_error_string": ([I], ctypes.c_char_p),
     # x, pos, out, stash (or NULL), 12 stacked parameters, 4 scratch
-    # buffers; G, N, C, heads, hidden, depth, bf16; stream
-    "rp_vit_stack": ([P] * 20 + [I] * 7 + [P], ctypes.c_int),
+    # buffers, fp32's weight splits (or NULL); G, N, C, heads, hidden,
+    # depth, bf16; stream
+    "rp_vit_stack": ([P] * 21 + [I] * 7 + [P], ctypes.c_int),
     # G, N, C, heads, hidden, bf16 -> workspace bytes of rp_vit_stack_bwd
     "rp_vit_stack_bwd_workspace": ([I] * 6, L),
-    # xs, g, 12 stacked parameters, dx, 12 fp32 gradients, workspace;
-    # G, N, C, heads, hidden, depth, bf16; stream
-    "rp_vit_stack_bwd": ([P] * 28 + [I] * 7 + [P], ctypes.c_int),
+    # xs, g, 12 stacked parameters, dx, 12 fp32 gradients, workspace,
+    # fp32's weight splits (or NULL); G, N, C, heads, hidden, depth, bf16;
+    # stream
+    "rp_vit_stack_bwd": ([P] * 29 + [I] * 7 + [P], ctypes.c_int),
     # The essential block's entry points take the flags has_pos, single,
     # cross after the sizes; pos (and the positional outputs) NULL without
     # positions.
@@ -81,6 +83,9 @@ SIGNATURES = {
     # one bf16 GEMM of the ViT stack's wgmma body (test only): op, epilogue;
     # a, b, f, r, out, aux, outb, part, bpart; M, N, K; stream
     "rp_gemm_bf16": ([I, I] + [P] * 9 + [I] * 3 + [P], ctypes.c_int),
+    # one fp32 GEMM of its TF32 wgmma body (test only): op, epilogue; a, b,
+    # f, r, out, aux, weight split scratch, part, bpart; M, N, K; stream
+    "rp_gemm_f32": ([I, I] + [P] * 9 + [I] * 3 + [P], ctypes.c_int),
     # B, N, heads, bf16 -> workspace bytes of the two entry points below
     "rp_cross_variants_workspace": ([I] * 4, L),
     # qkv1, qkv2, pos, F, workspace; B, N, C, heads, S, bf16; stream

@@ -9,17 +9,18 @@ add fused into block 0:
   * on a CUDA tensor it launches the hand kernels of ``csrc/vit_stack.cu``
     (which replace the Pallas ``_vit_stack_kernel``) or raises.
 
-Both dtypes run on the tensor cores.  bf16: the GEMMs on ``wgmma`` fed by
-TMA in persistent blocks (``csrc/gemm_wgmma.cuh``; ``ops/vit_gemm.py`` runs
-one alone), the attention on ``wgmma`` with TMA-fed tiles and one pass with
-online rescaling (``csrc/attention_wgmma.cuh``).  fp32: the GEMMs on
-``mma.sync`` (``csrc/gemm_tc.cuh``), the attention on TF32 ``wgmma`` with
-TMA-fed tiles, one pass with online rescaling as in bf16
-(``csrc/attention_wgmma_f32.cuh``), every product as 3xTF32, each fp32
-operand split into a TF32 high part and a TF32 residual and three TF32
-products summed in fp32 (:func:`tf32x3_matmul` is their plain model), which
-keeps fp32 accuracy -- not the single TF32 product, about 3 decimal digits,
-that the port's precision policy forbids.
+Both dtypes run on the tensor cores' ``wgmma`` with TMA-fed tiles.  bf16:
+the GEMMs in persistent blocks (``csrc/gemm_wgmma.cuh``), the attention in
+one pass with online rescaling (``csrc/attention_wgmma.cuh``).  fp32: the
+GEMMs on TF32 ``wgmma`` in persistent blocks, each Linear's weight split
+once a call into TF32 hi / lo copies (``csrc/gemm_wgmma_f32.cuh``), the
+attention on TF32 ``wgmma``, one pass as in bf16
+(``csrc/attention_wgmma_f32.cuh``); ``ops/vit_gemm.py`` runs one GEMM of
+either dtype alone.  Every fp32 product is 3xTF32, each fp32 operand split
+into a TF32 high part and a TF32 residual and three TF32 products summed in
+fp32 (:func:`tf32x3_matmul` is their plain model), which keeps fp32
+accuracy -- not the single TF32 product, about 3 decimal digits, that the
+port's precision policy forbids.
 
 Under autograd (grad enabled and an input that requires grad) the stack is
 a ``torch.autograd.Function``, as the Pallas op is a ``custom_vjp``
@@ -148,14 +149,15 @@ def _launch_forward(x, stacked, num_heads, pos, stash):
           if stash else None)
     scratch = [torch.empty((M, w), dtype=x.dtype, device=x.device)
                for w in (C, 3 * C, C, hidden)]       # y, qkv, attn, hid
+    bf16 = int(x.dtype == torch.bfloat16)
+    ws = None if bf16 else _weight_splits(C, hidden, depth, x.device)
     stream = _build.prepare_launch(x.device)
     err = _build.library().rp_vit_stack(
         x.data_ptr(), pos.data_ptr(), out.data_ptr(),
         xs.data_ptr() if stash else None,
         *(args[name].data_ptr() for name in _NAMES),
-        *(t.data_ptr() for t in scratch),
-        G, N, C, num_heads, hidden, depth, int(x.dtype == torch.bfloat16),
-        stream)
+        *(t.data_ptr() for t in scratch), None if bf16 else ws.data_ptr(),
+        G, N, C, num_heads, hidden, depth, bf16, stream)
     _build.check(err, "rp_vit_stack")
     fused_vit_stack.launches += 1
     return out, xs
@@ -331,6 +333,11 @@ def _launch_backward(xs, g, stacked, num_heads):
         raise ValueError(f"fused_vit_stack_bwd: g {tuple(g.shape)} "
                          f"{g.dtype} against xs {tuple(xs.shape)} "
                          f"{xs.dtype}, both contiguous")
+    if xs.data_ptr() % _TMA_ALIGN:
+        # the proj recompute's epilogue reads each block's input as its
+        # residual in 16-byte rows
+        raise ValueError(f"fused_vit_stack_bwd: xs must start on a "
+                         f"{_TMA_ALIGN}-byte boundary")
     lib = _build.library()
     dx = torch.empty_like(g)
     grads = {k: torch.empty(v.shape, dtype=torch.float32, device=xs.device)
@@ -339,11 +346,14 @@ def _launch_backward(xs, g, stacked, num_heads):
     ws = torch.empty(lib.rp_vit_stack_bwd_workspace(G, N, C, num_heads,
                                                     hidden, bf16),
                      dtype=torch.uint8, device=xs.device)
+    # fp32: the recompute's splits, then dX's (of the transposed weights)
+    wsplit = None if bf16 else _weight_splits(C, hidden, depth, xs.device, 2)
     stream = _build.prepare_launch(xs.device)
     err = lib.rp_vit_stack_bwd(
         xs.data_ptr(), g.data_ptr(),
         *(args[name].data_ptr() for name in _NAMES), dx.data_ptr(),
         *(grads[name].data_ptr() for name in _NAMES), ws.data_ptr(),
+        None if bf16 else wsplit.data_ptr(),
         G, N, C, num_heads, hidden, depth, bf16, stream)
     _build.check(err, "rp_vit_stack_bwd")
     fused_vit_stack_bwd.launches += 1
@@ -353,13 +363,21 @@ def _launch_backward(xs, g, stacked, num_heads):
 fused_vit_stack_bwd.launches = 0
 
 
+def _weight_splits(C, hidden, depth, device, copies=1):
+    """fp32 scratch for ``copies`` sets of the four Linears' TF32 hi / lo
+    splits over ``depth`` blocks (``csrc/vit_stack.cu`` split_floats)."""
+    return torch.empty(copies * 2 * depth * C * (4 * C + 2 * hidden),
+                       dtype=torch.float32, device=device)
+
+
 # The kernels' limits.  GEMM outputs come in 64-column tiles in both
-# dtypes.  fp32's GEMMs (gemm_tc.cuh) put 128-row tiles on the grid's
-# second axis, at most 65,535; bf16's (gemm_wgmma.cuh) are persistent and
-# take any row count, their operands by TMA from 16-byte aligned bases.
-# The attention launches a block per (tile, head, sequence), sequences on
-# the grid's third axis (at most 65,535), in both dtypes.
-_TC_ROW_TILE, _TC_MAX_GRID = 128, 65535
+# dtypes, from persistent blocks that take any row count (gemm_wgmma.cuh,
+# gemm_wgmma_f32.cuh), their operands by TMA from 16-byte aligned bases:
+# bf16's weights and tokens themselves, fp32's the weights' splits and the
+# kernels' own buffers.  The attention launches a block per (tile, head,
+# sequence), sequences on the grid's third axis (at most 65,535), in both
+# dtypes.
+_MAX_GRID = 65535
 _TMA_ALIGN = 16
 
 
@@ -393,9 +411,7 @@ def _check_inputs(x, args, num_heads):
     if hidden % 64:
         raise ValueError(f"fused_vit_stack: the kernels need the MLP width "
                          f"to be a multiple of 64, got {hidden}")
-    rows_limited = x.dtype == torch.float32 \
-        and -(-G * N // _TC_ROW_TILE) > _TC_MAX_GRID
-    if rows_limited or G > _TC_MAX_GRID:
+    if G > _MAX_GRID:
         raise ValueError(f"fused_vit_stack: {G} sequences of {N} tokens "
                          "exceed the kernels' grid")
     if x.dtype == torch.bfloat16:

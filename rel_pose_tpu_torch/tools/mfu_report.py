@@ -22,7 +22,9 @@ Counterpart of ``scripts/mfu_report.py``:
     product's dimensions rounded up to the tile: the GEMMs' 128 x 192 x 64
     (``csrc/gemm_wgmma.cuh``: two 64-row consumers, ``kWideN`` columns,
     ``kGemmK`` deep; the essential block's qkv GEMM on ``gemm_tc.cuh``'s
-    ``FwdWide`` has the same tile at C = 192), the attention's
+    ``FwdWide`` has the same tile at C = 192; fp32's GEMMs,
+    ``csrc/gemm_wgmma_f32.cuh``, 128 x 96 x 32, ``GEMM_TILE_F32``, which
+    pads nothing more at the flagship's widths), the attention's
     64-row query and key tiles (``csrc/attention_wgmma.cuh`` ``kT``, the
     wgmma tiles of the bf16 body and of the fp32 one,
     ``csrc/attention_wgmma_f32.cuh``: both execute 2 products a head
@@ -44,6 +46,7 @@ import sys
 # the port's bf16 tensor-core tiles (tests/test_torch_mfu_report.py reads
 # them out of the headers)
 GEMM_TILE = (128, 192, 64)   # gemm_wgmma.cuh: 64 kWG rows, kWideN, kGemmK
+GEMM_TILE_F32 = (128, 96, 32)  # gemm_wgmma_f32.cuh: kF32WideN, kF32K
 ATTN_TILE = 64               # attention_wgmma*.cuh: kT, query and key rows
 MMA_N, MMA_K = 8, 16         # mma.sync m16n8k16: output columns, depth
 TIMES = ("eval_ms", "train_fp32_ms", "train_bf16_ms", "vit_eval_ms",
@@ -54,25 +57,24 @@ def pad(v, m):
     return -(-v // m) * m
 
 
-def gemm_macs(M, K, N, padded):
-    """M x K x N, each rounded up to ``GEMM_TILE`` (BM, BK, BN) if
-    ``padded``."""
+def gemm_macs(M, K, N, padded, tile=GEMM_TILE):
+    """M x K x N, each rounded up to ``tile`` (BM, BN, BK) if ``padded``."""
     if not padded:
         return M * K * N
-    bm, bn, bk = GEMM_TILE
+    bm, bn, bk = tile
     return pad(M, bm) * pad(K, bk) * pad(N, bn)
 
 
-def vit_stack_macs(G, N, C, heads, hidden, depth, padded):
+def vit_stack_macs(G, N, C, heads, hidden, depth, padded, tile=GEMM_TILE):
     """MACs of the ViT stack's forward over G sequences of N tokens: per
-    block the qkv, projection and MLP GEMMs over all G N rows, and per
-    sequence and head the scores q k^T (N x d x N) and A v (N x N x d), at
-    the attention's 64-row tiles if ``padded``."""
+    block the qkv, projection and MLP GEMMs over all G N rows (at the
+    GEMM ``tile`` if ``padded``), and per sequence and head the scores q
+    k^T (N x d x N) and A v (N x N x d), at the attention's 64-row tiles if
+    ``padded``."""
     d = C // heads
     M = G * N
-    gemms = (gemm_macs(M, C, 3 * C, padded) + gemm_macs(M, C, C, padded)
-             + gemm_macs(M, C, hidden, padded)
-             + gemm_macs(M, hidden, C, padded))
+    gemms = sum(gemm_macs(M, k, n, padded, tile) for k, n in (
+        (C, 3 * C), (C, C), (C, hidden), (hidden, C)))
     n = pad(N, ATTN_TILE) if padded else N
     dk = pad(d, MMA_K) if padded else d
     attn = G * heads * (n * dk * n + n * n * dk)

@@ -333,8 +333,10 @@ def test_checks_raise_before_launch(fake_lib, bad):
 
 def test_vit_stack_bf16_alignment_raises_before_launch(monkeypatch):
     """The ViT stack's bf16 kernels take their GEMM operands by TMA: a
-    token tensor off a 16-byte boundary raises before any launch (fp32's
-    mma.sync GEMMs take it)."""
+    token tensor off a 16-byte boundary raises before any launch.  fp32's
+    forward takes it: only its LayerNorm reads the tokens, and its GEMMs
+    take their operands by TMA from the kernels' own buffers (the tokens'
+    and the weights' splits)."""
     lib = FakeLibrary()
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "prepare_launch", lambda device: 0)

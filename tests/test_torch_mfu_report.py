@@ -3,7 +3,9 @@
   * the padding helper, and the tiles it pads to read back out of the
     port's tensor-core headers (``csrc/gemm_wgmma.cuh``'s forward tile: two
     64-row consumers, ``kWideN`` columns, ``kGemmK`` deep, which
-    ``gemm_tc.cuh``'s bf16 ``FwdWide`` matches; ``attention_wgmma.cuh``'s
+    ``gemm_tc.cuh``'s bf16 ``FwdWide`` matches; fp32's,
+    ``csrc/gemm_wgmma_f32.cuh``: two 64-row consumers, ``kF32WideN``
+    columns, ``kF32K`` deep; ``attention_wgmma.cuh``'s
     ``kT`` -- the bf16 body's
     tiles, which the fp32 body's ``kAT`` matches -- ``essential_tc.cuh``'s
     72 output columns and 80 of depth for e = 70);
@@ -54,8 +56,13 @@ def test_tiles_are_the_headers():
     assert mfu.GEMM_TILE == (64 * wgs, bn, bk)
     tc = (CSRC / "gemm_tc.cuh").read_text()
     assert re.search(r"using FwdWide = Tile<bf16, (\d+), (\d+), \d+, \d+, "
-                     r"true, true, (\d+)", tc).groups() == tuple(
-        map(str, mfu.GEMM_TILE))
+                     r"(\d+)", tc).groups() == tuple(map(str, mfu.GEMM_TILE))
+    f32 = (CSRC / "gemm_wgmma_f32.cuh").read_text()
+    wgs = int(re.search(r"kWG = OP == kOpDw \? \d+ : (\d+);",
+                        f32).group(1))
+    bn = int(re.search(r"constexpr int kF32WideN = (\d+);", f32).group(1))
+    bk = int(re.search(r"constexpr int kF32K = (\d+);", f32).group(1))
+    assert mfu.GEMM_TILE_F32 == (64 * wgs, bn, bk)
     attn = (CSRC / "attention_wgmma.cuh").read_text()
     assert mfu.ATTN_TILE == int(re.search(r"constexpr int kT = (\d+);",
                                           attn).group(1))
@@ -108,11 +115,13 @@ def test_essential_floor_is_the_plain_count(pos):
 
 def test_flagship_pad_taxes():
     """N = 576 is 9 attention tiles, 2 x 256 x 576 rows are whole GEMM
-    tiles and C, 3C, 4C whole columns: the ViT stack pads nothing; the
-    essential block pads e = 70 to 72 and 80."""
+    tiles and C, 3C, 4C whole columns of either dtype's tiles: the ViT
+    stack pads nothing; the essential block pads e = 70 to 72 and 80."""
     real, padded = (mfu.vit_stack_macs(512, 576, 192, 3, 768, 5, p)
                     for p in (False, True))
     assert padded == real
+    assert mfu.vit_stack_macs(512, 576, 192, 3, 768, 5, True,
+                              mfu.GEMM_TILE_F32) == real
     real, padded = (mfu.essential_block_macs(256, 576, 192, 3, 70, p)
                     for p in (False, True))
     assert 1.0 < padded / real < 1.05

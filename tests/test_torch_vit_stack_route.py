@@ -4,9 +4,8 @@
   * the dtype picks the products: the wrappers pass bf16 = 1 (bf16
     tensor-core products) or 0 (fp32, 3xTF32 tensor-core products) to the
     C entry points;
-  * the kernels' shape checks (MLP width, grid size: fp32's GEMM row
-    tiles, both dtypes' sequences) raise before any launch; a CPU tensor
-    reaches no kernel;
+  * the kernels' shape checks (MLP width, grid size: both dtypes'
+    sequences) raise before any launch; a CPU tensor reaches no kernel;
   * with a stand-in for the kernel library, each wrapper passes as many
     arguments as the C signature has and adds one to its launch counter
     per launch, and only then;
@@ -68,13 +67,12 @@ def test_bf16_shape_checks(fake_lib, dtype):
 
 
 @pytest.mark.parametrize("G,ok_bf16,ok_fp32", [(70000, False, False),
-                                               (20000, True, False),
+                                               (20000, True, True),
                                                (14000, True, True)])
 def test_bf16_grid_check(G, ok_bf16, ok_fp32):
     """The sequences must fit the attention grid's 65,535 blocks in both
-    dtypes; fp32's mma.sync GEMMs also put the rows' 128-row tiles on the
-    grid (at most 65,535), while bf16's persistent wgmma GEMMs take any
-    row count (G = 20,000: 90,000 row tiles)."""
+    dtypes; both dtypes' persistent wgmma GEMMs take any row count (G =
+    20,000: 90,000 row tiles of 128)."""
     args = {k: v.to("meta") for k, v in stacked(torch.bfloat16).items()}
     x = torch.empty((G, 576, C), dtype=torch.bfloat16, device="meta")
     for dtype, ok in ((torch.bfloat16, ok_bf16), (torch.float32, ok_fp32)):
