@@ -9,32 +9,58 @@
 //     (B, N, C) -> the qkv Linear on each image -> moments (no LayerNorm);
 //   rp_essential_block (#4 _essential_block_kernel): precomputed qkv1, qkv2
 //     (B, N, 3C) -> moments.
-// Both dtypes run the qkv Linear on the tensor cores (gemm_tc.cuh, epilogue
-// kRounded: T(T(acc) + T(b)), fp32 as 3xTF32) and the moments of
-// essential_tc.cuh (bf16 m16n8k16, fp32 3xTF32), with the scratch that
-// rp_essential_block_workspace sizes.  The LayerNorm is common.cuh's.  Each
-// entry point takes the flags of _eb_combos (has_pos, single, cross) and
-// picks the kernel variant; the e = 70 variants are instantiated in
-// essential_tc.cu, the e = 64 ones in essential_tc_e64.cu, so that nvcc
-// builds them in parallel.
+// Which body each dtype takes:
+//   bf16: the qkv Linear on mma.sync (gemm_tc.cuh, epilogue kRounded:
+//     T(T(acc) + T(b))) and the mma.sync moments of essential_tc.cuh
+//     (m16n8k16), instantiated in essential_tc.cu (e = 70) and
+//     essential_tc_e64.cu (e = 64);
+//   fp32: the qkv Linear on TF32 wgmma (gemm_wgmma_f32.cuh's forward with
+//     epilogue kBias, acc + b: in fp32 kRounded's roundings are the
+//     identity), its weight split once a call into hi / lo scratch, and the
+//     TF32 wgmma moments of essential_wgmma_f32.cuh, instantiated in
+//     essential_wgmma_f32.cu (e = 70) and essential_wgmma_f32_e64.cu (e =
+//     64); both 3xTF32.
+// The scratch is what rp_essential_block_workspace sizes (fp32: the
+// weight's split after the moments' pieces).  The LayerNorm is
+// common.cuh's.  Each entry point takes the flags of _eb_combos (has_pos,
+// single, cross) and picks the kernel variant.
 
-#include "essential_tc.cuh"
+#include "essential_wgmma_f32.cuh"
 
 namespace rp {
 
 namespace tc {
 RP_EB_TC_VARIANTS(RP_EB_TC_EXTERN, kHeadDim + kEbPos)
 RP_EB_TC_VARIANTS(RP_EB_TC_EXTERN, kHeadDim)
+namespace wg {
+RP_EW_VARIANTS(RP_EW_FWD_EXTERN, kHeadDim + kEbPos)
+RP_EW_VARIANTS(RP_EW_FWD_EXTERN, kHeadDim)
+// gemm_wgmma_f32.cu
+cudaError_t vit_split_weight_f32(const float* W, float* Ws, int count, int R,
+                                 int C, bool transpose, cudaStream_t st);
+cudaError_t vit_gemm_f32(int epi, const float* A, const float* Ws,
+                         const float* bias, const float* resid, float* out,
+                         float* aux, int M, int N, int K, cudaStream_t st);
+}  // namespace wg
 }  // namespace tc
 
 template <typename T, int E>
 static cudaError_t moments_e(const tc::EbTcArgs<T>& a, bool single,
                              bool cross, cudaStream_t st) {
-  if (single)
-    return cross ? tc::launch_moments_tc<T, E, true, true>(a, st)
-                 : tc::launch_moments_tc<T, E, true, false>(a, st);
-  return cross ? tc::launch_moments_tc<T, E, false, true>(a, st)
-               : tc::launch_moments_tc<T, E, false, false>(a, st);
+  if constexpr (sizeof(T) == 4) {
+    namespace wg = tc::wg;
+    if (single)
+      return cross ? wg::launch_moments_wg<E, true, true>(a, st)
+                   : wg::launch_moments_wg<E, true, false>(a, st);
+    return cross ? wg::launch_moments_wg<E, false, true>(a, st)
+                 : wg::launch_moments_wg<E, false, false>(a, st);
+  } else {
+    if (single)
+      return cross ? tc::launch_moments_tc<T, E, true, true>(a, st)
+                   : tc::launch_moments_tc<T, E, true, false>(a, st);
+    return cross ? tc::launch_moments_tc<T, E, false, true>(a, st)
+                 : tc::launch_moments_tc<T, E, false, false>(a, st);
+  }
 }
 
 // The moments of both images' (N, 3C) qkv rows at img1 / img2 + b bstride,
@@ -52,11 +78,43 @@ static cudaError_t moments(const T* img1, const T* img2, size_t bstride,
              : moments_e<T, kHeadDim>(a, single, cross, st);
 }
 
-// the qkv Linear out = T(T(x w^T) + T(b)) over M rows
-template <typename T>
-static cudaError_t qkv_linear(const T* x, const T* w, const float* bias,
-                             T* out, int M, int C, cudaStream_t st) {
+// The bytes of the forward's scratch: the moments' pieces (EbFwdWs), then
+// in fp32 the qkv weight's hi / lo split (2 3C C fp32)
+static size_t fwd_ws_bytes(int B, int N, int C, int heads, int e, int elem) {
+  const size_t moments =
+      tc::EbFwdWs(nullptr, 2 * B * heads, N, e, elem).bytes;
+  return moments +
+         (elem == 4 ? tc::eb_align(sizeof(float) * 6 * (size_t)C * C) : 0);
+}
+
+// the split weight's place in the scratch ws
+static float* weight_split(void* ws, int B, int N, int C, int heads,
+                           int has_pos) {
+  const int e = kHeadDim + (has_pos ? tc::kEbPos : 0);
+  return reinterpret_cast<float*>(
+      static_cast<unsigned char*>(ws) +
+      tc::EbFwdWs(nullptr, 2 * B * heads, N, e, 4).bytes);
+}
+
+// the qkv Linear out = T(T(x w^T) + T(b)) over M rows, in bf16; fp32 takes
+// qkv_linear_f32
+static cudaError_t qkv_linear(const tc::bf16* x, const tc::bf16* w,
+                             const float* bias, tc::bf16* out, int M, int C,
+                             cudaStream_t st) {
   return tc::launch_gemm<kRounded>(x, w, bias, out, M, 3 * C, C, st);
+}
+
+// fp32: x w^T + b from ws_w = the weight's split (qkv_split_f32)
+static cudaError_t qkv_linear_f32(const float* x, const float* ws_w,
+                                  const float* bias, float* out, int M,
+                                  int C, cudaStream_t st) {
+  return tc::wg::vit_gemm_f32(kBias, x, ws_w, bias, nullptr, out, nullptr, M,
+                              3 * C, C, st);
+}
+
+static cudaError_t qkv_split_f32(const float* w, float* ws_w, int C,
+                                 cudaStream_t st) {
+  return tc::wg::vit_split_weight_f32(w, ws_w, 1, 3 * C, C, false, st);
 }
 
 template <typename T>
@@ -71,7 +129,13 @@ static cudaError_t essential_block_pair(const T* xpair, const float* lns,
   cudaError_t err = launch_layernorm<T>(xpair, nullptr, nullptr, nullptr,
                                         lns, lnb, y, nullptr, M, N, C, st);
   if (err != cudaSuccess) return err;
-  err = qkv_linear<T>(y, w, bias, qkv, M, C, st);
+  if constexpr (sizeof(T) == 4) {
+    float* ws_w = weight_split(ws, B, N, C, heads, has_pos);
+    if ((err = qkv_split_f32(w, ws_w, C, st)) != cudaSuccess) return err;
+    err = qkv_linear_f32(y, ws_w, bias, qkv, M, C, st);
+  } else {
+    err = qkv_linear(y, w, bias, qkv, M, C, st);
+  }
   if (err != cudaSuccess) return err;
   // the qkv rows are interleaved as the tokens: (B, 2, N, 3C)
   const size_t img = (size_t)N * 3 * C;
@@ -88,9 +152,18 @@ static cudaError_t essential_block_x(const T* x1, const T* x2, const T* w,
   // qkv scratch (2, B, N, 3C): image 1's rows, then image 2's
   const int M = B * N;
   const size_t half = (size_t)M * 3 * C;
-  cudaError_t err = qkv_linear<T>(x1, w, bias, qkv, M, C, st);
-  if (err != cudaSuccess) return err;
-  err = qkv_linear<T>(x2, w, bias, qkv + half, M, C, st);
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4) {
+    float* ws_w = weight_split(ws, B, N, C, heads, has_pos);
+    if ((err = qkv_split_f32(w, ws_w, C, st)) != cudaSuccess) return err;
+    if ((err = qkv_linear_f32(x1, ws_w, bias, qkv, M, C, st)) != cudaSuccess)
+      return err;
+    err = qkv_linear_f32(x2, ws_w, bias, qkv + half, M, C, st);
+  } else {
+    if ((err = qkv_linear(x1, w, bias, qkv, M, C, st)) != cudaSuccess)
+      return err;
+    err = qkv_linear(x2, w, bias, qkv + half, M, C, st);
+  }
   if (err != cudaSuccess) return err;
   return moments<T>(qkv, qkv + half, (size_t)N * 3 * C, pos, F, ws, B, N, C,
                     heads, has_pos, single, cross, st);
@@ -99,13 +172,13 @@ static cudaError_t essential_block_x(const T* x1, const T* x2, const T* w,
 }  // namespace rp
 
 // bytes of scratch rp_essential_block_pair / _x / rp_essential_block need:
-// the tensor-core moments' statistics, vb_n (in the dtype) and F partials
+// the moments' statistics, vb_n (in the dtype) and F partials, and in fp32
+// the qkv weight's split
 extern "C" long long rp_essential_block_workspace(int B, int N, int heads,
                                                   int has_pos, int bf16) {
   const int e = rp::kHeadDim + (has_pos ? rp::tc::kEbPos : 0);
-  return (long long)rp::tc::EbFwdWs(nullptr, 2 * B * heads, N, e,
-                                    bf16 ? 2 : 4)
-      .bytes;
+  return (long long)rp::fwd_ws_bytes(B, N, rp::kHeadDim * heads, heads, e,
+                                     bf16 ? 2 : 4);
 }
 
 // xpair (B, 2, N, C), w (3C, C) and pos (B, N, 6) in T (pos NULL without

@@ -1,26 +1,43 @@
 // Entry point of the Essential Matrix Module's backward (replaces the Pallas
-// _essential_block_bwd_kernel, #6): both dtypes run the tensor-core passes
-// of essential_tc_bwd.cuh (bf16 m16n8k16, fp32 3xTF32), picking the variant
-// of the flags has_pos, single and cross, with the scratch that
-// rp_essential_block_bwd_workspace sizes.  The e = 70 variants are
-// instantiated in essential_tc_bwd.cu, the e = 64 ones in
-// essential_tc_bwd_e64.cu.
+// _essential_block_bwd_kernel, #6), picking the variant of the flags
+// has_pos, single and cross, with the scratch that
+// rp_essential_block_bwd_workspace sizes.  Which body each dtype takes:
+//   bf16: the mma.sync passes of essential_tc_bwd.cuh (m16n8k16: statistics,
+//     prologue, gamma, rho and two gradient passes), instantiated in
+//     essential_tc_bwd.cu (e = 70) and essential_tc_bwd_e64.cu (e = 64);
+//   fp32: the TF32 wgmma passes of essential_wgmma_f32.cuh (3xTF32:
+//     statistics, prologue, one rho / gamma pass, two gradient passes),
+//     instantiated in essential_wgmma_f32_bwd.cu and
+//     essential_wgmma_f32_bwd_e64.cu, its scratch EbBwdWs and gamma's
+//     query-tile partials.
 
-#include "essential_tc_bwd.cuh"
+#include "essential_wgmma_f32.cuh"
 
 namespace rp {
 namespace tc {
 RP_EB_TC_VARIANTS(RP_EBB_TC_EXTERN, kHeadDim + kEbPos)
 RP_EB_TC_VARIANTS(RP_EBB_TC_EXTERN, kHeadDim)
+namespace wg {
+RP_EW_VARIANTS(RP_EW_BWD_EXTERN, kHeadDim + kEbPos)
+RP_EW_VARIANTS(RP_EW_BWD_EXTERN, kHeadDim)
+}  // namespace wg
 
 template <typename T, int E>
 static cudaError_t essential_bwd_e(const EbbTcArgs<T>& a, bool single,
                                    bool cross, cudaStream_t st) {
-  if (single)
-    return cross ? launch_essential_bwd_tc<T, E, true, true>(a, st)
-                 : launch_essential_bwd_tc<T, E, true, false>(a, st);
-  return cross ? launch_essential_bwd_tc<T, E, false, true>(a, st)
-               : launch_essential_bwd_tc<T, E, false, false>(a, st);
+  if constexpr (sizeof(T) == 4) {
+    if (single)
+      return cross ? wg::launch_bwd_wg<E, true, true>(a, st)
+                   : wg::launch_bwd_wg<E, true, false>(a, st);
+    return cross ? wg::launch_bwd_wg<E, false, true>(a, st)
+                 : wg::launch_bwd_wg<E, false, false>(a, st);
+  } else {
+    if (single)
+      return cross ? launch_essential_bwd_tc<T, E, true, true>(a, st)
+                   : launch_essential_bwd_tc<T, E, true, false>(a, st);
+    return cross ? launch_essential_bwd_tc<T, E, false, true>(a, st)
+                 : launch_essential_bwd_tc<T, E, false, false>(a, st);
+  }
 }
 
 template <typename T>
@@ -36,15 +53,17 @@ static cudaError_t essential_bwd(const EbbTcArgs<T>& a, int has_pos,
 }  // namespace tc
 }  // namespace rp
 
-// bytes of scratch rp_essential_block_bwd needs: the tensor-core passes'
-// statistics, operand rows (in the dtype) and dva
+// bytes of scratch rp_essential_block_bwd needs: the passes' statistics,
+// operand rows (in the dtype) and dva, and in fp32 gamma's partials
 extern "C" long long rp_essential_block_bwd_workspace(int B, int N,
                                                       int heads, int has_pos,
                                                       int bf16) {
   const int e = rp::kHeadDim + (has_pos ? rp::tc::kEbPos : 0);
-  return (long long)rp::tc::EbBwdWs(nullptr, 2 * B * heads, N, e, true,
-                                    bf16 ? 2 : 4)
-      .bytes;
+  const int G = 2 * B * heads;
+  const size_t base = rp::tc::EbBwdWs(nullptr, G, N, e, true, bf16 ? 2 : 4)
+                          .bytes;
+  return (long long)(base +
+                     (bf16 ? 0 : rp::tc::wg::bwd_wg_extra_bytes(G, N)));
 }
 
 // qkv (B, 2, N, 3C) and pos (B, N, 6) (NULL without positions) in T, dF

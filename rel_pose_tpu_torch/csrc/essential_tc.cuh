@@ -4,13 +4,16 @@
 //   - #2 _essential_block_pair_kernel, #3 _essential_block_x_kernel and #4
 //     _essential_block_kernel (rel_pose_tpu/ops/pallas_essential_block.py,
 //     core _eb_combos :87): PairLayout, the dual or the single softmax
-//     (essential_block.cu), bf16 and fp32;
+//     (essential_block.cu), bf16 only: fp32 PairLayout with one slice a
+//     block runs the TF32 wgmma body of essential_wgmma_f32.cuh;
 //   - #8 _fwd_kernel (rel_pose_tpu/ops/pallas_essential.py:72): SliceLayout,
 //     separate (G, N, 64) q, k and (G, N, e) va, vb, any scale (bilinear.cu,
 //     bilinear_f32.cu), bf16 and fp32;
 //   - #9 _s_kernel and _variant_kernel (scripts/bench_cross.py:88, :35):
 //     PairLayout with S pairs' slices per block (bf16 and fp32), and the
 //     modes kEbBf16Mul and kEbMxuSums (bf16) (cross_variants.cu).
+// fp32 #8 stays here because its e = 70 rows (280 bytes) are off TMA's
+// 16-byte stride grid, and #9's s because its blocks walk S slices.
 // The kernels are templates on the element type T, which picks the product
 // as gemm_tc.cuh and attention_tc.cuh do: bf16 m16n8k16 with ldmatrix, or
 // fp32 as 3xTF32 on m16n8k8 (each operand split into TF32 hi + lo in
@@ -1047,12 +1050,12 @@ cudaError_t launch_moments_tc(const EbTcArgs<T>& a, cudaStream_t st) {
                         false>(f, st);
 }
 
-// X(T, E, SINGLE, CROSS) for the 8 variants of one e: {bf16, fp32} x
-// {dual, single softmax} x {va = v_self, cross features}
+// X(T, E, SINGLE, CROSS) for the 4 bf16 variants of one e: {dual, single
+// softmax} x {va = v_self, cross features} (fp32 PairLayout runs
+// essential_wgmma_f32.cuh)
 #define RP_EB_TC_VARIANTS(X, E)                                         \
   X(bf16, E, false, false) X(bf16, E, false, true) X(bf16, E, true, false) \
-  X(bf16, E, true, true) X(float, E, false, false)                      \
-  X(float, E, false, true) X(float, E, true, false) X(float, E, true, true)
+  X(bf16, E, true, true)
 
 #define RP_EB_TC_EXTERN(T, E, S, X)                                \
   extern template cudaError_t launch_moments_tc<T, E, S, X>( \

@@ -2,7 +2,8 @@
 // cores, on essential_tc.cuh's layouts: replaces
 //   - rel_pose_tpu/ops/pallas_essential_block_bwd.py:
 //     _essential_block_bwd_kernel (#6), PairLayout (essential_block_bwd.cu),
-//     bf16 and fp32;
+//     bf16 (fp32 runs essential_wgmma_f32.cuh's TF32 wgmma passes, which
+//     take this file's prologue kernel and scratch layout);
 //   - rel_pose_tpu/ops/pallas_essential.py:_bwd_kernel (#8), SliceLayout
 //     (bilinear_bwd.cu, bilinear_bwd_f32.cu), bf16 and fp32.
 // The kernels are templates on the element type T, as essential_tc.cuh's:

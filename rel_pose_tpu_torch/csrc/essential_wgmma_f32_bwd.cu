@@ -1,0 +1,15 @@
+// The e = 70 variants (positional columns) of the fp32 essential block's
+// backward on TF32 wgmma (essential_wgmma_f32.cuh), instantiated in a
+// translation unit of their own so that nvcc builds them in parallel.
+
+#include "essential_wgmma_f32.cuh"
+
+namespace rp {
+namespace tc {
+namespace wg {
+
+RP_EW_VARIANTS(RP_EW_BWD_INSTANTIATE, kHeadDim + kEbPos)
+
+}  // namespace wg
+}  // namespace tc
+}  // namespace rp

@@ -1,32 +1,30 @@
-// Tensor-core GEMMs on mma.sync: the essential block's qkv Linear in both
-// dtypes, and the mma.sync / ldmatrix / cp.async / TF32-split helpers that
+// Tensor-core GEMM on mma.sync: the essential block's qkv Linear in bf16,
+// and the mma.sync / ldmatrix / cp.async / TF32-split helpers that
 // attention_tc.cuh, essential_tc.cuh and the wgmma bodies share.
 //
-// Replaces the forward GEMM inside pallas_essential_block.py's
+// Replaces, in bf16, the forward GEMM inside pallas_essential_block.py's
 // _essential_block_pair_kernel and _essential_block_x_kernel (the qkv
-// Linear, essential_block.cu, epilogue kRounded) in both dtypes.  The ViT
-// stack's GEMMs run on gemm_wgmma.cuh (bf16) and gemm_wgmma_f32.cuh (fp32):
-// launch_gemm refuses any other epilogue at compile time, so that the
-// essential block stays as it is.
+// Linear, essential_block.cu, epilogue kRounded).  Its fp32 counterpart
+// runs on gemm_wgmma_f32.cuh's TF32 wgmma forward (epilogue kBias: in
+// fp32 kRounded's roundings are the identity), as the ViT stack's GEMMs run
+// on gemm_wgmma.cuh (bf16) and gemm_wgmma_f32.cuh (fp32): launch_gemm
+// refuses any other epilogue at compile time.
 //
-// One structure, two products: the element type picks the MMA atom.
-//   bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on K-major operands
-//     loaded with ldmatrix; bf16 x bf16 products are exact in fp32.
-//   fp32: 3xTF32 on mma.sync.m16n8k8 .tf32.  Each fp32 operand, loaded
-//     from shared memory with 32-bit loads (ldmatrix moves 16-bit
-//     elements), is split in registers into a TF32 high part hi = rna(x)
-//     and a TF32 residual lo = rna(x - hi), and hi.hi + hi.lo + lo.hi is
-//     summed in fp32: only lo.lo (below 2^-22 of |a||b|) is dropped, so a
-//     product keeps fp32 accuracy.  (TF32 alone, hi.hi, keeps about 3
-//     decimal digits: the port's precision policy forbids it.)
+// The product: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on K-major
+// operands loaded with ldmatrix; bf16 x bf16 products are exact in fp32.
+// The TF32 helpers below (split_tf32, mma_3xtf32 on m16n8k8) serve the fp32
+// mma.sync bodies of essential_tc.cuh (#8, #9) and attention_tc.cuh:
+// each fp32 operand is split in registers into a TF32 high part hi =
+// rna(x) and a TF32 residual lo = rna(x - hi), and hi.hi + hi.lo + lo.hi is
+// summed in fp32: only lo.lo (below 2^-22 of |a||b|) is dropped, so a
+// product keeps fp32 accuracy.  (TF32 alone, hi.hi, keeps about 3 decimal
+// digits: the port's precision policy forbids it.)
 //
 // What bounds it on the H100: at C = 192 the qkv Linear does 2 M C 3C
 // operations on (M C + M 3C) elements, 96 operations per byte in bf16,
 // below the 295 at which the bf16 tensor cores rather than HBM are the
-// limit, and 48 in fp32, about the 49 at which 3xTF32's 165 TFLOP/s (495 /
-// 3) meets HBM.  At the rate mma.sync reaches, the products themselves and
-// the shared-memory loads feeding them decide; in fp32 also the split, two
-// cvt and a subtraction per loaded operand.
+// limit.  At the rate mma.sync reaches, the products themselves and the
+// shared-memory loads feeding them decide.
 //
 // Design: operands from padded shared-memory tiles, fed by a 3-stage
 // cp.async ring of K steps (128 x 192 output tiles where the widths
@@ -152,45 +150,32 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   for (int e = 0; e < 4; ++e) c[e] += t[e];
 }
 
-// T itself, so that a parameter of type nd_t<E> takes no part in deducing
-// E (a nullptr argument converts to it)
-template <class T>
-struct type_is {
-  using type = T;
-};
-template <class T>
-using nd_t = typename type_is<T>::type;
-
 // Accumulator layout of one m16n8 tile (both atoms), lane = 4 g + t:
 // c[0], c[1] at (row g, columns 2t, 2t + 1), c[2], c[3] at row g + 8.
 
 // ------------------------------------------------------------ tile GEMM --
-// C[BM, BN] += A[BM, K] . B[K, BN] over k in [kbeg, kend), operands of
-// type E (bf16 or fp32: the atom), both K-major: element (m, k) at A[m *
-// lda + k], (k, n) at B[n * ldb + k] (the torch Linear weight).  Rows m >=
-// m_end of A load as zeros.
+// C[BM, BN] += A[BM, K] . B[K, BN] over k in [kbeg, kend), bf16 operands,
+// both K-major: element (m, k) at A[m * lda + k], (k, n) at B[n * ldb + k]
+// (the torch Linear weight).  Rows m >= m_end of A load as zeros.
 template <typename E_, int BM_, int BN_, int WM_, int WN_, int BK_DEPTH = 32,
           int STAGES = 3>
 struct Tile {
   using E = E_;
-  static constexpr bool kTf32 = sizeof(E) == 4;  // 3xTF32, else bf16
+  static_assert(sizeof(E) == 2, "bf16 (fp32: gemm_wgmma_f32.cuh)");
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
   static constexpr int BK = BK_DEPTH, kStages = STAGES;
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int TM = BM / WM, TN = BN / WN, MI = TM / 16, NI = TN / 8;
   static constexpr int kVec = 16 / (int)sizeof(E);  // one cp.async
-  static constexpr int kKStep = kTf32 ? 8 : 16;     // one mma's depth
-  // Padded rows, so that a warp's fragment loads fall in distinct banks:
-  // bf16, 8 consecutive ldmatrix rows; fp32, a row 4 mod 32 words long
-  // (lane 4 g + t reads word g LD + t).
-  static constexpr int kPad = kTf32 ? 4 : 8;
+  static constexpr int kKStep = 16;                 // one mma's depth
+  // Padded rows, so that 8 consecutive ldmatrix rows fall in distinct banks
+  static constexpr int kPad = 8;
   static constexpr int A_LD = BK + kPad, A_ELEMS = BM * A_LD;
   static constexpr int B_LD = BK + kPad, B_ELEMS = BN * B_LD;
   static constexpr int kStageElems = A_ELEMS + B_ELEMS;
   static constexpr int kSmemElems = kStages * kStageElems;
   static constexpr int A_CHUNKS = BM * BK / kVec, B_CHUNKS = BN * BK / kVec;
-  static_assert(TM % 16 == 0 && (kTf32 || NI % 2 == 0),
-                "warp tile: 16-row steps (bf16: 16 x 16)");
+  static_assert(TM % 16 == 0 && NI % 2 == 0, "warp tile: 16 x 16 steps");
   static_assert(BK % kKStep == 0, "whole mma steps per K step");
   static_assert(A_CHUNKS % kThreads == 0 && B_CHUNKS % kThreads == 0,
                 "tile loads: whole steps");
@@ -264,43 +249,6 @@ __device__ __forceinline__ void compute_stage(
 #pragma unroll
       for (int ni = 0; ni < Cfg::NI; ++ni)
         mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-  }
-}
-
-// one K step of fp32 products as 3xTF32: 32-bit fragment loads, split in
-// registers, m16n8k8 (the A fragments of a step split once, each B
-// fragment once per warp)
-template <class Cfg>
-__device__ __forceinline__ void compute_stage(
-    const float* st, float (&acc)[Cfg::MI][Cfg::NI][4], int wm, int wn,
-    int lane) {
-  const float* As = st;
-  const float* Bs = st + Cfg::A_ELEMS;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < Cfg::BK; kk += 8) {
-    unsigned ah[Cfg::MI][4], al[Cfg::MI][4];
-#pragma unroll
-    for (int mi = 0; mi < Cfg::MI; ++mi)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = wm * Cfg::TM + mi * 16 + g + (j & 1) * 8;
-        const int k = kk + t + (j >> 1) * 4;
-        split_tf32(As[m * Cfg::A_LD + k], ah[mi][j], al[mi][j]);
-      }
-#pragma unroll
-    for (int ni = 0; ni < Cfg::NI; ++ni) {
-      const int n = wn * Cfg::TN + ni * 8 + g;
-      unsigned bh[2], bl[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int k = kk + t + j * 4;
-        split_tf32(Bs[n * Cfg::B_LD + k], bh[j], bl[j]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < Cfg::MI; ++mi)
-        mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh, bl);
-    }
   }
 }
 
@@ -390,33 +338,20 @@ __device__ __forceinline__ void unpack4_bf16(uint2 u, float (&v)[4]) {
   v[3] = b.y;
 }
 
-// 4 fp32 values stored as 4 consecutive elements (rounded to bf16 for
-// bf16)
+// 4 fp32 values rounded to bf16 and stored as 4 consecutive elements
 __device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = pack4_bf16(v);
 }
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
 
 // ---------------------------------------------------------- tile configs --
-// Per element type: the forward tile (K-major A and B), and the wide one of
-// 192 output columns taken where the widths allow (the qkv Linear at C =
-// 192): A is read from L2 a third as often as with 64-column tiles, with
-// half as many barriers (one 138 KB block per SM; the fastest of the tiles
-// tried on an H100 at the bf16 eval shapes).  fp32 keeps the tiles' shape
-// with 32-deep K steps (128 bytes a row, as bf16's 64).
-template <typename E>
-struct Cfgs;
-template <>
-struct Cfgs<bf16> {
+// The forward tile (K-major A and B), and the wide one of 192 output
+// columns taken where the widths allow (the qkv Linear at C = 192): A is
+// read from L2 a third as often as with 64-column tiles, with half as many
+// barriers (one 138 KB block per SM; the fastest of the tiles tried on an
+// H100 at the bf16 eval shapes).
+struct Cfgs {
   using Fwd = Tile<bf16, 128, 64, 2, 2>;
   using FwdWide = Tile<bf16, 128, 192, 4, 2, 64, 3>;
-};
-template <>
-struct Cfgs<float> {
-  using Fwd = Tile<float, 128, 64, 2, 2, 32, 3>;
-  using FwdWide = Tile<float, 128, 192, 4, 2, 32, 3>;
 };
 
 // ------------------------------------------------------- forward GEMM --
@@ -467,17 +402,17 @@ static cudaError_t launch_gemm_cfg(const E* A, const E* W, const float* bias,
   return cudaGetLastError();
 }
 
-template <int EPI, typename E>
-static cudaError_t launch_gemm(const E* A, const nd_t<E>* W,
-                               const float* bias, nd_t<E>* out, int M,
-                               int Nout, int K, cudaStream_t stream) {
+template <int EPI>
+static cudaError_t launch_gemm(const bf16* A, const bf16* W,
+                               const float* bias, bf16* out, int M, int Nout,
+                               int K, cudaStream_t stream) {
   static_assert(EPI == kRounded,
                 "the ViT GEMMs run on gemm_wgmma.cuh / gemm_wgmma_f32.cuh");
-  using Wide = typename Cfgs<E>::FwdWide;
+  using Wide = Cfgs::FwdWide;
   if (Nout % Wide::BN == 0 && K % Wide::BK == 0)
     return launch_gemm_cfg<EPI, Wide>(A, W, bias, out, M, Nout, K, stream);
-  return launch_gemm_cfg<EPI, typename Cfgs<E>::Fwd>(A, W, bias, out, M,
-                                                     Nout, K, stream);
+  return launch_gemm_cfg<EPI, Cfgs::Fwd>(A, W, bias, out, M, Nout, K,
+                                         stream);
 }
 
 }  // namespace tc

@@ -1,6 +1,9 @@
 // Hopper (sm_90a) primitives shared by the wgmma bodies: the attention in
-// bf16 (attention_wgmma.cuh) and fp32 (attention_wgmma_f32.cuh) and the
-// bf16 GEMMs of the ViT stack (gemm_wgmma.cuh).  mbarriers, TMA tile loads,
+// bf16 (attention_wgmma.cuh) and fp32 (attention_wgmma_f32.cuh), the GEMMs
+// of the ViT stack and of the fp32 essential block's qkv Linear
+// (gemm_wgmma.cuh bf16, gemm_wgmma_f32.cuh fp32) and the fp32 essential
+// block's moments and backward (essential_wgmma_f32.cuh; bf16 stays on
+// essential_tc*.cuh's mma.sync).  mbarriers, TMA tile loads,
 // the tensor-map encoder (and the fp32 attention's maps), wgmma's fence /
 // commit / wait, the proxy fence, and the shared-memory matrix descriptor
 // of a tile in the 128-byte swizzle (bf16 and tf32 k-steps).

@@ -3,7 +3,7 @@
 ``--bilinear``, #8 and #9) in one tree, to compare two trees on one GPU.
 
     python3 scripts/ab_essential.py [--tree DIR] [--dtype float32|bfloat16]
-                                    [--no-step] [--bilinear]
+                                    [--no-step] [--eval] [--bilinear]
 
 Imports ``rel_pose_tpu_torch`` from ``DIR`` (this checkout by default) and
 ``chip_smoke.py`` from this checkout, builds DIR's kernels, and in the
@@ -14,7 +14,14 @@ beside its plain version and with its bound (operations over 165 TFLOP/s
 in fp32, 989 in bf16, or bytes over 3.35 TB/s); then each kernel's parts
 from ``torch.profiler`` (``chip_smoke.essential_part``); then, unless
 ``--no-step``, the flagship's train step at batch 60 in that dtype with
-the kernels and on the plain path (``chip_smoke.time_train_steps``).  With
+the kernels and on the plain path (``chip_smoke.time_train_steps``); with
+``--eval``, the flagship's eval forward with the kernels at batch 256
+(``scripts/ab_vit_stack.eval_forward_ms``).  The parts are those of the
+body the tree runs (``chip_smoke.essential_part``): in fp32 since the
+TF32 wgmma body the key statistics, the one-walk moments, the qkv GEMM on
+``gemm_wgmma_f32.cuh`` and its weight split, then the query and key
+statistics, the prologue, the merged rho / gamma pass and the two
+gradient passes.  With
 ``--bilinear`` the kernel readings are #8's instead (the per-head bilinear
 op, ``fused_bilinear_attention``: forward at G = 1,536 slices, the eval
 shape, backward at G = 360, the training shape, e = 70, va = vb) and #9's
@@ -172,6 +179,7 @@ def main():
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32")
     ap.add_argument("--no-step", action="store_true")
+    ap.add_argument("--eval", action="store_true")
     ap.add_argument("--bilinear", action="store_true",
                     help="#8 and #9 in place of #2 and #6")
     args = ap.parse_args()
@@ -198,6 +206,9 @@ def main():
     if not args.no_step:
         _, sd = cs.make_models(device)
         cs.time_train_steps(device, sd, card, dtypes=(dtype,))
+    if args.eval:
+        importlib.import_module("scripts.ab_vit_stack").eval_forward_ms(
+            cs, device, dtype, card)
     return 0
 
 

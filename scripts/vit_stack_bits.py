@@ -25,7 +25,8 @@ ViT stack's (forward, forward with the stash, backward) moved when its
 products went from SIMT FMAs to 3xTF32 on the tensor cores, and fp32 #2,
 #4, #6, #7, #8 and #9's when they did; the bf16 ViT stack's and #7's
 when their attention moved from mma.sync to wgmma, and the stack's again
-when its GEMMs did.
+when its GEMMs did; fp32 #2, #3, #4 and #6's when they moved to TF32
+wgmma (one online-max walk, one rho / gamma pass).
 Needs a CUDA device.
 """
 

@@ -2,8 +2,10 @@
 ``ops/essential_block.py``) around their launches, and a plain mirror of
 the tensor-core decomposition, on the CPU.
 
-  * both dtypes take the tensor-core kernels of ``csrc/essential_tc.cuh`` /
-    ``essential_tc_bwd.cuh`` (bf16 m16n8k16, fp32 3xTF32): the wrappers
+  * both dtypes take the tensor-core kernels (bf16 the mma.sync body of
+    ``csrc/essential_tc.cuh`` / ``essential_tc_bwd.cuh``, fp32 the TF32
+    wgmma body of ``csrc/essential_wgmma_f32.cuh``, which
+    tests/test_torch_essential_wgmma_f32.py mirrors): the wrappers
     pass bf16 = 1 or 0 to the C entry points, after asking
     ``rp_essential_block_workspace`` / ``rp_essential_block_bwd_workspace``
     for the scratch of those arguments, and hand on a buffer of that size;
@@ -11,7 +13,8 @@ the tensor-core decomposition, on the CPU.
   * every (e, SINGLE, CROSS) reaches the entry points with its flags,
     shapes and contiguous operands; the bwd buffers (dva with cross
     features, the positional partials) are there exactly when needed;
-  * the launch grids' limits (65,535 slices, GEMM row tiles of 128 rows),
+  * the launch grids' limits (65,535 slices, bf16 GEMM row tiles of 128
+    rows, the fp32 GEMM's 2^31 - 1 rows),
     operands off the 16-byte grid, bad shapes and dtypes raise before any
     launch;
   * each wrapper adds one to its launch counter per launch, only then;
@@ -278,14 +281,24 @@ def test_slice_limit(fake_lib, which, dtype, b, ok):
 @pytest.mark.parametrize("dtype,rows_per_tile", [(torch.bfloat16, 128),
                                                  (torch.float32, 128)])
 def test_gemm_row_tile_limit(fake_lib, dtype, rows_per_tile):
-    """The qkv GEMM's grid: at most 65,535 row tiles of 2 B N rows (128
-    rows a tile, both dtypes: the tensor-core GEMM)."""
+    """The qkv GEMM's limits on 2 B N rows.  bf16 (gemm_tc.cuh, one grid
+    row per 128-row tile): at most 65,535 row tiles, one row too many
+    raises before any launch.  fp32 (gemm_wgmma_f32.cuh's persistent
+    launch, no grid row per tile): the same rows pass the check, and the
+    limit is a C int's 2^31 - 1 rows (checked on ``_check_grid`` itself: a
+    tensor of that many rows does not fit a CPU test)."""
     n = 65535 * rows_per_tile // 2 + 1          # one row too many, B = 1
-    xpair = torch.empty((1, 2, n, C), dtype=dtype)
-    ln = (torch.ones(C), torch.zeros(C))
-    qkvp = (torch.zeros(3 * C, C), torch.zeros(3 * C))
-    with pytest.raises(ValueError, match="GEMM row"):
-        te.fused_essential_block_pair(xpair, ln, qkvp, None, HEADS)
+    if dtype == torch.bfloat16:
+        xpair = torch.empty((1, 2, n, C), dtype=dtype)
+        ln = (torch.ones(C), torch.zeros(C))
+        qkvp = (torch.zeros(3 * C, C), torch.zeros(3 * C))
+        with pytest.raises(ValueError, match="GEMM row"):
+            te.fused_essential_block_pair(xpair, ln, qkvp, None, HEADS)
+    else:
+        te._check_grid("pair", 1, HEADS, 2 * n, bf16=False)
+        te._check_grid("pair", 1, HEADS, te.MAX_INT, bf16=False)
+        with pytest.raises(ValueError, match="GEMM row"):
+            te._check_grid("pair", 1, HEADS, te.MAX_INT + 1, bf16=False)
     assert fake_lib.calls == []
 
 
