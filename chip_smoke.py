@@ -119,12 +119,14 @@ The ablations of the Essential Matrix Module (``ModelConfig`` with
      {positions, none} x {dual, single softmax} x {va = v_self, cross
      features} against their plain versions at B = 8 pairs of N = 576, and
      #4 and #6 again at B = 4 of a ragged N = 100, fp32 and bf16 (the
-     tensor-core kernels of ``csrc/essential_tc.cuh`` and
-     ``essential_tc_bwd.cuh``, fp32 as 3xTF32); #2 and each backward twice
-     for the same bits; the fp32 outputs' sha256 printed (``scripts/vit_stack_bits.py``
-     prints them for another tree); #3 (``fused_essential_block_x``) for
-     the flagship flags and one ablated combination; the four counters
-     rose;
+     wgmma bodies: bf16 ``csrc/essential_wgmma.cuh``, fp32 as 3xTF32
+     ``csrc/essential_wgmma_f32.cuh``); #2 and each backward twice for the
+     same bits; the fp32 outputs' sha256 printed
+     (``scripts/vit_stack_bits.py`` prints them for another tree); #3
+     (``fused_essential_block_x``) for the flagship flags and one ablated
+     combination; in both dtypes #2 at batch 256 and #6 at batch 60, the
+     main path's grids, for every combination, REPEAT_CALLS calls each the
+     same bits; the four counters rose;
   4d. #3 and #4 through their public ops (``essential_cross_attention``,
      ``fused_essential_block``) under autograd, forward and backward
      against the plain versions, their counters set to 0 just before and
@@ -155,8 +157,8 @@ The last two Pallas kernels: #8, the per-head bilinear op of
      per dtype), #8's counters set to 0 just before that route and read
      just after;
   3f. ``essential_block_s`` (S = 2, 4) against #4 at B = 8, fp32 and bf16:
-     each must give the bits of its body's one slice a block (bf16: #4's;
-     fp32, whose #4 runs the TF32 wgmma body: S = 2's) and repeat them;
+     each must give #4's bits (s runs #4's wgmma moments, each block
+     walking its S slices in turn) and repeat them;
      ``essential_block_variant``
      (mxu_sums, bf16_mul) against its plain version at B = 8, bf16, twice
      for the same bits; both counters rose;
@@ -1263,8 +1265,9 @@ EXP2_PER_S = 3.9e12
 
 def essential_part(key):
     """The part of the essential block's path a profiled kernel belongs to,
-    from its (demangled) name: the mma.sync body (bf16; fp32 before the
-    TF32 wgmma body) or the fp32 TF32 wgmma body
+    from its (demangled) name: the mma.sync body (#8; #2 and #6 before
+    their wgmma bodies), the bf16 wgmma body (``csrc/essential_wgmma.cuh``,
+    its qkv GEMM on ``gemm_wgmma.cuh``) or the fp32 TF32 wgmma body
     (``csrc/essential_wgmma_f32.cuh``, its qkv GEMM on
     ``gemm_wgmma_f32.cuh``)."""
     m = re.search(r"eb_bwd_pass_kernel<[\w:]+, \d+, (true|false), "
@@ -1273,7 +1276,8 @@ def essential_part(key):
         return {("false", "false"): "gamma pass", ("true", "false"):
                 "rho pass", ("true", "true"): "dq/dva pass",
                 ("false", "true"): "dk/dvb pass"}[m.groups()]
-    m = re.search(r"ewg_pass_kernel<\d+, (true|false), (true|false)", key)
+    m = re.search(r"ew[gb]_pass_kernel<\d+, (true|false), (true|false)",
+                  key)
     if m:
         return {("true", "false"): "rho/gamma pass", ("true", "true"):
                 "dq/dva pass", ("false", "true"): "dk/dvb pass"}[m.groups()]
@@ -1281,12 +1285,20 @@ def essential_part(key):
                       ("eb_stats_kernel<false", "query statistics"),
                       ("ewg_stats_kernel<true", "key statistics"),
                       ("ewg_stats_kernel<false", "query statistics"),
+                      ("ewb_stats_kernel<true", "key statistics"),
+                      ("ewb_stats_kernel<false, false, true",
+                       "query statistics"),
+                      ("ewb_stats_kernel<false, false, false",
+                       "query maxima"),
                       ("eb_vbn_kernel", "vb_n"),
+                      ("ewb_vbn_kernel", "vb_n"),
                       ("eb_moments_kernel", "moments"),
                       ("ewg_moments_kernel", "moments, one walk"),
+                      ("ewb_moments_kernel", "moments, one walk"),
                       ("sum_partials", "F-partial sum"),
                       ("gemm_fwd_kernel", "qkv GEMM"),
                       ("gemm_f32_kernel", "qkv GEMM"),
+                      ("gemm_wgmma_kernel", "qkv GEMM"),
                       ("gemm_split_weight", "qkv weight split"),
                       ("layernorm", "LayerNorm"),
                       ("eb_bwd_prologue", "prologue")):
@@ -1329,11 +1341,12 @@ def essential_executed(B, N, e, single, backward, C=192, heads=3,
     """{part: (executed products' FLOPs, exp2 count)} of the tensor-core
     path at B pairs (padded widths: 72 columns for an e-wide product with e
     = 70; as the depth over e, bf16 80 (k16), fp32 72 (k8); fp32 counts
-    each 3xTF32 product once), under the names of both bodies'
-    parts (``essential_part``): the mma.sync moments walk the keys twice
-    and its backward runs a rho and a gamma pass; the fp32 wgmma moments
-    walk them once ("moments, one walk") and one pass forms both ("rho/gamma
-    pass")."""
+    each 3xTF32 product once), under the names of the bodies' parts
+    (``essential_part``): the mma.sync moments walk the keys twice and its
+    backward runs a rho and a gamma pass; the wgmma moments walk them once
+    ("moments, one walk") and one pass forms both ("rho/gamma pass"); the
+    bf16 wgmma body's single softmax takes its exact row maxima from a walk
+    of their own ("query maxima", no exp2)."""
     G = 2 * B * heads
     step = 16 if dtype == torch.bfloat16 else 8
     wn, wk = 8 * -(-e // 8), step * -(-e // step)
@@ -1344,7 +1357,9 @@ def essential_executed(B, N, e, single, backward, C=192, heads=3,
                "moments, one walk": (score + pv_f,
                                      n2 * (1 if single else 2)),
                "qkv GEMM": (2 * 2 * B * N * 3 * C * C, 0)}
-        if not single:
+        if single:
+            out["query maxima"] = (score, 0)
+        else:
             out["key statistics"] = (score, n2)
         return out
     pa = score + 2 * N * N * wk * G                 # s and dA of one pass
@@ -2363,34 +2378,39 @@ def split_pair(xpair, ln, qkvp):
             (qkv[:, 0].contiguous(), qkv[:, 1].contiguous()), qkv)
 
 
-def check_essential_main(device, failures, calls=REPEAT_CALLS):
-    """The fp32 essential block (the TF32 wgmma body) at the main path's
-    batches, many more blocks than the card holds at once: #2 at the eval
-    batch and #6 at the training batch for every flag set, ``calls`` calls
-    each the same bits, against the plain versions."""
+def check_essential_main(device, failures, calls=REPEAT_CALLS,
+                         dtypes=DTYPES):
+    """The essential block's wgmma bodies (fp32 3xTF32 on TF32 wgmma, bf16
+    on wgmma) at the main path's batches, many more blocks than the card
+    holds at once: #2 at the eval batch and #6 at the training batch for
+    every flag set, ``calls`` calls each the same bits, against the plain
+    versions within the dtype's tolerances."""
     from rel_pose_tpu_torch.ops import essential_block as te
-    rng = np.random.default_rng(SEED + 22)
-    x, nrm, lin, fpos = essential_inputs(rng, EVAL_BATCH, torch.float32,
-                                         device)
-    xpair, ln, qkvp, bpos = essential_inputs(rng, TRAIN_BATCH,
-                                             torch.float32, device)
-    _, _, qkv = split_pair(xpair, ln, qkvp)
-    for has_pos, cross, single in VARIANTS:
-        name, kw = variant_name(has_pos, cross, single), variant_kw(
-            cross, single)
-        p = fpos if has_pos else None
-        check_f_repeat(
-            f"essential_block_pair {name} B={EVAL_BATCH}",
-            lambda: te.fused_essential_block_pair(x, nrm, lin, p, 3, **kw),
-            lambda: te.essential_block_pair_reference(x, nrm, lin, p, 3,
+    for dtype in dtypes:
+        rng = np.random.default_rng(SEED + 22)
+        x, nrm, lin, fpos = essential_inputs(rng, EVAL_BATCH, dtype, device)
+        xpair, ln, qkvp, bpos = essential_inputs(rng, TRAIN_BATCH, dtype,
+                                                 device)
+        _, _, qkv = split_pair(xpair, ln, qkvp)
+        bpos = bpos.to(dtype)
+        for has_pos, cross, single in VARIANTS:
+            name, kw = variant_name(has_pos, cross, single), variant_kw(
+                cross, single)
+            p = fpos if has_pos else None
+            check_f_repeat(
+                f"essential_block_pair {name} B={EVAL_BATCH}",
+                lambda: te.fused_essential_block_pair(x, nrm, lin, p, 3,
                                                       **kw),
-            torch.float32, failures, calls)
-        e = 64 + 6 * has_pos
-        df = torch.from_numpy((0.1 * rng.standard_normal(
-            (TRAIN_BATCH, 2, 3, e, e))).astype(np.float32)).to(device)
-        check_moments_bwd(f"essential_block_bwd {name} B={TRAIN_BATCH}", te,
-                          qkv, bpos if has_pos else None, df, kw,
-                          torch.float32, failures, calls)
+                lambda: te.essential_block_pair_reference(x, nrm, lin, p, 3,
+                                                          **kw),
+                dtype, failures, calls)
+            e = 64 + 6 * has_pos
+            df = torch.from_numpy((0.1 * rng.standard_normal(
+                (TRAIN_BATCH, 2, 3, e, e))).astype(np.float32)).to(device)
+            check_moments_bwd(f"essential_block_bwd {name} B={TRAIN_BATCH}",
+                              te, qkv, bpos if has_pos else None, df, kw,
+                              dtype, failures, calls)
+        del x, xpair, qkv
 
 
 def phase_kernels_variants(device):
@@ -2400,7 +2420,7 @@ def phase_kernels_variants(device):
     a ragged N = 100 (a 36-row last tile), fp32 and bf16; #2 and each
     backward twice for the same bits, the fp32 outputs' sha256 printed
     (``scripts/vit_stack_bits.py`` prints them for another tree); #3 for
-    the flagship flags and one ablated combination; in fp32, every
+    the flagship flags and one ablated combination; in both dtypes, every
     combination of #2 at the eval batch and of #6 at the training batch,
     each REPEAT_CALLS times for the same bits and against its plain
     version; the four counters rose."""
@@ -2793,12 +2813,11 @@ def phase_kernels_bilinear(device):
 
 def phase_kernels_cross_variants(device):
     """(3f) #9: ``essential_block_s`` for S in {2, 4} against #4 at B = 8,
-    fp32 and bf16 (F_RTOL held; each must give the bits of one slice a
-    block on its body: in bf16 #4's, which runs the same ``mma.sync``
-    body; in fp32, where #4 runs the TF32 ``wgmma`` body, S = 2's), and
-    both modes of ``essential_block_variant`` against their plain version
-    at B = 8 in bf16; every case twice for the same bits; both counters
-    rose.  Returns max |err| of (S, variants)."""
+    fp32 and bf16 (F_RTOL held; each must give #4's bits in both dtypes:
+    s runs #4's wgmma moments, each block walking its S slices in turn),
+    and both modes of ``essential_block_variant`` against their plain
+    version at B = 8 in bf16; every case twice for the same bits; both
+    counters rose.  Returns max |err| of (S, variants)."""
     from rel_pose_tpu_torch.ops import cross_variants as cv
     from rel_pose_tpu_torch.ops import essential_block as te
     failures, e_s, e_v = [], [], []
@@ -2809,19 +2828,16 @@ def phase_kernels_cross_variants(device):
         _, (q1, q2), _ = split_pair(xpair, ln, qkvp)
         f4 = te.fused_essential_block(q1, q2, positional, 3)
         name = str(dtype)[6:]
-        bits, bits_of = f4, "#4's"
         for S in (2, 4):
             f, again = (cv.essential_block_s(q1, q2, positional, S)
                         for _ in range(2))
             torch.cuda.synchronize()
-            if dtype == torch.float32 and S == 2:
-                bits, bits_of = f, "S=2's"
-            same = torch.equal(f, bits)
+            same = torch.equal(f, f4)
             log(f"[check] essential_block_s S={S} {name}: F "
-                f"{'equal to' if same else 'DIFFERS from'} {bits_of} bits")
+                f"{'equal to' if same else 'DIFFERS from'} #4's bits")
             if not same:
                 failures.append(f"essential_block_s S={S} {name} F differs "
-                                f"from {bits_of} bits")
+                                f"from #4's bits")
             if not torch.equal(f, again):
                 failures.append(f"essential_block_s S={S} {name} not "
                                 f"bitwise repeatable")
@@ -4272,8 +4288,10 @@ def phase_tooling(device, card, eval_ms, train_bf16_ms):
     pair / 989e12 within 1e-6 relative; every MFU in (0, 1).
     9b: ``trace(dir)`` around 2 eval forwards: the Chrome trace parses and
     holds device events of #1 (bf16: ``tc::wg::gemm_wgmma_kernel``,
-    ``tc::wg::attn_fwd_kernel``) and #2 (``eb_moments_kernel``, its qkv
-    GEMM ``tc::gemm_fwd_kernel``).
+    ``tc::wg::attn_fwd_kernel``) and #2 (``ewb_stats_kernel``,
+    ``ewb_moments_kernel`` and its qkv Linear, the forward GEMM with
+    epilogue ``kRounded``: ``gemm_wgmma_kernel<0, 3, ...>``, OP 0 and
+    ``common.cuh``'s kRounded = 3).
     9c: the flagship bf16 after 2 steps: ``save_checkpoint``, then
     ``AsyncCheckpointer.save`` and 2 more steps at once, then ``close()``:
     both files equal tensor by tensor; the training thread's ms in
@@ -4365,7 +4383,8 @@ def phase_tooling(device, card, eval_ms, train_bf16_ms):
         names = trace_kernel_names(prof.trace_path)
         found = {k: sorted(n for n in names if k in n)[:1] for k in (
             "wg::gemm_wgmma_kernel", "attn_fwd_kernel",
-            "eb_moments_kernel", "tc::gemm_fwd_kernel")}
+            "ewb_stats_kernel", "ewb_moments_kernel",
+            "wg::gemm_wgmma_kernel<0, 3, ")}
         log(f"[tooling] 9b trace {prof.trace_path} "
             f"({os.path.getsize(prof.trace_path)} bytes), {len(names)} "
             f"kernel names; #1 / #2 events: {found}")

@@ -30,7 +30,7 @@
 
 #include "attention_wgmma.cuh"
 #include "attention_wgmma_f32.cuh"
-#include "gemm_tc.cuh"
+#include "mma_helpers.cuh"
 
 namespace rp {
 namespace tc {

@@ -52,7 +52,7 @@
 
 #pragma once
 
-#include "gemm_tc.cuh"
+#include "mma_helpers.cuh"
 #include "sm90.cuh"
 
 namespace rp {

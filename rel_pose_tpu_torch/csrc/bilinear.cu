@@ -33,7 +33,7 @@ static cudaError_t bilinear_fwd(const void* q, const void* k, const void* va,
                                 int N, int e, int single, float scale,
                                 cudaStream_t st) {
   const EbFwdArgsT<T> a{(const T*)q, (const T*)k, (const T*)va, (const T*)vb,
-                        0, F, ws, G, N, kHeadDim, 1, 1, scale};
+                        0, F, ws, G, N, kHeadDim, 1, scale};
   return launch_slice_moments(a, e, single, st);
 }
 

@@ -39,7 +39,7 @@ static cudaError_t bilinear_bwd(const void* q, const void* k, const void* va,
                                 int G, int N, int e, int single, float scale2,
                                 float dscale, cudaStream_t st) {
   const EbBwdArgsT<T> a{(const T*)q, (const T*)k, (const T*)va, (const T*)vb,
-                        0, dF, (T*)dq, (T*)dk, (T*)dva, (T*)dvb, nullptr, ws,
+                        0, dF, (T*)dq, (T*)dk, (T*)dva, (T*)dvb, ws,
                         G, N, kHeadDim, 1, scale2, dscale};
   return launch_slice_bwd(a, e, single, st);
 }

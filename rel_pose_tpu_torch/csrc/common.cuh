@@ -1,5 +1,5 @@
 // Row LayerNorm and its VJP, the epilogues of the tensor-core GEMMs
-// (gemm_wgmma.cuh, gemm_tc.cuh), the fixed-order partial sums, and the
+// (gemm_wgmma.cuh, gemm_wgmma_f32.cuh), the fixed-order partial sums, and the
 // fp32 <-> compute-dtype helpers.
 //
 // Compute dtype T is float or __nv_bfloat16.  Every product accumulates in
@@ -107,8 +107,9 @@ static cudaError_t launch_layernorm(const T* x, const T* pos, T* xsum,
 
 // ------------------------------------------------------------------ GEMM --
 // The epilogues of the forward GEMMs (gemm_wgmma.cuh for the bf16 ViT
-// stack, gemm_tc.cuh otherwise), out[M, Nout] = epilogue(A[M, K] .
-// W[Nout, K]^T) with W in torch Linear layout.
+// stack and the essential block's qkv Linear, gemm_wgmma_f32.cuh in fp32),
+// out[M, Nout] = epilogue(A[M, K] . W[Nout, K]^T) with W in torch Linear
+// layout.
 
 enum Epilogue {
   kBias = 0,       // T(acc + b)                        (Pallas ViT bias)
@@ -144,7 +145,7 @@ __device__ __forceinline__ float gelu_grad_policy(float h) {
 }
 
 // =========================================================== backward ====
-// The dX GEMMs' epilogues (gemm_wgmma.cuh in bf16, gemm_tc.cuh's
+// The dX GEMMs' epilogues (gemm_wgmma.cuh in bf16, gemm_wgmma_f32.cuh's
 // gemm_dx_kernel in fp32): the input cotangent of a Linear, fp32.
 enum DxEpilogue {
   kDxPlain = 0,     // acc                                  (fp32)

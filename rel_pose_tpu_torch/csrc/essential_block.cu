@@ -10,31 +10,35 @@
 //   rp_essential_block (#4 _essential_block_kernel): precomputed qkv1, qkv2
 //     (B, N, 3C) -> moments.
 // Which body each dtype takes:
-//   bf16: the qkv Linear on mma.sync (gemm_tc.cuh, epilogue kRounded:
-//     T(T(acc) + T(b))) and the mma.sync moments of essential_tc.cuh
-//     (m16n8k16), instantiated in essential_tc.cu (e = 70) and
-//     essential_tc_e64.cu (e = 64);
+//   bf16: the qkv Linear on wgmma (gemm_wgmma.cuh's forward, epilogue
+//     kRounded: T(T(acc) + T(b))) and the wgmma moments of
+//     essential_wgmma.cuh (m64nNk16, TMA-fed tiles), instantiated in
+//     essential_wgmma.cu (e = 70) and essential_wgmma_e64.cu (e = 64);
 //   fp32: the qkv Linear on TF32 wgmma (gemm_wgmma_f32.cuh's forward with
 //     epilogue kBias, acc + b: in fp32 kRounded's roundings are the
 //     identity), its weight split once a call into hi / lo scratch, and the
 //     TF32 wgmma moments of essential_wgmma_f32.cuh, instantiated in
 //     essential_wgmma_f32.cu (e = 70) and essential_wgmma_f32_e64.cu (e =
 //     64); both 3xTF32.
-// The scratch is what rp_essential_block_workspace sizes (fp32: the
-// weight's split after the moments' pieces).  The LayerNorm is
+// The scratch is what rp_essential_block_workspace sizes (bf16
+// essential_wgmma.cuh's EwbFwdWs; fp32 EbFwdWs, then the weight's split).  The LayerNorm is
 // common.cuh's.  Each entry point takes the flags of _eb_combos (has_pos,
 // single, cross) and picks the kernel variant.
 
-#include "essential_wgmma_f32.cuh"
+#include "essential_wgmma.cuh"
 
 namespace rp {
 
 namespace tc {
-RP_EB_TC_VARIANTS(RP_EB_TC_EXTERN, kHeadDim + kEbPos)
-RP_EB_TC_VARIANTS(RP_EB_TC_EXTERN, kHeadDim)
 namespace wg {
+RP_EW_VARIANTS(RP_EWB_FWD_EXTERN, kHeadDim + kEbPos)
+RP_EW_VARIANTS(RP_EWB_FWD_EXTERN, kHeadDim)
 RP_EW_VARIANTS(RP_EW_FWD_EXTERN, kHeadDim + kEbPos)
 RP_EW_VARIANTS(RP_EW_FWD_EXTERN, kHeadDim)
+// gemm_wgmma.cu
+cudaError_t essential_qkv_bf16(const bf16* x, const bf16* w,
+                               const float* bias, bf16* out, int M, int N,
+                               int K, cudaStream_t st);
 // gemm_wgmma_f32.cu
 cudaError_t vit_split_weight_f32(const float* W, float* Ws, int count, int R,
                                  int C, bool transpose, cudaStream_t st);
@@ -47,8 +51,8 @@ cudaError_t vit_gemm_f32(int epi, const float* A, const float* Ws,
 template <typename T, int E>
 static cudaError_t moments_e(const tc::EbTcArgs<T>& a, bool single,
                              bool cross, cudaStream_t st) {
+  namespace wg = tc::wg;
   if constexpr (sizeof(T) == 4) {
-    namespace wg = tc::wg;
     if (single)
       return cross ? wg::launch_moments_wg<E, true, true>(a, st)
                    : wg::launch_moments_wg<E, true, false>(a, st);
@@ -56,10 +60,10 @@ static cudaError_t moments_e(const tc::EbTcArgs<T>& a, bool single,
                  : wg::launch_moments_wg<E, false, false>(a, st);
   } else {
     if (single)
-      return cross ? tc::launch_moments_tc<T, E, true, true>(a, st)
-                   : tc::launch_moments_tc<T, E, true, false>(a, st);
-    return cross ? tc::launch_moments_tc<T, E, false, true>(a, st)
-                 : tc::launch_moments_tc<T, E, false, false>(a, st);
+      return cross ? wg::launch_moments_wb<E, true, true>(a, st)
+                   : wg::launch_moments_wb<E, true, false>(a, st);
+    return cross ? wg::launch_moments_wb<E, false, true>(a, st)
+                 : wg::launch_moments_wb<E, false, false>(a, st);
   }
 }
 
@@ -78,13 +82,13 @@ static cudaError_t moments(const T* img1, const T* img2, size_t bstride,
              : moments_e<T, kHeadDim>(a, single, cross, st);
 }
 
-// The bytes of the forward's scratch: the moments' pieces (EbFwdWs), then
-// in fp32 the qkv weight's hi / lo split (2 3C C fp32)
+// The bytes of the forward's scratch: the moments' pieces (bf16 EwbFwdWs,
+// fp32 EbFwdWs), then in fp32 the qkv weight's hi / lo split (2 3C C fp32)
 static size_t fwd_ws_bytes(int B, int N, int C, int heads, int e, int elem) {
-  const size_t moments =
-      tc::EbFwdWs(nullptr, 2 * B * heads, N, e, elem).bytes;
-  return moments +
-         (elem == 4 ? tc::eb_align(sizeof(float) * 6 * (size_t)C * C) : 0);
+  const int G = 2 * B * heads;
+  if (elem == 2) return tc::wg::EwbFwdWs(nullptr, G, N, e).bytes;
+  return tc::EbFwdWs(nullptr, G, N, e, elem).bytes +
+         tc::eb_align(sizeof(float) * 6 * (size_t)C * C);
 }
 
 // the split weight's place in the scratch ws
@@ -101,7 +105,7 @@ static float* weight_split(void* ws, int B, int N, int C, int heads,
 static cudaError_t qkv_linear(const tc::bf16* x, const tc::bf16* w,
                              const float* bias, tc::bf16* out, int M, int C,
                              cudaStream_t st) {
-  return tc::launch_gemm<kRounded>(x, w, bias, out, M, 3 * C, C, st);
+  return tc::wg::essential_qkv_bf16(x, w, bias, out, M, 3 * C, C, st);
 }
 
 // fp32: x w^T + b from ws_w = the weight's split (qkv_split_f32)
@@ -172,8 +176,8 @@ static cudaError_t essential_block_x(const T* x1, const T* x2, const T* w,
 }  // namespace rp
 
 // bytes of scratch rp_essential_block_pair / _x / rp_essential_block need:
-// the moments' statistics, vb_n (in the dtype) and F partials, and in fp32
-// the qkv weight's split
+// the moments' statistics, vb_n (in the dtype) and F partials, in bf16 the
+// row maxima's partials, and in fp32 the qkv weight's split
 extern "C" long long rp_essential_block_workspace(int B, int N, int heads,
                                                   int has_pos, int bf16) {
   const int e = rp::kHeadDim + (has_pos ? rp::tc::kEbPos : 0);

@@ -1,23 +1,24 @@
 // Entry point of the Essential Matrix Module's backward (replaces the Pallas
 // _essential_block_bwd_kernel, #6), picking the variant of the flags
 // has_pos, single and cross, with the scratch that
-// rp_essential_block_bwd_workspace sizes.  Which body each dtype takes:
-//   bf16: the mma.sync passes of essential_tc_bwd.cuh (m16n8k16: statistics,
-//     prologue, gamma, rho and two gradient passes), instantiated in
-//     essential_tc_bwd.cu (e = 70) and essential_tc_bwd_e64.cu (e = 64);
-//   fp32: the TF32 wgmma passes of essential_wgmma_f32.cuh (3xTF32:
-//     statistics, prologue, one rho / gamma pass, two gradient passes),
+// rp_essential_block_bwd_workspace sizes.  Which body each dtype takes
+// (each: statistics, prologue, one rho / gamma pass, two gradient passes):
+//   bf16: the wgmma passes of essential_wgmma.cuh (m64nNk16, TMA-fed
+//     tiles), instantiated in essential_wgmma_bwd.cu (e = 70) and
+//     essential_wgmma_bwd_e64.cu (e = 64), its scratch EbBwdWs with the
+//     rows in core-matrix tiles and gamma's query-tile partials;
+//   fp32: the TF32 wgmma passes of essential_wgmma_f32.cuh (3xTF32),
 //     instantiated in essential_wgmma_f32_bwd.cu and
 //     essential_wgmma_f32_bwd_e64.cu, its scratch EbBwdWs and gamma's
 //     query-tile partials.
 
-#include "essential_wgmma_f32.cuh"
+#include "essential_wgmma.cuh"
 
 namespace rp {
 namespace tc {
-RP_EB_TC_VARIANTS(RP_EBB_TC_EXTERN, kHeadDim + kEbPos)
-RP_EB_TC_VARIANTS(RP_EBB_TC_EXTERN, kHeadDim)
 namespace wg {
+RP_EW_VARIANTS(RP_EWB_BWD_EXTERN, kHeadDim + kEbPos)
+RP_EW_VARIANTS(RP_EWB_BWD_EXTERN, kHeadDim)
 RP_EW_VARIANTS(RP_EW_BWD_EXTERN, kHeadDim + kEbPos)
 RP_EW_VARIANTS(RP_EW_BWD_EXTERN, kHeadDim)
 }  // namespace wg
@@ -33,10 +34,10 @@ static cudaError_t essential_bwd_e(const EbbTcArgs<T>& a, bool single,
                  : wg::launch_bwd_wg<E, false, false>(a, st);
   } else {
     if (single)
-      return cross ? launch_essential_bwd_tc<T, E, true, true>(a, st)
-                   : launch_essential_bwd_tc<T, E, true, false>(a, st);
-    return cross ? launch_essential_bwd_tc<T, E, false, true>(a, st)
-                 : launch_essential_bwd_tc<T, E, false, false>(a, st);
+      return cross ? wg::launch_bwd_wb<E, true, true>(a, st)
+                   : wg::launch_bwd_wb<E, true, false>(a, st);
+    return cross ? wg::launch_bwd_wb<E, false, true>(a, st)
+                 : wg::launch_bwd_wb<E, false, false>(a, st);
   }
 }
 
@@ -54,16 +55,17 @@ static cudaError_t essential_bwd(const EbbTcArgs<T>& a, int has_pos,
 }  // namespace rp
 
 // bytes of scratch rp_essential_block_bwd needs: the passes' statistics,
-// operand rows (in the dtype) and dva, and in fp32 gamma's partials
+// operand rows (in the dtype; bf16 in 64-row tiles), dva and gamma's
+// partials
 extern "C" long long rp_essential_block_bwd_workspace(int B, int N,
                                                       int heads, int has_pos,
                                                       int bf16) {
+  namespace wg = rp::tc::wg;
   const int e = rp::kHeadDim + (has_pos ? rp::tc::kEbPos : 0);
   const int G = 2 * B * heads;
-  const size_t base = rp::tc::EbBwdWs(nullptr, G, N, e, true, bf16 ? 2 : 4)
-                          .bytes;
-  return (long long)(base +
-                     (bf16 ? 0 : rp::tc::wg::bwd_wg_extra_bytes(G, N)));
+  if (bf16) return (long long)wg::bwd_wb_bytes(G, N, e);
+  return (long long)(rp::tc::EbBwdWs(nullptr, G, N, e, true, 4).bytes +
+                     wg::bwd_wg_extra_bytes(G, N));
 }
 
 // qkv (B, 2, N, 3C) and pos (B, N, 6) (NULL without positions) in T, dF

@@ -1,21 +1,19 @@
-// The Essential Matrix Module's moments on the tensor cores: one body
-// behind four Pallas kernels, which differ in where a slice's rows live
+// The Essential Matrix Module's moments on the mma.sync tensor cores: one
+// body behind two Pallas kernels, which differ in where a slice's rows live
 // (the layout types below) and in a mode:
-//   - #2 _essential_block_pair_kernel, #3 _essential_block_x_kernel and #4
-//     _essential_block_kernel (rel_pose_tpu/ops/pallas_essential_block.py,
-//     core _eb_combos :87): PairLayout, the dual or the single softmax
-//     (essential_block.cu), bf16 only: fp32 PairLayout with one slice a
-//     block runs the TF32 wgmma body of essential_wgmma_f32.cuh;
 //   - #8 _fwd_kernel (rel_pose_tpu/ops/pallas_essential.py:72): SliceLayout,
 //     separate (G, N, 64) q, k and (G, N, e) va, vb, any scale (bilinear.cu,
 //     bilinear_f32.cu), bf16 and fp32;
-//   - #9 _s_kernel and _variant_kernel (scripts/bench_cross.py:88, :35):
-//     PairLayout with S pairs' slices per block (bf16 and fp32), and the
-//     modes kEbBf16Mul and kEbMxuSums (bf16) (cross_variants.cu).
-// fp32 #8 stays here because its e = 70 rows (280 bytes) are off TMA's
-// 16-byte stride grid, and #9's s because its blocks walk S slices.
+//   - #9 _variant_kernel (scripts/bench_cross.py:35): PairLayout, the modes
+//     kEbBf16Mul and kEbMxuSums, bf16 (cross_variants.cu).
+// #8 stays on mma.sync because its fp32 e = 70 rows (280 bytes) are off
+// TMA's 16-byte stride grid, #9's modes because they are copies of #4 timed
+// against it.  #2, #3, #4 (PairLayout, the dual or the single softmax) and
+// #9's s run the wgmma bodies, bf16 essential_wgmma.cuh and fp32
+// essential_wgmma_f32.cuh, which take this file's layouts, vb_n packing
+// (fp32), workspace and argument types.
 // The kernels are templates on the element type T, which picks the product
-// as gemm_tc.cuh and attention_tc.cuh do: bf16 m16n8k16 with ldmatrix, or
+// as attention_tc.cuh does: bf16 m16n8k16 with ldmatrix, or
 // fp32 as 3xTF32 on m16n8k8 (each operand split into TF32 hi + lo in
 // registers, hi.hi + hi.lo + lo.hi summed into a fresh 8-deep partial that
 // one IEEE fp32 add puts into the sum: fp32 accuracy).
@@ -61,8 +59,8 @@
 //      the element type, rows of kW (bf16 80, fp32 72; 70 used) or 64
 //      columns, zero-padded, so that every later tile load is whole 16-byte
 //      rows.
-//   3. eb_moments_kernel, one block of 4 warps per (64-query tile, slice;
-//      #9's s: S slices in turn), 16 query rows a warp: a first walk over
+//   3. eb_moments_kernel, one block of 4 warps per (64-query tile, slice),
+//      16 query rows a warp: a first walk over
 //      the key tiles takes the exact row max (no exp2); a second recomputes
 //      s, forms er, ec, P and lr, and accumulates P vb_n in registers (16 x
 //      72 fp32 a warp; fp32 P stays in the accumulator registers as the A
@@ -75,7 +73,7 @@
 //      order.
 // Rows >= N load as zeros and keys >= N are masked out of every max and
 // sum.  No atomics, sums in a fixed order: two calls give the same bits,
-// and a slice's F does not depend on the layout or on S.  va rows of e =
+// and a slice's F does not depend on the layout.  va rows of e =
 // 70 in SliceLayout are off the 16-byte grid (bf16 140 bytes, fp32 280):
 // they load two values a cp.async, 4 or 8 bytes (load_rows2), where
 // PairLayout's load whole 16-byte rows.
@@ -241,7 +239,7 @@ __device__ __forceinline__ void mma_ab_acc(float (&c)[NT][4],
 }
 
 // fp32 (3xTF32) counterparts, from 32-bit shared-memory loads split in
-// registers (gemm_tc.cuh's mma_3xtf32: each 8-deep step into a fresh
+// registers (mma_helpers.cuh's mma_3xtf32: each 8-deep step into a fresh
 // partial, added to c in IEEE fp32).  Lane 4 g + t.
 
 // c[16 x 8 NT] += A[16 x 8 K8] . B^T: A this warp's 16 rows of a tile (row
@@ -473,7 +471,7 @@ struct PairLayout {
             3 * (size_t)C};
   }
   // the s-th of the S slices of block row y: one (direction, head) of S
-  // consecutive pairs
+  // consecutive pairs (#9's s, essential_wgmma*.cuh)
   __device__ static int slice(int y, int s, int S, int heads) {
     const int P = 2 * heads;
     return (y / P * S + s) * P + y % P;
@@ -508,7 +506,6 @@ struct SliceLayout {
     return {in0 + gN * kHeadDim, in1 + gN * kHeadDim, in2 + gN * E,
             in3 + gN * E, nullptr, kHeadDim};
   }
-  __device__ static int slice(int y, int, int, int) { return y; }
   template <int E, typename T>
   __device__ static void load_v(T* dst, const T* v, const EbView<T>&,
                                 int row0, int N) {
@@ -726,27 +723,27 @@ eb_vbn_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
 }
 
 // ------------------------------------------------------------- moments --
-// The partial F = va^T av of 64 query rows of slice g to fpart[(blockIdx.x
-// G + g) E^2]: the key tiles are walked twice (the row max, then P and
-// P vb_n) as one sequence of 2 nk steps through a 2-stage cp.async ring of
-// k (and, in the second walk, vb_n and mc) tiles.  Block row y takes slice
-// y, or with kGroup the S slices Layout::slice(y, 0 .. S - 1) in turn (#9's
-// s).  bf16: three 53 KB blocks an SM; fp32: two of 109 KB.
+// The partial F = va^T av of 64 query rows of slice g = blockIdx.y to
+// fpart[(blockIdx.x G + g) E^2]: the key tiles are walked twice (the row
+// max, then P and P vb_n) as one sequence of 2 nk steps through a 2-stage
+// cp.async ring of k (and, in the second walk, vb_n and mc) tiles.  bf16:
+// three 53 KB blocks an SM; fp32 (SliceLayout only): two of 109 KB.
 template <typename T, int E>
 constexpr size_t moments_smem_bytes() {
   return (3 * tile_elems<T>() + 3 * EbW<T, E>::kTileElems) * sizeof(T) +
          2 * kAT * sizeof(float);
 }
 
-template <class Layout, int E, int MODE, bool CROSS, bool kGroup, typename T>
+template <class Layout, int E, int MODE, bool CROSS, typename T>
 __global__ void __launch_bounds__(kAThreads, sizeof(T) == 2 ? 3 : 2)
 eb_moments_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
                   const T* __restrict__ in2, const T* __restrict__ in3,
                   size_t ld, const float* __restrict__ kstats,
                   const T* __restrict__ vbn, float* __restrict__ fpart,
-                  int N, int C, int heads, int S, float scale) {
+                  int N, int C, int heads, float scale) {
   using W = EbW<T, E>;
   constexpr bool kF32 = W::kF32;
+  static_assert(Layout::kSlice || !kF32, "fp32 PairLayout: the wgmma body");
   constexpr int TE = tile_elems<T>();
   constexpr bool SINGLE = MODE == kEbSingle;
   constexpr bool HMUL = MODE == kEbBf16Mul || MODE == kEbMxuSums;
@@ -766,160 +763,155 @@ eb_moments_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kAT;
   const int nk = (N + kAT - 1) / kAT;
-  const int per_block = kGroup ? S : 1;
-  const size_t G = (size_t)gridDim.y * per_block;
-#pragma unroll 1
-  for (int si = 0; si < per_block; ++si) {
-    if (si > 0) __syncthreads();  // the last slice's readers of AVs, VAs
-    const int g = kGroup ? Layout::slice(blockIdx.y, si, S, heads) : blockIdx.y;
-    const EbView<T> vw =
-        eb_view<Layout, E, CROSS>(in0, in1, in2, in3, ld, N, C, heads, g);
-    const T* vnb = vbn + (size_t)g * N * W::kW;
-    const float* ks = kstats + (size_t)g * N * 3;
+  const size_t G = gridDim.y;
+  const int g = blockIdx.y;
+  const EbView<T> vw =
+      eb_view<Layout, E, CROSS>(in0, in1, in2, in3, ld, N, C, heads, g);
+  const T* vnb = vbn + (size_t)g * N * W::kW;
+  const float* ks = kstats + (size_t)g * N * 3;
 
-    load_tile(Qs, vw.q, vw.ldqk, q0, N);
-    load_tile(K(0), vw.k, vw.ldqk, 0, N);
-    Layout::template load_v<E>(VAs, vw.va, vw, q0, N);
-    cp_async_commit();
-    typename AttnFrags<T>::A qf;
-    float mx[2] = {-INFINITY, -INFINITY};
-    float l[2] = {0.f, 0.f};
-    float lsum[4] = {};  // MXU: the row sums from the tensor cores
-    float o[W::kNT][4] = {};
-    float s[8][4];
-    for (int t = 0; t < 2 * nk; ++t) {
-      __syncthreads();  // the stage loaded below was read at step t - 1
-      const int tn = t + 1;
-      if (tn < 2 * nk) {
-        const int kn = (tn % nk) * kAT, st = tn & 1;
-        load_tile(K(st), vw.k, vw.ldqk, kn, N);
-        if (tn >= nk) {
-          load_rows<W::kW, W::kLd>(V(st), vnb, W::kW, kn, N);
-          if (!SINGLE && tid < kAT)
-            cp_async4(MCs + st * kAT + tid,
-                      ks + (size_t)(kn + tid < N ? kn + tid : 0) * 3,
-                      kn + tid < N);
-        }
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      if (t == 0) load_afrag(qf, Qs);
-      const int k0 = (t % nk) * kAT;
-      mma_abt(s, qf, K(t & 1));
-      if (t < nk) {
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (k0 + acc_col(ni, e) < N)
-              mx[e >> 1] = fmaxf(mx[e >> 1], __fmul_rn(s[ni][e], scale));
-        if (t == nk - 1) {
-          mx[0] = quad_max(mx[0]);
-          mx[1] = quad_max(mx[1]);
-        }
-        continue;
-      }
-      const float* mc = MCs + (t & 1) * kAT;
-      if constexpr (HMUL) {
-        // P = T(T(er) T(ec)), one bf16 product per packed pair of columns
-        unsigned pf[4][4];
-        unsigned ef[4][4];  // MXU: T(er), for the row sums
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int j = acc_col(ni, 2 * h);
-            const float s0 = __fmul_rn(s[ni][2 * h], scale);
-            const float s1 = __fmul_rn(s[ni][2 * h + 1], scale);
-            const bool ok0 = k0 + j < N, ok1 = k0 + j + 1 < N;
-            const float er0 = ok0 ? exp2f(s0 - mx[h]) : 0.f;
-            const float er1 = ok1 ? exp2f(s1 - mx[h]) : 0.f;
-            const float ec0 = ok0 ? exp2f(s0 - mc[j]) : 0.f;
-            const float ec1 = ok1 ? exp2f(s1 - mc[j + 1]) : 0.f;
-            if (!MXU) {
-              l[h] += er0;
-              l[h] += er1;
-            }
-            const unsigned erb = pack_bf16(er0, er1);
-            const unsigned ecb = pack_bf16(ec0, ec1);
-            const __nv_bfloat162 p =
-                __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&erb),
-                        *reinterpret_cast<const __nv_bfloat162*>(&ecb));
-            afrag_at(pf, ni, h) = *reinterpret_cast<const unsigned*>(&p);
-            if (MXU) afrag_at(ef, ni, h) = erb;
-          }
-        if (MXU) mma_row_sums(lsum, ef);
-        mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
-      } else {
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = acc_col(ni, e);
-            const float sv = __fmul_rn(s[ni][e], scale);
-            float p = 0.f;
-            if (k0 + j < N) {
-              const float er = exp2f(sv - mx[e >> 1]);
-              l[e >> 1] += er;
-              p = SINGLE ? er : er * exp2f(sv - mc[j]);
-            }
-            s[ni][e] = p;
-          }
-        if constexpr (kF32) {
-          mma_pb_acc_f32<W::kNT, W::kLd>(o, s, V(t & 1));  // P, fp32
-        } else {
-          unsigned pf[4][4];
-          to_afrag(pf, s);  // P = T(er ec)
-          mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
-        }
+  load_tile(Qs, vw.q, vw.ldqk, q0, N);
+  load_tile(K(0), vw.k, vw.ldqk, 0, N);
+  Layout::template load_v<E>(VAs, vw.va, vw, q0, N);
+  cp_async_commit();
+  typename AttnFrags<T>::A qf;
+  float mx[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float lsum[4] = {};  // MXU: the row sums from the tensor cores
+  float o[W::kNT][4] = {};
+  float s[8][4];
+  for (int t = 0; t < 2 * nk; ++t) {
+    __syncthreads();  // the stage loaded below was read at step t - 1
+    const int tn = t + 1;
+    if (tn < 2 * nk) {
+      const int kn = (tn % nk) * kAT, st = tn & 1;
+      load_tile(K(st), vw.k, vw.ldqk, kn, N);
+      if (tn >= nk) {
+        load_rows<W::kW, W::kLd>(V(st), vnb, W::kW, kn, N);
+        if (!SINGLE && tid < kAT)
+          cp_async4(MCs + st * kAT + tid,
+                    ks + (size_t)(kn + tid < N ? kn + tid : 0) * 3,
+                    kn + tid < N);
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();  // every warp is done with the k ring: av goes there
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) load_afrag(qf, Qs);
+    const int k0 = (t % nk) * kAT;
+    mma_abt(s, qf, K(t & 1));
+    if (t < nk) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float inv = 1.f / (MXU ? lsum[2 * half] : quad_sum(l[half]));
-      const int r = warp * 16 + (lane >> 2) + half * 8;
-      const bool ok = q0 + r < N;
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + acc_col(ni, e) < N)
+            mx[e >> 1] = fmaxf(mx[e >> 1], __fmul_rn(s[ni][e], scale));
+      if (t == nk - 1) {
+        mx[0] = quad_max(mx[0]);
+        mx[1] = quad_max(mx[1]);
+      }
+      continue;
+    }
+    const float* mc = MCs + (t & 1) * kAT;
+    if constexpr (HMUL) {
+      // P = T(T(er) T(ec)), one bf16 product per packed pair of columns
+      unsigned pf[4][4];
+      unsigned ef[4][4];  // MXU: T(er), for the row sums
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = acc_col(ni, 2 * h);
+          const float s0 = __fmul_rn(s[ni][2 * h], scale);
+          const float s1 = __fmul_rn(s[ni][2 * h + 1], scale);
+          const bool ok0 = k0 + j < N, ok1 = k0 + j + 1 < N;
+          const float er0 = ok0 ? exp2f(s0 - mx[h]) : 0.f;
+          const float er1 = ok1 ? exp2f(s1 - mx[h]) : 0.f;
+          const float ec0 = ok0 ? exp2f(s0 - mc[j]) : 0.f;
+          const float ec1 = ok1 ? exp2f(s1 - mc[j + 1]) : 0.f;
+          if (!MXU) {
+            l[h] += er0;
+            l[h] += er1;
+          }
+          const unsigned erb = pack_bf16(er0, er1);
+          const unsigned ecb = pack_bf16(ec0, ec1);
+          const __nv_bfloat162 p =
+              __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&erb),
+                      *reinterpret_cast<const __nv_bfloat162*>(&ecb));
+          afrag_at(pf, ni, h) = *reinterpret_cast<const unsigned*>(&p);
+          if (MXU) afrag_at(ef, ni, h) = erb;
+        }
+      if (MXU) mma_row_sums(lsum, ef);
+      mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
+    } else {
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = acc_col(ni, e);
+          const float sv = __fmul_rn(s[ni][e], scale);
+          float p = 0.f;
+          if (k0 + j < N) {
+            const float er = exp2f(sv - mx[e >> 1]);
+            l[e >> 1] += er;
+            p = SINGLE ? er : er * exp2f(sv - mc[j]);
+          }
+          s[ni][e] = p;
+        }
+      if constexpr (kF32) {
+        mma_pb_acc_f32<W::kNT, W::kLd>(o, s, V(t & 1));  // P, fp32
+      } else {
+        unsigned pf[4][4];
+        to_afrag(pf, s);  // P = T(er ec)
+        mma_ab_acc<W::kNT, 4, W::kLd>(o, pf, V(t & 1));
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the k ring: av goes there
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float inv = 1.f / (MXU ? lsum[2 * half] : quad_sum(l[half]));
+    const int r = warp * 16 + (lane >> 2) + half * 8;
+    const bool ok = q0 + r < N;
+#pragma unroll
+    for (int ni = 0; ni < W::kNT; ++ni)
+      store2(AVs + r * W::kLd + acc_col(ni, 0),
+             ok ? o[ni][2 * half] * inv : 0.f,
+             ok ? o[ni][2 * half + 1] * inv : 0.f);
+  }
+  __syncthreads();
+  // F[e1][e2] = sum_i va[i][e1] av[i][e2]: va read along its rows (the
+  // M-major A operand), m16 tiles of e1 shared out over the warps
+  float* fp = fpart + ((size_t)blockIdx.x * G + g) * E * E;
+  for (int mt = warp; mt < W::kM16; mt += kAThreads / 32) {
+    float f[W::kNT][4];
+    if constexpr (kF32) {
+      mma_atb_f32<W::kNT, W::kLd, W::kW>(f, VAs, mt * 16, AVs);
+    } else {
+      unsigned af[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldsm_x4_t(af[kk], VAs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                    W::kLd +
+                              mt * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int ni = 0; ni < W::kNT; ++ni)
-        store2(AVs + r * W::kLd + acc_col(ni, 0),
-               ok ? o[ni][2 * half] * inv : 0.f,
-               ok ? o[ni][2 * half + 1] * inv : 0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[ni][e] = 0.f;
+      mma_ab_acc<W::kNT, 4, W::kLd>(f, af, AVs);
     }
-    __syncthreads();
-    // F[e1][e2] = sum_i va[i][e1] av[i][e2]: va read along its rows (the
-    // M-major A operand), m16 tiles of e1 shared out over the warps
-    float* fp = fpart + ((size_t)blockIdx.x * G + g) * E * E;
-    for (int mt = warp; mt < W::kM16; mt += kAThreads / 32) {
-      float f[W::kNT][4];
-      if constexpr (kF32) {
-        mma_atb_f32<W::kNT, W::kLd, W::kW>(f, VAs, mt * 16, AVs);
-      } else {
-        unsigned af[4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          ldsm_x4_t(af[kk], VAs + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
-                                      W::kLd +
-                                mt * 16 + ((lane >> 3) & 1) * 8);
+    for (int half = 0; half < 2; ++half) {
+      const int e1 = mt * 16 + (lane >> 2) + half * 8;
+      if (e1 >= E) continue;
 #pragma unroll
-        for (int ni = 0; ni < W::kNT; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) f[ni][e] = 0.f;
-        mma_ab_acc<W::kNT, 4, W::kLd>(f, af, AVs);
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int e1 = mt * 16 + (lane >> 2) + half * 8;
-        if (e1 >= E) continue;
-#pragma unroll
-        for (int ni = 0; ni < W::kNT; ++ni) {
-          const int e2 = acc_col(ni, 0);
-          if (e2 < E)
-            *reinterpret_cast<float2*>(fp + e1 * E + e2) =
-                make_float2(f[ni][2 * half], f[ni][2 * half + 1]);
-        }
+      for (int ni = 0; ni < W::kNT; ++ni) {
+        const int e2 = acc_col(ni, 0);
+        if (e2 < E)
+          *reinterpret_cast<float2*>(fp + e1 * E + e2) =
+              make_float2(f[ni][2 * half], f[ni][2 * half + 1]);
       }
     }
   }
@@ -956,9 +948,8 @@ struct EbFwdWs {
 };
 
 // Host-side arguments of launch_moments: the layout's in0 .. in3 and ld
-// (see the layouts), F (G, e, e) fp32, the EbFwdWs bytes, G slices, S of
-// them per block with kGroup, and the scale (the softmax scale times
-// log2 e).
+// (see the layouts), F (G, e, e) fp32, the EbFwdWs bytes, G slices and the
+// scale (the softmax scale times log2 e).
 template <typename T>
 struct EbFwdArgsT {
   const T* in0;
@@ -968,17 +959,15 @@ struct EbFwdArgsT {
   size_t ld;
   float* F;
   void* ws;
-  int G, N, C, heads, S;
+  int G, N, C, heads;
   float scale;
 };
 
 // G slices: at most 65,535 (the grid's second dimension)
-template <class Layout, int E, int MODE, bool CROSS, bool kGroup, typename T>
+template <class Layout, int E, int MODE, bool CROSS, typename T>
 cudaError_t launch_moments(const EbFwdArgsT<T>& a, cudaStream_t st) {
   const int G = a.G, N = a.N;
-  if (G > 65535 || N <= 0 || a.ws == nullptr ||
-      (kGroup && (a.S < 1 || G % (2 * a.heads * a.S) != 0)))
-    return cudaErrorInvalidValue;
+  if (G > 65535 || N <= 0 || a.ws == nullptr) return cudaErrorInvalidValue;
   const EbFwdWs ws(a.ws, G, N, E, (int)sizeof(T));
   T* vbn = reinterpret_cast<T*>(ws.vbn);
   const int nt = (N + kAT - 1) / kAT;
@@ -994,13 +983,13 @@ cudaError_t launch_moments(const EbFwdArgsT<T>& a, cudaStream_t st) {
       MODE == kEbSingle ? nullptr : ws.kstats, vbn, N, a.C, a.heads, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   constexpr size_t smem = moments_smem_bytes<T, E>();
-  auto kernel = eb_moments_kernel<Layout, E, MODE, CROSS, kGroup, T>;
+  auto kernel = eb_moments_kernel<Layout, E, MODE, CROSS, T>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(nt, kGroup ? G / a.S : G), kAThreads, smem, st>>>(
+  kernel<<<dim3(nt, G), kAThreads, smem, st>>>(
       a.in0, a.in1, a.in2, a.in3, a.ld, ws.kstats, vbn, ws.fpart, N, a.C,
-      a.heads, a.S, a.scale);
+      a.heads, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t L = (size_t)G * E * E;
   return launch_sum_partials(ws.fpart, nt, L, L, a.F, st);
@@ -1014,20 +1003,18 @@ cudaError_t launch_slice_moments(const EbFwdArgsT<T>& a, int e, int single,
   constexpr int kE70 = kHeadDim + kEbPos;
   if (e == kE70)
     return single
-               ? launch_moments<SliceLayout, kE70, kEbSingle, false, false>(a,
-                                                                         st)
-               : launch_moments<SliceLayout, kE70, kEbDual, false, false>(a,
-                                                                       st);
+               ? launch_moments<SliceLayout, kE70, kEbSingle, false>(a, st)
+               : launch_moments<SliceLayout, kE70, kEbDual, false>(a, st);
   if (e == kHeadDim)
     return single
-               ? launch_moments<SliceLayout, kHeadDim, kEbSingle, false,
-                                false>(a, st)
-               : launch_moments<SliceLayout, kHeadDim, kEbDual, false, false>(
-                     a, st);
+               ? launch_moments<SliceLayout, kHeadDim, kEbSingle, false>(a,
+                                                                          st)
+               : launch_moments<SliceLayout, kHeadDim, kEbDual, false>(a, st);
   return cudaErrorInvalidValue;
 }
 
-// #2-#4's arguments: qkv rows of image i of pair b at img_i + b bstride.
+// #2-#4's arguments (the wgmma bodies): qkv rows of image i of pair b at
+// img_i + b bstride.
 template <typename T>
 struct EbTcArgs {
   const T* img1;
@@ -1035,34 +1022,11 @@ struct EbTcArgs {
   size_t bstride;
   const T* pos;  // (B, N, 6), or NULL with e = 64
   float* F;      // (B, 2, heads, e, e)
-  void* ws;      // EbFwdWs bytes
+  void* ws;      // the body's forward scratch
   int B, N, C, heads;
 };
 
 constexpr float kEbScale = 0.125f * 1.4426950408889634f;  // d^-1/2 log2(e)
-
-// #2-#4's moments: G = 2 B heads slices of PairLayout
-template <typename T, int E, bool SINGLE, bool CROSS>
-cudaError_t launch_moments_tc(const EbTcArgs<T>& a, cudaStream_t st) {
-  const EbFwdArgsT<T> f{a.img1, a.img2, a.pos, nullptr, a.bstride, a.F, a.ws,
-                        2 * a.B * a.heads, a.N, a.C, a.heads, 1, kEbScale};
-  return launch_moments<PairLayout, E, SINGLE ? kEbSingle : kEbDual, CROSS,
-                        false>(f, st);
-}
-
-// X(T, E, SINGLE, CROSS) for the 4 bf16 variants of one e: {dual, single
-// softmax} x {va = v_self, cross features} (fp32 PairLayout runs
-// essential_wgmma_f32.cuh)
-#define RP_EB_TC_VARIANTS(X, E)                                         \
-  X(bf16, E, false, false) X(bf16, E, false, true) X(bf16, E, true, false) \
-  X(bf16, E, true, true)
-
-#define RP_EB_TC_EXTERN(T, E, S, X)                                \
-  extern template cudaError_t launch_moments_tc<T, E, S, X>( \
-      const EbTcArgs<T>&, cudaStream_t);
-#define RP_EB_TC_INSTANTIATE(T, E, S, X)                    \
-  template cudaError_t launch_moments_tc<T, E, S, X>(const EbTcArgs<T>&, \
-                                                      cudaStream_t);
 
 }  // namespace tc
 }  // namespace rp

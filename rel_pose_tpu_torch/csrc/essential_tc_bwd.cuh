@@ -1,11 +1,12 @@
 // The backward of the Essential Matrix Module's moments on the tensor
 // cores, on essential_tc.cuh's layouts: replaces
-//   - rel_pose_tpu/ops/pallas_essential_block_bwd.py:
-//     _essential_block_bwd_kernel (#6), PairLayout (essential_block_bwd.cu),
-//     bf16 (fp32 runs essential_wgmma_f32.cuh's TF32 wgmma passes, which
-//     take this file's prologue kernel and scratch layout);
 //   - rel_pose_tpu/ops/pallas_essential.py:_bwd_kernel (#8), SliceLayout
-//     (bilinear_bwd.cu, bilinear_bwd_f32.cu), bf16 and fp32.
+//     (bilinear_bwd.cu, bilinear_bwd_f32.cu), bf16 and fp32;
+// and holds what the wgmma bodies of #6
+// (rel_pose_tpu/ops/pallas_essential_block_bwd.py:_essential_block_bwd_kernel,
+// PairLayout: essential_wgmma.cuh in bf16, essential_wgmma_f32.cuh in fp32)
+// take from it: the prologue kernel (PairLayout; bf16 writes its rows in
+// wgmma's core-matrix tiles, kTiled) and the scratch layout.
 // The kernels are templates on the element type T, as essential_tc.cuh's:
 // bf16 products are mma.sync m16n8k16 with ldmatrix (.trans where a product
 // reads a tile along its rows), fp32 ones 3xTF32 on m16n8k8 from 32-bit
@@ -24,8 +25,8 @@
 //   dsb = T(ds sigma), dq = dsb k, dk = dsb^T q.
 // rho needs every key of its row, gamma every query of its column and ds
 // both, so the work runs as passes over 64 x 64 tiles of s, each pass one
-// launch (launch_essential_bwd_tc), one block of 4 warps per (64-row tile,
-// slice) walking the other side's tiles:
+// launch (launch_bwd), one block of 4 warps per (64-row tile, slice)
+// walking the other side's tiles:
 //   a. eb_stats_kernel (essential_tc.cuh) for the queries (mr, 1/lr) and,
 //      with the dual softmax, for the keys (mc, 1/lc);
 //   b. eb_bwd_prologue_kernel: vb packed into kW-wide rows, vbdft and vadf
@@ -42,19 +43,10 @@
 // share an SM, as two of the other fp32 passes' 110 KB ones do; bf16's run
 // two 2-stage blocks an SM).  rho and gamma are not replaced by an
 // algebraic shortcut (rho_i = vadf_i (A vb)_i), which would move a rounding
-// point.
-//
-// PairLayout's outputs keep the Pallas kernel's scatter: dq and dk go to
-// the q and k slots of dqkv, each written by one (direction, head); pass e
-// writes dva in fp32 to scratch, and pass f adds it to dvb (dv = T(dvb +
-// dva)) unless CROSS, where T(dva) goes to the (B, 2, N, C) dva buffer of
-// the query image (the wrapper adds it to dqkv in the element type) and
-// only its positional columns are added; the positional columns go to the
-// per-slice fp32 partials dpos_part (B, 2, heads, N, 6).  SliceLayout's are
-// simpler, as _bwd_kernel's: dq, dk to (G, N, 64) and dva = T(Ab vbdft),
-// dvb = T(Ab^T vadf) to (G, N, e), each rounded by itself (no scratch; with
-// va and vb one tensor the caller's autograd adds the two).  No atomics,
-// sums in a fixed order: two calls give the same bits.
+// point.  The outputs are _bwd_kernel's: dq, dk to (G, N, 64) and dva =
+// T(Ab vbdft), dvb = T(Ab^T vadf) to (G, N, e), each rounded by itself (no
+// scratch; with va and vb one tensor the caller's autograd adds the two).
+// No atomics, sums in a fixed order: two calls give the same bits.
 //
 // What bounds it on the H100: the products, executed 2 score products in
 // the statistics (one with SINGLE) and 4 score + 4 dA products in the
@@ -72,7 +64,10 @@ namespace tc {
 
 // ----------------------------------------------------------- prologue --
 // For 64 rows of slice g: vb packed to VB, vbdft = T(vb T(dF)^T) and
-// vadf = T(va T(dF)), rows of kW elements (columns >= e zero).  T(dF) sits
+// vadf = T(va T(dF)), rows of kW elements (columns >= e zero); with kTiled
+// (bf16, essential_wgmma.cuh) in wgmma's core-matrix tiles instead, one
+// per 64 rows, rows >= N zero: 16-byte column c of row r of tile
+// blockIdx.x at ((g gridDim.x + blockIdx.x) kW / 8 + c) 512 + r 8.  T(dF) sits
 // in shared memory as [e][f], zero-padded to kW x kW; fp32 also keeps its
 // transpose [f][e], so that both products read their B operand along its
 // rows (words g kLd + t).
@@ -83,7 +78,7 @@ constexpr size_t prologue_smem_bytes() {
          sizeof(T);
 }
 
-template <class Layout, int E, bool CROSS, typename T>
+template <class Layout, int E, bool CROSS, typename T, bool kTiled = false>
 __global__ void __launch_bounds__(kAThreads)
 eb_bwd_prologue_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
                        const T* __restrict__ in2, const T* __restrict__ in3,
@@ -121,13 +116,20 @@ eb_bwd_prologue_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
   // one kW-wide output tile from the staging tile Os to rows r0.. of out,
   // 16 bytes a thread and step
   constexpr int V = 16 / (int)sizeof(T), CPR = W::kW / V;
+  static_assert(!kTiled || V == 8, "core-matrix tiles: bf16");
   const size_t obase = ((size_t)g * N + r0) * W::kW;
+  const size_t tbase = ((size_t)g * gridDim.x + blockIdx.x) * kAT * W::kW;
+  // element offset of 16-byte chunk cc / V of row r
+  auto at = [&](int r, int cc) {
+    return kTiled ? tbase + (size_t)(cc / V) * (kAT * V) + r * V
+                  : obase + (size_t)r * W::kW + cc;
+  };
   auto store = [&](T* out) {
     __syncthreads();
     for (int c = tid; c < kAT * CPR; c += kAThreads) {
       const int r = c / CPR, cc = (c % CPR) * V;
-      if (r0 + r < N)
-        *reinterpret_cast<uint4*>(out + obase + (size_t)r * W::kW + cc) =
+      if (kTiled || r0 + r < N)
+        *reinterpret_cast<uint4*>(out + at(r, cc)) =
             *reinterpret_cast<const uint4*>(Os + r * W::kLd + cc);
     }
     __syncthreads();
@@ -149,8 +151,8 @@ eb_bwd_prologue_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
   // vb itself, packed
   for (int c = tid; c < kAT * CPR; c += kAThreads) {
     const int r = c / CPR, cc = (c % CPR) * V;
-    if (r0 + r < N)
-      *reinterpret_cast<uint4*>(VB + obase + (size_t)r * W::kW + cc) =
+    if (kTiled || r0 + r < N)
+      *reinterpret_cast<uint4*>(VB + at(r, cc)) =
           *reinterpret_cast<const uint4*>(VBs + r * W::kLd + cc);
   }
   if constexpr (W::kF32) {
@@ -197,9 +199,9 @@ eb_bwd_prologue_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
 // [(g N + row) * 3].  Per tile: s = X Xw^T (scaled), d = Y Yw^T (dA or
 // dA^T), then REDUCE sums rho (queries) or gamma (keys) into the own side's
 // slot 2; GRAD forms T(ds sigma) and T(A) and accumulates out1 += . Xw,
-// out2 += . Zw, and writes them: PairLayout to dst0 = dqkv, dst1 = the
-// cross features' dva (B, 2, N, C), DVA and dpos_part; SliceLayout to dst0
-// .. dst3 = dq, dk, dva, dvb (see the file's head).
+// out2 += . Zw, and writes them to dst0 .. dst3 = dq, dk, dva, dvb (see the
+// file's head).  SliceLayout only: #6's PairLayout passes run the wgmma
+// bodies.
 template <typename T, bool kRows, bool kGrad>
 __host__ __device__ constexpr int pass_stages() {
   return sizeof(T) == 4 && kRows && kGrad ? 1 : 2;
@@ -222,10 +224,10 @@ eb_bwd_pass_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
                    size_t ld, float* __restrict__ qstats,
                    float* __restrict__ kstats, const T* __restrict__ VB,
                    const T* __restrict__ VBDFT, const T* __restrict__ VADF,
-                   float* __restrict__ DVA, T* __restrict__ dst0,
-                   T* __restrict__ dst1, T* __restrict__ dst2,
-                   T* __restrict__ dst3, float* __restrict__ dpos_part, int N,
-                   int C, int heads, float scale, float sigma) {
+                   T* __restrict__ dst0, T* __restrict__ dst1,
+                   T* __restrict__ dst2, T* __restrict__ dst3, int N, int C,
+                   int heads, float scale, float sigma) {
+  static_assert(Layout::kSlice, "#6 runs essential_wgmma*.cuh");
   using W = EbW<T, E>;
   constexpr int TE = tile_elems<T>();
   constexpr bool kZ = kRows && kGrad;
@@ -379,66 +381,23 @@ eb_bwd_pass_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
     }
     return;
   }
-  if constexpr (Layout::kSlice) {
-    // dq | dk and dva | dvb of the own rows, each rounded by itself
-    T* gx = (kRows ? dst0 : dst1) + gN * kHeadDim;
-    T* gv = (kRows ? dst2 : dst3) + gN * E;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
-      if (row >= N) continue;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-        store2(gx + (size_t)row * kHeadDim + acc_col(ni, 0),
-               out1[ni][2 * half], out1[ni][2 * half + 1]);
-#pragma unroll
-      for (int ni = 0; ni < W::kNT; ++ni) {
-        const int col = acc_col(ni, 0);
-        if (col < E)
-          store2(gv + (size_t)row * E + col, out2[ni][2 * half],
-                 out2[ni][2 * half + 1]);
-      }
-    }
-    return;
-  }
-  // own rows' outputs; the image of the own rows in dqkv (dst0)
-  const EbSlice<T> sl(in0, in1, ld, g, heads);
-  const size_t C3 = 3 * (size_t)C;
-  T* out = dst0 + ((kRows ? sl.qimg : sl.kimg) - in0);
-  float* dva = DVA + gN * E;
+  // dq | dk and dva | dvb of the own rows, each rounded by itself
+  T* gx = (kRows ? dst0 : dst1) + gN * kHeadDim;
+  T* gv = (kRows ? dst2 : dst3) + gN * E;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + warp * 16 + (lane >> 2) + half * 8;
     if (row >= N) continue;
-    T* o1 = out + (size_t)row * C3 + (kRows ? 0 : C) + sl.h * kHeadDim;
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
-      store2(o1 + acc_col(ni, 0), out1[ni][2 * half], out1[ni][2 * half + 1]);
+      store2(gx + (size_t)row * kHeadDim + acc_col(ni, 0), out1[ni][2 * half],
+             out1[ni][2 * half + 1]);
 #pragma unroll
     for (int ni = 0; ni < W::kNT; ++ni) {
       const int col = acc_col(ni, 0);
-      if (col >= E) continue;
-      float2 v = make_float2(out2[ni][2 * half], out2[ni][2 * half + 1]);
-      float* dvrow = dva + (size_t)row * E + col;
-      if (kRows) {  // dva
-        *reinterpret_cast<float2*>(dvrow) = v;
-        if (CROSS && col < kHeadDim)
-          store2(dst1 + ((sl.qimg - in0) / C3 + row) * C + sl.h * kHeadDim +
-                     col,
-                 v.x, v.y);
-        continue;
-      }
-      // dvb (+ dva, summed in fp32)
-      if (!CROSS || col >= kHeadDim) {
-        const float2 a = *reinterpret_cast<const float2*>(dvrow);
-        v.x += a.x;
-        v.y += a.y;
-      }
-      if (col < kHeadDim)
-        store2(o1 + C + col, v.x, v.y);
-      else
-        *reinterpret_cast<float2*>(dpos_part + (gN + row) * kEbPos + col -
-                                   kHeadDim) = v;
+      if (col < E)
+        store2(gv + (size_t)row * E + col, out2[ni][2 * half],
+               out2[ni][2 * half + 1]);
     }
   }
 }
@@ -446,8 +405,8 @@ eb_bwd_pass_kernel(const T* __restrict__ in0, const T* __restrict__ in1,
 // ---------------------------------------------------------- workspace --
 // Scratch of the backward, in this order, each piece 256-byte aligned:
 // the query and key statistics (G N x 3 fp32 each), VB, VBDFT, VADF (G N kW
-// elements of `elem` bytes each: 2 bf16, 4 fp32) and, for PairLayout's dva
-// (kDva), G N e fp32.
+// elements of `elem` bytes each: 2 bf16, 4 fp32; with `tiled`, G ceil(N /
+// 64) tiles of 64 rows) and, for PairLayout's dva (kDva), G N e fp32.
 struct EbBwdWs {
   float* qstats;
   float* kstats;
@@ -456,10 +415,12 @@ struct EbBwdWs {
   void* vadf;
   float* dva;
   size_t bytes;
-  EbBwdWs(void* base, int G, int N, int E, bool kDva, int elem = 2) {
+  EbBwdWs(void* base, int G, int N, int E, bool kDva, int elem = 2,
+          bool tiled = false) {
     const int kW = eb_kw_of(E, elem);
     const size_t st = eb_align(sizeof(float) * (size_t)G * N * 3);
-    const size_t rows = eb_align((size_t)elem * G * N * kW);
+    const size_t R = tiled ? (size_t)(N + kAT - 1) / kAT * kAT : N;
+    const size_t rows = eb_align((size_t)elem * G * R * kW);
     const uintptr_t p = reinterpret_cast<uintptr_t>(base);
     qstats = reinterpret_cast<float*>(p);
     kstats = reinterpret_cast<float*>(p + st);
@@ -474,8 +435,8 @@ struct EbBwdWs {
 
 // Host-side arguments of launch_bwd: the layout's in0 .. in3 and ld (see
 // essential_tc.cuh), dF (G, e, e) fp32, the outputs out0 .. out3 (the
-// pass kernel's dst0 .. dst3) and dpos_part, the EbBwdWs bytes, G slices, the
-// scale (sigma log2 e) and sigma.
+// pass kernel's dst0 .. dst3), the EbBwdWs bytes, G slices, the scale
+// (sigma log2 e) and sigma.
 template <typename T>
 struct EbBwdArgsT {
   const T* in0;
@@ -488,7 +449,6 @@ struct EbBwdArgsT {
   T* out1;
   T* out2;
   T* out3;
-  float* dpos_part;
   void* ws;
   int G, N, C, heads;
   float scale, sigma;
@@ -519,8 +479,7 @@ static cudaError_t launch_bwd_pass(const EbBwdArgsT<T>& a, const EbBwdWs& ws,
   const EbBwdRows<T> r(ws);
   kernel<<<grid, kAThreads, smem, st>>>(
       a.in0, a.in1, a.ld, ws.qstats, ws.kstats, r.vb, r.vbdft, r.vadf,
-      ws.dva, a.out0, a.out1, a.out2, a.out3, a.dpos_part, a.N, a.C, a.heads,
-      a.scale, a.sigma);
+      a.out0, a.out1, a.out2, a.out3, a.N, a.C, a.heads, a.scale, a.sigma);
   return cudaGetLastError();
 }
 
@@ -529,7 +488,7 @@ template <class Layout, int E, bool SINGLE, bool CROSS, typename T>
 cudaError_t launch_bwd(const EbBwdArgsT<T>& a, cudaStream_t st) {
   const int G = a.G, N = a.N;
   if (G > 65535 || N <= 0 || a.ws == nullptr) return cudaErrorInvalidValue;
-  const EbBwdWs ws(a.ws, G, N, E, !Layout::kSlice, (int)sizeof(T));
+  const EbBwdWs ws(a.ws, G, N, E, false, (int)sizeof(T));
   const dim3 grid((N + kAT - 1) / kAT, G);
   cudaError_t err = launch_stats<false, Layout>(
       a.in0, a.in1, a.ld, ws.qstats, G, N, a.C, a.heads, a.scale, st);
@@ -592,25 +551,6 @@ struct EbbTcArgs {
   void* ws;           // EbBwdWs bytes
   int B, N, C, heads;
 };
-
-// #6: G = 2 B heads slices of PairLayout, the images of pair b at qkv +
-// (2 b + i) N 3C
-template <typename T, int E, bool SINGLE, bool CROSS>
-cudaError_t launch_essential_bwd_tc(const EbbTcArgs<T>& a, cudaStream_t st) {
-  const size_t img = (size_t)a.N * 3 * a.C;
-  const EbBwdArgsT<T> b{a.qkv, a.qkv + img, a.pos, nullptr, 2 * img, a.dF,
-                        a.dqkv, a.dva, nullptr, nullptr, a.dpos_part, a.ws,
-                        2 * a.B * a.heads, a.N, a.C, a.heads, kEbScale,
-                        0.125f};
-  return launch_bwd<PairLayout, E, SINGLE, CROSS>(b, st);
-}
-
-#define RP_EBB_TC_EXTERN(T, E, S, X)                                      \
-  extern template cudaError_t launch_essential_bwd_tc<T, E, S, X>(        \
-      const EbbTcArgs<T>&, cudaStream_t);
-#define RP_EBB_TC_INSTANTIATE(T, E, S, X)                                 \
-  template cudaError_t launch_essential_bwd_tc<T, E, S, X>(               \
-      const EbbTcArgs<T>&, cudaStream_t);
 
 }  // namespace tc
 }  // namespace rp

@@ -7,9 +7,12 @@
 //     core _eb_combos :87): launch_moments_wg (essential_block.cu);
 //   - #6 _essential_block_bwd_kernel
 //     (rel_pose_tpu/ops/pallas_essential_block_bwd.py:35): launch_bwd_wg
-//     (essential_block_bwd.cu).
-// bf16 (every layout) and fp32 SliceLayout (#8) and grouped PairLayout (#9
-// s) stay on the mma.sync body of essential_tc.cuh / essential_tc_bwd.cuh.
+//     (essential_block_bwd.cu);
+//   - #9 _s_kernel (scripts/bench_cross.py:88): launch_moments_wg with
+//     kGroup, each block of the moments kernel walking S slices in turn
+//     with #4's arithmetic (cross_variants.cu).
+// bf16 runs essential_wgmma.cuh; fp32 SliceLayout (#8) stays on the
+// mma.sync body of essential_tc.cuh / essential_tc_bwd.cuh.
 // The function and the notation are essential_tc.cuh's and
 // essential_tc_bwd.cuh's (T is the identity in fp32).
 //
@@ -430,6 +433,9 @@ ewg_stats_kernel(const __grid_constant__ CUtensorMap m1,
 // A fragments (it lands raw in vb_n's work pair), k's pair and vb_n^T's
 // pair, the raw K and vb_n boxes, the barriers; vb_n^T's split runs during
 // q k^T and the next k's during P vb_n (attention_wgmma_f32.cuh's forward).
+// Block row y takes slice y, or with kGroup the S slices
+// PairLayout::slice(y, 0 .. S - 1) in turn (#9's s), each with the same
+// arithmetic; the barriers' phases run on over the slices.
 template <int E>
 constexpr size_t moments_wg_smem() {
   constexpr int KW = EbW<float, E>::kW;
@@ -437,7 +443,7 @@ constexpr size_t moments_wg_smem() {
          kAlign;
 }
 
-template <int E, bool SINGLE, bool CROSS>
+template <int E, bool SINGLE, bool CROSS, bool kGroup>
 __global__ void __launch_bounds__(kThreads, 2)
 ewg_moments_kernel(const __grid_constant__ CUtensorMap m1,
                    const __grid_constant__ CUtensorMap m2,
@@ -446,7 +452,7 @@ ewg_moments_kernel(const __grid_constant__ CUtensorMap m1,
                    const float* __restrict__ img2, size_t bstride,
                    const float* __restrict__ pos,
                    const float* __restrict__ kstats,
-                   float* __restrict__ fpart, int N, int C, int heads,
+                   float* __restrict__ fpart, int N, int C, int heads, int S,
                    float scale) {
   using W = EbW<float, E>;
   constexpr int KW = W::kW;
@@ -465,13 +471,10 @@ ewg_moments_kernel(const __grid_constant__ CUtensorMap m1,
   const uint32_t Rk = Vs + kPairV, Rv = Rk + kF32Raw;
   const uint32_t qbar = Rv + kRawV, kbar = qbar + 8, vbar = qbar + 16;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kT, g = blockIdx.y;
-  const EwSlice sl(g, heads);
-  const CUtensorMap& mq = sl.dir == 0 ? m2 : m1;
-  const CUtensorMap& mk = sl.dir == 0 ? m1 : m2;
-  const int qc = sl.h * kHeadDim, kc = C + sl.h * kHeadDim;
+  const int q0 = blockIdx.x * kT;
   const int nk = (N + kT - 1) / kT;
-  const float* ks = kstats + (size_t)g * N * 3;
+  const int per_block = kGroup ? S : 1;
+  const size_t G = (size_t)gridDim.y * per_block;
 
   if (tid == 0) {
     mbar_init(qbar, 1);
@@ -480,158 +483,173 @@ ewg_moments_kernel(const __grid_constant__ CUtensorMap m1,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(qbar, kF32Raw);
-    tma_load(Vs, mq, qbar, qc, q0, sl.b);  // q lands raw in vb_n's pair
-    mbar_expect_tx(kbar, kF32Raw);
-    tma_load(Rk, mk, kbar, kc, 0, sl.b);
-    mbar_expect_tx(vbar, kRawV);
-    tma_load(Rv, mvb, vbar, 0, 0, g);
-  }
-  unsigned qh[8][4], ql[8][4];
-  mbar_wait(qbar, 0);
-  raw_frags(qh, ql, reinterpret_cast<const float*>(VP));
-  mbar_wait(kbar, 0);
-  split_rows_w<kHeadDim>(KP, rk);
-  proxy_fence();
-  __syncthreads();  // raw q is read before vb_n's split overwrites it
-  if (tid == 0 && nk > 1) {
-    mbar_expect_tx(kbar, kF32Raw);
-    tma_load(Rk, mk, kbar, kc, kT, sl.b);
-  }
+#pragma unroll 1
+  for (int si = 0; si < per_block; ++si) {
+    const int g =
+        kGroup ? PairLayout::slice(blockIdx.y, si, S, heads) : blockIdx.y;
+    const EwSlice sl(g, heads);
+    const CUtensorMap& mq = sl.dir == 0 ? m2 : m1;
+    const CUtensorMap& mk = sl.dir == 0 ? m1 : m2;
+    const int qc = sl.h * kHeadDim, kc = C + sl.h * kHeadDim;
+    const float* ks = kstats + (size_t)g * N * 3;
+    const int t0 = si * nk;  // k and vb_n loads of the earlier slices
+    if (si > 0) {  // the last slice's reads and writes of the pairs are done
+      proxy_fence();
+      __syncthreads();
+    }
+    if (tid == 0) {
+      mbar_expect_tx(qbar, kF32Raw);
+      tma_load(Vs, mq, qbar, qc, q0, sl.b);  // q lands raw in vb_n's pair
+      mbar_expect_tx(kbar, kF32Raw);
+      tma_load(Rk, mk, kbar, kc, 0, sl.b);
+      mbar_expect_tx(vbar, kRawV);
+      tma_load(Rv, mvb, vbar, 0, 0, g);
+    }
+    unsigned qh[8][4], ql[8][4];
+    mbar_wait(qbar, si & 1);
+    raw_frags(qh, ql, reinterpret_cast<const float*>(VP));
+    mbar_wait(kbar, t0 & 1);
+    split_rows_w<kHeadDim>(KP, rk);
+    proxy_fence();
+    __syncthreads();  // raw q is read before vb_n's split overwrites it
+    if (tid == 0 && nk > 1) {
+      mbar_expect_tx(kbar, kF32Raw);
+      tma_load(Rk, mk, kbar, kc, kT, sl.b);
+    }
 
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[KW / 8][4] = {}, s[8][4], pv[KW / 8][4];
-  unsigned ph[8][4], pl[8][4];
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * kT;
-    wg_fence();
-    gemm3_rs(s, qh, ql, Ks);  // s = q . k^T, q from registers
-    wg_commit();
-    float mc[8][2] = {};  // the key statistics' max of its columns
-    if constexpr (!SINGLE) {
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float o[KW / 8][4] = {}, s[8][4], pv[KW / 8][4];
+    unsigned ph[8][4], pl[8][4];
+    for (int t = 0; t < nk; ++t) {
+      const int k0 = t * kT;
+      wg_fence();
+      gemm3_rs(s, qh, ql, Ks);  // s = q . k^T, q from registers
+      wg_commit();
+      float mc[8][2] = {};  // the key statistics' max of its columns
+      if constexpr (!SINGLE) {
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = k0 + acc_col(ni, c);
+            mc[ni][c] = j < N ? __ldg(ks + (size_t)j * 3) : 0.f;
+          }
+      }
+      mbar_wait(vbar, (t0 + t) & 1);
+      split_cols_w<KW>(VP, rv);  // vb_n^T, during the score product
+      proxy_fence();
+      __syncthreads();
+      if (tid == 0 && t + 1 < nk) {
+        mbar_expect_tx(vbar, kRawV);
+        tma_load(Rv, mvb, vbar, 0, k0 + kT, g);
+      }
+      wg_wait();
+      fence_acc(s);
+      fence_frags(qh, ql);
+      // the tile's row max, the running max and the rescale of l
+      float mt[2] = {m[0], m[1]}, alpha[2];
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int j = k0 + acc_col(ni, c);
-          mc[ni][c] = j < N ? __ldg(ks + (size_t)j * 3) : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          s[ni][e] = __fmul_rn(s[ni][e], scale);
+          if (k0 + acc_col(ni, e) < N) mt[e >> 1] = fmaxf(mt[e >> 1], s[ni][e]);
         }
-    }
-    mbar_wait(vbar, t & 1);
-    split_cols_w<KW>(VP, rv);  // vb_n^T, during the score product
-    proxy_fence();
-    __syncthreads();
-    if (tid == 0 && t + 1 < nk) {
-      mbar_expect_tx(vbar, kRawV);
-      tma_load(Rv, mvb, vbar, 0, k0 + kT, g);
-    }
-    wg_wait();
-    fence_acc(s);
-    fence_frags(qh, ql);
-    // the tile's row max, the running max and the rescale of l
-    float mt[2] = {m[0], m[1]}, alpha[2];
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[ni][e] = __fmul_rn(s[ni][e], scale);
-        if (k0 + acc_col(ni, e) < N) mt[e >> 1] = fmaxf(mt[e >> 1], s[ni][e]);
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = quad_max(mt[r]);
+        alpha[r] = exp2f(m[r] - mt[r]);  // 0 at the first tile
+        m[r] = mt[r];
+        l[r] *= alpha[r];
       }
+      // P = er ec (SINGLE: er), masked keys 0
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = quad_max(mt[r]);
-      alpha[r] = exp2f(m[r] - mt[r]);  // 0 at the first tile
-      m[r] = mt[r];
-      l[r] *= alpha[r];
-    }
-    // P = er ec (SINGLE: er), masked keys 0
+      for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = 0.f;
-        if (k0 + acc_col(ni, e) < N) {
-          const float er = exp2f(s[ni][e] - m[e >> 1]);
-          l[e >> 1] += er;
-          p = SINGLE ? er : er * exp2f(s[ni][e] - mc[ni][e & 1]);
+        for (int e = 0; e < 4; ++e) {
+          float p = 0.f;
+          if (k0 + acc_col(ni, e) < N) {
+            const float er = exp2f(s[ni][e] - m[e >> 1]);
+            l[e >> 1] += er;
+            p = SINGLE ? er : er * exp2f(s[ni][e] - mc[ni][e & 1]);
+          }
+          s[ni][e] = p;
         }
-        s[ni][e] = p;
+      split_frag(ph, pl, s);
+      __syncthreads();  // every warp's score products have read k's pair
+      // P vb_n as two fresh partials of 32 keys each (the depth of the fp32
+      // GEMMs' partials; 64-deep ones read 1.224 on the float64 bar against
+      // 1.195, PERF.md), the first during the next k's split
+      wg_fence();
+      gemm3_rs_n<KW, 0, 4>(pv, ph, pl, Vs);
+      wg_commit();
+      if (t + 1 < nk) {
+        mbar_wait(kbar, (t0 + t + 1) & 1);
+        split_rows_w<kHeadDim>(KP, rk);  // the next k, during P vb_n
+        proxy_fence();
       }
-    split_frag(ph, pl, s);
-    __syncthreads();  // every warp's score products have read k's pair
-    // P vb_n as two fresh partials of 32 keys each (the depth of the fp32
-    // GEMMs' partials; 64-deep ones read 1.224 on the float64 bar against
-    // 1.195, PERF.md), the first during the next k's split
-    wg_fence();
-    gemm3_rs_n<KW, 0, 4>(pv, ph, pl, Vs);
-    wg_commit();
-    if (t + 1 < nk) {
-      mbar_wait(kbar, (t + 1) & 1);
-      split_rows_w<kHeadDim>(KP, rk);  // the next k, during P vb_n
-      proxy_fence();
+      wg_wait();
+      fence_acc_n<KW>(pv);
+#pragma unroll
+      for (int ni = 0; ni < KW / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[ni][e] = __fmaf_rn(o[ni][e], alpha[e >> 1], pv[ni][e]);
+      wg_fence();
+      gemm3_rs_n<KW, 4, 8>(pv, ph, pl, Vs);
+      wg_commit();
+      wg_wait();
+      fence_acc_n<KW>(pv);
+      fence_frags(ph, pl);
+#pragma unroll
+      for (int ni = 0; ni < KW / 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[ni][e] = __fadd_rn(o[ni][e], pv[ni][e]);
+      // every warp's P vb_n products have read vb_n's pair; the next k is
+      // split
+      __syncthreads();
+      if (tid == 0 && t + 2 < nk) {
+        mbar_expect_tx(kbar, kF32Raw);
+        tma_load(Rk, mk, kbar, kc, k0 + 2 * kT, sl.b);
+      }
     }
-    wg_wait();
-    fence_acc_n<KW>(pv);
-#pragma unroll
-    for (int ni = 0; ni < KW / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[ni][e] = __fmaf_rn(o[ni][e], alpha[e >> 1], pv[ni][e]);
-    wg_fence();
-    gemm3_rs_n<KW, 4, 8>(pv, ph, pl, Vs);
-    wg_commit();
-    wg_wait();
-    fence_acc_n<KW>(pv);
-    fence_frags(ph, pl);
-#pragma unroll
-    for (int ni = 0; ni < KW / 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[ni][e] = __fadd_rn(o[ni][e], pv[ni][e]);
-    // every warp's P vb_n products have read vb_n's pair; the next k is
-    // split
-    __syncthreads();
-    if (tid == 0 && t + 2 < nk) {
-      mbar_expect_tx(kbar, kF32Raw);
-      tma_load(Rk, mk, kbar, kc, k0 + 2 * kT, sl.b);
-    }
-  }
 
-  // av = o / lr to shared memory beside va's rows (over the work pairs,
-  // free after the walk), then F = va^T av on mma.sync
-  float* VAs = reinterpret_cast<float*>(sm);
-  float* AVs = VAs + W::kTileElems;
-  const EbView<float> vw = PairLayout::view<E, CROSS>(
-      img1, img2, pos, bstride, N, C, heads, g);
-  PairLayout::load_v<E>(VAs, vw.va, vw, q0, N);
-  cp_async_commit();
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const float inv = 1.f / quad_sum(l[half]);
-    const int r = warp * 16 + (lane >> 2) + half * 8;
-    const bool ok = q0 + r < N;
-#pragma unroll
-    for (int ni = 0; ni < KW / 8; ++ni)
-      store2(AVs + r * W::kLd + acc_col(ni, 0),
-             ok ? o[ni][2 * half] * inv : 0.f,
-             ok ? o[ni][2 * half + 1] * inv : 0.f);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* fp = fpart + ((size_t)blockIdx.x * gridDim.y + g) * E * E;
-  for (int mt = warp; mt < W::kM16; mt += kThreads / 32) {
-    float f[W::kNT][4];
-    mma_atb_f32<W::kNT, W::kLd, W::kW>(f, VAs, mt * 16, AVs);
+    // av = o / lr to shared memory beside va's rows (over the work pairs,
+    // free after the walk), then F = va^T av on mma.sync
+    float* VAs = reinterpret_cast<float*>(sm);
+    float* AVs = VAs + W::kTileElems;
+    const EbView<float> vw = PairLayout::view<E, CROSS>(
+        img1, img2, pos, bstride, N, C, heads, g);
+    PairLayout::load_v<E>(VAs, vw.va, vw, q0, N);
+    cp_async_commit();
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int e1 = mt * 16 + (lane >> 2) + half * 8;
-      if (e1 >= E) continue;
+      const float inv = 1.f / quad_sum(l[half]);
+      const int r = warp * 16 + (lane >> 2) + half * 8;
+      const bool ok = q0 + r < N;
 #pragma unroll
-      for (int ni = 0; ni < W::kNT; ++ni) {
-        const int e2 = acc_col(ni, 0);
-        if (e2 < E)
-          *reinterpret_cast<float2*>(fp + e1 * E + e2) =
-              make_float2(f[ni][2 * half], f[ni][2 * half + 1]);
+      for (int ni = 0; ni < KW / 8; ++ni)
+        store2(AVs + r * W::kLd + acc_col(ni, 0),
+               ok ? o[ni][2 * half] * inv : 0.f,
+               ok ? o[ni][2 * half + 1] * inv : 0.f);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    float* fp = fpart + ((size_t)blockIdx.x * G + g) * E * E;
+    for (int mt = warp; mt < W::kM16; mt += kThreads / 32) {
+      float f[W::kNT][4];
+      mma_atb_f32<W::kNT, W::kLd, W::kW>(f, VAs, mt * 16, AVs);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int e1 = mt * 16 + (lane >> 2) + half * 8;
+        if (e1 >= E) continue;
+#pragma unroll
+        for (int ni = 0; ni < W::kNT; ++ni) {
+          const int e2 = acc_col(ni, 0);
+          if (e2 < E)
+            *reinterpret_cast<float2*>(fp + e1 * E + e2) =
+                make_float2(f[ni][2 * half], f[ni][2 * half + 1]);
+        }
       }
     }
   }
@@ -1002,12 +1020,16 @@ static cudaError_t launch_stats_wg(const CUtensorMap& m1,
   return cudaGetLastError();
 }
 
-// #2-#4's moments in fp32: G = 2 B heads slices of PairLayout, S = 1
-template <int E, bool SINGLE, bool CROSS>
-cudaError_t launch_moments_wg(const EbTcArgs<float>& a, cudaStream_t st) {
+// #2-#4's moments in fp32: G = 2 B heads slices of PairLayout; with kGroup
+// (#9's s) each block of the moments kernel walks S slices (B % S == 0)
+template <int E, bool SINGLE, bool CROSS, bool kGroup = false>
+cudaError_t launch_moments_wg(const EbTcArgs<float>& a, cudaStream_t st,
+                              int S = 1) {
   constexpr int KW = EbW<float, E>::kW;
   const int G = 2 * a.B * a.heads, N = a.N;
-  if (G > 65535 || N <= 0 || a.ws == nullptr) return cudaErrorInvalidValue;
+  if (G > 65535 || N <= 0 || a.ws == nullptr ||
+      (kGroup && (S < 1 || a.B % S != 0)) || (!kGroup && S != 1))
+    return cudaErrorInvalidValue;
   const EbFwdWs ws(a.ws, G, N, E, (int)sizeof(float));
   float* vbn = reinterpret_cast<float*>(ws.vbn);
   CUtensorMap m1, m2, mvb;
@@ -1023,12 +1045,12 @@ cudaError_t launch_moments_wg(const EbTcArgs<float>& a, cudaStream_t st) {
       SINGLE ? nullptr : ws.kstats, vbn, N, a.C, a.heads, G);
   RP_TRY(cudaGetLastError());
   constexpr size_t smem = moments_wg_smem<E>();
-  auto kernel = ewg_moments_kernel<E, SINGLE, CROSS>;
+  auto kernel = ewg_moments_kernel<E, SINGLE, CROSS, kGroup>;
   RP_TRY(smem_attr(kernel, smem));
   const int nt = (N + kT - 1) / kT;
-  kernel<<<dim3(nt, G), kThreads, smem, st>>>(
+  kernel<<<dim3(nt, G / S), kThreads, smem, st>>>(
       m1, m2, mvb, a.img1, a.img2, a.bstride, a.pos, ws.kstats, ws.fpart, N,
-      a.C, a.heads, kEbScale);
+      a.C, a.heads, S, kEbScale);
   RP_TRY(cudaGetLastError());
   const size_t L = (size_t)G * E * E;
   return launch_sum_partials(ws.fpart, nt, L, L, a.F, st);
@@ -1108,10 +1130,10 @@ cudaError_t launch_bwd_wg(const EbbTcArgs<float>& a, cudaStream_t st) {
 
 #define RP_EW_FWD_EXTERN(E, S, X)                                     \
   extern template cudaError_t launch_moments_wg<E, S, X>(            \
-      const EbTcArgs<float>&, cudaStream_t);
+      const EbTcArgs<float>&, cudaStream_t, int);
 #define RP_EW_FWD_INSTANTIATE(E, S, X)                                \
   template cudaError_t launch_moments_wg<E, S, X>(const EbTcArgs<float>&, \
-                                                  cudaStream_t);
+                                                  cudaStream_t, int);
 #define RP_EW_BWD_EXTERN(E, S, X)                                     \
   extern template cudaError_t launch_bwd_wg<E, S, X>(                \
       const EbbTcArgs<float>&, cudaStream_t);

@@ -1,7 +1,8 @@
-// The bf16 ViT-stack GEMMs of gemm_wgmma.cuh, instantiated in a
-// translation unit of their own (it builds beside vit_stack.cu, which
-// declares the three entry functions), and a test-only C entry point that
-// runs one of them alone.
+// The bf16 GEMMs of gemm_wgmma.cuh, instantiated in a translation unit of
+// their own (it builds beside vit_stack.cu and essential_block.cu, which
+// declare the entry functions): the ViT stack's three, the essential
+// block's qkv Linear, and a test-only C entry point that runs one of the
+// ViT stack's alone.
 
 #include "gemm_wgmma.cuh"
 
@@ -27,6 +28,13 @@ cudaError_t vit_gemm_bf16(int epi, const bf16* A, const bf16* W,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// the essential block's qkv Linear, out = T(T(x w^T) + T(b)) (#2, #3)
+cudaError_t essential_qkv_bf16(const bf16* x, const bf16* w,
+                               const float* bias, bf16* out, int M, int N,
+                               int K, cudaStream_t st) {
+  return gemm_fwd<kRounded>(x, w, bias, nullptr, out, nullptr, M, N, K, st);
 }
 
 cudaError_t vit_gemm_dx_bf16(int epi, const bf16* dYb, const bf16* W,

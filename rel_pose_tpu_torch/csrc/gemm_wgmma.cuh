@@ -1,11 +1,16 @@
-// The bf16 GEMMs of the ViT stack (kernels #1 and #5) on Hopper's
+// The bf16 GEMMs of the ViT stack (kernels #1 and #5) and of the essential
+// block's qkv Linear on Hopper's
 // warpgroup tensor-core products (wgmma) with operands brought by the
 // Tensor Memory Accelerator (TMA), in persistent, warp-specialised blocks.
 // fp32 runs on gemm_wgmma_f32.cuh (3xTF32 on TF32 wgmma), which shares this
-// file's pieces; the essential block's qkv Linear (kRounded) stays on
-// gemm_tc.cuh's mma.sync body in both dtypes.
+// file's pieces.  The essential block's qkv Linear in bf16 (#2, #3) runs
+// this forward too, with epilogue kRounded (essential_qkv_bf16,
+// gemm_wgmma.cu).
 //
 // Replaces, in bf16, the jnp.dot / dot_general products inside
+//   - rel_pose_tpu/ops/pallas_essential_block.py:
+//     _essential_block_pair_kernel and _essential_block_x_kernel: the qkv
+//     Linear (_linear_rounded), op kOpFwd with epilogue kRounded;
 //   - rel_pose_tpu/ops/pallas_vit.py:_vit_stack_kernel: qkv (:129), proj
 //     (:242), fc1 (:264), fc2 (:272) -- op kOpFwd, the Linear's forward
 //     with common.cuh's epilogues kBias, kBiasResid, kBiasGelu;
@@ -48,8 +53,8 @@
 //     Not tried: a resident weight tile (192 x 192 bf16, 72 KB at K =
 //     192), which a block could keep whenever the grid is a multiple of
 //     the column tiles, leaving only A in the ring;
-//   - epilogues element for element as gemm_tc.cuh's (common.cuh's
-//     Epilogue and DxEpilogue): each consumer stages its fp32 sums through
+//   - epilogues element for element as common.cuh's Epilogue and
+//     DxEpilogue: each consumer stages its fp32 sums through
 //     shared memory and writes rows of 4 columns (8- and 16-byte accesses),
 //     masked past M; resid may alias out, aux may alias out.  dW writes
 //     per-chunk fp32 partials from the registers; its bias column sums of
@@ -57,11 +62,11 @@
 //     the same chunks; sum_partials adds both in chunk order.
 // No atomics: every output element is summed in one fixed order, so two
 // calls give the same bits.  bf16 x bf16 products are exact in fp32 and
-// the sums are fp32: only their order differs from gemm_tc.cuh's.
+// the sums are fp32: only their order differs from the plain version's.
 
 #pragma once
 
-#include "gemm_tc.cuh"  // bf16, store4, unpack4_bf16, split_tf32
+#include "mma_helpers.cuh"  // bf16, store4, unpack4_bf16, split_tf32
 #include "sm90.cuh"
 
 namespace rp {
@@ -277,6 +282,8 @@ __device__ __forceinline__ void epilogue(const GemmArgs& a, const float* Cs,
       for (int e = 0; e < 4; ++e) {
         if constexpr (EPI == kBias) {
           y[e] = v[e] + b[e];
+        } else if constexpr (EPI == kRounded) {
+          y[e] = round_to<bf16>(v[e]) + round_to<bf16>(b[e]);
         } else if constexpr (EPI == kBiasGelu) {
           y[e] = gelu_policy<bf16>(round_to<bf16>(v[e] + b[e]));
         } else if constexpr (EPI == kBiasResid) {
@@ -555,7 +562,8 @@ static cudaError_t gemm_dispatch(const CUtensorMap& ma, const CUtensorMap& mb,
 }
 
 // out[M, N] = epilogue(A[M, K] . W[N, K]^T): the forward of a Linear
-// (common.cuh's Epilogue: kBias, kBiasGelu, kBiasResid, kBiasGeluSplit)
+// (common.cuh's Epilogue: kBias, kBiasGelu, kBiasResid, kBiasGeluSplit,
+// kRounded)
 template <int EPI>
 static cudaError_t gemm_fwd(const bf16* A, const bf16* W, const float* bias,
                             const bf16* resid, bf16* out, float* aux, int M,

@@ -13,7 +13,7 @@
 //     and dW (:196, :204, :218, :228; kOpDw, split-K over kDwChunk rows).
 //
 // Every product is 3xTF32, as in the rest of the fp32 port: each operand x
-// splits into TF32 hi = rna(x) and lo = rna(x - hi) (gemm_tc.cuh's
+// splits into TF32 hi = rna(x) and lo = rna(x - hi) (mma_helpers.cuh's
 // split_tf32), and lo_a hi_b, hi_a lo_b, then hi_a hi_b are summed (lo_a
 // lo_b, below 2^-22 of |a||b|, is dropped).
 //
@@ -41,7 +41,7 @@
 //     128 registers a thread, which the two 64 x 96 accumulators and the A
 //     fragments (48 + 48 + 32) fill.  A transposed global copy of dY or X
 //     would cost an HBM pass over up to 69,120 x 768 fp32 a GEMM;
-//   - the tensor cores' fp32 sums do not round to nearest (gemm_tc.cuh's
+//   - the tensor cores' fp32 sums do not round to nearest (mma_helpers.cuh's
 //     mma_3xtf32 says what summing into the accumulator itself cost), so
 //     every kF32Steps k8 steps (32 deep: a stage) the products start a
 //     fresh partial, residual products first, which one IEEE fp32 add puts
@@ -63,8 +63,8 @@
 //     products.  dW: one consumer a block over a 64 x 96 tile of dW, two
 //     blocks an SM (109 KB each), so one block's splits run beside the
 //     other's products;
-//   - epilogues element for element as gemm_tc.cuh's fp32 ones (common.cuh's
-//     Epilogue and DxEpilogue), staged through shared memory and written in
+//   - epilogues element for element as common.cuh's Epilogue and
+//     DxEpilogue in fp32, staged through shared memory and written in
 //     rows of 4 columns (16-byte accesses), masked past M; resid and aux may
 //     alias out.  dW writes per-chunk fp32 partials from the registers, the
 //     bias column sums come from gemm_dw_bias_kernel, and sum_partials adds

@@ -16,9 +16,11 @@ result ``F (B, 2, heads, 70, 70)`` fp32, as #4:
 
 On CPU tensors each is its plain version; on CUDA tensors it launches
 ``rp_essential_block_s`` / ``rp_essential_block_variant`` of
-``csrc/cross_variants.cu`` or raises: #4's tensor-core moments
-(``csrc/essential_tc.cuh``; bf16 on m16n8k16, fp32 as 3xTF32, and ``s``
-gives #4's bits in either dtype), with the scratch that
+``csrc/cross_variants.cu`` or raises: ``s`` on #4's wgmma moments
+(``csrc/essential_wgmma.cuh`` in bf16, ``essential_wgmma_f32.cuh`` in fp32
+as 3xTF32; each block walks its S slices in turn, so ``s`` gives #4's bits
+in either dtype), the modes on the mma.sync moments of
+``csrc/essential_tc.cuh`` (m16n8k16), with the scratch that
 ``rp_cross_variants_workspace`` sizes, at most 65,535 slices (2 B heads).
 No model path runs them: their caller is ``scripts/bench_cross_torch.py``,
 for kernel-design work.

@@ -22,16 +22,15 @@ Each takes ``positional`` (``(B, N, 6)`` or None) and the flags
 tensor it is its plain PyTorch version (``essential_block_pair_reference``,
 ``essential_block_x_reference``, ``essential_block_reference``); on a CUDA
 tensor it launches the hand kernels of ``csrc/essential_block.cu`` or
-raises, with the scratch that ``rp_essential_block_workspace`` sizes:
-bf16 runs the mma.sync qkv GEMM (``csrc/gemm_tc.cuh``) and moments
-(``csrc/essential_tc.cuh``, m16n8k16); fp32 the qkv GEMM and the moments
-on Hopper's TF32 wgmma with TMA-fed tiles (``csrc/gemm_wgmma_f32.cuh``,
-``csrc/essential_wgmma_f32.cuh``) as 3xTF32 (three TF32 products a
+raises, with the scratch that ``rp_essential_block_workspace`` sizes.
+Both dtypes run the qkv GEMM and the moments on Hopper's wgmma with
+TMA-fed tiles: bf16 on ``csrc/gemm_wgmma.cuh`` (epilogue ``kRounded``)
+and ``csrc/essential_wgmma.cuh``, fp32 on ``csrc/gemm_wgmma_f32.cuh``
+and ``csrc/essential_wgmma_f32.cuh`` as 3xTF32 (three TF32 products a
 product, fp32 accuracy).  The kernels take at most 65,535 slices (2 B
-heads: 10,922 pairs of the flagship), the bf16 qkv GEMM 65,535 row tiles
-of 128 rows and the fp32 one (a persistent launch) 2^31 - 1 rows; a larger
-call raises before any launch, as does an operand that does not start on
-a 16-byte boundary.
+heads: 10,922 pairs of the flagship) and the qkv GEMM (a persistent
+launch) 2^31 - 1 rows; a larger call raises before any launch, as does an
+operand that does not start on a 16-byte boundary.
 
 Per direction and head: s = q k^T / sqrt(d), A = softmax_row(s) *
 softmax_col(s) in fp32 (softmax_row(s) alone with ``use_single_softmax``),
@@ -49,9 +48,9 @@ recomputes the LayerNorm and ``linear_rounded`` in PyTorch where the op has
 them, runs :func:`fused_essential_block_bwd` for dqkv and the positional
 cotangent -- the plain :func:`essential_block_bwd_reference` on CPU
 tensors, the kernel of ``csrc/essential_block_bwd.cu`` (which replaces
-``_essential_block_bwd_kernel``: bf16 the mma.sync passes of
-``csrc/essential_tc_bwd.cuh``, fp32 the TF32 wgmma passes of
-``csrc/essential_wgmma_f32.cuh``) on CUDA tensors -- and chains
+``_essential_block_bwd_kernel``: the wgmma passes of
+``csrc/essential_wgmma.cuh`` in bf16, of ``csrc/essential_wgmma_f32.cuh``
+in fp32) on CUDA tensors -- and chains
 through the Linear and the LayerNorm VJP in PyTorch.
 """
 
@@ -65,7 +64,7 @@ from .bilinear import fused_bilinear_attention
 HEAD_DIM = 64          # the kernels' head width
 POS_COLS = 6
 MAX_GRID = 65535       # a launch grid's second and third dimensions
-MAX_INT = 2 ** 31 - 1  # a C int: the fp32 qkv GEMM's row count
+MAX_INT = 2 ** 31 - 1  # a C int: the qkv GEMM's row count
 _KERNEL_DEVICE = "cuda"   # the device type the kernels launch on
 
 
@@ -156,25 +155,23 @@ def _on_card(name, x):
     raise ValueError(f"{name}: no kernel for {x.device}")
 
 
-def _check_grid(name, B, num_heads, gemm_rows=0, bf16=True):
+def _check_grid(name, B, num_heads, gemm_rows=0):
     """Raise unless the launch grids take ``B`` pairs: one block row per
-    slice (2 B heads); the qkv GEMM over ``gemm_rows`` rows, in bf16 one
-    grid row per 128 rows, in fp32 a persistent launch that counts its
-    rows in a C int."""
+    slice (2 B heads); the qkv GEMM over ``gemm_rows`` rows, a persistent
+    launch that counts its rows in a C int."""
     slices = 2 * B * num_heads
-    tiles = -(-gemm_rows // 128)
-    if slices > MAX_GRID or (bf16 and tiles > MAX_GRID):
+    if slices > MAX_GRID:
         raise ValueError(
-            f"{name}: {B} pairs need {slices} slices and {tiles} GEMM row "
-            f"tiles; the launch grid takes at most {MAX_GRID} of each")
+            f"{name}: {B} pairs need {slices} slices; the launch grid takes "
+            f"at most {MAX_GRID}")
     if gemm_rows > MAX_INT:
-        raise ValueError(f"{name}: {gemm_rows} GEMM rows; the fp32 qkv "
-                         f"GEMM takes at most {MAX_INT}")
+        raise ValueError(f"{name}: {gemm_rows} GEMM rows; the qkv GEMM "
+                         f"takes at most {MAX_INT}")
 
 
 def _check_aligned(name, *tensors):
-    """The kernels load 16-byte rows (cp.async): every operand must start
-    on a 16-byte boundary."""
+    """The kernels load 16-byte rows (TMA, cp.async): every operand must
+    start on a 16-byte boundary."""
     for t in tensors:
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: a {str(t.dtype)[6:]} operand at "
@@ -231,8 +228,7 @@ def _pair_forward(xpair, lns, lnb, w, b, positional, num_heads,
     pos = None if positional is None else positional.to(cdt).contiguous()
     _check_inputs(xpair, (lns, lnb, w, b, pos), num_heads)
     bf16 = cdt == torch.bfloat16
-    _check_grid("fused_essential_block_pair", B, num_heads, 2 * B * N,
-                bf16)
+    _check_grid("fused_essential_block_pair", B, num_heads, 2 * B * N)
     _check_aligned("fused_essential_block_pair", xpair, w)
     lib = _build.library()
     f = _f_out(B, num_heads, positional, xpair.device)
@@ -339,7 +335,7 @@ def _x_forward(x1, x2, w, b, positional, num_heads, cross_features,
                              f"{tuple(t.shape)} tensor on {t.device}, "
                              f"expected {shape} on {x1.device}")
     bf16 = cdt == torch.bfloat16
-    _check_grid("fused_essential_block_x", B, num_heads, B * N, bf16)
+    _check_grid("fused_essential_block_x", B, num_heads, B * N)
     _check_aligned("fused_essential_block_x", x1, x2, w)
     lib = _build.library()
     f = _f_out(B, num_heads, positional, x1.device)

@@ -21,16 +21,18 @@ Counterpart of ``scripts/mfu_report.py``:
     the tile shapes the port's bf16 tensor-core kernels schedule -- each
     product's dimensions rounded up to the tile: the GEMMs' 128 x 192 x 64
     (``csrc/gemm_wgmma.cuh``: two 64-row consumers, ``kWideN`` columns,
-    ``kGemmK`` deep; the essential block's qkv GEMM on ``gemm_tc.cuh``'s
-    ``FwdWide`` has the same tile at C = 192; fp32's GEMMs,
+    ``kGemmK`` deep; the essential block's qkv GEMM runs the same forward,
+    epilogue ``kRounded``; fp32's GEMMs,
     ``csrc/gemm_wgmma_f32.cuh``, 128 x 96 x 32, ``GEMM_TILE_F32``, which
     pads nothing more at the flagship's widths), the attention's
     64-row query and key tiles (``csrc/attention_wgmma.cuh`` ``kT``, the
     wgmma tiles of the bf16 body and of the fp32 one,
     ``csrc/attention_wgmma_f32.cuh``: both execute 2 products a head
     forward, and 7 (bf16) or 8 (fp32) backward), the essential body's
-    e = 70 in 72 output columns (n8 tiles) and 80 of depth (k16 steps;
-    ``csrc/essential_tc.cuh`` ``EbW``).
+    e = 70 in 72 output columns (P vb_n at wgmma n = 72, F in n8 tiles;
+    ``csrc/essential_wgmma.cuh`` ``EwbW``) and 80 rows of va in F's m16
+    tiles (``csrc/essential_tc.cuh`` ``EbW``, the rows of the mma.sync
+    product va^T av).
 
 The times come from ``--measure`` (CUDA events on the card, as
 ``chip_smoke.py`` times them: 3 calls after a warm-up; the eval forward on
@@ -48,7 +50,8 @@ import sys
 GEMM_TILE = (128, 192, 64)   # gemm_wgmma.cuh: 64 kWG rows, kWideN, kGemmK
 GEMM_TILE_F32 = (128, 96, 32)  # gemm_wgmma_f32.cuh: kF32WideN, kF32K
 ATTN_TILE = 64               # attention_wgmma*.cuh: kT, query and key rows
-MMA_N, MMA_K = 8, 16         # mma.sync m16n8k16: output columns, depth
+MMA_N, MMA_K = 8, 16         # n8 output columns, k16 steps of a depth
+MMA_M = 16                   # m16 tiles: the rows of va^T av
 TIMES = ("eval_ms", "train_fp32_ms", "train_bf16_ms", "vit_eval_ms",
          "cross_eval_ms")
 
@@ -85,13 +88,13 @@ def essential_block_macs(B, N, C, heads, e, padded):
     """MACs of the essential block's forward over B pairs: the qkv GEMM of
     the 2 B images' normed tokens, then per pair, direction and head the
     scores (N x d x N), A vb (N x N x e) and va^T (A vb) (e x N x e); if
-    ``padded``, e in 72 columns where it is an output and 80 where it is a
-    depth, N in 64-row tiles."""
+    ``padded``, e in 72 columns where it is an output and 80 where it is
+    va^T's rows, N in 64-row tiles."""
     d = C // heads
     qkv = gemm_macs(2 * B * N, C, 3 * C, padded)
     if padded:
-        n, en, ek = pad(N, ATTN_TILE), pad(e, MMA_N), pad(e, MMA_K)
-        combo = n * d * n + n * n * en + n * ek * en
+        n, en, em = pad(N, ATTN_TILE), pad(e, MMA_N), pad(e, MMA_M)
+        combo = n * d * n + n * n * en + n * em * en
     else:
         combo = N * d * N + N * N * e + e * N * e
     return qkv + 2 * B * heads * combo

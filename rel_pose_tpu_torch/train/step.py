@@ -4,7 +4,7 @@ Counterpart of ``rel_pose_tpu/train/step.py:23-111`` (the body of the
 reference's loop, its ``train.py:140-166``).  A
 train step runs the model in training mode (BatchNorm on batch statistics,
 running statistics updated), the loss w_tr L_tr + w_rot L_rot, the backward
-through the two stages' hand kernels, ``clip_grad_norm_(clip)``, Adam and
+through the two stages' hand kernels, ``clip_grad_norm(clip)``, Adam and
 the OneCycle step.  The metrics carry the JAX package's names and stay
 tensors on the model's device; callers ``.item()`` them.
 
@@ -60,12 +60,28 @@ def train_step(model, opt, sched, images, poses_gt, intrinsics, w_tr=10.0,
     loss, metrics, poses_est = loss_fn(model, images, poses_gt, intrinsics,
                                        w_tr, w_rot, "train", remat)
     loss.backward()
-    torch.nn.utils.clip_grad_norm_(model.parameters(), clip)
+    clip_grad_norm(model.parameters(), clip)
     opt.step()
     sched.step()
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["loss"] = loss.detach()
     return parallel.all_reduce_mean(metrics), poses_est.detach()
+
+
+def clip_grad_norm(parameters, max_norm):
+    """``torch.nn.utils.clip_grad_norm_`` whose total norm does not depend
+    on where the gradients lie.  The fused norm kernel sums a tensor in
+    another order when its start is not 16-byte aligned, as DDP's bucket
+    views (``gradient_as_bucket_view``) are after any parameter whose size
+    is not a multiple of 4: a norm one ulp off rescales every gradient.
+    Such gradients are normed from an aligned copy, so a DDP world of one
+    clips as one process does, bit for bit.  -> the total norm."""
+    parameters = list(parameters)
+    grads = [p.grad for p in parameters if p.grad is not None]
+    total = torch.nn.utils.get_total_norm(
+        [g if g.data_ptr() % 16 == 0 else g.clone() for g in grads])
+    torch.nn.utils.clip_grads_with_norm_(parameters, max_norm, total)
+    return total
 
 
 @torch.no_grad()

@@ -12,7 +12,9 @@ pair``, the flagship's flags) at batch 256, the eval shape, and #6
 (``fused_essential_block_bwd``) at batch 60, the training shape, each
 beside its plain version and with its bound (operations over 165 TFLOP/s
 in fp32, 989 in bf16, or bytes over 3.35 TB/s); then each kernel's parts
-from ``torch.profiler`` (``chip_smoke.essential_part``); then, unless
+from ``torch.profiler`` (``chip_smoke.essential_part``), and #3, #4 and
+#9's ``essential_block_s`` (S = 2) on #2's pairs, each checked against
+its plain version and timed; then, unless
 ``--no-step``, the flagship's train step at batch 60 in that dtype with
 the kernels and on the plain path (``chip_smoke.time_train_steps``); with
 ``--eval``, the flagship's eval forward with the kernels at batch 256
@@ -21,7 +23,9 @@ body the tree runs (``chip_smoke.essential_part``): in fp32 since the
 TF32 wgmma body the key statistics, the one-walk moments, the qkv GEMM on
 ``gemm_wgmma_f32.cuh`` and its weight split, then the query and key
 statistics, the prologue, the merged rho / gamma pass and the two
-gradient passes.  With
+gradient passes; in bf16 since its wgmma body the same, the qkv GEMM on
+``gemm_wgmma.cuh`` (the single softmax's "query maxima" in place of the
+key statistics).  With
 ``--bilinear`` the kernel readings are #8's instead (the per-head bilinear
 op, ``fused_bilinear_attention``: forward at G = 1,536 slices, the eval
 shape, backward at G = 360, the training shape, e = 70, va = vb) and #9's
@@ -70,7 +74,25 @@ def readings(cs, device, card, dtype):
             lambda: te.fused_essential_block_pair(*args, 3),
             cs.essential_part, once=True),
         cs.essential_executed(B, 576, 70, False, False, dtype=dtype), card)
-    del args, f, xpair
+    # #3, #4 and #9's s (S = 2) on the same pairs, each checked and timed
+    (x1, x2), (q1, q2), _ = cs.split_pair(xpair, ln, qkvp)
+    from rel_pose_tpu_torch.ops import cross_variants as cv
+    for label, kernel, plain in (
+            ("essential_block_x", lambda: te.fused_essential_block_x(
+                x1, x2, qkvp, positional, 3),
+             lambda: te.essential_block_x_reference(x1, x2, qkvp,
+                                                    positional, 3)),
+            ("essential_block", lambda: te.fused_essential_block(
+                q1, q2, positional, 3),
+             lambda: te.essential_block_reference(q1, q2, positional, 3)),
+            ("essential_block_s S=2", lambda: cv.essential_block_s(
+                q1, q2, positional, 2),
+             lambda: te.essential_block_reference(q1, q2, positional, 3))):
+        cs.check_f(f"{label} B={B}", kernel(), plain(), dtype, failures)
+        ms = cs.cuda_time_ms(kernel, 3)
+        cs.log(f"[ab] {label} {name} batch {B}: kernel {ms:.3f} ms "
+               f"({card})")
+    del args, f, xpair, x1, x2, q1, q2
 
     B = cs.TRAIN_BATCH
     xpair, ln, qkvp, pos = cs.essential_inputs(rng, B, dtype, device)

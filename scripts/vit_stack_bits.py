@@ -26,7 +26,9 @@ products went from SIMT FMAs to 3xTF32 on the tensor cores, and fp32 #2,
 #4, #6, #7, #8 and #9's when they did; the bf16 ViT stack's and #7's
 when their attention moved from mma.sync to wgmma, and the stack's again
 when its GEMMs did; fp32 #2, #3, #4 and #6's when they moved to TF32
-wgmma (one online-max walk, one rho / gamma pass).
+wgmma (one online-max walk, one rho / gamma pass); bf16 #2, #3, #4, #6
+and #9's s and fp32 #9's s when they moved to wgmma (s now gives #4's
+bits in both dtypes).
 Needs a CUDA device.
 """
 

@@ -170,4 +170,4 @@ def test_hi_lo_pair_reconstructs_fp32():
     assert torch.all((lo.view(torch.int32) & 0x1FFF) == 0)
     err = (x.double() - hi.double() - lo.double()).abs()
     assert torch.all(err <= 2.0 ** -22 * x.double().abs())
-    assert "hi = tf32_rna(x);" in (CSRC / "gemm_tc.cuh").read_text()
+    assert "hi = tf32_rna(x);" in (CSRC / "mma_helpers.cuh").read_text()

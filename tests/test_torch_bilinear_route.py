@@ -2,9 +2,11 @@
 (``ops/cross_variants.py``) around their launches, and a plain mirror of
 their tensor-core decomposition, on the CPU.
 
-  * both dtypes take the tensor-core body of ``csrc/essential_tc.cuh`` /
-    ``essential_tc_bwd.cuh`` (bf16 m16n8k16, fp32 3xTF32): the wrappers pass
-    bf16 = 1 or 0 to the C entry points, after asking
+  * both dtypes take the tensor-core bodies -- #8 and #9's modes the
+    mma.sync body of ``csrc/essential_tc.cuh`` / ``essential_tc_bwd.cuh``
+    (bf16 m16n8k16, fp32 3xTF32), #9's s #4's wgmma moments
+    (``csrc/essential_wgmma.cuh``, ``essential_wgmma_f32.cuh``): the
+    wrappers pass bf16 = 1 or 0 to the C entry points, after asking
     ``rp_bilinear_fwd_workspace``, ``rp_bilinear_bwd_workspace`` or
     ``rp_cross_variants_workspace`` for the scratch of those arguments, and
     hand on a buffer of that size, fp32 its own scratch too; every call has

@@ -2,8 +2,8 @@
 ``ops/essential_block.py``) around their launches, and a plain mirror of
 the tensor-core decomposition, on the CPU.
 
-  * both dtypes take the tensor-core kernels (bf16 the mma.sync body of
-    ``csrc/essential_tc.cuh`` / ``essential_tc_bwd.cuh``, fp32 the TF32
+  * both dtypes take the wgmma kernels (bf16 ``csrc/essential_wgmma.cuh``,
+    which tests/test_torch_essential_wgmma_bf16.py mirrors, fp32 the TF32
     wgmma body of ``csrc/essential_wgmma_f32.cuh``, which
     tests/test_torch_essential_wgmma_f32.py mirrors): the wrappers
     pass bf16 = 1 or 0 to the C entry points, after asking
@@ -13,14 +13,15 @@ the tensor-core decomposition, on the CPU.
   * every (e, SINGLE, CROSS) reaches the entry points with its flags,
     shapes and contiguous operands; the bwd buffers (dva with cross
     features, the positional partials) are there exactly when needed;
-  * the launch grids' limits (65,535 slices, bf16 GEMM row tiles of 128
-    rows, the fp32 GEMM's 2^31 - 1 rows),
+  * the launch grids' limits (65,535 slices, the qkv GEMM's 2^31 - 1
+    rows in either dtype),
     operands off the 16-byte grid, bad shapes and dtypes raise before any
     launch;
   * each wrapper adds one to its launch counter per launch, only then;
   * CPU tensors take the plain versions and load no library.
 
-Then the decomposition the kernels compute, written out in PyTorch at
+Then the decomposition the mma.sync kernels computed (#2 and #6 before
+their wgmma bodies; #8 and #9's modes still), written out in PyTorch at
 their 64-row tiles (``tc_moments_mirror``, ``tc_bwd_mirror`` on the pair
 layout, over the slice-level ``tc_slice_moments`` / ``tc_slice_bwd`` that
 tests/test_torch_bilinear_route.py holds to kernels #8 and #9): column
@@ -44,6 +45,7 @@ kernels themselves run only on the card (``chip_smoke.py`` phases 3b,
 """
 
 import itertools
+import pathlib
 
 import chip_smoke
 import jax.numpy as jnp
@@ -58,6 +60,8 @@ from rel_pose_tpu_torch.nn.transformer import LOG2E
 from rel_pose_tpu_torch.ops import _build
 from rel_pose_tpu_torch.ops import essential_block as te
 from rel_pose_tpu_torch.ops.vit_stack import tf32_rna, tf32x3_matmul
+
+CSRC = pathlib.Path(te.__file__).resolve().parent.parent / "csrc"
 
 B, N, HEADS = 2, 10, 3
 C = 64 * HEADS
@@ -280,26 +284,38 @@ def test_slice_limit(fake_lib, which, dtype, b, ok):
 
 @pytest.mark.parametrize("dtype,rows_per_tile", [(torch.bfloat16, 128),
                                                  (torch.float32, 128)])
-def test_gemm_row_tile_limit(fake_lib, dtype, rows_per_tile):
-    """The qkv GEMM's limits on 2 B N rows.  bf16 (gemm_tc.cuh, one grid
-    row per 128-row tile): at most 65,535 row tiles, one row too many
-    raises before any launch.  fp32 (gemm_wgmma_f32.cuh's persistent
-    launch, no grid row per tile): the same rows pass the check, and the
+def test_gemm_row_tile_limit(fake_lib, monkeypatch, dtype, rows_per_tile):
+    """The qkv GEMM's limits on 2 B N rows, the same in both dtypes: the
+    dtype's GEMM body (gemm_wgmma.cuh in bf16, gemm_wgmma_f32.cuh in fp32)
+    is a persistent launch of ``rows_per_tile``-row tiles (BM = 64 kWG, two
+    consumer warpgroups) with no grid row per tile, so #2 at the rows of
+    65,536 row tiles reaches its launch (meta tensors: no memory), and the
     limit is a C int's 2^31 - 1 rows (checked on ``_check_grid`` itself: a
     tensor of that many rows does not fit a CPU test)."""
-    n = 65535 * rows_per_tile // 2 + 1          # one row too many, B = 1
-    if dtype == torch.bfloat16:
-        xpair = torch.empty((1, 2, n, C), dtype=dtype)
-        ln = (torch.ones(C), torch.zeros(C))
-        qkvp = (torch.zeros(3 * C, C), torch.zeros(3 * C))
-        with pytest.raises(ValueError, match="GEMM row"):
-            te.fused_essential_block_pair(xpair, ln, qkvp, None, HEADS)
-    else:
-        te._check_grid("pair", 1, HEADS, 2 * n, bf16=False)
-        te._check_grid("pair", 1, HEADS, te.MAX_INT, bf16=False)
-        with pytest.raises(ValueError, match="GEMM row"):
-            te._check_grid("pair", 1, HEADS, te.MAX_INT + 1, bf16=False)
-    assert fake_lib.calls == []
+    header = {torch.bfloat16: "gemm_wgmma.cuh",
+              torch.float32: "gemm_wgmma_f32.cuh"}[dtype]
+    text = (CSRC / header).read_text()
+    assert "static constexpr int BM = 64 * kWG;" in text
+    assert "kWG = OP == kOpDw ? 1 : 2;" in text
+    assert rows_per_tile == 64 * 2
+    n = 65535 * rows_per_tile // 2 + 1      # once one tile too many, B = 1
+    monkeypatch.setattr(te, "_KERNEL_DEVICE", "meta")
+    meta = torch.device("meta")
+    xpair = torch.empty((1, 2, n, C), dtype=dtype, device=meta)
+    ln = (torch.ones(C, device=meta), torch.zeros(C, device=meta))
+    qkvp = (torch.zeros(3 * C, C, device=meta),
+            torch.zeros(3 * C, device=meta))
+    before = te.fused_essential_block_pair.launches
+    f = te.fused_essential_block_pair(xpair, ln, qkvp, None, HEADS)
+    assert f.shape == (1, 2, HEADS, 64, 64) and f.device == meta
+    assert te.fused_essential_block_pair.launches == before + 1
+    (name, args), = [c for c in fake_lib.calls
+                     if c[0] == "rp_essential_block_pair"]
+    assert args[10:14] == (1, n, C, HEADS)
+    assert args[-2] == int(dtype == torch.bfloat16)
+    te._check_grid("pair", 1, HEADS, te.MAX_INT)
+    with pytest.raises(ValueError, match="GEMM row"):
+        te._check_grid("pair", 1, HEADS, te.MAX_INT + 1)
 
 
 @pytest.mark.parametrize("case,exc", [

@@ -2,13 +2,14 @@
 
   * the padding helper, and the tiles it pads to read back out of the
     port's tensor-core headers (``csrc/gemm_wgmma.cuh``'s forward tile: two
-    64-row consumers, ``kWideN`` columns, ``kGemmK`` deep, which
-    ``gemm_tc.cuh``'s bf16 ``FwdWide`` matches; fp32's,
+    64-row consumers, ``kWideN`` columns, ``kGemmK`` deep, which the
+    essential block's bf16 qkv GEMM runs too (epilogue ``kRounded``); fp32's,
     ``csrc/gemm_wgmma_f32.cuh``: two 64-row consumers, ``kF32WideN``
     columns, ``kF32K`` deep; ``attention_wgmma.cuh``'s
     ``kT`` -- the bf16 body's
-    tiles, which the fp32 body's ``kAT`` matches -- ``essential_tc.cuh``'s
-    72 output columns and 80 of depth for e = 70);
+    tiles, which the fp32 body's ``kAT`` matches -- for e = 70
+    ``essential_wgmma.cuh``'s 72 columns of P vb_n and ``essential_tc.cuh``'s
+    80 rows of va in F's m16 tiles);
   * the real-MAC floors equal the per-op count (``count_matmul_flops``) of
     the plain versions the kernels are held to, ``vit_stack_reference``
     and ``essential_block_pair_reference`` (with and without the
@@ -54,9 +55,11 @@ def test_tiles_are_the_headers():
     bn = int(re.search(r"constexpr int kWideN = (\d+);", gemm).group(1))
     bk = int(re.search(r"constexpr int kGemmK = (\d+);", gemm).group(1))
     assert mfu.GEMM_TILE == (64 * wgs, bn, bk)
-    tc = (CSRC / "gemm_tc.cuh").read_text()
-    assert re.search(r"using FwdWide = Tile<bf16, (\d+), (\d+), \d+, \d+, "
-                     r"(\d+)", tc).groups() == tuple(map(str, mfu.GEMM_TILE))
+    # the essential block's bf16 qkv Linear: that forward, kRounded
+    assert "return gemm_fwd<kRounded>(x, w, bias, nullptr, out, nullptr, M, " \
+        "N, K, st);" in " ".join((CSRC / "gemm_wgmma.cu").read_text().split())
+    assert "tc::wg::essential_qkv_bf16(x, w, bias, out, M, 3 * C, C, st)" in \
+        (CSRC / "essential_block.cu").read_text()
     f32 = (CSRC / "gemm_wgmma_f32.cuh").read_text()
     wgs = int(re.search(r"kWG = OP == kOpDw \? \d+ : (\d+);",
                         f32).group(1))
@@ -74,9 +77,15 @@ def test_tiles_are_the_headers():
     eb = (CSRC / "essential_tc.cuh").read_text()
     width = int(re.search(r"E == kHeadDim \? kHeadDim : \(sizeof\(T\) == 2 "
                           r"\? (\d+) :", eb).group(1))
-    assert width == mfu.pad(70, mfu.MMA_K)            # bf16's k16 depth over e
-    assert "kNT = (E + 7) / 8;" in eb                 # n8 output tiles
+    assert width == mfu.pad(70, mfu.MMA_M)            # va's rows, m16 tiles
+    assert "kM16 = (kW + 15) / 16;" in eb
+    assert "kNT = (E + 7) / 8;" in eb                 # F's n8 output tiles
     assert 8 * ((70 + 7) // 8) == mfu.pad(70, mfu.MMA_N)
+    wb = (CSRC / "essential_wgmma.cuh").read_text()
+    n = int(re.search(r"return E == kHeadDim \? kHeadDim : (\d+);",
+                      wb).group(1))
+    assert n == mfu.pad(70, mfu.MMA_N)                # P vb_n at wgmma n = 72
+    assert "W::kTileElems" in wb and "mma_ab_acc<W::kNT, 4, W::kLd>" in wb
 
 
 def _meta(*shape):

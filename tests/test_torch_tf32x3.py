@@ -1,5 +1,5 @@
 """PyTorch port: the numerics of the fp32 ViT stack's tensor-core products
-(3xTF32, ``csrc/gemm_tc.cuh`` and ``csrc/attention_wgmma_f32.cuh``),
+(3xTF32, ``csrc/mma_helpers.cuh`` and ``csrc/attention_wgmma_f32.cuh``),
 through their plain model ``ops.vit_stack.tf32x3_matmul``, on the CPU.
 
   * ``tf32_rna`` rounds as ``cvt.rna.tf32.f32``: to nearest, ties away
